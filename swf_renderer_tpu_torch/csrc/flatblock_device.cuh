@@ -1,0 +1,402 @@
+// Device logic of the fused flat-block kernels (place + resolve in one
+// pass), shared by the solid and the styled instantiation.
+//
+// Replaces the TPU kernels `_fusedn_kernel` (swf_renderer_tpu/ops/
+// flatblock.py:784, pallas_call :920) and `_fused_styled_kernel` (:1083,
+// pallas_call :1276) in their single-pass form (chain=False, bg=None,
+// emit="u32", mask_from=None).
+//
+// What it computes, per (frame, strip block): the grouped placement
+// blocks of the native packer hold coalesced winding deltas (rc, cm, v)
+// for every layer; the winding of a pixel is the sum of the deltas left
+// of it in its row; the fill rule turns winding into coverage; layers
+// composite front-to-back in the suffix-product form; premultiplied
+// bytes quantize and un-premultiply into packed little-endian RGBA.
+//
+// Design.  The TPU keeps all L layer planes of a strip block (L x
+// plane_rows x 128 f32, up to 2 MB) in VMEM and places deltas with a
+// one-hot MXU product.  A Hopper block has at most 227 KB of shared
+// memory, so one CUDA block owns one 128-column CHUNK of one strip block
+// (and, when the planes are still too large, a slice of its packed
+// strips): L x (8 x strips) x 128 floats.  It walks the supergroup's
+// grouped update arrays (every block of the strip block reads the same
+// few KB, which stay in L2), scatters the deltas of its own chunk into
+// shared memory, and sums the deltas of EARLIER chunks of the same row
+// into a per-row carry — the cross-chunk carry needs no second pass.
+// The carry accumulates in 32.32 fixed point with 64-bit shared atomics,
+// so its sum does not depend on the order the atomics land in; within a
+// layer the native packer's coalesced updates never share a target, so
+// the float atomics of the scatter are order-free too.  One thread per
+// plane row then runs the in-chunk prefix sum left to right (rows are
+// padded to 129 floats so those column walks are free of bank
+// conflicts), and every thread resolves pixels of its chunk.
+//
+// Bound on this card: the packed u32 output (one write of every pixel)
+// dominates the bytes; the per-pixel arithmetic is ~15 f32 operations a
+// layer.  The kernel writes each output row of a chunk as 128 coalesced
+// words and never round-trips winding planes through device memory.
+//
+// Tolerance against the plain PyTorch versions (ops/flatblock.py
+// fusedn_plain, fused_styled_plain) on the card: at most 1 u8 level per
+// channel (chip_smoke.py); measured byte-equal on every case, since the
+// plain versions perform this exact arithmetic (sequential prefix,
+// fixed-point carry).
+//
+// Rounding: the arithmetic is the reference's, operation for operation,
+// in IEEE f32: rintf (half to even, as jnp.round), IEEE division (no
+// fast math), floored modulo for even-odd and the gradient spreads, and
+// the library is built with -fmad=false so that no a*b+c contracts into
+// an FMA the reference does not perform.
+
+#pragma once
+
+#include <stddef.h>
+#include <stdint.h>
+
+namespace swf {
+
+constexpr int kStripH = 8;
+constexpr int kLane = 128;
+constexpr int kBlk = 128;
+constexpr int kMaxLayers = 16;
+constexpr int kMaxStops = 15;
+constexpr int kMaxFields = 4;
+constexpr int kThreads = 256;
+constexpr int kRowStride = kLane + 1;   // padded shared plane row (floats)
+
+// Paint kinds (ops/flatblock.py KPAINT_*).
+constexpr int kPaintColor = 0;
+constexpr int kPaintLinear = 1;
+constexpr int kPaintFocal = 2;
+constexpr int kPaintField = 3;
+
+// Per-layer paint records (ops/flatblock.py paint_tables).
+constexpr int kPintStride = 8;    // kind, spread, n_stops, slot, a_small
+constexpr int kPfltStride = 128;
+constexpr int kPInv = 0;          // 6: device -> gradient-space affine
+constexpr int kPFx = 6;           // focal x (f32 of focal * R)
+constexpr int kPCdx = 7;          // -fx
+constexpr int kPQa = 8;           // quadratic a
+constexpr int kPSafeA = 9;        // a, or 1e-6 when |a| < 1e-6
+constexpr int kPRatio = 10;       // kMaxStops stop ratios
+constexpr int kPDr = kPRatio + kMaxStops;          // segment widths
+constexpr int kPC0 = kPDr + kMaxStops - 1;         // first stop RGBA
+constexpr int kPDc = kPC0 + 4;                     // per-segment RGBA step
+
+struct FusedArgs {
+  const int* sidx;      // (NG,) packed (frame*L)*(NS+1) + strip
+  const int* flags;     // (NG,) bit0 first, bit1 last, bits 2+ used slots
+  const int* lays;      // (group, NG) layer of each slot
+  const float* urc;     // (NG, group*128) chunk-major row id
+  const float* ucm;     // (NG, group*128) column within chunk
+  const float* uval;    // (NG, group*128) winding delta
+  const float* colors;  // (F, L, 4) straight RGBA
+  const int* rules;     // (L,) fill rule per layer
+  const int* pint;      // (L, kPintStride) styled only
+  const float* pflt;    // (L, kPfltStride) styled only
+  const float* fields[kMaxFields];  // (NS+1, 4, plane_rows, 128)
+  const int* sg_first;  // (F*(NS+1),) first group of each supergroup
+  const int* sg_last;   // (F*(NS+1),) last group of each supergroup
+  int* out;             // (F, NS+1, spp*8, n_chunks*128) u32 bits
+  int ng, group, layers, ns1, n_chunks, spp, plane_rows;
+  int spb;              // packed strips owned by one block
+  int n_spg;            // strip slices per chunk (ceil(spp / spb))
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Shared-memory carve-up, in bytes: plane, carry (fixed point), colors,
+// rules, then (styled) the paint records.
+__host__ __device__ inline size_t smem_plane_bytes(int layers, int rows) {
+  return align16(static_cast<size_t>(layers) * rows * kRowStride * 4);
+}
+__host__ __device__ inline size_t smem_bytes(int layers, int rows,
+                                             bool styled) {
+  size_t n = smem_plane_bytes(layers, rows);
+  n += align16(static_cast<size_t>(layers) * rows * 8);   // carry
+  n += align16(static_cast<size_t>(layers) * 4 * 4);      // colors
+  n += align16(static_cast<size_t>(layers) * 4);          // rules
+  if (styled) {
+    n += align16(static_cast<size_t>(layers) * kPintStride * 4);
+    n += align16(static_cast<size_t>(layers) * kPfltStride * 4);
+  }
+  return n;
+}
+
+// Largest dynamic shared-memory carve-up a block may take (of the 227 KB
+// an H100 block can address).
+constexpr size_t kSmemBudget = 160 * 1024;
+
+// Strips per block: as many of the plane's packed strips as fit the
+// shared-memory budget and one scan row per thread.
+inline int strips_per_block(int layers, int spp, bool styled) {
+  int spb = spp;
+  while (spb > 1 && (smem_bytes(layers, spb * kStripH, styled) > kSmemBudget
+                     || layers * spb * kStripH > kThreads)) {
+    --spb;
+  }
+  return spb;
+}
+
+__device__ __forceinline__ long long to_fixed(float v) {
+  return __double2ll_rn(static_cast<double>(v) * 4294967296.0);
+}
+
+__device__ __forceinline__ float from_fixed(long long q) {
+  return static_cast<float>(static_cast<double>(q) *
+                            (1.0 / 4294967296.0));
+}
+
+// jnp.mod / torch.remainder for floats: C remainder, then the sign of y.
+__device__ __forceinline__ float floor_mod(float x, float y) {
+  float r = fmodf(x, y);
+  if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r = r + y;
+  return r;
+}
+
+__device__ __forceinline__ float fill_cov(float w, int rule) {
+  if (rule == 0) return fminf(fabsf(w), 1.0f);
+  const float m = floor_mod(w, 2.0f);
+  return 1.0f - fabsf(m - 1.0f);
+}
+
+// Gradient parameter t at pixel center (px, py): flatblock._grad_rgba and
+// style._focal_gradient_t, then the spread.
+__device__ __forceinline__ float grad_t(const float* P, const int* I,
+                                        float px, float py) {
+  const float sx = P[kPInv + 0] * px + P[kPInv + 2] * py + P[kPInv + 4];
+  const float sy = P[kPInv + 1] * px + P[kPInv + 3] * py + P[kPInv + 5];
+  float t;
+  if (I[0] == kPaintLinear) {
+    t = (sx + 16384.0f) / 32768.0f;
+  } else {
+    const float pdx = sx - P[kPFx];
+    const float pdy = sy;
+    const float b = pdx * P[kPCdx];
+    const float cc = pdx * pdx + pdy * pdy;
+    if (I[4]) {  // |a| < 1e-6: -2 b t + cc = 0
+      const bool tiny = fabsf(b) < 1e-9f;
+      const float safe_b = tiny ? 1e-9f : b;
+      t = tiny ? 0.0f : cc / (2.0f * safe_b);
+    } else {
+      const float disc = fmaxf(b * b - P[kPQa] * cc, 0.0f);
+      const float sq = sqrtf(disc);
+      const float t1 = (b + sq) / P[kPSafeA];
+      const float t2 = (b - sq) / P[kPSafeA];
+      t = fmaxf(t1, t2);
+    }
+  }
+  const int spread = I[1];
+  if (spread == 0) {
+    t = fminf(fmaxf(t, 0.0f), 1.0f);
+  } else if (spread == 2) {
+    t = floor_mod(t, 1.0f);
+  } else {
+    const float m = floor_mod(t, 2.0f);
+    t = 1.0f - fabsf(m - 1.0f);
+  }
+  return t;
+}
+
+// Clamped-segment ramp (flatblock._grad_eval): one straight channel.
+__device__ __forceinline__ float grad_ramp(const float* P, int n_stops,
+                                           float t, int ch) {
+  float acc = P[kPC0 + ch];
+  for (int k = 0; k < n_stops - 1; ++k) {
+    float w = (t - P[kPRatio + k]) / P[kPDr + k];
+    w = fminf(fmaxf(w, 0.0f), 1.0f);
+    acc = acc + P[kPDc + 4 * k + ch] * w;
+  }
+  return acc;
+}
+
+// One block: (chunk, strip slice) x strip block x frame.
+template <bool kStyled>
+__device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int chunk = blockIdx.x / a.n_spg;
+  const int spg = blockIdx.x % a.n_spg;
+  const int s = blockIdx.y;
+  const int f = blockIdx.z;
+  const int L = a.layers;
+  const int rows = a.spb * kStripH;
+  const int sp0 = spg * a.spb;
+  const int nc8 = a.n_chunks * kStripH;
+
+  float* plane = reinterpret_cast<float*>(smem);
+  size_t off = smem_plane_bytes(L, rows);
+  long long* carry = reinterpret_cast<long long*>(smem + off);
+  off += align16(static_cast<size_t>(L) * rows * 8);
+  float* col_s = reinterpret_cast<float*>(smem + off);
+  off += align16(static_cast<size_t>(L) * 4 * 4);
+  int* rule_s = reinterpret_cast<int*>(smem + off);
+  off += align16(static_cast<size_t>(L) * 4);
+  int* pint_s = nullptr;
+  float* pflt_s = nullptr;
+  if (kStyled) {
+    pint_s = reinterpret_cast<int*>(smem + off);
+    off += align16(static_cast<size_t>(L) * kPintStride * 4);
+    pflt_s = reinterpret_cast<float*>(smem + off);
+  }
+
+  for (int i = tid; i < L * rows * kRowStride; i += nthr) plane[i] = 0.0f;
+  for (int i = tid; i < L * rows; i += nthr) carry[i] = 0;
+  for (int i = tid; i < L * 4; i += nthr) {
+    col_s[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
+  }
+  for (int i = tid; i < L; i += nthr) rule_s[i] = a.rules[i];
+  if (kStyled) {
+    for (int i = tid; i < L * kPintStride; i += nthr) pint_s[i] = a.pint[i];
+    for (int i = tid; i < L * kPfltStride; i += nthr) pflt_s[i] = a.pflt[i];
+  }
+  __syncthreads();
+
+  // Placement: this chunk's deltas into the plane, earlier chunks' deltas
+  // of the same row into the carry.
+  const int sg = f * a.ns1 + s;
+  const int g0 = a.sg_first[sg];
+  const int g1 = a.sg_last[sg];
+  if (g0 >= 0 && g1 >= g0) {
+    const int gb = a.group * kBlk;
+    const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
+    for (long long j = tid; j < total; j += nthr) {
+      const int g = g0 + static_cast<int>(j / gb);
+      const int rem = static_cast<int>(j % gb);
+      const int k = rem / kBlk;
+      const int nblk = static_cast<int>(
+          static_cast<unsigned>(a.flags[g]) >> 2);
+      if (nblk != 0 && k >= nblk) continue;
+      const long long idx = static_cast<long long>(g) * gb + rem;
+      const float v = a.uval[idx];
+      if (v == 0.0f) continue;
+      const int rc = static_cast<int>(a.urc[idx]);
+      const int sp = rc / nc8;
+      const int local = rc - sp * nc8;
+      const int ch = local >> 3;
+      const int lsp = sp - sp0;
+      if (ch > chunk || lsp < 0 || lsp >= a.spb) continue;
+      const int layer = a.lays[static_cast<long long>(k) * a.ng + g];
+      if (layer < 0 || layer >= L) continue;
+      const int row = layer * rows + lsp * kStripH + (local & 7);
+      if (ch == chunk) {
+        atomicAdd(&plane[row * kRowStride + static_cast<int>(a.ucm[idx])],
+                  v);
+      } else {
+        atomicAdd(reinterpret_cast<unsigned long long*>(&carry[row]),
+                  static_cast<unsigned long long>(to_fixed(v)));
+      }
+    }
+  }
+  __syncthreads();
+
+  // In-chunk inclusive prefix (left to right), plus the carry: winding.
+  for (int r = tid; r < L * rows; r += nthr) {
+    float* p = plane + r * kRowStride;
+    const float cy = from_fixed(carry[r]);
+    float acc = 0.0f;
+    for (int c = 0; c < kLane; ++c) {
+      acc = acc + p[c];
+      p[c] = acc + cy;
+    }
+  }
+  __syncthreads();
+
+  // Resolve: fill rule, suffix-product composite, quantize, pack.
+  const int stride = a.n_chunks * kLane;
+  for (int p = tid; p < rows * kLane; p += nthr) {
+    const int row = p / kLane;
+    const int c = p % kLane;
+    const int sp = sp0 + row / kStripH;
+    if (sp >= a.spp) continue;
+    const int r8 = row % kStripH;
+    const float px = static_cast<float>(chunk * kLane + c) + 0.5f;
+    const float py = static_cast<float>((s * a.spp + sp) * kStripH + r8)
+        + 0.5f;
+    const long long frow =
+        static_cast<long long>(sp) * nc8 + chunk * kStripH + r8;
+
+    float cas[kMaxLayers];
+    float wgt[kMaxLayers];
+    float tpar[kMaxLayers];
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (l < L) {
+        const float w = plane[(l * rows + row) * kRowStride + c];
+        const float cov = fill_cov(w, rule_s[l]);
+        float alpha = col_s[4 * l + 3];
+        tpar[l] = 0.0f;
+        if (kStyled) {
+          const int* I = pint_s + l * kPintStride;
+          const float* P = pflt_s + l * kPfltStride;
+          if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+            tpar[l] = grad_t(P, I, px, py);
+            alpha = grad_ramp(P, I[2], tpar[l], 3);
+          } else if (I[0] == kPaintField) {
+            alpha = a.fields[I[3]][((static_cast<long long>(s) * 4 + 3)
+                                     * a.plane_rows + frow) * kLane + c];
+          }
+        }
+        cas[l] = alpha * cov;
+      }
+    }
+    float suffix = 1.0f;
+#pragma unroll
+    for (int l = kMaxLayers - 1; l >= 0; --l) {
+      if (l < L) {
+        if (l == L - 1) {
+          wgt[l] = cas[l];
+          suffix = 1.0f - cas[l];
+        } else {
+          wgt[l] = cas[l] * suffix;
+          suffix = suffix * (1.0f - cas[l]);
+        }
+      }
+    }
+    float alpha_out = wgt[0];
+    float pm[3];
+#pragma unroll
+    for (int l = 1; l < kMaxLayers; ++l) {
+      if (l < L) alpha_out = alpha_out + wgt[l];
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int l = 0; l < kMaxLayers; ++l) {
+        if (l < L) {
+          float color = col_s[4 * l + ch];
+          if (kStyled) {
+            const int* I = pint_s + l * kPintStride;
+            const float* P = pflt_s + l * kPfltStride;
+            if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+              color = grad_ramp(P, I[2], tpar[l], ch);
+            } else if (I[0] == kPaintField) {
+              color = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
+                                       * a.plane_rows + frow) * kLane + c];
+            }
+          }
+          const float term = color * wgt[l];
+          acc = (l == 0) ? term : acc + term;
+        }
+      }
+      pm[ch] = acc;
+    }
+    const float a8f = rintf(fminf(fmaxf(alpha_out, 0.0f), 1.0f) * 255.0f);
+    const float inv = 255.0f / fmaxf(a8f, 1.0f);
+    uint32_t packed = static_cast<uint32_t>(static_cast<int>(a8f)) << 24;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float pm8 = fminf(rintf(pm[ch] * 255.0f), a8f);
+      packed += static_cast<uint32_t>(static_cast<int>(rintf(pm8 * inv)))
+          << (8 * ch);
+    }
+    a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+           + sp * kStripH + r8) * stride + chunk * kLane + c] =
+        static_cast<int>(packed);
+  }
+}
+
+}  // namespace swf
