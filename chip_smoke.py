@@ -40,7 +40,7 @@ import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
+OUT_DIR = ROOT / "chip_smoke_out"   # report.json, ptxas.log
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
