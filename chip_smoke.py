@@ -8,9 +8,10 @@ Phases, each of which exits non-zero on failure before the last line:
 1. build   — g++ builds the native splitter/packer and nvcc builds the CUDA
              kernels (both from this checkout, started together);
 2. kernels — each fused kernel against its plain PyTorch version on the
-             card, on random packed scenes (1/4/16 layers, 1 and 2 strips
-             per plane, nonzero/even-odd/mixed rules; colour, linear,
-             focal and field paints for the styled kernel);
+             card, on random packed scenes (1/4/16 layers, 1, 2 and 6
+             strips per plane, the last split over several blocks at 16
+             layers; nonzero/even-odd/mixed rules; colour, linear, focal
+             and field paints for the styled kernel);
 3. headline — ``render_batch_flatblock`` on 60 frames x 4 layers x
              1088x1920 (the benchmark's scene generator, seed 7): host
              lowering, upload, kernel (CUDA events, median of 5 after a
@@ -30,7 +31,6 @@ its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import argparse
 import json
 import pathlib
 import statistics
@@ -45,7 +45,6 @@ OUT_DIR = ROOT / "chip_smoke_out"   # report.json, ptxas.log
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 TOL_LEVELS = 1       # u8 levels per channel, kernel vs plain version
-PHASES = ("build", "kernels", "headline", "renderer")
 DEVICE = "cuda"
 HEADLINE = (60, 4, 1088, 1920)   # frames, layers, height, width
 
@@ -240,18 +239,28 @@ def random_paints(rng, layers, n_fields_max=4):
 
 
 def phase_kernels(torch, np):
+    from swf_renderer_tpu_torch.ops import cuda_lib
     from swf_renderer_tpu_torch.ops.flatblock import (
         field_to_chunkmajor, fused_styled_plain, fusedn_plain,
         render_fused_blocksn, render_fused_styled,
     )
     from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
 
+    lib = cuda_lib.load()
     rng = np.random.default_rng(11)
     worst = {"fusedn": 0, "styled": 0}
     frames = 2
-    # (height, width) -> 1 strip per plane at 2560 px wide, 2 at 1920.
-    for (height, width), want_spp in (((64, 2560), 1), ((136, 1920), 2)):
+    # (height, width) -> strips per plane: 1 at 2560 px wide, 2 at 1920,
+    # 6 at 550 (the default Flash stage), where 16 layers split each
+    # plane's strips over several blocks (spb < spp).
+    for (height, width), want_spp in (((64, 2560), 1), ((136, 1920), 2),
+                                      ((400, 550), 6)):
         for layers in (1, 4, 16):
+            spb = {styled: lib.swf_strips_per_block(layers, want_spp, styled)
+                   for styled in (0, 1)}
+            if want_spp == 6 and layers == 16 and max(spb.values()) >= 6:
+                fail(f"the narrow 16-layer case does not split its strips "
+                     f"(strips per block {spb})")
             tables, colors = build_scene_edges(
                 frames, layers, height, width, shapes_per_layer=6,
                 seed=int(rng.integers(1 << 30)))
@@ -269,7 +278,8 @@ def phase_kernels(torch, np):
                 torch.cuda.synchronize()
                 dmax, share = byte_diff(torch, got[:, :ns], want[:, :ns])
                 tag = rule if isinstance(rule, int) else "mixed"
-                log(f"kernels: fusedn L={layers} spp={spp} rule={tag}: "
+                log(f"kernels: fusedn L={layers} spp={spp} spb={spb[0]} "
+                    f"rule={tag}: "
                     f"max diff {dmax}, differing bytes {share:.3g}")
                 if dmax > TOL_LEVELS:
                     fail(f"fusedn kernel vs plain: {dmax} levels")
@@ -288,7 +298,7 @@ def phase_kernels(torch, np):
             want = fused_styled_plain(*args, fill_rule=mixed, spp=spp)
             torch.cuda.synchronize()
             dmax, share = byte_diff(torch, got[:, :ns], want[:, :ns])
-            log(f"kernels: styled L={layers} spp={spp} kinds="
+            log(f"kernels: styled L={layers} spp={spp} spb={spb[1]} kinds="
                 f"{[p.kind for p in paints]}: max diff {dmax}, "
                 f"differing bytes {share:.3g}")
             if dmax > TOL_LEVELS:
@@ -560,11 +570,6 @@ def phase_renderer(torch, np, report):
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of " + ",".join(PHASES))
-    phases = parser.parse_args().phases.split(",")
-
     import numpy as np
     import torch
 
@@ -580,20 +585,12 @@ def main() -> None:
         f"python {sys.version.split()[0]}")
     t_start = time.perf_counter()
     report = {}
-    kernels = {}
-    if "build" in phases:
-        phase_build()
-    worst = {}
-    if "kernels" in phases:
-        worst = phase_kernels(torch, np)
-    if "headline" in phases:
-        k = phase_headline(torch, np, report)
-        k["max_abs_err"] = max(k["max_abs_err"], worst.get("fusedn", 0))
-        kernels["fusedn"] = k
-    if "renderer" in phases:
-        k = phase_renderer(torch, np, report)
-        k["max_abs_err"] = max(k["max_abs_err"], worst.get("styled", 0))
-        kernels["styled"] = k
+    phase_build()
+    worst = phase_kernels(torch, np)
+    kernels = {"fusedn": phase_headline(torch, np, report),
+               "styled": phase_renderer(torch, np, report)}
+    for key, k in kernels.items():
+        k["max_abs_err"] = max(k["max_abs_err"], worst[key])
 
     meta = {
         "fusedn": ("swf_renderer_tpu/ops/flatblock.py:784",),

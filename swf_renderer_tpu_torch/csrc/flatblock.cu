@@ -125,4 +125,10 @@ int swf_fused_flatblock(int styled, const void* sidx, const void* flags,
   return static_cast<int>(err);
 }
 
+// Packed strips each block of swf_fused_flatblock resolves (spb); a plane's
+// spp strips are split over ceil(spp / spb) blocks when spb < spp.
+int swf_strips_per_block(int layers, int spp, int styled) {
+  return swf::strips_per_block(layers, spp, styled != 0);
+}
+
 }  // extern "C"

@@ -80,5 +80,7 @@ def load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.swf_fused_flatblock.restype = i
             lib.swf_fused_flatblock.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
+            lib.swf_strips_per_block.restype = i
+            lib.swf_strips_per_block.argtypes = [i, i, i]
             _lib = lib
         return _lib

@@ -435,6 +435,19 @@ def _check_inputs(sidx, flags, lays, urc, ucm, uval, colors, frames,
     return devices.pop()
 
 
+@functools.lru_cache(maxsize=64)
+def _device_tables(rules, paints, device):
+    """(rules (L,) int32, pint, pflt) on ``device``: uploaded once per
+    rule and paint set, so a launch enqueues only the kernels.  ``paints``
+    None (the solid kernel) gives no paint tables."""
+    rules_t = torch.tensor(rules, dtype=torch.int32, device=device)
+    if paints is None:
+        return rules_t, None, None
+    pint, pflt = paint_tables(paints)
+    return (rules_t, torch.as_tensor(pint, device=device),
+            torch.as_tensor(pflt, device=device))
+
+
 def _launch(styled: bool, sidx, flags, lays, urc, ucm, uval, colors,
             fields, paints, frames, layers, n_strips, n_chunks, group,
             fill_rule, spp):
@@ -446,15 +459,11 @@ def _launch(styled: bool, sidx, flags, lays, urc, ucm, uval, colors,
     dev = urc.device
     ns1 = n_strips + 1
     plane_rows = plane_rows_for(n_chunks, spp)
-    rules = torch.tensor(layer_rules(fill_rule, layers), dtype=torch.int32,
-                         device=dev)
-    keep = [rules]
+    rules = tuple(int(r) for r in layer_rules(fill_rule, layers))
+    rules_t, pint_t, pflt_t = _device_tables(
+        rules, tuple(paints) if styled else None, dev)
     pint_ptr = pflt_ptr = None
     if styled:
-        pint, pflt = paint_tables(tuple(paints))
-        pint_t = torch.as_tensor(pint, device=dev)
-        pflt_t = torch.as_tensor(pflt, device=dev)
-        keep += [pint_t, pflt_t]
         pint_ptr, pflt_ptr = pint_t.data_ptr(), pflt_t.data_ptr()
     field_ptrs = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
     sg_index = torch.empty(2 * frames * ns1, dtype=torch.int32, device=dev)
@@ -464,10 +473,9 @@ def _launch(styled: bool, sidx, flags, lays, urc, ucm, uval, colors,
     err = cuda_lib.load().swf_fused_flatblock(
         int(styled), sidx.data_ptr(), flags.data_ptr(), lays.data_ptr(),
         urc.data_ptr(), ucm.data_ptr(), uval.data_ptr(), colors.data_ptr(),
-        rules.data_ptr(), pint_ptr, pflt_ptr, *field_ptrs,
+        rules_t.data_ptr(), pint_ptr, pflt_ptr, *field_ptrs,
         sg_index.data_ptr(), out.data_ptr(), urc.shape[0], group, frames,
         layers, ns1, n_chunks, spp, plane_rows, stream)
-    del keep  # the launch is enqueued; the allocator keeps stream order
     if err != 0:
         raise RuntimeError(f"fused flat-block kernel launch failed: CUDA "
                            f"error {err}")

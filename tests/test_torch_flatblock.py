@@ -5,8 +5,10 @@ Tolerance: at most 1 u8 level per channel (the kernels sum the same
 winding deltas in other orders: the reference through an exact-split MXU
 product and a stride-8 carry ladder, the port left to right and in exact
 fixed point).  Measured envelope on these scenes: the solid kernel is
-byte-equal (0 differing bytes); the tests pin a differing-byte share of
-at most 1e-4.  On the H100 the CUDA kernels agree with these plain
+byte-equal (0 differing bytes) at 3 layers over 2 chunks; at 16 layers
+over 20 chunks one pixel differs by a premultiplied level (5 straight
+levels at alpha 43, share 7.3e-7).  The tests pin a differing-byte share
+of at most 1e-4.  On the H100 the CUDA kernels agree with these plain
 versions byte for byte (chip_smoke.py).
 
 In-kernel FOCAL gradients are the one exception: XLA on the CPU contracts
@@ -120,6 +122,38 @@ def test_fusedn_plain_matches_jax_kernel(spp, rule):
     dmax, share = _compare(want, got, ns)
     assert dmax <= 1 and share <= SHARE_ENVELOPE, (dmax, share)
     assert tfb.render_fused_blocksn.launches == 0  # CPU: plain version
+
+
+@pytest.mark.parametrize("rule", [0, "mixed"])
+def test_fusedn_plain_matches_jax_kernel_16_layers_wide(rule):
+    """16 layers over 20 chunks (64x2560, the first 16-layer scene of
+    chip_smoke.py's kernel phase), where the order of the cross-chunk
+    carry shows: the reference's stride-8 f32 ladder and the port's exact
+    fixed-point sum round one pixel (alpha 43) one premultiplied level
+    apart under nonzero, 5 straight levels once un-premultiplied (share
+    7.3e-7).  Premultiplied bytes are held to 1 level, straight bytes to
+    the measured 5 levels and the shared share envelope."""
+    height, width, layers, frames = 64, 2560, 16, 2
+    tables, colors = build_scene_edges(frames, layers, height, width,
+                                       shapes_per_layer=6, seed=75106643)
+    packed = port_bindings.pack_grouped_native(
+        tpl.lower_update_lists(tables, height, width), height, width,
+        group=6, spp=1)
+    fill_rule = ((0, 1, 1, 0, 0, 1, 1, 1, 1, 1, 0, 1, 0, 1, 1, 0)
+                 if rule == "mixed" else rule)
+    gsi, gfl, gla, grc, gcm, gvv, ns, nc = packed
+    want = jfb.render_fused_blocksn(
+        *(jnp.asarray(x) for x in (gsi, gfl, gla, grc, gcm, gvv, colors)),
+        frames, layers, ns, nc, group=6, fill_rule=fill_rule, spp=1)
+    dev = packed_to_device(*packed, device="cpu")
+    got = tfb.render_fused_blocksn(
+        dev["sidx"], dev["flags"], dev["lays"], dev["urc"], dev["ucm"],
+        dev["uval"], torch.as_tensor(colors), frames, layers, ns, nc,
+        group=6, fill_rule=fill_rule, spp=1)
+    dmax, share = _compare(want, got, ns)
+    assert dmax <= 5 and share <= SHARE_ENVELOPE, (dmax, share)
+    pmax, _ = _compare(want, got, ns, premul=True)
+    assert pmax <= 1, pmax
 
 
 # -- styled kernel ------------------------------------------------------------
