@@ -20,10 +20,22 @@ Phases, each of which exits non-zero on failure before the last line:
 4. renderer — ``TorchRenderer(1920, 1088).render(stage)`` and
              ``render_batch`` over stages built in code (solid, linear and
              focal gradient, and axis-aligned bitmap fills), one frame held
-             against the plain version.
+             against the plain version;
+5. sweeps  — the three animation sweep kernels (affine, morph-affine,
+             morph ratio) against their plain version on random scenes
+             (1/3/16 layers, 100x150 and 400x550, every rule, global and
+             per-layer matrices, colour / linear / focal / field paints,
+             static and per-frame stops); ``render_batch`` of a 60-stage
+             rotating display list and of a morph timeline, and
+             ``render_morph_sweep``, with the launch counters read; then
+             the animation benchmark scene uncut (60 frames x 3 layers x
+             1088x1920, solid and with a fading gradient layer), a
+             morph-affine and a 16-ratio morph run at the same size, each
+             timed (CUDA events, median of 5 after a warm-up) and held
+             against the plain version on every frame.
 
 The launch counters of the kernel wrappers are set to 0 right before the
-headline and the renderer paths and read right after.  The script prints
+headline, the renderer and the sweep paths and read right after.  The script prints
 one JSON line describing each kernel (time, bound, plain version's time),
 then the card's name and power limit as nvidia-smi prints them, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -32,6 +44,7 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -128,7 +141,8 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
-    cuda_lib.load()
+    for name in cuda_lib.LIBRARIES:
+        cuda_lib.load(name)
     bindings.load_library()
 
 
@@ -569,6 +583,563 @@ def phase_renderer(torch, np, report):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: animation sweeps
+# ---------------------------------------------------------------------------
+
+SWEEP_SIZE = (1088, 1920)     # the animation benchmark's frame
+SWEEP_FRAMES = 60
+MORPH_RATIOS = 16
+
+
+def _up(torch, np, x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(DEVICE)
+
+
+def sweep_work_counts(torch, mats, tab_s, tab_e, ratios, counts, height,
+                      width, rules, paints=None, fields=None, extra=()):
+    """(bytes, f32 operations) the sweep function needs on these inputs:
+    tables, tracks and field planes read once, one u32 written per pixel;
+    operations = lerp and transform per piece and frame, the row-span
+    terms per piece-row inside the frame, the ramp at every column such a
+    piece-row crosses (counted from THIS run's transformed pieces), the
+    per-pixel-layer winding, rule and composite, and the per-pixel
+    quantize and pack."""
+    from swf_renderer_tpu_torch.ops.coverage import edge_row_span
+    from swf_renderer_tpu_torch.ops.flatblock import (
+        KPAINT_FOCAL, KPAINT_LINEAR,
+    )
+
+    frames = (mats if mats is not None else ratios).shape[0]
+    layers = tab_s.shape[0]
+    ins = [t for t in (mats, tab_s, tab_e, ratios, fields) + tuple(extra)
+           if t is not None]
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
+              + frames * height * width * 4)
+    pieces = rows = columns = 0
+    for lyr in range(layers):
+        n = min(int(counts[lyr]), tab_s.shape[-1])
+        x0, y0, x1, y1 = (tab_s[lyr, ch, 0, :n][None] for ch in range(4))
+        if tab_e is not None:
+            t = ratios[:, None]
+            x0, y0, x1, y1 = (
+                (1.0 - t) * v + t * tab_e[lyr, ch, 0, :n][None]
+                for ch, v in enumerate((x0, y0, x1, y1)))
+        if mats is not None:
+            m = mats[:, lyr] if mats.ndim == 3 else mats
+            a, b, c, d, e, g = (m[:, k, None] for k in range(6))
+            x0, y0, x1, y1 = (a * x0 + c * y0 + e, b * x0 + d * y0 + g,
+                              a * x1 + c * y1 + e, b * x1 + d * y1 + g)
+        pieces += frames * n
+        rowbase = torch.floor(torch.minimum(y0, y1))
+        for k in (0.0, 1.0):
+            py = rowbase + k
+            dy, xmn, xmx = edge_row_span(x0, y0, x1, y1, py)
+            live = (py >= 0) & (py < height) & (dy != 0)
+            lo = torch.clamp(torch.floor(xmn), 0, width)
+            hi = torch.clamp(torch.ceil(xmx) + 1, 0, width)
+            rows += int(live.sum().item())
+            columns += int(((hi - lo).clamp(min=0) * live).sum().item())
+    per_piece = (12 if tab_e is not None else 0) + (
+        16 if mats is not None else 0) + 3
+    per_layer = 0
+    for lyr in range(layers):
+        per_layer += 2 + (2 if rules[lyr] == 0 else 5) + 11
+        kind = paints[lyr].kind if paints else 0
+        if kind in (KPAINT_LINEAR, KPAINT_FOCAL):
+            k = len(paints[lyr].stop_ratios)
+            per_layer += 8 + (2 if kind == KPAINT_LINEAR else 14) + 3
+            per_layer += 4 * 6 * max(k - 1, 0)
+    pixels = frames * height * width
+    ops = (pieces * per_piece + rows * 22 + columns * 14
+           + pixels * per_layer + pixels * 21)
+    return nbytes, ops
+
+
+def premul_bytes(np, frame):
+    """(H, W, 4) straight u8 -> the premultiplied bytes it was rounded
+    from (int32)."""
+    x = frame.astype(np.int32)
+    return np.concatenate(
+        [(x[..., :3] * x[..., 3:] + 127) // 255, x[..., 3:]], -1)
+
+
+def _check(torch, what, got, want):
+    torch.cuda.synchronize()
+    dmax, share = byte_diff(torch, got, want)
+    log(f"sweeps: {what}: max diff {dmax}, differing bytes {share:.3g}")
+    if dmax > TOL_LEVELS:
+        fail(f"sweep kernel vs plain ({what}): {dmax} levels")
+    return dmax
+
+
+def sweeps_random(torch, np):
+    """Each sweep kernel against the plain version on random scenes."""
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.coverage import layer_rules
+    from swf_renderer_tpu_torch.ops.morph import (
+        morph_pieces, render_morph_sweep,
+    )
+    from swf_renderer_tpu_torch.utils.scenes import (
+        random_blobs, random_tracks,
+    )
+
+    rng = np.random.default_rng(17)
+    worst = {"affine": 0, "morph_affine": 0, "morph": 0}
+    frames = 3
+    for height, width in ((100, 150), (400, 550)):
+        for layers in (1, 3, 16):
+            tables = random_blobs(rng, layers, height, width)
+            tracks = random_tracks(rng, frames, layers, height, width)
+            mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+            colors = rng.uniform(0.1, 1, (frames, layers, 4))
+            for rule, mats, cols in ((0, tracks[:, 0], colors[0]),
+                                     (1, tracks, colors),
+                                     (mixed, tracks, colors[0])):
+                tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers,
+                                             mats)
+                counts = sweep.layer_piece_counts(tab)
+                args = (_up(torch, np, mats), _up(torch, np, tab),
+                        _up(torch, np, cols), height, width)
+                got = sweep.render_affine_sweep(
+                    *args, fill_rule=rule, layer_counts=counts)
+                want = sweep.sweep_plain(
+                    args[0], args[1], None, None, args[2], None, height,
+                    width, layer_rules(rule, layers),
+                    tuple(min(c, tab.shape[-1]) for c in counts))
+                tag = rule if isinstance(rule, int) else "mixed"
+                worst["affine"] = max(worst["affine"], _check(
+                    torch, f"affine {height}x{width} L={layers} rule={tag} "
+                    f"mats{tuple(mats.shape)}", got, want))
+
+            # Styled: the paint kinds of phase 2, matrices and stops per
+            # frame, field planes per frame.
+            paints, n_fields = random_paints(rng, layers)
+            gm = rng.uniform(-1, 1, (frames, layers, 6)) * 4
+            gm[..., 0] += 30.0
+            gm[..., 3] += 30.0
+            gm[..., 4:] = rng.uniform(-20000, -10000, (frames, layers, 2))
+            fields = (_up(torch, np, rng.uniform(
+                0, 1, (n_fields, frames, height, width, 4)))
+                if n_fields else None)
+            tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers, tracks)
+            counts = tuple(min(c, tab.shape[-1])
+                           for c in sweep.layer_piece_counts(tab))
+            for stops in (None, rng.uniform(0, 1, (frames, layers, 5, 4))):
+                if layers == 1 and stops is not None:
+                    continue   # a single COLOR layer takes no stops
+                kw = dict(paints=paints if layers > 1 else None,
+                          grad_mats=(_up(torch, np, gm) if layers > 1
+                                     else None),
+                          stop_colors=(None if stops is None
+                                       else _up(torch, np, stops)),
+                          fields=fields)
+                args = (_up(torch, np, tracks), _up(torch, np, tab),
+                        _up(torch, np, colors), height, width)
+                got = sweep.render_affine_sweep(
+                    *args, fill_rule=mixed, layer_counts=counts, **kw)
+                want = sweep.sweep_plain(
+                    args[0], args[1], None, None, args[2], None, height,
+                    width, mixed, counts, **kw)
+                worst["affine"] = max(worst["affine"], _check(
+                    torch, f"styled affine {height}x{width} L={layers} "
+                    f"kinds={[p.kind for p in paints]} "
+                    f"stops={'per-frame' if stops is not None else 'static'}",
+                    got, want))
+
+            # Morph + affine and the ratio sweep on the same pairs.
+            pairs = [(s, s + rng.uniform(-9, 9, s.shape).astype(np.float32),
+                      rng.uniform(0.1, 1, 4), rng.uniform(0.1, 1, 4))
+                     for s in tables]
+            ratios = _up(torch, np, np.array([0.0, 0.41, 1.0]))
+            tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, tracks)
+            counts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+                sweep.layer_piece_counts(tab_s),
+                sweep.layer_piece_counts(tab_e)))
+            args = (_up(torch, np, tracks), ratios, _up(torch, np, tab_s),
+                    _up(torch, np, tab_e), _up(torch, np, cs),
+                    _up(torch, np, ce), height, width)
+            got = sweep.render_morph_affine_sweep(
+                *args, fill_rule=mixed, layer_counts=counts)
+            want = sweep.sweep_plain(
+                args[0], args[2], args[3], ratios, args[4], args[5], height,
+                width, mixed, counts)
+            worst["morph_affine"] = max(worst["morph_affine"], _check(
+                torch, f"morph-affine {height}x{width} L={layers}", got,
+                want))
+            tab_s, tab_e, cs, ce = morph_pieces(pairs)
+            args = (ratios, _up(torch, np, tab_s), _up(torch, np, tab_e),
+                    _up(torch, np, cs), _up(torch, np, ce), height, width)
+            got = render_morph_sweep(*args, fill_rule=mixed)
+            want = sweep.sweep_plain(
+                None, args[1], args[2], ratios, args[3], args[4], height,
+                width, mixed, (tab_s.shape[-1],) * layers)
+            worst["morph"] = max(worst["morph"], _check(
+                torch, f"morph {height}x{width} L={layers}", got, want))
+    return worst
+
+
+def _polygons_tag(ast, shape_id, fill, polygons):
+    """A DefineShape of several closed polygons (twips) with one fill."""
+    records = []
+    for pts in polygons:
+        records.append(ast.StyleChangeRecord(
+            left_fill=None, right_fill=1, line_style=None,
+            move_to=ast.Vector2D(x=pts[0][0], y=pts[0][1]),
+            new_styles=None))
+        for (x0, y0), (x1, y1) in zip(pts, pts[1:] + pts[:1]):
+            records.append(ast.EdgeRecord(
+                delta=ast.Vector2D(x=x1 - x0, y=y1 - y0)))
+    xs = [p[0] for pts in polygons for p in pts]
+    ys = [p[1] for pts in polygons for p in pts]
+    return ast.DefineShape(
+        id=shape_id,
+        bounds=ast.Rect(x_min=min(xs), x_max=max(xs), y_min=min(ys),
+                        y_max=max(ys)),
+        shape=ast.ShapeBody(
+            initial_styles=ast.ShapeStyles(fill=[fill], line=[]),
+            records=records))
+
+
+def _rotation(ast, th, width, height):
+    """SWF matrix rotating by ``th`` about the frame centre."""
+    from swf_renderer_tpu_torch.utils.fixed import Sfixed16P16
+
+    a, b = math.cos(th), math.sin(th)
+    cx, cy = width * 10.0, height * 10.0    # centre in twips
+    return ast.Matrix(
+        scale_x=Sfixed16P16.from_value(a), scale_y=Sfixed16P16.from_value(a),
+        rotate_skew0=Sfixed16P16.from_value(b),
+        rotate_skew1=Sfixed16P16.from_value(-b),
+        translate_x=int(round(cx - a * cx + b * cy)),
+        translate_y=int(round(cy - b * cx - a * cy)))
+
+
+def rotating_stages(np, frames):
+    """The animation scene as a display list: one DefineShape per layer
+    (its 12 blobs, in twips), every instance under the frame's rotation
+    about the centre."""
+    from swf_renderer_tpu_torch.models import ast, display
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene
+
+    height, width = SWEEP_SIZE
+    tables, colors, _ = anim_scene(height, width, frames)
+    tags = []
+    for lyr, (table, color) in enumerate(zip(tables, colors)):
+        pts = np.rint(table[:, :2] * 20).astype(int).reshape(12, 10, 2)
+        polygons = [[(int(x), int(y)) for x, y in blob] for blob in pts]
+        rgba = [int(round(float(c) * 255)) for c in color]
+        tags.append(_polygons_tag(ast, 30 + lyr, ast.SolidFill(
+            ast.StraightSRgba8(*rgba)), polygons))
+    return [display.Stage(width=width, height=height, children=[
+        display.ShapeInstance(
+            definition=tag,
+            matrix=_rotation(ast, 2 * np.pi * i / frames, width, height))
+        for tag in tags]) for i in range(frames)]
+
+
+def morph_stages(np, frames):
+    """A morph timeline: one DefineMorphShape (a polygon morphing into
+    another) whose ratio runs 0..1 while it drifts across the frame."""
+    from swf_renderer_tpu_torch.models import ast, display
+    from swf_renderer_tpu_torch.utils.fixed import Sfixed16P16
+
+    height, width = SWEEP_SIZE
+    ang = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    start = [(int(9000 + 7000 * np.cos(a)), int(9000 + 7000 * np.sin(a)))
+             for a in ang]
+    end = [(int(9000 + (5000 if i % 2 else 8500) * np.cos(a + 0.3)),
+            int(9000 + (5000 if i % 2 else 8500) * np.sin(a + 0.3)))
+           for i, a in enumerate(ang)]
+
+    def v(p):
+        return ast.Vector2D(x=p[0], y=p[1])
+
+    records = [ast.MorphStyleChangeRecord(
+        right_fill=1, move_to=v(start[0]), morph_move_to=v(end[0]))]
+    for i in range(12):
+        j = (i + 1) % 12
+        records.append(ast.MorphEdgeRecord(
+            delta=v((start[j][0] - start[i][0], start[j][1] - start[i][1])),
+            morph_delta=v((end[j][0] - end[i][0], end[j][1] - end[i][1]))))
+    fill = ast.MorphSolidFill(color=ast.StraightSRgba8(255, 40, 0, 255),
+                              morph_color=ast.StraightSRgba8(0, 80, 255, 160))
+    tag = ast.DefineMorphShape(
+        id=40, bounds=ast.Rect(0, 18000, 0, 18000),
+        morph_bounds=ast.Rect(0, 18000, 0, 18000),
+        shape=ast.MorphShapeBody(
+            initial_styles=ast.MorphShapeStyles(fill=(fill,), line=()),
+            records=tuple(records)))
+    one, zero = Sfixed16P16.from_value(1.0), Sfixed16P16.from_value(0.0)
+    return [display.Stage(width=width, height=height, children=[
+        display.MorphShapeInstance(
+            definition=tag, ratio=i / (frames - 1.0),
+            matrix=ast.Matrix(scale_x=one, scale_y=one, rotate_skew0=zero,
+                              rotate_skew1=zero, translate_x=1200 * i,
+                              translate_y=150 * i))])
+        for i in range(frames)]
+
+
+def sweeps_entry_points(torch, np, report):
+    """The slice's main path through the user entry points, launch
+    counters set to 0 before and read after -> launches per kernel."""
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.morph import (
+        morph_frames_to_u8, morph_pieces, render_morph_sweep,
+    )
+    from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
+
+    height, width = SWEEP_SIZE
+    wrappers = {"affine": sweep.render_affine_sweep,
+                "morph_affine": sweep.render_morph_affine_sweep,
+                "morph": render_morph_sweep}
+    for w in wrappers.values():
+        w.launches = 0
+
+    stages = rotating_stages(np, SWEEP_FRAMES)
+    renderer = TorchRenderer(width, height, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = renderer.render_batch(stages)
+    wall = time.perf_counter() - t0
+    path = renderer.last_stats.path
+    if path != "transform-sweep":
+        fail(f"render_batch of the rotating display list took {path!r}")
+    if wrappers["affine"].launches != 1:
+        fail(f"render_batch launched the affine sweep "
+             f"{wrappers['affine'].launches} times, expected exactly 1")
+    if frames.shape != (SWEEP_FRAMES, height, width, 4):
+        fail(f"sweep frames {frames.shape}")
+    covered = float((frames[..., 3] > 0).mean())
+    if not 0.01 < covered < 1.0:
+        fail(f"sweep covered share {covered}")
+    probe = 7
+    one = TorchRenderer(width, height, device=DEVICE).render(stages[probe])
+    # Held in the premultiplied bytes the pipeline rounds: un-premultiplying
+    # scales one level by 255 / alpha, so a translucent AA pixel can move
+    # many straight levels.
+    straight = np.abs(frames[probe].astype(np.int32) - one.astype(np.int32))
+    diff = np.abs(premul_bytes(np, frames[probe]) - premul_bytes(np, one))
+    far = float((diff > 1).mean())
+    log(f"sweeps: render_batch x{SWEEP_FRAMES} wall {wall * 1e3:.1f} ms "
+        f"(path {path}, {renderer.last_stats.draws // SWEEP_FRAMES} layers, "
+        f"1 sweep launch, covered share {covered:.3f}); frame {probe} vs "
+        f"render(stage): max {int(diff.max())} premultiplied levels, share "
+        f"> 1 level {far:.3g} (straight bytes: max {int(straight.max())}, "
+        f"differing {float((straight != 0).mean()):.3g})")
+    if diff.max() > 2 or far >= 1e-3:
+        fail(f"sweep frame vs per-frame render: {int(diff.max())} levels, "
+             f"share {far}")
+
+    mstages = morph_stages(np, MORPH_RATIOS)
+    t0 = time.perf_counter()
+    mframes = renderer.render_batch(mstages)
+    mwall = time.perf_counter() - t0
+    if (renderer.last_stats.path != "transform-sweep"
+            or wrappers["morph_affine"].launches != 1):
+        fail(f"morph timeline: path {renderer.last_stats.path!r}, "
+             f"morph-affine launches {wrappers['morph_affine'].launches}")
+    if float((mframes[..., 3] > 0).mean()) < 0.01:
+        fail("morph timeline rendered nothing")
+    log(f"sweeps: render_batch morph timeline x{MORPH_RATIOS} wall "
+        f"{mwall * 1e3:.1f} ms (1 morph-affine launch)")
+
+    # render_morph_sweep is its own entry point (no renderer route).
+    pairs = morph_pairs(np)
+    tab_s, tab_e, cs, ce = morph_pieces(pairs)
+    ratios = np.linspace(0.0, 1.0, MORPH_RATIOS, dtype=np.float32)
+    t0 = time.perf_counter()
+    out = morph_frames_to_u8(render_morph_sweep(
+        _up(torch, np, ratios), _up(torch, np, tab_s), _up(torch, np, tab_e),
+        _up(torch, np, cs), _up(torch, np, ce), height, width), height, width)
+    rwall = time.perf_counter() - t0
+    if wrappers["morph"].launches != 1 or not out[..., 3].any():
+        fail(f"render_morph_sweep launches {wrappers['morph'].launches}")
+    log(f"sweeps: render_morph_sweep x{MORPH_RATIOS} wall "
+        f"{rwall * 1e3:.1f} ms (1 launch)")
+    report["sweep_entry"] = {
+        "render_batch_ms": wall * 1e3, "frames": SWEEP_FRAMES,
+        "morph_timeline_ms": mwall * 1e3, "render_morph_sweep_ms": rwall * 1e3,
+        "probe_max_diff": int(diff.max()), "probe_share_gt1": far}
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def morph_pairs(np):
+    """Start/end pairs from two blob sets of the animation scene's kind
+    (seeds 9 and 10): blob i of one morphs into blob i of the other."""
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene
+
+    height, width = SWEEP_SIZE
+    start, c0, _ = anim_scene(height, width, 1, seed=9)
+    end, c1, _ = anim_scene(height, width, 1, seed=10)
+    return [(s, e, a, b) for s, e, a, b in zip(start, end, c0, c1)]
+
+
+def _timed_sweep(torch, what, kernel, plain, counts_args, report):
+    """Time one full-width sweep, hold every frame against the plain
+    version, work out its bound."""
+    ms = time_cuda(torch, kernel, reps=5)
+    got = kernel()
+    held = {}
+
+    def plain_once():
+        held["want"] = plain()
+
+    plain_ms = time_cuda(torch, plain_once, reps=1, warmup=0)
+    dmax = _check(torch, f"{what}: all {got.shape[0]} frames", got,
+                  held.pop("want"))
+    nbytes, ops = sweep_work_counts(torch, *counts_args)
+    bound_ms, bound_by = bound(nbytes, ops)
+    pixels = got.numel()
+    log(f"sweeps: {what}: kernel {ms:.3f} ms ({pixels / ms / 1e6:.3f} "
+        f"Gpx/s), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} Gop)")
+    report[what] = {"kernel_ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": nbytes, "ops": ops, "max_diff": dmax,
+                    "frames": int(got.shape[0])}
+    return {"max_abs_err": dmax, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def sweeps_full_width(torch, np, report):
+    """The animation benchmark scene uncut, and morph runs at its size."""
+    from swf_renderer_tpu_torch.ops import style as style_ops
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.morph import (
+        morph_frames_to_u8, morph_pieces, render_morph_sweep,
+    )
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene
+
+    height, width = SWEEP_SIZE
+    frames = SWEEP_FRAMES
+    tables, colors, mats = anim_scene(height, width, frames)
+    layers = len(tables)
+    t0 = time.perf_counter()
+    tab, colarr = sweep.affine_pieces(tables, colors, mats)
+    counts = sweep.layer_piece_counts(tab)
+    t_split = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_mats, d_tab, d_col = (_up(torch, np, x) for x in (mats, tab, colarr))
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    rules = (0,) * layers
+
+    def kernel():
+        return sweep.render_affine_sweep(d_mats, d_tab, d_col, height, width,
+                                         layer_counts=counts)
+
+    def plain():
+        return sweep.sweep_plain(d_mats, d_tab, None, None, d_col, None,
+                                 height, width, rules, counts)
+
+    out = {"affine": _timed_sweep(
+        torch, "anim1080", kernel, plain,
+        (d_mats, d_tab, None, None, counts, height, width, rules, None,
+         None, (d_col,)), report)}
+    res = kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = morph_frames_to_u8(res, height, width)
+    t_d2h = time.perf_counter() - t0
+    log(f"sweeps: anim1080 host piece split {t_split * 1e3:.1f} ms "
+        f"({tab.shape[-1]} pieces a layer), H2D {t_h2d * 1e3:.2f} ms, D2H "
+        f"{t_d2h * 1e3:.1f} ms, covered share "
+        f"{float((host[..., 3] > 0).mean()):.3f}")
+    report["anim1080"].update(piece_split_ms=t_split * 1e3,
+                              h2d_ms=t_h2d * 1e3, d2h_ms=t_d2h * 1e3,
+                              pieces_per_layer=int(tab.shape[-1]))
+    del host, res
+
+    # Layer 1 as a linear gradient whose stops fade frame by frame.
+    base_stops = np.array([[1, 0.2, 0, 1], [0, 1, 0.5, 0.8], [0.2, 0, 1, 1]],
+                          np.float32)
+    paints = [style_ops.solid_paint(tuple(c)) for c in colors]
+    paints[1] = style_ops.Paint(
+        kind=style_ops.PAINT_LINEAR,
+        inv_matrix=(2.0 * 16384.0 / width, 0.0, 0.0, 2.0 * 16384.0 / width,
+                    -16384.0, -16384.0 * height / width),
+        stop_ratios=np.array([0.0, 0.5, 1.0], np.float32),
+        stop_colors=base_stops)
+    kpaints, grad_mats = sweep.sweep_paints(paints, mats)
+    stop_colors = np.zeros((frames, layers, 3, 4), np.float32)
+    fade = np.linspace(1.0, 0.4, frames, dtype=np.float32)
+    stop_colors[:, 1] = base_stops[None] * fade[:, None, None]
+    d_gm, d_sc = _up(torch, np, grad_mats), _up(torch, np, stop_colors)
+
+    def kernel_g():
+        return sweep.render_affine_sweep(
+            d_mats, d_tab, d_col, height, width, layer_counts=counts,
+            paints=kpaints, grad_mats=d_gm, stop_colors=d_sc)
+
+    def plain_g():
+        return sweep.sweep_plain(d_mats, d_tab, None, None, d_col, None,
+                                 height, width, rules, counts,
+                                 paints=kpaints, grad_mats=d_gm,
+                                 stop_colors=d_sc)
+
+    grad = _timed_sweep(
+        torch, "anim1080_gradient", kernel_g, plain_g,
+        (d_mats, d_tab, None, None, counts, height, width, rules, kpaints,
+         None, (d_col, d_gm, d_sc)), report)
+    out["affine"]["max_abs_err"] = max(out["affine"]["max_abs_err"],
+                                       grad["max_abs_err"])
+
+    # Morph + affine: 16 frames, the rotation track's first 16 matrices.
+    pairs = morph_pairs(np)
+    m16 = mats[:MORPH_RATIOS]
+    ratios = np.linspace(0.0, 1.0, MORPH_RATIOS, dtype=np.float32)
+    tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, m16)
+    mcounts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+        sweep.layer_piece_counts(tab_s), sweep.layer_piece_counts(tab_e)))
+    d = [_up(torch, np, x) for x in (m16, ratios, tab_s, tab_e, cs, ce)]
+
+    def kernel_ma():
+        return sweep.render_morph_affine_sweep(*d, height, width,
+                                               layer_counts=mcounts)
+
+    def plain_ma():
+        return sweep.sweep_plain(d[0], d[2], d[3], d[1], d[4], d[5], height,
+                                 width, rules, mcounts)
+
+    out["morph_affine"] = _timed_sweep(
+        torch, "morph_affine1080", kernel_ma, plain_ma,
+        (d[0], d[2], d[3], d[1], mcounts, height, width, rules, None, None,
+         (d[4], d[5])), report)
+
+    tab_s, tab_e, cs, ce = morph_pieces(pairs)
+    e = [_up(torch, np, x) for x in (ratios, tab_s, tab_e, cs, ce)]
+    full = (tab_s.shape[-1],) * layers
+
+    def kernel_m():
+        return render_morph_sweep(*e, height, width)
+
+    def plain_m():
+        return sweep.sweep_plain(None, e[1], e[2], e[0], e[3], e[4], height,
+                                 width, rules, full)
+
+    out["morph"] = _timed_sweep(
+        torch, "morph1080", kernel_m, plain_m,
+        (None, e[1], e[2], e[0], full, height, width, rules, None, None,
+         (e[3], e[4])), report)
+    return out
+
+
+def phase_sweeps(torch, np, report):
+    worst = sweeps_random(torch, np)
+    launches = sweeps_entry_points(torch, np, report)
+    kernels = sweeps_full_width(torch, np, report)
+    names = {"affine": "affine_sweep", "morph_affine": "morph_affine_sweep",
+             "morph": "morph_sweep"}
+    for key, k in kernels.items():
+        k.update(name=names[key], launches=launches[key],
+                 max_abs_err=max(k["max_abs_err"], worst[key]))
+        if k["launches"] < 1:
+            fail(f"{names[key]}: no launch on the main path")
+    return kernels
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -591,15 +1162,20 @@ def main() -> None:
                "styled": phase_renderer(torch, np, report)}
     for key, k in kernels.items():
         k["max_abs_err"] = max(k["max_abs_err"], worst[key])
+    kernels.update(phase_sweeps(torch, np, report))
 
-    meta = {
-        "fusedn": ("swf_renderer_tpu/ops/flatblock.py:784",),
-        "styled": ("swf_renderer_tpu/ops/flatblock.py:1083",),
+    flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
+    sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
+    meta = {   # kernel -> (source, TPU kernel it replaces)
+        "fusedn": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:784"),
+        "styled": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:1083"),
+        "affine": (sweep_cu, "swf_renderer_tpu/ops/transform.py:586"),
+        "morph_affine": (sweep_cu, "swf_renderer_tpu/ops/transform.py:1875"),
+        "morph": (sweep_cu, "swf_renderer_tpu/ops/morph.py:98"),
     }
     line = {"kernels": [
-        dict(name=k["name"], route="cuda",
-             source="swf_renderer_tpu_torch/csrc/flatblock.cu",
-             replaces=meta[key][0], launches=k["launches"],
+        dict(name=k["name"], route="cuda", source=meta[key][0],
+             replaces=meta[key][1], launches=k["launches"],
              max_abs_err=k["max_abs_err"], ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
              bound_by=k["bound_by"], library_ms=None)

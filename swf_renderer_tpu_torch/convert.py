@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops import flatblock as fb
 from .ops import style as style_ops
 from .runtime.scene import Draw
 
@@ -66,3 +67,40 @@ def packed_to_device(gsi, gfl, gla, grc, gcm, gvv, ns, nc, device):
         "ucm": put(gcm, np.float32), "uval": put(gvv, np.float32),
         "ns": int(ns), "nc": int(nc),
     }
+
+
+def sweep_table_to_device(tab, sub=None, device="cpu") -> torch.Tensor:
+    """A sweep piece table of the reference, (L, 4, 1, EP) numpy, -> the
+    port's piece tensor of the same shape on ``device``.
+
+    The reference carries a second, sublane-layout copy of the same
+    coordinates for its row one-hot (``subxy`` (L, 4, EP, 1) from
+    ``affine_pieces``, or ``suby`` (L, 2, EP, 1) — the y0, y1 channels —
+    from ``morph_pieces``).  The port derives row bases from the one
+    table with the same expression, so ``sub`` is only checked against
+    ``tab`` and dropped."""
+    tab = np.ascontiguousarray(np.asarray(tab), np.float32)
+    if tab.ndim != 4 or tab.shape[1:3] != (4, 1):
+        raise ValueError(f"piece table {tab.shape}, expected (L, 4, 1, EP)")
+    if sub is not None:
+        sub = np.asarray(sub)
+        channels = (0, 1, 2, 3) if sub.shape[1] == 4 else (1, 3)
+        if not np.array_equal(sub[..., 0], tab[:, channels, 0, :]):
+            raise ValueError("sublane copy disagrees with the piece table")
+    return torch.from_numpy(tab).to(device)
+
+
+def kernel_paints_from_numpy(paints):
+    """KernelPaint-like tuples (kind, inv_matrix, stop_ratios, stop_colors
+    flat, focal, spread, slot) -> the port's ``KernelPaint`` tuple."""
+    out = []
+    for p in paints:
+        kind, inv, ratios, colors, focal, spread, slot = p
+        if kind == fb.KPAINT_COLOR:
+            out.append(fb.KernelPaint.color())
+        elif kind == fb.KPAINT_FIELD:
+            out.append(fb.KernelPaint.field(slot))
+        else:
+            out.append(fb.KernelPaint.gradient(kind, inv, ratios, colors,
+                                               focal=focal, spread=spread))
+    return tuple(out)

@@ -212,6 +212,65 @@ __device__ __forceinline__ float grad_ramp(const float* P, int n_stops,
   return acc;
 }
 
+// Quantize tail shared by every kernel (flatblock._quantize_pack_tail):
+// premultiplied-u8 quantization of the composited alpha and colours,
+// un-premultiply, little-endian RGBA.
+__device__ __forceinline__ uint32_t quantize_pack(float alpha_out,
+                                                  const float* pm) {
+  const float a8f = rintf(fminf(fmaxf(alpha_out, 0.0f), 1.0f) * 255.0f);
+  const float inv = 255.0f / fmaxf(a8f, 1.0f);
+  uint32_t packed = static_cast<uint32_t>(static_cast<int>(a8f)) << 24;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float pm8 = fminf(rintf(pm[ch] * 255.0f), a8f);
+    packed += static_cast<uint32_t>(static_cast<int>(rintf(pm8 * inv)))
+        << (8 * ch);
+  }
+  return packed;
+}
+
+// Resolve tail of the fused kernels (flatblock.composite_quantize_pack
+// with chain=False): suffix-product alpha-over composite of cas[l] =
+// alpha_l * coverage_l, then quantize_pack.  color(l, ch) gives the
+// straight colour of layer l, channel ch in 0..2.
+template <typename ColorFn>
+__device__ __forceinline__ uint32_t composite_pack(int L, const float* cas,
+                                                   ColorFn color) {
+  float wgt[kMaxLayers];
+  float suffix = 1.0f;
+#pragma unroll
+  for (int l = kMaxLayers - 1; l >= 0; --l) {
+    if (l < L) {
+      if (l == L - 1) {
+        wgt[l] = cas[l];
+        suffix = 1.0f - cas[l];
+      } else {
+        wgt[l] = cas[l] * suffix;
+        suffix = suffix * (1.0f - cas[l]);
+      }
+    }
+  }
+  float alpha_out = wgt[0];
+  float pm[3];
+#pragma unroll
+  for (int l = 1; l < kMaxLayers; ++l) {
+    if (l < L) alpha_out = alpha_out + wgt[l];
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int l = 0; l < kMaxLayers; ++l) {
+      if (l < L) {
+        const float term = color(l, ch) * wgt[l];
+        acc = (l == 0) ? term : acc + term;
+      }
+    }
+    pm[ch] = acc;
+  }
+  return quantize_pack(alpha_out, pm);
+}
+
 // One block: (chunk, strip slice) x strip block x frame.
 template <bool kStyled>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
@@ -319,7 +378,6 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
         static_cast<long long>(sp) * nc8 + chunk * kStripH + r8;
 
     float cas[kMaxLayers];
-    float wgt[kMaxLayers];
     float tpar[kMaxLayers];
 #pragma unroll
     for (int l = 0; l < kMaxLayers; ++l) {
@@ -342,57 +400,20 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
         cas[l] = alpha * cov;
       }
     }
-    float suffix = 1.0f;
-#pragma unroll
-    for (int l = kMaxLayers - 1; l >= 0; --l) {
-      if (l < L) {
-        if (l == L - 1) {
-          wgt[l] = cas[l];
-          suffix = 1.0f - cas[l];
-        } else {
-          wgt[l] = cas[l] * suffix;
-          suffix = suffix * (1.0f - cas[l]);
+    const uint32_t packed = composite_pack(L, cas, [&](int l, int ch) {
+      float color = col_s[4 * l + ch];
+      if (kStyled) {
+        const int* I = pint_s + l * kPintStride;
+        const float* P = pflt_s + l * kPfltStride;
+        if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+          color = grad_ramp(P, I[2], tpar[l], ch);
+        } else if (I[0] == kPaintField) {
+          color = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
+                                   * a.plane_rows + frow) * kLane + c];
         }
       }
-    }
-    float alpha_out = wgt[0];
-    float pm[3];
-#pragma unroll
-    for (int l = 1; l < kMaxLayers; ++l) {
-      if (l < L) alpha_out = alpha_out + wgt[l];
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int l = 0; l < kMaxLayers; ++l) {
-        if (l < L) {
-          float color = col_s[4 * l + ch];
-          if (kStyled) {
-            const int* I = pint_s + l * kPintStride;
-            const float* P = pflt_s + l * kPfltStride;
-            if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-              color = grad_ramp(P, I[2], tpar[l], ch);
-            } else if (I[0] == kPaintField) {
-              color = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
-                                       * a.plane_rows + frow) * kLane + c];
-            }
-          }
-          const float term = color * wgt[l];
-          acc = (l == 0) ? term : acc + term;
-        }
-      }
-      pm[ch] = acc;
-    }
-    const float a8f = rintf(fminf(fmaxf(alpha_out, 0.0f), 1.0f) * 255.0f);
-    const float inv = 255.0f / fmaxf(a8f, 1.0f);
-    uint32_t packed = static_cast<uint32_t>(static_cast<int>(a8f)) << 24;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      const float pm8 = fminf(rintf(pm[ch] * 255.0f), a8f);
-      packed += static_cast<uint32_t>(static_cast<int>(rintf(pm8 * inv)))
-          << (8 * ch);
-    }
+      return color;
+    });
     a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
            + sp * kStripH + r8) * stride + chunk * kLane + c] =
         static_cast<int>(packed);

@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA library (``csrc/*.cu`` -> ctypes).
+"""Build and load the port's CUDA libraries (``csrc/*.cu`` -> ctypes).
 
-The kernels have a plain C interface: ``nvcc`` compiles them for
-``sm_90a`` into ``_build/libswfkernels.so`` at first use (seconds, since
-no PyTorch header is included), and the wrappers in ``ops/flatblock.py``
-pass device pointers and the current stream as integers.  Nothing here
-runs at import time: the CPU tests import every module without ``nvcc``.
+The kernels have a plain C interface: ``nvcc`` compiles each source for
+``sm_90a`` into its own ``_build/lib<name>.so`` at first use (seconds,
+since no PyTorch header is included; all sources compile at the same
+time), and the wrappers in ``ops/`` pass device pointers and the current
+stream as integers.  Nothing here runs at import time: the CPU tests
+import every module without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,18 +20,24 @@ import threading
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-LIB_PATH = BUILD_DIR / "libswfkernels.so"
-SOURCES = (CSRC_DIR / "flatblock.cu",)
-HEADERS = (CSRC_DIR / "flatblock_device.cuh",)
+# Library name -> (source, headers it includes).
+LIBRARIES = {
+    "swfkernels": ("flatblock.cu", ("flatblock_device.cuh",)),
+    "swfsweep": ("sweep.cu", ("sweep_device.cuh", "flatblock_device.cuh")),
+}
 # -fmad=false: no a*b+c contracts into an FMA the reference does not do;
 # IEEE division and square root stay on (no --use_fast_math).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-_lib = None
+_libs = {}
 _lock = threading.Lock()
 build_log = ""
+
+
+def lib_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}.so"
 
 
 def nvcc_path() -> str:
@@ -47,40 +54,64 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile the CUDA sources (idempotent, safe across processes)."""
+def _stale(name: str) -> bool:
+    source, headers = LIBRARIES[name]
+    newest = max((CSRC_DIR / p).stat().st_mtime for p in (source,) + headers)
+    path = lib_path(name)
+    return not path.exists() or path.stat().st_mtime < newest
+
+
+def build(force: bool = False) -> None:
+    """Compile every stale CUDA library, one ``nvcc`` per source, all
+    started together (idempotent, safe across processes)."""
     import fcntl
 
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    newest = max(p.stat().st_mtime for p in SOURCES + HEADERS)
     with open(BUILD_DIR / "libswfkernels.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if (not force and LIB_PATH.exists()
-                and LIB_PATH.stat().st_mtime >= newest):
-            return LIB_PATH
-        tmp = BUILD_DIR / f"libswfkernels.{os.getpid()}.tmp.so"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"CUDA build failed ({' '.join(cmd)}):\n{build_log}")
-        os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+        names = [n for n in LIBRARIES if force or _stale(n)]
+        if not names:
+            return
+        nvcc = nvcc_path()
+        procs = []
+        for name in names:
+            tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / LIBRARIES[name][0])]
+            procs.append((name, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for name, tmp, cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"CUDA build failed ({' '.join(cmd)}):\n{out}")
+            else:
+                os.replace(tmp, lib_path(name))
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
-def load():
-    """The loaded library, built on first use; raises if the build fails."""
-    global _lib
+def load(name: str = "swfkernels"):
+    """The loaded library ``name``, built on first use; raises if the
+    build fails."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if name not in _libs:
+            if _stale(name):
+                build()
+            lib = ctypes.CDLL(str(lib_path(name)))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.swf_fused_flatblock.restype = i
-            lib.swf_fused_flatblock.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
-            lib.swf_strips_per_block.restype = i
-            lib.swf_strips_per_block.argtypes = [i, i, i]
-            _lib = lib
-        return _lib
+            if name == "swfkernels":
+                lib.swf_fused_flatblock.restype = i
+                lib.swf_fused_flatblock.argtypes = ([i] + [p] * 16 + [i] * 8
+                                                    + [p])
+                lib.swf_strips_per_block.restype = i
+                lib.swf_strips_per_block.argtypes = [i, i, i]
+            else:
+                lib.swf_sweep.restype = i
+                lib.swf_sweep.argtypes = [i] + [p] * 14 + [i] * 8 + [p]
+            _libs[name] = lib
+        return _libs[name]

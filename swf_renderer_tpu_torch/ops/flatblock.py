@@ -162,7 +162,8 @@ def paint_tables(paints):
         colors = np.asarray(p.stop_colors, f32).reshape(-1, 4)
         pint[i, 1] = p.spread
         pint[i, 2] = k
-        pflt[i, _P_INV:_P_INV + 6] = np.asarray(p.inv_matrix, f32)
+        if p.inv_matrix:  # sweep paints take a matrix per frame instead
+            pflt[i, _P_INV:_P_INV + 6] = np.asarray(p.inv_matrix, f32)
         fx = p.focal * _GRAD_RADIUS
         cdx = -fx
         qa = cdx * cdx - _GRAD_RADIUS * _GRAD_RADIUS

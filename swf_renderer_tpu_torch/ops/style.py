@@ -84,26 +84,35 @@ def _apply_spread(t, spread: int):
 
 
 def _interp(x, xp, fp):
-    """jnp.interp (constant extrapolation) on a flat f32 tensor."""
+    """jnp.interp (constant extrapolation) of f32 samples: ``x`` (N,)
+    against values ``fp`` (K,), or ``x`` (F, N) against per-frame values
+    ``fp`` (F, K)."""
     k = xp.shape[0]
     i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, k - 1)
-    df = fp[i] - fp[i - 1]
+
+    def take(j):
+        return fp[j] if fp.ndim == 1 else torch.gather(fp, 1, j)
+
+    lo, hi = take(i - 1), take(i)
+    df = hi - lo
     dx = xp[i] - xp[i - 1]
     delta = x - xp[i - 1]
     eps = float(np.spacing(np.finfo(np.float32).eps))
     dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(
+    f = torch.where(dx0, lo,
+                    lo + (delta / torch.where(
                         dx0, torch.ones_like(dx), dx)) * df)
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    f = torch.where(x < xp[0], fp[..., :1], f)
+    return torch.where(x > xp[-1], fp[..., -1:], f)
 
 
 def _interp_stops(t, ratios, colors):
     """Piecewise-linear color ramp (Canvas gradient semantics), straight
-    alpha.  ``t``: (H, W); ratios (K,), colors (K, 4)."""
-    flat = t.reshape(-1).contiguous()
-    channels = [_interp(flat, ratios, colors[:, ch].contiguous())
+    alpha.  ``t``: (H, W) or (F, H, W); ratios (K,); colors (K, 4), or
+    (F, K, 4) per-frame stops for a (F, H, W) ``t``."""
+    flat = (t.reshape(-1) if colors.ndim == 2
+            else t.reshape(t.shape[0], -1)).contiguous()
+    channels = [_interp(flat, ratios, colors[..., ch].contiguous())
                 .reshape(t.shape) for ch in range(4)]
     return torch.stack(channels, dim=-1)
 
@@ -143,19 +152,52 @@ def _linear_to_srgb(c):
                        1.055 * c ** (1.0 / 2.4) - 0.055)
 
 
-def _gradient_rgba(paint: Paint, t, device) -> torch.Tensor:
-    """Stop interpolation honoring the SWF colorSpace flag."""
+def _gradient_rgba(paint: Paint, t, device, stop_colors=None) -> torch.Tensor:
+    """Stop interpolation honoring the SWF colorSpace flag.
+    ``stop_colors``: optional (F, K, 4) per-frame override of the paint's
+    stop colours, for a (F, H, W) ``t``."""
     ratios = torch.as_tensor(np.asarray(paint.stop_ratios, np.float32),
                              device=device)
-    colors = torch.as_tensor(np.asarray(paint.stop_colors, np.float32),
-                             device=device)
+    colors = (stop_colors if stop_colors is not None else torch.as_tensor(
+        np.asarray(paint.stop_colors, np.float32), device=device))
     if paint.color_space == "linear-rgb":
-        colors = torch.cat([_srgb_to_linear(colors[:, :3]), colors[:, 3:]],
-                           dim=1)
+        colors = torch.cat([_srgb_to_linear(colors[..., :3]),
+                            colors[..., 3:]], dim=-1)
         out = _interp_stops(t, ratios, colors)
         return torch.cat([_linear_to_srgb(out[..., :3]), out[..., 3:]],
                          dim=-1)
     return _interp_stops(t, ratios, colors)
+
+
+def paint_field_traced(paint: Paint, invs, height: int, width: int,
+                       stop_colors=None) -> torch.Tensor:
+    """``paint_field`` of a gradient under PER-FRAME device->paint
+    matrices: ``invs`` (F, 6) f32 tensor -> (F, H, W, 4) straight RGBA on
+    its device.  The batched twin used by the transform sweep's field
+    baking (ops.transform.bake_sweep_fields); ``stop_colors``: optional
+    (F, K, 4) per-frame stop colours (color-transform fades).  Every step
+    is the same f32 operation ``paint_field`` performs for one matrix."""
+    device = invs.device
+    if paint.kind == PAINT_SOLID:
+        color = torch.tensor(paint.color, dtype=torch.float32, device=device)
+        return color.expand(invs.shape[0], height, width, 4)
+    if paint.kind not in (PAINT_LINEAR, PAINT_FOCAL):
+        raise NotImplementedError(
+            "per-frame bitmap fields need the texfield kernel: ROADMAP.md "
+            "A4 (texfield bitmaps) / B8 (texfield.py _texfield_kernel)")
+    a, b, c, d, e, f = (invs[:, k, None, None] for k in range(6))
+    py = torch.arange(height, dtype=torch.float32,
+                      device=device)[None, :, None] + 0.5
+    px = torch.arange(width, dtype=torch.float32,
+                      device=device)[None, None, :] + 0.5
+    sx = a * px + c * py + e
+    sy = b * px + d * py + f
+    if paint.kind == PAINT_LINEAR:
+        t = true_div(sx + GRAD_RADIUS, 2.0 * GRAD_RADIUS)
+    else:
+        t = _focal_gradient_t(sx, sy, paint.focal_point)
+    return _gradient_rgba(paint, _apply_spread(t, paint.spread), device,
+                          stop_colors)
 
 
 def paint_field(paint: Paint, height: int, width: int,
@@ -167,19 +209,9 @@ def paint_field(paint: Paint, height: int, width: int,
         return color.expand(height, width, 4)
 
     if paint.kind in (PAINT_LINEAR, PAINT_FOCAL):
-        a, b, c, d, e, f = (float(x) for x in
-                            np.asarray(paint.inv_matrix, np.float32))
-        py = torch.arange(height, dtype=torch.float32,
-                          device=device)[:, None] + 0.5
-        px = torch.arange(width, dtype=torch.float32,
-                          device=device)[None, :] + 0.5
-        sx = a * px + c * py + e
-        sy = b * px + d * py + f
-        if paint.kind == PAINT_LINEAR:
-            t = true_div(sx + GRAD_RADIUS, 2.0 * GRAD_RADIUS)
-        else:
-            t = _focal_gradient_t(sx, sy, paint.focal_point)
-        return _gradient_rgba(paint, _apply_spread(t, paint.spread), device)
+        inv = torch.as_tensor(np.asarray(paint.inv_matrix, np.float32),
+                              device=device)
+        return paint_field_traced(paint, inv[None], height, width)[0]
 
     if paint.kind == PAINT_BITMAP:
         a, b, c, d, e, f = paint.inv_matrix

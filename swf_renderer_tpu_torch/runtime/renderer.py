@@ -1,13 +1,18 @@
 """The renderer front-end: ``render(stage)`` / ``render_batch(stages)``.
 
-Port of ``swf_renderer_tpu/runtime/renderer.py`` for the fused path:
-scene compilation -> native lowering and packing -> one fused styled
-kernel launch per batch -> u8 readback.  Every stage renders through the
-fused flat-block kernel; the other routes of the reference raise
-``NotImplementedError`` naming their ROADMAP.md item (queue A):
+Port of ``swf_renderer_tpu/runtime/renderer.py`` for the fused path and
+the animation sweeps: scene compilation -> native lowering and packing ->
+one fused styled kernel launch per batch -> u8 readback; a batch whose
+frames show the same definitions under moving matrices, fading colour
+transforms or morph ratios compiles ONCE to local-space pieces and
+renders through one sweep kernel launch (``ops/transform.py``), so its
+host work does not grow with the frame count.  The other routes of the
+reference raise ``NotImplementedError`` naming their ROADMAP.md item
+(queue A), or keep the fused route:
 
-* the transform / morph sweeps of moving-matrix batches and repeated
-  interactive renders (this port re-lowers every frame instead);
+* the single-frame interactive sweep of repeated ``render(stage)`` calls
+  (this port re-lowers each such frame: same pixels, more host work);
+* bitmap layers in a sweep (the texfield bake);
 * ``backend="scanline"`` / ``"direct"``, ``quality="flash-pointaa"`` and
   ``validate=True``;
 * masks, blend modes and filters; draw lists deeper than one kernel pass;
@@ -23,10 +28,13 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..models import ast, display
-from ..models.geometry import CURVE_TOLERANCE
+from ..models import ir as ir_mod
+from ..models.geometry import CURVE_TOLERANCE, TWIPS_PER_PX, Affine
 from ..ops import style as style_ops
+from ..ops.coverage import FILL_RULE_NONZERO, normalize_fill_rule
 from ..utils.device import resolve_device
 from .bitmap_service import BitmapService
 from .scene import Draw, SceneCompiler
@@ -37,8 +45,8 @@ logger = logging.getLogger("swf_renderer_tpu_torch")
 @dataclasses.dataclass
 class RenderStats:
     """Per-frame observability: draw/edge counts, wall seconds and the
-    execution path ("flatblock", "batched-styled", "empty" or
-    "per-stage:<reason>")."""
+    execution path ("flatblock", "batched-styled", "transform-sweep",
+    "empty" or "per-stage:<reason>")."""
 
     draws: int = 0
     edges: int = 0
@@ -52,6 +60,18 @@ class RenderStats:
         if self.seconds <= 0:
             return 0.0
         return self.width * self.height / self.seconds / 1e6
+
+
+def _fractional_exact_clip(stage) -> bool:
+    """True when the stage needs SUB-PIXEL exact clipping the on-device
+    sweeps don't implement.  An exact extent equal to the integer raster
+    clips nothing the raster crop doesn't; either axis set alone defaults
+    the other to the raster size."""
+    if stage.exact_width is None and stage.exact_height is None:
+        return False
+    ew = stage.width if stage.exact_width is None else stage.exact_width
+    eh = stage.height if stage.exact_height is None else stage.exact_height
+    return not (ew == stage.width and eh == stage.height)
 
 
 def _uniform_layer_structure(per_frame_draws) -> bool:
@@ -111,6 +131,31 @@ def _composite_background(frames: np.ndarray, bgs) -> np.ndarray:
     return out[0] if single else out
 
 
+def _device_affine(matrix):
+    """SWF instance matrix (twips space) -> device-pixel affine:
+    S . A . S^-1 with S = scale(1/20), so applying it to geometry already
+    compiled at ctm = S equals compiling at ctm = S . A."""
+    if matrix is None:
+        return Affine.identity()
+    s = Affine.scaling(1.0 / TWIPS_PER_PX, 1.0 / TWIPS_PER_PX)
+    return s.then(Affine.from_swf_matrix(matrix)).then(
+        Affine.scaling(TWIPS_PER_PX, TWIPS_PER_PX))
+
+
+def _layer_mats(devs, per_child):
+    """Per-(frame, leaf) affines -> (F, L, 6) f32, each leaf's matrix
+    repeated for every layer (draw) it compiled to."""
+    return np.asarray(
+        [[m for ci, row_m in enumerate(row)
+          for m in [row_m] * len(per_child[ci])]
+         for row in devs], np.float32)
+
+
+def _upload(array, device):
+    return torch.from_numpy(
+        np.ascontiguousarray(array, np.float32)).to(device)
+
+
 class TorchRenderer:
     """Renders retained stages to RGBA frames on the card (or, with
     ``device="cpu"``, through the kernels' plain versions).  ``render``
@@ -157,11 +202,12 @@ class TorchRenderer:
     def add_bitmap(self, tag: ast.DefineBitmap) -> None:
         self.bitmap_service.add_bitmap(tag)
 
-    def _compiler(self, clip=None) -> SceneCompiler:
+    def _compiler(self, clip=None,
+                  curve_tolerance=CURVE_TOLERANCE) -> SceneCompiler:
         flash_like = self.quality.startswith("flash")
         return SceneCompiler(
             self.bitmap_service, self._shape_cache, self._morph_cache,
-            curve_tolerance=CURVE_TOLERANCE,
+            curve_tolerance=curve_tolerance,
             curve_pow2=flash_like,
             honor_swf_caps=flash_like,
             honor_fill_winding=self.honor_fill_winding,
@@ -185,8 +231,10 @@ class TorchRenderer:
             return self.frame
 
     def render_batch(self, stages) -> np.ndarray:
-        """Render a SEQUENCE of stages as one fused device batch (one
-        kernel launch) when every frame has the same layer structure;
+        """Render a SEQUENCE of stages as one device batch: one sweep
+        kernel launch when the frames show the same definitions and only
+        matrices, colour transforms or morph ratios move; one fused
+        kernel launch when every frame has the same layer structure;
         otherwise stage by stage, each through the fused kernel.  Returns
         (len(stages), H, W, 4) uint8."""
         with self._render_lock:
@@ -196,6 +244,19 @@ class TorchRenderer:
         t0 = time.perf_counter()
         if not stages:
             return np.zeros((0, self.height, self.width, 4), np.uint8)
+        plan = self._transform_animation_plan(stages)
+        if plan is not None:
+            out = plan()
+            if any(s.background_color.a != 0 for s in stages):
+                out = _composite_background(
+                    out, [s.background_color for s in stages])
+            self.last_stats = RenderStats(
+                draws=plan.draws, edges=plan.edges,
+                width=self.width, height=self.height,
+                seconds=time.perf_counter() - t0,
+                path="transform-sweep",
+            )
+            return out
         per_frame_draws = [
             self._compiler(
                 clip=((stage.exact_width, stage.exact_height)
@@ -246,6 +307,373 @@ class TorchRenderer:
         )
         return out
 
+    # -- animation sweeps ---------------------------------------------------
+
+    def _transform_animation_plan(self, stages):
+        """Detect a moving-MATRIX animation: every frame shows the SAME
+        shape/morph leaves (identical definitions) and only the instance
+        matrices, colour transforms or morph ratios differ.  Such a batch
+        renders fully on device through the transform sweep
+        (ops/transform.py) — compile once, one kernel launch, O(edges)
+        host work independent of frame count.  Returns a zero-arg closure
+        that renders the batch, or None when the batch doesn't fit the
+        pattern."""
+        first = stages[0]
+        if len(stages) < 2 or not first.children:
+            return None
+        if any(_fractional_exact_clip(s) for s in stages):
+            return None  # sub-pixel exact clipping isn't in the sweep
+        if any(s.width != self.width or s.height != self.height
+               for s in stages):
+            return None
+        leaves_per_stage = []
+        for s in stages:
+            leaves = self._stage_leaves(s)
+            if leaves is None:
+                return None
+            leaves_per_stage.append(leaves)
+        first_leaves = leaves_per_stage[0]
+        if not first_leaves:
+            return None
+        n = len(first_leaves)
+        any_differs = False
+        ratio_varies = [False] * n
+        for leaves in leaves_per_stage:
+            if len(leaves) != n:
+                return None
+            for ci, ((c0, dev0, ct0), (c, dev, ct)) in enumerate(
+                    zip(first_leaves, leaves)):
+                if c.definition is not c0.definition:
+                    return None
+                if (isinstance(c, display.MorphShapeInstance)
+                        and c.ratio != c0.ratio):
+                    ratio_varies[ci] = True
+                    any_differs = True
+                if dev.as_tuple() != dev0.as_tuple() or ct != ct0:
+                    any_differs = True
+        if not any_differs:
+            return None  # identical frames: the fused batch handles it
+        if any(ratio_varies):
+            return self._morph_transform_plan(stages, leaves_per_stage,
+                                              ratio_varies)
+
+        devs, s_aff, compiler = self._sweep_prelude(leaves_per_stage)
+        # Compile each leaf ONCE with no color transform; per-frame cts
+        # fold into per-frame kernel colors below (solid layers), into
+        # static gradient stops (constant-ct gradient layers) or into
+        # per-frame stops (fading gradient layers).
+        gradient_kinds = (style_ops.PAINT_LINEAR, style_ops.PAINT_FOCAL)
+        from .scene import _apply_color_transform
+
+        child_draws = []
+        dyn_children = set()  # children whose gradient stops fade
+        for ci, (c, _dev, ct0) in enumerate(first_leaves):
+            start = len(compiler.draws)
+            if isinstance(c, display.MorphShapeInstance):
+                compiler._draw_morph_shape(c.definition, c.ratio, s_aff,
+                                           None)
+            else:
+                compiler._draw_shape(c.definition, s_aff, None)
+            draws = compiler.draws[start:]
+            if not draws:
+                return None
+            if any(d.paint.kind in gradient_kinds for d in draws):
+                if any(leaves[ci][2] != ct0 for leaves in leaves_per_stage):
+                    dyn_children.add(ci)
+                elif ct0 is not None:
+                    # Constant ct: fold into static stop colors — this
+                    # matches compiling WITH the ct exactly
+                    # (scene._paint_for_fill clamps per stop).
+                    draws = [
+                        d if d.paint.kind not in gradient_kinds else
+                        dataclasses.replace(d, paint=dataclasses.replace(
+                            d.paint, stop_colors=np.asarray(
+                                [_apply_color_transform(tuple(sc), ct0)
+                                 for sc in d.paint.stop_colors],
+                                np.float32)))
+                        for d in draws
+                    ]
+            child_draws.append(draws)
+        all_draws = [d for draws in child_draws for d in draws]
+        # Kernel layer order = all_draws order; mixed scenes pass one
+        # rule per layer.
+        sweep_rule = normalize_fill_rule(
+            tuple(d.fill_rule for d in all_draws), len(all_draws))
+        mats = _layer_mats(devs, child_draws)  # (F, L, 6)
+        from ..ops.flatblock import KPAINT_FOCAL, KPAINT_LINEAR
+        from ..ops.transform import sweep_paints
+
+        try:
+            kpaints, grad_mats, field_specs = sweep_paints(
+                [d.paint for d in all_draws], mats, allow_fields=True)
+        except ValueError:
+            return None  # a layer under a singular frame matrix
+        bitmap_invs = [spec.invs for spec in field_specs
+                       if spec.paint.kind == style_ops.PAINT_BITMAP]
+        if bitmap_invs and all(
+                not inv[:, 1:3].any() for inv in bitmap_invs) and all(
+                spec.paint.smoothed for spec in field_specs
+                if spec.paint.kind == style_ops.PAINT_BITMAP):
+            # Bitmap layers do not bake for the sweep yet (ROADMAP.md A4).
+            # Axis-aligned in every frame, the fused route still renders
+            # them, as it did before the sweeps; anything else raises in
+            # bake_sweep_fields, naming the item.
+            logger.warning(
+                "render_batch: a bitmap layer keeps this batch off the "
+                "transform sweep (ROADMAP.md A4); re-lowering every frame")
+            return None
+
+        stop_colors = None
+        dyn_layers = set()
+        if dyn_children:
+            # Dynamic stop colors override EVERY gradient layer, so
+            # constant-ct gradient layers replicate their static stops.
+            k_max = max(len(d.paint.stop_ratios) for d in all_draws
+                        if d.paint.kind in gradient_kinds)
+            stop_colors = np.zeros(
+                (len(stages), len(all_draws), k_max, 4), np.float32)
+            li = 0
+            for ci, draws in enumerate(child_draws):
+                for d in draws:
+                    if d.paint.kind in gradient_kinds:
+                        nk = len(d.paint.stop_ratios)
+                        if ci in dyn_children:
+                            dyn_layers.add(li)
+                            for f, leaves in enumerate(leaves_per_stage):
+                                stop_colors[f, li, :nk] = [
+                                    _apply_color_transform(
+                                        tuple(sc), leaves[ci][2])
+                                    for sc in d.paint.stop_colors]
+                        else:
+                            stop_colors[:, li, :nk] = np.asarray(
+                                d.paint.stop_colors, np.float32)
+                    li += 1
+
+        # Per-frame fades split by evaluation site: in-kernel gradient
+        # layers read per-frame stop records; field-baked (linear-RGB)
+        # gradient layers fold the fade into their baked planes.
+        stop_tracks = None
+        if field_specs and stop_colors is not None:
+            stop_tracks = [
+                (stop_colors[:, spec.layer, :len(spec.paint.stop_ratios)]
+                 if spec.layer in dyn_layers else None)
+                for spec in field_specs
+            ]
+            if all(t is None for t in stop_tracks):
+                stop_tracks = None
+        if stop_colors is not None and not any(
+                kpaints[li].kind in (KPAINT_LINEAR, KPAINT_FOCAL)
+                for li in dyn_layers):
+            stop_colors = None  # no in-kernel layer consumes the stops
+
+        def run():
+            from ..ops.morph import morph_frames_to_u8
+            from ..ops.transform import (
+                affine_pieces, bake_sweep_fields, layer_piece_counts,
+                render_affine_sweep,
+            )
+
+            colors = np.asarray(
+                [[(_apply_color_transform(d.paint.color, ct)
+                   if d.paint.kind == style_ops.PAINT_SOLID
+                   else (0.0, 0.0, 0.0, 0.0))
+                  for ci, (_c, _dev, ct) in enumerate(leaves)
+                  for d in child_draws[ci]]
+                 for leaves in leaves_per_stage], np.float32)  # (F, L, 4)
+            tab, _ = affine_pieces(
+                [d.edges for d in all_draws], [(0.0,) * 4] * len(all_draws),
+                mats)
+            # A bitmap layer raises here, naming its ROADMAP item.
+            fields = (bake_sweep_fields(field_specs, self.height,
+                                        self.width, stop_tracks=stop_tracks,
+                                        device=self.device)
+                      if field_specs else None)
+            dev = self.device
+            out = render_affine_sweep(
+                _upload(mats, dev), _upload(tab, dev), _upload(colors, dev),
+                self.height, self.width, fill_rule=sweep_rule,
+                paints=kpaints, layer_counts=layer_piece_counts(tab),
+                grad_mats=(None if grad_mats is None
+                           else _upload(grad_mats, dev)),
+                stop_colors=(None if stop_colors is None
+                             else _upload(stop_colors, dev)),
+                fields=fields)
+            return morph_frames_to_u8(out, self.height, self.width)
+
+        run.draws = len(all_draws) * len(stages)
+        run.edges = sum(d.edges.shape[0] for d in all_draws) * len(stages)
+        return run
+
+    def _stage_leaves(self, stage):
+        """Flatten a display tree to its shape/morph LEAVES with effective
+        (device affine, color transform) accumulated down container
+        chains — animated sprite hierarchies then ride the sweeps like
+        flat children.  Returns [(instance, Affine, ct)] or None when the
+        tree holds an unsupported node type."""
+        from .scene import _compose_color_transform
+
+        s = Affine.scaling(1.0 / TWIPS_PER_PX, 1.0 / TWIPS_PER_PX)
+        s_inv = Affine.scaling(TWIPS_PER_PX, TWIPS_PER_PX)
+        leaves = []
+
+        def walk(obj, chain, ct) -> bool:
+            if getattr(obj, "blend_mode", None) not in (None, "normal",
+                                                        "layer"):
+                return False  # blend groups don't ride the sweeps
+            if getattr(obj, "filters", None):
+                return False  # filter groups don't ride the sweeps
+            if obj.matrix is not None:
+                chain = chain.then(Affine.from_swf_matrix(obj.matrix))
+            ct = _compose_color_transform(ct, obj.color_transform)
+            if isinstance(obj, display.Container):
+                return all(walk(child, chain, ct)
+                           for child in obj.children)
+            if isinstance(obj, (display.ShapeInstance,
+                                display.MorphShapeInstance)):
+                leaves.append((obj, s.then(chain).then(s_inv), ct))
+                return True
+            return False  # unsupported node type
+
+        for child in stage.children:
+            if not walk(child, Affine.identity(), None):
+                return None
+        return leaves
+
+    def _sweep_prelude(self, leaves_per_stage):
+        """Shared setup of both sweep plans: per-(frame, leaf) device
+        affines, the flattening tolerance that survives the most
+        magnifying frame (exact spectral norm — translate/rotate-only
+        animations keep smax == 1 so the sweep flattens curves at the
+        SAME tolerance as per-frame renders), and ONE compiler across
+        leaves (the lineWidth state threads through the whole display
+        list, like compile_stage's walk)."""
+        s_aff = Affine.scaling(1.0 / TWIPS_PER_PX, 1.0 / TWIPS_PER_PX)
+        devs = []
+        smax = 1.0
+        for leaves in leaves_per_stage:
+            row = []
+            for _, dev, _ct in leaves:
+                smax = max(smax, dev.norm2())
+                row.append(dev.as_tuple())
+            devs.append(row)
+        return devs, s_aff, self._compiler(
+            curve_tolerance=CURVE_TOLERANCE / smax)
+
+    def _morph_transform_plan(self, stages, leaves_per_stage,
+                              ratio_varies):
+        """Ratio-varying timeline through the combined morph + transform
+        sweep (ops.transform.render_morph_affine_sweep): every layer
+        becomes a (start, end) piece pair — varying-ratio morph leaves
+        contribute their real pairs (fills only; stroke outlines aren't
+        linear in the ratio), static leaves contribute degenerate
+        start==end pairs — and one shared per-frame ratio track lerps them
+        all.  Returns a zero-arg render closure or None."""
+        from ..models.morph_geometry import morph_fill_edge_pairs
+        from .scene import _apply_color_transform
+
+        first_leaves = leaves_per_stage[0]
+        # One shared ratio track (the kernel lerps every layer by the
+        # same per-frame t); constant color transforms (no per-frame
+        # color folding on the morph path).
+        tracks = set()
+        for ci, varies in enumerate(ratio_varies):
+            if varies:
+                tracks.add(tuple(float(leaves[ci][0].ratio)
+                                 for leaves in leaves_per_stage))
+        if len(tracks) != 1:
+            return None
+        ratios = np.asarray(next(iter(tracks)), np.float32)
+        for leaves in leaves_per_stage:
+            for (_c0, _d0, ct0), (_c, _d, ct) in zip(first_leaves, leaves):
+                if ct != ct0:
+                    return None
+
+        def ct_saturates(color, ct):
+            """The per-frame path CLAMPS after lerping, the sweep lerps
+            clamped endpoints; the two agree only when the transform
+            keeps both endpoints inside [0, 1]."""
+            if ct is None:
+                return False
+            return any(not (-1e-9 <= ch * m + a <= 1.0 + 1e-9)
+                       for ch, m, a in zip(color, ct.mult, ct.add))
+
+        devs, s_aff, compiler = self._sweep_prelude(leaves_per_stage)
+        child_pairs = []
+        pair_rules = []  # one rule per pair, in kernel layer order
+        for ci, (c, _dev, ct) in enumerate(first_leaves):
+            if ratio_varies[ci]:
+                compiled = compiler._compiled_morph_shape(c.definition)
+                if any(p.line is not None for p in compiled.paths):
+                    return None  # stroke outlines aren't linear in ratio
+                if any(p.fill is not None
+                       and not isinstance(p.fill, ir_mod.MorphSolidFill)
+                       for p in compiled.paths):
+                    # Extended (gradient/bitmap) morph fills lerp paints
+                    # per frame — not expressible as the sweep's color
+                    # pair; render per frame.
+                    return None
+                raw = morph_fill_edge_pairs(
+                    compiled, s_aff, tolerance=compiler.curve_tolerance)
+                if not raw or any(
+                        ct_saturates(cs, ct) or ct_saturates(ce, ct)
+                        for _, _, cs, ce in raw):
+                    return None
+                pairs = [
+                    (es, ee,
+                     _apply_color_transform(cs, ct),
+                     _apply_color_transform(ce, ct))
+                    for es, ee, cs, ce in raw
+                ]
+                # Morph fills compile with the default nonzero rule
+                # (scene._emit_fill).
+                pair_rules.extend([FILL_RULE_NONZERO] * len(pairs))
+            else:
+                start = len(compiler.draws)
+                if isinstance(c, display.MorphShapeInstance):
+                    compiler._draw_morph_shape(c.definition, c.ratio,
+                                               s_aff, ct)
+                else:
+                    compiler._draw_shape(c.definition, s_aff, ct)
+                draws = compiler.draws[start:]
+                if not draws or any(
+                        d.paint.kind != style_ops.PAINT_SOLID
+                        for d in draws):
+                    return None
+                pairs = [(d.edges, d.edges, d.paint.color, d.paint.color)
+                         for d in draws]
+                pair_rules.extend(d.fill_rule for d in draws)
+            child_pairs.append(pairs)
+        all_pairs = [p for pairs in child_pairs for p in pairs]
+        fill_rule = normalize_fill_rule(tuple(pair_rules), len(all_pairs))
+
+        def run():
+            from ..ops.morph import morph_frames_to_u8
+            from ..ops.transform import (
+                layer_piece_counts, morph_affine_pieces,
+                render_morph_affine_sweep,
+            )
+
+            mats = _layer_mats(devs, child_pairs)  # (F, L, 6)
+            tab_s, tab_e, colors_s, colors_e = morph_affine_pieces(
+                all_pairs, mats)
+            dev = self.device
+            out = render_morph_affine_sweep(
+                _upload(mats, dev), _upload(ratios, dev),
+                _upload(tab_s, dev), _upload(tab_e, dev),
+                _upload(colors_s, dev), _upload(colors_e, dev),
+                self.height, self.width, fill_rule=fill_rule,
+                # a piece may be degenerate at one ratio endpoint only:
+                # count whichever table keeps it real
+                layer_counts=tuple(
+                    max(a, b) for a, b in zip(layer_piece_counts(tab_s),
+                                              layer_piece_counts(tab_e))))
+            return morph_frames_to_u8(out, self.height, self.width)
+
+        run.draws = len(all_pairs) * len(stages)
+        run.edges = sum(np.asarray(p[0]).shape[0]
+                        for p in all_pairs) * len(stages)
+        return run
+
     # -- execution ----------------------------------------------------------
 
     def execute(self, draws: List[Draw]) -> np.ndarray:
@@ -294,3 +722,78 @@ def render_morph_shape(tag: ast.DefineMorphShape, ratio: float,
     renderer = TorchRenderer(stage.width, stage.height, device=device,
                              **kwargs)
     return renderer.render(stage)
+
+
+def render_shape_animation(tag: ast.DefineShape, matrices, width: int,
+                           height: int, quality: str = "canvas",
+                           bitmaps: Optional[List[ast.DefineBitmap]] = None,
+                           bitmap_service: Optional[BitmapService] = None,
+                           device=None) -> np.ndarray:
+    """Animate ONE shape under per-frame matrices, fully on device: the
+    shape compiles ONCE to local-space edge pieces, every frame's affine
+    applies in the sweep kernel, and the whole animation rasterizes in
+    one launch — host work is O(edges), independent of frame count.
+
+    ``matrices``: sequence of ast.Matrix (SWF twips transforms) or an
+    (F, 6) array of device-space affines.  Solid fills/strokes and sRGB
+    linear/focal gradient fills evaluate in-kernel under each frame's
+    composed matrix; linear-RGB gradients bake per-frame field planes on
+    device (ops.transform.bake_sweep_fields); bitmap fills raise
+    ``NotImplementedError`` (ROADMAP.md A4 / B8).  Returns (F, H, W, 4)
+    uint8."""
+    from ..ops.morph import morph_frames_to_u8
+    from ..ops.transform import (
+        affine_pieces, bake_sweep_fields, layer_piece_counts,
+        render_affine_sweep, sweep_paints,
+    )
+
+    device = resolve_device(device)
+    s = Affine.scaling(1.0 / TWIPS_PER_PX, 1.0 / TWIPS_PER_PX)
+    if len(matrices) and isinstance(matrices[0], ast.Matrix):
+        devs = [_device_affine(m) for m in matrices]
+        mats = np.asarray([m.as_tuple() for m in devs], np.float32)
+        smax = max(m.norm2() for m in devs)
+    else:
+        mats = np.asarray(matrices, np.float32)
+        smax = max(
+            1e-6,
+            max(Affine(*m).norm2() for m in np.asarray(mats, float)))
+
+    flash_like = quality.startswith("flash")
+    service = bitmap_service if bitmap_service is not None else BitmapService()
+    for bmp in bitmaps or []:
+        service.add_bitmap(bmp)
+    compiler = SceneCompiler(
+        service, {}, {},
+        # Flatten in LOCAL space at a tolerance that holds after the most
+        # magnifying frame transform.
+        curve_tolerance=CURVE_TOLERANCE / max(1.0, smax),
+        curve_pow2=flash_like,
+        honor_swf_caps=flash_like,
+    )
+    compiler._draw_shape(tag, s, None)
+    draws = compiler.draws
+    if not draws:
+        return np.zeros((len(mats), height, width, 4), np.uint8)
+    try:
+        kpaints, grad_mats, field_specs = sweep_paints(
+            [d.paint for d in draws], mats, allow_fields=True)
+    except ValueError as exc:
+        raise NotImplementedError(
+            "render_shape_animation needs invertible frame matrices; "
+            f"render degenerate frames via render_batch ({exc})") from exc
+    rule = normalize_fill_rule(tuple(d.fill_rule for d in draws),
+                               len(draws))
+    piece_colors = [
+        d.paint.color if d.paint.kind == style_ops.PAINT_SOLID
+        else (0.0, 0.0, 0.0, 0.0) for d in draws]
+    tab, colors = affine_pieces([d.edges for d in draws], piece_colors, mats)
+    fields = (bake_sweep_fields(field_specs, height, width, device=device)
+              if field_specs else None)
+    out = render_affine_sweep(
+        _upload(mats, device), _upload(tab, device), _upload(colors, device),
+        height, width, fill_rule=rule, paints=kpaints,
+        layer_counts=layer_piece_counts(tab),
+        grad_mats=None if grad_mats is None else _upload(grad_mats, device),
+        fields=fields)
+    return morph_frames_to_u8(out, height, width)

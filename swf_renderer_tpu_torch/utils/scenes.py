@@ -32,3 +32,65 @@ def build_scene_edges(frames, layers, height, width, shapes_per_layer=16,
             colors[i, j] = rng.uniform(0.1, 1.0, size=4)
         tables.append(per_frame)
     return tables, colors
+
+
+def anim_scene(h: int, w: int, frames: int, seed: int = 9):
+    """The animation benchmark scene: 3 layers x 12 random blobs
+    (local-space edge tables, 10 edges each) + a full-turn rotation track
+    about the frame center -> (tables, colors, (F, 6) f32 matrices)."""
+    rng = np.random.default_rng(seed)
+    tables, colors = [], []
+    for _ in range(3):
+        segs = []
+        for _ in range(12):
+            cx = rng.uniform(100, w - 100)
+            cy = rng.uniform(60, h - 60)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 10))
+            r = rng.uniform(15, 60, 10)
+            pts = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                           1).astype(np.float32)
+            closed = np.concatenate([pts, pts[:1]])
+            segs.append(np.concatenate([closed[:-1], closed[1:]], axis=1))
+        tables.append(np.concatenate(segs))
+        colors.append(rng.uniform(0.2, 1.0, 4))
+
+    mats = []
+    for i in range(frames):
+        th = 2 * np.pi * i / frames
+        a, b = np.cos(th), np.sin(th)
+        cx, cy = w / 2.0, h / 2.0
+        mats.append((a, b, -b, a, cx - a * cx + b * cy,
+                     cy - b * cx - a * cy))
+    return tables, colors, np.asarray(mats, np.float32)
+
+
+def random_blobs(rng, layers, height, width, blobs=4):
+    """[layers] local-space edge tables of ``blobs`` random star-convex
+    nonagons each; some overhang the frame on every side."""
+    tables = []
+    for _ in range(layers):
+        segs = []
+        for _ in range(blobs):
+            cx = rng.uniform(-10, width + 10)
+            cy = rng.uniform(-10, height + 10)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 9))
+            r = rng.uniform(6, 0.3 * min(height, width), 9)
+            pts = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                           1).astype(np.float32)
+            closed = np.concatenate([pts, pts[:1]])
+            segs.append(np.concatenate([closed[:-1], closed[1:]], axis=1))
+        tables.append(np.concatenate(segs))
+    return tables
+
+
+def random_tracks(rng, frames, layers, height, width):
+    """Per-layer rotate + scale + shear + translate tracks about the frame
+    centre -> (F, L, 6) f32 device affines."""
+    th = rng.uniform(0, 2 * np.pi, (frames, layers))
+    sc = rng.uniform(0.6, 1.5, (frames, layers))
+    a, b = sc * np.cos(th), sc * np.sin(th)
+    c = -b + rng.uniform(-0.2, 0.2, (frames, layers))
+    cx, cy = width / 2.0, height / 2.0
+    e = cx - a * cx - c * cy + rng.uniform(-8, 8, (frames, layers))
+    f = cy - b * cx - a * cy + rng.uniform(-8, 8, (frames, layers))
+    return np.stack([a, b, c, a, e, f], -1).astype(np.float32)

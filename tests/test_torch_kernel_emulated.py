@@ -2,7 +2,8 @@
 versions.
 
 ``csrc/flatblock_device.cuh`` holds all of the fused kernels' device
-logic.  Here g++ compiles it under a small emulation of the CUDA
+logic and ``csrc/sweep_device.cuh`` all of the sweep kernels'.  Here g++
+compiles them under a small emulation of the CUDA
 execution model (one std::thread per CUDA thread, a std::barrier for
 ``__syncthreads``, std::atomic_ref for the shared-memory atomics), and
 the emulated blocks run at small sizes.  This checks the kernel's
@@ -24,8 +25,11 @@ from swf_renderer_tpu_torch.convert import packed_to_device
 from swf_renderer_tpu_torch.native import bindings
 from swf_renderer_tpu_torch.ops import cuda_lib
 from swf_renderer_tpu_torch.ops import flatblock as fb
+from swf_renderer_tpu_torch.ops import transform as sweep
 from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
-from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+from swf_renderer_tpu_torch.utils.scenes import (
+    build_scene_edges, random_blobs, random_tracks,
+)
 
 EMULATOR = r"""
 #include <atomic>
@@ -37,6 +41,7 @@ EMULATOR = r"""
 #include <vector>
 using std::fmaxf;
 using std::fminf;
+using std::min;
 #define __host__
 #define __device__
 #define __forceinline__ inline
@@ -55,7 +60,7 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline long long __double2ll_rn(double x) {
   return static_cast<long long>(std::nearbyint(x));
 }
-#include "flatblock_device.cuh"
+#include "sweep_device.cuh"  // includes flatblock_device.cuh
 
 extern "C" int emulate(int styled, const int* sidx, const int* flags,
                        const int* lays, const float* urc, const float* ucm,
@@ -104,6 +109,55 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
       }
   return a.spb;
 }
+
+template <bool kMorph, bool kAffine, bool kStyled>
+void run_sweep(const swf::SweepArgs& a) {
+  std::vector<unsigned char> smem(
+      swf::sweep_smem_bytes(a.layers, a.rows, kStyled));
+  blockDim.x = swf::kThreads;
+  for (int z = 0; z < a.frames; ++z)
+    for (int y = 0; y < (a.height + a.rows - 1) / a.rows; ++y)
+      for (int x = 0; x < (a.width + swf::kLane - 1) / swf::kLane; ++x) {
+        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        std::barrier<> bar(swf::kThreads);
+        std::vector<std::thread> threads;
+        for (int t = 0; t < swf::kThreads; ++t) {
+          threads.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+            block_barrier = &bar;
+            swf::sweep_block<kMorph, kAffine, kStyled>(a, smem.data());
+          });
+        }
+        for (auto& th : threads) th.join();
+      }
+}
+
+extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
+                             const float* tab_e, const float* ratios,
+                             const float* colors, const float* colors_e,
+                             const int* counts, const int* rules,
+                             const int* pint, const float* pflt,
+                             const float* grad_mats, const float* stop_colors,
+                             const float* fields, int* out, int frames,
+                             int layers, int ep, int height, int width,
+                             int mats_per_layer, int colors_per_frame,
+                             int n_stop_slots) {
+  swf::SweepArgs a{};
+  a.mats = mats; a.tab_s = tab_s; a.tab_e = tab_e; a.ratios = ratios;
+  a.colors = colors; a.colors_e = colors_e; a.counts = counts;
+  a.rules = rules; a.pint = pint; a.pflt = pflt; a.grad_mats = grad_mats;
+  a.stop_colors = stop_colors; a.fields = fields; a.out = out;
+  a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
+  a.width = width; a.mats_per_layer = mats_per_layer;
+  a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
+  a.rows = swf::sweep_tile_rows(layers);
+  if (mode == 0 && pint) run_sweep<false, true, true>(a);
+  else if (mode == 0) run_sweep<false, true, false>(a);
+  else if (mode == 1) run_sweep<true, true, false>(a);
+  else run_sweep<true, false, false>(a);
+  return a.rows;
+}
 """
 
 
@@ -115,13 +169,17 @@ def emulator(tmp_path_factory):
     (d / "emu.cc").write_text(EMULATOR)
     lib = d / "libemu.so"
     proc = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+        ["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+         "-fno-strict-aliasing", "-fPIC", "-shared",
          f"-I{cuda_lib.CSRC_DIR}", "-o", str(lib), str(d / "emu.cc"),
          "-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     emu = ctypes.CDLL(str(lib))
     emu.emulate.restype = ctypes.c_int
     emu.emulate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 8
+    emu.emulate_sweep.restype = ctypes.c_int
+    emu.emulate_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [
         ctypes.c_int] * 8
     return emu
 
@@ -201,3 +259,120 @@ def test_emulated_kernels_equal_plain_versions(emulator, height, width,
     got, _ = _run(emulator, dev, colors, 0, 2, layers, spp, paints,
                   np.ascontiguousarray(field.numpy()))
     assert torch.equal(got[:, :ns], want[:, :ns])
+
+
+def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
+               width, rules, counts, paints=None, grad_mats=None,
+               stop_colors=None, fields=None):
+    """The emulated sweep kernel on ``sweep_plain``'s arguments."""
+    keep = [None if t is None else np.ascontiguousarray(t.numpy())
+            for t in (mats, tab_s, tab_e, ratios, colors, colors_e,
+                      grad_mats, stop_colors, fields)]
+    mats_a, ts, te, rat, col, cole, gm, sc, fld = keep
+    frames = (mats if mats is not None else ratios).shape[0]
+    layers, ep = tab_s.shape[0], tab_s.shape[-1]
+    pint = pflt = None
+    if paints is not None:
+        pint, pflt = fb.paint_tables(tuple(paints))
+    rules_a = np.asarray(rules, np.int32)
+    counts_a = np.asarray(counts, np.int32)
+    out = np.full((frames, height, width), -7, np.int32)
+
+    def ptr(x):
+        return None if x is None else x.ctypes.data
+
+    mode = 0 if tab_e is None else (1 if mats is not None else 2)
+    rows = emu.emulate_sweep(
+        mode, ptr(mats_a), ptr(ts), ptr(te), ptr(rat), ptr(col), ptr(cole),
+        ptr(counts_a), ptr(rules_a), ptr(pint), ptr(pflt), ptr(gm), ptr(sc),
+        ptr(fld), out.ctypes.data, frames, layers, ep, height, width,
+        int(mats is not None and mats.ndim == 3), int(colors.ndim == 3),
+        0 if sc is None else sc.shape[2])
+    return torch.from_numpy(out), rows
+
+
+def test_emulated_morph_affine_sweep_equals_plain_version(emulator):
+    """Solid morph + affine sweep, 5 layers (tile rows 16), 50x150 (two
+    column tiles, ragged on both axes), mixed rules, ratios 0 and 1."""
+    rng = np.random.default_rng(21)
+    height, width, layers, frames = 50, 150, 5, 3
+    start = random_blobs(rng, layers, height, width, blobs=3)
+    pairs = [(s, s + rng.uniform(-9, 9, s.shape).astype(np.float32),
+              rng.uniform(0.1, 1, 4), rng.uniform(0.1, 1, 4)) for s in start]
+    mats = random_tracks(rng, frames, layers, height, width)
+    tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, mats)
+    counts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+        sweep.layer_piece_counts(tab_s), sweep.layer_piece_counts(tab_e)))
+    args = (torch.as_tensor(mats), torch.as_tensor(tab_s),
+            torch.as_tensor(tab_e),
+            torch.as_tensor(np.array([0.0, 0.37, 1.0], np.float32)),
+            torch.as_tensor(cs), torch.as_tensor(ce), height, width,
+            (0, 1, 0, 1, 1), counts)
+    want = sweep.sweep_plain(*args)
+    got, rows = _run_sweep(emulator, *args)
+    assert rows == 16
+    assert torch.equal(got, want)
+    # The ratio sweep: same pieces, no matrices.
+    args = (None,) + args[1:]
+    got, _ = _run_sweep(emulator, *args)
+    assert torch.equal(got, sweep.sweep_plain(*args))
+
+
+def test_emulated_styled_affine_sweep_equals_plain_version(emulator):
+    """Styled affine sweep, 4 layers (colour, linear with fading stops,
+    focal, field), 37x200, global matrices, per-frame colours."""
+    rng = np.random.default_rng(22)
+    height, width, layers, frames = 37, 200, 4, 2
+    tables = random_blobs(rng, layers, height, width, blobs=3)
+    mats = random_tracks(rng, frames, 1, height, width)[:, 0]
+    tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers, mats)
+    ratios = np.array([0.0, 0.4, 1.0], np.float32)
+    stops = rng.uniform(0, 1, (3, 4)).astype(np.float32)
+    paints = (fb.KernelPaint.color(),
+              fb.KernelPaint.gradient(fb.KPAINT_LINEAR, (), ratios, stops,
+                                      spread=1),
+              fb.KernelPaint.gradient(fb.KPAINT_FOCAL, (), ratios[:2],
+                                      stops[:2], focal=0.4, spread=2),
+              fb.KernelPaint.field(0))
+    gm = np.zeros((frames, layers, 6), np.float32)
+    gm[:, 1] = (150.0, 10.0, -20.0, 140.0, -16000.0, -9000.0)
+    gm[:, 2] = (300.0, 0.0, 0.0, 300.0, -15000.0, -8000.0)
+    gm[1] *= 1.1
+    sc = rng.uniform(0, 1, (frames, layers, 3, 4)).astype(np.float32)
+    fields = rng.uniform(0, 1, (1, frames, height, width, 4)).astype(
+        np.float32)
+    colors = rng.uniform(0.1, 1, (frames, layers, 4)).astype(np.float32)
+    args = (torch.as_tensor(mats), torch.as_tensor(tab), None, None,
+            torch.as_tensor(colors), None, height, width, (0, 0, 1, 0),
+            sweep.layer_piece_counts(tab))
+    kw = dict(paints=paints, grad_mats=torch.as_tensor(gm),
+              stop_colors=torch.as_tensor(sc),
+              fields=torch.as_tensor(fields))
+    want = sweep.sweep_plain(*args, **kw)
+    got, rows = _run_sweep(emulator, *args, **kw)
+    assert rows == 16
+    assert torch.equal(got, want)
+    kw["stop_colors"] = None   # static stops from the paint records
+    got, _ = _run_sweep(emulator, *args, **kw)
+    assert torch.equal(got, sweep.sweep_plain(*args, **kw))
+
+
+def test_emulated_sweep_writes_untouched_tiles_as_zeros(emulator):
+    """One small blob in a 70x300 frame (most tiles see no piece and take
+    the kernel's zero-fill path; frame 0 lies wholly outside)."""
+    rng = np.random.default_rng(23)
+    height, width = 70, 300
+    tables = random_blobs(rng, 1, 40, 40, blobs=1)
+    mats = np.asarray([(1.0, 0.0, 0.0, 1.0, -400.0, -300.0),
+                       (1.0, 0.1, -0.1, 1.0, 150.0, 20.0),
+                       (0.8, 0.0, 0.0, 0.8, 250.0, 35.0)], np.float32)
+    tab, colors = sweep.affine_pieces(tables, [(0.9, 0.5, 0.2, 0.7)], mats)
+    args = (torch.as_tensor(mats), torch.as_tensor(tab), None, None,
+            torch.as_tensor(colors), None, height, width, (1,),
+            sweep.layer_piece_counts(tab))
+    want = sweep.sweep_plain(*args)
+    got, rows = _run_sweep(emulator, *args)
+    assert rows == 32
+    assert torch.equal(got, want)
+    assert not want[0].any() and want[1].any()
+    assert float((want != 0).float().mean()) < 0.1
