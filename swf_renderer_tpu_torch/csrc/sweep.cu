@@ -15,6 +15,13 @@
 
 namespace swf {
 
+template <bool kMorph, bool kAffine>
+__global__ void __launch_bounds__(kSweepChunk) sweep_bounds_kernel(
+    SweepArgs a) {
+  __shared__ float red[2 * kSweepChunk];
+  sweep_bounds_block<kMorph, kAffine>(a, red);
+}
+
 template <bool kMorph, bool kAffine, bool kStyled>
 __global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -29,6 +36,10 @@ cudaError_t launch_sweep(SweepArgs a, cudaStream_t stream) {
       sweep_kernel<kMorph, kAffine, kStyled>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
+  sweep_bounds_kernel<kMorph, kAffine>
+      <<<dim3(a.n_chunks, a.layers, a.frames), kSweepChunk, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.width + kLane - 1) / kLane,
                   (a.height + a.rows - 1) / a.rows, a.frames);
   sweep_kernel<kMorph, kAffine, kStyled><<<grid, kThreads, bytes, stream>>>(a);
@@ -41,12 +52,14 @@ extern "C" {
 
 // mode 0: affine sweep (styled when pint is not null); mode 1: morph +
 // affine sweep; mode 2: morph ratio sweep (no matrices).  Tables are
-// (L, 4, EP) f32; out is (F, H, W) int32 holding packed u32 RGBA.
+// (L, 4, EP) f32; bounds is scratch of F * L * ceil(EP / 64) * 2 floats;
+// out is (F, H, W) int32 holding packed u32 RGBA.
 int swf_sweep(int mode, const void* mats, const void* tab_s,
               const void* tab_e, const void* ratios, const void* colors,
               const void* colors_e, const void* counts, const void* rules,
               const void* pint, const void* pflt, const void* grad_mats,
-              const void* stop_colors, const void* fields, void* out,
+              const void* stop_colors, const void* fields, void* bounds,
+              void* out,
               int frames, int layers, int ep, int height, int width,
               int mats_per_layer, int colors_per_frame, int n_stop_slots,
               void* stream) {
@@ -70,6 +83,8 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
   a.grad_mats = static_cast<const float*>(grad_mats);
   a.stop_colors = static_cast<const float*>(stop_colors);
   a.fields = static_cast<const float*>(fields);
+  a.bounds = static_cast<float*>(bounds);
+  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.out = static_cast<int*>(out);
   a.frames = frames;
   a.layers = layers;

@@ -33,7 +33,9 @@
 // each, and for a piece that reaches the tile scatter the DIFFERENCES
 // ramp(x) - ramp(x - 1) over the columns the piece crosses, ending with
 // the step to dy; a piece wholly left of the tile adds dy at the tile's
-// first column.  A row prefix then rebuilds every pixel's winding.
+// first column (a pre-pass kernel has written each 64-piece chunk's row
+// bounds, so the walk skips chunks that miss the tile's rows).  A row
+// prefix then rebuilds every pixel's winding.
 // Differences and prefix are 32.32 fixed point in 64-bit shared atomics:
 // integer sums telescope exactly and do not depend on the order the
 // atomics land in, so the result is the same on every run, for every tile
@@ -45,10 +47,10 @@
 // kernel at 3x the solid one on the card.
 //
 // Bound on this card: bytes for the output (one u32 a pixel) at the main
-// path's shapes.  The kernel's own cost is, in order, the piece walk
-// (every tile reads every piece from L2: no binning yet), the resolve,
-// the setup and the serial row prefix; a tile no piece reaches skips
-// prefix and resolve and writes zeros.
+// path's shapes.  The kernel's own cost is the resolve, the piece walk
+// (without the chunk bounds it was two thirds of the kernel: every tile
+// read every piece from L2), the setup and the serial row prefix; a tile
+// no piece reaches skips prefix and resolve and writes zeros.
 //
 // Tolerance against the plain version on the card: at most 1 u8 level
 // (chip_smoke.py); by construction byte-equal.  Rounding as in
@@ -64,6 +66,8 @@ namespace swf {
 constexpr size_t kSweepSmemBudget = 100 * 1024;
 constexpr int kSweepMaxRows = 32;
 constexpr int kSweepRowStride = kLane + 1;   // long longs, bank-shifted
+constexpr int kSweepChunk = 64;              // pieces per row-bounds chunk
+constexpr int kSweepMaxHits = 1024;          // chunk list of one walk round
 
 struct SweepArgs {
   const float* mats;         // (F, 6) or (F, L, 6) device affines
@@ -79,8 +83,11 @@ struct SweepArgs {
   const float* grad_mats;    // (F, L, 6) device -> gradient space
   const float* stop_colors;  // (F, L, K, 4) per-frame stops, or null
   const float* fields;       // (NF, F, H, W, 4) baked paint planes
+  float* bounds;             // (F, L, n_chunks, 2) scratch: lowest and
+                             // highest row base of each piece chunk
   int* out;                  // (F, H, W) packed RGBA u32 bits
   int frames, layers, ep, height, width;
+  int n_chunks;              // ceil(ep / kSweepChunk)
   int rows;                  // tile rows
   int mats_per_layer, colors_per_frame, n_stop_slots;
 };
@@ -100,14 +107,16 @@ __host__ __device__ inline size_t sweep_plane_bytes(int layers, int rows) {
   return align16(static_cast<size_t>(layers) * rows * kSweepRowStride * 8);
 }
 
-// Shared-memory carve-up: accumulators, colours, matrices, rules and the
-// tile's touched flag, then (styled) the paint records.
+// Shared-memory carve-up: accumulators, colours, matrices, rules with the
+// tile's touched flag and the hit count, the hit list, then (styled) the
+// paint records.
 __host__ __device__ inline size_t sweep_smem_bytes(int layers, int rows,
                                                    bool styled) {
   size_t n = sweep_plane_bytes(layers, rows);
   n += align16(static_cast<size_t>(layers) * 4 * 4);   // colours
   n += align16(static_cast<size_t>(layers) * 6 * 4);   // matrices
-  n += align16(static_cast<size_t>(layers + 1) * 4);   // rules, flag
+  n += align16(static_cast<size_t>(layers + 2) * 4);   // rules, flags
+  n += align16(static_cast<size_t>(kSweepMaxHits) * 4);
   if (styled) {
     n += align16(static_cast<size_t>(layers) * kPintStride * 4);
     n += align16(static_cast<size_t>(layers) * kPfltStride * 4);
@@ -124,6 +133,138 @@ __device__ __forceinline__ float h01(float x) {
 
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
+// Piece p of a layer in device space: the ratio lerp, then the frame's
+// affine (transform.py:695-708).  ``M`` holds a, b, c, d, e, f.
+template <bool kMorph, bool kAffine>
+__device__ __forceinline__ void device_piece(
+    const float* ts, const float* te, int ep, int p, float t, float omt,
+    const float* M, float& x0, float& y0, float& x1, float& y1) {
+  x0 = ts[p];
+  y0 = ts[ep + p];
+  x1 = ts[2 * ep + p];
+  y1 = ts[3 * ep + p];
+  if (kMorph) {  // ratio lerp BEFORE the frame transform
+    x0 = omt * x0 + t * te[p];
+    y0 = omt * y0 + t * te[ep + p];
+    x1 = omt * x1 + t * te[2 * ep + p];
+    y1 = omt * y1 + t * te[3 * ep + p];
+  }
+  if (kAffine) {
+    const float tx0 = M[0] * x0 + M[2] * y0 + M[4];
+    const float ty0 = M[1] * x0 + M[3] * y0 + M[5];
+    const float tx1 = M[0] * x1 + M[2] * y1 + M[4];
+    const float ty1 = M[1] * x1 + M[3] * y1 + M[5];
+    x0 = tx0; y0 = ty0; x1 = tx1; y1 = ty1;
+  }
+}
+
+// Scatter one device-space piece into a tile: for each of the <= 2 rows
+// it touches that lie in the tile, the differences ramp(x) - ramp(x - 1)
+// over the columns it crosses, ending with the step to dy (at the tile's
+// first column when the piece lies left of it), in 32.32 fixed point.
+// ``plane`` is the layer's accumulator; rows [r0, r1), columns [c0, c1).
+__device__ __forceinline__ void scatter_piece(
+    float x0, float y0, float x1, float y1, int r0, int c0, float r0f,
+    float r1f, float c0f, float c1f, long long* lplane, int* touched_s) {
+  const float rowbase = floorf(fminf(y0, y1));
+  for (int k = 0; k < 2; ++k) {
+    const float py = rowbase + static_cast<float>(k);
+    if (!(py >= r0f && py < r1f)) continue;
+    const float sy0 = y0 - py;
+    const float sy1 = y1 - py;
+    const float cy0 = clamp01(sy0);
+    const float cy1 = clamp01(sy1);
+    const float dy = cy1 - cy0;
+    if (dy == 0.0f) continue;
+    const float dyd = sy1 - sy0;
+    const float safe = fabsf(dyd) < 1e-9f ? 1.0f : dyd;
+    const float t0 = (cy0 - sy0) / safe;
+    const float t1 = (cy1 - sy0) / safe;
+    const float dxs = x1 - x0;
+    const float xa = x0 + t0 * dxs;
+    const float xb = x0 + t1 * dxs;
+    const float xmn = fminf(xa, xb);
+    const float xmx = fmaxf(xa, xb);
+    const float lo = floorf(xmn);
+    const float hi = ceilf(xmx);
+    if (lo >= c1f) continue;    // the ramp starts right of the tile
+    const float span = xmx - xmn;
+    const bool thin = span < 1e-9f;
+    const float safe_span = thin ? 1.0f : span;
+    const int xs = static_cast<int>(fmaxf(lo, c0f));
+    const int xe = static_cast<int>(
+        fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
+    long long* row = lplane + (static_cast<int>(py) - r0) * kSweepRowStride;
+    *touched_s = 1;
+    long long prev = 0;
+    for (int x = xs; x <= xe; ++x) {
+      const float px = static_cast<float>(x);
+      float v = dy;
+      if (px < hi) {
+        const float rel_mn = xmn - px;
+        const float rel_mx = xmx - px;
+        const float mean = thin
+            ? clamp01(0.5f * (rel_mn + rel_mx))
+            : (h01(rel_mx) - h01(rel_mn)) / safe_span;
+        v = dy * (1.0f - mean);
+      }
+      const long long q = to_fixed(v);
+      atomicAdd(reinterpret_cast<unsigned long long*>(&row[x - c0]),
+                static_cast<unsigned long long>(q - prev));
+      prev = q;
+    }
+  }
+}
+
+// Pre-pass, one block of kSweepChunk threads per (chunk, layer, frame):
+// the lowest and highest row base among the chunk's pieces.  Pieces are
+// path-ordered, so a chunk spans few rows and a tile's walk skips most
+// chunks on two compares instead of reading and transforming 64 pieces
+// (the chunk bounds of transform.py:1630-1687, exact here: both kernels
+// run device_piece).
+template <bool kMorph, bool kAffine>
+__device__ void sweep_bounds_block(const SweepArgs& a, float* red) {
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x;
+  const int l = blockIdx.y;
+  const int f = blockIdx.z;
+  const int p = chunk * kSweepChunk + tid;
+  float lo = 3.0e38f;
+  float hi = -3.0e38f;
+  if (p < min(a.counts[l], a.ep)) {
+    const float t = kMorph ? a.ratios[f] : 0.0f;
+    const float* M = nullptr;
+    if (kAffine) {
+      M = a.mats + (a.mats_per_layer
+                        ? (static_cast<long long>(f) * a.layers + l) * 6
+                        : static_cast<long long>(f) * 6);
+    }
+    float x0, y0, x1, y1;
+    device_piece<kMorph, kAffine>(
+        a.tab_s + static_cast<long long>(l) * 4 * a.ep,
+        kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep : nullptr,
+        a.ep, p, t, 1.0f - t, M, x0, y0, x1, y1);
+    lo = hi = floorf(fminf(y0, y1));
+  }
+  red[tid] = lo;
+  red[kSweepChunk + tid] = hi;
+  __syncthreads();
+  for (int s = kSweepChunk / 2; s > 0; s /= 2) {
+    if (tid < s) {
+      red[tid] = fminf(red[tid], red[tid + s]);
+      red[kSweepChunk + tid] =
+          fmaxf(red[kSweepChunk + tid], red[kSweepChunk + tid + s]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    float* b = a.bounds + ((static_cast<long long>(f) * a.layers + l)
+                           * a.n_chunks + chunk) * 2;
+    b[0] = red[0];
+    b[1] = red[kSweepChunk];
+  }
 }
 
 // One block: a tile of kLane columns x a.rows rows of frame blockIdx.z.
@@ -147,7 +288,10 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
   off += align16(static_cast<size_t>(L) * 6 * 4);
   int* rule_s = reinterpret_cast<int*>(smem + off);
   int* touched_s = rule_s + L;   // set when a piece lands in the tile
-  off += align16(static_cast<size_t>(L + 1) * 4);
+  int* n_hits_s = touched_s + 1;
+  off += align16(static_cast<size_t>(L + 2) * 4);
+  int* hits_s = reinterpret_cast<int*>(smem + off);
+  off += align16(static_cast<size_t>(kSweepMaxHits) * 4);
   int* pint_s = nullptr;
   float* pflt_s = nullptr;
   if (kStyled) {
@@ -213,80 +357,40 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
   const float c1f = static_cast<float>(c1);
   const float r0f = static_cast<float>(r0);
   const float r1f = static_cast<float>(r1);
-  for (int l = 0; l < L; ++l) {
-    const int n = min(a.counts[l], a.ep);
-    const float* ts = a.tab_s + static_cast<long long>(l) * 4 * a.ep;
-    const float* te = kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep
-                             : nullptr;
-    const float* M = mat_s + l * 6;
-    long long* lplane = plane + static_cast<long long>(l) * R * kSweepRowStride;
-    for (int p = tid; p < n; p += nthr) {
-      float x0 = ts[p];
-      float y0 = ts[a.ep + p];
-      float x1 = ts[2 * a.ep + p];
-      float y1 = ts[3 * a.ep + p];
-      if (kMorph) {  // ratio lerp BEFORE the frame transform
-        x0 = omt * x0 + t * te[p];
-        y0 = omt * y0 + t * te[a.ep + p];
-        x1 = omt * x1 + t * te[2 * a.ep + p];
-        y1 = omt * y1 + t * te[3 * a.ep + p];
-      }
-      if (kAffine) {
-        const float tx0 = M[0] * x0 + M[2] * y0 + M[4];
-        const float ty0 = M[1] * x0 + M[3] * y0 + M[5];
-        const float tx1 = M[0] * x1 + M[2] * y1 + M[4];
-        const float ty1 = M[1] * x1 + M[3] * y1 + M[5];
-        x0 = tx0; y0 = ty0; x1 = tx1; y1 = ty1;
-      }
-      const float rowbase = floorf(fminf(y0, y1));
-      for (int k = 0; k < 2; ++k) {
-        const float py = rowbase + static_cast<float>(k);
-        if (!(py >= r0f && py < r1f)) continue;
-        const float sy0 = y0 - py;
-        const float sy1 = y1 - py;
-        const float cy0 = clamp01(sy0);
-        const float cy1 = clamp01(sy1);
-        const float dy = cy1 - cy0;
-        if (dy == 0.0f) continue;
-        const float dyd = sy1 - sy0;
-        const float safe = fabsf(dyd) < 1e-9f ? 1.0f : dyd;
-        const float t0 = (cy0 - sy0) / safe;
-        const float t1 = (cy1 - sy0) / safe;
-        const float dxs = x1 - x0;
-        const float xa = x0 + t0 * dxs;
-        const float xb = x0 + t1 * dxs;
-        const float xmn = fminf(xa, xb);
-        const float xmx = fmaxf(xa, xb);
-        const float lo = floorf(xmn);
-        const float hi = ceilf(xmx);
-        if (lo >= c1f) continue;    // the ramp starts right of the tile
-        const float span = xmx - xmn;
-        const bool thin = span < 1e-9f;
-        const float safe_span = thin ? 1.0f : span;
-        const int xs = static_cast<int>(fmaxf(lo, c0f));
-        const int xe = static_cast<int>(
-            fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
-        long long* row = lplane + (static_cast<int>(py) - r0) * kSweepRowStride;
-        *touched_s = 1;
-        long long prev = 0;
-        for (int x = xs; x <= xe; ++x) {
-          const float px = static_cast<float>(x);
-          float v = dy;
-          if (px < hi) {
-            const float rel_mn = xmn - px;
-            const float rel_mx = xmx - px;
-            const float mean = thin
-                ? clamp01(0.5f * (rel_mn + rel_mx))
-                : (h01(rel_mx) - h01(rel_mn)) / safe_span;
-            v = dy * (1.0f - mean);
-          }
-          const long long q = to_fixed(v);
-          atomicAdd(reinterpret_cast<unsigned long long*>(&row[x - c0]),
-                    static_cast<unsigned long long>(q - prev));
-          prev = q;
-        }
+  // A chunk's pieces can land in the tile's rows only when some row base
+  // lies in [r0 - 1, r1 - 1].  In rounds of kSweepMaxHits (layer, chunk)
+  // pairs: every thread tests pairs and lists the hits, then kSweepChunk
+  // threads take a listed chunk together.
+  const float* bounds =
+      a.bounds + static_cast<long long>(f) * L * a.n_chunks * 2;
+  const int n_pairs = L * a.n_chunks;
+  for (int base = 0; base < n_pairs; base += kSweepMaxHits) {
+    if (tid == 0) *n_hits_s = 0;
+    __syncthreads();
+    for (int pair = base + tid; pair < min(base + kSweepMaxHits, n_pairs);
+         pair += nthr) {
+      // (a chunk past its layer's count has the empty bounds +-3e38)
+      if (bounds[2 * pair + 1] >= r0f - 1.0f && bounds[2 * pair] < r1f) {
+        hits_s[atomicAdd(n_hits_s, 1)] = pair;
       }
     }
+    __syncthreads();
+    const int n_hits = *n_hits_s;
+    for (int h = tid / kSweepChunk; h < n_hits; h += nthr / kSweepChunk) {
+      const int l = hits_s[h] / a.n_chunks;
+      const int p = (hits_s[h] % a.n_chunks) * kSweepChunk
+          + tid % kSweepChunk;
+      if (p >= min(a.counts[l], a.ep)) continue;
+      float x0, y0, x1, y1;
+      device_piece<kMorph, kAffine>(
+          a.tab_s + static_cast<long long>(l) * 4 * a.ep,
+          kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep : nullptr,
+          a.ep, p, t, omt, mat_s + l * 6, x0, y0, x1, y1);
+      scatter_piece(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f,
+                    plane + static_cast<long long>(l) * R * kSweepRowStride,
+                    touched_s);
+    }
+    __syncthreads();   // the next round rewrites the list
   }
   __syncthreads();
 

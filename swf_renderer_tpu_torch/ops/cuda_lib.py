@@ -112,6 +112,6 @@ def load(name: str = "swfkernels"):
                 lib.swf_strips_per_block.argtypes = [i, i, i]
             else:
                 lib.swf_sweep.restype = i
-                lib.swf_sweep.argtypes = [i] + [p] * 14 + [i] * 8 + [p]
+                lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
             _libs[name] = lib
         return _libs[name]

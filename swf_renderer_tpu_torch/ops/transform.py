@@ -47,6 +47,7 @@ from .flatblock import (
 )
 
 _GRADIENT_KINDS = (KPAINT_LINEAR, KPAINT_FOCAL)
+SWEEP_CHUNK = 64    # pieces per row-bounds chunk (csrc kSweepChunk)
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +466,9 @@ def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
         tuple(rules), None if paints is None else tuple(paints), dev)
     counts_t = _device_counts(tuple(int(c) for c in counts), dev)
     out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
+    # Scratch of the pre-pass: row bounds of every 64-piece chunk.
+    bounds = torch.empty((frames, layers, -(-ep // SWEEP_CHUNK), 2),
+                         dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -472,7 +476,8 @@ def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
     err = cuda_lib.load("swfsweep").swf_sweep(
         mode, ptr(mats), ptr(tab_s), ptr(tab_e), ptr(ratios), ptr(colors),
         ptr(colors_e), ptr(counts_t), ptr(rules_t), ptr(pint_t), ptr(pflt_t),
-        ptr(grad_mats), ptr(stop_colors), ptr(fields), ptr(out), frames,
+        ptr(grad_mats), ptr(stop_colors), ptr(fields), ptr(bounds), ptr(out),
+        frames,
         layers, ep, height, width,
         int(mats is not None and mats.ndim == 3), int(colors.ndim == 3),
         0 if stop_colors is None else stop_colors.shape[2],
@@ -550,12 +555,13 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
     ``render_affine_sweep``; view with ops.morph.morph_frames_to_u8).
 
     Kernel: replaces ``_xform_kernel`` (swf_renderer_tpu/ops/
-    transform.py:586).  One CUDA block per (128-column x row-band tile,
-    frame) walks the layers' pieces, scatters ramp differences in 32.32
-    fixed point into shared memory and prefix-sums rows
-    (csrc/sweep_device.cuh).  Bound on the H100: bytes (the packed
-    output, plus field planes when a layer reads them).  On a card it
-    matches ``sweep_plain`` within 1 u8 level (chip_smoke.py).
+    transform.py:586).  A pre-pass writes the row bounds of every
+    64-piece chunk; then one CUDA block per (128-column x row-band tile,
+    frame) walks the chunks that reach its rows, scatters ramp
+    differences in 32.32 fixed point into shared memory, prefix-sums rows
+    and resolves (csrc/sweep_device.cuh).  Bound on the H100: bytes (the
+    packed output, plus field planes when a layer reads them).  On a card
+    it matches ``sweep_plain`` within 1 u8 level (chip_smoke.py).
 
     ``matrices``: (F, 6) or per-layer (F, L, 6) f32 device affines;
     ``tab``: (L, 4, 1, EP) f32 local pieces (affine_pieces); ``colors``:

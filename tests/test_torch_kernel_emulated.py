@@ -57,6 +57,9 @@ inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
 inline long long __double2ll_rn(double x) {
   return static_cast<long long>(std::nearbyint(x));
 }
@@ -112,6 +115,24 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
 
 template <bool kMorph, bool kAffine, bool kStyled>
 void run_sweep(const swf::SweepArgs& a) {
+  // The pre-pass first: row bounds of every piece chunk.
+  blockDim.x = swf::kSweepChunk;
+  for (int z = 0; z < a.frames; ++z)
+    for (int y = 0; y < a.layers; ++y)
+      for (int x = 0; x < a.n_chunks; ++x) {
+        std::vector<float> red(2 * swf::kSweepChunk, -7.0f);
+        std::barrier<> bar(swf::kSweepChunk);
+        std::vector<std::thread> threads;
+        for (int t = 0; t < swf::kSweepChunk; ++t) {
+          threads.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+            block_barrier = &bar;
+            swf::sweep_bounds_block<kMorph, kAffine>(a, red.data());
+          });
+        }
+        for (auto& th : threads) th.join();
+      }
   std::vector<unsigned char> smem(
       swf::sweep_smem_bytes(a.layers, a.rows, kStyled));
   blockDim.x = swf::kThreads;
@@ -139,8 +160,9 @@ extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
                              const int* counts, const int* rules,
                              const int* pint, const float* pflt,
                              const float* grad_mats, const float* stop_colors,
-                             const float* fields, int* out, int frames,
-                             int layers, int ep, int height, int width,
+                             const float* fields, float* bounds, int* out,
+                             int frames, int layers, int ep, int height,
+                             int width,
                              int mats_per_layer, int colors_per_frame,
                              int n_stop_slots) {
   swf::SweepArgs a{};
@@ -148,6 +170,8 @@ extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
   a.colors = colors; a.colors_e = colors_e; a.counts = counts;
   a.rules = rules; a.pint = pint; a.pflt = pflt; a.grad_mats = grad_mats;
   a.stop_colors = stop_colors; a.fields = fields; a.out = out;
+  a.bounds = bounds;
+  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
   a.width = width; a.mats_per_layer = mats_per_layer;
   a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
@@ -179,7 +203,7 @@ def emulator(tmp_path_factory):
     emu.emulate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
         ctypes.c_int] * 8
     emu.emulate_sweep.restype = ctypes.c_int
-    emu.emulate_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [
+    emu.emulate_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 8
     return emu
 
@@ -277,6 +301,8 @@ def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
     rules_a = np.asarray(rules, np.int32)
     counts_a = np.asarray(counts, np.int32)
     out = np.full((frames, height, width), -7, np.int32)
+    bounds = np.full((frames, layers, -(-ep // sweep.SWEEP_CHUNK), 2),
+                     np.nan, np.float32)
 
     def ptr(x):
         return None if x is None else x.ctypes.data
@@ -285,9 +311,11 @@ def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
     rows = emu.emulate_sweep(
         mode, ptr(mats_a), ptr(ts), ptr(te), ptr(rat), ptr(col), ptr(cole),
         ptr(counts_a), ptr(rules_a), ptr(pint), ptr(pflt), ptr(gm), ptr(sc),
-        ptr(fld), out.ctypes.data, frames, layers, ep, height, width,
+        ptr(fld), bounds.ctypes.data, out.ctypes.data, frames, layers, ep,
+        height, width,
         int(mats is not None and mats.ndim == 3), int(colors.ndim == 3),
         0 if sc is None else sc.shape[2])
+    assert not np.isnan(bounds).any()    # the pre-pass wrote every chunk
     return torch.from_numpy(out), rows
 
 
