@@ -950,8 +950,8 @@ def sweeps_entry_points(torch, np, report):
     ratios = np.linspace(0.0, 1.0, MORPH_RATIOS, dtype=np.float32)
     t0 = time.perf_counter()
     out = morph_frames_to_u8(render_morph_sweep(
-        _up(torch, np, ratios), _up(torch, np, tab_s), _up(torch, np, tab_e),
-        _up(torch, np, cs), _up(torch, np, ce), height, width), height, width)
+        ratios, tab_s, tab_e, cs, ce, height, width, device=DEVICE),
+        height, width)
     rwall = time.perf_counter() - t0
     if wrappers["morph"].launches != 1 or not out[..., 3].any():
         fail(f"render_morph_sweep launches {wrappers['morph'].launches}")

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .coverage import FILL_RULE_NONZERO, layer_rules, normalize_fill_rule
 from .flatblock import frames_u32_to_u8
 from .transform import (
@@ -55,7 +56,8 @@ def morph_pieces(pairs, e_multiple: int = 128):
 
 def render_morph_sweep(ratios, tab_s, tab_e, colors_s, colors_e,
                        height: int, width: int,
-                       fill_rule=FILL_RULE_NONZERO, x_shift=None):
+                       fill_rule=FILL_RULE_NONZERO, x_shift=None,
+                       device=None):
     """Rasterize a morph shape at every ratio fully on device -> (R, H, W)
     int32 packed RGBA (counterpart of the TPU ``render_morph_sweep``;
     view with ``morph_frames_to_u8``).
@@ -68,8 +70,17 @@ def render_morph_sweep(ratios, tab_s, tab_e, colors_s, colors_e,
     ``sweep_plain`` within 1 u8 level (chip_smoke.py).
 
     ``ratios``: (R,) f32 in [0, 1]; ``tab_s`` / ``tab_e``: (L, 4, 1, EP)
-    f32 (morph_pieces); ``colors_s`` / ``colors_e``: (L, 4) f32."""
+    f32 (morph_pieces); ``colors_s`` / ``colors_e``: (L, 4) f32.  Tensors
+    run where they lie; host arrays (morph_pieces' output as it is) go to
+    ``device`` — the card unless the caller passes ``"cpu"``."""
     _refuse_tilings(None, None, x_shift)
+    arrays = (ratios, tab_s, tab_e, colors_s, colors_e)
+    if device is not None or not all(torch.is_tensor(x) for x in arrays):
+        dev = resolve_device(device)
+        ratios, tab_s, tab_e, colors_s, colors_e = (
+            (x if torch.is_tensor(x) else torch.from_numpy(
+                np.ascontiguousarray(x, np.float32))).to(dev)
+            for x in arrays)
     frames = ratios.shape[0]
     layers, ep = tab_s.shape[0], tab_s.shape[-1]
     fill_rule = normalize_fill_rule(fill_rule, layers)

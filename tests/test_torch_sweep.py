@@ -526,3 +526,21 @@ def test_anim_scene_equals_the_benchmark_generator():
     assert got[2].dtype == np.float32 and np.array_equal(want[2], got[2])
     assert not np.array_equal(anim_scene(256, 320, 5, seed=10)[0][0],
                               got[0][0])
+
+
+def test_render_morph_sweep_places_host_arrays_on_the_asked_device(
+        monkeypatch):
+    """``render_morph_sweep`` is an entry point of its own: it takes
+    morph_pieces' arrays as they are, runs them on ``device``, and without
+    a device or a card it raises."""
+    pairs = _pairs(seed=8, layers=2)
+    ts, te, cs, ce = tmorph.morph_pieces(pairs)
+    got = tmorph.render_morph_sweep(RATIOS, ts, te, cs, ce, 40, 60,
+                                    device="cpu")
+    want = tmorph.render_morph_sweep(t(RATIOS), t(ts), t(te), t(cs), t(ce),
+                                     40, 60)
+    assert got.device.type == "cpu" and torch.equal(got, want)
+    assert got.any()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmorph.render_morph_sweep(RATIOS, ts, te, cs, ce, 40, 60)
