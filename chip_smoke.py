@@ -32,10 +32,27 @@ Phases, each of which exits non-zero on failure before the last line:
              1088x1920, solid and with a fading gradient layer), a
              morph-affine and a 16-ratio morph run at the same size, each
              timed (CUDA events, median of 5 after a warm-up) and held
-             against the plain version on every frame.
+             against the plain version on every frame;
+6. bitmaps — the texfield kernel against its plain version on random
+             cases (repeat / clamp / canvas, bilinear / nearest,
+             supersample 1/2/4, identity, rotated, skewed and far-zoomed
+             inverses; textures 17x23, 64x64 and 512x512): fields within
+             1e-6 and u8 bytes equal; ``grid_sample`` timed beside it as a
+             yardstick; through the entry points with the launch counters
+             read: ``render_batch`` of the rotating display list with a
+             bitmap layer (one texfield, one sweep launch),
+             ``render_shape_animation`` of a bitmap fill, ``render(stage)``
+             of a rotated, unsmoothed 512x512 bitmap (one texfield launch
+             into the styled kernel), and 30 interactive ``render()`` calls
+             (call 1 the normal path, calls 2-30 the F = 1 sweep: 30
+             texfield and 29 sweep launches; median wall of calls 3-30);
+             then bench.py's animtex scene at 512x512 and at 1088x1920 (60
+             frames; bake kernel, whole bake, sweep and download timed,
+             every frame held against the plain versions).
 
 The launch counters of the kernel wrappers are set to 0 right before the
-headline, the renderer and the sweep paths and read right after.  The script prints
+headline, the renderer, the sweep and the bitmap paths and read right
+after.  The script prints
 one JSON line describing each kernel (time, bound, plain version's time),
 then the card's name and power limit as nvidia-smi prints them, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -449,9 +466,9 @@ def _matrix(ast, tx, ty, scale=1.0):
 
 
 def build_stages(np, n_frames=3):
-    """Stages of a 1920x1088 scene: solid polygons that move from frame to
-    frame, a linear and a focal gradient and an axis-aligned bitmap
-    fill."""
+    """Stages of a 1920x1088 scene: a solid star that moves (and is a new
+    definition) from frame to frame, a linear and a focal gradient and an
+    axis-aligned bitmap fill."""
     from swf_renderer_tpu_torch.models import ast, display
     from swf_renderer_tpu_torch.runtime.bitmap_service import (
         encode_x_swf_bmp2_argb,
@@ -480,10 +497,12 @@ def build_stages(np, n_frames=3):
              int(4000 * np.sin(a) * (1.0 if i % 2 else 0.45)))
             for i, a in enumerate(np.linspace(0, 2 * np.pi, 10,
                                               endpoint=False))]
-    solid = _shape_tag(ast, 4, ast.SolidFill(
-        ast.StraightSRgba8(40, 90, 200, 230)), star)
     stages = []
     for f in range(n_frames):
+        # A new star definition in every frame: the frames differ in
+        # geometry, so the batch takes the fused route, not the sweep.
+        solid = _shape_tag(ast, 4 + f, ast.SolidFill(
+            ast.StraightSRgba8(40, 90, 200, 230)), star)
         stages.append(display.Stage(
             width=1920, height=1088,
             children=[
@@ -815,10 +834,12 @@ def _rotation(ast, th, width, height):
         translate_y=int(round(cy - b * cx - a * cy)))
 
 
-def rotating_stages(np, frames):
+def rotating_stages(np, frames, bitmap=None, phase=0.0):
     """The animation scene as a display list: one DefineShape per layer
     (its 12 blobs, in twips), every instance under the frame's rotation
-    about the centre."""
+    about the centre, starting at ``phase``.  With ``bitmap`` (a
+    DefineBitmap), layer 1 is filled with it, repeating and smoothed, one
+    texel to 20 px (animtex's fill at this width)."""
     from swf_renderer_tpu_torch.models import ast, display
     from swf_renderer_tpu_torch.utils.scenes import anim_scene
 
@@ -829,12 +850,17 @@ def rotating_stages(np, frames):
         pts = np.rint(table[:, :2] * 20).astype(int).reshape(12, 10, 2)
         polygons = [[(int(x), int(y)) for x, y in blob] for blob in pts]
         rgba = [int(round(float(c) * 255)) for c in color]
-        tags.append(_polygons_tag(ast, 30 + lyr, ast.SolidFill(
-            ast.StraightSRgba8(*rgba)), polygons))
+        fill = ast.SolidFill(ast.StraightSRgba8(*rgba))
+        if bitmap is not None and lyr == 1:
+            fill = ast.BitmapFill(bitmap_id=bitmap.id,
+                                  matrix=_matrix(ast, 0, 0, 400.0),
+                                  repeating=True, smoothed=True)
+        tags.append(_polygons_tag(ast, 30 + lyr, fill, polygons))
     return [display.Stage(width=width, height=height, children=[
         display.ShapeInstance(
             definition=tag,
-            matrix=_rotation(ast, 2 * np.pi * i / frames, width, height))
+            matrix=_rotation(ast, phase + 2 * np.pi * i / frames, width,
+                             height))
         for tag in tags]) for i in range(frames)]
 
 
@@ -1140,6 +1166,454 @@ def phase_sweeps(torch, np, report):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: bitmaps (the texfield kernel)
+# ---------------------------------------------------------------------------
+
+ANIMTEX = (512, 512, 60)      # bench.py bench_animtex: height, width, frames
+TEX_TOL = 1e-6                # field max abs difference, kernel vs plain
+TEX_EDGES = {"repeat": (True, "flash"), "clamp": (False, "flash"),
+             "canvas": (False, "canvas")}
+
+
+def texfield_work(frames, height, width, texels, n, smoothed):
+    """(bytes, f32 operations) of one texfield call: the u8 texture and
+    the inverses read once, the f32 planes written once; per subsample the
+    coordinate (10), the bilinear setup and blend (46) or nothing for
+    nearest, the accumulate (4); per pixel the divisions of the average
+    and the un-premultiply (9).  Address arithmetic is not counted."""
+    nbytes = texels * 4 + frames * 24 + frames * height * width * 16
+    per_sub = 10 + (46 if smoothed else 0) + 4
+    return nbytes, frames * height * width * (n * n * per_sub + 9)
+
+
+def _fields_u8(torch, f):
+    return torch.round(torch.clamp(f, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _check_fields(torch, what, got, want):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max().item())
+    same_u8 = torch.equal(_fields_u8(torch, got), _fields_u8(torch, want))
+    log(f"bitmaps: {what}: field max abs diff {err:.3g}, u8 "
+        f"{'byte-equal' if same_u8 else 'DIFFERENT'}")
+    if err > TEX_TOL or not same_u8:
+        fail(f"texfield kernel vs plain ({what}): {err}")
+    return err
+
+
+def _tex_invs(np, rng, th, tw):
+    """Identity, rotated, skewed and extreme-zoom device->texel inverses,
+    offsets that carry samples across the texture's edges, and one far
+    beyond 2^24 texels (the float remainder of the repeat wrap)."""
+    rot = rng.uniform(0, 2 * np.pi)
+    s = rng.uniform(0.05, 0.4)
+    return np.asarray([
+        (1.0, 0.0, 0.0, 1.0, -0.5 * tw, -0.25 * th),
+        (s * np.cos(rot), s * np.sin(rot), -s * np.sin(rot), s * np.cos(rot),
+         rng.uniform(-tw, tw), rng.uniform(-th, th)),
+        (0.3, 0.17, -0.11, 0.26, rng.uniform(-tw, 0), rng.uniform(-th, 0)),
+        (7.5, 1.25, -0.75, 6.0, -3 * tw, 2 * th),
+        (0.004, 0.001, -0.0007, 0.005, 0.5 * tw, 0.5 * th),
+        (2.5, 0.3, -0.4, 2.0, -3.1e7, 2.7e7),   # beyond 2^24 texels
+    ], np.float32)
+
+
+def texfield_random(torch, np):
+    """The kernel against its plain version: every fetch mode, smoothed
+    and nearest, supersample 1/2/4, textures 17x23, 64x64 and 512x512, on
+    a ragged frame."""
+    from swf_renderer_tpu_torch.ops.texfield import (
+        bitmap_field_planes, texfield_plain,
+    )
+
+    rng = np.random.default_rng(29)
+    height, width = 75, 133
+    worst = 0.0
+    for shape in ((17, 23), (64, 64), (512, 512)):
+        img = rng.integers(0, 256, (*shape, 4)).astype(np.uint8)
+        img[:3, :5, 3] = 0
+        d_img = torch.from_numpy(img).to(DEVICE)
+        for edge, (repeating, edge_mode) in TEX_EDGES.items():
+            for smoothed in (True, False):
+                for n in (1, 2, 4):
+                    invs = _up(torch, np, _tex_invs(np, rng, *shape))
+                    got = bitmap_field_planes(
+                        d_img, invs, height, width, n, repeating, smoothed,
+                        edge_mode, device=DEVICE)
+                    want = texfield_plain(d_img, invs, height, width, n,
+                                          repeating, smoothed, edge_mode)
+                    worst = max(worst, _check_fields(
+                        torch, f"{shape[0]}x{shape[1]} {edge} "
+                        f"{'bilinear' if smoothed else 'nearest'} n={n}",
+                        got, want))
+    return worst
+
+
+def library_yardstick(torch, np, report):
+    """grid_sample (bilinear, border padding) computes the texfield of a
+    supersample-1 clamped fill up to the final un-premultiply; timed
+    beside the kernel on the same inverse at 1088x1920 (not used by the
+    port)."""
+    from swf_renderer_tpu_torch.ops.texfield import (
+        bitmap_field_planes, premultiplied_texels,
+    )
+
+    height, width = SWEEP_SIZE
+    rng = np.random.default_rng(31)
+    img = torch.from_numpy(rng.integers(0, 256, (512, 512, 4)).astype(
+        np.uint8)).to(DEVICE)
+    inv = np.asarray([(0.21, 0.08, -0.08, 0.21, 40.0, -30.0)], np.float32)
+    d_inv = _up(torch, np, inv)
+    py, px = torch.meshgrid(
+        torch.arange(height, device=DEVICE, dtype=torch.float32) + 0.5,
+        torch.arange(width, device=DEVICE, dtype=torch.float32) + 0.5,
+        indexing="ij")
+    a, b, c, d, e, f = (float(v) for v in inv[0])
+    sx, sy = a * px + c * py + e, b * px + d * py + f
+    grid = torch.stack([2.0 * sx / 512 - 1.0, 2.0 * sy / 512 - 1.0],
+                       -1)[None]
+    tex = premultiplied_texels(img).permute(2, 0, 1)[None].contiguous()
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            tex, grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+
+    def kernel():
+        return bitmap_field_planes(img, d_inv, height, width, 1, False, True,
+                                   "flash", device=DEVICE)
+
+    lib_ms = time_cuda(torch, library)
+    ms = time_cuda(torch, kernel)
+    log(f"bitmaps: yardstick {height}x{width} supersample-1 clamp: kernel "
+        f"{ms:.3f} ms, grid_sample {lib_ms:.3f} ms")
+    report["texfield_yardstick"] = {"kernel_ms": ms, "grid_sample_ms": lib_ms}
+
+
+def animtex_run(torch, np, what, height, width, frames, report):
+    """bench.py's animtex function at one size: layer 1 of the animation
+    scene as a repeating, smoothed 64x64 texture; sweep_paints ->
+    bake_sweep_fields (frame 0 axis-aligned: a mixed track) ->
+    render_affine_sweep.  Bake kernel, whole bake, sweep and download
+    timed; every frame held against the plain versions."""
+    from swf_renderer_tpu_torch.ops import style as style_ops
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.morph import morph_frames_to_u8
+    from swf_renderer_tpu_torch.ops.texfield import (
+        bitmap_field_planes, texfield_plain,
+    )
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene
+
+    tables, colors, mats = anim_scene(height, width, frames)
+    img = np.random.default_rng(11).integers(0, 256, (64, 64, 4)).astype(
+        np.uint8)
+    paints = [style_ops.solid_paint(tuple(c)) for c in colors]
+    paints[1] = style_ops.Paint(
+        kind=style_ops.PAINT_BITMAP,
+        inv_matrix=(96.0 / width, 0.0, 0.0, 96.0 / width, 0.0, 0.0),
+        image=img, repeating=True, smoothed=True, supersample=2)
+    kpaints, grad_mats, specs = sweep.sweep_paints(paints, mats,
+                                                   allow_fields=True)
+    tab, colarr = sweep.affine_pieces(tables, colors, mats)
+    counts = sweep.layer_piece_counts(tab)
+    sep = style_ops.separable_frames_mask(paints[1], specs[0].invs)
+    if not sep[0] or sep[1:].any():
+        fail(f"{what}: expected frame 0 alone axis-aligned, got {sep}")
+    rest = _up(torch, np, specs[0].invs[~sep])
+    d_img = torch.from_numpy(img).to(DEVICE)
+    d_mats, d_tab, d_col = (_up(torch, np, x) for x in (mats, tab, colarr))
+    rules = (0,) * len(tables)
+
+    def bake_kernel():
+        return bitmap_field_planes(d_img, rest, height, width, 2, True, True,
+                                   "flash", device=DEVICE)
+
+    def bake():
+        return sweep.bake_sweep_fields(specs, height, width, device=DEVICE)
+
+    ms = time_cuda(torch, bake_kernel)
+    bake_ms = time_cuda(torch, bake)
+    fields = bake()
+    sampled = bake_kernel()
+    held = {}
+
+    def plain_once():
+        held["want"] = texfield_plain(d_img, rest, height, width, 2, True,
+                                      True, "flash")
+
+    plain_ms = time_cuda(torch, plain_once, reps=1, warmup=0)
+    err = _check_fields(torch, f"{what} bake, {rest.shape[0]} frames",
+                        sampled, held["want"])
+    fields_plain = fields.clone()
+    fields_plain[0, 1:] = held.pop("want")
+    if not torch.equal(fields[0, 1:], sampled):
+        fail(f"{what}: the bake's kernel frames differ from a direct call")
+
+    def run_sweep():
+        return sweep.render_affine_sweep(
+            d_mats, d_tab, d_col, height, width, layer_counts=counts,
+            paints=kpaints, fields=fields)
+
+    sweep_ms = time_cuda(torch, run_sweep)
+    out = run_sweep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = morph_frames_to_u8(out, height, width)
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    want = sweep.sweep_plain(d_mats, d_tab, None, None, d_col, None, height,
+                             width, rules, counts, paints=kpaints,
+                             fields=fields_plain)
+    dmax = _check(torch, f"{what}: all {frames} frames through the sweep",
+                  out, want)
+    covered = float((host[..., 3] > 0).mean())
+    del fields_plain, want, out
+    nbytes, ops = texfield_work(int(rest.shape[0]), height, width, 64 * 64,
+                                2, True)
+    bound_ms, bound_by = bound(nbytes, ops)
+    pixels = frames * height * width
+    log(f"bitmaps: {what}: bake kernel {ms:.3f} ms ({rest.shape[0]} frames, "
+        f"bound {bound_ms:.4f} ms {bound_by}: {nbytes / 1e9:.3f} GB, "
+        f"{ops / 1e9:.2f} Gop; plain {plain_ms:.1f} ms), whole bake "
+        f"{bake_ms:.3f} ms, sweep {sweep_ms:.3f} ms, D2H {d2h_ms:.1f} ms, "
+        f"{pixels / (bake_ms + sweep_ms) / 1e6:.3f} Gpx/s bake + sweep, "
+        f"covered share {covered:.3f}")
+    report[what] = {
+        "frames": frames, "height": height, "width": width,
+        "kernel_frames": int(rest.shape[0]), "kernel_ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": nbytes, "ops": ops, "bake_ms": bake_ms,
+        "sweep_ms": sweep_ms, "d2h_ms": d2h_ms, "max_abs_err": err,
+        "sweep_max_diff": dmax, "library_ms": None,
+        "library": "none: no single call wraps or supersamples"}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _texture_tag(np, shape_id=50):
+    from swf_renderer_tpu_torch.models import ast
+    from swf_renderer_tpu_torch.runtime.bitmap_service import (
+        encode_x_swf_bmp2_argb,
+    )
+
+    img = np.random.default_rng(12).integers(0, 256, (512, 512, 4)).astype(
+        np.uint8)
+    img[..., 3] = np.maximum(img[..., 3], 1)
+    return ast.DefineBitmap(id=shape_id, width=512, height=512,
+                            media_type="image/x-swf-bmp2",
+                            data=encode_x_swf_bmp2_argb(img))
+
+
+def bitmaps_entry_points(torch, np, report):
+    """The slice's routes through the user entry points, each with the
+    launch counters set to 0 before and read after."""
+    from swf_renderer_tpu_torch.models import ast, display
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_styled
+    from swf_renderer_tpu_torch.ops.texfield import (
+        bitmap_field_planes, texfield_plain,
+    )
+    from swf_renderer_tpu_torch.runtime.bitmap_service import (
+        encode_x_swf_bmp2_argb,
+    )
+    from swf_renderer_tpu_torch.runtime.renderer import (
+        TorchRenderer, render_shape_animation,
+    )
+    from swf_renderer_tpu_torch.utils.fixed import Sfixed16P16
+
+    height, width = SWEEP_SIZE
+    counters = {"texfield": bitmap_field_planes,
+                "affine": sweep.render_affine_sweep,
+                "styled": render_fused_styled}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {k: c.launches for k, c in counters.items()}
+
+    small = ast.DefineBitmap(
+        id=11, width=64, height=64, media_type="image/x-swf-bmp2",
+        data=encode_x_swf_bmp2_argb(np.random.default_rng(11).integers(
+            0, 256, (64, 64, 4)).astype(np.uint8)))
+    total = 0
+
+    # (a) render_batch of the 60-stage rotating display list, bitmap layer.
+    stages = rotating_stages(np, SWEEP_FRAMES, bitmap=small)
+    renderer = TorchRenderer(width, height, device=DEVICE)
+    renderer.add_bitmap(small)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = renderer.render_batch(stages)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    got = read()
+    total += got["texfield"]
+    if (renderer.last_stats.path != "transform-sweep"
+            or got["texfield"] != 1 or got["affine"] != 1):
+        fail(f"render_batch with a bitmap layer: path "
+             f"{renderer.last_stats.path!r}, launches {got}")
+    if frames.shape != (SWEEP_FRAMES, height, width, 4) or not (
+            0.01 < float((frames[..., 3] > 0).mean()) < 1.0):
+        fail(f"render_batch with a bitmap layer: frames {frames.shape}")
+    log(f"bitmaps: render_batch x{SWEEP_FRAMES} with a bitmap layer: wall "
+        f"{batch_ms:.1f} ms, path transform-sweep, launches {got}")
+
+    # (b) render_shape_animation of the bitmap-filled layer alone.
+    mats = [st.children[1].matrix for st in stages[:8]]
+    reset()
+    anim = render_shape_animation(stages[0].children[1].definition, mats,
+                                  width, height, bitmaps=[small],
+                                  device=DEVICE)
+    got = read()
+    total += got["texfield"]
+    if got["texfield"] != 1 or got["affine"] != 1 or not anim[..., 3].any():
+        fail(f"render_shape_animation of a bitmap fill: launches {got}")
+    log(f"bitmaps: render_shape_animation x8 of a bitmap fill: launches "
+        f"{got}")
+
+    # (c) render(stage): a rotated, unsmoothed, clipped 512x512 bitmap.
+    big = _texture_tag(np)
+    rot = Sfixed16P16.from_value
+    fill = ast.BitmapFill(
+        bitmap_id=big.id, matrix=ast.Matrix(
+            scale_x=rot(50.0), scale_y=rot(50.0), rotate_skew0=rot(27.0),
+            rotate_skew1=rot(-27.0), translate_x=9000, translate_y=-2000),
+        repeating=False, smoothed=False)
+    still_tag = _shape_tag(ast, 51, fill, [(1000, 1000), (37000, 2000),
+                                           (36000, 20000), (2000, 21000)])
+    still = display.Stage(width=width, height=height, children=[
+        display.ShapeInstance(definition=still_tag)])
+    one = TorchRenderer(width, height, device=DEVICE)
+    one.add_bitmap(big)
+    reset()
+    t0 = time.perf_counter()
+    frame = one.render(still)
+    still_ms = (time.perf_counter() - t0) * 1e3
+    got = read()
+    total += got["texfield"]
+    if (got["texfield"] != 1 or got["styled"] != 1
+            or one.last_stats.path != "flatblock"):
+        fail(f"render(stage) of a rotated bitmap: launches {got}, path "
+             f"{one.last_stats.path!r}")
+    if not 0.05 < float((frame[..., 3] > 0).mean()) < 1.0:
+        fail("render(stage) of a rotated bitmap drew nothing")
+    paint = one._compiler().compile_stage(still)[0].paint
+    inv = _up(torch, np, np.asarray([paint.inv_matrix], np.float32))
+    d_big = torch.from_numpy(np.asarray(paint.image)).to(DEVICE)
+
+    def still_kernel():
+        return bitmap_field_planes(d_big, inv, height, width,
+                                   paint.supersample, False, False, "canvas",
+                                   device=DEVICE)
+
+    still_k = time_cuda(torch, still_kernel)
+    held = {}
+
+    def still_plain():
+        held["want"] = texfield_plain(d_big, inv, height, width,
+                                      paint.supersample, False, False,
+                                      "canvas")
+
+    still_plain_ms = time_cuda(torch, still_plain, reps=3)
+    still_err = _check_fields(torch, "still 512x512 nearest canvas",
+                              still_kernel(), held.pop("want"))
+    nbytes, ops = texfield_work(1, height, width, 512 * 512,
+                                paint.supersample, False)
+    still_bound, still_by = bound(nbytes, ops)
+    log(f"bitmaps: render(stage) rotated nearest 512x512: wall "
+        f"{still_ms:.1f} ms, launches {got}; texfield kernel {still_k:.3f} "
+        f"ms, plain {still_plain_ms:.3f} ms, bound {still_bound:.4f} ms "
+        f"({still_by})")
+
+    # (d) 30 interactive render() calls, rotation off the axes throughout.
+    loop = rotating_stages(np, 30, bitmap=small, phase=0.3)
+    live = TorchRenderer(width, height, device=DEVICE)
+    live.add_bitmap(small)
+    reset()
+    walls, paths = [], []
+    for st in loop:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = live.render(st)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        paths.append(live.last_stats.path)
+        if len(paths) == 10:
+            probe, probe_stage = out.copy(), st
+            probe_state = live._frame_sweep_state[1]
+    got = read()
+    total += got["texfield"]
+    want_paths = ["flatblock"] + ["transform-sweep-1f"] * 29
+    if paths != want_paths or got != {"texfield": 30, "affine": 29,
+                                      "styled": 1}:
+        fail(f"interactive loop: paths {sorted(set(paths))}, launches {got}")
+    per_frame = statistics.median(walls[2:])
+    log(f"bitmaps: interactive render() x30: first {walls[0]:.1f} ms "
+        f"(normal path), median of calls 3-30 {per_frame:.2f} ms "
+        f"(transform-sweep-1f; min {min(walls[2:]):.2f}, max "
+        f"{max(walls[2:]):.2f}), launches {got}")
+    _interactive_plain_check(torch, np, live, probe_state, probe_stage,
+                             probe)
+    report["bitmaps_entry"] = {
+        "render_batch_ms": batch_ms, "still_render_ms": still_ms,
+        "still_kernel_ms": still_k, "still_plain_ms": still_plain_ms,
+        "still_bound_ms": still_bound, "still_bound_by": still_by,
+        "still_max_abs_err": still_err, "interactive_first_ms": walls[0],
+        "interactive_median_ms": per_frame, "interactive_walls_ms": walls}
+    return total, still_err
+
+
+def _interactive_plain_check(torch, np, renderer, state, stage, frame):
+    """One F = 1 sweep frame against the plain versions on the card: the
+    texfield plane through texfield_plain, the sweep through
+    sweep_plain, on the renderer's cached pieces."""
+    from swf_renderer_tpu_torch.ops import style as style_ops
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.morph import morph_frames_to_u8
+    from swf_renderer_tpu_torch.ops.texfield import texfield_plain
+
+    leaves = renderer._stage_leaves(stage)
+    mats = renderer._frame_sweep_mats(leaves, state["child_counts"])
+    draws = state["draws"]
+    kpaints, _gm, specs = sweep.sweep_paints([d.paint for d in draws], mats,
+                                             allow_fields=True)
+    colors = np.zeros((1, len(draws), 4), np.float32)
+    for li, d in enumerate(draws):
+        if d.paint.kind == style_ops.PAINT_SOLID:
+            colors[0, li] = d.paint.color
+    fields = torch.stack([texfield_plain(
+        torch.from_numpy(np.asarray(s.paint.image)).to(DEVICE),
+        _up(torch, np, s.invs), *SWEEP_SIZE, s.paint.supersample,
+        s.paint.repeating, s.paint.smoothed, s.paint.edge_mode)
+        for s in specs])
+    want = sweep.sweep_plain(
+        _up(torch, np, mats), state["tab"], None, None,
+        _up(torch, np, colors), None, *SWEEP_SIZE,
+        sweep.layer_rules(state["rule"], len(draws)), state["layer_counts"],
+        paints=kpaints, fields=fields)
+    want = morph_frames_to_u8(want, *SWEEP_SIZE)[0]
+    diff = int(np.abs(want.astype(np.int32) - frame.astype(np.int32)).max())
+    log(f"bitmaps: interactive call 10 vs plain versions: max diff {diff}")
+    if diff > TOL_LEVELS:
+        fail(f"interactive frame vs plain versions: {diff} levels")
+
+
+def phase_bitmaps(torch, np, report):
+    worst = texfield_random(torch, np)
+    library_yardstick(torch, np, report)
+    launches, still_err = bitmaps_entry_points(torch, np, report)
+    small = animtex_run(torch, np, "animtex", *ANIMTEX, report)
+    k = animtex_run(torch, np, "animtex1080", *SWEEP_SIZE, SWEEP_FRAMES,
+                    report)
+    k.update(name="texfield", launches=launches,
+             max_abs_err=max(worst, still_err, small["max_abs_err"],
+                             k["max_abs_err"]))
+    if k["launches"] < 1:
+        fail("texfield: no launch on the main path")
+    return {"texfield": k}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1163,6 +1637,7 @@ def main() -> None:
     for key, k in kernels.items():
         k["max_abs_err"] = max(k["max_abs_err"], worst[key])
     kernels.update(phase_sweeps(torch, np, report))
+    kernels.update(phase_bitmaps(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
@@ -1172,6 +1647,8 @@ def main() -> None:
         "affine": (sweep_cu, "swf_renderer_tpu/ops/transform.py:586"),
         "morph_affine": (sweep_cu, "swf_renderer_tpu/ops/transform.py:1875"),
         "morph": (sweep_cu, "swf_renderer_tpu/ops/morph.py:98"),
+        "texfield": ("swf_renderer_tpu_torch/csrc/texfield.cu",
+                     "swf_renderer_tpu/ops/texfield.py:186"),
     }
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],

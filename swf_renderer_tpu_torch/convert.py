@@ -17,6 +17,7 @@ import torch
 from .ops import flatblock as fb
 from .ops import style as style_ops
 from .runtime.scene import Draw
+from .utils.device import resolve_device
 
 
 def _get(obj, name, default=None):
@@ -69,9 +70,10 @@ def packed_to_device(gsi, gfl, gla, grc, gcm, gvv, ns, nc, device):
     }
 
 
-def sweep_table_to_device(tab, sub=None, device="cpu") -> torch.Tensor:
+def sweep_table_to_device(tab, sub=None, device=None) -> torch.Tensor:
     """A sweep piece table of the reference, (L, 4, 1, EP) numpy, -> the
-    port's piece tensor of the same shape on ``device``.
+    port's piece tensor of the same shape on ``device`` (the card unless
+    the caller asks for the CPU).
 
     The reference carries a second, sublane-layout copy of the same
     coordinates for its row one-hot (``subxy`` (L, 4, EP, 1) from
@@ -87,7 +89,7 @@ def sweep_table_to_device(tab, sub=None, device="cpu") -> torch.Tensor:
         channels = (0, 1, 2, 3) if sub.shape[1] == 4 else (1, 3)
         if not np.array_equal(sub[..., 0], tab[:, channels, 0, :]):
             raise ValueError("sublane copy disagrees with the piece table")
-    return torch.from_numpy(tab).to(device)
+    return torch.from_numpy(tab).to(resolve_device(device))
 
 
 def kernel_paints_from_numpy(paints):

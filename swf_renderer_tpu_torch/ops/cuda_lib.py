@@ -24,6 +24,8 @@ BUILD_DIR = _PKG_DIR / "_build"
 LIBRARIES = {
     "swfkernels": ("flatblock.cu", ("flatblock_device.cuh",)),
     "swfsweep": ("sweep.cu", ("sweep_device.cuh", "flatblock_device.cuh")),
+    "swftexfield": ("texfield.cu", ("texfield_device.cuh",
+                                    "flatblock_device.cuh")),
 }
 # -fmad=false: no a*b+c contracts into an FMA the reference does not do;
 # IEEE division and square root stay on (no --use_fast_math).
@@ -110,8 +112,11 @@ def load(name: str = "swfkernels"):
                                                     + [p])
                 lib.swf_strips_per_block.restype = i
                 lib.swf_strips_per_block.argtypes = [i, i, i]
-            else:
+            elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
+            else:
+                lib.swf_texfield.restype = i
+                lib.swf_texfield.argtypes = [p] * 4 + [i] * 9 + [p]
             _libs[name] = lib
         return _libs[name]

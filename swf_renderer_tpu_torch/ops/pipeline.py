@@ -145,16 +145,18 @@ def split_layer_groups(paints, max_layers: int = MAX_KERNEL_LAYERS,
 
 
 def kernel_paints_for(paints, height: int, width: int, spp: int = 1,
-                      device="cpu"):
+                      device=None):
     """Map per-layer style Paints -> (KernelPaint tuple, field planes,
     (L, 4) colors) for render_fused_styled.
 
     Solid paints read per-(frame, layer) colors; bitmap paints evaluate
     their field once and stream chunk-major planes.  Gradients ALSO
     stream as prebaked fields while the pass's field budget allows; past
-    it they evaluate in the kernel from their stop tables."""
+    it they evaluate in the kernel from their stop tables.  Field planes
+    land on ``device``: the card unless the caller asks for the CPU."""
     from . import style as style_ops
 
+    device = resolve_device(device)
     _, n_chunks, n_strips = plane_geometry(height, width)
     if spp > 1:
         n_strips = -(-n_strips // spp)  # strip-block count

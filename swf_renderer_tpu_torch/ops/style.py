@@ -1,17 +1,17 @@
 """Fill-style (paint) evaluation: per-pixel straight-alpha RGBA fields.
 
-Port of ``swf_renderer_tpu/ops/style.py`` for the fused flat-block path:
-solid colors, linear and focal gradients (sRGB and linear-RGB
-interpolation, pad/reflect/repeat spreads) and AXIS-ALIGNED smoothed
-bitmap patterns (the separable resampling route).  Fields are plain
-PyTorch tensor code on the caller's device.  A bitmap under a rotating or
-skewing fill matrix needs the texfield kernel, which this port does not
-have yet (ROADMAP.md queue B, row 8), and raises.
+Port of ``swf_renderer_tpu/ops/style.py``: solid colors, linear and
+focal gradients (sRGB and linear-RGB interpolation, pad/reflect/repeat
+spreads) and bitmap patterns.  Gradient fields are plain PyTorch tensor
+code on the caller's device.  A smoothed bitmap under an axis-aligned
+matrix takes the separable resampling route (two contractions); any
+other bitmap fill — rotated, skewed or unsmoothed — samples through the
+texfield kernel (``ops/texfield.py``).
 
 The separable bitmap route contracts with ``torch.einsum`` in float32.
-The reference contracts at ``Precision.HIGHEST``, so ``paint_field``
-switches TF32 matrix products off (``torch.backends.cuda.matmul.
-allow_tf32 = False``) before it multiplies.
+The reference contracts at ``Precision.HIGHEST``, so it switches TF32
+matrix products off (``torch.backends.cuda.matmul.allow_tf32 = False``)
+before it multiplies.
 """
 
 from __future__ import annotations
@@ -22,7 +22,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.numerics import floor_mod, true_div
+from .texfield import (
+    bitmap_field_planes, premultiplied_texels, texfield_plain, unpremultiply,
+)
 
 GRAD_RADIUS = 16384.0
 
@@ -171,20 +175,25 @@ def _gradient_rgba(paint: Paint, t, device, stop_colors=None) -> torch.Tensor:
 
 def paint_field_traced(paint: Paint, invs, height: int, width: int,
                        stop_colors=None) -> torch.Tensor:
-    """``paint_field`` of a gradient under PER-FRAME device->paint
-    matrices: ``invs`` (F, 6) f32 tensor -> (F, H, W, 4) straight RGBA on
-    its device.  The batched twin used by the transform sweep's field
-    baking (ops.transform.bake_sweep_fields); ``stop_colors``: optional
-    (F, K, 4) per-frame stop colours (color-transform fades).  Every step
-    is the same f32 operation ``paint_field`` performs for one matrix."""
+    """``paint_field`` under PER-FRAME device->paint matrices: ``invs``
+    (F, 6) f32 tensor -> (F, H, W, 4) straight RGBA on its device.  The
+    batched twin used by the transform sweep's field baking
+    (ops.transform.bake_sweep_fields); ``stop_colors``: optional (F, K, 4)
+    per-frame stop colours (color-transform fades).  Every step is the
+    same f32 operation ``paint_field`` performs for one matrix.  Bitmaps
+    take the supersampled gather at every matrix: the texfield kernel's
+    plain version."""
     device = invs.device
     if paint.kind == PAINT_SOLID:
         color = torch.tensor(paint.color, dtype=torch.float32, device=device)
         return color.expand(invs.shape[0], height, width, 4)
+    if paint.kind == PAINT_BITMAP:
+        return texfield_plain(
+            torch.as_tensor(np.asarray(paint.image), device=device), invs,
+            height, width, max(1, int(paint.supersample)), paint.repeating,
+            paint.smoothed, paint.edge_mode)
     if paint.kind not in (PAINT_LINEAR, PAINT_FOCAL):
-        raise NotImplementedError(
-            "per-frame bitmap fields need the texfield kernel: ROADMAP.md "
-            "A4 (texfield bitmaps) / B8 (texfield.py _texfield_kernel)")
+        raise ValueError(f"unknown paint kind {paint.kind}")
     a, b, c, d, e, f = (invs[:, k, None, None] for k in range(6))
     py = torch.arange(height, dtype=torch.float32,
                       device=device)[None, :, None] + 0.5
@@ -201,51 +210,78 @@ def paint_field_traced(paint: Paint, invs, height: int, width: int,
 
 
 def paint_field(paint: Paint, height: int, width: int,
-                device="cpu") -> torch.Tensor:
-    """Evaluate a paint to an (H, W, 4) straight-alpha RGBA f32 field."""
-    device = torch.device(device)
+                device=None) -> torch.Tensor:
+    """Evaluate a paint to an (H, W, 4) straight-alpha RGBA f32 field on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     if paint.kind == PAINT_SOLID:
         color = torch.tensor(paint.color, dtype=torch.float32, device=device)
         return color.expand(height, width, 4)
 
+    inv = np.asarray([paint.inv_matrix], np.float32)
     if paint.kind in (PAINT_LINEAR, PAINT_FOCAL):
-        inv = torch.as_tensor(np.asarray(paint.inv_matrix, np.float32),
-                              device=device)
-        return paint_field_traced(paint, inv[None], height, width)[0]
+        return paint_field_traced(paint, torch.as_tensor(inv, device=device),
+                                  height, width)[0]
 
     if paint.kind == PAINT_BITMAP:
         a, b, c, d, e, f = paint.inv_matrix
-        if not (b == 0.0 and c == 0.0 and paint.smoothed):
-            raise NotImplementedError(
-                "bitmap fills under a rotating or skewing matrix (or "
-                "unsmoothed) need the texfield kernel: ROADMAP.md queue B "
-                "row 8 (texfield.py _texfield_kernel)")
-        img = torch.as_tensor(np.asarray(paint.image), device=device)
-        img = true_div(img.to(torch.float32), 255.0)
-        # Filter PREMULTIPLIED, un-premultiply at the end (paint_field's
-        # contract is straight RGBA).
-        img = torch.cat([img[..., :3] * img[..., 3:4], img[..., 3:4]], -1)
-        # Separable supersampled/box resampling: one weight matrix per
-        # axis, two float32 contractions (TF32 off: the reference
-        # contracts at Precision.HIGHEST).
-        wx = torch.as_tensor(_separable_axis_weights(
-            paint, width, img.shape[1], a, e), device=device)
-        wy = torch.as_tensor(_separable_axis_weights(
-            paint, height, img.shape[0], d, f), device=device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        tmp = torch.einsum("hwc,xw->hxc", img, wx)
-        return _unpremul(torch.einsum("hxc,yh->yxc", tmp, wy))
+        if b == 0.0 and c == 0.0 and paint.smoothed:
+            # The reference builds these weights from the matrix's
+            # Python floats, not their f32 roundings.
+            return _separable_fields(paint, [(a, e, d, f)], height, width,
+                                     device)[0]
+        # Rotated, skewed or unsmoothed: the supersampled gather of the
+        # texfield kernel, at every texture size.
+        return bitmap_field_planes(
+            paint.image, inv, height, width,
+            supersample=max(1, int(paint.supersample)),
+            repeating=paint.repeating, smoothed=paint.smoothed,
+            edge_mode=paint.edge_mode, device=device)[0]
 
     raise ValueError(f"unknown paint kind {paint.kind}")
 
 
-def _unpremul(field_pm):
-    """Premultiplied RGBA field -> straight (paint_field's contract)."""
-    alpha = field_pm[..., 3:4]
-    safe = torch.clamp(alpha, min=1e-6)
-    rgb = torch.where(alpha > 1e-6, field_pm[..., :3] / safe,
-                      torch.zeros_like(field_pm[..., :3]))
-    return torch.cat([rgb, alpha], dim=-1)
+def separable_frames_mask(paint: "Paint", invs) -> np.ndarray:
+    """(F,) bool: which composed device->paint inverses ``paint_field``
+    routes through the separable axis-aligned path.  The sweep bake sends
+    exactly these frames through the same weights: supersampled bilinear
+    there would differ from per-frame renders wherever an axis is
+    DOWNSCALED (the separable path then uses the exact box filter)."""
+    invs = np.asarray(invs, np.float32).reshape(-1, 6)
+    if paint.kind != PAINT_BITMAP or not paint.smoothed:
+        return np.zeros(invs.shape[0], bool)
+    return (invs[:, 1] == 0.0) & (invs[:, 2] == 0.0)
+
+
+def separable_field_stack(paint: "Paint", invs, height: int, width: int,
+                          device=None) -> torch.Tensor:
+    """(F, H, W, 4) straight-RGBA fields of axis-aligned frames through
+    the separable path, from the f32 composed inverses ``invs`` (F, 6) —
+    the same weights ``paint_field`` builds for one such matrix."""
+    invs = np.asarray(invs, np.float32).reshape(-1, 6)
+    return _separable_fields(
+        paint, [(float(a), float(e), float(d), float(f))
+                for a, _b, _c, d, e, f in invs],
+        height, width, resolve_device(device))
+
+
+def _separable_fields(paint: "Paint", scales, height: int, width: int,
+                      device) -> torch.Tensor:
+    """[(x scale, x offset, y scale, y offset)] per frame -> (F, H, W, 4):
+    per-frame weight matrices built on the host, two batched float32
+    contractions on ``device`` (TF32 off: the reference contracts at
+    Precision.HIGHEST)."""
+    img = premultiplied_texels(
+        torch.as_tensor(np.asarray(paint.image), device=device))
+    wx = torch.as_tensor(np.stack([
+        _separable_axis_weights(paint, width, img.shape[1], a, e)
+        for a, e, _d, _f in scales]), device=device)   # (F, W, Tw)
+    wy = torch.as_tensor(np.stack([
+        _separable_axis_weights(paint, height, img.shape[0], d, f)
+        for _a, _e, d, f in scales]), device=device)   # (F, H, Th)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = torch.einsum("hwc,fxw->fhxc", img, wx)
+    return unpremultiply(torch.einsum("fhxc,fyh->fyxc", tmp, wy))
 
 
 def _box_weights(n_out: int, n_img: int, scale: float, offset: float,

@@ -36,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .coverage import (
     FILL_RULE_NONZERO, edge_row_span, layer_rules, normalize_fill_rule,
     span_ramp,
@@ -270,32 +271,32 @@ def sweep_paints(paints, matrices, allow_fields: bool = False):
 
 def bake_sweep_fields(field_specs, height: int, width: int,
                       stop_tracks=None, frame_chunk: int = 8,
-                      device="cpu") -> torch.Tensor:
+                      device=None) -> torch.Tensor:
     """SweepFieldSpecs -> (NF, F, H, W, 4) f32 straight-RGBA field planes
-    on ``device``: the SAME sampling math as the per-frame styled path
-    (style.paint_field_traced), batched over ``frame_chunk`` frames at a
-    time, so host work does not grow with the frame count.
+    on ``device`` (the card unless the caller asks for the CPU): the SAME
+    sampling math as the per-frame styled path, so host work does not
+    grow with the frame count.
+
+    Bitmap specs bake their axis-aligned frames through the separable
+    weights ``style.paint_field`` uses for them and every other frame
+    through the texfield kernel (``ops.texfield.bitmap_field_planes``, one
+    launch for all such frames); a mixed track (a rotation through 0)
+    bakes both and interleaves them along the frame axis.  Gradient specs
+    evaluate ``style.paint_field_traced`` ``frame_chunk`` frames at a
+    time.
 
     ``stop_tracks``: optional [NF] list of (F, K, 4) per-frame stop-color
     overrides (linear-RGB gradient fades); None entries keep static stops.
     A spec whose composed inverse repeats across frames bakes each UNIQUE
-    matrix once and broadcasts (byte-equal rows give byte-equal planes).
-
-    Gradient specs only: a bitmap layer in a sweep needs the separable
-    stack and the texfield kernel and raises ``NotImplementedError``
-    (ROADMAP.md A4 / B8)."""
+    matrix once and broadcasts (byte-equal rows give byte-equal planes)."""
     from . import style as style_ops
+    from .texfield import bitmap_field_planes
 
-    device = torch.device(device)
+    device = resolve_device(device)
     outs = []
     for si, spec in enumerate(field_specs):
         track = None if stop_tracks is None else stop_tracks[si]
         p = spec.paint
-        if p.kind == style_ops.PAINT_BITMAP:
-            raise NotImplementedError(
-                "bitmap layers in a sweep bake through the separable "
-                "stack and the texfield kernel: ROADMAP.md A4 (texfield "
-                "bitmaps) / B8 (texfield.py _texfield_kernel)")
         invs_np = np.asarray(spec.invs, np.float32)
         if track is None and invs_np.shape[0] > 1:
             uniq, inv_idx = np.unique(invs_np, axis=0, return_inverse=True)
@@ -307,6 +308,30 @@ def bake_sweep_fields(field_specs, height: int, width: int,
                     inv_idx.reshape(-1), device=device)))
                 continue
         n_frames = invs_np.shape[0]
+        if p.kind == style_ops.PAINT_BITMAP:
+            sep = style_ops.separable_frames_mask(p, invs_np)
+            if sep.all():
+                outs.append(style_ops.separable_field_stack(
+                    p, invs_np, height, width, device=device))
+                continue
+            rest = np.nonzero(~sep)[0]
+            sampled = bitmap_field_planes(
+                p.image, invs_np[rest], height, width,
+                supersample=max(1, int(p.supersample)),
+                repeating=p.repeating, smoothed=p.smoothed,
+                edge_mode=p.edge_mode, device=device)
+            if not sep.any():
+                outs.append(sampled)
+                continue
+            out = torch.empty((n_frames, height, width, 4),
+                              dtype=torch.float32, device=device)
+            out[torch.as_tensor(rest, device=device)] = sampled
+            idx = np.nonzero(sep)[0]
+            out[torch.as_tensor(idx, device=device)] = (
+                style_ops.separable_field_stack(p, invs_np[idx], height,
+                                                width, device=device))
+            outs.append(out)
+            continue
         invs = torch.as_tensor(invs_np, device=device)
         stops = (None if track is None else torch.as_tensor(
             np.asarray(track, np.float32), device=device))
@@ -318,7 +343,7 @@ def bake_sweep_fields(field_specs, height: int, width: int,
                 p, invs[sl], height, width,
                 stop_colors=None if stops is None else stops[sl])
         outs.append(out)
-    return torch.stack(outs, dim=0)
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs, dim=0)
 
 
 # ---------------------------------------------------------------------------

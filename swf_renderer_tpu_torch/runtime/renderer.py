@@ -6,13 +6,14 @@ one fused styled kernel launch per batch -> u8 readback; a batch whose
 frames show the same definitions under moving matrices, fading colour
 transforms or morph ratios compiles ONCE to local-space pieces and
 renders through one sweep kernel launch (``ops/transform.py``), so its
-host work does not grow with the frame count.  The other routes of the
-reference raise ``NotImplementedError`` naming their ROADMAP.md item
-(queue A), or keep the fused route:
+host work does not grow with the frame count.  Bitmap layers bake their
+per-frame field planes on the card (``bake_sweep_fields``).  Repeated
+``render(stage)`` calls over the same definitions under moved matrices
+switch, from the second call on, to an F = 1 sweep over pieces cached on
+the card (``last_stats.path == "transform-sweep-1f"``).  The other routes
+of the reference raise ``NotImplementedError`` naming their ROADMAP.md
+item (queue A), or keep the fused route:
 
-* the single-frame interactive sweep of repeated ``render(stage)`` calls
-  (this port re-lowers each such frame: same pixels, more host work);
-* bitmap layers in a sweep (the texfield bake);
 * ``backend="scanline"`` / ``"direct"``, ``quality="flash-pointaa"`` and
   ``validate=True``;
 * masks, blend modes and filters; draw lists deeper than one kernel pass;
@@ -46,7 +47,7 @@ logger = logging.getLogger("swf_renderer_tpu_torch")
 class RenderStats:
     """Per-frame observability: draw/edge counts, wall seconds and the
     execution path ("flatblock", "batched-styled", "transform-sweep",
-    "empty" or "per-stage:<reason>")."""
+    "transform-sweep-1f", "empty" or "per-stage:<reason>")."""
 
     draws: int = 0
     edges: int = 0
@@ -195,6 +196,12 @@ class TorchRenderer:
         self.frame: Optional[np.ndarray] = None
         self.last_stats = RenderStats()
         self._exec_path = ""
+        # Single-frame interactive sweep: after two consecutive render()
+        # calls over the SAME definitions with moved matrices, further
+        # frames ride an F = 1 sweep with cached local-space pieces (see
+        # _render_frame_sweep).
+        self._frame_sweep_state = None      # (key, state | None, defs)
+        self._frame_sweep_candidate = None  # (key, mats_row, defs)
         self._render_lock = threading.RLock()
 
     # -- reference API ------------------------------------------------------
@@ -218,6 +225,9 @@ class TorchRenderer:
     def render(self, stage: display.Stage) -> np.ndarray:
         with self._render_lock:
             t0 = time.perf_counter()
+            fast = self._render_frame_sweep(stage, t0)
+            if fast is not None:
+                return fast
             draws = self._compiler().compile_stage(stage)
             self.frame = _composite_background(self.execute(draws),
                                                stage.background_color)
@@ -408,20 +418,6 @@ class TorchRenderer:
                 [d.paint for d in all_draws], mats, allow_fields=True)
         except ValueError:
             return None  # a layer under a singular frame matrix
-        bitmap_invs = [spec.invs for spec in field_specs
-                       if spec.paint.kind == style_ops.PAINT_BITMAP]
-        if bitmap_invs and all(
-                not inv[:, 1:3].any() for inv in bitmap_invs) and all(
-                spec.paint.smoothed for spec in field_specs
-                if spec.paint.kind == style_ops.PAINT_BITMAP):
-            # Bitmap layers do not bake for the sweep yet (ROADMAP.md A4).
-            # Axis-aligned in every frame, the fused route still renders
-            # them, as it did before the sweeps; anything else raises in
-            # bake_sweep_fields, naming the item.
-            logger.warning(
-                "render_batch: a bitmap layer keeps this batch off the "
-                "transform sweep (ROADMAP.md A4); re-lowering every frame")
-            return None
 
         stop_colors = None
         dyn_layers = set()
@@ -483,7 +479,6 @@ class TorchRenderer:
             tab, _ = affine_pieces(
                 [d.edges for d in all_draws], [(0.0,) * 4] * len(all_draws),
                 mats)
-            # A bitmap layer raises here, naming its ROADMAP item.
             fields = (bake_sweep_fields(field_specs, self.height,
                                         self.width, stop_tracks=stop_tracks,
                                         device=self.device)
@@ -674,6 +669,253 @@ class TorchRenderer:
                         for p in all_pairs) * len(stages)
         return run
 
+    # -- single-frame interactive sweep -------------------------------------
+
+    def _frame_sweep_gates(self, stage) -> bool:
+        # The reference also gates the scanline/direct backends, validate
+        # and point-sampled AA here; this renderer refuses those at
+        # construction.
+        return not (_fractional_exact_clip(stage)
+                    or stage.width != self.width
+                    or stage.height != self.height)
+
+    def _render_frame_sweep(self, stage, t0):
+        """Interactive novel-matrix render(): once two consecutive calls
+        draw the SAME definitions under moved matrices, further frames
+        rasterize through an F = 1 affine sweep over local-space pieces
+        kept on the card — per-frame host work drops to an O(edges)
+        split-validity check.  Returns the frame, or None for the normal
+        path.  Cached pieces carry 1.5x split/tolerance headroom, so
+        zooming within it revalidates without re-splitting; beyond it the
+        state rebuilds monotonically."""
+        if not self._frame_sweep_gates(stage):
+            return None
+        leaves = self._stage_leaves(stage)
+        if not leaves:
+            return None
+        key = tuple(
+            (id(c.definition),
+             float(c.ratio) if isinstance(c, display.MorphShapeInstance)
+             else None)
+            for c, _dev, _ct in leaves)
+        mats_row = tuple(dev.as_tuple() for _c, dev, _ct in leaves)
+        state = self._frame_sweep_state
+        if state is not None and state[0] == key:
+            if state[1] is None:
+                return None  # known-unsweepable definitions
+            return self._run_frame_sweep(state[1], stage, leaves, t0)
+        cand = self._frame_sweep_candidate
+        if cand is not None and cand[0] == key and cand[1] != mats_row:
+            built = self._build_frame_sweep_state(key, leaves)
+            # The definitions stay pinned EVEN when the build fails (None):
+            # the id()-based key must never alias a new object after the
+            # originals are collected.
+            self._frame_sweep_state = (
+                key, built, [c.definition for c, _d, _ct in leaves])
+            if built is not None:
+                return self._run_frame_sweep(built, stage, leaves, t0)
+            return None
+        self._frame_sweep_candidate = (
+            key, mats_row, [c.definition for c, _d, _ct in leaves])
+        return None
+
+    def _build_frame_sweep_state(self, key, leaves, smax_hint=None):
+        """Compile the leaves ONCE in local space and split their edge
+        tables into a matrix-validated piece cache (margin 1.5), uploaded
+        to the card."""
+        from ..ops.transform import (
+            affine_pieces, layer_piece_counts, sweep_paints,
+        )
+
+        gradient_kinds = (style_ops.PAINT_LINEAR, style_ops.PAINT_FOCAL)
+        # Flatten at the CURRENT scale as _sweep_prelude does; a zoom-past
+        # rebuild brings a 1.5x-escalated hint so rebuilds stay rare.
+        smax = max(1.0, max(dev.norm2() for _c, dev, _ct in leaves))
+        smax = max(smax, (smax_hint or 0.0) * 1.5)
+        s_aff = Affine.scaling(1.0 / TWIPS_PER_PX, 1.0 / TWIPS_PER_PX)
+        compiler = self._compiler(curve_tolerance=CURVE_TOLERANCE / smax)
+        child_counts = []
+        try:
+            for c, _dev, _ct in leaves:
+                start = len(compiler.draws)
+                if isinstance(c, display.MorphShapeInstance):
+                    compiler._draw_morph_shape(c.definition, c.ratio,
+                                               s_aff, None)
+                else:
+                    compiler._draw_shape(c.definition, s_aff, None)
+                child_counts.append(len(compiler.draws) - start)
+        except (KeyError, NotImplementedError):
+            return None  # missing bitmap / unsupported fill
+        draws = compiler.draws
+        sweep_kinds = gradient_kinds + (style_ops.PAINT_SOLID,
+                                        style_ops.PAINT_BITMAP)
+        if not draws or any(d.paint.kind not in sweep_kinds
+                            for d in draws):
+            return None
+        # The reference's layer-size gate (its per-layer VMEM
+        # accumulators), kept so both packages take the same route for
+        # the same call sequence.
+        hp = -(-self.height // 128) * 128
+        wblock = 256 if hp <= 640 else 128
+        if len(draws) > 16 or len(draws) * wblock * hp * 4 > 8 * 2**20:
+            return None
+        mats0 = self._frame_sweep_mats(leaves, child_counts)
+        try:
+            sweep_paints([d.paint for d in draws], mats0, allow_fields=True)
+        except ValueError:
+            return None  # singular frame matrix
+        # Split straight to the closed-form rotation bound: |dy'| of an
+        # edge under ANY rotation at scale <= smax is at most smax *
+        # hypot(dx, dy), so a spin keeps one piece table.
+        edge_vecs = []
+        for d in draws:
+            e = np.asarray(d.edges, np.float64)
+            edge_vecs.append((e[:, 2] - e[:, 0], e[:, 3] - e[:, 1]))
+        mins = [np.maximum(np.ceil(smax * 1.05 * np.hypot(dx, dy)),
+                           1.0).astype(int)
+                for dx, dy in edge_vecs]
+        tab, _colors, splits = affine_pieces(
+            [d.edges for d in draws], [(0.0,) * 4] * len(draws), mats0,
+            split_margin=1.5, min_splits=mins, return_splits=True)
+        k_max = max((len(d.paint.stop_ratios) for d in draws
+                     if d.paint.kind in gradient_kinds), default=0)
+        return {
+            "key": key,
+            "smax": smax,
+            "defs": [c.definition for c, _d, _ct in leaves],  # pin ids
+            "draws": draws,
+            "child_counts": child_counts,
+            "rule": normalize_fill_rule(
+                tuple(d.fill_rule for d in draws), len(draws)),
+            "tab": _upload(tab, self.device),
+            "layer_counts": layer_piece_counts(tab),
+            "splits": splits,
+            "edge_vecs": edge_vecs,
+            "k_max": k_max,
+        }
+
+    @staticmethod
+    def _frame_sweep_mats(leaves, child_counts):
+        """(1, L, 6) per-layer device affines (children replicated over
+        their draw counts)."""
+        return np.asarray(
+            [[m for ci, (_c, dev, _ct) in enumerate(leaves)
+              for m in [dev.as_tuple()] * child_counts[ci]]],
+            np.float32)
+
+    def _run_frame_sweep(self, state, stage, leaves, t0):
+        from ..ops.flatblock import KPAINT_FOCAL, KPAINT_LINEAR
+        from ..ops.morph import morph_frames_to_u8
+        from ..ops.transform import (
+            affine_pieces, bake_sweep_fields, layer_piece_counts,
+            render_affine_sweep, sweep_paints,
+        )
+        from .scene import _apply_color_transform
+
+        gradient_kinds = (style_ops.PAINT_LINEAR, style_ops.PAINT_FOCAL)
+        smax_now = max(dev.norm2() for _c, dev, _ct in leaves)
+        # 0.1% slack: Sfixed16P16-quantized rotations jitter norm2 by
+        # float epsilons from frame to frame.
+        if smax_now > state["smax"] * 1.001:
+            # Zoomed past the compiled flatten tolerance: rebuild with the
+            # new bound (monotone — the margin keeps this rare).
+            state = self._build_frame_sweep_state(
+                state["key"], leaves, smax_hint=smax_now)
+            self._frame_sweep_state = (
+                self._frame_sweep_state[0], state,
+                [c.definition for c, _d, _ct in leaves])
+            if state is None:
+                return None
+        draws = state["draws"]
+        mats = self._frame_sweep_mats(leaves, state["child_counts"])
+        # Per-edge split validity: piece |dy'| stays <= 1 iff each edge's
+        # |b dx + d dy| stays within its stored split count.
+        for li, (dx, dy) in enumerate(state["edge_vecs"]):
+            b, d = float(mats[0, li, 1]), float(mats[0, li, 3])
+            if dx.size and (np.abs(b * dx + d * dy)
+                            > state["splits"][li] + 1e-9).any():
+                # Jump straight to the full-rotation bound at this scale,
+                # so a continuous spin re-splits exactly once.
+                mins = []
+                for lj, (dxj, dyj) in enumerate(state["edge_vecs"]):
+                    rot_bound = (np.hypot(float(mats[0, lj, 1]),
+                                          float(mats[0, lj, 3]))
+                                 * np.hypot(dxj, dyj) * 1.05)
+                    tgt = np.maximum(np.ceil(rot_bound), 1.0).astype(int)
+                    mins.append(np.maximum(tgt, state["splits"][lj]))
+                tab, _c2, splits = affine_pieces(
+                    [dd.edges for dd in draws], [(0.0,) * 4] * len(draws),
+                    mats, min_splits=mins, return_splits=True)
+                state["tab"] = _upload(tab, self.device)
+                state["splits"] = splits
+                state["layer_counts"] = layer_piece_counts(tab)
+                break
+        try:
+            kpaints, grad_mats, field_specs = sweep_paints(
+                [d.paint for d in draws], mats, allow_fields=True)
+        except ValueError:
+            return None  # singular matrix this frame: normal path
+        # Per-layer colour transforms: solids through (1, L, 4) colours,
+        # in-kernel gradients through the (1, L, K, 4) stop window,
+        # linear-RGB field layers through the bake's stop track; bitmap
+        # fills ignore colour transforms (scene._paint_for_fill).
+        colors = np.zeros((1, len(draws), 4), np.float32)
+        stop_colors = (np.zeros((1, len(draws), state["k_max"], 4),
+                                np.float32) if state["k_max"] else None)
+        ct_by_layer = []
+        li = 0
+        for ci, (_c, _dev, ct) in enumerate(leaves):
+            for _ in range(state["child_counts"][ci]):
+                d = draws[li]
+                ct_by_layer.append(ct)
+                if d.paint.kind == style_ops.PAINT_SOLID:
+                    colors[0, li] = _apply_color_transform(
+                        d.paint.color, ct)
+                elif d.paint.kind in gradient_kinds:
+                    nk = len(d.paint.stop_ratios)
+                    stop_colors[0, li, :nk] = (
+                        [_apply_color_transform(tuple(sc), ct)
+                         for sc in d.paint.stop_colors] if ct is not None
+                        else np.asarray(d.paint.stop_colors, np.float32))
+                li += 1
+        stop_tracks = None
+        if field_specs:
+            stop_tracks = [
+                np.asarray([[_apply_color_transform(tuple(sc),
+                                                    ct_by_layer[spec.layer])
+                             for sc in spec.paint.stop_colors]], np.float32)
+                if (spec.paint.kind in gradient_kinds
+                    and ct_by_layer[spec.layer] is not None) else None
+                for spec in field_specs]
+            if all(t is None for t in stop_tracks):
+                stop_tracks = None
+        # The stop window only when an in-kernel gradient layer reads it.
+        if stop_colors is not None and not any(
+                kp.kind in (KPAINT_LINEAR, KPAINT_FOCAL) for kp in kpaints):
+            stop_colors = None
+        dev = self.device
+        fields = (bake_sweep_fields(field_specs, self.height, self.width,
+                                    stop_tracks=stop_tracks, device=dev)
+                  if field_specs else None)
+        out = render_affine_sweep(
+            _upload(mats, dev), state["tab"], _upload(colors, dev),
+            self.height, self.width, fill_rule=state["rule"],
+            paints=kpaints, layer_counts=state["layer_counts"],
+            grad_mats=None if grad_mats is None else _upload(grad_mats, dev),
+            stop_colors=(None if stop_colors is None
+                         else _upload(stop_colors, dev)),
+            fields=fields)
+        frame = morph_frames_to_u8(out, self.height, self.width)[0]
+        self.frame = _composite_background(frame, stage.background_color)
+        self.last_stats = RenderStats(
+            draws=len(draws),
+            edges=sum(d.edges.shape[0] for d in draws),
+            width=self.width, height=self.height,
+            seconds=time.perf_counter() - t0,
+            path="transform-sweep-1f",
+        )
+        return self.frame
+
     # -- execution ----------------------------------------------------------
 
     def execute(self, draws: List[Draw]) -> np.ndarray:
@@ -737,10 +979,10 @@ def render_shape_animation(tag: ast.DefineShape, matrices, width: int,
     ``matrices``: sequence of ast.Matrix (SWF twips transforms) or an
     (F, 6) array of device-space affines.  Solid fills/strokes and sRGB
     linear/focal gradient fills evaluate in-kernel under each frame's
-    composed matrix; linear-RGB gradients bake per-frame field planes on
-    device (ops.transform.bake_sweep_fields); bitmap fills raise
-    ``NotImplementedError`` (ROADMAP.md A4 / B8).  Returns (F, H, W, 4)
-    uint8."""
+    composed matrix; bitmap fills (register them through ``bitmaps``, or
+    pass an existing ``bitmap_service``) and linear-RGB gradients bake
+    per-frame field planes on device (ops.transform.bake_sweep_fields).
+    Returns (F, H, W, 4) uint8."""
     from ..ops.morph import morph_frames_to_u8
     from ..ops.transform import (
         affine_pieces, bake_sweep_fields, layer_piece_counts,

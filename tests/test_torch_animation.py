@@ -388,55 +388,80 @@ def test_blend_group_fails_the_gate_and_keeps_its_route():
         jstages) is None
 
 
-def _bitmap_stages(angles):
-    from swf_renderer_tpu_torch.runtime import bitmap_service
+def _bitmap_stages(mods, angles, smoothed=True):
+    from swf_renderer_tpu_torch.runtime.bitmap_service import (
+        encode_x_swf_bmp2_argb,
+    )
 
+    ast, display, fixed = mods
     img = np.random.default_rng(6).integers(0, 256, (12, 20, 4)).astype(
         np.uint8)
-    bitmap = tast.DefineBitmap(
+    bitmap = ast.DefineBitmap(
         id=9, width=20, height=12, media_type="image/x-swf-bmp2",
-        data=bitmap_service.encode_x_swf_bmp2_argb(img))
-    s, z = TFixed.from_value(30.0), TFixed.from_value(0.0)
-    tag = _shape(PORT, 4, tast.BitmapFill(
-        bitmap_id=9, matrix=tast.Matrix(
+        data=encode_x_swf_bmp2_argb(img))
+    s, z = fixed.from_value(30.0), fixed.from_value(0.0)
+    tag = _shape(mods, 4, ast.BitmapFill(
+        bitmap_id=9, matrix=ast.Matrix(
             scale_x=s, scale_y=s, rotate_skew0=z, rotate_skew1=z,
             translate_x=300, translate_y=200),
-        repeating=True, smoothed=True), BOX)
-    mats = [_matrix(PORT, th, tx=40 * i) for i, th in enumerate(angles)]
-    stages = [tdisplay.Stage(width=W, height=H, children=[
-        tdisplay.ShapeInstance(definition=tag, matrix=m)]) for m in mats]
+        repeating=True, smoothed=smoothed), BOX)
+    mats = [_matrix(mods, th, tx=40 * i) for i, th in enumerate(angles)]
+    stages = [display.Stage(width=W, height=H, children=[
+        display.ShapeInstance(definition=tag, matrix=m)]) for m in mats]
     return tag, bitmap, mats, stages
 
 
 def test_rotating_bitmap_layer_in_a_sweep_raises_naming_its_item():
-    tag, bitmap, mats, stages = _bitmap_stages([0.0, 0.2, 0.4])
+    """Formerly a refusal: a rotating bitmap layer now bakes its field
+    planes (the separable stack for the axis-aligned frame 0, the texfield
+    kernel for the rest) and rides the sweep, in render_batch and in
+    render_shape_animation, as in the JAX package."""
+    angles = [0.0, 0.2, 0.4]
+    jtag, jbitmap, jmats, jstages = _bitmap_stages(JAX, angles)
+    tag, bitmap, mats, stages = _bitmap_stages(PORT, angles)
+    jr = jrenderer.TpuRenderer(W, H)
+    jr.add_bitmap(jbitmap)
     r = _port_renderer()
     r.add_bitmap(bitmap)
-    with pytest.raises(NotImplementedError, match=r"A4.*B8"):
-        r.render_batch(stages)
-    with pytest.raises(NotImplementedError, match=r"A4.*B8"):
-        trenderer.render_shape_animation(tag, mats, W, H, bitmaps=[bitmap],
-                                         device="cpu")
+    want = jr.render_batch(jstages)
+    got = r.render_batch(stages)
+    assert r.last_stats.path == jr.last_stats.path == "transform-sweep"
+    assert_matches_reference(want, got, 6)
+    want = jrenderer.render_shape_animation(jtag, jmats, W, H,
+                                            bitmaps=[jbitmap])
+    got = trenderer.render_shape_animation(tag, mats, W, H, bitmaps=[bitmap],
+                                           device="cpu")
+    assert_matches_reference(want, got, 6)
 
 
-def test_axis_aligned_bitmap_batch_keeps_the_fused_route(caplog):
-    """Bitmap layers do not bake for the sweep yet; a batch the fused
-    route can render (axis-aligned in every frame: here a static bitmap
-    under a moving solid) goes on rendering there, with a warning that
-    names the item."""
-    _tag, bitmap, _mats, stages = _bitmap_stages([0.0])
-    star = _solid(PORT)
-    stages = [dataclasses.replace(stages[0], children=[
-        stages[0].children[0],
-        tdisplay.ShapeInstance(definition=star,
-                               matrix=_matrix(PORT, 0.3 * i, tx=50 * i))])
-        for i in range(3)]
+def test_axis_aligned_bitmap_batch_keeps_the_fused_route():
+    """Formerly kept off the sweep: a static bitmap under a moving solid
+    now rides the sweep (the bitmap's one unique inverse bakes once
+    through the separable stack and broadcasts), like the JAX package's
+    batch, and matches the port's per-frame renders."""
+    def stages_of(mods):
+        _tag, bitmap, _mats, stages = _bitmap_stages(mods, [0.0])
+        star = _solid(mods)
+        return bitmap, [dataclasses.replace(stages[0], children=[
+            stages[0].children[0],
+            mods[1].ShapeInstance(definition=star,
+                                  matrix=_matrix(mods, 0.3 * i, tx=50 * i))])
+            for i in range(3)]
+
+    jbitmap, jstages = stages_of(JAX)
+    bitmap, stages = stages_of(PORT)
+    jr = jrenderer.TpuRenderer(W, H)
+    jr.add_bitmap(jbitmap)
     r = _port_renderer()
     r.add_bitmap(bitmap)
-    with caplog.at_level("WARNING", logger="swf_renderer_tpu_torch"):
-        got = r.render_batch(stages)
-    assert r.last_stats.path == "batched-styled"
-    assert "ROADMAP.md A4" in caplog.text
-    one = _port_renderer()
-    one.add_bitmap(bitmap)
-    assert np.array_equal(got[2], one.render(stages[2]))
+    want = jr.render_batch(jstages)
+    got = r.render_batch(stages)
+    assert r.last_stats.path == jr.last_stats.path == "transform-sweep"
+    assert_matches_reference(want, got, 2)
+
+    def one():
+        fresh = _port_renderer()
+        fresh.add_bitmap(bitmap)
+        return fresh
+
+    assert_matches_per_frame(one, stages, got)

@@ -248,7 +248,8 @@ def test_kernel_paints_for_matches_reference_routing():
 
     for n_grad in (2, 5):
         kj, fj, cj = jpl.kernel_paints_for(paints(jstyle, n_grad), 24, 64)
-        kt, ft, ct = tpl.kernel_paints_for(paints(tstyle, n_grad), 24, 64)
+        kt, ft, ct = tpl.kernel_paints_for(paints(tstyle, n_grad), 24, 64,
+                                           device="cpu")
         assert [p.kind for p in kj] == [p.kind for p in kt]
         assert tuple(kj) == tuple(kt)
         assert np.array_equal(cj, ct)

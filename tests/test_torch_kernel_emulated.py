@@ -2,7 +2,8 @@
 versions.
 
 ``csrc/flatblock_device.cuh`` holds all of the fused kernels' device
-logic and ``csrc/sweep_device.cuh`` all of the sweep kernels'.  Here g++
+logic, ``csrc/sweep_device.cuh`` all of the sweep kernels' and
+``csrc/texfield_device.cuh`` all of the texfield kernel's.  Here g++
 compiles them under a small emulation of the CUDA
 execution model (one std::thread per CUDA thread, a std::barrier for
 ``__syncthreads``, std::atomic_ref for the shared-memory atomics), and
@@ -25,6 +26,7 @@ from swf_renderer_tpu_torch.convert import packed_to_device
 from swf_renderer_tpu_torch.native import bindings
 from swf_renderer_tpu_torch.ops import cuda_lib
 from swf_renderer_tpu_torch.ops import flatblock as fb
+from swf_renderer_tpu_torch.ops import texfield
 from swf_renderer_tpu_torch.ops import transform as sweep
 from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
 from swf_renderer_tpu_torch.utils.scenes import (
@@ -63,7 +65,15 @@ inline int atomicAdd(int* p, int v) {
 inline long long __double2ll_rn(double x) {
   return static_cast<long long>(std::nearbyint(x));
 }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+Dim3 gridDim;
 #include "sweep_device.cuh"  // includes flatblock_device.cuh
+#include "texfield_device.cuh"
 
 extern "C" int emulate(int styled, const int* sidx, const int* flags,
                        const int* lays, const float* urc, const float* ucm,
@@ -182,6 +192,35 @@ extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
   else run_sweep<true, false, false>(a);
   return a.rows;
 }
+
+extern "C" void emulate_texfield(const unsigned char* img, float* tex,
+                                 const float* invs, float* out, int th,
+                                 int tw, int frames, int height, int width,
+                                 int n, int repeating, int smoothed,
+                                 int canvas, int grid) {
+  swf::TexArgs a{};
+  a.img = img; a.tex = reinterpret_cast<float4*>(tex); a.invs = invs;
+  a.out = reinterpret_cast<float4*>(out); a.th = th; a.tw = tw;
+  a.frames = frames; a.height = height; a.width = width; a.n = n;
+  a.repeating = repeating; a.smoothed = smoothed; a.canvas = canvas;
+  swf::tex_offsets(a);
+  for (int i = 0; i < th * tw; ++i) swf::texprep_texel(a, i);
+  gridDim.x = grid;
+  blockDim.x = swf::kTexThreads;
+  for (int x = 0; x < grid; ++x) {
+    std::barrier<> bar(swf::kTexThreads);
+    std::vector<std::thread> threads;
+    for (int t = 0; t < swf::kTexThreads; ++t) {
+      threads.emplace_back([&, t] {
+        threadIdx.x = t;
+        blockIdx.x = x;
+        block_barrier = &bar;
+        swf::texfield_block(a);
+      });
+    }
+    for (auto& th_ : threads) th_.join();
+  }
+}
 """
 
 
@@ -205,6 +244,9 @@ def emulator(tmp_path_factory):
     emu.emulate_sweep.restype = ctypes.c_int
     emu.emulate_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 8
+    emu.emulate_texfield.restype = None
+    emu.emulate_texfield.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 10
     return emu
 
 
@@ -404,3 +446,39 @@ def test_emulated_sweep_writes_untouched_tiles_as_zeros(emulator):
     assert torch.equal(got, want)
     assert not want[0].any() and want[1].any()
     assert float((want != 0).float().mean()) < 0.1
+
+
+@pytest.mark.parametrize("shape,repeating,smoothed,edge_mode,n", [
+    ((11, 13), True, True, "flash", 2),
+    ((11, 13), False, True, "canvas", 3),
+    ((11, 13), False, False, "flash", 1),
+    ((70, 90), True, False, "flash", 2),
+    ((70, 90), False, True, "canvas", 1),
+])
+def test_emulated_texfield_equals_plain_version(emulator, shape, repeating,
+                                                smoothed, edge_mode, n):
+    """The texfield kernel: rotated, skewed and far-zoomed inverses over a
+    37x45 frame (ragged 32x8 tiles), one far beyond 2^24 texels (the
+    float remainder of the repeat wrap), 4 frames walked by 5 persistent
+    blocks; the pre-pass's premultiplied texels."""
+    rng = np.random.default_rng(sum(shape) + n)
+    img = rng.integers(0, 256, (*shape, 4)).astype(np.uint8)
+    img[0, :3, 3] = 0   # transparent texels: the un-premultiply guard
+    invs = np.asarray([(0.31, 0.12, -0.2, 0.27, -3.5, 2.25),
+                       (1.7, -0.9, 0.4, 2.2, -40.0, 31.0),
+                       (0.013, 0.0, 0.002, 0.011, 5.5, 4.0),
+                       (3.0, 0.4, -0.6, 2.5, -3.3e7, 2.9e7)], np.float32)
+    height, width = 37, 45
+    tex = np.empty((*shape, 4), np.float32)
+    out = np.full((4, height, width, 4), np.nan, np.float32)
+    emulator.emulate_texfield(
+        img.ctypes.data, tex.ctypes.data, invs.ctypes.data, out.ctypes.data,
+        shape[0], shape[1], 4, height, width, n, int(repeating),
+        int(smoothed), int(edge_mode == "canvas"), 5)
+    want = texfield.texfield_plain(torch.as_tensor(img),
+                                   torch.as_tensor(invs), height, width, n,
+                                   repeating, smoothed, edge_mode)
+    assert torch.equal(torch.as_tensor(tex),
+                       texfield.premultiplied_texels(torch.as_tensor(img)))
+    assert torch.equal(torch.as_tensor(out), want)
+    assert float(want[..., 3].std()) > 0.05

@@ -7,12 +7,15 @@ at most 3e-3 of the bytes.  A premultiplied byte can move by 1 because
 the two sides round paint values differently in their last bits: XLA on
 the CPU contracts the focal solve's multiply-adds into FMAs (the port
 computes op by op, as on the card), and the bitmap field's two float32
-contractions sum in another order.  Un-premultiplying scales a 1-level
-step by 255 / alpha, so on low-alpha AA edges the straight bytes can
-move further; their envelope is pinned per stage at what was measured:
-3 levels (focal field), 2 (axis-aligned bitmap), 0 elsewhere (the solid,
-linear, mixed-rule, morph, background and in-kernel gradient stages are
-byte-equal).
+contractions sum in another order; a rotated or unsmoothed bitmap
+samples through the reference's MXU kernel (3-pass bf16 split, ~1e-4)
+against the port's gather.  Un-premultiplying scales a 1-level step by
+255 / alpha, so on low-alpha AA edges the straight bytes can move
+further; their envelope is pinned per stage at what was measured: 3
+levels (focal field, rotated bitmap), 2 (axis-aligned bitmap), 85 (the
+unsmoothed clipped bitmap: one AA pixel of alpha 3), 0 elsewhere (the
+solid, linear, mixed-rule, morph, background and in-kernel gradient
+stages are byte-equal).
 """
 
 import logging
@@ -130,10 +133,10 @@ def _bitmap_tag(mods):
                             data=bitmaps.encode_x_swf_bmp2_argb(img))
 
 
-def _bitmap(mods, rot=0.0):
+def _bitmap(mods, rot=0.0, repeating=True, smoothed=True):
     return _shape(mods, 4, mods[0].BitmapFill(
         bitmap_id=9, matrix=_matrix(mods, 300, 200, 30.0, rot),
-        repeating=True, smoothed=True), BOX)
+        repeating=repeating, smoothed=smoothed), BOX)
 
 
 def _stage(mods, children, bg=None):
@@ -178,6 +181,11 @@ def _scene(mods, name):
         return _stage(mods, [(_focal(mods), None)]), {}
     if name == "bitmap":
         return _stage(mods, [(_bitmap(mods), None)]), {}
+    if name == "bitmap-rotated":
+        return _stage(mods, [(_bitmap(mods, rot=12.0), None)]), {}
+    if name == "bitmap-nearest":
+        return _stage(mods, [(_bitmap(mods, rot=9.0, repeating=False,
+                                      smoothed=False), None)]), {}
     if name == "mixed-rules":
         return _stage(mods, [
             (_solid(mods, 1, (250, 200, 0, 255), STAR, winding=True),
@@ -199,9 +207,10 @@ def _scene(mods, name):
     raise KeyError(name)
 
 
-STRAIGHT_ENVELOPE = {"focal": 3, "bitmap": 2}
-SCENES = ["solid-background", "linear", "focal", "bitmap", "mixed-rules",
-          "morph", "in-kernel-gradients"]
+STRAIGHT_ENVELOPE = {"focal": 3, "bitmap": 2, "bitmap-rotated": 3,
+                     "bitmap-nearest": 85}
+SCENES = ["solid-background", "linear", "focal", "bitmap", "bitmap-rotated",
+          "bitmap-nearest", "mixed-rules", "morph", "in-kernel-gradients"]
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -210,7 +219,7 @@ def test_render_matches_tpu_renderer(name):
     tstage, _ = _scene(PORT, name)
     jr = TpuRenderer(W, H, **kw)
     tr = TorchRenderer(W, H, device="cpu", **kw)
-    if name == "bitmap":
+    if name.startswith("bitmap"):
         jr.add_bitmap(_bitmap_tag(JAX))
         tr.add_bitmap(_bitmap_tag(PORT))
     want = jr.render(jstage)
@@ -302,9 +311,6 @@ def test_out_of_slice_scenes_raise():
         display.ShapeInstance(definition=_solid(PORT, i)) for i in range(17)])
     with pytest.raises(NotImplementedError, match="multi-pass"):
         tr.render(deep)
-    tr.add_bitmap(_bitmap_tag(PORT))
-    with pytest.raises(NotImplementedError, match="texfield"):
-        tr.render(_stage(PORT, [(_bitmap(PORT, rot=0.3), None)]))
     wide = TorchRenderer(8200, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="width > 8191"):
         wide.render(display.Stage(width=8200, height=8, children=[

@@ -127,7 +127,7 @@ def test_affine_pieces_equal_reference(name, mats, kwargs):
     assert got_colors.tobytes() == colarr.tobytes()
     assert all(np.array_equal(a, b) for a, b in zip(splits, got_splits))
     # The reference's sublane copy holds the same values.
-    dev = convert.sweep_table_to_device(tab, subxy)
+    dev = convert.sweep_table_to_device(tab, subxy, device="cpu")
     assert dev.shape == tab.shape and np.array_equal(dev.numpy(), got_tab)
     assert (tsweep.layer_piece_counts(got_tab)
             == jsweep.layer_piece_counts(tab))
@@ -145,8 +145,8 @@ def test_morph_affine_pieces_equal_reference(mats):
     for want, have in zip((ts, te, cs, ce), got):
         assert have.dtype == np.float32
         assert have.tobytes() == np.asarray(want).tobytes()
-    convert.sweep_table_to_device(ts, ss)
-    convert.sweep_table_to_device(te, se)
+    convert.sweep_table_to_device(ts, ss, device="cpu")
+    convert.sweep_table_to_device(te, se, device="cpu")
 
 
 def test_morph_pieces_equal_reference():
@@ -156,9 +156,9 @@ def test_morph_pieces_equal_reference():
     for want, have in zip((ts, te, cs, ce), got):
         assert have.tobytes() == np.asarray(want).tobytes()
     # suby holds the y0, y1 channels of the same table.
-    convert.sweep_table_to_device(ts, ys)
+    convert.sweep_table_to_device(ts, ys, device="cpu")
     with pytest.raises(ValueError, match="disagrees"):
-        convert.sweep_table_to_device(ts, ye + 1.0)
+        convert.sweep_table_to_device(ts, ye + 1.0, device="cpu")
 
 
 def _gradient_paints(mod, color_space="s-rgb"):
@@ -262,7 +262,7 @@ def test_bake_sweep_fields_matches_reference(case):
         stop_tracks=tracks))
     got = tsweep.bake_sweep_fields(
         _field_specs(tsweep, tstyle, frames, repeat), height, width,
-        stop_tracks=tracks, frame_chunk=2)
+        stop_tracks=tracks, frame_chunk=2, device="cpu")
     assert tuple(got.shape) == (1, frames, height, width, 4) == want.shape
     assert got.dtype == torch.float32
     assert np.abs(got.numpy() - want).max() <= 2e-5
@@ -272,11 +272,24 @@ def test_bake_sweep_fields_matches_reference(case):
 
 
 def test_bake_sweep_fields_refuses_bitmaps():
-    paint = tstyle.Paint(kind=tstyle.PAINT_BITMAP,
-                         image=np.zeros((4, 4, 4), np.uint8))
-    spec = tsweep.SweepFieldSpec(0, paint, np.zeros((2, 6), np.float32))
-    with pytest.raises(NotImplementedError, match=r"A4.*B8"):
-        tsweep.bake_sweep_fields([spec], 8, 8)
+    """Formerly a refusal: a bitmap spec now bakes — its axis-aligned
+    frame through the separable stack, the rotated ones through the
+    texfield kernel's plain version — within the reference kernel's own
+    tolerance (2e-4, its 3-pass bf16 split) of the JAX bake."""
+    img = np.random.default_rng(3).integers(0, 256, (9, 7, 4)).astype(
+        np.uint8)
+    th = np.asarray([0.0, 0.3, 1.1], np.float32)
+    invs = np.stack([0.4 * np.cos(th), 0.4 * np.sin(th), -0.4 * np.sin(th),
+                     0.4 * np.cos(th), 1.5 + th, -0.5 * th], 1)
+    specs = [mod_sweep.SweepFieldSpec(0, mod_style.Paint(
+        kind=mod_style.PAINT_BITMAP, image=img, repeating=True,
+        supersample=2), invs.astype(np.float32))
+        for mod_sweep, mod_style in ((jsweep, jstyle), (tsweep, tstyle))]
+    want = np.asarray(jsweep.bake_sweep_fields(specs[:1], 20, 24))
+    got = tsweep.bake_sweep_fields(specs[1:], 20, 24, device="cpu")
+    assert tuple(got.shape) == want.shape == (1, 3, 20, 24, 4)
+    assert np.abs(got.numpy() - want).max() <= 2e-4
+    assert float(got[0, 1:].std()) > 0.05
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +330,8 @@ def test_affine_sweep_plain_matches_jax_kernel(name, straight):
         j(mats), j(tab), j(subxy), j(colors), height, width,
         layer_counts=counts, **kw), height, width)
     got = tmorph.morph_frames_to_u8(tsweep.render_affine_sweep(
-        t(mats), convert.sweep_table_to_device(tab, subxy), t(colors),
+        t(mats), convert.sweep_table_to_device(tab, subxy, device="cpu"),
+        t(colors),
         height, width, layer_counts=counts, **kw), height, width)
     assert got.shape == (mats.shape[0], height, width, 4)
     assert_close(want, got, straight)
@@ -363,7 +377,8 @@ def test_styled_affine_sweep_plain_matches_jax_kernel(name, straight):
         _gradient_paints(tstyle, space), mats, allow_fields=True)
     jfields = (jsweep.bake_sweep_fields(jspecs, height, width)
                if jspecs else None)
-    tfields = (tsweep.bake_sweep_fields(tspecs, height, width)
+    tfields = (tsweep.bake_sweep_fields(tspecs, height, width,
+                                        device="cpu")
                if tspecs else None)
     assert (tfields is not None) == (name == "field")
     want = jmorph.morph_frames_to_u8(jsweep.render_affine_sweep(
@@ -394,8 +409,10 @@ def test_morph_affine_sweep_plain_matches_jax_kernel(name, straight):
         height, width, fill_rule=(0, 1), layer_counts=counts),
         height, width)
     got = tmorph.morph_frames_to_u8(tsweep.render_morph_affine_sweep(
-        t(mats), t(RATIOS), convert.sweep_table_to_device(ts, ss),
-        convert.sweep_table_to_device(te, se), t(cs), t(ce), height, width,
+        t(mats), t(RATIOS),
+        convert.sweep_table_to_device(ts, ss, device="cpu"),
+        convert.sweep_table_to_device(te, se, device="cpu"), t(cs), t(ce),
+        height, width,
         fill_rule=(0, 1), layer_counts=counts), height, width)
     assert_close(want, got, straight)
 
@@ -410,8 +427,9 @@ def test_morph_sweep_plain_matches_jax_kernel(rule, straight):
         j(RATIOS), j(ts), j(te), j(ys), j(ye), j(cs), j(ce), height, width,
         fill_rule=rule), height, width)
     got = tmorph.morph_frames_to_u8(tmorph.render_morph_sweep(
-        t(RATIOS), convert.sweep_table_to_device(ts, ys),
-        convert.sweep_table_to_device(te, ye), t(cs), t(ce), height, width,
+        t(RATIOS), convert.sweep_table_to_device(ts, ys, device="cpu"),
+        convert.sweep_table_to_device(te, ye, device="cpu"), t(cs), t(ce),
+        height, width,
         fill_rule=rule), height, width)
     assert_close(want, got, straight)
 
