@@ -48,11 +48,26 @@ Phases, each of which exits non-zero on failure before the last line:
              texfield and 29 sweep launches; median wall of calls 3-30);
              then bench.py's animtex scene at 512x512 and at 1088x1920 (60
              frames; bake kernel, whole bake, sweep and download timed,
-             every frame held against the plain versions).
+             every frame held against the plain versions);
+7. layered — the banded and tiled coverage kernels against their plain
+             versions on closed random paths (3 to 5000 edges, 37x300,
+             100x150 and 1088x1920, both rules) and the resolve kernel on
+             random planes (1/4/16 layers, strides 256 and 8448, every
+             rule); then direct1080 (bench.py --direct uncut: 60 x 4 x
+             1088x1920 through ``render_solid_batch``, banded), dense1080
+             (4 x 4 frames of 320 octagons a layer, tiled) and wide8k
+             (16 x 4 x 1088x8320 through ``render_batch_flatblock``, the
+             resolve kernel): host lowering, upload, kernel, download
+             timed, every plane held against the plain version; and
+             phase 4's stages through ``backend="direct"`` /
+             ``"scanline"``, ``quality="flash-pointaa"``,
+             ``validate=True`` and an 8320-px renderer under auto, with
+             the paths and launch counters checked and two scanline
+             renders compared byte for byte.
 
 The launch counters of the kernel wrappers are set to 0 right before the
-headline, the renderer, the sweep and the bitmap paths and read right
-after.  The script prints
+headline, the renderer, the sweep, the bitmap and the layered paths and
+read right after.  The script prints
 one JSON line describing each kernel (time, bound, plain version's time),
 then the card's name and power limit as nvidia-smi prints them, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -1614,6 +1629,475 @@ def phase_bitmaps(torch, np, report):
     return {"texfield": k}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: layered backends (direct coverage, wide frames)
+# ---------------------------------------------------------------------------
+
+COV_TOL = 1e-6                   # coverage / premul max abs, kernel vs plain
+DIRECT = (60, 4, 1088, 1920)     # bench.py --direct, uncut
+DENSE = (4, 4, 1088, 1920, 320)  # frames, layers, height, width, shapes
+WIDE = (16, 4, 1088, 8320)       # stride 8448 > 8192
+COV_EDGES = ((3, 128), (128, 128), (700, 768), (2048, 2048), (2176, 2176),
+             (5000, 5120))       # (edges, padded)
+COV_FRAMES = ((37, 300), (100, 150))
+# The 1088x1920 random cases: (edges, padded) through both kernels (700)
+# or the tiled one (5000).
+COV_BIG = ((700, 768), (5000, 5120))
+WIDE_ROUTE = (8320, 1088)        # TorchRenderer(width, height), auto
+
+
+def _cov_u8(torch, c):
+    return torch.round(torch.clamp(c, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _check_planes(torch, what, got, want):
+    """Coverage or premultiplied planes of a kernel against its plain
+    version: max abs within COV_TOL and equal u8 bytes."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max().item())
+    same = torch.equal(_cov_u8(torch, got), _cov_u8(torch, want))
+    log(f"layered: {what}: max abs diff {err:.3g}, u8 "
+        f"{'byte-equal' if same else 'DIFFERENT'}")
+    if err > COV_TOL or not same:
+        fail(f"kernel vs plain ({what}): {err}")
+    return err
+
+
+def banded_work(torch, ranges, height, width, nbytes_in):
+    """(bytes, f32 operations) of one banded call on these inputs: edges
+    and windows read once, the coverage written once; ~40 operations per
+    (edge of a band's window, pixel of the band) — this run's windows —
+    and 3 per pixel for the rule."""
+    count = (ranges[..., 1] - ranges[..., 0]).clamp(min=0).to(torch.int64)
+    rows = torch.clamp(height - 16 * torch.arange(ranges.shape[1],
+                                                  device=ranges.device),
+                       max=16)
+    pairs = int((count * rows[None]).sum().item()) * width
+    planes = ranges.shape[0]
+    return (nbytes_in + planes * height * width * 4,
+            pairs * 40 + planes * height * width * 3)
+
+
+def tiled_work(torch, bounds, height, width, nbytes_in):
+    """(bytes, f32 operations) of one tiled call: ~38 operations per
+    (edge of a hit block, pixel of the hit tile row) — this run's hits —
+    plus the slope per staged edge and the rule per pixel."""
+    ty = -(-height // 16)
+    y0 = torch.arange(ty, device=bounds.device, dtype=torch.float32) * 16
+    hit = ((bounds[..., 1, None] > y0) & (bounds[..., 0, None] < y0 + 16))
+    rows = torch.clamp(height - y0.to(torch.int64), max=16)
+    hits = int((hit.to(torch.int64) * rows).sum().item())
+    tiles_x = -(-width // 128)
+    planes = bounds.shape[0]
+    ops = (hits * 128 * width * 38 + int(hit.sum().item()) * tiles_x * 128 * 4
+           + planes * height * width * 3)
+    return nbytes_in + planes * height * width * 4, ops
+
+
+def resolve_work(frames, layers, height, stride, rules):
+    """(bytes, f32 operations) of one resolve call: every delta read once,
+    the colours read once, the four channel planes written once; per
+    pixel-layer the ladder (7 adds), the carry, the rule (2 or 5) and the
+    composite (12)."""
+    nbytes = (frames * layers * height * stride * 4 + frames * layers * 16
+              + frames * 4 * height * stride * 4)
+    per = sum(7 + 1 + (2 if r == 0 else 5) + 12 for r in rules)
+    return nbytes, frames * height * stride * per
+
+
+def coverage_random(torch, np):
+    """B9 and B10 against their plain versions on closed random paths
+    (rectangles, slivers under 1e-9, long unsplit edges, octagons partly
+    off the frame), both rules."""
+    from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.utils.scenes import closed_edge_planes
+
+    rng = np.random.default_rng(37)
+    worst = {"banded": 0.0, "tiled": 0.0}
+    cases = [(h, w, n, e) for h, w in COV_FRAMES for n, e in COV_EDGES]
+    cases += [(1088, 1920, n, e) for n, e in COV_BIG]
+    for height, width, n, e_pad in cases:
+        t = _up(torch, np, closed_edge_planes(rng, 2, n, e_pad, height,
+                                              width))
+        es, key, pad = cov.sort_edges(t)
+        for rule in (0, 1):
+            if e_pad <= cov.SMEM_EDGE_CAP:
+                got = cov.coverage_banded(t, height, width, rule)
+                want = cov.banded_plain(es, cov.band_ranges(t, key, height),
+                                        height, width, rule)
+                worst["banded"] = max(worst["banded"], _check_planes(
+                    torch, f"banded {height}x{width} E={n}/{e_pad} "
+                    f"rule={rule}", got, want))
+            got = cov.coverage_tiled(t, height, width, rule)
+            want = cov.tiled_plain(es, cov.block_bounds(es, key, pad), height,
+                                   width, rule)
+            worst["tiled"] = max(worst["tiled"], _check_planes(
+                torch, f"tiled {height}x{width} E={n}/{e_pad} rule={rule}",
+                got, want))
+    return worst
+
+
+def resolve_random(torch, np):
+    """B12 against its plain version: L = 1, 4, 16; strides 256 and 8448;
+    every rule (mixed per layer too); alpha from 0 to 1."""
+    from swf_renderer_tpu_torch.ops.coverage import (
+        layer_rules, normalize_fill_rule,
+    )
+    from swf_renderer_tpu_torch.ops.resolve import resolve_frames, resolve_plain
+
+    rng = np.random.default_rng(41)
+    worst = 0.0
+    for stride, height in ((256, 40), (8448, 16)):
+        for layers in (1, 4, 16):
+            d = rng.normal(0, 0.4, (2, layers, height, stride)).astype(
+                np.float32)
+            d[rng.uniform(size=d.shape) < 0.6] = 0.0
+            c = rng.uniform(0, 1, (2, layers, 4)).astype(np.float32)
+            c[0, 0, 3], c[1, -1, 3] = 0.0, 1.0
+            dd, dc = _up(torch, np, d), _up(torch, np, c)
+            mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+            for rule in (0, 1, mixed):
+                got = resolve_frames(dd, dc, rule)
+                want = resolve_plain(dd, dc, layer_rules(
+                    normalize_fill_rule(rule, layers), layers))
+                tag = rule if isinstance(rule, int) else "mixed"
+                worst = max(worst, _check_planes(
+                    torch, f"resolve L={layers} S={stride} rule={tag}",
+                    got, want))
+    return worst
+
+
+def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
+               report):
+    """render_solid_batch on one scene: the main path once (counters
+    read), then host lowering, upload, coverage kernel, composite and
+    download timed; every plane held against the kernel's plain
+    version."""
+    from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.ops.composite import (
+        composite_solid_layers, premul_to_straight_u8,
+    )
+    from swf_renderer_tpu_torch.ops.pipeline import render_solid_batch
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    tables, colors = build_scene_edges(frames, layers, height, width,
+                                       shapes_per_layer=shapes, seed=7)
+    t0 = time.perf_counter()
+    edges_t = cov.split_pad_tables([t for per in tables for t in per])
+    edges_t = edges_t.reshape(frames, layers, 4, -1)
+    t_lower = time.perf_counter() - t0
+    n_edges = int((edges_t != 0).any(axis=2).sum(axis=-1).max())
+    banded = edges_t.shape[-1] <= cov.SMEM_EDGE_CAP
+    if kind != ("banded" if banded else "tiled"):
+        fail(f"{what}: {n_edges} edges do not take the {kind} kernel")
+    counter = cov.coverage_banded if banded else cov.coverage_tiled
+    cov.coverage_banded.launches = cov.coverage_tiled.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_main = render_solid_batch(edges_t, colors, height, width,
+                                  device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    other = (cov.coverage_tiled if banded else cov.coverage_banded).launches
+    if launches != 1 or other != 0:
+        fail(f"{what}: {kind} launches {launches}, other kernel {other}")
+    if out_main.shape != (frames, height, width, 4):
+        fail(f"{what}: frames {out_main.shape}")
+    covered = float((out_main[..., 3] > 0).mean())
+    if not 0.02 < covered < 1.0:
+        fail(f"{what}: covered share {covered}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_edges = _up(torch, np, edges_t).view(frames * layers, 4, -1)
+    d_colors = _up(torch, np, colors)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    es, key, pad = cov.sort_edges(d_edges)
+    table = (cov.band_ranges(d_edges, key, height) if banded
+             else cov.block_bounds(es, key, pad))
+
+    def kernel():
+        return cov._launch_coverage(kind, es, table, height, width, 0)
+
+    def whole():
+        return cov.coverage(d_edges, height, width, 0)
+
+    ms = time_cuda(torch, kernel)
+    whole_ms = time_cuda(torch, whole)
+    got = kernel()
+    held = {}
+    plain_fn = cov.banded_plain if banded else cov.tiled_plain
+
+    def plain():
+        held["want"] = plain_fn(es, table, height, width, 0)
+
+    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    err = _check_planes(torch, f"{what}: all {frames * layers} planes",
+                        got, held["want"])
+
+    def composite():
+        return composite_solid_layers(got.view(frames, layers, height, width),
+                                      d_colors)
+
+    comp_ms = time_cuda(torch, composite)
+    pm = composite()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = premul_to_straight_u8(pm)
+    t_d2h = time.perf_counter() - t0
+    if not np.array_equal(host, out_main):
+        fail(f"{what}: timed kernel frames differ from the main path's")
+    want_frames = premul_to_straight_u8(composite_solid_layers(
+        held.pop("want").view(frames, layers, height, width), d_colors))
+    if not np.array_equal(want_frames, out_main):
+        fail(f"{what}: frames from the plain coverage differ")
+    nbytes_in = sum(x.numel() * x.element_size() for x in (es, table))
+    work = (banded_work if banded else tiled_work)(torch, table, height,
+                                                   width, nbytes_in)
+    bound_ms, bound_by = bound(*work)
+    pixels = frames * height * width
+    log(f"layered: {what}: render_solid_batch wall {wall * 1e3:.1f} ms "
+        f"({kind}, {n_edges} edges padded to {edges_t.shape[-1]}, launches "
+        f"{launches}); host split+pad {t_lower * 1e3:.1f} ms, H2D "
+        f"{t_h2d * 1e3:.1f} ms, kernel {ms:.3f} ms (sort + windows + kernel "
+        f"{whole_ms:.3f}), composite {comp_ms:.3f} ms, u8 + D2H "
+        f"{t_d2h * 1e3:.1f} ms; plain {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.3f} GB, "
+        f"{work[1] / 1e9:.1f} Gop); covered share {covered:.3f}")
+    report[what] = {
+        "frames": frames, "layers": layers, "height": height,
+        "width": width, "edges": n_edges, "padded": int(edges_t.shape[-1]),
+        "kernel": kind, "launches": launches, "wall_ms": wall * 1e3,
+        "host_lowering_ms": t_lower * 1e3, "h2d_ms": t_h2d * 1e3,
+        "kernel_ms": ms, "coverage_call_ms": whole_ms,
+        "composite_ms": comp_ms, "d2h_ms": t_d2h * 1e3,
+        "kernel_gpx_s": pixels / ms / 1e6, "end_to_end_gpx_s":
+        pixels / wall / 1e9, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bytes": work[0], "ops": work[1],
+        "max_abs_err": err, "covered": covered}
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def wide_run(torch, np, report):
+    """render_batch_flatblock at 8320 px (the resolve route): the main
+    path once (counter read), then host lowering, upload, scatter (twice:
+    byte-equal), kernel, quantize + download timed; every frame's planes
+    held against the plain version."""
+    from swf_renderer_tpu_torch.ops.composite import premul_to_straight_u8
+    from swf_renderer_tpu_torch.ops.pipeline import (
+        lower_update_lists, render_batch_flatblock,
+    )
+    from swf_renderer_tpu_torch.ops.resolve import (
+        pack_updates, resolve_frames, resolve_plain,
+    )
+    from swf_renderer_tpu_torch.ops.scanline import scatter_add
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    frames, layers, height, width = WIDE
+    tables, colors = build_scene_edges(frames, layers, height, width, seed=7)
+    resolve_frames.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_main = render_batch_flatblock(tables, colors, height, width,
+                                      device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = resolve_frames.launches
+    if launches != 1 or out_main.shape != (frames, height, width, 4):
+        fail(f"wide8k: launches {launches}, frames {out_main.shape}")
+    covered = float((out_main[..., 3] > 0).mean())
+    if not 0.005 < covered < 1.0 or not out_main[:, :, 8192:, 3].any():
+        fail(f"wide8k: covered share {covered}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()    # a second call: the first one's set-up
+    again = render_batch_flatblock(tables, colors, height, width,
+                                   device=DEVICE)
+    wall2 = time.perf_counter() - t0
+    if not np.array_equal(again, out_main):
+        fail("wide8k: two calls differ")
+
+    t0 = time.perf_counter()
+    flat = [u for per in lower_update_lists(tables, height, width)
+            for u in per]
+    rows, cols, vals = pack_updates(flat)
+    t_lower = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_rows = torch.from_numpy(rows).to(DEVICE).view(frames, layers, -1)
+    d_cols = torch.from_numpy(cols).to(DEVICE).view(frames, layers, -1)
+    d_vals = torch.from_numpy(vals).to(DEVICE).view(frames, layers, -1)
+    d_colors = _up(torch, np, colors)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    stride = -(-(width + 1) // 128) * 128
+    plane = height * stride
+    base = torch.arange(frames * layers, device=DEVICE).view(
+        frames, layers, 1) * plane
+    idx = base + d_rows.long() * stride + d_cols.long()
+
+    def scatter():
+        return scatter_add(frames * layers * plane, idx, d_vals).view(
+            frames, layers, height, stride)
+
+    scatter_ms = time_cuda(torch, scatter, reps=3)
+    planes = scatter()
+    if not torch.equal(planes, scatter()):
+        fail("wide8k: two scatters of the same updates differ")
+
+    def kernel():
+        return resolve_frames(planes, d_colors)
+
+    resolve_frames.launches = 0
+    ms = time_cuda(torch, kernel)
+    got = kernel()
+    held = {}
+
+    def plain():
+        held["want"] = resolve_plain(planes, d_colors, (0,) * layers)
+
+    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    err = _check_planes(torch, f"wide8k: resolve, all {frames} frames", got,
+                        held.pop("want"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = premul_to_straight_u8(got.permute(0, 2, 3, 1)[:, :, :width])
+    t_d2h = time.perf_counter() - t0
+    if not np.array_equal(host, out_main):
+        fail("wide8k: timed kernel frames differ from the main path's")
+    work = resolve_work(frames, layers, height, stride, (0,) * layers)
+    bound_ms, bound_by = bound(*work)
+    pixels = frames * height * width
+    log(f"layered: wide8k: render_batch_flatblock wall {wall * 1e3:.1f} ms "
+        f"({pixels / wall / 1e9:.3f} Gpx/s; second call "
+        f"{wall2 * 1e3:.1f} ms, byte-equal), resolve launches {launches}; "
+        f"host lowering {t_lower * 1e3:.1f} ms, H2D {t_h2d * 1e3:.1f} ms, "
+        f"scatter {scatter_ms:.3f} ms (byte-equal twice), kernel {ms:.3f} "
+        f"ms, u8 + D2H {t_d2h * 1e3:.1f} ms; plain {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.3f} GB, "
+        f"{work[1] / 1e9:.2f} Gop); covered share {covered:.3f}")
+    report["wide8k"] = {
+        "frames": frames, "layers": layers, "height": height,
+        "width": width, "stride": stride, "updates": int(rows.shape[1]),
+        "launches": launches, "wall_ms": wall * 1e3,
+        "second_wall_ms": wall2 * 1e3,
+        "host_lowering_ms": t_lower * 1e3, "h2d_ms": t_h2d * 1e3,
+        "scatter_ms": scatter_ms, "kernel_ms": ms, "d2h_ms": t_d2h * 1e3,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": work[0], "ops": work[1], "max_abs_err": err,
+        "covered": covered}
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def layered_routes(torch, np, report):
+    """Phase 4's 1920x1088 stages through every layered route of the
+    renderer, and an 8320-px stage under auto, with the launch counters
+    set to 0 before and read after each route."""
+    from swf_renderer_tpu_torch.models import display
+    from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_styled
+    from swf_renderer_tpu_torch.ops.resolve import resolve_frames
+    from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
+
+    stages, bitmap = build_stages(np)
+    width, height = stages[0].width, stages[0].height
+    counters = {"banded": cov.coverage_banded, "tiled": cov.coverage_tiled,
+                "resolve": resolve_frames, "styled": render_fused_styled}
+    routes = {  # name -> (renderer options, path, render_batch's reason)
+        "direct": ({"backend": "direct"}, "direct",
+                   "explicit backend='direct'"),
+        "scanline": ({"backend": "scanline"}, "scanline",
+                     "explicit backend='scanline'"),
+        "pointaa": ({"quality": "flash-pointaa"}, "pointaa",
+                    "point-sampled AA quality"),
+        "validate": ({"validate": True}, "scanline",
+                     "validate=True inspects raw coverage")}
+    totals = {"banded": 0, "tiled": 0}
+    out = {}
+    for name, (kw, path, reason) in routes.items():
+        renderer = TorchRenderer(width, height, device=DEVICE, **kw)
+        renderer.add_bitmap(bitmap)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = renderer.render(stages[0])
+        t_one = time.perf_counter() - t0
+        got_path = renderer.last_stats.path
+        t0 = time.perf_counter()
+        batch = renderer.render_batch(stages)
+        t_batch = time.perf_counter() - t0
+        batch_path = renderer.last_stats.path
+        got = {k: c.launches for k, c in counters.items()}
+        if got_path != path or batch_path != f"per-stage:{reason}":
+            fail(f"route {name}: paths {got_path!r}, {batch_path!r}")
+        if got["styled"] or got["resolve"] or got["tiled"]:
+            fail(f"route {name}: unexpected launches {got}")
+        if (name == "direct") != (got["banded"] == 4):
+            fail(f"route {name}: banded launches {got['banded']}")
+        if batch.shape != (3, height, width, 4) or not np.array_equal(
+                batch[0], frame) or not frame[..., 3].any():
+            fail(f"route {name}: frames {batch.shape}")
+        if name == "scanline":
+            again = renderer.render(stages[0])
+            if not np.array_equal(again, frame):
+                fail("scanline route: two renders of one stage differ")
+        for k in totals:
+            totals[k] += got[k]
+        log(f"layered: route {name}: render {t_one * 1e3:.1f} ms (path "
+            f"{got_path}), render_batch x3 {t_batch * 1e3:.1f} ms (path "
+            f"{batch_path}), launches {got}"
+            + (", two scanline renders byte-equal" if name == "scanline"
+               else ""))
+        out[name] = {"render_ms": t_one * 1e3, "render_batch_ms":
+                     t_batch * 1e3, "path": got_path, "batch_path":
+                     batch_path, "launches": got}
+
+    wide_w, wide_h = WIDE_ROUTE
+    wide = TorchRenderer(wide_w, wide_h, device=DEVICE)
+    wide.add_bitmap(bitmap)
+    for c in counters.values():
+        c.launches = 0
+    stage = display.Stage(width=wide_w, height=wide_h,
+                          children=stages[0].children)
+    t0 = time.perf_counter()
+    frame = wide.render(stage)
+    t_wide = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    if wide.last_stats.path != "scanline" or any(got.values()) or \
+            frame.shape != (wide_h, wide_w, 4) or not frame[..., 3].any():
+        fail(f"wide render: path {wide.last_stats.path!r}, launches {got}")
+    log(f"layered: TorchRenderer({wide_w}, {wide_h}).render: "
+        f"{t_wide * 1e3:.1f} ms, "
+        f"path scanline (auto), launches {got}")
+    out["wide_render_ms"] = t_wide * 1e3
+    report["layered_routes"] = out
+    return totals
+
+
+def phase_layered(torch, np, report):
+    worst = coverage_random(torch, np)
+    worst_resolve = resolve_random(torch, np)
+    f, l, h, w = DIRECT
+    direct = direct_run(torch, np, "direct1080", "banded", f, l, h, w, 16,
+                        report)
+    f, l, h, w, shapes = DENSE
+    dense = direct_run(torch, np, "dense1080", "tiled", f, l, h, w, shapes,
+                       report)
+    wide = wide_run(torch, np, report)
+    routes = layered_routes(torch, np, report)
+    direct.update(name="coverage_banded",
+                  launches=direct["launches"] + routes["banded"],
+                  max_abs_err=max(direct["max_abs_err"], worst["banded"]))
+    dense.update(name="coverage_tiled",
+                 launches=dense["launches"] + routes["tiled"],
+                 max_abs_err=max(dense["max_abs_err"], worst["tiled"]))
+    wide.update(name="resolve",
+                max_abs_err=max(wide["max_abs_err"], worst_resolve))
+    return {"banded": direct, "tiled": dense, "resolve": wide}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1638,6 +2122,7 @@ def main() -> None:
         k["max_abs_err"] = max(k["max_abs_err"], worst[key])
     kernels.update(phase_sweeps(torch, np, report))
     kernels.update(phase_bitmaps(torch, np, report))
+    kernels.update(phase_layered(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
@@ -1649,6 +2134,12 @@ def main() -> None:
         "morph": (sweep_cu, "swf_renderer_tpu/ops/morph.py:98"),
         "texfield": ("swf_renderer_tpu_torch/csrc/texfield.cu",
                      "swf_renderer_tpu/ops/texfield.py:186"),
+        "banded": ("swf_renderer_tpu_torch/csrc/coverage.cu",
+                   "swf_renderer_tpu/ops/coverage.py:559"),
+        "tiled": ("swf_renderer_tpu_torch/csrc/coverage.cu",
+                  "swf_renderer_tpu/ops/coverage.py:169"),
+        "resolve": ("swf_renderer_tpu_torch/csrc/resolve.cu",
+                    "swf_renderer_tpu/ops/resolve.py:53"),
     }
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],

@@ -26,6 +26,10 @@ LIBRARIES = {
     "swfsweep": ("sweep.cu", ("sweep_device.cuh", "flatblock_device.cuh")),
     "swftexfield": ("texfield.cu", ("texfield_device.cuh",
                                     "flatblock_device.cuh")),
+    "swfcoverage": ("coverage.cu", ("coverage_device.cuh",
+                                    "flatblock_device.cuh")),
+    "swfresolve": ("resolve.cu", ("resolve_device.cuh",
+                                  "flatblock_device.cuh")),
 }
 # -fmad=false: no a*b+c contracts into an FMA the reference does not do;
 # IEEE division and square root stay on (no --use_fast_math).
@@ -115,8 +119,15 @@ def load(name: str = "swfkernels"):
             elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
-            else:
+            elif name == "swftexfield":
                 lib.swf_texfield.restype = i
                 lib.swf_texfield.argtypes = [p] * 4 + [i] * 9 + [p]
+            elif name == "swfcoverage":
+                for fn in (lib.swf_coverage_banded, lib.swf_coverage_tiled):
+                    fn.restype = i
+                    fn.argtypes = [p] * 3 + [i] * 5 + [p]
+            else:
+                lib.swf_resolve.restype = i
+                lib.swf_resolve.argtypes = [p] * 4 + [i] * 4 + [p]
             _libs[name] = lib
         return _libs[name]

@@ -1,15 +1,20 @@
-"""Batched render pipelines on the fused flat-block kernels.
+"""Batched render pipelines.
 
-Port of the flat-block half of ``swf_renderer_tpu/ops/pipeline.py``: the
+Port of ``swf_renderer_tpu/ops/pipeline.py``.  The flagship route: the
 native cell splitter lowers every (frame, layer) edge table to coalesced
 winding deltas (in parallel: its C ABI drops the GIL), the native grouped
-packer turns them into the kernels' placement blocks, and ONE kernel
-launch renders the whole batch to packed RGBA.
+packer turns them into the fused kernels' placement blocks, and ONE
+kernel launch renders the whole batch to packed RGBA.  Frames wider than
+the chunk-major layout (stride > 8192 px) take the layered routes: the
+solid pipeline scatters the deltas into planes resolved by the resolve
+kernel (``ops/resolve.py``), the styled one composites scanline coverage
+over paint fields (``render_styled_layered``).  ``render_solid_batch`` /
+``render_morph_batch`` rasterize padded edge tables through the direct
+coverage kernels (``ops/coverage.py``).
 
 Routes this port does not have yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: masked/blended/filtered draw lists, draw lists
-deeper than one kernel pass (multi-pass), and frames wider than the
-chunk-major layout (stride > 8192 px).
+their ROADMAP.md item: masked/blended/filtered draw lists and draw lists
+deeper than one kernel pass (multi-pass).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .coverage import FILL_RULE_NONZERO, normalize_fill_rule
+from .coverage import FILL_RULE_NONZERO, coverage, normalize_fill_rule
 from .flatblock import (
     LANE, MAX_CHUNKS, MAX_KERNEL_LAYERS, KPAINT_FOCAL, KPAINT_LINEAR,
     KernelPaint, field_to_chunkmajor, packed_to_frames, plane_geometry,
@@ -60,13 +65,58 @@ def lower_update_lists(edge_tables, height: int, width: int,
             for i in range(len(edge_tables))]
 
 
-def _check_width(height: int, width: int):
+def _too_wide(height: int, width: int) -> bool:
+    """True when the frame's stride exceeds the chunk-major layout of the
+    fused kernels (8192 px)."""
     stride, _, _ = plane_geometry(height, width)
-    if stride > MAX_CHUNKS * LANE:
-        raise NotImplementedError(
-            f"frame stride {stride} > {MAX_CHUNKS * LANE} px needs the "
-            "chunked-scatter/layered coverage routes: ROADMAP.md queue A "
-            "(width > 8191)")
+    return stride > MAX_CHUNKS * LANE
+
+
+def _f32(x, device) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def render_solid_batch(edges_t, colors, height: int, width: int,
+                       fill_rule: int = FILL_RULE_NONZERO, device=None):
+    """Render a batch of frames made of solid-fill draws through the
+    direct coverage kernels.
+
+    ``edges_t``: (B, P, 4, E) f32 — B frames, P draws per frame (all-zero
+    draws are no-ops), edge tables in device pixels, best pre-split to
+    bounded y-extent (``geometry.split_edges_y``) so the banded kernel's
+    windows stay tight.  ``colors``: (B, P, 4) straight RGBA.  Runs on
+    the tensors' device, or ``device`` for numpy inputs (the card unless
+    the caller asks for the CPU).  Returns (B, H, W, 4) uint8 (host)."""
+    from .composite import composite_solid_layers, premul_to_straight_u8
+
+    device = (edges_t.device if torch.is_tensor(edges_t) and device is None
+              else resolve_device(device))
+    edges_t, colors = _f32(edges_t, device), _f32(colors, device)
+    b, p, four, e = edges_t.shape
+    cov = coverage(edges_t.reshape(b * p, four, e), height, width,
+                   fill_rule)
+    frames_pm = composite_solid_layers(cov.view(b, p, height, width), colors)
+    return premul_to_straight_u8(frames_pm)
+
+
+def render_morph_batch(edges_start, edges_end, colors_start, colors_end,
+                       ratios, height: int, width: int,
+                       fill_rule: int = FILL_RULE_NONZERO, device=None):
+    """A morph shape at a batch of ratio steps: (P, 4, E) paired draw
+    tables (same topology), (P, 4) colours, (R,) ratios; the lerp runs on
+    the device and one coverage launch rasterizes every step.  Returns
+    (R, H, W, 4) uint8."""
+    device = resolve_device(device)
+    rr = _f32(ratios, device)[:, None, None, None]
+    edges = (_f32(edges_start, device)[None] * (1.0 - rr)
+             + _f32(edges_end, device)[None] * rr)
+    rc = rr[..., 0]
+    colors = (_f32(colors_start, device)[None] * (1.0 - rc)
+              + _f32(colors_end, device)[None] * rc)
+    return render_solid_batch(edges, colors, height, width, fill_rule,
+                              device=device)
 
 
 def _pack(edge_tables, height, width, cache, variant: str):
@@ -102,10 +152,21 @@ def render_batch_flatblock(edge_tables, colors, height: int, width: int,
     from ..convert import packed_to_device
 
     device = resolve_device(device)
-    _check_width(height, width)
     frames = len(edge_tables)
     layers = len(edge_tables[0])
     fill_rule = normalize_fill_rule(fill_rule, layers)
+    if _too_wide(height, width):
+        from .resolve import pack_updates, render_scanline_updates
+
+        flat = [u for per_frame in lower_update_lists(edge_tables, height,
+                                                      width)
+                for u in per_frame]
+        rows, cols, vals = pack_updates(flat)
+        return render_scanline_updates(
+            rows.reshape(frames, layers, -1), cols.reshape(frames, layers, -1),
+            vals.reshape(frames, layers, -1),
+            np.asarray(colors, np.float32), height, width,
+            fill_rule=fill_rule, device=device)
     *arrays, spp = _pack(edge_tables, height, width, cache, "solid")
     dev = packed_to_device(*arrays, device=device)
     out = render_fused_blocksn(
@@ -204,6 +265,38 @@ def _pack_styled(edge_tables, height, width, cache):
     return _pack(edge_tables, height, width, cache, "styled")
 
 
+def render_styled_layered(edge_tables, paints, height: int, width: int,
+                          colors=None, fill_rule=FILL_RULE_NONZERO,
+                          device=None):
+    """Layered styled route for any frame width: per-frame scanline
+    coverage (native cell splitter) + paint fields + premultiplied
+    composite.  Same contract as ``render_batch_styled``."""
+    from ..native.bindings import cells_split_native
+    from . import style as style_ops
+    from .composite import composite_to_u8
+    from .scanline import coverage_scanline, pack_cells
+
+    device = resolve_device(device)
+    fields = [style_ops.paint_field(p, height, width, device=device)
+              for p in paints]
+    out = []
+    for f, per_frame in enumerate(edge_tables):
+        cells = [cells_split_native(np.asarray(t, np.float32), height, width)
+                 for t in per_frame]
+        cov = coverage_scanline(*pack_cells(cells), height, width,
+                                fill_rule, device=device)
+        layer_fields = []
+        for lyr, p in enumerate(paints):
+            if p.kind == style_ops.PAINT_SOLID and colors is not None:
+                layer_fields.append(torch.as_tensor(
+                    np.asarray(colors[f][lyr], np.float32),
+                    device=device).expand(height, width, 4))
+            else:
+                layer_fields.append(fields[lyr])
+        out.append(composite_to_u8(cov, torch.stack(layer_fields)))
+    return np.stack(out)
+
+
 def render_batch_styled(edge_tables, paints, height: int, width: int,
                         colors=None, fill_rule=FILL_RULE_NONZERO,
                         cache=None, mask_tree=None, device=None):
@@ -222,7 +315,16 @@ def render_batch_styled(edge_tables, paints, height: int, width: int,
     layers = len(edge_tables[0])
     assert layers == len(paints)
     fill_rule = normalize_fill_rule(fill_rule, layers)
-    _check_width(height, width)
+    if _too_wide(height, width):
+        if mask_tree is not None:
+            # The layered route has no group compositor (as in the
+            # reference).
+            raise ValueError(
+                f"masked scenes wider than {MAX_CHUNKS * LANE} px don't "
+                "fit the fused program; use the layered renderer backends")
+        return render_styled_layered(edge_tables, paints, height, width,
+                                     colors=colors, fill_rule=fill_rule,
+                                     device=device)
     if mask_tree is not None:
         raise NotImplementedError(
             "clip groups, blend modes and filters run the masked program: "

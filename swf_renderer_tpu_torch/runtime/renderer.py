@@ -1,23 +1,25 @@
 """The renderer front-end: ``render(stage)`` / ``render_batch(stages)``.
 
-Port of ``swf_renderer_tpu/runtime/renderer.py`` for the fused path and
-the animation sweeps: scene compilation -> native lowering and packing ->
-one fused styled kernel launch per batch -> u8 readback; a batch whose
-frames show the same definitions under moving matrices, fading colour
-transforms or morph ratios compiles ONCE to local-space pieces and
-renders through one sweep kernel launch (``ops/transform.py``), so its
-host work does not grow with the frame count.  Bitmap layers bake their
-per-frame field planes on the card (``bake_sweep_fields``).  Repeated
-``render(stage)`` calls over the same definitions under moved matrices
-switch, from the second call on, to an F = 1 sweep over pieces cached on
-the card (``last_stats.path == "transform-sweep-1f"``).  The other routes
-of the reference raise ``NotImplementedError`` naming their ROADMAP.md
-item (queue A), or keep the fused route:
+Port of ``swf_renderer_tpu/runtime/renderer.py``: scene compilation ->
+native lowering and packing -> one fused styled kernel launch per batch
+-> u8 readback; a batch whose frames show the same definitions under
+moving matrices, fading colour transforms or morph ratios compiles ONCE
+to local-space pieces and renders through one sweep kernel launch
+(``ops/transform.py``), so its host work does not grow with the frame
+count.  Bitmap layers bake their per-frame field planes on the card
+(``bake_sweep_fields``).  Repeated ``render(stage)`` calls over the same
+definitions under moved matrices switch, from the second call on, to an
+F = 1 sweep over pieces cached on the card (``last_stats.path ==
+"transform-sweep-1f"``).
 
-* ``backend="scanline"`` / ``"direct"``, ``quality="flash-pointaa"`` and
-  ``validate=True``;
-* masks, blend modes and filters; draw lists deeper than one kernel pass;
-  frames wider than 8191 px.
+Draw lists the fused kernel does not take — ``backend="scanline"`` /
+``"direct"``, ``quality="flash-pointaa"``, ``validate=True`` and frames
+wider than 8191 px — run the layered backends: per-draw coverage planes
+(scanline scatter + prefix, 4x4 point sampling, or the direct coverage
+kernels), composited over each draw's paint field.  Masks, blend modes
+and filters, and draw lists deeper than one kernel pass on the fused
+route, raise ``NotImplementedError`` naming their ROADMAP.md item
+(queue A).
 """
 
 from __future__ import annotations
@@ -34,8 +36,11 @@ import torch
 from ..models import ast, display
 from ..models import ir as ir_mod
 from ..models.geometry import CURVE_TOLERANCE, TWIPS_PER_PX, Affine
+from ..ops import composite as composite_ops
 from ..ops import style as style_ops
-from ..ops.coverage import FILL_RULE_NONZERO, normalize_fill_rule
+from ..ops.coverage import (
+    FILL_RULE_NONZERO, coverage, normalize_fill_rule, split_pad_tables,
+)
 from ..utils.device import resolve_device
 from .bitmap_service import BitmapService
 from .scene import Draw, SceneCompiler
@@ -47,7 +52,8 @@ logger = logging.getLogger("swf_renderer_tpu_torch")
 class RenderStats:
     """Per-frame observability: draw/edge counts, wall seconds and the
     execution path ("flatblock", "batched-styled", "transform-sweep",
-    "transform-sweep-1f", "empty" or "per-stage:<reason>")."""
+    "transform-sweep-1f", "scanline", "direct", "pointaa", "empty" or
+    "per-stage:<reason>")."""
 
     draws: int = 0
     edges: int = 0
@@ -160,7 +166,16 @@ def _upload(array, device):
 class TorchRenderer:
     """Renders retained stages to RGBA frames on the card (or, with
     ``device="cpu"``, through the kernels' plain versions).  ``render``
-    returns the frame as an (H, W, 4) uint8 array."""
+    returns the frame as an (H, W, 4) uint8 array.
+
+    backend: 'auto' | 'scanline' | 'direct'.  'auto' takes the fused
+    kernel where it applies and scanline coverage elsewhere; 'scanline'
+    lowers draws to pixel-cell lists and rasterizes them with scatter +
+    prefix sum; 'direct' runs the direct coverage kernels.  quality:
+    'canvas' (the reference TS renderer's strokes), 'flash' (the SWF line
+    styles, finer curve flattening) or 'flash-pointaa' (also Flash's
+    quality-high 4x4 point-sampled antialiasing).  validate: check every
+    coverage plane for NaN/Inf and values outside [0, 1]."""
 
     def __init__(self, width: int, height: int, backend: str = "auto",
                  quality: str = "canvas", validate: bool = False,
@@ -169,19 +184,9 @@ class TorchRenderer:
             raise ValueError(f"unknown quality {quality!r}")
         if backend not in ("auto", "scanline", "direct"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend != "auto":
-            raise NotImplementedError(
-                f"backend={backend!r} needs the coverage kernels: "
-                "ROADMAP.md queue A (scanline/direct backends)")
-        if quality == "flash-pointaa":
-            raise NotImplementedError(
-                "point-sampled AA needs the scanline point kernels: "
-                "ROADMAP.md queue A (pointaa backend)")
-        if validate:
-            raise NotImplementedError(
-                "validate=True inspects raw coverage of the layered "
-                "backends: ROADMAP.md queue A (scanline/direct backends)")
         self.device = resolve_device(device)
+        self.backend = backend
+        self.validate = validate
         self.honor_fill_winding = honor_fill_winding
         self.width = width
         self.height = height
@@ -278,12 +283,11 @@ class TorchRenderer:
             raise NotImplementedError(
                 "clip groups, blend modes and filters run the masked "
                 "program: ROADMAP.md queue A (masks/blends/filters)")
-        reason = None
-        if not per_frame_draws[0]:
-            reason = "empty draw list"
-        elif not _uniform_layer_structure(per_frame_draws):
+        reason = (None if not per_frame_draws[0]
+                  else self._flatblock_refusal(per_frame_draws[0]))
+        if not _uniform_layer_structure(per_frame_draws):
             reason = "non-uniform layer structure across frames"
-        if reason is None:
+        if per_frame_draws[0] and reason is None:
             from ..ops.pipeline import render_batch_styled
 
             paints = [d.paint for d in per_frame_draws[0]]
@@ -299,6 +303,7 @@ class TorchRenderer:
                 cache=self._packed_cache, device=self.device)
             path = "batched-styled"
         else:
+            reason = reason or "empty draw list"
             logger.warning(
                 "render_batch: rendering stage by stage (%s)", reason)
             out = np.stack([self.execute(draws)
@@ -330,6 +335,10 @@ class TorchRenderer:
         pattern."""
         first = stages[0]
         if len(stages) < 2 or not first.children:
+            return None
+        # The sweep is an analytic-AA fused path: the explicit layered
+        # choices (backend, validation, point-sampled AA) opt out of it.
+        if self._layered_only():
             return None
         if any(_fractional_exact_clip(s) for s in stages):
             return None  # sub-pixel exact clipping isn't in the sweep
@@ -672,10 +681,7 @@ class TorchRenderer:
     # -- single-frame interactive sweep -------------------------------------
 
     def _frame_sweep_gates(self, stage) -> bool:
-        # The reference also gates the scanline/direct backends, validate
-        # and point-sampled AA here; this renderer refuses those at
-        # construction.
-        return not (_fractional_exact_clip(stage)
+        return not (self._layered_only() or _fractional_exact_clip(stage)
                     or stage.width != self.width
                     or stage.height != self.height)
 
@@ -918,14 +924,44 @@ class TorchRenderer:
 
     # -- execution ----------------------------------------------------------
 
+    def _layered_only(self) -> bool:
+        """An explicit choice of the layered backends: a legacy backend,
+        coverage validation or point-sampled AA."""
+        return (self.backend in ("scanline", "direct") or self.validate
+                or self.quality == "flash-pointaa")
+
+    def _use_scanline(self) -> bool:
+        # 'auto' prefers scanline coverage: the native cell splitter is
+        # part of this package (the reference checks that it loaded).
+        return self.backend != "direct"
+
+    def _flatblock_refusal(self, draws: List[Draw]) -> Optional[str]:
+        """Why the fused kernel can't run this draw list (None when it
+        can): the layered backends take over for an explicit backend,
+        point-sampled AA, coverage validation, or a frame stride beyond
+        the chunk-major layout."""
+        if self.backend in ("scanline", "direct"):
+            return f"explicit backend={self.backend!r}"
+        if self.quality == "flash-pointaa":
+            return "point-sampled AA quality"
+        if self.validate:
+            return "validate=True inspects raw coverage"
+        from ..ops.flatblock import LANE, MAX_CHUNKS, plane_geometry
+
+        stride, _, _ = plane_geometry(self.height, self.width)
+        if stride > MAX_CHUNKS * LANE:
+            return f"width stride {stride} > {MAX_CHUNKS * LANE}"
+        return None
+
     def execute(self, draws: List[Draw]) -> np.ndarray:
-        """One compiled draw list -> (H, W, 4) u8 through the fused
-        styled kernel."""
+        """One compiled draw list -> (H, W, 4) u8: through the fused
+        styled kernel, or the layered backends when it refuses."""
         from ..ops.pipeline import render_batch_styled
 
+        h, w = self.height, self.width
         if not draws:
             self._exec_path = "empty"
-            return np.zeros((self.height, self.width, 4), dtype=np.uint8)
+            return np.zeros((h, w, 4), dtype=np.uint8)
         if any(d.mask_of is not None or d.mask_ids for d in draws):
             raise NotImplementedError(
                 "clip groups, blend modes and filters run the masked "
@@ -933,11 +969,77 @@ class TorchRenderer:
         fill_rules = sorted({d.fill_rule for d in draws})
         rule = (fill_rules[0] if len(fill_rules) == 1
                 else tuple(d.fill_rule for d in draws))
-        self._exec_path = "flatblock"
-        return render_batch_styled(
-            [[d.edges for d in draws]], [d.paint for d in draws],
-            self.height, self.width, fill_rule=rule,
-            cache=self._packed_cache, device=self.device)[0]
+        refusal = self._flatblock_refusal(draws)
+        if refusal is None:
+            self._exec_path = "flatblock"
+            return render_batch_styled(
+                [[d.edges for d in draws]], [d.paint for d in draws], h, w,
+                fill_rule=rule, cache=self._packed_cache,
+                device=self.device)[0]
+        logger.debug("fused path unavailable: %s", refusal)
+        if self.quality == "flash-pointaa":
+            self._exec_path = "pointaa"
+            coverages = self._coverage_points(draws, rule)
+        elif self._use_scanline():
+            self._exec_path = "scanline"
+            coverages = self._coverage_scanline(draws, rule)
+        else:
+            self._exec_path = "direct"
+            coverages = self._coverage_direct(draws)
+        if self.validate:
+            if not bool(torch.isfinite(coverages).all()):
+                raise FloatingPointError("coverage contains NaN/Inf")
+            lo, hi = float(coverages.min()), float(coverages.max())
+            if lo < -1e-4 or hi > 1.0 + 1e-4:
+                raise FloatingPointError(
+                    f"coverage out of range [{lo}, {hi}]")
+        colors = torch.stack([style_ops.paint_field(d.paint, h, w,
+                                                    device=self.device)
+                              for d in draws])
+        return composite_ops.composite_to_u8(coverages, colors)
+
+    def _coverage_scanline(self, draws: List[Draw], fill_rule):
+        from ..native.bindings import cells_split_native
+        from ..ops import scanline as scanline_ops
+
+        cells = [cells_split_native(d.edges, self.height, self.width)
+                 for d in draws]
+        return scanline_ops.coverage_scanline(
+            *scanline_ops.pack_cells(cells), self.height, self.width,
+            fill_rule, device=self.device)
+
+    def _coverage_points(self, draws: List[Draw], fill_rule, ss: int = 4):
+        """Flash quality-high antialiasing: 4x4 point-sampled winding."""
+        from ..ops import scanline as scanline_ops
+
+        cells = [scanline_ops.edges_to_point_cells(d.edges, self.height,
+                                                   self.width, ss)
+                 for d in draws]
+        count = max(1, max(r.shape[0] for r, _, _ in cells))
+        n = ((count + 511) // 512) * 512
+        rows = np.zeros((len(cells), n), np.int32)
+        cols = np.zeros((len(cells), n), np.int32)
+        delta = np.zeros((len(cells), n), np.float32)
+        for i, (r, c, d) in enumerate(cells):
+            k = r.shape[0]
+            rows[i, :k] = r
+            cols[i, :k] = np.minimum(c, self.width * ss)
+            delta[i, :k] = d
+        return scanline_ops.coverage_scanline_points(
+            rows, cols, delta, self.height, self.width, fill_rule, ss,
+            device=self.device)
+
+    def _coverage_direct(self, draws: List[Draw]):
+        """The direct coverage kernels over every draw's edges."""
+        h, w = self.height, self.width
+        edges_t = torch.from_numpy(split_pad_tables(
+            [d.edges for d in draws])).to(self.device)
+        fill_rules = {d.fill_rule for d in draws}
+        if len(fill_rules) == 1:
+            return coverage(edges_t, h, w, fill_rule=fill_rules.pop())
+        return torch.cat([coverage(edges_t[i:i + 1], h, w,
+                                   fill_rule=d.fill_rule)
+                          for i, d in enumerate(draws)])
 
 
 # ---------------------------------------------------------------------------

@@ -94,3 +94,39 @@ def random_tracks(rng, frames, layers, height, width):
     e = cx - a * cx - c * cy + rng.uniform(-8, 8, (frames, layers))
     f = cy - b * cx - a * cy + rng.uniform(-8, 8, (frames, layers))
     return np.stack([a, b, c, a, e, f], -1).astype(np.float32)
+
+
+def polygon_edges(points) -> np.ndarray:
+    """A closed polygon's (N, 4) f32 edge table."""
+    pts = np.asarray(points, np.float32)
+    return np.concatenate([pts, np.roll(pts, -1, axis=0)], axis=1)
+
+
+def closed_edge_planes(rng, planes, n, e_pad, height, width):
+    """(planes, 4, e_pad) f32 edge tables of closed paths for the coverage
+    kernels: an axis-aligned rectangle (horizontal and vertical edges), a
+    sliver with an edge of |dy| under 1e-9, a triangle whose long edges
+    cross the whole frame unsplit, then random star-convex octagons (some
+    partly off the frame) up to about ``n`` edges; the rest all-zero
+    padding."""
+    t = np.zeros((planes, 4, e_pad), np.float32)
+    r = max(4.0, min(height, width) / 4)
+    for p in range(planes):
+        x, y = rng.uniform(0, width - 8), rng.uniform(0, height - 6)
+        paths = [
+            polygon_edges([(x, y), (x + 7.5, y), (x + 7.5, y + 5.25),
+                           (x, y + 5.25)]),
+            polygon_edges([(x + 1, y + 2), (x + 21, y + 2 + 2e-10),
+                           (x + 9, y + 4.5)]),
+            polygon_edges([(width * 0.3, -25.0), (width * 0.7, height + 25.0),
+                           (width * 0.1, height * 0.5)]),
+        ]
+        while sum(len(q) for q in paths) + 8 <= n:
+            c = rng.uniform([-r, -r], [width + r, height + r])
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
+            rad = rng.uniform(0.3, 1.0, 8) * r
+            paths.append(polygon_edges(np.stack(
+                [c[0] + rad * np.cos(ang), c[1] + rad * np.sin(ang)], 1)))
+        e = np.concatenate(paths)[:e_pad]
+        t[p, :, :len(e)] = e.T
+    return t

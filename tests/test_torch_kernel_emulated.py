@@ -2,11 +2,14 @@
 versions.
 
 ``csrc/flatblock_device.cuh`` holds all of the fused kernels' device
-logic, ``csrc/sweep_device.cuh`` all of the sweep kernels' and
-``csrc/texfield_device.cuh`` all of the texfield kernel's.  Here g++
+logic, ``csrc/sweep_device.cuh`` all of the sweep kernels',
+``csrc/texfield_device.cuh`` all of the texfield kernel's,
+``csrc/coverage_device.cuh`` the two direct coverage kernels' and
+``csrc/resolve_device.cuh`` the resolve kernel's.  Here g++
 compiles them under a small emulation of the CUDA
 execution model (one std::thread per CUDA thread, a std::barrier for
-``__syncthreads``, std::atomic_ref for the shared-memory atomics), and
+``__syncthreads`` and one per warp for the shuffles and ``__syncwarp``,
+std::atomic_ref for the shared-memory atomics), and
 the emulated blocks run at small sizes.  This checks the kernel's
 indexing, strip slicing and arithmetic without a card; the card itself
 runs ``chip_smoke.py``.  Tolerance: byte-equal — the plain versions
@@ -24,7 +27,9 @@ import torch
 
 from swf_renderer_tpu_torch.convert import packed_to_device
 from swf_renderer_tpu_torch.native import bindings
+from swf_renderer_tpu_torch.ops import coverage as cov
 from swf_renderer_tpu_torch.ops import cuda_lib
+from swf_renderer_tpu_torch.ops import resolve as res
 from swf_renderer_tpu_torch.ops import flatblock as fb
 from swf_renderer_tpu_torch.ops import texfield
 from swf_renderer_tpu_torch.ops import transform as sweep
@@ -39,6 +44,8 @@ EMULATOR = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <memory>
+#include <algorithm>
 #include <thread>
 #include <vector>
 using std::fmaxf;
@@ -72,8 +79,29 @@ inline float4 make_float4(float x, float y, float z, float w) {
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 Dim3 gridDim;
+// Warp collectives: each warp has a barrier and an exchange slot a lane.
+struct Warp { std::barrier<>* bar; float* slots; };
+thread_local Warp this_warp;
+inline void __syncwarp() { this_warp.bar->arrive_and_wait(); }
+inline float warp_read(float v, int src) {
+  const int lane = threadIdx.x & 31;
+  this_warp.slots[lane] = v;
+  __syncwarp();
+  const float u = this_warp.slots[src];
+  __syncwarp();
+  return u;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  return warp_read(v, src);
+}
+inline float __shfl_up_sync(unsigned, float v, int d) {
+  const int lane = threadIdx.x & 31;
+  return warp_read(v, lane >= d ? lane - d : lane);
+}
 #include "sweep_device.cuh"  // includes flatblock_device.cuh
 #include "texfield_device.cuh"
+#include "coverage_device.cuh"
+#include "resolve_device.cuh"
 
 extern "C" int emulate(int styled, const int* sidx, const int* flags,
                        const int* lays, const float* urc, const float* ucm,
@@ -221,6 +249,66 @@ extern "C" void emulate_texfield(const unsigned char* img, float* tex,
     for (auto& th_ : threads) th_.join();
   }
 }
+
+extern "C" void emulate_coverage(int tiled, const float* edges,
+                                 const int* ranges, const float* bounds,
+                                 float* out, int planes, int n_edges,
+                                 int height, int width, int rule) {
+  swf::CoverageArgs a{};
+  a.edges = edges; a.ranges = ranges; a.bounds = bounds; a.out = out;
+  a.planes = planes; a.n_edges = n_edges; a.height = height;
+  a.width = width; a.tiles_y = (height + swf::kCovTileH - 1) / swf::kCovTileH;
+  a.rule = rule;
+  std::vector<float> smem(4 * swf::kCovEdgeCap);
+  blockDim.x = swf::kCovThreads;
+  for (int z = 0; z < planes; ++z)
+    for (int y = 0; y < a.tiles_y; ++y)
+      for (int x = 0; x < (width + swf::kCovTileW - 1) / swf::kCovTileW;
+           ++x) {
+        std::fill(smem.begin(), smem.end(), -7.0f);   // stale contents
+        std::barrier<> bar(swf::kCovThreads);
+        std::vector<std::thread> threads;
+        for (int t = 0; t < swf::kCovThreads; ++t) {
+          threads.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+            block_barrier = &bar;
+            if (tiled) swf::tiled_block(a, smem.data());
+            else swf::banded_block(a, smem.data());
+          });
+        }
+        for (auto& th : threads) th.join();
+      }
+}
+
+extern "C" void emulate_resolve(const float* delta, const float* colors,
+                                const int* rules, float* out, int frames,
+                                int layers, int height, int stride) {
+  swf::ResolveArgs a{};
+  a.delta = delta; a.colors = colors; a.rules = rules; a.out = out;
+  a.frames = frames; a.layers = layers; a.height = height;
+  a.stride = stride;
+  blockDim.x = swf::kResThreads;
+  std::vector<float> carries(swf::kResWarps * layers);
+  for (int y = 0; y < frames; ++y)
+    for (int x = 0; x < height / swf::kStripH; ++x) {
+      std::fill(carries.begin(), carries.end(), -7.0f);
+      std::vector<std::unique_ptr<std::barrier<>>> bars;
+      std::vector<float> slots(swf::kResThreads);
+      for (int w = 0; w < swf::kResWarps; ++w)
+        bars.push_back(std::make_unique<std::barrier<>>(32));
+      std::vector<std::thread> threads;
+      for (int t = 0; t < swf::kResThreads; ++t) {
+        threads.emplace_back([&, t] {
+          threadIdx.x = t;
+          blockIdx.x = x; blockIdx.y = y;
+          this_warp = Warp{bars[t / 32].get(), slots.data() + (t / 32) * 32};
+          swf::resolve_row(a, carries.data() + (t / 32) * layers);
+        });
+      }
+      for (auto& th : threads) th.join();
+    }
+}
 """
 
 
@@ -247,6 +335,11 @@ def emulator(tmp_path_factory):
     emu.emulate_texfield.restype = None
     emu.emulate_texfield.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 10
+    emu.emulate_coverage.restype = None
+    emu.emulate_coverage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 5
+    emu.emulate_resolve.restype = None
+    emu.emulate_resolve.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     return emu
 
 
@@ -482,3 +575,69 @@ def test_emulated_texfield_equals_plain_version(emulator, shape, repeating,
                        texfield.premultiplied_texels(torch.as_tensor(img)))
     assert torch.equal(torch.as_tensor(out), want)
     assert float(want[..., 3].std()) > 0.05
+
+
+def _random_edges(rng, planes, n, e_pad, height, width):
+    """(planes, 4, e_pad) edges: random segments, some off the frame, some
+    horizontal, some with spans under 1e-9, a few long unsplit ones; the
+    rest padding."""
+    t = np.zeros((planes, 4, e_pad), np.float32)
+    for p in range(planes):
+        e = np.stack([rng.uniform(-20, width + 20, n),
+                      rng.uniform(-10, height + 10, n),
+                      rng.uniform(-20, width + 20, n),
+                      np.zeros(n)], 1).astype(np.float32)
+        e[:, 3] = e[:, 1] + rng.uniform(-12, 12, n)
+        e[::5, 3] = e[::5, 1]                 # horizontal
+        e[1::7, 2] = e[1::7, 0]               # vertical: span 0
+        e[2::9, 3] = e[2::9, 1] + 2e-10       # |dy| under 1e-9
+        e[3::11, 1], e[3::11, 3] = -30.0, height + 30.0   # long
+        t[p, :, :n] = e.T
+    return t
+
+
+@pytest.mark.parametrize("tiled,n,e_pad,rule", [
+    (False, 3, 128, 0), (False, 150, 256, 1), (True, 3, 128, 1),
+    (True, 300, 384, 0)])
+def test_emulated_coverage_equals_plain_version(emulator, tiled, n, e_pad,
+                                                rule):
+    """Both direct coverage kernels on 2 planes of 37x150 (ragged tiles on
+    both axes) against banded_plain / tiled_plain."""
+    rng = np.random.default_rng(n + e_pad)
+    height, width = 37, 150
+    t = torch.as_tensor(_random_edges(rng, 2, n, e_pad, height, width))
+    edges_sorted, key, pad = cov.sort_edges(t)
+    if tiled:
+        table = cov.block_bounds(edges_sorted, key, pad)
+        want = cov.tiled_plain(edges_sorted, table, height, width, rule)
+    else:
+        table = cov.band_ranges(t, key, height)
+        want = cov.banded_plain(edges_sorted, table, height, width, rule)
+    es = np.ascontiguousarray(edges_sorted.numpy())
+    tab = np.ascontiguousarray(table.numpy())
+    out = np.full((2, height, width), np.nan, np.float32)
+    emulator.emulate_coverage(
+        int(tiled), es.ctypes.data, None if tiled else tab.ctypes.data,
+        tab.ctypes.data if tiled else None, out.ctypes.data, 2, e_pad,
+        height, width, rule)
+    assert torch.equal(torch.as_tensor(out), want)
+    assert float(want.std()) > 0.05   # not a flat plane
+
+
+def test_emulated_resolve_equals_plain_version(emulator):
+    """The resolve kernel: 2 frames x 3 layers x 16 rows x 384 columns
+    (3 chunks: the carry), mixed rules, alpha 0..1."""
+    rng = np.random.default_rng(41)
+    f, l, h, s = 2, 3, 16, 384
+    delta = rng.normal(0, 0.4, (f, l, h, s)).astype(np.float32)
+    delta[rng.uniform(size=delta.shape) < 0.6] = 0.0
+    colors = rng.uniform(0, 1, (f, l, 4)).astype(np.float32)
+    colors[0, 0, 3], colors[1, 2, 3] = 0.0, 1.0
+    rules = (0, 1, 0)
+    want = res.resolve_plain(torch.as_tensor(delta), torch.as_tensor(colors),
+                             rules)
+    out = np.full((f, 4, h, s), np.nan, np.float32)
+    rule_a = np.asarray(rules, np.int32)
+    emulator.emulate_resolve(delta.ctypes.data, colors.ctypes.data,
+                             rule_a.ctypes.data, out.ctypes.data, f, l, h, s)
+    assert torch.equal(torch.as_tensor(out), want)

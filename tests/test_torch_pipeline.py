@@ -105,15 +105,27 @@ def test_render_batch_styled_matches_jax(width):
 
 
 def test_pipeline_out_of_slice_routes_raise():
-    edges = np.array([[1.0, 1.0, 8195.0, 1.0], [8195.0, 1.0, 8195.0, 7.0],
-                      [8195.0, 7.0, 1.0, 7.0], [1.0, 7.0, 1.0, 1.0]],
+    """Frames wider than 8191 px now take the layered routes (the solid
+    pipeline through the resolve kernel, the styled one through scanline
+    coverage) and match the reference; masks and multi-pass still raise
+    (ROADMAP.md queue A)."""
+    edges = np.array([[1.0, 1.0, 8195.0, 1.5], [8195.0, 1.5, 8190.5, 7.0],
+                      [8190.5, 7.0, 1.0, 6.5], [1.0, 6.5, 1.0, 1.0]],
                      np.float32)
-    solid = paint_from_numpy(jstyle.solid_paint((0.0, 0.5, 1.0, 1.0)))
-    with pytest.raises(NotImplementedError, match="width > 8191"):
-        tpl.render_batch_styled([[edges]], [solid], 8, 8200, device="cpu")
-    with pytest.raises(NotImplementedError, match="width > 8191"):
-        tpl.render_batch_flatblock([[edges]], np.ones((1, 1, 4), np.float32),
-                                   8, 8200, device="cpu")
+    jsolid = jstyle.solid_paint((0.0, 0.5, 1.0, 0.9))
+    solid = paint_from_numpy(jsolid)
+    want = jpl.render_batch_styled([[edges]], [jsolid], 8, 8200)
+    got = tpl.render_batch_styled([[edges]], [solid], 8, 8200, device="cpu")
+    assert got.shape == (1, 8, 8200, 4) and got[0, :, 8100, 3].max() > 0
+    assert levels(want, got)[1] <= 1
+    colors = np.full((1, 1, 4), 0.8, np.float32)
+    want = jpl.render_batch_flatblock([[edges]], colors, 8, 8200)
+    got = tpl.render_batch_flatblock([[edges]], colors, 8, 8200,
+                                     device="cpu")
+    assert levels(want, got)[1] <= 1
+    with pytest.raises(ValueError, match="masked scenes wider"):
+        tpl.render_batch_styled([[edges]], [solid], 8, 8200,
+                                mask_tree=[("draw", 0)], device="cpu")
     small = edges * np.float32(0.002)
     with pytest.raises(NotImplementedError, match="multi-pass"):
         tpl.render_batch_styled([[small] * 17], [solid] * 17, 8, 32,

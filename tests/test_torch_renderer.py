@@ -293,8 +293,20 @@ def test_one_shot_helpers():
     ({"validate": True}, "scanline/direct"),
 ])
 def test_out_of_slice_backends_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TorchRenderer(W, H, device="cpu", **kwargs)
+    """The routes that raised before the layered backends were ported
+    (ROADMAP.md queue A ``item``) now render, through the layered path,
+    what the reference renders (more scenes: test_torch_layered.py)."""
+    path = {"scanline/direct": kwargs.get("backend", "scanline"),
+            "pointaa": "pointaa"}[item]
+    jstage, _ = _scene(JAX, "mixed-rules")
+    tstage, kw = _scene(PORT, "mixed-rules")
+    jr = TpuRenderer(W, H, **kwargs, **kw)
+    tr = TorchRenderer(W, H, device="cpu", **kwargs, **kw)
+    want = jr.render(jstage)
+    got = tr.render(tstage)
+    assert jr.last_stats.path == tr.last_stats.path == path
+    assert got[..., 3].max() > 0
+    assert_close(want, got, 0)
 
 
 def test_out_of_slice_scenes_raise():
@@ -311,7 +323,19 @@ def test_out_of_slice_scenes_raise():
         display.ShapeInstance(definition=_solid(PORT, i)) for i in range(17)])
     with pytest.raises(NotImplementedError, match="multi-pass"):
         tr.render(deep)
+    # Frames wider than 8191 px render through the layered backends (auto:
+    # scanline coverage), as in the reference.
+    wide_pts = [(100, 20), (163000, 60), (162000, 140), (60, 150)]
+
+    def wide_stage(mods):
+        return mods[1].Stage(width=8200, height=8, children=[
+            mods[1].ShapeInstance(definition=_solid(mods, points=wide_pts))])
+
+    want = TpuRenderer(8200, 8).render(wide_stage(JAX))
     wide = TorchRenderer(8200, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="width > 8191"):
-        wide.render(display.Stage(width=8200, height=8, children=[
-            display.ShapeInstance(definition=_solid(PORT))]))
+    got = wide.render(wide_stage(PORT))
+    assert wide.last_stats.path == "scanline"
+    assert got.shape == (8, 8200, 4) and got[:, 8000:, 3].max() > 0
+    # XLA's cumsum adds in another order (coverage 2.5e-7 apart): one
+    # low-alpha AA pixel moves 18 straight levels (share 1.9e-5), pinned.
+    assert_close(want, got, 18)
