@@ -63,11 +63,26 @@ Phases, each of which exits non-zero on failure before the last line:
              ``"scanline"``, ``quality="flash-pointaa"``,
              ``validate=True`` and an 8320-px renderer under auto, with
              the paths and launch counters checked and two scanline
-             renders compared byte for byte.
+             renders compared byte for byte;
+8. flat_blocks — the placement kernel, the grid and pipelined plane
+             resolves and the one-block fused kernel against their plain
+             versions (equal) on random scenes (1/4/16 layers, 200, 300,
+             1920 and 2047 px wide, 8, 40 and 1088 rows, every rule, the
+             empty-group scene; step and prefixed both ways, passes 2
+             and 3, n_buf 2 and 3) and random planes; then the headline
+             scene through ``render_flat_blocks`` (headline_planes: one
+             place and one resolve launch; native packing, upload, each
+             kernel, download timed; every plane and frame held against
+             the plain versions, the pipelined resolve against the grid
+             one, the frames against phase 3's), through
+             ``sort_blocks_fused`` + ``render_fused_blocks``
+             (headline_fused1: also equal to ``render_fused_blocksn`` on
+             ``group_blocks_fused`` of the same blocks), and the port's
+             ``entry()`` forward once.
 
 The launch counters of the kernel wrappers are set to 0 right before the
-headline, the renderer, the sweep, the bitmap and the layered paths and
-read right after.  The script prints
+headline, the renderer, the sweep, the bitmap, the layered and the flat
+block paths and read right after.  The script prints
 one JSON line describing each kernel (time, bound, plain version's time),
 then the card's name and power limit as nvidia-smi prints them, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -92,6 +107,7 @@ PEAK_F32_OPS_PER_S = 67e12
 TOL_LEVELS = 1       # u8 levels per channel, kernel vs plain version
 DEVICE = "cuda"
 HEADLINE = (60, 4, 1088, 1920)   # frames, layers, height, width
+_HELD = {}   # phase 3's headline scene and frames, read again in phase 8
 
 
 def fail(msg: str) -> None:
@@ -367,6 +383,7 @@ def phase_headline(torch, np, report):
 
     frames, layers, height, width = HEADLINE
     tables, colors = build_scene_edges(frames, layers, height, width, seed=7)
+    _HELD["headline_scene"] = (tables, colors)
 
     # The main path, once, through the user entry point.
     render_fused_blocksn.launches = 0
@@ -380,6 +397,7 @@ def phase_headline(torch, np, report):
         fail("render_batch_flatblock did not launch the fused kernel")
     if out_main.shape != (frames, height, width, 4):
         fail(f"headline frames {out_main.shape}")
+    _HELD["headline_frames"] = out_main
     coverage = float((out_main[..., 3] > 0).mean())
     if not 0.05 < coverage < 1.0:
         fail(f"headline coverage share {coverage}")
@@ -2098,6 +2116,441 @@ def phase_layered(torch, np, report):
     return {"banded": direct, "tiled": dense, "resolve": wide}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: flat blocks — placement, the plane resolves, the one-block
+# fused kernel, entry()
+# ---------------------------------------------------------------------------
+
+# (layers, height, width) of the random scenes: 2, 3 and 16 chunks (200,
+# 300, 1920 and 2047 px), 1, 5 and 136 strips.
+FLAT_CASES = ((1, 8, 200), (4, 40, 300), (16, 40, 1920), (4, 1088, 2047),
+              (16, 8, 2047), (1, 1088, 1920))
+FLAT_GROUP = 4   # group_blocks_fused size of the B13 == B1 check
+
+
+def place_work(blocks, frames, layers, ns, step):
+    """(bytes, f32 operations) of one placement: the blocks read once,
+    the planes written once; one add per valid update, plus one per
+    plane value for the in-chunk prefix."""
+    sidx, keep, urc, ucm, uval = blocks
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (sidx, keep, urc, ucm, uval))
+    plane_values = frames * layers * (ns + 1) * 128 * 128
+    valid = int((uval != 0).sum().item())
+    return in_bytes + plane_values * 4, valid + (plane_values if step else 0)
+
+
+def resolve_u32_work(frames, layers, ns, nc, rules, prefixed):
+    """(bytes, f32 operations) of one plane resolve: the real strips'
+    rows read once (n_chunks * 8 rows a plane), the colours, the packed
+    frames written once; per pixel-layer the lane ladder (7 adds, raw
+    planes only), the carry (1), the rule (2 or 5) and the over chain
+    (13), per pixel the quantize tail (21), per row-chunk-layer the carry
+    ladder (5)."""
+    pixels = frames * ns * 8 * nc * 128
+    nbytes = (frames * layers * ns * nc * 8 * 128 * 4 + frames * layers * 16
+              + pixels * 4)
+    per = sum((0 if prefixed else 7) + 1 + (2 if r == 0 else 5) + 13
+              for r in rules)
+    return nbytes, pixels * (per + 21) + frames * ns * 8 * nc * layers * 5
+
+
+def fused1_work(blocks, frames, layers, ns, nc, rules):
+    """(bytes, f32 operations) of one one-block fused call: the sorted
+    blocks and colours read once, the packed strips written once; one add
+    per valid update, per pixel-layer the prefix, carry, rule and suffix
+    composite, per pixel the quantize tail (as work_counts)."""
+    in_bytes = sum(t.numel() * t.element_size() for t in blocks)
+    pixels = frames * ns * 8 * nc * 128
+    valid = int((blocks[5] != 0).sum().item())
+    per = sum(2 + (2 if r == 0 else 5) + 11 for r in rules)
+    return in_bytes + pixels * 4, valid + pixels * (per + 21)
+
+
+def _vs_phase3(np, what, host, ref):
+    """Frames of another composite form against phase 3's: premultiplied
+    bytes within 1 level (the reference's bound of
+    tests/test_flatblock.py:292-296, there on straight bytes of a small
+    scene; un-premultiplying scales a premultiplied level by 255 / alpha,
+    so straight bytes of low-alpha pixels move further) and differing
+    straight bytes under 1%."""
+    d = np.abs(host.astype(np.int16) - ref.astype(np.int16))
+    pm = int(np.abs(premul_bytes(np, host) - premul_bytes(np, ref)).max())
+    share = float((d != 0).mean())
+    if pm > 1 or share >= 0.01:
+        fail(f"{what} vs phase 3: {pm} premultiplied levels, differing "
+             f"bytes {share:.3g}")
+    return pm, int(d.max()), share
+
+
+def _flat_upload(torch, np, arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                 for a in arrays)
+
+
+def _equal_words(torch, what, got, want):
+    """Packed words of a kernel against its plain version: equal."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    dmax, share = byte_diff(torch, got, want)
+    if dmax or not torch.equal(got, want):
+        fail(f"{what}: kernel vs plain differ ({dmax} levels on "
+             f"{share:.3g} of the bytes)")
+    return 0
+
+
+def _equal_planes(torch, what, got, want):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max().item())
+    if err != 0.0 or not torch.equal(got, want):
+        fail(f"{what}: planes differ from the plain version by {err}")
+    return err
+
+
+def flat_random(torch, np):
+    """B13-B16 against their plain versions: the random scenes of
+    FLAT_CASES (2 frames, nonzero / even-odd / mixed rules), the
+    reference's empty-group scene, and random planes with deltas in every
+    chunk; step and prefixed both ways, passes 2 and 3, n_buf 2 and 3."""
+    from swf_renderer_tpu_torch.native.bindings import pack_blocks_native
+    from swf_renderer_tpu_torch.ops import flatblock as fb
+    from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    rng = np.random.default_rng(53)
+    frames = 2
+    n_cases = 0
+    scenes = []
+    for layers, height, width in FLAT_CASES:
+        tables, colors = build_scene_edges(
+            frames, layers, height, width, shapes_per_layer=6,
+            seed=int(rng.integers(1 << 30)))
+        scenes.append((layers, height, width, pack_blocks_native(
+            lower_update_lists(tables, height, width), height, width,
+            block_pad_multiple=64), colors))
+    empty = [[(np.zeros(0, np.int32),) * 2 + (np.zeros(0, np.float32),)]
+             * 2]
+    scenes.append((2, 16, 100, fb.pack_flat_blocks(empty, 16, 100, 4),
+                   np.full((1, 2, 4), 0.7, np.float32)))
+    for layers, height, width, packed, colors in scenes:
+        f = colors.shape[0]
+        *arrays, ns, nc = packed
+        blocks = _flat_upload(torch, np, arrays)
+        cols = _up(torch, np, colors)
+        mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+        tag = f"L={layers} {height}x{width} ({nc} chunks)"
+        planes = {}
+        for step in (False, True):
+            got = fb.place_blocks(*blocks, f, layers, ns, step=step)
+            want = fb.place_plain(*blocks, f, layers, ns, step=step)
+            _equal_planes(torch, f"place {tag} step={step}", got, want)
+            planes[step] = got
+            n_cases += 1
+        for rule in (0, 1, mixed):
+            for prefixed in (False, True):
+                got = fb.resolve_planes_u32(planes[prefixed], cols, nc,
+                                            fill_rule=rule, prefixed=prefixed)
+                want = fb.resolve_u32_plain(planes[prefixed], cols, nc, rule,
+                                            prefixed)
+                _equal_words(torch, f"resolve_u32 {tag} rule={rule} "
+                             f"prefixed={prefixed}", got, want)
+                n_cases += 1
+            for n_buf in (2, 3):
+                dma = fb.resolve_planes_u32_dma(planes[True], cols, nc,
+                                                fill_rule=rule, n_buf=n_buf)
+                _equal_words(torch, f"resolve_u32_dma {tag} rule={rule} "
+                             f"n_buf={n_buf}", dma, want)
+                n_cases += 1
+        sorted_blocks = _flat_upload(torch, np, fb.sort_blocks_fused(
+            *arrays, layers, ns, block_pad_multiple=64))
+        for rule in (0, 1, mixed):
+            for passes in (3, 2):
+                got = fb.render_fused_blocks(*sorted_blocks, cols, f, layers,
+                                             ns, nc, fill_rule=rule,
+                                             passes=passes)
+                want = fb.fused_blocks_plain(*sorted_blocks, cols, f, layers,
+                                             ns, nc, fill_rule=rule,
+                                             passes=passes)
+                _equal_words(torch, f"fused1 {tag} rule={rule} "
+                             f"passes={passes}", got, want)
+                n_cases += 1
+        log(f"flat_blocks: {tag}{' (empty groups)' if f == 1 else ''}: "
+            f"place, resolve_u32, resolve_u32_dma, fused1 equal to their "
+            f"plain versions")
+    # Random planes: deltas in every chunk of every row, so every carry
+    # step shows.
+    for layers in (1, 4, 16):
+        raw = rng.normal(0, 0.4, (2, layers, 3, 128, 128)).astype(np.float32)
+        raw[rng.uniform(size=raw.shape) < 0.6] = 0.0
+        colors = rng.uniform(0, 1, (2, layers, 4)).astype(np.float32)
+        colors[0, 0, 3], colors[1, -1, 3] = 0.0, 1.0
+        cols = _up(torch, np, colors)
+        raw_t = _up(torch, np, raw)
+        stepped = torch.cumsum(raw_t, -1)
+        mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+        for rule in (0, 1, mixed):
+            for prefixed, p in ((False, raw_t), (True, stepped)):
+                want = fb.resolve_u32_plain(p, cols, 16, rule, prefixed)
+                _equal_words(torch, f"resolve_u32 random L={layers} "
+                             f"rule={rule} prefixed={prefixed}",
+                             fb.resolve_planes_u32(p, cols, 16, rule,
+                                                   prefixed), want)
+                n_cases += 1
+            for n_buf in (2, 3):
+                _equal_words(torch, f"resolve_u32_dma random L={layers} "
+                             f"n_buf={n_buf}", fb.resolve_planes_u32_dma(
+                                 stepped, cols, 16, rule, n_buf), want)
+                n_cases += 1
+    log(f"flat_blocks: {n_cases} random comparisons equal (planes max abs "
+        f"0, packed words equal)")
+
+
+def headline_planes(torch, np, report, ref_frames):
+    """The headline scene through render_flat_blocks: native packing,
+    upload, B14, B15, B16 on the same planes and the download timed; every
+    plane and frame held against the plain versions; the frames against
+    phase 3's (suffix form) within 1 level on < 1% of the bytes."""
+    from swf_renderer_tpu_torch.native.bindings import pack_blocks_native
+    from swf_renderer_tpu_torch.ops import flatblock as fb
+    from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
+
+    frames, layers, height, width = HEADLINE
+    tables, colors = _HELD["headline_scene"]
+    t0 = time.perf_counter()
+    updates = lower_update_lists(tables, height, width)
+    t_lower = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    *arrays, ns, nc = pack_blocks_native(updates, height, width)
+    t_pack = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = _flat_upload(torch, np, arrays)
+    cols = _up(torch, np, colors)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    counters = (fb.place_blocks, fb.resolve_planes_u32,
+                fb.resolve_planes_u32_dma, fb.render_fused_blocks)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        return tuple(c.launches for c in counters)
+
+    # The main path once, through the user entry point.
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fb.render_flat_blocks(*blocks, cols, height, width, frames, layers,
+                                ns, nc)
+    torch.cuda.synchronize()
+    t_call = time.perf_counter() - t0
+    main = read()
+    if main != (1, 1, 0, 0):
+        fail(f"render_flat_blocks launches (place, resolve, dma, fused1) "
+             f"{main}: expected one place and one resolve")
+    t0 = time.perf_counter()
+    host = fb.frames_u32_to_u8(out.cpu().numpy().view(np.uint32), height,
+                               width)
+    t_d2h = time.perf_counter() - t0
+    covered = float((host[..., 3] > 0).mean())
+    if host.shape != (frames, height, width, 4) or not 0.05 < covered < 1.0:
+        fail(f"headline_planes frames {host.shape}, covered {covered}")
+    vs3 = _vs_phase3(np, "headline_planes", host, ref_frames)
+    log(f"flat_blocks: headline_planes: render_flat_blocks {t_call * 1e3:.1f}"
+        f" ms (launches place/resolve/dma/fused1 {main}); vs phase 3's "
+        f"frames (suffix form): premultiplied max {vs3[0]}, straight max "
+        f"{vs3[1]} levels, differing bytes {vs3[2]:.3g}")
+
+    # The pipelined resolve's route once: place_blocks, then the DMA one.
+    reset()
+    planes = fb.place_blocks(*blocks, frames, layers, ns)
+    dma_out = fb.resolve_planes_u32_dma(planes, cols, nc)
+    dma_route = read()
+    if dma_route != (1, 0, 1, 0):
+        fail(f"place + resolve_planes_u32_dma launches {dma_route}")
+    _equal_words(torch, "headline: resolve_u32_dma vs resolve_u32", dma_out,
+                 out)
+
+    # Each kernel alone on the same inputs, CUDA events, median of 5.
+    ms_place = time_cuda(torch, lambda: fb.place_blocks(
+        *blocks, frames, layers, ns))
+    ms_res = time_cuda(torch, lambda: fb.resolve_planes_u32(planes, cols,
+                                                            nc))
+    ms_dma = time_cuda(torch, lambda: fb.resolve_planes_u32_dma(planes, cols,
+                                                                nc))
+    ms_call = time_cuda(torch, lambda: fb.render_flat_blocks(
+        *blocks, cols, height, width, frames, layers, ns, nc))
+    held = {}
+
+    def plain_place():
+        held["planes"] = fb.place_plain(*blocks, frames, layers, ns)
+
+    plain_place_ms = time_cuda(torch, plain_place, reps=1, warmup=0)
+    err = _equal_planes(torch, f"headline: place, all {frames * layers} "
+                        f"frame-layers", planes, held.pop("planes"))
+
+    def plain_resolve():
+        held["out"] = fb.resolve_u32_plain(planes, cols, nc)
+
+    plain_res_ms = time_cuda(torch, plain_resolve, reps=1, warmup=0)
+    _equal_words(torch, f"headline: resolve_u32, all {frames} frames", out,
+                 held.pop("out"))
+    rules = (0,) * layers
+    w_place = place_work(blocks, frames, layers, ns, True)
+    w_res = resolve_u32_work(frames, layers, ns, nc, rules, True)
+    b_place, b_res = bound(*w_place), bound(*w_res)
+    log(f"flat_blocks: headline_planes ({frames}x{layers}x{height}x{width}, "
+        f"{len(arrays[0])} blocks, planes {planes.numel() * 4 / 1e9:.2f} GB):"
+        f" host lowering {t_lower * 1e3:.1f} ms, native packing "
+        f"{t_pack * 1e3:.1f} ms, H2D {t_h2d * 1e3:.1f} ms, place "
+        f"{ms_place:.3f} ms (bound {b_place[0]:.4f}, {b_place[1]}), "
+        f"resolve {ms_res:.3f} ms (bound {b_res[0]:.4f}, {b_res[1]}), "
+        f"resolve_dma {ms_dma:.3f} ms, render_flat_blocks {ms_call:.3f} ms, "
+        f"D2H + u8 {t_d2h * 1e3:.1f} ms; plain place {plain_place_ms:.1f} "
+        f"ms, plain resolve {plain_res_ms:.1f} ms; all equal")
+    report["headline_planes"] = {
+        "frames": frames, "layers": layers, "height": height, "width": width,
+        "blocks": int(len(arrays[0])), "host_lowering_ms": t_lower * 1e3,
+        "native_pack_ms": t_pack * 1e3, "h2d_ms": t_h2d * 1e3,
+        "first_call_ms": t_call * 1e3, "place_ms": ms_place,
+        "resolve_ms": ms_res, "resolve_dma_ms": ms_dma,
+        "render_flat_blocks_ms": ms_call, "d2h_u8_ms": t_d2h * 1e3,
+        "plain_place_ms": plain_place_ms, "plain_resolve_ms": plain_res_ms,
+        "place_bound_ms": b_place[0], "resolve_bound_ms": b_res[0],
+        "place_bytes": w_place[0], "resolve_bytes": w_res[0],
+        "vs_phase3_premul_max": vs3[0], "vs_phase3_max": vs3[1],
+        "vs_phase3_share": vs3[2]}
+    entries = {
+        "place": dict(launches=main[0] + dma_route[0], max_abs_err=err,
+                      ms=ms_place, plain_ms=plain_place_ms,
+                      bound_ms=b_place[0], bound_by=b_place[1]),
+        "resolve_u32": dict(launches=main[1], max_abs_err=0, ms=ms_res,
+                            plain_ms=plain_res_ms, bound_ms=b_res[0],
+                            bound_by=b_res[1]),
+        "resolve_u32_dma": dict(launches=dma_route[2], max_abs_err=0,
+                                ms=ms_dma, plain_ms=plain_res_ms,
+                                bound_ms=b_res[0], bound_by=b_res[1])}
+    return entries, arrays, (ns, nc), reset, read
+
+
+def headline_fused1(torch, np, report, ref_frames, arrays, geometry, reset,
+                    read):
+    """The headline's blocks sorted for the one-block fused kernel (B13):
+    timed, held against its plain version, against render_fused_blocksn
+    (B1) on group_blocks_fused of the same blocks (word for word), and
+    against phase 3's frames (1 level)."""
+    from swf_renderer_tpu_torch.ops import flatblock as fb
+
+    frames, layers, height, width = HEADLINE
+    ns, nc = geometry
+    _, colors = _HELD["headline_scene"]
+    cols = _up(torch, np, colors)
+    t0 = time.perf_counter()
+    sorted_np = fb.sort_blocks_fused(*arrays, layers, ns)
+    t_sort = time.perf_counter() - t0
+    blocks = _flat_upload(torch, np, sorted_np)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fb.render_fused_blocks(*blocks, cols, frames, layers, ns, nc)
+    torch.cuda.synchronize()
+    t_call = time.perf_counter() - t0
+    launches = read()
+    if launches != (0, 0, 0, 1):
+        fail(f"render_fused_blocks launches {launches}")
+    ms = time_cuda(torch, lambda: fb.render_fused_blocks(
+        *blocks, cols, frames, layers, ns, nc))
+    held = {}
+
+    def plain():
+        held["out"] = fb.fused_blocks_plain(*blocks, cols, frames, layers,
+                                            ns, nc)
+
+    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    _equal_words(torch, f"headline: fused1, all {frames} frames", out,
+                 held.pop("out"))
+    t0 = time.perf_counter()
+    grouped = fb.group_blocks_fused(*sorted_np, layers, ns, group=FLAT_GROUP)
+    t_group = time.perf_counter() - t0
+    b1 = fb.render_fused_blocksn(*_flat_upload(torch, np, grouped), cols,
+                                 frames, layers, ns, nc, group=FLAT_GROUP)
+    torch.cuda.synchronize()
+    if not torch.equal(b1[:, :ns], out[:, :ns]):
+        fail("headline: fused1 differs from render_fused_blocksn on "
+             "group_blocks_fused of the same blocks")
+    host = fb.packed_to_frames(out, frames, ns, nc, 1, height, width)
+    vs3 = _vs_phase3(np, "headline_fused1", host, ref_frames)
+    work = fused1_work(blocks, frames, layers, ns, nc, (0,) * layers)
+    b = bound(*work)
+    log(f"flat_blocks: headline_fused1: sort_blocks_fused {t_sort * 1e3:.1f}"
+        f" ms ({len(sorted_np[0])} blocks), first call {t_call * 1e3:.1f} "
+        f"ms (launches {launches}), kernel {ms:.3f} ms (bound {b[0]:.4f}, "
+        f"{b[1]}), plain {plain_ms:.1f} ms; equal to its plain version and "
+        f"to render_fused_blocksn on group_blocks_fused (group {FLAT_GROUP},"
+        f" {t_group * 1e3:.0f} ms to group); vs phase 3: premultiplied "
+        f"max {vs3[0]}, straight max {vs3[1]}, differing bytes "
+        f"{vs3[2]:.3g}")
+    report["headline_fused1"] = {
+        "blocks": int(len(sorted_np[0])), "sort_ms": t_sort * 1e3,
+        "first_call_ms": t_call * 1e3, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "group_ms": t_group * 1e3,
+        "vs_phase3_premul_max": vs3[0], "vs_phase3_max": vs3[1],
+        "vs_phase3_share": vs3[2]}
+    return dict(launches=launches[3], max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1])
+
+
+def entry_forward(torch, np, reset, read):
+    """The port's entry(): its forward once on the card (one place and
+    one resolve launch), equal to the same forward on the CPU."""
+    from swf_renderer_tpu_torch import entry
+
+    reset()
+    forward, args = entry.entry()
+    out = forward(*args)
+    torch.cuda.synchronize()
+    launches = read()
+    if launches != (1, 1, 0, 0):
+        fail(f"entry() forward launches {launches}")
+    cpu_forward, cpu_args = entry.entry(device="cpu")
+    want = cpu_forward(*cpu_args)
+    if out.shape != (2, 64, 256) or not torch.equal(out.cpu(), want):
+        fail("entry() forward on the card differs from its plain version")
+    if not (out.cpu().numpy().view(np.uint32) >> 24).any():
+        fail("entry() forward drew nothing")
+    log(f"flat_blocks: entry() forward {tuple(out.shape)}, launches "
+        f"{launches}, equal to the plain version")
+    return launches
+
+
+def phase_flat_blocks(torch, np, report):
+    from swf_renderer_tpu_torch.ops.pipeline import render_batch_flatblock
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    flat_random(torch, np)
+    if "headline_frames" not in _HELD:   # phase 3 did not run first
+        frames, layers, height, width = HEADLINE
+        tables, colors = build_scene_edges(frames, layers, height, width,
+                                           seed=7)
+        _HELD["headline_scene"] = (tables, colors)
+        _HELD["headline_frames"] = render_batch_flatblock(
+            tables, colors, height, width, device=DEVICE)
+    ref = _HELD["headline_frames"]
+    entries, arrays, geometry, reset, read = headline_planes(
+        torch, np, report, ref)
+    entries["fused1"] = headline_fused1(torch, np, report, ref, arrays,
+                                        geometry, reset, read)
+    launches = entry_forward(torch, np, reset, read)
+    entries["place"]["launches"] += launches[0]
+    entries["resolve_u32"]["launches"] += launches[1]
+    for name, e in entries.items():
+        e["name"] = name
+    return entries
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2123,9 +2576,11 @@ def main() -> None:
     kernels.update(phase_sweeps(torch, np, report))
     kernels.update(phase_bitmaps(torch, np, report))
     kernels.update(phase_layered(torch, np, report))
+    kernels.update(phase_flat_blocks(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
+    planes_cu = "swf_renderer_tpu_torch/csrc/planes.cu"
     meta = {   # kernel -> (source, TPU kernel it replaces)
         "fusedn": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:784"),
         "styled": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:1083"),
@@ -2140,6 +2595,11 @@ def main() -> None:
                   "swf_renderer_tpu/ops/coverage.py:169"),
         "resolve": ("swf_renderer_tpu_torch/csrc/resolve.cu",
                     "swf_renderer_tpu/ops/resolve.py:53"),
+        "place": (planes_cu, "swf_renderer_tpu/ops/flatblock.py:486"),
+        "resolve_u32": (planes_cu, "swf_renderer_tpu/ops/flatblock.py:556"),
+        "resolve_u32_dma": (planes_cu,
+                            "swf_renderer_tpu/ops/flatblock.py:1364"),
+        "fused1": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:618"),
     }
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],

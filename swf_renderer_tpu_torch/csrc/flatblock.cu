@@ -1,6 +1,8 @@
 // Fused flat-block kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (ops/flatblock.py).  The device logic and its
-// design notes live in flatblock_device.cuh.
+// loaded through ctypes (ops/flatblock.py): the grouped kernel
+// (render_fused_blocksn, render_fused_styled) and its one-block-per-step
+// form (render_fused_blocks).  The device logic and its design notes live
+// in flatblock_device.cuh.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -30,11 +32,22 @@ __global__ void supergroup_index_kernel(const int* sidx, const int* flags,
   if (fl & 2) last[sg] = i;
 }
 
-template <bool kStyled>
+// The same index from the sorted blocks of render_fused_blocks.
+__global__ void block_index_kernel(const int* sidx, const int* keep,
+                                   const int* last, int nb, int layers,
+                                   int ns1, int n_sg, int* first,
+                                   int* last_idx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nb) {
+    block_index(sidx, keep, last, i, layers, ns1, n_sg, first, last_idx);
+  }
+}
+
+template <bool kStyled, bool kOne>
 __global__ void __launch_bounds__(kThreads)
 fused_flatblock_kernel(FusedArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fused_block<kStyled>(a, smem);
+  fused_block<kStyled, kOne>(a, smem);
 }
 
 template <bool kStyled>
@@ -55,14 +68,47 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   a.spb = strips_per_block(a.layers, a.spp, kStyled);
   a.n_spg = (a.spp + a.spb - 1) / a.spb;
   const size_t bytes = smem_bytes(a.layers, a.spb * kStripH, kStyled);
-  err = cudaFuncSetAttribute(fused_flatblock_kernel<kStyled>,
+  err = cudaFuncSetAttribute(fused_flatblock_kernel<kStyled, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_chunks * a.n_spg, n_strips, frames);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    fused_flatblock_kernel<kStyled><<<grid, kThreads, bytes, stream>>>(a);
+    fused_flatblock_kernel<kStyled, false>
+        <<<grid, kThreads, bytes, stream>>>(a);
   }
+  return cudaGetLastError();
+}
+
+// The one-block-per-step form: one block of 128 slots a step, blocks
+// sorted by (frame, strip, layer); strip NS of every frame is zeroed.
+cudaError_t launch_one(FusedArgs a, const int* keep, const int* last,
+                       int frames, int* sg_index, cudaStream_t stream) {
+  const size_t n_sg = static_cast<size_t>(frames) * a.ns1;
+  cudaError_t err = cudaMemsetAsync(sg_index, 0xff, sizeof(int) * 2 * n_sg,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  a.sg_first = sg_index;
+  a.sg_last = sg_index + n_sg;
+  if (a.ng > 0) {
+    block_index_kernel<<<(a.ng + 255) / 256, 256, 0, stream>>>(
+        a.sidx, keep, last, a.ng, a.layers, a.ns1, static_cast<int>(n_sg),
+        sg_index, sg_index + n_sg);
+  }
+  const size_t bytes = smem_bytes(a.layers, kStripH, false);
+  err = cudaFuncSetAttribute(fused_flatblock_kernel<false, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_chunks, a.ns1 - 1, frames);
+  if (grid.y > 0) {
+    fused_flatblock_kernel<false, true><<<grid, kThreads, bytes, stream>>>(a);
+  }
+  const size_t row_bytes = sizeof(int) * kStripH * a.n_chunks * kLane;
+  err = cudaMemset2DAsync(
+      a.out + static_cast<size_t>(a.ns1 - 1) * kStripH * a.n_chunks * kLane,
+      row_bytes * a.ns1, 0, row_bytes, frames, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -117,12 +163,51 @@ int swf_fused_flatblock(int styled, const void* sidx, const void* flags,
   a.plane_rows = plane_rows;
   a.spb = 1;
   a.n_spg = 1;
+  a.passes = 3;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* idx = static_cast<int*>(sg_index);
   const cudaError_t err =
       styled ? swf::launch<true>(a, frames, ns1 - 1, idx, s)
              : swf::launch<false>(a, frames, ns1 - 1, idx, s);
   return static_cast<int>(err);
+}
+
+// render_fused_blocks: sidx/keep/last (nb,) int32, urc/ucm/uval (nb, 128)
+// f32 sorted by (frame, strip, layer), colors (F, L, 4), rules (L,);
+// sg_index: scratch of 2 * frames * ns1 ints; out: (F, ns1, 8,
+// n_chunks*128) int32 packed u32 RGBA, strip ns1 - 1 zeroed.
+int swf_fused_blocks1(const void* sidx, const void* keep, const void* last,
+                      const void* urc, const void* ucm, const void* uval,
+                      const void* colors, const void* rules, void* sg_index,
+                      void* out, int nb, int frames, int layers, int ns1,
+                      int n_chunks, int passes, void* stream) {
+  if (layers < 1 || layers > swf::kMaxLayers || n_chunks < 1 ||
+      n_chunks * swf::kStripH > swf::kLane || ns1 < 1 || ns1 - 1 > 65535 ||
+      frames < 1 || frames > 65535 || nb < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::FusedArgs a = {};
+  a.sidx = static_cast<const int*>(sidx);
+  a.urc = static_cast<const float*>(urc);
+  a.ucm = static_cast<const float*>(ucm);
+  a.uval = static_cast<const float*>(uval);
+  a.colors = static_cast<const float*>(colors);
+  a.rules = static_cast<const int*>(rules);
+  a.out = static_cast<int*>(out);
+  a.ng = nb;
+  a.group = 1;
+  a.layers = layers;
+  a.ns1 = ns1;
+  a.n_chunks = n_chunks;
+  a.spp = 1;
+  a.plane_rows = swf::kLane;
+  a.spb = 1;
+  a.n_spg = 1;
+  a.passes = passes;
+  return static_cast<int>(swf::launch_one(
+      a, static_cast<const int*>(keep), static_cast<const int*>(last),
+      frames, static_cast<int*>(sg_index),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Packed strips each block of swf_fused_flatblock resolves (spb); a plane's

@@ -4,7 +4,9 @@
 // Replaces the TPU kernels `_fusedn_kernel` (swf_renderer_tpu/ops/
 // flatblock.py:784, pallas_call :920) and `_fused_styled_kernel` (:1083,
 // pallas_call :1276) in their single-pass form (chain=False, bg=None,
-// emit="u32", mask_from=None).
+// emit="u32", mask_from=None), and `_fused_kernel` (:618, pallas_call
+// :709), the one-block-per-step form over blocks sorted by (frame,
+// strip, layer) (fused_block<false, true>).
 //
 // What it computes, per (frame, strip block): the grouped placement
 // blocks of the native packer hold coalesced winding deltas (rc, cm, v)
@@ -37,10 +39,11 @@
 // words and never round-trips winding planes through device memory.
 //
 // Tolerance against the plain PyTorch versions (ops/flatblock.py
-// fusedn_plain, fused_styled_plain) on the card: at most 1 u8 level per
-// channel (chip_smoke.py); measured byte-equal on every case, since the
-// plain versions perform this exact arithmetic (sequential prefix,
-// fixed-point carry).
+// fusedn_plain, fused_styled_plain, fused_blocks_plain) on the card: at
+// most 1 u8 level per channel for the grouped forms, equal words for the
+// one-block form (chip_smoke.py); measured byte-equal on every case,
+// since the plain versions perform this exact arithmetic (sequential
+// prefix, fixed-point carry).
 //
 // Rounding: the arithmetic is the reference's, operation for operation,
 // in IEEE f32: rintf (half to even, as jnp.round), IEEE division (no
@@ -101,6 +104,7 @@ struct FusedArgs {
   int ng, group, layers, ns1, n_chunks, spp, plane_rows;
   int spb;              // packed strips owned by one block
   int n_spg;            // strip slices per chunk (ceil(spp / spb))
+  int passes;           // one-block form: < 3 splits values in two bf16
 };
 
 __host__ __device__ inline size_t align16(size_t x) {
@@ -147,6 +151,21 @@ __device__ __forceinline__ long long to_fixed(float v) {
 __device__ __forceinline__ float from_fixed(long long q) {
   return static_cast<float>(static_cast<double>(q) *
                             (1.0 / 4294967296.0));
+}
+
+// f32 -> bf16 -> f32, round to nearest even (finite x), as XLA and
+// PyTorch convert.
+__device__ __forceinline__ float bf16_rn(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// The value the reference's two-pass placement carries (flatblock.
+// _place_delta, passes=2): bf16(v) + bf16(v - bf16(v)), exact in f32.
+__device__ __forceinline__ float split_bf16x2(float v) {
+  const float hi = bf16_rn(v);
+  return hi + bf16_rn(v - hi);
 }
 
 // jnp.mod / torch.remainder for floats: C remainder, then the sign of y.
@@ -271,8 +290,25 @@ __device__ __forceinline__ uint32_t composite_pack(int L, const float* cas,
   return quantize_pack(alpha_out, pm);
 }
 
-// One block: (chunk, strip slice) x strip block x frame.
-template <bool kStyled>
+// Supergroup index of the one-block form from its sorted blocks: keep ==
+// 0 starts a supergroup, last == 1 ends it; the sentinel tail (keep 1,
+// last 0) marks neither.
+__device__ __forceinline__ void block_index(const int* sidx, const int* keep,
+                                            const int* last, int i,
+                                            int layers, int ns1, int n_sg,
+                                            int* first, int* last_idx) {
+  const int packed = sidx[i];
+  const int sg = (packed / (layers * ns1)) * ns1 + packed % ns1;
+  if (packed < 0 || sg >= n_sg) return;
+  if (keep[i] == 0) first[sg] = i;
+  if (last[i] == 1) last_idx[sg] = i;
+}
+
+// One block: (chunk, strip slice) x strip block x frame.  kOne: the
+// one-block-per-step form (render_fused_blocks): group 1, no flags or
+// layer table (the layer is read from each block's sidx), values split
+// in two bf16 parts when passes < 3.
+template <bool kStyled, bool kOne = false>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -325,11 +361,12 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
       const int g = g0 + static_cast<int>(j / gb);
       const int rem = static_cast<int>(j % gb);
       const int k = rem / kBlk;
-      const int nblk = static_cast<int>(
+      const int nblk = kOne ? 0 : static_cast<int>(
           static_cast<unsigned>(a.flags[g]) >> 2);
       if (nblk != 0 && k >= nblk) continue;
       const long long idx = static_cast<long long>(g) * gb + rem;
-      const float v = a.uval[idx];
+      float v = a.uval[idx];
+      if (kOne && a.passes < 3) v = split_bf16x2(v);
       if (v == 0.0f) continue;
       const int rc = static_cast<int>(a.urc[idx]);
       const int sp = rc / nc8;
@@ -337,7 +374,8 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
       const int ch = local >> 3;
       const int lsp = sp - sp0;
       if (ch > chunk || lsp < 0 || lsp >= a.spb) continue;
-      const int layer = a.lays[static_cast<long long>(k) * a.ng + g];
+      const int layer = kOne ? (a.sidx[g] / a.ns1) % L
+                             : a.lays[static_cast<long long>(k) * a.ng + g];
       if (layer < 0 || layer >= L) continue;
       const int row = layer * rows + lsp * kStripH + (local & 7);
       if (ch == chunk) {

@@ -60,6 +60,19 @@ struct ResolveArgs {
   int frames, layers, height, stride;
 };
 
+// One step of the sequential over chain (composite.over_premul, and
+// flatblock.composite_quantize_pack with chain=True): layer colour (cr,
+// cg, cb) at effective alpha ca over the premultiplied (r, g, b, a).
+__device__ __forceinline__ void over(float ca, float cr, float cg, float cb,
+                                     float& r, float& g, float& b,
+                                     float& a) {
+  const float keep = 1.0f - ca;
+  r = cr * ca + r * keep;
+  g = cg * ca + g * keep;
+  b = cb * ca + b * keep;
+  a = ca + a * keep;
+}
+
 // v of the lane d below, or 0.0 for the lowest d lanes (the ladder's
 // masked roll).
 __device__ __forceinline__ float from_below(float v, int d, int lane) {
@@ -124,12 +137,8 @@ __device__ void resolve_row(const ResolveArgs& a, float* carry) {
       const float* col = a.colors + fl * 4;
       const float cr = col[0], cg = col[1], cb = col[2], ca0 = col[3];
       for (int j = 0; j < 4; ++j) {
-        const float ca = ca0 * fill_cov(e[j], rule);
-        const float keep = 1.0f - ca;
-        r[j] = cr * ca + r[j] * keep;
-        g[j] = cg * ca + g[j] * keep;
-        b[j] = cb * ca + b[j] * keep;
-        al[j] = ca + al[j] * keep;
+        over(ca0 * fill_cov(e[j], rule), cr, cg, cb, r[j], g[j], b[j],
+             al[j]);
       }
     }
     float* out = a.out + static_cast<size_t>(f) * 4 * plane + row_off +

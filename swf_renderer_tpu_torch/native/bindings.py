@@ -150,8 +150,9 @@ def _load_locked():
 
 def pack_blocks_native(update_lists, height: int, width: int,
                        block_pad_multiple: int = 1024):
-    """Native flat-block packer: same contract as
-    ops.flatblock.pack_flat_blocks (which is the tested oracle)."""
+    """Native flat-block packer: same contract and arrays as
+    ops.flatblock.pack_flat_blocks (the tested oracle,
+    tests/test_torch_flat_blocks.py)."""
     import numpy as np
 
     from ..ops.flatblock import BLK, plane_geometry, MAX_CHUNKS, LANE

@@ -30,6 +30,8 @@ LIBRARIES = {
                                     "flatblock_device.cuh")),
     "swfresolve": ("resolve.cu", ("resolve_device.cuh",
                                   "flatblock_device.cuh")),
+    "swfplanes": ("planes.cu", ("planes_device.cuh", "resolve_device.cuh",
+                                "flatblock_device.cuh")),
 }
 # -fmad=false: no a*b+c contracts into an FMA the reference does not do;
 # IEEE division and square root stay on (no --use_fast_math).
@@ -103,7 +105,10 @@ def build(force: bool = False) -> None:
 
 def load(name: str = "swfkernels"):
     """The loaded library ``name``, built on first use; raises if the
-    build fails."""
+    build fails or the name is not one of LIBRARIES."""
+    if name not in LIBRARIES:
+        raise ValueError(f"unknown CUDA library {name!r}: one of "
+                         f"{sorted(LIBRARIES)}")
     with _lock:
         if name not in _libs:
             if _stale(name):
@@ -116,6 +121,8 @@ def load(name: str = "swfkernels"):
                                                     + [p])
                 lib.swf_strips_per_block.restype = i
                 lib.swf_strips_per_block.argtypes = [i, i, i]
+                lib.swf_fused_blocks1.restype = i
+                lib.swf_fused_blocks1.argtypes = [p] * 10 + [i] * 6 + [p]
             elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
@@ -126,8 +133,17 @@ def load(name: str = "swfkernels"):
                 for fn in (lib.swf_coverage_banded, lib.swf_coverage_tiled):
                     fn.restype = i
                     fn.argtypes = [p] * 3 + [i] * 5 + [p]
-            else:
+            elif name == "swfresolve":
                 lib.swf_resolve.restype = i
                 lib.swf_resolve.argtypes = [p] * 4 + [i] * 4 + [p]
+            elif name == "swfplanes":
+                lib.swf_place.restype = i
+                lib.swf_place.argtypes = [p] * 7 + [i] * 4 + [p]
+                lib.swf_resolve_u32.restype = i
+                lib.swf_resolve_u32.argtypes = [p] * 4 + [i] * 5 + [p]
+                lib.swf_resolve_u32_dma.restype = i
+                lib.swf_resolve_u32_dma.argtypes = [p] * 4 + [i] * 5 + [p]
+            else:
+                raise RuntimeError(f"no ctypes signatures for {name!r}")
             _libs[name] = lib
         return _libs[name]

@@ -9,10 +9,17 @@ layers and writes packed little-endian RGBA u32 (held in int32 tensors:
 PyTorch has no general uint32 arithmetic on CUDA; ``.numpy().view(
 np.uint32)`` gives the reference's arrays).
 
-Each wrapper launches its CUDA kernel (``csrc/flatblock.cu``) for tensors
-on the card, and takes its plain version only for tensors on the CPU.
-``render_fused_blocksn.launches`` / ``render_fused_styled.launches``
-count kernel launches.
+The unfused pipeline takes the packer's blocks the other way: one
+kernel places them into chunk-major winding planes in device memory
+(``place_blocks``), a second resolves the planes (``resolve_planes_u32``,
+or ``resolve_planes_u32_dma`` through a copy pipeline), both from
+``csrc/planes.cu``; ``render_flat_blocks`` runs the two, and
+``render_fused_blocks`` is the fused kernel's one-block-per-step form
+over blocks sorted by ``sort_blocks_fused``.
+
+Each wrapper launches its CUDA kernel (``csrc/flatblock.cu``,
+``csrc/planes.cu``) for tensors on the card, and takes its plain version
+only for tensors on the CPU; each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.numerics import floor_mod, true_div
 from .coverage import FILL_RULE_NONZERO, layer_rules
 
@@ -257,12 +265,7 @@ def _winding_plain(sidx, flags, lays, urc, ucm, uval, frames: int,
     n_rows = frames * ns1 * layers * plane_rows
     flat = torch.zeros(n_rows * LANE, dtype=torch.float32, device=dev)
     flat.index_add_(0, row_id * LANE + cm.reshape(-1), v.reshape(-1))
-    raw = flat.view(frames, ns1, layers, plane_rows, LANE)
-    x = torch.empty_like(raw)
-    acc = torch.zeros_like(raw[..., 0])
-    for c in range(LANE):
-        acc = acc + raw[..., c]
-        x[..., c] = acc
+    x = _row_prefix(flat.view(frames, ns1, layers, plane_rows, LANE))
 
     # Row totals in 32.32 fixed point (exact integer sums), then the
     # exclusive prefix over the chunks of each strip window.
@@ -280,6 +283,17 @@ def _winding_plain(sidx, flags, lays, urc, ucm, uval, frames: int,
     return x + carry[..., None]
 
 
+def _row_prefix(raw):
+    """Inclusive prefix along the last axis, summed left to right in f32
+    (the kernels' one-thread-per-row walk)."""
+    x = torch.empty_like(raw)
+    acc = torch.zeros_like(raw[..., 0])
+    for c in range(raw.shape[-1]):
+        acc = acc + raw[..., c]
+        x[..., c] = acc
+    return x
+
+
 def _fill_cov(winding, rule: int):
     if rule == FILL_RULE_NONZERO:
         return torch.clamp(torch.abs(winding), max=1.0)
@@ -287,10 +301,11 @@ def _fill_cov(winding, rule: int):
     return 1.0 - torch.abs(m - 1.0)
 
 
-def _composite_pack(covs, read_color):
-    """Suffix-product alpha-over composite, premul-u8 quantization and
-    little-endian RGBA packing (flatblock.composite_quantize_pack with
-    chain=False, then _quantize_pack_tail) -> int32 bit patterns."""
+def _suffix_composite(covs, read_color):
+    """Suffix-product alpha-over composite (flatblock.
+    composite_quantize_pack with chain=False): out = sum_l C_l ca_l S_l
+    with S_l = prod_{j>l} (1 - ca_j).  Returns premultiplied ((r, g, b),
+    a)."""
     layers = len(covs)
     cas = [read_color(lyr, 3) * covs[lyr] for lyr in range(layers)]
     weight = [None] * layers
@@ -309,15 +324,43 @@ def _composite_pack(covs, read_color):
             out = out + read_color(lyr, c_idx) * weight[lyr]
         return out
 
+    return tuple(channel(c) for c in range(3)), a
+
+
+def _chain_composite(covs, read_color):
+    """Sequential over chain (flatblock.composite_quantize_pack with
+    chain=True): a left fold from a transparent frame, layer by layer
+    ``c = C * ca + c * (1 - ca)``, ``a = ca + a * (1 - ca)``.  Returns
+    premultiplied ((r, g, b), a)."""
+    r = g = b = a = torch.zeros_like(covs[0])
+    for lyr, cov in enumerate(covs):
+        ca = read_color(lyr, 3) * cov
+        kp = 1.0 - ca
+        r = read_color(lyr, 0) * ca + r * kp
+        g = read_color(lyr, 1) * ca + g * kp
+        b = read_color(lyr, 2) * ca + b * kp
+        a = ca + a * kp
+    return (r, g, b), a
+
+
+def _quantize_pack(pm, a):
+    """Premultiplied-u8 quantization, un-premultiply and little-endian
+    RGBA packing (flatblock._quantize_pack_tail) -> int32 bit patterns."""
     a8f = torch.round(torch.clamp(a, 0.0, 1.0) * 255.0)
     inv = true_div(255.0, torch.clamp(a8f, min=1.0))
     packed = a8f.to(torch.int64) << 24
     for c_idx in range(3):
-        pm8 = torch.minimum(torch.round(channel(c_idx) * 255.0), a8f)
+        pm8 = torch.minimum(torch.round(pm[c_idx] * 255.0), a8f)
         packed = packed + (torch.round(pm8 * inv).to(torch.int64)
                            << (8 * c_idx))
     packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
     return packed.to(torch.int32)
+
+
+def _composite_pack(covs, read_color):
+    """Suffix-product composite, then the quantize tail -> int32 packed
+    RGBA (the fused and sweep kernels' resolve tail)."""
+    return _quantize_pack(*_suffix_composite(covs, read_color))
 
 
 def _strips_to_rows(pk, n_chunks: int, spp: int):
@@ -571,6 +614,602 @@ def render_fused_styled(sidx, flags, lays, urc, ucm, uval, colors, fields,
 
 
 render_fused_styled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The unfused pipeline (placement + resolve) and the one-block fused kernel
+# ---------------------------------------------------------------------------
+#
+# The packer's placement blocks (pack_flat_blocks, or the native
+# pack_blocks_native) go either through two kernels — ``place_blocks``
+# writes one chunk-major (128, 128) winding plane per (frame, layer,
+# strip) to device memory and ``resolve_planes_u32`` (or its pipelined
+# twin ``resolve_planes_u32_dma``) turns the planes into packed RGBA —
+# or, sorted by (frame, strip, layer) (sort_blocks_fused), through the
+# one-block-per-step fused kernel ``render_fused_blocks``.  These are the
+# forward step of the reference's ``__graft_entry__.entry()``
+# (``render_flat_blocks``); the port's counterpart is ``entry.entry()``.
+
+
+def pack_flat_blocks(update_lists, height: int, width: int,
+                     block_pad_multiple: int = 1024):
+    """Pack per-draw sorted coalesced updates into placement blocks.
+
+    ``update_lists``: [frames][layers] of (rows, cols, vals) arrays.
+    Returns (sidx, keep, urc, ucm, uval, n_strips, n_chunks):
+      sidx (NB,) i32 — packed target ((frame*L + layer)*(NS+1) + strip)
+      keep (NB,) i32 — 0 on the first block of a group, else 1
+      urc  (NB, 1, BLK) f32 — chunk-major row id (col//128)*8 + row%8
+      ucm  (NB, BLK, 1) f32 — column within the chunk
+      uval (NB, 1, BLK) f32 — update values (0 on padding slots)
+    Every (frame, layer, strip) group emits at least one block (so empty
+    groups still zero their plane); global padding blocks target the
+    sentinel strip ``n_strips`` of (frame 0, layer 0), which the resolve
+    never reads.  The native ``pack_blocks_native`` returns the same
+    arrays."""
+    f = len(update_lists)
+    l = len(update_lists[0])
+    stride, n_chunks, n_strips = plane_geometry(height, width)
+    if n_chunks > MAX_CHUNKS:
+        raise ValueError(
+            f"flat-block pipeline supports width < {MAX_CHUNKS * LANE}"
+            f" (got padded stride {stride})")
+
+    sidx, keep, urc, ucm, uval = [], [], [], [], []
+    for i in range(f):
+        for j in range(l):
+            rows, cols, vals = update_lists[i][j]
+            if stride <= width:
+                rows, cols, vals = _drop_overflow_cols(
+                    rows, cols, vals, stride)
+            strip = rows // STRIP_H if len(rows) else rows
+            # Updates arrive row-major sorted => strip-grouped already.
+            bounds = np.searchsorted(strip, np.arange(n_strips + 1))
+            for s in range(n_strips):
+                lo, hi = int(bounds[s]), int(bounds[s + 1])
+                r = rows[lo:hi]
+                c = cols[lo:hi]
+                v = vals[lo:hi]
+                n = max(1, hi - lo)  # empty group -> one zero block
+                nb = -(-n // BLK)
+                rc = np.zeros(nb * BLK, np.float32)
+                cm = np.zeros(nb * BLK, np.float32)
+                vv = np.zeros(nb * BLK, np.float32)
+                rc[: hi - lo] = (c // LANE) * STRIP_H + r % STRIP_H
+                cm[: hi - lo] = c % LANE
+                vv[: hi - lo] = v
+                for b in range(nb):
+                    sidx.append((i * l + j) * (n_strips + 1) + s)
+                    keep.append(0 if b == 0 else 1)
+                    sl = slice(b * BLK, (b + 1) * BLK)
+                    urc.append(rc[sl])
+                    ucm.append(cm[sl])
+                    uval.append(vv[sl])
+    nb = len(sidx)
+    nb_pad = ((nb + block_pad_multiple - 1)
+              // block_pad_multiple) * block_pad_multiple
+    for _ in range(nb_pad - nb):
+        sidx.append(n_strips)  # sentinel garbage strip of (0, 0)
+        keep.append(0)
+        urc.append(np.zeros(BLK, np.float32))
+        ucm.append(np.zeros(BLK, np.float32))
+        uval.append(np.zeros(BLK, np.float32))
+    return (
+        np.asarray(sidx, np.int32),
+        np.asarray(keep, np.int32),
+        np.stack(urc)[:, None, :],   # (NB, 1, BLK)
+        np.stack(ucm)[:, :, None],   # (NB, BLK, 1)
+        np.stack(uval)[:, None, :],  # (NB, 1, BLK)
+        n_strips,
+        n_chunks,
+    )
+
+
+def sort_blocks_fused(sidx, keep, urc, ucm, uval, layers: int,
+                      n_strips: int, block_pad_multiple: int = 1024):
+    """Reorder packer output from (f, l, s) order to the one-block fused
+    kernel's (f, s, l) order, drop value-less blocks (the kernel zeroes
+    ALL layer planes at each (f, s) supergroup start; each supergroup
+    keeps one block so that its strip is emitted), and compute the
+    per-(f, s) ``last`` flags.
+
+    Returns (sidx, keep, last, urc, ucm, uval) with keep == 0 marking
+    supergroup starts; the padding tail has keep 1, last 0 and zero
+    values on the sentinel strip."""
+    ns1 = n_strips + 1
+    f = sidx // (layers * ns1)
+    l = (sidx // ns1) % layers
+    s = sidx % ns1
+
+    real = s != n_strips  # drop the packer's global sentinel padding
+    order = np.lexsort((l[real], s[real], f[real]))
+
+    def take(x):
+        return x[real][order]
+
+    sidx2, urc2, ucm2, uval2 = map(take, (sidx, urc, ucm, uval))
+    f2, s2 = take(f), take(s)
+    group = f2.astype(np.int64) * ns1 + s2
+
+    zero_blk = ~np.any(uval2.reshape(len(uval2), -1) != 0.0, axis=1)
+    retain = ~zero_blk
+    if len(group):
+        starts = np.r_[True, group[1:] != group[:-1]]
+        # A supergroup whose blocks are all value-less keeps its first
+        # block (something must zero + emit the strip).
+        gid = np.cumsum(starts) - 1
+        has_value = np.zeros(gid[-1] + 1, bool)
+        np.logical_or.at(has_value, gid, retain)
+        retain |= starts & ~has_value[gid]
+
+    sidx2, urc2, ucm2, uval2 = (x[retain] for x in
+                                (sidx2, urc2, ucm2, uval2))
+    group = group[retain]
+    nb = len(sidx2)
+    first = np.r_[True, group[1:] != group[:-1]] if nb else np.zeros(0, bool)
+    last = np.zeros(nb, np.int32)
+    if nb:
+        last[np.nonzero(first)[0][1:] - 1] = 1
+        last[-1] = 1
+    keep2 = (~first).astype(np.int32)
+
+    nb_pad = ((nb + block_pad_multiple - 1)
+              // block_pad_multiple) * block_pad_multiple
+    pad = nb_pad - nb
+    if pad:
+        # Sentinel tail: keep=1 (no reset), last=0, zero values targeting
+        # the garbage strip of frame 0.
+        sidx2 = np.concatenate(
+            [sidx2, np.full(pad, n_strips, np.int32)])
+        keep2 = np.concatenate([keep2, np.ones(pad, np.int32)])
+        last = np.concatenate([last, np.zeros(pad, np.int32)])
+        urc2 = np.concatenate(
+            [urc2, np.zeros((pad,) + urc2.shape[1:], np.float32)])
+        ucm2 = np.concatenate(
+            [ucm2, np.zeros((pad,) + ucm2.shape[1:], np.float32)])
+        uval2 = np.concatenate(
+            [uval2, np.zeros((pad,) + uval2.shape[1:], np.float32)])
+    return sidx2, keep2, last, urc2, ucm2, uval2
+
+
+def group_blocks_fused(sidx, keep, last, urc, ucm, uval, layers: int,
+                       n_strips: int, group: int = 4,
+                       group_pad_multiple: int = 256):
+    """Group sort_blocks_fused output into ``group`` blocks per step
+    (supergroups padded to multiples of ``group`` with zero filler): the
+    grouped arrays of render_fused_blocksn, which the native
+    pack_grouped_native builds in one pass."""
+    ns1 = n_strips + 1
+    nb = len(sidx)
+    f = sidx // (layers * ns1)
+    s = sidx % ns1
+    l = (sidx // ns1) % layers
+    gkey = f.astype(np.int64) * ns1 + s
+
+    out_sidx, out_flags, out_lays = [], [], []
+    out_rc, out_cm, out_vv = [], [], []
+    zero = np.zeros(BLK, np.float32)
+    i = 0
+    while i < nb:
+        j = i
+        while j < nb and gkey[j] == gkey[i]:
+            j += 1
+        blocks = list(range(i, j))
+        while len(blocks) % group:
+            blocks.append(-1)
+        for k in range(0, len(blocks), group):
+            sub = blocks[k:k + group]
+            # Bits 2+: used slot count (matches the native packer).
+            flags = (1 if k == 0 else 0) | (sum(b >= 0 for b in sub) << 2)
+            if k + group >= len(blocks):
+                lb = next(b for b in reversed(sub) if b >= 0)
+                if last[lb]:
+                    flags |= 2
+            out_sidx.append(int(sidx[sub[0] if sub[0] >= 0 else i]))
+            out_flags.append(flags)
+            out_lays.append([int(l[b]) if b >= 0 else 0 for b in sub])
+            out_rc.append(np.concatenate(
+                [urc[b, 0] if b >= 0 else zero for b in sub])[None, :])
+            out_cm.append(np.concatenate(
+                [ucm[b, :, 0] if b >= 0 else zero for b in sub])[:, None])
+            out_vv.append(np.concatenate(
+                [uval[b, 0] if b >= 0 else zero for b in sub])[None, :])
+        i = j
+    ng = len(out_sidx)
+    ng_pad = ((ng + group_pad_multiple - 1)
+              // group_pad_multiple) * group_pad_multiple
+    for _ in range(ng_pad - ng):
+        out_sidx.append(n_strips)
+        out_flags.append(0)
+        out_lays.append([0] * group)
+        out_rc.append(np.zeros((1, group * BLK), np.float32))
+        out_cm.append(np.zeros((group * BLK, 1), np.float32))
+        out_vv.append(np.zeros((1, group * BLK), np.float32))
+    return (np.asarray(out_sidx, np.int32),
+            np.asarray(out_flags, np.int32),
+            np.asarray(out_lays, np.int32).T.copy(),
+            np.stack(out_rc), np.stack(out_cm), np.stack(out_vv))
+
+
+def place_plain(sidx, keep, urc, ucm, uval, frames: int, layers: int,
+                n_strips: int, step: bool = True):
+    """Plain PyTorch version of the placement kernel -> (F, L, NS+1, 128,
+    128) f32 chunk-major planes, plane [f, l, s, (col//128)*8 + row%8,
+    col%128].
+
+    A group's plane sums the blocks from its last ``keep == 0`` block to
+    its last block (pack_flat_blocks' order: a group's blocks are
+    consecutive, the first resets); slots outside the (128, 128) plane
+    are dropped, as the reference's one-hot product drops them.  The
+    updates of one group never share a target (the splitter coalesces
+    them), so the raw deltas land exactly (``step=False``: equal to the
+    reference); ``step=True`` then sums each row left to right within
+    its chunk (the reference's step-matrix product sums in another
+    order: within 1e-5).  The sentinel strip NS of every (frame, layer)
+    holds zeros."""
+    dev = urc.device
+    ns1 = n_strips + 1
+    n_groups = frames * layers * ns1
+    nb = sidx.shape[0]
+    g = sidx.long()
+    i = torch.arange(nb, device=dev)
+    real = (g >= 0) & (g < n_groups) & (g % ns1 != n_strips)
+    gi = torch.where(real, g, torch.zeros_like(g))
+    start = real & (keep == 0)
+    first = torch.full((n_groups,), -1, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, gi[start], i[start], "amax")
+    f0 = first[gi]
+    counted = real & (f0 >= 0) & (i >= f0)
+    rc = urc.reshape(nb, BLK).long()
+    cm = ucm.reshape(nb, BLK).long()
+    v = uval.reshape(nb, BLK).to(torch.float32)
+    ok = (counted[:, None] & (rc >= 0) & (rc < LANE) & (cm >= 0)
+          & (cm < LANE))
+    target = (gi[:, None] * LANE + rc) * LANE + cm
+    flat = torch.zeros(n_groups * LANE * LANE, dtype=torch.float32,
+                       device=dev)
+    flat.index_add_(0, target[ok], v[ok])
+    planes = flat.view(frames, layers, ns1, LANE, LANE)
+    return _row_prefix(planes) if step else planes
+
+
+def _chunk_carry(totals, n_chunks: int):
+    """Cross-chunk carry of each plane row from the chunks' lane-127
+    totals (..., n_chunks*8): the reference's inclusive stride-8 ladder
+    (shifts of 1, 2, 4, 8 chunks, adding 0.0 below the shift), then
+    ``incl - totals``."""
+    lead = totals.shape[:-1]
+    t = totals.reshape(*lead, n_chunks, STRIP_H)
+    incl = t
+    shift = 1
+    while shift * STRIP_H < LANE:
+        if shift < n_chunks:
+            below = torch.cat([torch.zeros_like(incl[..., :shift, :]),
+                               incl[..., :n_chunks - shift, :]], dim=-2)
+        else:
+            below = torch.zeros_like(incl)
+        incl = incl + below
+        shift *= 2
+    return (incl - t).reshape(*lead, n_chunks * STRIP_H)
+
+
+def resolve_u32_plain(planes, colors, n_chunks: int,
+                      fill_rule=FILL_RULE_NONZERO, prefixed: bool = True):
+    """Plain PyTorch version of both plane resolves -> (F, NS*8, stride)
+    int32 packed RGBA.
+
+    ``prefixed=False`` first runs the reference's lane ladder (shifts 1 to
+    64, adding 0.0 below each shift) within every chunk; then the
+    cross-chunk carry (``winding = x + (incl - totals)``, _chunk_carry),
+    the fill rule of each layer, the sequential over chain and the
+    quantize tail — the reference's order, operation for operation."""
+    from .resolve import lane_prefix
+
+    f, l, ns1 = planes.shape[:3]
+    ns = ns1 - 1
+    nc8 = n_chunks * STRIP_H
+    x = planes[:, :, :ns, :nc8].to(torch.float32)
+    if not prefixed:
+        x = lane_prefix(x)
+    winding = x + _chunk_carry(x[..., LANE - 1], n_chunks)[..., None]
+    rules = layer_rules(fill_rule, l)
+    covs = [_fill_cov(winding[:, lyr], rules[lyr]) for lyr in range(l)]
+    colors = colors.to(torch.float32)
+
+    def read_color(lyr, ch):
+        return colors[:, lyr, ch][:, None, None, None]
+
+    pk = _quantize_pack(*_chain_composite(covs, read_color))
+    pk = pk.reshape(f, ns, n_chunks, STRIP_H, LANE).permute(0, 1, 3, 2, 4)
+    return pk.reshape(f, ns * STRIP_H, n_chunks * LANE)
+
+
+def _split_bf16x2(v):
+    """bf16(v) + bf16(v - bf16(v)), round to nearest even: the value the
+    reference's two-pass placement carries."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi + (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def fused_blocks_plain(sidx, keep, last, urc, ucm, uval, colors,
+                       frames: int, layers: int, n_strips: int,
+                       n_chunks: int, fill_rule=FILL_RULE_NONZERO,
+                       passes: int = 3):
+    """Plain PyTorch version of the one-block fused kernel -> (F, NS+1,
+    8, stride) int32 packed RGBA, strip NS zeros.
+
+    Blocks sorted by (frame, strip, layer) as sort_blocks_fused gives
+    them: ``keep == 0`` starts a supergroup (all layer planes reset),
+    ``last == 1`` ends it (resolve); the sentinel tail lands in strip NS.
+    ``passes < 3`` places each value split in two bf16 parts.  The
+    arithmetic is render_fused_blocksn's (fused_plain with one block a
+    group: left-to-right prefix, fixed-point carry, suffix composite)."""
+    ns1 = n_strips + 1
+    v = uval.to(torch.float32)
+    if passes < 3:
+        v = _split_bf16x2(v)
+    flags = ((keep == 0).to(torch.int32)
+             | ((last == 1).to(torch.int32) << 1))
+    lays = ((sidx // ns1) % layers).to(torch.int32)[None]
+    out = fused_plain(sidx, flags, lays, urc, ucm, v, colors, frames,
+                      layers, n_strips, n_chunks, group=1,
+                      fill_rule=fill_rule)
+    out[:, n_strips] = 0
+    return out
+
+
+def _as_tensors(device, arrays, dtypes):
+    """numpy arrays or tensors -> contiguous tensors on one device:
+    ``device`` when given, else the tensors' own, else the card."""
+    if device is None:
+        device = next((a.device for a in arrays if torch.is_tensor(a)),
+                      None)
+    dev = resolve_device(device)
+    out = [torch.as_tensor(np.ascontiguousarray(a) if isinstance(
+        a, np.ndarray) else a).to(device=dev, dtype=dt).contiguous()
+        for a, dt in zip(arrays, dtypes)]
+    return dev, out
+
+
+_BLOCK_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32,
+                 torch.float32)
+
+
+def _check_blocks(sidx, urc, ucm, uval, *flags):
+    nb = sidx.shape[0]
+    for t in flags:
+        if tuple(t.shape) != (nb,):
+            raise ValueError(f"block flags {tuple(t.shape)} for {nb} blocks")
+    for t in (urc, ucm, uval):
+        if t.numel() != nb * BLK:
+            raise ValueError(f"block array {tuple(t.shape)} for {nb} blocks "
+                             f"of {BLK} slots")
+
+
+def _check_width(n_chunks: int, what: str):
+    if n_chunks * STRIP_H > LANE:
+        raise ValueError(f"{what} supports width < 2048; use "
+                         "render_fused_blocksn for wider frames")
+
+
+def _launch_planes(fn, *args):
+    from . import cuda_lib
+
+    err = getattr(cuda_lib.load("swfplanes"), fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def place_blocks(sidx, keep, urc, ucm, uval, frames: int, layers: int,
+                 n_strips: int, step: bool = True, device=None):
+    """Placement blocks -> (F, L, NS+1, 128, 128) f32 chunk-major planes
+    (counterpart of the TPU ``place_blocks``; ``device`` takes the place
+    of ``interpret``: the card by default, or the inputs' device).
+
+    Kernel: replaces ``_place_kernel`` (swf_renderer_tpu/ops/
+    flatblock.py:486).  One CUDA block per (frame, layer, strip) group
+    scatters its raw deltas into a shared 128x129 plane, prefix-sums each
+    row left to right (``step``), and writes the plane with coalesced
+    stores (csrc/planes_device.cuh).  Bound: bytes (the planes written
+    once).  On the CPU ``place_plain`` runs instead; on a card the kernel
+    equals it bit for bit (chip_smoke.py)."""
+    dev, (sidx, keep, urc, ucm, uval) = _as_tensors(
+        device, (sidx, keep, urc, ucm, uval), _BLOCK_DTYPES)
+    _check_blocks(sidx, urc, ucm, uval, keep)
+    if dev.type == "cpu":
+        return place_plain(sidx, keep, urc, ucm, uval, frames, layers,
+                           n_strips, step=step)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    ns1 = n_strips + 1
+    n_groups = frames * layers * ns1
+    out = torch.empty((frames, layers, ns1, LANE, LANE), dtype=torch.float32,
+                      device=dev)
+    index = torch.empty(2 * n_groups, dtype=torch.int32, device=dev)
+    _launch_planes("swf_place", sidx.data_ptr(), keep.data_ptr(),
+                   urc.data_ptr(), ucm.data_ptr(), uval.data_ptr(),
+                   index.data_ptr(), out.data_ptr(), sidx.shape[0],
+                   n_groups, ns1, int(step), _stream(dev))
+    place_blocks.launches += 1
+    return out
+
+
+place_blocks.launches = 0
+
+
+def _resolve_inputs(planes, colors, n_chunks, fill_rule, device):
+    dev, (planes, colors) = _as_tensors(device, (planes, colors),
+                                        (torch.float32, torch.float32))
+    if planes.dim() != 5 or tuple(planes.shape[3:]) != (LANE, LANE):
+        raise ValueError(f"planes {tuple(planes.shape)}: expected (F, L, "
+                         f"NS+1, {LANE}, {LANE})")
+    f, l, ns1 = planes.shape[:3]
+    if tuple(colors.shape) != (f, l, 4):
+        raise ValueError(f"colors {tuple(colors.shape)} for planes "
+                         f"{tuple(planes.shape)}")
+    if ns1 < 2:
+        raise ValueError("planes hold no strip besides the sentinel")
+    _check_width(n_chunks, "the plane resolve")
+    rules = tuple(int(r) for r in layer_rules(fill_rule, l))
+    return dev, planes, colors, rules
+
+
+def resolve_planes_u32(planes, colors, n_chunks: int,
+                       fill_rule=FILL_RULE_NONZERO, prefixed: bool = True,
+                       device=None):
+    """(F, L, NS+1, 128, 128) chunk-major planes + (F, L, 4) straight
+    colours -> (F, NS*8, stride) int32 packed RGBA (counterpart of the TPU
+    ``resolve_planes_u32``; its grid knob ``strips_per_step`` is a TPU
+    pipelining budget that does not change the result, and is dropped).
+    ``prefixed=True`` expects place_blocks(step=True) planes.
+
+    Kernel: replaces ``_resolve_u32_kernel`` (swf_renderer_tpu/ops/
+    flatblock.py:556).  One CUDA block per (frame, strip), one warp per
+    pixel row: the carry ladder over the chunks' totals, then chunk by
+    chunk the rule, the sequential over chain and the quantize tail in
+    registers (csrc/planes_device.cuh).  Bound: bytes (planes read once,
+    frames written once).  On the CPU ``resolve_u32_plain`` runs instead;
+    on a card the kernel equals it word for word (chip_smoke.py)."""
+    dev, planes, colors, rules = _resolve_inputs(planes, colors, n_chunks,
+                                                 fill_rule, device)
+    if dev.type == "cpu":
+        return resolve_u32_plain(planes, colors, n_chunks, rules, prefixed)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    f, l, ns1 = planes.shape[:3]
+    out = torch.empty((f, (ns1 - 1) * STRIP_H, n_chunks * LANE),
+                      dtype=torch.int32, device=dev)
+    rules_t = _device_tables(rules, None, dev)[0]
+    _launch_planes("swf_resolve_u32", planes.data_ptr(), colors.data_ptr(),
+                   rules_t.data_ptr(), out.data_ptr(), f, l, ns1, n_chunks,
+                   int(prefixed), _stream(dev))
+    resolve_planes_u32.launches += 1
+    return out
+
+
+resolve_planes_u32.launches = 0
+
+
+def resolve_planes_u32_dma(planes, colors, n_chunks: int,
+                           fill_rule=FILL_RULE_NONZERO, n_buf: int = 3,
+                           device=None):
+    """The plane resolve through an ``n_buf``-deep copy pipeline ->
+    (F, NS*8, stride) int32 packed RGBA, equal to resolve_planes_u32 on
+    place_blocks(step=True) planes (counterpart of the TPU
+    ``resolve_planes_u32_dma``).
+
+    Kernel: replaces ``_resolve_dma_kernel`` (swf_renderer_tpu/ops/
+    flatblock.py:1364).  Persistent blocks each own a run of one frame's
+    strips and stream them through a ring of ``n_buf`` shared-memory
+    stages filled by ``cp.async`` (a stage: one 128-column chunk of a
+    strip, all layers; the ring goes shallower where ``n_buf`` stages of
+    that size do not fit shared memory), resolving each stage through
+    the device function of ``resolve_planes_u32`` (csrc/
+    planes_device.cuh).  On the CPU ``resolve_u32_plain`` runs
+    instead."""
+    if n_buf < 1:
+        raise ValueError(f"n_buf {n_buf}: the pipeline needs >= 1 stage")
+    dev, planes, colors, rules = _resolve_inputs(planes, colors, n_chunks,
+                                                 fill_rule, device)
+    if dev.type == "cpu":
+        return resolve_u32_plain(planes, colors, n_chunks, rules, True)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    f, l, ns1 = planes.shape[:3]
+    out = torch.empty((f, (ns1 - 1) * STRIP_H, n_chunks * LANE),
+                      dtype=torch.int32, device=dev)
+    rules_t = _device_tables(rules, None, dev)[0]
+    _launch_planes("swf_resolve_u32_dma", planes.data_ptr(),
+                   colors.data_ptr(), rules_t.data_ptr(), out.data_ptr(), f,
+                   l, ns1, n_chunks, n_buf, _stream(dev))
+    resolve_planes_u32_dma.launches += 1
+    return out
+
+
+resolve_planes_u32_dma.launches = 0
+
+
+def render_flat_blocks(sidx, keep, urc, ucm, uval, colors, height: int,
+                       width: int, frames: int, layers: int, n_strips: int,
+                       n_chunks: int, fill_rule=FILL_RULE_NONZERO,
+                       device=None):
+    """Full two-kernel flat-block pipeline -> (F, NS*8, stride) int32
+    packed RGBA: place_blocks(step=True), then resolve_planes_u32
+    (prefixed) — one launch of each on a card.  Crop and convert on the
+    host with ``frames_u32_to_u8(out.cpu().numpy().view(np.uint32),
+    height, width)``."""
+    _check_width(n_chunks, "two-kernel path")
+    dev, (sidx, keep, urc, ucm, uval, colors) = _as_tensors(
+        device, (sidx, keep, urc, ucm, uval, colors),
+        _BLOCK_DTYPES + (torch.float32,))
+    planes = place_blocks(sidx, keep, urc, ucm, uval, frames, layers,
+                          n_strips, step=True)
+    return resolve_planes_u32(planes, colors, n_chunks, fill_rule=fill_rule,
+                              prefixed=True)
+
+
+def render_fused_blocks(sidx, keep, last, urc, ucm, uval, colors,
+                        frames: int, layers: int, n_strips: int,
+                        n_chunks: int, fill_rule=FILL_RULE_NONZERO,
+                        passes: int = 3, device=None):
+    """One-block-per-step fused render -> (F, NS+1, 8, stride) int32
+    packed RGBA, strip NS zeros (callers slice [:, :NS]).  Requires
+    blocks sorted by (frame, strip, layer) — see sort_blocks_fused.
+    ``passes < 3`` places the reference's two-pass bf16 split of each
+    value.
+
+    Kernel: replaces ``_fused_kernel`` (swf_renderer_tpu/ops/
+    flatblock.py:618) with the design of render_fused_blocksn's kernel
+    (one CUDA block per 128-column chunk of a strip, the layer planes in
+    shared memory, left-to-right prefix, fixed-point carry), reading the
+    sorted blocks directly: supergroups start at ``keep == 0`` and end at
+    ``last == 1`` (csrc/flatblock.cu).  It equals render_fused_blocksn
+    on group_blocks_fused of the same blocks word for word.  Bound:
+    bytes (the packed output written once).  On the CPU
+    ``fused_blocks_plain`` runs instead."""
+    _check_width(n_chunks, "render_fused_blocks")
+    dev, (sidx, keep, last, urc, ucm, uval, colors) = _as_tensors(
+        device, (sidx, keep, last, urc, ucm, uval, colors),
+        (torch.int32,) + _BLOCK_DTYPES + (torch.float32,))
+    _check_blocks(sidx, urc, ucm, uval, keep, last)
+    if tuple(colors.shape) != (frames, layers, 4):
+        raise ValueError(f"colors {tuple(colors.shape)} for {frames} frames "
+                         f"of {layers} layers")
+    if not 1 <= layers <= MAX_KERNEL_LAYERS:
+        raise ValueError(f"{layers} layers: one pass takes 1.."
+                         f"{MAX_KERNEL_LAYERS}")
+    if dev.type == "cpu":
+        return fused_blocks_plain(sidx, keep, last, urc, ucm, uval, colors,
+                                  frames, layers, n_strips, n_chunks,
+                                  fill_rule=fill_rule, passes=passes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from . import cuda_lib
+
+    ns1 = n_strips + 1
+    rules = tuple(int(r) for r in layer_rules(fill_rule, layers))
+    rules_t = _device_tables(rules, None, dev)[0]
+    sg_index = torch.empty(2 * frames * ns1, dtype=torch.int32, device=dev)
+    out = torch.empty((frames, ns1, STRIP_H, n_chunks * LANE),
+                      dtype=torch.int32, device=dev)
+    err = cuda_lib.load().swf_fused_blocks1(
+        sidx.data_ptr(), keep.data_ptr(), last.data_ptr(), urc.data_ptr(),
+        ucm.data_ptr(), uval.data_ptr(), colors.data_ptr(),
+        rules_t.data_ptr(), sg_index.data_ptr(), out.data_ptr(),
+        sidx.shape[0], frames, layers, ns1, n_chunks, int(passes),
+        _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"one-block fused kernel launch failed: CUDA "
+                           f"error {err}")
+    render_fused_blocks.launches += 1
+    return out
+
+
+render_fused_blocks.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,14 @@ versions.
 ``csrc/flatblock_device.cuh`` holds all of the fused kernels' device
 logic, ``csrc/sweep_device.cuh`` all of the sweep kernels',
 ``csrc/texfield_device.cuh`` all of the texfield kernel's,
-``csrc/coverage_device.cuh`` the two direct coverage kernels' and
-``csrc/resolve_device.cuh`` the resolve kernel's.  Here g++
-compiles them under a small emulation of the CUDA
+``csrc/coverage_device.cuh`` the two direct coverage kernels',
+``csrc/resolve_device.cuh`` the resolve kernel's and
+``csrc/planes_device.cuh`` the placement and plane-resolve kernels'.
+Here g++ compiles them under a small emulation of the CUDA
 execution model (one std::thread per CUDA thread, a std::barrier for
 ``__syncthreads`` and one per warp for the shuffles and ``__syncwarp``,
-std::atomic_ref for the shared-memory atomics), and
+std::atomic_ref for the shared-memory atomics, ``cp.async`` as a plain
+copy, so the pipelined resolve's ring logic runs unchanged), and
 the emulated blocks run at small sizes.  This checks the kernel's
 indexing, strip slicing and arithmetic without a card; the card itself
 runs ``chip_smoke.py``.  Tolerance: byte-equal — the plain versions
@@ -69,6 +71,22 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> r(*p);
+  int old = r.load();
+  while (old < v && !r.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
 inline long long __double2ll_rn(double x) {
   return static_cast<long long>(std::nearbyint(x));
 }
@@ -76,6 +94,8 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 Dim3 gridDim;
@@ -102,6 +122,30 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
 #include "texfield_device.cuh"
 #include "coverage_device.cuh"
 #include "resolve_device.cuh"
+#include "planes_device.cuh"
+
+// One emulated block of n threads (warps of 32: a barrier and exchange
+// slots each) running body() with blockIdx (x, y, z).
+template <class Body>
+void run_block(int n, unsigned x, unsigned y, unsigned z, Body body) {
+  blockDim.x = n;
+  std::barrier<> bar(n);
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  std::vector<float> slots(n);
+  for (int w = 0; w < n / 32; ++w)
+    bars.push_back(std::make_unique<std::barrier<>>(32));
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n; ++t) {
+    threads.emplace_back([&, t] {
+      threadIdx.x = t;
+      blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+      block_barrier = &bar;
+      this_warp = Warp{bars[t / 32].get(), slots.data() + (t / 32) * 32};
+      body();
+    });
+  }
+  for (auto& th : threads) th.join();
+}
 
 extern "C" int emulate(int styled, const int* sidx, const int* flags,
                        const int* lays, const float* urc, const float* ucm,
@@ -281,6 +325,86 @@ extern "C" void emulate_coverage(int tiled, const float* edges,
       }
 }
 
+extern "C" void emulate_fused1(const int* sidx, const int* keep,
+                               const int* last, const float* urc,
+                               const float* ucm, const float* uval,
+                               const float* colors, const int* rules,
+                               int* out, int nb, int frames, int layers,
+                               int ns1, int n_chunks, int passes) {
+  swf::FusedArgs a{};
+  a.sidx = sidx; a.urc = urc; a.ucm = ucm; a.uval = uval;
+  a.colors = colors; a.rules = rules; a.out = out; a.ng = nb; a.group = 1;
+  a.layers = layers; a.ns1 = ns1; a.n_chunks = n_chunks; a.spp = 1;
+  a.plane_rows = swf::kLane; a.spb = 1; a.n_spg = 1; a.passes = passes;
+  const int n_sg = frames * ns1;
+  std::vector<int> first(n_sg, -1), last_idx(n_sg, -1);
+  for (int i = 0; i < nb; ++i)   // block_index_kernel
+    swf::block_index(sidx, keep, last, i, layers, ns1, n_sg, first.data(),
+                     last_idx.data());
+  a.sg_first = first.data();
+  a.sg_last = last_idx.data();
+  std::vector<unsigned char> smem(swf::smem_bytes(layers, swf::kStripH,
+                                                  false));
+  for (int z = 0; z < frames; ++z)
+    for (int y = 0; y < ns1 - 1; ++y)
+      for (int x = 0; x < n_chunks; ++x) {
+        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        run_block(swf::kThreads, x, y, z, [&] {
+          swf::fused_block<false, true>(a, smem.data());
+        });
+      }
+  const size_t row = static_cast<size_t>(swf::kStripH) * n_chunks * swf::kLane;
+  for (int f = 0; f < frames; ++f)   // the sentinel strip's memset
+    std::memset(out + (static_cast<size_t>(f) * ns1 + ns1 - 1) * row, 0,
+                row * sizeof(int));
+}
+
+extern "C" void emulate_place(const int* sidx, const int* keep,
+                              const float* urc, const float* ucm,
+                              const float* uval, float* out, int nb,
+                              int n_groups, int ns1, int step) {
+  std::vector<int> index(2 * n_groups, -1);
+  swf::PlaceArgs a{};
+  a.sidx = sidx; a.keep = keep; a.urc = urc; a.ucm = ucm; a.uval = uval;
+  a.first = index.data(); a.last = index.data() + n_groups; a.out = out;
+  a.nb = nb; a.n_groups = n_groups; a.ns1 = ns1; a.step = step;
+  for (int i = 0; i < nb; ++i) swf::place_index(a, i);
+  std::vector<float> plane(swf::kPlaneRows * swf::kRowStride);
+  for (int g = 0; g < n_groups; ++g) {
+    std::fill(plane.begin(), plane.end(), -7.0f);   // stale contents
+    run_block(swf::kThreads, g, 0, 0, [&] {
+      swf::place_block(a, plane.data());
+    });
+  }
+}
+
+// dma == 0: the grid resolve; else the pipelined one at n_buf with
+// `runs` blocks a frame.  Returns the ring depth used.
+extern "C" int emulate_resolve_u32(const float* planes, const float* colors,
+                                   const int* rules, int* out, int frames,
+                                   int layers, int ns1, int n_chunks,
+                                   int prefixed, int dma, int n_buf,
+                                   int runs) {
+  swf::PlanesArgs a{};
+  a.planes = planes; a.colors = colors; a.rules = rules; a.out = out;
+  a.frames = frames; a.layers = layers; a.ns1 = ns1; a.n_chunks = n_chunks;
+  a.prefixed = dma ? 1 : prefixed;
+  a.depth = dma ? swf::dma_depth(layers, n_buf) : 1;
+  std::vector<unsigned char> smem(
+      (dma ? a.depth * swf::dma_stage_bytes(layers) : 0) +
+      swf::resolve_smem_bytes(layers));
+  gridDim.x = dma ? runs : ns1 - 1;
+  for (int y = 0; y < frames; ++y)
+    for (int x = 0; x < static_cast<int>(gridDim.x); ++x) {
+      std::memset(smem.data(), 0xab, smem.size());  // stale contents
+      run_block(swf::kThreads, x, y, 0, [&] {
+        if (dma) swf::resolve_dma_block(a, smem.data());
+        else swf::resolve_u32_block(a, smem.data());
+      });
+    }
+  return a.depth;
+}
+
 extern "C" void emulate_resolve(const float* delta, const float* colors,
                                 const int* rules, float* out, int frames,
                                 int layers, int height, int stride) {
@@ -340,6 +464,13 @@ def emulator(tmp_path_factory):
         + [ctypes.c_int] * 5
     emu.emulate_resolve.restype = None
     emu.emulate_resolve.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    emu.emulate_fused1.restype = None
+    emu.emulate_fused1.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    emu.emulate_place.restype = None
+    emu.emulate_place.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    emu.emulate_resolve_u32.restype = ctypes.c_int
+    emu.emulate_resolve_u32.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 8
     return emu
 
 
@@ -641,3 +772,102 @@ def test_emulated_resolve_equals_plain_version(emulator):
     emulator.emulate_resolve(delta.ctypes.data, colors.ctypes.data,
                              rule_a.ctypes.data, out.ctypes.data, f, l, h, s)
     assert torch.equal(torch.as_tensor(out), want)
+
+
+def _flat_blocks(frames, layers, height, width, seed, empty_layer=None):
+    """pack_blocks_native arrays of a random scene (layer ``empty_layer``
+    without updates: its groups are single zero blocks) and colours."""
+    tables, colors = build_scene_edges(frames, layers, height, width,
+                                       shapes_per_layer=3, seed=seed)
+    ul = lower_update_lists(tables, height, width)
+    if empty_layer is not None:
+        for per in ul:
+            per[empty_layer] = tuple(x[:0] for x in per[empty_layer])
+    packed = bindings.pack_blocks_native(ul, height, width,
+                                         block_pad_multiple=8)
+    return packed, colors
+
+
+def _c(x):
+    return np.ascontiguousarray(x.numpy() if torch.is_tensor(x) else x)
+
+
+@pytest.mark.parametrize("step", [False, True])
+def test_emulated_place_equals_plain_version(emulator, step):
+    """B14: 2 frames x 3 layers x 24x300 (3 chunks; one layer empty),
+    every plane including the sentinel strips."""
+    (sidx, keep, urc, ucm, uval, ns, nc), _ = _flat_blocks(
+        2, 3, 24, 300, seed=51, empty_layer=1)
+    want = fb.place_plain(*map(torch.as_tensor, (sidx, keep, urc, ucm,
+                                                 uval)), 2, 3, ns, step=step)
+    out = np.full(want.shape, np.nan, np.float32)
+    emulator.emulate_place(sidx.ctypes.data, keep.ctypes.data,
+                           urc.ctypes.data, ucm.ctypes.data,
+                           uval.ctypes.data, out.ctypes.data, len(sidx),
+                           2 * 3 * (ns + 1), ns + 1, int(step))
+    assert torch.equal(torch.as_tensor(out), want)
+    assert float(want.abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("layers,n_chunks,rule", [
+    (3, 3, (0, 1, 1)), (16, 2, 1), (2, 16, 0)])
+def test_emulated_plane_resolves_equal_plain_version(emulator, layers,
+                                                     n_chunks, rule):
+    """B15 (raw and prefixed planes) and B16 (ring depths 1 to 3, and the
+    shallower ring of 16 layers at n_buf 4) on random planes of 2 frames
+    x 2 strips (deltas in every chunk: every carry step matters)."""
+    frames, ns = 2, 2
+    rng = np.random.default_rng(layers * 100 + n_chunks)
+    raw = rng.normal(0, 0.4, (frames, layers, ns + 1, 128, 128)).astype(
+        np.float32)
+    raw[rng.uniform(size=raw.shape) < 0.6] = 0.0
+    colors = rng.uniform(0, 1, (frames, layers, 4)).astype(np.float32)
+    colors[0, 0, 3], colors[1, -1, 3] = 0.0, 1.0
+    rules = np.asarray(fb.layer_rules(rule, layers), np.int32)
+    cols = torch.as_tensor(colors)
+
+    def emulate(planes, prefixed, dma=0, n_buf=0, runs=1):
+        out = np.full((frames, ns * 8, n_chunks * 128), -7, np.int32)
+        depth = emulator.emulate_resolve_u32(
+            _c(planes).ctypes.data, colors.ctypes.data, rules.ctypes.data,
+            out.ctypes.data, frames, layers, ns + 1, n_chunks, int(prefixed),
+            dma, n_buf, runs)
+        return torch.from_numpy(out), depth
+
+    for prefixed in (False, True):
+        planes = torch.as_tensor(raw)
+        if prefixed:
+            planes = torch.cumsum(planes, -1)
+        want = fb.resolve_u32_plain(planes, cols, n_chunks, rule, prefixed)
+        got, _ = emulate(planes, prefixed)
+        assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 100
+    for n_buf, runs in ((1, 1), (2, 2), (3, 1), (4, 2)):
+        got, depth = emulate(planes, True, 1, n_buf, runs)
+        assert depth == (3 if (n_buf, layers) == (4, 16) else n_buf)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("passes", [3, 2])
+def test_emulated_fused1_equals_plain_version(emulator, passes):
+    """B13 on sort_blocks_fused blocks of 2 frames x 4 layers x 40x300
+    (one layer empty), mixed rules; strip NS zeroed."""
+    frames, layers = 2, 4
+    (sidx, keep, urc, ucm, uval, ns, nc), colors = _flat_blocks(
+        frames, layers, 40, 300, seed=57, empty_layer=2)
+    sorted_blocks = fb.sort_blocks_fused(sidx, keep, urc, ucm, uval, layers,
+                                         ns, block_pad_multiple=16)
+    si, ke, la, rc, cm, uv = (_c(x) for x in sorted_blocks)
+    rule = (0, 1, 1, 0)
+    rules = np.asarray(rule, np.int32)
+    want = fb.fused_blocks_plain(*map(torch.as_tensor, sorted_blocks),
+                                 torch.as_tensor(colors), frames, layers, ns,
+                                 nc, fill_rule=rule, passes=passes)
+    out = np.full(want.shape, -7, np.int32)
+    emulator.emulate_fused1(
+        si.ctypes.data, ke.ctypes.data, la.ctypes.data, rc.ctypes.data,
+        cm.ctypes.data, uv.ctypes.data, colors.ctypes.data,
+        rules.ctypes.data, out.ctypes.data, len(si), frames, layers, ns + 1,
+        nc, passes)
+    assert torch.equal(torch.from_numpy(out), want)
+    assert (want[:, :ns] != 0).any() and not want[:, ns].any()
