@@ -1,7 +1,9 @@
 // Fused flat-block kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (ops/flatblock.py): the grouped kernel
-// (render_fused_blocksn, render_fused_styled) and its one-block-per-step
-// form (render_fused_blocks).  The device logic and its design notes live
+// (render_fused_blocksn, render_fused_styled: single pass, and the chain,
+// background-seeded, premultiplied-output and mask-group modes of deep
+// and masked draw lists) and its one-block-per-step form
+// (render_fused_blocks).  The device logic and its design notes live
 // in flatblock_device.cuh.
 //
 // Build:
@@ -43,14 +45,37 @@ __global__ void block_index_kernel(const int* sidx, const int* keep,
   }
 }
 
-template <bool kStyled, bool kOne>
+template <bool kStyled, bool kOne, bool kChain = false,
+          bool kPremul = false>
 __global__ void __launch_bounds__(kThreads)
 fused_flatblock_kernel(FusedArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fused_block<kStyled, kOne>(a, smem);
+  fused_block<kStyled, kOne, kChain, kPremul>(a, smem);
 }
 
-template <bool kStyled>
+// Zero the premultiplied output's padding rows (plane rows spp*n_chunks*8
+// and up of every (frame, strip block, channel) plane) and its sentinel
+// strip block NS, which no block of the kernel writes.
+cudaError_t zero_premul_padding(const FusedArgs& a, int frames,
+                                cudaStream_t stream) {
+  const size_t lane_bytes = sizeof(float) * kLane;
+  const size_t plane_bytes = lane_bytes * a.plane_rows;
+  const size_t used = static_cast<size_t>(a.spp) * a.n_chunks * kStripH;
+  cudaError_t err = cudaSuccess;
+  if (used < static_cast<size_t>(a.plane_rows)) {
+    err = cudaMemset2DAsync(
+        reinterpret_cast<char*>(a.out_pm) + used * lane_bytes, plane_bytes,
+        0, plane_bytes - used * lane_bytes,
+        static_cast<size_t>(frames) * a.ns1 * 4, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t strip_bytes = 4 * plane_bytes;
+  return cudaMemset2DAsync(
+      reinterpret_cast<char*>(a.out_pm) + (a.ns1 - 1) * strip_bytes,
+      strip_bytes * a.ns1, 0, strip_bytes, frames, stream);
+}
+
+template <bool kStyled, bool kChain = false, bool kPremul = false>
 cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
                    cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(
@@ -68,13 +93,17 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   a.spb = strips_per_block(a.layers, a.spp, kStyled);
   a.n_spg = (a.spp + a.spb - 1) / a.spb;
   const size_t bytes = smem_bytes(a.layers, a.spb * kStripH, kStyled);
-  err = cudaFuncSetAttribute(fused_flatblock_kernel<kStyled, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  err = cudaFuncSetAttribute(
+      fused_flatblock_kernel<kStyled, false, kChain, kPremul>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
+  if (kPremul) {
+    err = zero_premul_padding(a, frames, stream);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid(a.n_chunks * a.n_spg, n_strips, frames);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    fused_flatblock_kernel<kStyled, false>
+    fused_flatblock_kernel<kStyled, false, kChain, kPremul>
         <<<grid, kThreads, bytes, stream>>>(a);
   }
   return cudaGetLastError();
@@ -118,22 +147,32 @@ extern "C" {
 
 // styled == 0: the solid kernel (pint, pflt and fields unused);
 // styled == 1: per-layer paints from pint/pflt, field planes f0..f3.
-// sg_index: scratch of 2 * frames * ns1 ints.  out: (F, ns1, spp*8,
-// n_chunks*128) int32 holding packed u32 RGBA; rows of the sentinel strip
-// block (index ns1 - 1) are left unwritten.
-int swf_fused_flatblock(int styled, const void* sidx, const void* flags,
-                        const void* lays, const void* urc, const void* ucm,
-                        const void* uval, const void* colors,
-                        const void* rules, const void* pint,
-                        const void* pflt, const void* f0, const void* f1,
-                        const void* f2, const void* f3, void* sg_index,
-                        void* out, int ng, int group, int frames, int layers,
-                        int ns1, int n_chunks, int spp, int plane_rows,
+// mode (styled only): bit0 the chain composite, seeded from bg (F, ns1,
+// 4, plane_rows, 128) premultiplied planes when bg is not null, with
+// layers [mask_from:] a clip group's mask when mask_from >= 0; bit1
+// (with bit0) premultiplied planes out.  sg_index: scratch of 2 * frames
+// * ns1 ints.  out: (F, ns1, spp*8, n_chunks*128) int32 holding packed
+// u32 RGBA, rows of the sentinel strip block (index ns1 - 1) left
+// unwritten; or, mode bit1, (F, ns1, 4, plane_rows, 128) f32, zero in
+// the padding rows and the sentinel strip block.
+int swf_fused_flatblock(int styled, int mode, const void* sidx,
+                        const void* flags, const void* lays, const void* urc,
+                        const void* ucm, const void* uval,
+                        const void* colors, const void* rules,
+                        const void* pint, const void* pflt, const void* f0,
+                        const void* f1, const void* f2, const void* f3,
+                        const void* bg, void* sg_index, void* out, int ng,
+                        int group, int frames, int layers, int ns1,
+                        int n_chunks, int spp, int plane_rows, int mask_from,
                         void* stream) {
+  const bool chain = (mode & 1) != 0;
+  const bool premul = (mode & 2) != 0;
   // Grid y and z (strip blocks, frames) are limited to 65535 blocks.
   if (layers < 1 || layers > swf::kMaxLayers || spp < 1 || group < 1 ||
       n_chunks < 1 || ns1 < 1 || ns1 - 1 > 65535 || frames < 1 ||
-      frames > 65535) {
+      frames > 65535 || mode < 0 || mode > 3 || (premul && !chain) ||
+      (mode != 0 && !styled) || (!chain && (bg != nullptr || mask_from >= 0))
+      || mask_from >= layers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swf::FusedArgs a;
@@ -153,7 +192,10 @@ int swf_fused_flatblock(int styled, const void* sidx, const void* flags,
   a.fields[3] = static_cast<const float*>(f3);
   a.sg_first = nullptr;
   a.sg_last = nullptr;
-  a.out = static_cast<int*>(out);
+  a.out = premul ? nullptr : static_cast<int*>(out);
+  a.out_pm = premul ? static_cast<float*>(out) : nullptr;
+  a.bg = static_cast<const float*>(bg);
+  a.mask_from = mask_from < 0 ? -1 : mask_from;
   a.ng = ng;
   a.group = group;
   a.layers = layers;
@@ -166,9 +208,16 @@ int swf_fused_flatblock(int styled, const void* sidx, const void* flags,
   a.passes = 3;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* idx = static_cast<int*>(sg_index);
-  const cudaError_t err =
-      styled ? swf::launch<true>(a, frames, ns1 - 1, idx, s)
-             : swf::launch<false>(a, frames, ns1 - 1, idx, s);
+  cudaError_t err;
+  if (!styled) {
+    err = swf::launch<false>(a, frames, ns1 - 1, idx, s);
+  } else if (!chain) {
+    err = swf::launch<true>(a, frames, ns1 - 1, idx, s);
+  } else if (!premul) {
+    err = swf::launch<true, true, false>(a, frames, ns1 - 1, idx, s);
+  } else {
+    err = swf::launch<true, true, true>(a, frames, ns1 - 1, idx, s);
+  }
   return static_cast<int>(err);
 }
 

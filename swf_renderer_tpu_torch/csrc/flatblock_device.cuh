@@ -3,10 +3,12 @@
 //
 // Replaces the TPU kernels `_fusedn_kernel` (swf_renderer_tpu/ops/
 // flatblock.py:784, pallas_call :920) and `_fused_styled_kernel` (:1083,
-// pallas_call :1276) in their single-pass form (chain=False, bg=None,
-// emit="u32", mask_from=None), and `_fused_kernel` (:618, pallas_call
-// :709), the one-block-per-step form over blocks sorted by (frame,
-// strip, layer) (fused_block<false, true>).
+// pallas_call :1276) — in its single-pass form (chain=False, bg=None,
+// emit="u32", mask_from=None) and in the modes of deep and masked draw
+// lists (fused_block<true, false, true, kPremul>: chain=True, a `bg`
+// seed, emit="premul", mask_from) — and `_fused_kernel` (:618,
+// pallas_call :709), the one-block-per-step form over blocks sorted by
+// (frame, strip, layer) (fused_block<false, true>).
 //
 // What it computes, per (frame, strip block): the grouped placement
 // blocks of the native packer hold coalesced winding deltas (rc, cm, v)
@@ -32,6 +34,21 @@
 // plane row then runs the in-chunk prefix sum left to right (rows are
 // padded to 129 floats so those column walks are free of bank
 // conflicts), and every thread resolves pixels of its chunk.
+//
+// The chain modes (kChain) resolve each pixel with the sequential over
+// chain, a left fold over the layers, in place of the suffix-product
+// form, so that passes of <= 16 layers chained through their
+// premultiplied planes equal one long chain.  The fold starts from the
+// pixel's 4 premultiplied floats of an earlier pass (`bg`, plane row
+// `frow`, read along the 128 lanes like the field planes) or from
+// transparent.  `mask_from` >= 0 (a runtime index) makes layers
+// [mask_from:] a clip group's mask: the content layers fold from
+// transparent, the mask layers' union alpha folds beside them, the
+// content scales by it and goes over `bg` — the unfused program's plane
+// algebra, operation for operation.  kPremul stores the 4 premultiplied
+// floats at `frow` of the (F, NS+1, 4, plane_rows, 128) output in place
+// of the packed word; the launcher zeroes its padding rows and sentinel
+// strip block.
 //
 // Bound on this card: the packed u32 output (one write of every pixel)
 // dominates the bytes; the per-pixel arithmetic is ~15 f32 operations a
@@ -101,6 +118,9 @@ struct FusedArgs {
   const int* sg_first;  // (F*(NS+1),) first group of each supergroup
   const int* sg_last;   // (F*(NS+1),) last group of each supergroup
   int* out;             // (F, NS+1, spp*8, n_chunks*128) u32 bits
+  const float* bg;      // chain: (F, NS+1, 4, plane_rows, 128) or null
+  float* out_pm;        // kPremul: (F, NS+1, 4, plane_rows, 128)
+  int mask_from;        // chain: first mask layer, -1 for none
   int ng, group, layers, ns1, n_chunks, spp, plane_rows;
   int spb;              // packed strips owned by one block
   int n_spg;            // strip slices per chunk (ceil(spp / spb))
@@ -304,11 +324,97 @@ __device__ __forceinline__ void block_index(const int* sidx, const int* keep,
   if (last[i] == 1) last_idx[sg] = i;
 }
 
+// Straight colour (c[0..2]) and alpha of layer l at a pixel: the
+// constant colour, the gradient ramp at (px, py) or the field planes at
+// plane row frow, lane c of strip block s.
+template <bool kStyled>
+__device__ __forceinline__ void layer_rgba(const FusedArgs& a,
+                                           const float* col_s,
+                                           const int* pint_s,
+                                           const float* pflt_s, int l,
+                                           float px, float py, int s,
+                                           long long frow, int c,
+                                           float* rgba) {
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) rgba[ch] = col_s[4 * l + ch];
+  if (kStyled) {
+    const int* I = pint_s + l * kPintStride;
+    const float* P = pflt_s + l * kPfltStride;
+    if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+      const float t = grad_t(P, I, px, py);
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) rgba[ch] = grad_ramp(P, I[2], t, ch);
+    } else if (I[0] == kPaintField) {
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        rgba[ch] = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
+                                   * a.plane_rows + frow) * kLane + c];
+      }
+    }
+  }
+}
+
+// The chain modes' resolve of one pixel (composite_quantize_pack with
+// chain=True, a bg seed and mask_from): premultiplied (r, g, b, a) into
+// out[0..3].  w(l) is the winding of layer l at the pixel; bg_px points
+// at the pixel's red background value (channels a plane apart) or is
+// null.
+template <bool kStyled, typename WindingFn>
+__device__ __forceinline__ void chain_pixel(
+    const FusedArgs& a, const float* col_s, const int* rule_s,
+    const int* pint_s, const float* pflt_s, WindingFn w, float px,
+    float py, int s, long long frow, int c, const float* bg_px,
+    long long bg_step, float* out) {
+  const int L = a.layers;
+  const int mf = a.mask_from;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (bg_px != nullptr && mf < 0) {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) acc[ch] = bg_px[ch * bg_step];
+  }
+  float m = 0.0f;
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l) {
+    if (l < L) {
+      const float cov = fill_cov(w(l), rule_s[l]);
+      float rgba[4];
+      layer_rgba<kStyled>(a, col_s, pint_s, pflt_s, l, px, py, s, frow, c,
+                          rgba);
+      const float ca = rgba[3] * cov;
+      if (mf >= 0 && l >= mf) {
+        m = (l == mf) ? ca : ca + m * (1.0f - ca);
+      } else {
+        const float kp = 1.0f - ca;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          acc[ch] = rgba[ch] * ca + acc[ch] * kp;
+        }
+        acc[3] = ca + acc[3] * kp;
+      }
+    }
+  }
+  if (mf >= 0) {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) acc[ch] = acc[ch] * m;
+    if (bg_px != nullptr) {
+      const float kp = 1.0f - acc[3];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        acc[ch] = acc[ch] + bg_px[ch * bg_step] * kp;
+      }
+    }
+  }
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) out[ch] = acc[ch];
+}
+
 // One block: (chunk, strip slice) x strip block x frame.  kOne: the
 // one-block-per-step form (render_fused_blocks): group 1, no flags or
 // layer table (the layer is read from each block's sidx), values split
-// in two bf16 parts when passes < 3.
-template <bool kStyled, bool kOne = false>
+// in two bf16 parts when passes < 3.  kChain / kPremul: the chain modes
+// (chain_pixel) and the premultiplied-plane output.
+template <bool kStyled, bool kOne = false, bool kChain = false,
+          bool kPremul = false>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -415,46 +521,69 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
     const long long frow =
         static_cast<long long>(sp) * nc8 + chunk * kStripH + r8;
 
-    float cas[kMaxLayers];
-    float tpar[kMaxLayers];
+    if constexpr (kChain) {
+      // Plane (f, s, channel 0) of the bg and premul arrays; channels are
+      // plane_rows * 128 floats apart.
+      const long long step = static_cast<long long>(a.plane_rows) * kLane;
+      const long long px0 =
+          (static_cast<long long>(f) * a.ns1 + s) * 4 * step + frow * kLane
+          + c;
+      float pm4[4];
+      chain_pixel<kStyled>(
+          a, col_s, rule_s, pint_s, pflt_s,
+          [&](int l) { return plane[(l * rows + row) * kRowStride + c]; },
+          px, py, s, frow, c, a.bg == nullptr ? nullptr : a.bg + px0, step,
+          pm4);
+      if constexpr (kPremul) {
 #pragma unroll
-    for (int l = 0; l < kMaxLayers; ++l) {
-      if (l < L) {
-        const float w = plane[(l * rows + row) * kRowStride + c];
-        const float cov = fill_cov(w, rule_s[l]);
-        float alpha = col_s[4 * l + 3];
-        tpar[l] = 0.0f;
+        for (int ch = 0; ch < 4; ++ch) a.out_pm[px0 + ch * step] = pm4[ch];
+      } else {
+        a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+               + sp * kStripH + r8) * stride + chunk * kLane + c] =
+            static_cast<int>(quantize_pack(pm4[3], pm4));
+      }
+    } else {
+      float cas[kMaxLayers];
+      float tpar[kMaxLayers];
+#pragma unroll
+      for (int l = 0; l < kMaxLayers; ++l) {
+        if (l < L) {
+          const float w = plane[(l * rows + row) * kRowStride + c];
+          const float cov = fill_cov(w, rule_s[l]);
+          float alpha = col_s[4 * l + 3];
+          tpar[l] = 0.0f;
+          if (kStyled) {
+            const int* I = pint_s + l * kPintStride;
+            const float* P = pflt_s + l * kPfltStride;
+            if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+              tpar[l] = grad_t(P, I, px, py);
+              alpha = grad_ramp(P, I[2], tpar[l], 3);
+            } else if (I[0] == kPaintField) {
+              alpha = a.fields[I[3]][((static_cast<long long>(s) * 4 + 3)
+                                       * a.plane_rows + frow) * kLane + c];
+            }
+          }
+          cas[l] = alpha * cov;
+        }
+      }
+      const uint32_t packed = composite_pack(L, cas, [&](int l, int ch) {
+        float color = col_s[4 * l + ch];
         if (kStyled) {
           const int* I = pint_s + l * kPintStride;
           const float* P = pflt_s + l * kPfltStride;
           if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-            tpar[l] = grad_t(P, I, px, py);
-            alpha = grad_ramp(P, I[2], tpar[l], 3);
+            color = grad_ramp(P, I[2], tpar[l], ch);
           } else if (I[0] == kPaintField) {
-            alpha = a.fields[I[3]][((static_cast<long long>(s) * 4 + 3)
+            color = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
                                      * a.plane_rows + frow) * kLane + c];
           }
         }
-        cas[l] = alpha * cov;
-      }
+        return color;
+      });
+      a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+             + sp * kStripH + r8) * stride + chunk * kLane + c] =
+          static_cast<int>(packed);
     }
-    const uint32_t packed = composite_pack(L, cas, [&](int l, int ch) {
-      float color = col_s[4 * l + ch];
-      if (kStyled) {
-        const int* I = pint_s + l * kPintStride;
-        const float* P = pflt_s + l * kPfltStride;
-        if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-          color = grad_ramp(P, I[2], tpar[l], ch);
-        } else if (I[0] == kPaintField) {
-          color = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
-                                   * a.plane_rows + frow) * kLane + c];
-        }
-      }
-      return color;
-    });
-    a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
-           + sp * kStripH + r8) * stride + chunk * kLane + c] =
-        static_cast<int>(packed);
   }
 }
 

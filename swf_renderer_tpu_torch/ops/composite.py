@@ -4,9 +4,10 @@ per-draw coverage planes here, painter's order, in premultiplied space,
 
     dst = src_rgb * src_a * cov + dst * (1 - src_a * cov),
 
-and every path quantizes through premultiplied bytes.  Blend-mode
-compositing belongs to the masked program, which this port does not have
-yet (ROADMAP.md queue A)."""
+and every path quantizes through premultiplied bytes.  Blend modes
+composite a group's premultiplied image onto its backdrop
+(``blend_premul``), on the fused route's planes and on the layered
+backends' frames alike."""
 
 from __future__ import annotations
 
@@ -15,12 +16,81 @@ import torch
 
 from ..utils.numerics import true_div
 
-# Blend modes the scene compiler accepts as group tokens (the executors
-# that composite them are out of this port's slice).
 BLEND_MODES = (
     "multiply", "screen", "lighten", "darken", "difference", "add",
     "subtract", "invert", "overlay", "hardlight",
 )
+
+# Group-compositing modes: not separable colour blends — they act on the
+# BACKDROP plane as a whole (Flash's layer/alpha/erase family).  "layer"
+# is plain source-over of the composed group; "alpha" rewrites the
+# backdrop's alpha from the source's (a soft mask); "erase" removes
+# backdrop where the source is opaque.  alpha/erase only make sense
+# inside an offscreen group buffer — the scene compiler guarantees one.
+GROUP_MODES = ("layer", "alpha", "erase")
+
+
+def _blend_fn(mode: str):
+    """Separable blend function B(Cb, Cs) on straight colours in [0, 1]:
+    the W3C compositing-1 formulas, Flash's clamped add / subtract, and
+    ``invert`` (1 - Cb, the source colour ignored)."""
+    if mode == "multiply":
+        return lambda cb, cs: cb * cs
+    if mode == "screen":
+        return lambda cb, cs: cb + cs - cb * cs
+    if mode == "lighten":
+        return torch.maximum
+    if mode == "darken":
+        return torch.minimum
+    if mode == "difference":
+        return lambda cb, cs: torch.abs(cb - cs)
+    if mode == "add":
+        return lambda cb, cs: torch.clamp(cb + cs, max=1.0)
+    if mode == "subtract":
+        return lambda cb, cs: torch.clamp(cb - cs, min=0.0)
+    if mode == "invert":
+        return lambda cb, cs: 1.0 - cb
+    if mode == "hardlight":
+        return lambda cb, cs: torch.where(
+            cs <= 0.5, cb * (2.0 * cs),
+            cb + (2.0 * cs - 1.0) - cb * (2.0 * cs - 1.0))
+    if mode == "overlay":
+        hl = _blend_fn("hardlight")
+        return lambda cb, cs: hl(cs, cb)
+    raise ValueError(f"unsupported blend mode {mode!r}")
+
+
+def blend_premul(dst_pm, src_pm, mode: str, channel_axis: int = -1):
+    """Composite premultiplied ``src_pm`` onto ``dst_pm`` under a blend
+    mode (PDF/W3C group compositing):
+
+        Co_pm = (1-ab)*Cs_pm + (1-as)*Cb_pm + as*ab*B(Cb, Cs)
+        ao    = as + ab - as*ab
+
+    ``channel_axis`` locates the 4-wide (r, g, b, a) axis (2 on the
+    fused kernel's planes, -1 on frames).  GROUP_MODES bypass the
+    separable formula: "layer" is source-over, "alpha" scales every
+    backdrop channel by the source alpha, "erase" by its complement."""
+
+    def take(x, lo, hi):
+        return x.narrow(channel_axis, lo, hi - lo)
+
+    if mode in GROUP_MODES:
+        src_a = take(src_pm, 3, 4)
+        if mode == "layer":
+            return src_pm + dst_pm * (1.0 - src_a)
+        if mode == "alpha":
+            return dst_pm * src_a
+        return dst_pm * (1.0 - src_a)
+    b = _blend_fn(mode)
+    src_rgb, src_a = take(src_pm, 0, 3), take(src_pm, 3, 4)
+    dst_rgb, dst_a = take(dst_pm, 0, 3), take(dst_pm, 3, 4)
+    cs = src_rgb / torch.clamp(src_a, min=1e-6)
+    cb = dst_rgb / torch.clamp(dst_a, min=1e-6)
+    out_rgb = ((1.0 - dst_a) * src_rgb + (1.0 - src_a) * dst_rgb
+               + src_a * dst_a * b(cb, cs))
+    out_a = src_a + dst_a - src_a * dst_a
+    return torch.cat([out_rgb, out_a], dim=channel_axis)
 
 
 def premul_to_straight_u8(frame_pm) -> np.ndarray:

@@ -117,8 +117,8 @@ def load(name: str = "swfkernels"):
             p, i = ctypes.c_void_p, ctypes.c_int
             if name == "swfkernels":
                 lib.swf_fused_flatblock.restype = i
-                lib.swf_fused_flatblock.argtypes = ([i] + [p] * 16 + [i] * 8
-                                                    + [p])
+                lib.swf_fused_flatblock.argtypes = ([i] * 2 + [p] * 17
+                                                    + [i] * 9 + [p])
                 lib.swf_strips_per_block.restype = i
                 lib.swf_strips_per_block.argtypes = [i, i, i]
                 lib.swf_fused_blocks1.restype = i

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.numerics import floor_mod, true_div
+from ..utils.numerics import floor_mod, ieee_sqrt, true_div
 from .coverage import FILL_RULE_NONZERO, layer_rules
 
 STRIP_H = 8
@@ -208,7 +208,7 @@ def _grad_t_plain(pint_row, pflt_row, px, py):
             t = torch.where(tiny, torch.zeros_like(b), cc / (2.0 * safe_b))
         else:
             disc = torch.clamp(b * b - c[_P_QA] * cc, min=0.0)
-            sq = torch.sqrt(disc)
+            sq = ieee_sqrt(disc)
             t = torch.maximum((b + sq) / c[_P_SAFE_A],
                               (b - sq) / c[_P_SAFE_A])
     spread = int(pint_row[1])
@@ -327,12 +327,16 @@ def _suffix_composite(covs, read_color):
     return tuple(channel(c) for c in range(3)), a
 
 
-def _chain_composite(covs, read_color):
+def _chain_composite(covs, read_color, bg=None):
     """Sequential over chain (flatblock.composite_quantize_pack with
-    chain=True): a left fold from a transparent frame, layer by layer
-    ``c = C * ca + c * (1 - ca)``, ``a = ca + a * (1 - ca)``.  Returns
-    premultiplied ((r, g, b), a)."""
-    r = g = b = a = torch.zeros_like(covs[0])
+    chain=True): a left fold from a transparent frame, or from the
+    premultiplied planes ``bg`` (r, g, b, a) of an earlier pass, layer by
+    layer ``c = C * ca + c * (1 - ca)``, ``a = ca + a * (1 - ca)``.
+    Returns premultiplied ((r, g, b), a)."""
+    if bg is None:
+        r = g = b = a = torch.zeros_like(covs[0])
+    else:
+        r, g, b, a = bg
     for lyr, cov in enumerate(covs):
         ca = read_color(lyr, 3) * cov
         kp = 1.0 - ca
@@ -340,6 +344,28 @@ def _chain_composite(covs, read_color):
         g = read_color(lyr, 1) * ca + g * kp
         b = read_color(lyr, 2) * ca + b * kp
         a = ca + a * kp
+    return (r, g, b), a
+
+
+def _mask_group_composite(covs, read_color, mask_from: int, bg=None):
+    """A clip group in one pass (composite_quantize_pack with
+    ``mask_from``): layers [:mask_from] chain from a transparent frame,
+    the mask layers' union alpha left-folds ``m = ca + m * (1 - ca)``, the
+    group scales by it and goes over ``bg``.  Operation for operation the
+    unfused program's planes (mask pass, content pass, ``scaled + bg *
+    (1 - scaled_a)``).  Returns premultiplied ((r, g, b), a)."""
+    (cr, cg, cb), ca_g = _chain_composite(covs[:mask_from], read_color)
+    m = None
+    for j in range(mask_from, len(covs)):
+        ca = read_color(j, 3) * covs[j]
+        m = ca if m is None else ca + m * (1.0 - ca)
+    r, g, b, a = cr * m, cg * m, cb * m, ca_g * m
+    if bg is not None:
+        kp = 1.0 - a
+        r = r + bg[0] * kp
+        g = g + bg[1] * kp
+        b = b + bg[2] * kp
+        a = a + bg[3] * kp
     return (r, g, b), a
 
 
@@ -376,11 +402,19 @@ def _strips_to_rows(pk, n_chunks: int, spp: int):
 def fused_plain(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
                 layers: int, n_strips: int, n_chunks: int, group: int = 6,
                 fill_rule=FILL_RULE_NONZERO, spp: int = 1, paints=None,
-                fields=()):
+                fields=(), chain: bool = False, bg=None, emit: str = "u32",
+                mask_from=None):
     """Plain PyTorch version of both fused kernels -> (F, NS+1, spp*8,
     n_chunks*128) int32 packed RGBA (the sentinel strip block NS holds
     the padding groups' garbage; callers slice [:, :NS]).  ``paints``
-    None is the solid kernel; otherwise one KernelPaint per layer."""
+    None is the solid kernel; otherwise one KernelPaint per layer.
+
+    ``chain``: the sequential over chain in place of the suffix form,
+    seeded from ``bg`` (F, NS+1, 4, plane_rows, 128) premultiplied planes
+    when given; ``mask_from``: layers [mask_from:] are a clip group's
+    mask (_mask_group_composite); ``emit="premul"``: return the
+    premultiplied (F, NS+1, 4, plane_rows, 128) f32 planes, zero in the
+    padding rows and the sentinel strip block NS."""
     ns1 = n_strips + 1
     dev = urc.device
     winding = _winding_plain(sidx, flags, lays, urc, ucm, uval, frames,
@@ -424,8 +458,23 @@ def fused_plain(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
                                     ch)[None]
 
         read_color = styled
-    pk = _composite_pack(covs, read_color)
-    return _strips_to_rows(pk, n_chunks, spp)
+    if not chain and mask_from is None:
+        return _strips_to_rows(_composite_pack(covs, read_color), n_chunks,
+                               spp)
+    bg_planes = None if bg is None else tuple(bg[:, :, ch]
+                                              for ch in range(4))
+    if mask_from is not None:
+        pm, a = _mask_group_composite(covs, read_color, mask_from,
+                                      bg_planes)
+    else:
+        pm, a = _chain_composite(covs, read_color, bg_planes)
+    if emit == "premul":
+        planes = torch.stack(torch.broadcast_tensors(*pm, a), dim=2)
+        planes = planes.contiguous()
+        planes[:, n_strips] = 0.0
+        planes[:, :, :, spp * n_chunks * STRIP_H:] = 0.0
+        return planes
+    return _strips_to_rows(_quantize_pack(pm, a), n_chunks, spp)
 
 
 def fusedn_plain(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
@@ -440,12 +489,16 @@ def fusedn_plain(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
 def fused_styled_plain(sidx, flags, lays, urc, ucm, uval, colors, fields,
                        frames: int, layers: int, n_strips: int,
                        n_chunks: int, paints, group: int = 6,
-                       fill_rule=FILL_RULE_NONZERO, spp: int = 1):
-    """Plain version of the styled fused kernel (render_fused_styled)."""
+                       fill_rule=FILL_RULE_NONZERO, spp: int = 1,
+                       chain: bool = False, bg=None, emit: str = "u32",
+                       mask_from=None):
+    """Plain version of the styled fused kernel (render_fused_styled),
+    every mode."""
     return fused_plain(sidx, flags, lays, urc, ucm, uval, colors, frames,
                        layers, n_strips, n_chunks, group=group,
                        fill_rule=fill_rule, spp=spp, paints=tuple(paints),
-                       fields=tuple(fields))
+                       fields=tuple(fields), chain=chain, bg=bg, emit=emit,
+                       mask_from=mask_from)
 
 
 # ---------------------------------------------------------------------------
@@ -494,10 +547,13 @@ def _device_tables(rules, paints, device):
 
 def _launch(styled: bool, sidx, flags, lays, urc, ucm, uval, colors,
             fields, paints, frames, layers, n_strips, n_chunks, group,
-            fill_rule, spp):
+            fill_rule, spp, chain=False, bg=None, emit="u32",
+            mask_from=None):
     from . import cuda_lib
 
     tensors = (sidx, flags, lays, urc, ucm, uval, colors) + tuple(fields)
+    if bg is not None:
+        tensors += (bg,)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("kernel inputs must be contiguous")
     dev = urc.device
@@ -511,15 +567,23 @@ def _launch(styled: bool, sidx, flags, lays, urc, ucm, uval, colors,
         pint_ptr, pflt_ptr = pint_t.data_ptr(), pflt_t.data_ptr()
     field_ptrs = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
     sg_index = torch.empty(2 * frames * ns1, dtype=torch.int32, device=dev)
-    out = torch.empty((frames, ns1, spp * STRIP_H, n_chunks * LANE),
-                      dtype=torch.int32, device=dev)
+    if emit == "premul":
+        out = torch.empty((frames, ns1, 4, plane_rows, LANE),
+                          dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty((frames, ns1, spp * STRIP_H, n_chunks * LANE),
+                          dtype=torch.int32, device=dev)
+    # mode: bit0 chain composite, bit1 premultiplied planes out.
+    mode = int(chain) | (2 if emit == "premul" else 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = cuda_lib.load().swf_fused_flatblock(
-        int(styled), sidx.data_ptr(), flags.data_ptr(), lays.data_ptr(),
-        urc.data_ptr(), ucm.data_ptr(), uval.data_ptr(), colors.data_ptr(),
-        rules_t.data_ptr(), pint_ptr, pflt_ptr, *field_ptrs,
+        int(styled), mode, sidx.data_ptr(), flags.data_ptr(),
+        lays.data_ptr(), urc.data_ptr(), ucm.data_ptr(), uval.data_ptr(),
+        colors.data_ptr(), rules_t.data_ptr(), pint_ptr, pflt_ptr,
+        *field_ptrs, None if bg is None else bg.data_ptr(),
         sg_index.data_ptr(), out.data_ptr(), urc.shape[0], group, frames,
-        layers, ns1, n_chunks, spp, plane_rows, stream)
+        layers, ns1, n_chunks, spp, plane_rows,
+        -1 if mask_from is None else int(mask_from), stream)
     if err != 0:
         raise RuntimeError(f"fused flat-block kernel launch failed: CUDA "
                            f"error {err}")
@@ -569,22 +633,35 @@ def render_fused_styled(sidx, flags, lays, urc, ucm, uval, colors, fields,
                         fill_rule=FILL_RULE_NONZERO, spp: int = 1,
                         chain: bool = False, bg=None, emit: str = "u32",
                         mask_from=None):
-    """Styled fused render -> (F, NS+1, spp*8, stride) int32 packed RGBA
-    (counterpart of the TPU ``render_fused_styled`` in its single-pass
-    modes).
+    """Styled fused render -> (F, NS+1, spp*8, stride) int32 packed RGBA,
+    or with ``emit="premul"`` (F, NS+1, 4, plane_rows, 128) f32
+    premultiplied planes in the kernel's plane-row order, zero in the
+    padding rows and the sentinel strip block NS (counterpart of the TPU
+    ``render_fused_styled``).
 
     Kernel: replaces ``_fused_styled_kernel`` (swf_renderer_tpu/ops/
     flatblock.py:1083); the solid kernel's design with per-layer paint
     records in shared memory (in-kernel gradients) and field planes read
-    once per pixel.  Bound: bytes (output plus field planes).  On a card
-    it matches ``fused_styled_plain`` byte for byte (chip_smoke.py).  ``fields``: tuple of (NS+1, 4, plane_rows, 128) f32
-    chunk-major field planes (field_to_chunkmajor); ``paints``: one
+    once per pixel.  ``chain=True`` composites with the sequential over
+    chain (a left fold, so passes of <= 16 layers chained through their
+    premultiplied planes equal one long chain), seeded from ``bg`` —
+    premultiplied planes of an earlier pass, read once per pixel —
+    when given; ``mask_from=k``: layers [k:] are a clip group's mask,
+    whose union alpha scales the content layers [:k] before they go over
+    ``bg``.  Bound: bytes (output plus field and background planes).  On
+    a card it matches ``fused_styled_plain`` byte for byte
+    (chip_smoke.py).  ``fields``: tuple of (NS+1, 4, plane_rows, 128)
+    f32 chunk-major field planes (field_to_chunkmajor); ``paints``: one
     KernelPaint per layer."""
-    if chain or bg is not None or emit != "u32" or mask_from is not None:
-        raise NotImplementedError(
-            "chain/bg/emit='premul'/mask_from passes belong to the masked "
-            "and multi-pass programs (ROADMAP.md queue A: masks/blends/"
-            "filters, multi-pass)")
+    if emit not in ("u32", "premul"):
+        raise ValueError(f"emit {emit!r}: 'u32' or 'premul'")
+    if not chain and (bg is not None or emit == "premul"
+                      or mask_from is not None):
+        raise ValueError("bg, emit='premul' and mask_from compose the "
+                         "chain form: pass chain=True")
+    if mask_from is not None and not 0 < mask_from < layers:
+        raise ValueError(f"mask_from {mask_from} for {layers} layers: "
+                         "content and mask need a layer each")
     paints = tuple(paints)
     fields = tuple(fields)
     if len(paints) != layers:
@@ -592,23 +669,31 @@ def render_fused_styled(sidx, flags, lays, urc, ucm, uval, colors, fields,
     if len(fields) > 4:
         raise ValueError(f"{len(fields)} field planes: one pass takes 4")
     dev = _check_inputs(sidx, flags, lays, urc, ucm, uval, colors, frames,
-                        layers, group, fields)
+                        layers, group, fields + (() if bg is None
+                                                 else (bg,)))
     plane_rows = plane_rows_for(n_chunks, spp)
     for fp in fields:
         if (tuple(fp.shape) != (n_strips + 1, 4, plane_rows, LANE)
                 or fp.dtype != torch.float32):
             raise ValueError(f"field plane {fp.dtype} {tuple(fp.shape)}")
+    want_bg = (frames, n_strips + 1, 4, plane_rows, LANE)
+    if bg is not None and (tuple(bg.shape) != want_bg
+                           or bg.dtype != torch.float32):
+        raise ValueError(f"background planes {bg.dtype} {tuple(bg.shape)}, "
+                         f"expected float32 {want_bg}")
     paint_tables(paints)  # validates stop counts
     if dev.type == "cpu":
         return fused_styled_plain(sidx, flags, lays, urc, ucm, uval,
                                   colors, fields, frames, layers, n_strips,
                                   n_chunks, paints, group=group,
-                                  fill_rule=fill_rule, spp=spp)
+                                  fill_rule=fill_rule, spp=spp, chain=chain,
+                                  bg=bg, emit=emit, mask_from=mask_from)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = _launch(True, sidx, flags, lays, urc, ucm, uval, colors, fields,
                   paints, frames, layers, n_strips, n_chunks, group,
-                  fill_rule, spp)
+                  fill_rule, spp, chain=chain, bg=bg, emit=emit,
+                  mask_from=mask_from)
     render_fused_styled.launches += 1
     return out
 
@@ -1239,6 +1324,42 @@ def field_to_chunkmajor(field, n_strips: int, n_chunks: int, spp: int = 1):
                       dtype=torch.float32, device=field.device)
     # Padding rows and the sentinel strip block NS read as zeros.
     out[:n_strips, :, :spp * n_chunks * STRIP_H] = x
+    return out
+
+
+def premul_planes_to_frames(planes, height: int, width: int,
+                            n_chunks: int, spp: int):
+    """Chunk-major premultiplied planes (F, NSp+1, 4, plane_rows, 128) ->
+    (F, height, width, 4) premultiplied f32 on the planes' device: plane
+    row sp*n_chunks*8 + chunk*8 + y%8 of strip block p is pixel row
+    (p*spp + sp)*8 + y%8.  Reshapes and permutes only."""
+    f, nsp1, _, pr, lane = planes.shape
+    ns_p = nsp1 - 1
+    nc8 = n_chunks * STRIP_H
+    x = planes[:, :ns_p, :, :spp * nc8]
+    x = x.reshape(f, ns_p, 4, spp, n_chunks, STRIP_H, lane)
+    x = x.permute(0, 1, 3, 5, 4, 6, 2)   # f, plane, sp, y8, chunk, lane, c
+    x = x.reshape(f, ns_p * spp * STRIP_H, n_chunks * lane, 4)
+    return x[:, :height, :width]
+
+
+def frames_to_premul_planes(frames, n_chunks: int, spp: int,
+                            ns_planes: int, plane_rows: int):
+    """Inverse of premul_planes_to_frames: (F, H, W, 4) premultiplied f32
+    -> (F, NSp+1, 4, plane_rows, 128) on the frames' device, zero in the
+    padding rows and the sentinel strip block (the layout every premul
+    pass emits)."""
+    f, h, w, _ = frames.shape
+    nc8 = n_chunks * STRIP_H
+    x = torch.zeros((f, ns_planes * spp * STRIP_H, n_chunks * LANE, 4),
+                    dtype=frames.dtype, device=frames.device)
+    x[:, :h, :w] = frames
+    x = x.reshape(f, ns_planes, spp, STRIP_H, n_chunks, LANE, 4)
+    x = x.permute(0, 1, 6, 2, 4, 3, 5)   # f, plane, c, sp, chunk, y8, lane
+    out = torch.zeros((f, ns_planes + 1, 4, plane_rows, LANE),
+                      dtype=frames.dtype, device=frames.device)
+    out[:, :ns_planes, :, :spp * nc8] = x.reshape(f, ns_planes, 4,
+                                                  spp * nc8, LANE)
     return out
 
 

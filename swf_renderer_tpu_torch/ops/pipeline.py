@@ -12,9 +12,12 @@ over paint fields (``render_styled_layered``).  ``render_solid_batch`` /
 ``render_morph_batch`` rasterize padded edge tables through the direct
 coverage kernels (``ops/coverage.py``).
 
-Routes this port does not have yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: masked/blended/filtered draw lists and draw lists
-deeper than one kernel pass (multi-pass).
+Draw lists deeper than one kernel pass (16 layers, 4 field planes) render
+in chained passes whose premultiplied planes stay on the device
+(``_render_styled_multipass``); clip groups, blend modes and filters run
+the masked program (``plan_masked_program`` / ``exec_masked_program``):
+premultiplied-plane algebra between kernel passes, a clip group whose
+content fits one pass fused with its mask into one launch.
 """
 
 from __future__ import annotations
@@ -23,10 +26,13 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .coverage import FILL_RULE_NONZERO, coverage, normalize_fill_rule
+from .coverage import (
+    FILL_RULE_NONZERO, coverage, layer_rules, normalize_fill_rule,
+)
 from .flatblock import (
     LANE, MAX_CHUNKS, MAX_KERNEL_LAYERS, KPAINT_FOCAL, KPAINT_LINEAR,
-    KernelPaint, field_to_chunkmajor, packed_to_frames, plane_geometry,
+    KernelPaint, field_to_chunkmajor, frames_to_premul_planes,
+    packed_to_frames, plane_geometry, premul_planes_to_frames,
     render_fused_blocksn, render_fused_styled, strips_per_plane,
 )
 
@@ -306,8 +312,10 @@ def render_batch_styled(edge_tables, paints, height: int, width: int,
     ``edge_tables``: [frames][layers] of (E, 4) f32 device-space edges.
     ``paints``: one style Paint per LAYER (static across frames).
     ``colors``: optional (F, L, 4) per-frame colors for SOLID layers
-    (defaults to each solid paint's color).  Returns (F, H, W, 4) u8."""
-    from ..convert import packed_to_device
+    (defaults to each solid paint's color).  ``mask_tree``: the draw
+    list's group tree (runtime.scene.build_mask_tree) for clip groups,
+    blend modes and filters.  Draw lists deeper than one kernel pass
+    render in chained passes.  Returns (F, H, W, 4) u8."""
     from . import style as style_ops
 
     device = resolve_device(device)
@@ -325,15 +333,6 @@ def render_batch_styled(edge_tables, paints, height: int, width: int,
         return render_styled_layered(edge_tables, paints, height, width,
                                      colors=colors, fill_rule=fill_rule,
                                      device=device)
-    if mask_tree is not None:
-        raise NotImplementedError(
-            "clip groups, blend modes and filters run the masked program: "
-            "ROADMAP.md queue A (masks/blends/filters)")
-    if len(split_layer_groups(paints)) > 1:
-        raise NotImplementedError(
-            f"{layers} layers exceed one kernel pass ({MAX_KERNEL_LAYERS} "
-            f"layers, {MAX_KERNEL_FIELDS} field planes): ROADMAP.md queue "
-            "A (multi-pass)")
     if colors is None:
         base_colors = np.zeros((layers, 4), np.float32)
         for i, p in enumerate(paints):
@@ -341,15 +340,317 @@ def render_batch_styled(edge_tables, paints, height: int, width: int,
                 base_colors[i] = p.color
         colors = np.broadcast_to(base_colors, (frames, layers, 4))
     colors = np.array(colors, np.float32)  # owned, writable copy
+    if mask_tree is not None:
+        return _render_styled_masked(edge_tables, paints, height, width,
+                                     colors, layer_rules(fill_rule, layers),
+                                     cache, mask_tree, device)
+    # Draw lists deeper than one pass's budget (16 layers, 4 field planes)
+    # compose across passes through chained premultiplied planes.
+    layer_groups = split_layer_groups(paints)
+    if len(layer_groups) > 1:
+        return _render_styled_multipass(edge_tables, paints, height, width,
+                                        colors, fill_rule, cache,
+                                        layer_groups, device)
 
+    args, spp = _styled_pass(edge_tables, paints, colors, height, width,
+                             cache, device)
+    out = render_fused_styled(*args, group=GROUP, fill_rule=fill_rule,
+                              spp=spp)
+    return _to_frames(out, frames, spp, height, width)
+
+
+# ---------------------------------------------------------------------------
+# Multi-pass composition and the masked program
+# ---------------------------------------------------------------------------
+
+
+def _sub_rule(fill_rule, idxs):
+    """The fill rule of the layers ``idxs`` of a normalized rule: an int
+    when uniform, else a per-layer tuple."""
+    if not isinstance(fill_rule, tuple):
+        return fill_rule
+    rules = tuple(fill_rule[i] for i in idxs)
+    return rules[0] if len(set(rules)) == 1 else rules
+
+
+def _styled_pass(edge_tables, paints, colors, height, width, cache, device):
+    """Lower, pack and upload one kernel pass -> (positional arguments of
+    render_fused_styled up to ``paints``, spp)."""
+    from ..convert import packed_to_device
+
+    frames = len(edge_tables)
     *arrays, spp = _pack_styled(edge_tables, height, width, cache)
     kpaints, fields, _ = kernel_paints_for(paints, height, width, spp=spp,
                                            device=device)
     dev = packed_to_device(*arrays, device=device)
-    out = render_fused_styled(
-        dev["sidx"], dev["flags"], dev["lays"], dev["urc"], dev["ucm"],
-        dev["uval"], torch.as_tensor(colors, device=device), fields,
-        frames, layers, dev["ns"], dev["nc"], kpaints, group=GROUP,
-        fill_rule=fill_rule, spp=spp)
-    return packed_to_frames(out, frames, dev["ns"], dev["nc"], spp, height,
-                            width)
+    args = (dev["sidx"], dev["flags"], dev["lays"], dev["urc"], dev["ucm"],
+            dev["uval"], torch.as_tensor(np.ascontiguousarray(colors),
+                                         device=device),
+            fields, frames, len(paints), dev["ns"], dev["nc"], kpaints)
+    return args, spp
+
+
+def _to_frames(out, frames, spp, height, width):
+    """A u32 pass's output (F, NS+1, spp*8, stride) -> (F, H, W, 4) u8."""
+    return packed_to_frames(out, frames, out.shape[1] - 1,
+                            out.shape[3] // LANE, spp, height, width)
+
+
+def _render_styled_multipass(edge_tables, paints, height, width, colors,
+                             fill_rule, cache, layer_groups, device):
+    """Deep draw lists through the fused kernel in PASSES: each pass
+    renders <= 16 consecutive layers, seeding the chain composite from
+    the previous pass's premultiplied planes, which stay on the device.
+    The chain is a left fold, so G passes compose exactly like one chain
+    over every layer; only the last pass quantizes and is downloaded."""
+    frames = len(edge_tables)
+    bg = out = spp = None
+    for gi, (lo, hi) in enumerate(layer_groups):
+        idxs = tuple(range(lo, hi))
+        args, spp = _styled_pass([per[lo:hi] for per in edge_tables],
+                                 paints[lo:hi], colors[:, lo:hi], height,
+                                 width, cache, device)
+        last = gi == len(layer_groups) - 1
+        out = render_fused_styled(*args, group=GROUP,
+                                  fill_rule=_sub_rule(fill_rule, idxs),
+                                  spp=spp, chain=True, bg=bg,
+                                  emit="u32" if last else "premul")
+        bg = out
+    return _to_frames(out, frames, spp, height, width)
+
+
+def plan_masked_program(tree, paints, fill_rule):
+    """Flatten a mask/blend/filter tree into (segments, program, final).
+
+    ``segments``: ordered pass descriptors ``(idxs, paints, rule,
+    force_white)`` — each one fused-kernel pass (draw runs split at the
+    per-pass budget).  ``program``: nested steps — ``("passes", [seg_id,
+    ...])`` chains passes over the accumulator, ``("mask", seg_ids,
+    subprogram)``, ``("blend", mode, subprogram)`` and ``("filter",
+    filters, subprogram)`` composite a group.  ``final``: the quantize
+    segment (one empty zero-alpha layer), appended last.  ``fill_rule``:
+    one rule per draw."""
+    from . import style as style_ops
+
+    white = style_ops.solid_paint((1.0, 1.0, 1.0, 1.0))
+    segments = []
+
+    def add_segment(idxs, force_white):
+        sub_paints = [white if force_white else paints[i] for i in idxs]
+        rule = _sub_rule(tuple(fill_rule), idxs)
+        ids = []
+        for lo, hi in split_layer_groups(sub_paints):
+            part_rule = (rule if not isinstance(rule, tuple)
+                         else _sub_rule(rule, range(lo, hi)))
+            segments.append((tuple(idxs[lo:hi]), sub_paints[lo:hi],
+                             part_rule, force_white))
+            ids.append(len(segments) - 1)
+        return ids
+
+    def plan_items(items):
+        prog = []
+        run = []
+
+        def flush():
+            if run:
+                prog.append(("passes", add_segment(tuple(run), False)))
+                run.clear()
+
+        for item in items:
+            if item[0] == "draw":
+                run.append(item[1])
+                continue
+            flush()
+            if item[0] == "mask":
+                _, mask_idxs, content_items = item
+                # A deep mask splits into chained white passes: source-over
+                # of unit-alpha coverages IS their union.
+                msegs = add_segment(tuple(mask_idxs), True)
+                prog.append(("mask", msegs, plan_items(content_items)))
+            elif item[0] == "blend":
+                _, mode, content_items = item
+                prog.append(("blend", mode, plan_items(content_items)))
+            else:
+                _, filters, content_items = item
+                prog.append(("filter", filters, plan_items(content_items)))
+        flush()
+        return prog
+
+    program = plan_items(tree)
+    final = len(segments)
+    segments.append(((), [white], fill_rule[0], False))  # quantize pass
+    return segments, program, final
+
+
+def _fusible_mask_step(step):
+    """A ("mask", msegs, content_prog) step whose content is ONE plain
+    pass — the shape one mask_from kernel pass covers."""
+    return (step[0] == "mask" and len(step[2]) == 1
+            and step[2][0][0] == "passes" and len(step[2][0][1]) == 1)
+
+
+def _rule_tuple(rule, n):
+    return rule if isinstance(rule, tuple) else (rule,) * n
+
+
+def build_fused_mask_pair(segments, cid, msids):
+    """Merge a fusible (content segment, mask segments) pair into ONE
+    kernel pass's (idxs, paints, rule, mask_from), or None when the
+    combined layers exceed the pass budget."""
+    ci, cp, crule, _ = segments[cid]
+    mi, mp_, mrule = [], [], ()
+    for msid in msids:
+        s_i, s_p, s_rule, _ = segments[msid]
+        mi.extend(s_i)
+        mp_.extend(s_p)
+        mrule = mrule + _rule_tuple(s_rule, len(s_i))
+    if not ci or not 0 < len(ci) + len(mi) <= MAX_KERNEL_LAYERS:
+        return None
+    rule = _rule_tuple(crule, len(ci)) + mrule
+    if len(set(rule)) == 1:
+        rule = rule[0]
+    return tuple(ci) + tuple(mi), list(cp) + list(mp_), rule, len(ci)
+
+
+def exec_masked_program(program, final_seg, seg_call, plane_image=None,
+                        seg_call_masked=None):
+    """Run a plan_masked_program: ``seg_call(seg_id, bg, emit)`` renders
+    one segment over ``bg`` (None = transparent) and returns premul
+    planes (or the packed u32 strips for emit="u32").  ``plane_image``:
+    (to_frames, to_planes) converters between the kernel's chunk-major
+    planes and (F, H, W, 4) premul images, for filter nodes.
+
+    ``seg_call_masked(content_sid, mask_sids, bg, emit)``: the FUSED
+    clip-group pass (render_fused_styled mask_from), or None when the
+    pair exceeds the pass budget (the plane-algebra path then runs).
+    When the group is the program's last top-level step, the fused pass
+    quantizes directly (emit "u32") and absorbs the final zero-alpha
+    pass; both fusions are float-op identical to the unfused program."""
+    from .composite import blend_premul
+
+    def exec_prog(prog, bg, top=False):
+        for i, step in enumerate(prog):
+            if step[0] == "passes":
+                for sid in step[1]:
+                    bg = seg_call(sid, bg, "premul")
+            elif step[0] == "mask":
+                _, msegs, content_prog = step
+                fused = None
+                if seg_call_masked is not None and _fusible_mask_step(step):
+                    last_top = top and i == len(prog) - 1
+                    fused = seg_call_masked(step[2][0][1][0], tuple(msegs),
+                                            bg, "u32" if last_top
+                                            else "premul")
+                    if fused is not None and last_top:
+                        return ("u32", fused)
+                if fused is not None:
+                    bg = fused
+                    continue
+                mask = None
+                for mseg in msegs:
+                    mask = seg_call(mseg, mask, "premul")
+                content = exec_prog(content_prog, None)
+                if content is None:
+                    continue
+                scaled = content * mask[:, :, 3:4]
+                bg = (scaled if bg is None
+                      else scaled + bg * (1.0 - scaled[:, :, 3:4]))
+            elif step[0] == "blend":
+                _, mode, content_prog = step
+                content = exec_prog(content_prog, None)
+                if content is None:
+                    continue
+                if bg is None:
+                    bg = torch.zeros_like(content)
+                bg = blend_premul(bg, content, mode, channel_axis=2)
+            else:
+                from .filters import apply_filters
+
+                _, filters, content_prog = step
+                content = exec_prog(content_prog, None)
+                if content is None:
+                    continue
+                if plane_image is None:
+                    raise ValueError(
+                        "filter nodes need plane<->image converters")
+                to_frames, to_planes = plane_image
+                img = apply_filters(to_frames(content), filters)
+                content = to_planes(img, content)
+                bg = (content if bg is None
+                      else content + bg * (1.0 - content[:, :, 3:4]))
+        return bg
+
+    planes = exec_prog(program, None, top=True)
+    if isinstance(planes, tuple) and planes and planes[0] == "u32":
+        return planes[1]
+    return seg_call(final_seg, planes, "u32")
+
+
+def _segment_tables(edge_tables, idxs):
+    if not idxs:  # the final quantize segment: one empty layer
+        return [[np.zeros((0, 4), np.float32)] for _ in edge_tables]
+    return [[per[i] for i in idxs] for per in edge_tables]
+
+
+def _render_styled_masked(edge_tables, paints, height, width, colors,
+                          fill_rule, cache, tree, device):
+    """Clip groups, blend modes and filters on the fused kernel: the draw
+    list's group tree executes as premultiplied-plane algebra on the
+    device — draw runs chain through fused passes, a group's content
+    renders on a transparent background, scales by the mask's union
+    alpha (white unit-alpha fills over each other), blends or filters,
+    and combines with the accumulated planes; a final zero-alpha chained
+    pass quantizes through the kernel's own resolve.  A clip group whose
+    content is one pass renders with its mask in ONE launch
+    (``mask_from``).  Passes are lowered and packed on first use."""
+    frames = len(edge_tables)
+    segments, program, final_seg = plan_masked_program(tree, paints,
+                                                       fill_rule)
+    passes = {}
+
+    def prepared(key, idxs, sub_paints, sub_colors):
+        if key not in passes:
+            passes[key] = _styled_pass(_segment_tables(edge_tables, idxs),
+                                       sub_paints, sub_colors, height,
+                                       width, cache, device)
+        return passes[key]
+
+    def seg_call(sid, bg, emit):
+        idxs, sub_paints, rule, force_white = segments[sid]
+        if force_white:
+            sub_colors = np.ones((frames, len(idxs), 4), np.float32)
+        elif not idxs:
+            sub_colors = np.zeros((frames, 1, 4), np.float32)
+        else:
+            sub_colors = colors[:, list(idxs)]
+        args, spp = prepared(sid, idxs, sub_paints, sub_colors)
+        # chain=True even with bg=None: the fused and layered masked
+        # routes agree on the chain form.
+        return render_fused_styled(*args, group=GROUP, fill_rule=rule,
+                                   spp=spp, chain=True, bg=bg, emit=emit)
+
+    def seg_call_masked(cid, msids, bg, emit):
+        pair = build_fused_mask_pair(segments, cid, msids)
+        if pair is None:
+            return None
+        idxs, all_paints, rule, mfrom = pair
+        cols = np.concatenate(
+            [colors[:, list(idxs[:mfrom])],
+             np.ones((frames, len(idxs) - mfrom, 4), np.float32)], axis=1)
+        args, spp = prepared(("pair", cid, msids), idxs, all_paints, cols)
+        return render_fused_styled(*args, group=GROUP, fill_rule=rule,
+                                   spp=spp, chain=True, bg=bg, emit=emit,
+                                   mask_from=mfrom)
+
+    _, n_chunks, n_strips = plane_geometry(height, width)
+    spp = strips_per_plane(n_chunks, n_strips)
+    plane_image = (
+        lambda planes: premul_planes_to_frames(planes, height, width,
+                                               n_chunks, spp),
+        lambda img, like: frames_to_premul_planes(
+            img, n_chunks, spp, like.shape[1] - 1, like.shape[3]),
+    )
+    out = exec_masked_program(program, final_seg, seg_call,
+                              plane_image=plane_image,
+                              seg_call_masked=seg_call_masked)
+    return _to_frames(out, frames, spp, height, width)

@@ -525,10 +525,10 @@ def _check_sweep(tensors: dict, frames: int, layers: int, ep: int):
                              f"{' or '.join(map(str, shapes))}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     if not 1 <= layers <= MAX_KERNEL_LAYERS:
-        raise NotImplementedError(
+        raise ValueError(
             f"{layers} layers: one sweep launch composites 1.."
-            f"{MAX_KERNEL_LAYERS}; deeper draw lists need the multi-pass "
-            "program (ROADMAP.md A2)")
+            f"{MAX_KERNEL_LAYERS}; the renderer sends deeper draw lists to "
+            "the fused route's chained passes")
     if not 1 <= frames <= 65535:
         raise ValueError(f"{frames} frames: one launch takes 1..65535")
     if ep < 1:

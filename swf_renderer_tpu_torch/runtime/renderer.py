@@ -12,14 +12,16 @@ definitions under moved matrices switch, from the second call on, to an
 F = 1 sweep over pieces cached on the card (``last_stats.path ==
 "transform-sweep-1f"``).
 
-Draw lists the fused kernel does not take — ``backend="scanline"`` /
-``"direct"``, ``quality="flash-pointaa"``, ``validate=True`` and frames
-wider than 8191 px — run the layered backends: per-draw coverage planes
-(scanline scatter + prefix, 4x4 point sampling, or the direct coverage
-kernels), composited over each draw's paint field.  Masks, blend modes
-and filters, and draw lists deeper than one kernel pass on the fused
-route, raise ``NotImplementedError`` naming their ROADMAP.md item
-(queue A).
+Draw lists deeper than one kernel pass chain passes on the card; clip
+groups (``display.MaskedGroup``), blend modes and filters run the masked
+program of premultiplied planes (``ops.pipeline.render_batch_styled``
+with the scene's group tree).  Draw lists the fused kernel does not take
+— ``backend="scanline"`` / ``"direct"``, ``quality="flash-pointaa"``,
+``validate=True`` and frames wider than 8191 px — run the layered
+backends: per-draw coverage planes (scanline scatter + prefix, 4x4
+point sampling, or the direct coverage kernels), composited over each
+draw's paint field, group by group where the scene has groups
+(``_composite_masked``).
 """
 
 from __future__ import annotations
@@ -278,15 +280,24 @@ class TorchRenderer:
                       if stage.exact_width is not None else None)
             ).compile_stage(stage)
             for stage in stages]
-        if any(d.mask_of is not None or d.mask_ids
-               for draws in per_frame_draws for d in draws):
-            raise NotImplementedError(
-                "clip groups, blend modes and filters run the masked "
-                "program: ROADMAP.md queue A (masks/blends/filters)")
         reason = (None if not per_frame_draws[0]
                   else self._flatblock_refusal(per_frame_draws[0]))
+        mask_tree = None
         if not _uniform_layer_structure(per_frame_draws):
             reason = "non-uniform layer structure across frames"
+        elif any(d.mask_of is not None or d.mask_ids
+                 for draws in per_frame_draws for d in draws):
+            tags0 = [(d.mask_of, tuple(d.mask_ids))
+                     for d in per_frame_draws[0]]
+            if all([(d.mask_of, tuple(d.mask_ids)) for d in draws] == tags0
+                   for draws in per_frame_draws[1:]):
+                from .scene import build_mask_tree
+
+                mask_tree = build_mask_tree(per_frame_draws[0])
+            else:
+                # The group structure changes across frames: stage by
+                # stage, each through the masked program.
+                reason = "non-uniform clip/blend groups across frames"
         if per_frame_draws[0] and reason is None:
             from ..ops.pipeline import render_batch_styled
 
@@ -300,7 +311,8 @@ class TorchRenderer:
                 [[d.edges for d in draws] for draws in per_frame_draws],
                 paints, self.height, self.width, colors=colors,
                 fill_rule=tuple(d.fill_rule for d in per_frame_draws[0]),
-                cache=self._packed_cache, device=self.device)
+                cache=self._packed_cache, mask_tree=mask_tree,
+                device=self.device)
             path = "batched-styled"
         else:
             reason = reason or "empty draw list"
@@ -955,17 +967,16 @@ class TorchRenderer:
 
     def execute(self, draws: List[Draw]) -> np.ndarray:
         """One compiled draw list -> (H, W, 4) u8: through the fused
-        styled kernel, or the layered backends when it refuses."""
+        styled kernel (the masked program where the list has groups), or
+        the layered backends when it refuses."""
         from ..ops.pipeline import render_batch_styled
+        from .scene import build_mask_tree
 
         h, w = self.height, self.width
         if not draws:
             self._exec_path = "empty"
             return np.zeros((h, w, 4), dtype=np.uint8)
-        if any(d.mask_of is not None or d.mask_ids for d in draws):
-            raise NotImplementedError(
-                "clip groups, blend modes and filters run the masked "
-                "program: ROADMAP.md queue A (masks/blends/filters)")
+        grouped = any(d.mask_of is not None or d.mask_ids for d in draws)
         fill_rules = sorted({d.fill_rule for d in draws})
         rule = (fill_rules[0] if len(fill_rules) == 1
                 else tuple(d.fill_rule for d in draws))
@@ -975,6 +986,7 @@ class TorchRenderer:
             return render_batch_styled(
                 [[d.edges for d in draws]], [d.paint for d in draws], h, w,
                 fill_rule=rule, cache=self._packed_cache,
+                mask_tree=build_mask_tree(draws) if grouped else None,
                 device=self.device)[0]
         logger.debug("fused path unavailable: %s", refusal)
         if self.quality == "flash-pointaa":
@@ -993,10 +1005,59 @@ class TorchRenderer:
             if lo < -1e-4 or hi > 1.0 + 1e-4:
                 raise FloatingPointError(
                     f"coverage out of range [{lo}, {hi}]")
+        if grouped:
+            return self._composite_masked(draws, coverages)
         colors = torch.stack([style_ops.paint_field(d.paint, h, w,
                                                     device=self.device)
                               for d in draws])
         return composite_ops.composite_to_u8(coverages, colors)
+
+    def _composite_masked(self, draws: List[Draw], coverages) -> np.ndarray:
+        """Group-level composite of the layered backends: each clip
+        group's content composites SEPARATELY, scales by the mask's union
+        coverage (source-over of unit-alpha fills, 1 - prod(1 - c)) and
+        goes over the accumulator — Flash clips the composed group, not
+        each member; blend groups go through blend_premul and filter
+        groups through ops.filters — the fused route's semantics."""
+        from .scene import build_mask_tree
+
+        h, w = self.height, self.width
+
+        def exec_items(items):
+            acc = torch.zeros((h, w, 4), dtype=torch.float32,
+                              device=coverages.device)
+            for item in items:
+                if item[0] == "draw":
+                    i = item[1]
+                    color = style_ops.paint_field(draws[i].paint, h, w,
+                                                  device=self.device)
+                    acc = composite_ops.over_premul(acc, color,
+                                                    coverages[i])
+                elif item[0] == "mask":
+                    _, mask_idxs, content_items = item
+                    mask_a = torch.zeros((h, w), dtype=torch.float32,
+                                         device=coverages.device)
+                    for i in mask_idxs:
+                        mask_a = (mask_a + coverages[i]
+                                  - mask_a * coverages[i])
+                    content = exec_items(content_items)
+                    scaled = content * mask_a[..., None]
+                    acc = scaled + acc * (1.0 - scaled[..., 3:4])
+                elif item[0] == "blend":
+                    _, mode, content_items = item
+                    content = exec_items(content_items)
+                    acc = composite_ops.blend_premul(acc, content, mode)
+                else:
+                    from ..ops.filters import apply_filters
+
+                    _, filters, content_items = item
+                    content = apply_filters(exec_items(content_items),
+                                            filters)
+                    acc = content + acc * (1.0 - content[..., 3:4])
+            return acc
+
+        return composite_ops.premul_to_straight_u8(
+            exec_items(build_mask_tree(draws)))
 
     def _coverage_scanline(self, draws: List[Draw], fill_rule):
         from ..native.bindings import cells_split_native

@@ -20,6 +20,13 @@ def true_div(a, b):
     return torch.div(a, b)
 
 
+def ieee_sqrt(x):
+    """Correctly rounded f32 square root (CUDA's ``sqrtf``).  PyTorch's
+    CPU kernel may miss by an ulp; the square root of the f64 value,
+    rounded once to f32, is exact."""
+    return torch.sqrt(x.double()).float()
+
+
 def floor_mod(x, y: float):
     """jnp.mod for floats and a positive divisor: the C remainder, moved
     into [0, y) when negative (floored, not truncated)."""

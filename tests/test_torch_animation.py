@@ -370,22 +370,29 @@ def test_stage_gates_keep_the_fused_route(gate):
 
 def test_blend_group_fails_the_gate_and_keeps_its_route():
     """A blend group never rides the sweep; the port's fused route then
-    answers as it did before (the masked program is not ported)."""
+    renders the batch through the masked program, as the reference
+    does."""
     stages = _stages(PORT, "mixed-rules")
     stages = [dataclasses.replace(s, children=[
         dataclasses.replace(s.children[0], blend_mode="multiply"),
         s.children[1]]) for s in stages]
     r = _port_renderer()
     assert r._transform_animation_plan(stages) is None
-    with pytest.raises(NotImplementedError, match="masks/blends/filters"):
-        r.render_batch(stages)
-    # The reference gates the same batch off its sweep.
+    got = r.render_batch(stages)
+    assert r.last_stats.path == "batched-styled"
+    # The reference gates the same batch off its sweep, onto the same
+    # route.
     jstages = _stages(JAX, "mixed-rules")
     jstages = [dataclasses.replace(s, children=[
         dataclasses.replace(s.children[0], blend_mode="multiply"),
         s.children[1]]) for s in jstages]
-    assert jrenderer.TpuRenderer(W, H)._transform_animation_plan(
-        jstages) is None
+    jr = jrenderer.TpuRenderer(W, H)
+    assert jr._transform_animation_plan(jstages) is None
+    want = jr.render_batch(jstages)
+    assert jr.last_stats.path == "batched-styled"
+    assert got.shape == want.shape and got[..., 3].max() > 0
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1, d.max()
 
 
 def _bitmap_stages(mods, angles, smoothed=True):

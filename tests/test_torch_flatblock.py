@@ -212,15 +212,21 @@ def test_fused_styled_plain_matches_jax_kernel(spp):
 
 
 def test_styled_refuses_out_of_slice_modes_and_too_many_stops():
+    """The chain modes are ported (test_torch_multipass.py); what the
+    wrapper still refuses are the combinations the reference's kernel
+    has no form for, and gradients past the SWF stop count."""
     packed, colors = _packed(16, 100, 1, 1, seed=2, frames=1)
     dev = packed_to_device(*packed, device="cpu")
     args = (dev["sidx"], dev["flags"], dev["lays"], dev["urc"], dev["ucm"],
             dev["uval"], torch.as_tensor(colors), (), 1, 1, dev["ns"],
             dev["nc"])
-    for kw in ({"chain": True}, {"emit": "premul"}, {"mask_from": 0},
+    for kw in ({"emit": "premul"}, {"chain": True, "mask_from": 0},
                {"bg": torch.zeros(1)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError):
             tfb.render_fused_styled(*args, (tfb.KernelPaint.color(),), **kw)
+    out = tfb.render_fused_styled(*args, (tfb.KernelPaint.color(),),
+                                  chain=True, emit="premul")
+    assert out.shape == (1, dev["ns"] + 1, 4, 128, 128)
     ratios = np.linspace(0, 1, 16, dtype=np.float32)
     too_many = tfb.KernelPaint.gradient(
         tfb.KPAINT_LINEAR, (1, 0, 0, 1, 0, 0), ratios,

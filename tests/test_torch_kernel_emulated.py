@@ -153,13 +153,15 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
                        const int* rules, const int* pint, const float* pflt,
                        const float* f0, int* out, int ng, int group,
                        int frames, int layers, int ns1, int n_chunks,
-                       int spp, int plane_rows) {
+                       int spp, int plane_rows, int mode, const float* bg,
+                       float* out_pm, int mask_from) {
   swf::FusedArgs a{};
   a.sidx = sidx; a.flags = flags; a.lays = lays; a.urc = urc; a.ucm = ucm;
   a.uval = uval; a.colors = colors; a.rules = rules; a.pint = pint;
   a.pflt = pflt; a.fields[0] = f0; a.out = out; a.ng = ng; a.group = group;
   a.layers = layers; a.ns1 = ns1; a.n_chunks = n_chunks; a.spp = spp;
-  a.plane_rows = plane_rows;
+  a.plane_rows = plane_rows; a.bg = bg; a.out_pm = out_pm;
+  a.mask_from = mask_from;
   std::vector<int> first(frames * ns1, -1), last(frames * ns1, -1);
   for (int i = 0; i < ng; ++i) {  // supergroup_index_kernel
     const int fl = flags[i];
@@ -186,8 +188,11 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
             threadIdx.x = t;
             blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
             block_barrier = &bar;
-            if (styled) swf::fused_block<true>(a, smem.data());
-            else swf::fused_block<false>(a, smem.data());
+            if (!styled) swf::fused_block<false>(a, smem.data());
+            else if (mode == 0) swf::fused_block<true>(a, smem.data());
+            else if (mode == 1)
+              swf::fused_block<true, false, true, false>(a, smem.data());
+            else swf::fused_block<true, false, true, true>(a, smem.data());
           });
         }
         for (auto& th : threads) th.join();
@@ -436,23 +441,20 @@ extern "C" void emulate_resolve(const float* delta, const float* colors,
 """
 
 
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ not available")
-    d = tmp_path_factory.mktemp("cuda_emu")
+def _build_emulator(d, csrc):
+    """g++ the emulator over the device headers in ``csrc`` into ``d``."""
     (d / "emu.cc").write_text(EMULATOR)
     lib = d / "libemu.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-ffp-contract=off",
          "-fno-strict-aliasing", "-fPIC", "-shared",
-         f"-I{cuda_lib.CSRC_DIR}", "-o", str(lib), str(d / "emu.cc"),
+         f"-I{csrc}", "-o", str(lib), str(d / "emu.cc"),
          "-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     emu = ctypes.CDLL(str(lib))
     emu.emulate.restype = ctypes.c_int
     emu.emulate.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 8
+        ctypes.c_int] * 9 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     emu.emulate_sweep.restype = ctypes.c_int
     emu.emulate_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 8
@@ -474,12 +476,27 @@ def emulator(tmp_path_factory):
     return emu
 
 
+@pytest.fixture(scope="module")
+def emulator(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    return _build_emulator(tmp_path_factory.mktemp("cuda_emu"),
+                           cuda_lib.CSRC_DIR)
+
+
 def _run(emu, dev, colors, rule, frames, layers, spp, paints=None,
-         field=None):
+         field=None, chain=False, bg=None, emit="u32", mask_from=None):
     ns1, nc = dev["ns"] + 1, dev["nc"]
     arr = {k: np.ascontiguousarray(v.numpy()) for k, v in dev.items()
            if torch.is_tensor(v)}
     out = np.full((frames, ns1, spp * 8, nc * 128), -7, np.int32)
+    plane_rows = fb.plane_rows_for(nc, spp)
+    # The launcher zeroes the premultiplied output's padding rows and
+    # sentinel strip block; every other value the kernel must write.
+    out_pm = np.full((frames, ns1, 4, plane_rows, 128), np.nan, np.float32)
+    out_pm[:, ns1 - 1] = 0.0
+    out_pm[:, :, :, spp * nc * 8:] = 0.0
+    bg = None if bg is None else np.ascontiguousarray(bg.numpy())
     pint = pflt = None
     if paints is not None:
         pint, pflt = fb.paint_tables(tuple(paints))
@@ -494,7 +511,11 @@ def _run(emu, dev, colors, rule, frames, layers, spp, paints=None,
         ptr(arr["lays"]), ptr(arr["urc"]), ptr(arr["ucm"]),
         ptr(arr["uval"]), ptr(colors), ptr(rules), ptr(pint), ptr(pflt),
         ptr(field), out.ctypes.data, arr["urc"].shape[0], 6, frames,
-        layers, ns1, nc, spp, fb.plane_rows_for(nc, spp))
+        layers, ns1, nc, spp, plane_rows,
+        int(chain) | (2 if emit == "premul" else 0), ptr(bg),
+        out_pm.ctypes.data, -1 if mask_from is None else mask_from)
+    if emit == "premul":
+        return torch.from_numpy(out_pm), spb
     return torch.from_numpy(out), spb
 
 
@@ -549,6 +570,117 @@ def test_emulated_kernels_equal_plain_versions(emulator, height, width,
     got, _ = _run(emulator, dev, colors, 0, 2, layers, spp, paints,
                   np.ascontiguousarray(field.numpy()))
     assert torch.equal(got[:, :ns], want[:, :ns])
+
+
+def _chain_paints(rng, layers):
+    """Colour, linear, focal and field paints in turn (one field plane)."""
+    ratios = np.array([0.0, 0.45, 1.0], np.float32)
+    stops = rng.uniform(0, 1, (3, 4)).astype(np.float32)
+    kinds = [fb.KernelPaint.gradient(fb.KPAINT_LINEAR, (150.0, 10.0, -20.0,
+                                                        140.0, -16000.0,
+                                                        -9000.0),
+                                     ratios, stops, spread=1),
+             fb.KernelPaint.color(),
+             fb.KernelPaint.field(0),
+             fb.KernelPaint.gradient(fb.KPAINT_FOCAL, (300.0, 0.0, 0.0,
+                                                       300.0, -15000.0,
+                                                       -8000.0),
+                                     ratios, stops, focal=0.4, spread=0)]
+    return tuple(kinds[i % len(kinds)] for i in range(layers))
+
+
+def _bg_planes(rng, frames, ns, nc, spp):
+    """Random premultiplied background planes (rgb <= a), zero in the
+    padding rows and the sentinel strip block, as a pass emits them."""
+    rows = fb.plane_rows_for(nc, spp)
+    a = rng.uniform(0, 1, (frames, ns + 1, 1, rows, 128)).astype(np.float32)
+    rgb = (rng.uniform(0, 1, (frames, ns + 1, 3, rows, 128)) * a).astype(
+        np.float32)
+    bg = np.concatenate([rgb, a], axis=2)
+    bg[:, ns] = 0.0
+    bg[:, :, :, spp * nc * 8:] = 0.0
+    return torch.from_numpy(bg)
+
+
+# (height, width, layers, spp, chain-mode keywords of render_fused_styled)
+CHAIN_CASES = [
+    (24, 200, 4, 1, dict()),
+    (24, 200, 4, 1, dict(bg=True)),
+    (40, 300, 5, 2, dict(bg=True, emit="premul")),
+    (40, 300, 5, 2, dict(emit="premul")),
+    (40, 100, 9, 5, dict(bg=True, mask_from=1)),
+    (40, 100, 9, 5, dict(bg=True, emit="premul", mask_from=8)),
+    (64, 100, 16, 4, dict(emit="premul", mask_from=15)),
+    (40, 100, 9, 5, dict(emit="premul", mask_from=3)),
+]
+
+
+@pytest.mark.parametrize("height,width,layers,spp,mode", CHAIN_CASES)
+def test_emulated_chain_modes_equal_plain_versions(emulator, height, width,
+                                                   layers, spp, mode):
+    """The chain instantiations (chain=True, a bg seed, emit="premul",
+    mask_from) against fused_styled_plain: words equal, planes equal
+    (NaN where the kernel wrote nothing fails the comparison)."""
+    tables, colors = build_scene_edges(2, layers, height, width,
+                                       shapes_per_layer=3, seed=layers + 50)
+    packed = bindings.pack_grouped_native(
+        lower_update_lists(tables, height, width), height, width, group=6,
+        spp=spp)
+    dev = packed_to_device(*packed, device="cpu")
+    ns, nc = dev["ns"], dev["nc"]
+    rng = np.random.default_rng(layers + spp)
+    paints = _chain_paints(rng, layers)
+    field = fb.field_to_chunkmajor(
+        torch.as_tensor(rng.uniform(0, 1, (height, width, 4))
+                        .astype(np.float32)), ns, nc, spp=spp)
+    rule = tuple(int(i % 3 == 1) for i in range(layers))
+    kw = dict(chain=True, emit=mode.get("emit", "u32"),
+              mask_from=mode.get("mask_from"),
+              bg=(_bg_planes(rng, 2, ns, nc, spp) if mode.get("bg")
+                  else None))
+    want = fb.fused_styled_plain(
+        dev["sidx"], dev["flags"], dev["lays"], dev["urc"], dev["ucm"],
+        dev["uval"], torch.as_tensor(colors), (field,), 2, layers, ns, nc,
+        paints, fill_rule=rule, spp=spp, **kw)
+    got, _ = _run(emulator, dev, colors, rule, 2, layers, spp, paints,
+                  np.ascontiguousarray(field.numpy()), **kw)
+    if kw["emit"] == "premul":
+        assert got.shape == want.shape
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got[:, :ns], want[:, :ns])
+
+
+# Mutants of chain_pixel, each with a case it must fail: the dropped bg
+# seed, the dropped bg term under a clip group, and the mask union folded
+# the other way round (equal in exact arithmetic, not in f32).
+CHAIN_MUTANTS = {
+    "bg_seed": ("acc[ch] = bg_px[ch * bg_step];", "acc[ch] = 0.0f;", 1),
+    "bg_under_mask": ("acc[ch] = acc[ch] + bg_px[ch * bg_step] * kp;",
+                      "acc[ch] = acc[ch];", 4),
+    "mask_fold": ("m = (l == mf) ? ca : ca + m * (1.0f - ca);",
+                  "m = (l == mf) ? ca : m + ca * (1.0f - m);", 7),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(CHAIN_MUTANTS))
+def test_emulated_chain_mutants_are_caught(tmp_path, mutant):
+    """The chain-mode comparison sees a broken copy of the device code:
+    each mutant of flatblock_device.cuh differs from the plain version
+    on its case of CHAIN_CASES."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    before, after, case = CHAIN_MUTANTS[mutant]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC_DIR, csrc)
+    header = csrc / "flatblock_device.cuh"
+    text = header.read_text()
+    assert text.count(before) == 1
+    header.write_text(text.replace(before, after))
+    emu = _build_emulator(tmp_path, csrc)
+    with pytest.raises(AssertionError):
+        test_emulated_chain_modes_equal_plain_versions(emu,
+                                                       *CHAIN_CASES[case])
 
 
 def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,

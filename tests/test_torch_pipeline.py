@@ -107,8 +107,10 @@ def test_render_batch_styled_matches_jax(width):
 def test_pipeline_out_of_slice_routes_raise():
     """Frames wider than 8191 px now take the layered routes (the solid
     pipeline through the resolve kernel, the styled one through scanline
-    coverage) and match the reference; masks and multi-pass still raise
-    (ROADMAP.md queue A)."""
+    coverage) and match the reference; a masked scene that wide still
+    raises, as in the reference; deep and masked lists of narrow frames
+    now render (multi-pass and the masked program) as the reference
+    does."""
     edges = np.array([[1.0, 1.0, 8195.0, 1.5], [8195.0, 1.5, 8190.5, 7.0],
                       [8190.5, 7.0, 1.0, 6.5], [1.0, 6.5, 1.0, 1.0]],
                      np.float32)
@@ -127,9 +129,12 @@ def test_pipeline_out_of_slice_routes_raise():
         tpl.render_batch_styled([[edges]], [solid], 8, 8200,
                                 mask_tree=[("draw", 0)], device="cpu")
     small = edges * np.float32(0.002)
-    with pytest.raises(NotImplementedError, match="multi-pass"):
-        tpl.render_batch_styled([[small] * 17], [solid] * 17, 8, 32,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="masks"):
-        tpl.render_batch_styled([[small]], [solid], 8, 32,
-                                mask_tree=[("draw", 0)], device="cpu")
+    deep = tpl.render_batch_styled([[small] * 17], [solid] * 17, 8, 32,
+                                   device="cpu")
+    want = jpl.render_batch_styled([[small] * 17], [jsolid] * 17, 8, 32)
+    assert deep[..., 3].max() > 0 and levels(want, deep)[1] <= 1
+    masked = tpl.render_batch_styled([[small]], [solid], 8, 32,
+                                     mask_tree=[("draw", 0)], device="cpu")
+    want = jpl.render_batch_styled([[small]], [jsolid], 8, 32,
+                                   mask_tree=[("draw", 0)])
+    assert masked[..., 3].max() > 0 and levels(want, masked)[1] <= 1

@@ -310,19 +310,35 @@ def test_out_of_slice_backends_raise(kwargs, item):
 
 
 def test_out_of_slice_scenes_raise():
-    ast, display = tast, tdisplay
+    """Scenes that raised before the masked program and multi-pass were
+    ported — a clip group, 17 layers — now render what the reference
+    renders (more scenes: test_torch_masks.py, test_torch_multipass.py),
+    and so do frames wider than 8191 px."""
     tr = TorchRenderer(W, H, device="cpu")
-    masked = display.Stage(width=W, height=H, children=[display.MaskedGroup(
-        mask=display.ShapeInstance(definition=_solid(PORT)),
-        children=[display.ShapeInstance(definition=_linear(PORT))])])
-    with pytest.raises(NotImplementedError, match="masks"):
-        tr.render(masked)
-    with pytest.raises(NotImplementedError, match="masks"):
-        tr.render_batch([masked, masked])
-    deep = display.Stage(width=W, height=H, children=[
-        display.ShapeInstance(definition=_solid(PORT, i)) for i in range(17)])
-    with pytest.raises(NotImplementedError, match="multi-pass"):
-        tr.render(deep)
+    jr = TpuRenderer(W, H)
+
+    def masked(mods):
+        display = mods[1]
+        return display.Stage(width=W, height=H, children=[
+            display.MaskedGroup(
+                mask=display.ShapeInstance(definition=_solid(mods)),
+                children=[display.ShapeInstance(
+                    definition=_linear(mods))])])
+
+    def deep(mods):
+        display = mods[1]
+        return display.Stage(width=W, height=H, children=[
+            display.ShapeInstance(definition=_solid(mods, i))
+            for i in range(17)])
+
+    for build in (masked, deep):
+        got = tr.render(build(PORT))
+        assert tr.last_stats.path == "flatblock"
+        assert got[..., 3].max() > 0
+        assert_close(jr.render(build(JAX)), got, 1)
+    batch = tr.render_batch([masked(PORT), masked(PORT)])
+    assert tr.last_stats.path == "batched-styled"
+    np.testing.assert_array_equal(batch[1], tr.render(masked(PORT)))
     # Frames wider than 8191 px render through the layered backends (auto:
     # scanline coverage), as in the reference.
     wide_pts = [(100, 20), (163000, 60), (162000, 140), (60, 150)]

@@ -507,7 +507,7 @@ def test_sweep_wrappers_validate_their_inputs():
     with pytest.raises(ValueError, match="colors"):
         tsweep.render_affine_sweep(mats, tab, colors[:, :3], 20, 20)
     deep = tab.expand(17, 4, 1, tab.shape[-1]).contiguous()
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(ValueError, match="17 layers"):
         tsweep.render_affine_sweep(mats, deep, colors.expand(17, 4), 20, 20)
 
 
