@@ -95,11 +95,31 @@ Phases, each of which exits non-zero on failure before the last line:
              program; and the renderer's routes at 1920x1088 (a clip of
              18 children, multiply, alpha + erase, blur + drop shadow, 20
              plain layers, a 3-stage batch of one group structure), each
-             path checked and within 1 level of the scanline compositor.
+             path checked and within 1 level of the scanline compositor;
+10. tilings — the sweep's row-band tiling (B4: solid at 128- and
+             256-column chunks, styled, morph + affine) and compacted
+             tiling (B5: solid and styled with gradients, stops and field
+             planes, one and per-layer matrix tracks, the plan's bins and
+             256- / 120-column bins) against ``sweep_plain``, B5 also
+             against ``sweep_compact_plain`` on ``compact_pre``'s tables,
+             each also against the column kernel's frames, on random
+             scenes (1/3/16 layers, 100x300 and 400x550, mixed rules),
+             with the plan's capacities checked against every crossing
+             count; grouped coverage (B11) against ``grouped_plain`` on
+             phase 7's random paths; then the main path once —
+             ``render_affine_sweep(row_grid=True)`` and
+             ``render_affine_sweep(**plan_compact_sweep(...))`` on
+             anim1080 and anim1080_gradient,
+             ``render_morph_affine_sweep(row_grid=True)`` on
+             morph_affine1080, ``coverage_grouped`` on direct1080's and
+             dense1080's planes — and each kernel timed beside the column
+             kernel (B3, B6) or the banded / tiled kernel (B9, B10) on the
+             same inputs, ``compact_pre`` apart, every frame and plane
+             held against the plain versions.
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
-block and the deep and masked paths and read right after.  The script prints
+block, the deep and masked and the tilings paths and read right after.  The script prints
 one JSON line describing each kernel (time, bound, plain version's time),
 then the card's name and power limit as nvidia-smi prints them, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -1698,35 +1718,28 @@ def _check_planes(torch, what, got, want):
     return err
 
 
-def banded_work(torch, ranges, height, width, nbytes_in):
-    """(bytes, f32 operations) of one banded call on these inputs: edges
-    and windows read once, the coverage written once; ~40 operations per
-    (edge of a band's window, pixel of the band) — this run's windows —
-    and 3 per pixel for the rule."""
-    count = (ranges[..., 1] - ranges[..., 0]).clamp(min=0).to(torch.int64)
-    rows = torch.clamp(height - 16 * torch.arange(ranges.shape[1],
-                                                  device=ranges.device),
-                       max=16)
-    pairs = int((count * rows[None]).sum().item()) * width
-    planes = ranges.shape[0]
-    return (nbytes_in + planes * height * width * 4,
-            pairs * 40 + planes * height * width * 3)
+# Operations per (edge, pixel of a row the edge spans): the least of the
+# three formulations' bodies (grouped 16, tiled 38, banded 40).
+COV_OPS_PER_PAIR = 16
 
 
-def tiled_work(torch, bounds, height, width, nbytes_in):
-    """(bytes, f32 operations) of one tiled call: ~38 operations per
-    (edge of a hit block, pixel of the hit tile row) — this run's hits —
-    plus the slope per staged edge and the rule per pixel."""
-    ty = -(-height // 16)
-    y0 = torch.arange(ty, device=bounds.device, dtype=torch.float32) * 16
-    hit = ((bounds[..., 1, None] > y0) & (bounds[..., 0, None] < y0 + 16))
-    rows = torch.clamp(height - y0.to(torch.int64), max=16)
-    hits = int((hit.to(torch.int64) * rows).sum().item())
-    tiles_x = -(-width // 128)
-    planes = bounds.shape[0]
-    ops = (hits * 128 * width * 38 + int(hit.sum().item()) * tiles_x * 128 * 4
-           + planes * height * width * 3)
-    return nbytes_in + planes * height * width * 4, ops
+def coverage_work(torch, edges, height, width):
+    """(bytes, f32 operations) of analytic coverage of these (B, 4, E)
+    planes, the function the banded, tiled and grouped kernels share: the
+    edges read once, the coverage written once; COV_OPS_PER_PAIR
+    operations per (edge, pixel of a row the edge spans), so padding and
+    horizontal edges count nothing, and 3 per pixel for the rule.  The
+    work a kernel adds by its own path through the edges (band windows,
+    128-edge blocks, strips) is not counted."""
+    y0, y1 = edges[:, 1], edges[:, 3]
+    lo = torch.clamp(torch.floor(torch.minimum(y0, y1)), 0, height)
+    hi = torch.clamp(torch.ceil(torch.maximum(y0, y1)), 0, height)
+    rows = torch.where(y0 != y1, (hi - lo).clamp(min=0),
+                       torch.zeros_like(lo))
+    pairs = int(rows.to(torch.int64).sum().item()) * width
+    pixels = edges.shape[0] * height * width
+    return (edges.numel() * edges.element_size() + pixels * 4,
+            pairs * COV_OPS_PER_PAIR + pixels * 3)
 
 
 def resolve_work(frames, layers, height, stride, rules):
@@ -1887,9 +1900,7 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
         held.pop("want").view(frames, layers, height, width), d_colors))
     if not np.array_equal(want_frames, out_main):
         fail(f"{what}: frames from the plain coverage differ")
-    nbytes_in = sum(x.numel() * x.element_size() for x in (es, table))
-    work = (banded_work if banded else tiled_work)(torch, table, height,
-                                                   width, nbytes_in)
+    work = coverage_work(torch, es, height, width)
     bound_ms, bound_by = bound(*work)
     pixels = frames * height * width
     log(f"layered: {what}: render_solid_batch wall {wall * 1e3:.1f} ms "
@@ -3140,6 +3151,459 @@ def phase_deep_masked(torch, np, report):
         "bound_by": deep["bound_by"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the sweep's row-band (B4) and compacted (B5) tilings, grouped
+# coverage (B11)
+# ---------------------------------------------------------------------------
+
+TILING_CASES = ((100, 300), (400, 550))   # random scenes: height, width
+# Grouped vs banded / tiled coverage: the formulations round differently
+# (reciprocals vs divisions, 8-edge group trees vs one running sum).  This
+# phase measured on an H100 up to 1.22e-4 on both scenes, above 1e-5 on
+# 2.0e-5 of direct1080's pixels and on 1.19e-4 of dense1080's; the limits
+# are about twice and 2.5 times those readings.
+COV_VS_OTHER_TOL = 1e-5       # the bulk of the pixels
+COV_VS_OTHER_MAX = 2.5e-4     # every pixel
+COV_VS_OTHER_SHARE = {"direct1080": 5e-5, "dense1080": 3e-4}   # above TOL
+
+
+def _tiling_check(torch, what, got, want, column):
+    """A tiling's frames against the plain version and against the column
+    kernel's frames on the same inputs (both expected byte-equal)."""
+    dmax = _check(torch, what, got, want)
+    cmax, share = byte_diff(torch, got, column)
+    if cmax > TOL_LEVELS:
+        fail(f"{what} vs the column kernel: {cmax} levels ({share:.3g})")
+    return max(dmax, cmax)
+
+
+def _plan_covers(torch, what, tables, plan):
+    """The host plan's capacities hold every (frame, bin, layer)'s
+    crossing pieces, so compact_pre dropped none."""
+    caps = torch.tensor(plan["compact_counts"], dtype=torch.int32,
+                        device=tables.crossing.device)
+    most = tables.crossing.amax(dim=(0, 1))
+    if bool((most > caps).any()):
+        fail(f"{what}: crossing counts {most.tolist()} exceed the plan's "
+             f"capacities {list(plan['compact_counts'])}")
+    return most.tolist()
+
+
+def tilings_random(torch, np):
+    """B4 (solid, styled, morph + affine) and B5
+    (solid, styled with gradients, stops and fields, per-layer matrices;
+    planned and 256 / 120-column bins) against sweep_plain, B5 also
+    against sweep_compact_plain, each also against the column kernel."""
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.coverage import layer_rules
+    from swf_renderer_tpu_torch.ops.flatblock import KPAINT_FIELD, KernelPaint
+    from swf_renderer_tpu_torch.utils.scenes import (
+        random_blobs, random_tracks,
+    )
+
+    rng = np.random.default_rng(53)
+    worst = {"affine_rows": 0, "morph_affine_rows": 0, "affine_compact": 0}
+    frames = 3
+    for height, width in TILING_CASES:
+        for layers in (1, 3, 16):
+            tables = random_blobs(rng, layers, height, width)
+            tracks = random_tracks(rng, frames, layers, height, width)
+            mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+            colors = _up(torch, np, rng.uniform(0.1, 1, (frames, layers, 4)))
+            tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers,
+                                         tracks)
+            counts = tuple(min(c, tab.shape[-1])
+                           for c in sweep.layer_piece_counts(tab))
+            d_tracks, d_tab = _up(torch, np, tracks), _up(torch, np, tab)
+            tag = f"{height}x{width} L={layers}"
+            paints, n_fields = random_paints(rng, layers)
+            gm = rng.uniform(-1, 1, (frames, layers, 6)) * 4
+            gm[..., 0] += 30.0
+            gm[..., 3] += 30.0
+            gm[..., 4:] = rng.uniform(-20000, -10000, (frames, layers, 2))
+            stops = _up(torch, np, rng.uniform(0, 1, (frames, layers, 5, 4)))
+            fields = (_up(torch, np, rng.uniform(
+                0, 1, (n_fields, frames, height, width, 4)))
+                if n_fields else None)
+            styled = dict(paints=paints, grad_mats=_up(torch, np, gm),
+                          stop_colors=stops, fields=fields)
+            row_styled = dict(styled, paints=tuple(
+                KernelPaint.color() if p.kind == KPAINT_FIELD else p
+                for p in paints), fields=None)
+            if layers == 1:
+                styled = row_styled = {}
+
+            # B4: solid, styled (no fields: the reference's row grid
+            # takes none).
+            args = (d_tracks, d_tab, colors, height, width)
+            got = sweep.render_affine_sweep(
+                *args, fill_rule=mixed, layer_counts=counts, row_grid=True)
+            want = sweep.sweep_plain(d_tracks, d_tab, None, None, colors,
+                                     None, height, width, mixed, counts)
+            column = sweep.render_affine_sweep(
+                *args, fill_rule=mixed, layer_counts=counts)
+            worst["affine_rows"] = max(worst["affine_rows"], _tiling_check(
+                torch, f"rows {tag}", got, want, column))
+            if row_styled:
+                kw = dict(fill_rule=mixed, layer_counts=counts, **row_styled)
+                got = sweep.render_affine_sweep(
+                    d_tracks, d_tab, colors, height, width, row_grid=True,
+                    **kw)
+                want = sweep.sweep_plain(d_tracks, d_tab, None, None, colors,
+                                         None, height, width, mixed, counts,
+                                         **row_styled)
+                column = sweep.render_affine_sweep(
+                    d_tracks, d_tab, colors, height, width, **kw)
+                worst["affine_rows"] = max(worst["affine_rows"], _tiling_check(
+                    torch, f"styled rows {tag}", got, want, column))
+
+            # B5: solid under one matrix track, styled under per-layer
+            # tracks; the plan's bins, then 256- or 120-column bins.
+            for mats, kw in ((tracks[:, 0], {}), (tracks, styled)):
+                d_mats = _up(torch, np, mats)
+                for wblock in (None, 256 if height == 100 else 120):
+                    plan = sweep.plan_compact_sweep(mats, tab, height, width,
+                                                    wblock=wblock)
+                    if plan is None:
+                        fail(f"compact {tag}: no plan")
+                    got = sweep.render_affine_sweep(
+                        d_mats, d_tab, colors, height, width, fill_rule=mixed,
+                        **plan, **kw)
+                    tables_c = sweep.compact_pre(
+                        d_mats, d_tab, plan["compact_counts"],
+                        plan["wblock"], height, width)
+                    _plan_covers(torch, f"compact {tag}", tables_c, plan)
+                    want = sweep.sweep_plain(
+                        d_mats, d_tab, None, None, colors, None, height,
+                        width, mixed, (tab.shape[-1],) * layers, **kw)
+                    want_c = sweep.sweep_compact_plain(
+                        tables_c, colors, height, width,
+                        layer_rules(mixed, layers), **kw)
+                    column = sweep.render_affine_sweep(
+                        d_mats, d_tab, colors, height, width, fill_rule=mixed,
+                        **kw)
+                    what = (f"compact {tag} wblock={plan['wblock']} "
+                            f"bps={plan['blocks_per_step']} "
+                            f"{'styled' if kw else 'solid'}")
+                    worst["affine_compact"] = max(
+                        worst["affine_compact"],
+                        _tiling_check(torch, what, got, want, column),
+                        _check(torch, what + " vs compact plain", got,
+                               want_c))
+
+            # B4's morph + affine form.
+            pairs = [(s_, s_ + rng.uniform(-9, 9, s_.shape).astype(
+                np.float32), rng.uniform(0.1, 1, 4), rng.uniform(0.1, 1, 4))
+                for s_ in tables]
+            ratios = _up(torch, np, np.array([0.0, 0.41, 1.0]))
+            tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, tracks)
+            mcounts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+                sweep.layer_piece_counts(tab_s),
+                sweep.layer_piece_counts(tab_e)))
+            margs = (d_tracks, ratios, _up(torch, np, tab_s),
+                     _up(torch, np, tab_e), _up(torch, np, cs),
+                     _up(torch, np, ce), height, width)
+            got = sweep.render_morph_affine_sweep(
+                *margs, fill_rule=mixed, layer_counts=mcounts, row_grid=True)
+            want = sweep.sweep_plain(margs[0], margs[2], margs[3], ratios,
+                                     margs[4], margs[5], height, width,
+                                     mixed, mcounts)
+            column = sweep.render_morph_affine_sweep(
+                *margs, fill_rule=mixed, layer_counts=mcounts)
+            worst["morph_affine_rows"] = max(
+                worst["morph_affine_rows"],
+                _tiling_check(torch, f"morph-affine rows {tag}", got, want,
+                              column))
+    return worst
+
+
+def grouped_random(torch, np):
+    """B11 against grouped_plain on closed random paths (both rules; the
+    phase 7 frames and edge counts that are multiples of 128)."""
+    from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.utils.scenes import closed_edge_planes
+
+    rng = np.random.default_rng(59)
+    worst = 0.0
+    cases = [(h, w, n, e) for h, w in COV_FRAMES for n, e in COV_EDGES
+             if e % cov.EDGE_BLOCK == 0]
+    cases += [(1088, 1920, n, e) for n, e in COV_BIG]
+    for height, width, n, e_pad in cases:
+        t = _up(torch, np, closed_edge_planes(rng, 2, n, e_pad, height,
+                                              width))
+        es, key, pad = cov.sort_edges(t)
+        bounds = cov.block_bounds(es, key, pad)
+        for rule in (0, 1):
+            got = cov.coverage_grouped(t, height, width, rule)
+            want = cov.grouped_plain(es, bounds, height, width, rule)
+            worst = max(worst, _check_planes(
+                torch, f"grouped {height}x{width} E={n}/{e_pad} rule={rule}",
+                got, want))
+    return worst
+
+
+def grouped_run(torch, np, what, d_edges, height, width, report):
+    """B11 on phase 7's planes of one scene: the kernel timed beside the
+    kernel phase 7 routes them to (banded or tiled), held against
+    grouped_plain (1e-6, u8 equal) and against that kernel's coverage
+    (COV_VS_OTHER_*)."""
+    from swf_renderer_tpu_torch.ops import coverage as cov
+
+    es, key, pad = cov.sort_edges(d_edges)
+    bounds = cov.block_bounds(es, key, pad)
+    banded = d_edges.shape[-1] <= cov.SMEM_EDGE_CAP
+    other = "banded" if banded else "tiled"
+    table = cov.band_ranges(d_edges, key, height) if banded else bounds
+
+    def kernel():
+        return cov._launch_coverage("grouped", es, bounds, height, width, 0)
+
+    def yardstick():
+        return cov._launch_coverage(other, es, table, height, width, 0)
+
+    ms = time_cuda(torch, kernel)
+    other_ms = time_cuda(torch, yardstick)
+    got = kernel()
+    held = {}
+
+    def plain():
+        held["want"] = cov.grouped_plain(es, bounds, height, width, 0)
+
+    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    err = _check_planes(torch, f"{what}: grouped, all {got.shape[0]} planes",
+                        got, held.pop("want"))
+    diff = (got - yardstick()).abs()
+    vs_other = float(diff.max().item())
+    over = float((diff > COV_VS_OTHER_TOL).float().mean().item())
+    del diff
+    log(f"tilings: {what}: grouped vs {other} max abs {vs_other:.3g}, "
+        f"share above {COV_VS_OTHER_TOL:g} {over:.3g}")
+    if vs_other > COV_VS_OTHER_MAX or over > COV_VS_OTHER_SHARE[what]:
+        fail(f"{what}: grouped vs {other} coverage {vs_other} ({over})")
+    work = coverage_work(torch, es, height, width)
+    bound_ms, bound_by = bound(*work)
+    log(f"tilings: {what}: grouped kernel {ms:.3f} ms ({other} {other_ms:.3f}"
+        f" ms on the same planes), plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.3f} GB, "
+        f"{work[1] / 1e9:.1f} Gop)")
+    report[f"{what}_grouped"] = {
+        "planes": int(got.shape[0]), "edges": int(d_edges.shape[-1]),
+        "kernel_ms": ms, f"{other}_ms": other_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": work[0],
+        "ops": work[1], "max_abs_err": err, f"vs_{other}": vs_other,
+        f"vs_{other}_share_above_1e-5": over}
+    return {"max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _timed_tiling(torch, what, kernel, column, plain, counts_args, report,
+                  extra_bytes=0):
+    """Time one full-width tiling beside the column kernel on the same
+    inputs, hold every frame against the plain version and the column
+    kernel's frames, work out its bound."""
+    out = _timed_sweep(torch, what, kernel, plain, counts_args, report)
+    column_ms = time_cuda(torch, column, reps=5)
+    got = kernel()
+    cmax, share = byte_diff(torch, got, column())
+    if cmax > TOL_LEVELS:
+        fail(f"{what} vs the column kernel: {cmax} levels ({share:.3g})")
+    if extra_bytes:
+        nbytes = report[what]["bytes"] + extra_bytes
+        out["bound_ms"], out["bound_by"] = bound(nbytes, report[what]["ops"])
+        report[what].update(bytes=nbytes, bound_ms=out["bound_ms"],
+                            bound_by=out["bound_by"])
+    log(f"tilings: {what}: column kernel {column_ms:.3f} ms on the same "
+        f"inputs, frames {cmax} levels apart")
+    report[what].update(column_ms=column_ms, vs_column_max=cmax)
+    return out
+
+
+def tilings_full_width(torch, np, report, launches):
+    """anim1080 and anim1080_gradient through the row-band and compacted
+    tilings, morph_affine1080 through the row-band one (the main path
+    once, counters read), then each timed beside the column kernel; B11
+    on direct1080's and dense1080's planes."""
+    from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.ops import style as style_ops
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene, \
+        build_scene_edges
+
+    height, width = SWEEP_SIZE
+    frames = SWEEP_FRAMES
+    tables, colors, mats = anim_scene(height, width, frames)
+    layers = len(tables)
+    tab, colarr = sweep.affine_pieces(tables, colors, mats)
+    counts = sweep.layer_piece_counts(tab)
+    t0 = time.perf_counter()
+    plan = sweep.plan_compact_sweep(mats, tab, height, width)
+    t_plan = time.perf_counter() - t0
+    if plan is None:
+        fail("anim1080: no compaction plan")
+    d_mats, d_tab, d_col = (_up(torch, np, x) for x in (mats, tab, colarr))
+    rules = (0,) * layers
+    base_stops = np.array([[1, 0.2, 0, 1], [0, 1, 0.5, 0.8], [0.2, 0, 1, 1]],
+                          np.float32)
+    paints = [style_ops.solid_paint(tuple(c)) for c in colors]
+    paints[1] = style_ops.Paint(
+        kind=style_ops.PAINT_LINEAR,
+        inv_matrix=(2.0 * 16384.0 / width, 0.0, 0.0, 2.0 * 16384.0 / width,
+                    -16384.0, -16384.0 * height / width),
+        stop_ratios=np.array([0.0, 0.5, 1.0], np.float32),
+        stop_colors=base_stops)
+    kpaints, grad_mats = sweep.sweep_paints(paints, mats)
+    stop_colors = np.zeros((frames, layers, 3, 4), np.float32)
+    fade = np.linspace(1.0, 0.4, frames, dtype=np.float32)
+    stop_colors[:, 1] = base_stops[None] * fade[:, None, None]
+    styled = dict(paints=kpaints, grad_mats=_up(torch, np, grad_mats),
+                  stop_colors=_up(torch, np, stop_colors))
+    pairs = morph_pairs(np)
+    m16 = mats[:MORPH_RATIOS]
+    ratios = np.linspace(0.0, 1.0, MORPH_RATIOS, dtype=np.float32)
+    tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, m16)
+    mcounts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+        sweep.layer_piece_counts(tab_s), sweep.layer_piece_counts(tab_e)))
+    dm = [_up(torch, np, x) for x in (m16, ratios, tab_s, tab_e, cs, ce)]
+    planes = {}   # phase 7's planes: name -> (edges, height, width)
+    for name, (f, l, h, w, shapes) in (("direct1080", DIRECT + (16,)),
+                                       ("dense1080", DENSE)):
+        tbl = build_scene_edges(f, l, h, w, shapes_per_layer=shapes,
+                                seed=7)[0]
+        planes[name] = (_up(torch, np, cov.split_pad_tables(
+            [t for per in tbl for t in per])), h, w)
+
+    def rows(**kw):
+        return sweep.render_affine_sweep(d_mats, d_tab, d_col, height, width,
+                                         layer_counts=counts, row_grid=True,
+                                         **kw)
+
+    def compact(**kw):
+        return sweep.render_affine_sweep(d_mats, d_tab, d_col, height, width,
+                                         **plan, **kw)
+
+    def morph_rows():
+        return sweep.render_morph_affine_sweep(
+            *dm, height, width, layer_counts=mcounts, row_grid=True)
+
+    # The main path once: each tiling and B11 through its entry point.
+    counters = {"affine_rows": (sweep.render_affine_sweep, "row_launches"),
+                "affine_compact": (sweep.render_affine_sweep,
+                                   "compact_launches"),
+                "morph_affine_rows": (sweep.render_morph_affine_sweep,
+                                      "row_launches"),
+                "grouped": (cov.coverage_grouped, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main = [rows(), rows(**styled), compact(), compact(**styled),
+            morph_rows()]
+    main += [cov.coverage_grouped(*p) for p in planes.values()]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update({k: getattr(fn, attr)
+                     for k, (fn, attr) in counters.items()})
+    log(f"tilings: main path (anim1080 and anim1080_gradient rows and "
+        f"compact, morph_affine1080 rows, grouped direct1080 and dense1080) "
+        f"{wall * 1e3:.1f} ms, launches {launches}")
+    for k, n in launches.items():
+        if n < 1:
+            fail(f"{k}: no launch on the main path")
+    if any(out.shape != (frames, height, width) for out in main[:4]) or \
+            not all(bool(out.any()) for out in main):
+        fail("tilings: main path frames are empty or misshapen")
+    del main
+
+    tables_c = sweep.compact_pre(d_mats, d_tab, plan["compact_counts"],
+                                 plan["wblock"], height, width)
+    most = _plan_covers(torch, "anim1080", tables_c, plan)
+    pre_ms = time_cuda(torch, lambda: sweep.compact_pre(
+        d_mats, d_tab, plan["compact_counts"], plan["wblock"], height,
+        width))
+    compact_bytes = sum(x.numel() * x.element_size() for x in (
+        tables_c.tab, tables_c.counts, tables_c.bounds, tables_c.prefix))
+    log(f"tilings: anim1080 plan {plan} in {t_plan * 1e3:.1f} ms (host); "
+        f"most crossing pieces {most}; compact_pre {pre_ms:.3f} ms "
+        f"({compact_bytes / 1e6:.1f} MB of tables)")
+    report["anim1080_plan"] = {"plan": plan, "plan_ms": t_plan * 1e3,
+                               "most_crossing": most, "compact_pre_ms": pre_ms,
+                               "table_bytes": compact_bytes}
+
+    def column(**kw):
+        return lambda: sweep.render_affine_sweep(
+            d_mats, d_tab, d_col, height, width, layer_counts=counts, **kw)
+
+    def plain(**kw):
+        return lambda: sweep.sweep_plain(d_mats, d_tab, None, None, d_col,
+                                         None, height, width, rules, counts,
+                                         **kw)
+
+    def compact_kernel(tbl, **kw):
+        return lambda: sweep._launch_sweep_compact(
+            tbl, d_col, height, width, rules, plan["blocks_per_step"], **kw)
+
+    out = {}
+    counts_args = (d_mats, d_tab, None, None, counts, height, width, rules)
+    grad_extra = (d_col, styled["grad_mats"], styled["stop_colors"])
+    out["affine_rows"] = _timed_tiling(
+        torch, "anim1080_rows", rows, column(), plain(),
+        counts_args + (None, None, (d_col,)), report)
+    grad = _timed_tiling(
+        torch, "anim1080_gradient_rows", lambda: rows(**styled),
+        column(**styled), plain(**styled),
+        counts_args + (kpaints, None, grad_extra), report)
+    out["affine_rows"]["max_abs_err"] = max(out["affine_rows"]["max_abs_err"],
+                                            grad["max_abs_err"])
+    out["affine_compact"] = _timed_tiling(
+        torch, "anim1080_compact", compact_kernel(tables_c), column(),
+        plain(), counts_args + (None, None, (d_col,)), report,
+        extra_bytes=compact_bytes)
+    want_c = sweep.sweep_compact_plain(tables_c, d_col, height, width, rules)
+    out["affine_compact"]["max_abs_err"] = max(
+        out["affine_compact"]["max_abs_err"],
+        _check(torch, "anim1080_compact vs compact plain",
+               compact_kernel(tables_c)(), want_c))
+    del want_c
+    grad = _timed_tiling(
+        torch, "anim1080_gradient_compact",
+        compact_kernel(tables_c, **styled), column(**styled),
+        plain(**styled), counts_args + (kpaints, None, grad_extra), report,
+        extra_bytes=compact_bytes)
+    out["affine_compact"]["max_abs_err"] = max(
+        out["affine_compact"]["max_abs_err"], grad["max_abs_err"])
+    mrules = (0,) * layers
+    out["morph_affine_rows"] = _timed_tiling(
+        torch, "morph_affine1080_rows", morph_rows,
+        lambda: sweep.render_morph_affine_sweep(*dm, height, width,
+                                                layer_counts=mcounts),
+        lambda: sweep.sweep_plain(dm[0], dm[2], dm[3], dm[1], dm[4], dm[5],
+                                  height, width, mrules, mcounts),
+        (dm[0], dm[2], dm[3], dm[1], mcounts, height, width, mrules, None,
+         None, (dm[4], dm[5])), report)
+    out["grouped"] = grouped_run(torch, np, "direct1080",
+                                 *planes["direct1080"], report)
+    dense_g = grouped_run(torch, np, "dense1080", *planes["dense1080"],
+                          report)
+    out["grouped"]["max_abs_err"] = max(out["grouped"]["max_abs_err"],
+                                        dense_g["max_abs_err"])
+    return out
+
+
+def phase_tilings(torch, np, report):
+    worst = tilings_random(torch, np)
+    worst["grouped"] = grouped_random(torch, np)
+    launches = {}
+    kernels = tilings_full_width(torch, np, report, launches)
+    names = {"affine_rows": "affine_sweep_rows",
+             "morph_affine_rows": "morph_affine_sweep_rows",
+             "affine_compact": "affine_sweep_compact",
+             "grouped": "coverage_grouped"}
+    for key, k in kernels.items():
+        k.update(name=names[key], launches=launches[key],
+                 max_abs_err=max(k["max_abs_err"], worst[key]))
+    return kernels
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3167,10 +3631,12 @@ def main() -> None:
     kernels.update(phase_layered(torch, np, report))
     kernels.update(phase_flat_blocks(torch, np, report))
     kernels.update(phase_deep_masked(torch, np, report))
+    kernels.update(phase_tilings(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
     planes_cu = "swf_renderer_tpu_torch/csrc/planes.cu"
+    coverage_cu = "swf_renderer_tpu_torch/csrc/coverage.cu"
     meta = {   # kernel -> (source, TPU kernel it replaces)
         "fusedn": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:784"),
         "styled": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:1083"),
@@ -3179,10 +3645,8 @@ def main() -> None:
         "morph": (sweep_cu, "swf_renderer_tpu/ops/morph.py:98"),
         "texfield": ("swf_renderer_tpu_torch/csrc/texfield.cu",
                      "swf_renderer_tpu/ops/texfield.py:186"),
-        "banded": ("swf_renderer_tpu_torch/csrc/coverage.cu",
-                   "swf_renderer_tpu/ops/coverage.py:559"),
-        "tiled": ("swf_renderer_tpu_torch/csrc/coverage.cu",
-                  "swf_renderer_tpu/ops/coverage.py:169"),
+        "banded": (coverage_cu, "swf_renderer_tpu/ops/coverage.py:559"),
+        "tiled": (coverage_cu, "swf_renderer_tpu/ops/coverage.py:169"),
         "resolve": ("swf_renderer_tpu_torch/csrc/resolve.cu",
                     "swf_renderer_tpu/ops/resolve.py:53"),
         "place": (planes_cu, "swf_renderer_tpu/ops/flatblock.py:486"),
@@ -3192,6 +3656,11 @@ def main() -> None:
         "fused1": (flatblock_cu, "swf_renderer_tpu/ops/flatblock.py:618"),
         "styled_chain": (flatblock_cu,
                          "swf_renderer_tpu/ops/flatblock.py:1083"),
+        "affine_rows": (sweep_cu, "swf_renderer_tpu/ops/transform.py:1012"),
+        "morph_affine_rows": (sweep_cu,
+                              "swf_renderer_tpu/ops/transform.py:1012"),
+        "affine_compact": (sweep_cu, "swf_renderer_tpu/ops/transform.py:586"),
+        "grouped": (coverage_cu, "swf_renderer_tpu/ops/coverage.py:404"),
     }
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],

@@ -1,4 +1,5 @@
-// Direct coverage kernels for Hopper (sm_90a), with a plain C interface
+// Direct coverage kernels for Hopper (sm_90a): banded (B9), tiled (B10)
+// and grouped (B11), with a plain C interface
 // loaded through ctypes (ops/coverage.py).  The device logic and its design
 // notes live in coverage_device.cuh.
 //
@@ -23,6 +24,12 @@ __global__ void __launch_bounds__(kCovThreads) banded_kernel(CoverageArgs a) {
 __global__ void __launch_bounds__(kCovThreads) tiled_kernel(CoverageArgs a) {
   __shared__ float s[4 * kCovBlock];
   tiled_block(a, s);
+}
+
+__global__ void __launch_bounds__(kGrpThreads) grouped_kernel(
+    CoverageArgs a) {
+  __shared__ GroupedTerms s;
+  grouped_block(a, s);
 }
 
 inline bool coverage_args(CoverageArgs& a, const void* edges, void* out,
@@ -83,6 +90,26 @@ int swf_coverage_tiled(const void* edges, const void* bounds, void* out,
   a.bounds = static_cast<const float*>(bounds);
   swf::tiled_kernel<<<swf::coverage_grid(a), swf::kCovThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// edges: (B, 4, E) f32 sorted by ymin, E a multiple of 128; bounds:
+// (B, E / 128, 2) f32; out: (B, H, W) f32.  Strips of 8 rows.
+int swf_coverage_grouped(const void* edges, const void* bounds, void* out,
+                         int planes, int n_edges, int height, int width,
+                         int rule, void* stream) {
+  swf::CoverageArgs a{};
+  if (n_edges % swf::kCovBlock != 0 ||
+      (height + swf::kGrpStripH - 1) / swf::kGrpStripH > 65535 ||
+      !swf::coverage_args(a, edges, out, planes, n_edges, height, width,
+                          rule)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.bounds = static_cast<const float*>(bounds);
+  const dim3 grid((width + swf::kCovBlock - 1) / swf::kCovBlock,
+                  (height + swf::kGrpStripH - 1) / swf::kGrpStripH, planes);
+  swf::grouped_kernel<<<grid, swf::kGrpThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

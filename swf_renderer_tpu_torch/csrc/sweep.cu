@@ -1,13 +1,15 @@
 // Animation sweep kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (ops/transform.py, ops/morph.py).  The device
-// logic and its design notes live in sweep_device.cuh.
+// loaded through ctypes (ops/transform.py, ops/morph.py): the column
+// tiling (swf_sweep), the row-band tiling (swf_sweep_rows) and the
+// compacted tiling (swf_sweep_compact).  The device logic and its design
+// notes live in sweep_device.cuh.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libswfsweep.so sweep.cu
 //
-// The entry point launches on the caller's stream, does not synchronise,
-// and returns cudaGetLastError() (0 on success).
+// The entry points launch on the caller's stream, do not synchronise,
+// and return cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 
@@ -29,6 +31,19 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs a) {
 }
 
 template <bool kMorph, bool kAffine, bool kStyled>
+__global__ void __launch_bounds__(kThreads) sweep_rows_kernel(SweepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  sweep_rows_block<kMorph, kAffine, kStyled>(a, smem);
+}
+
+template <bool kStyled>
+__global__ void __launch_bounds__(kThreads) sweep_compact_kernel(
+    SweepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  sweep_compact_block<kStyled>(a, smem);
+}
+
+template <bool kMorph, bool kAffine, bool kStyled>
 cudaError_t launch_sweep(SweepArgs a, cudaStream_t stream) {
   a.rows = sweep_tile_rows(a.layers);
   const size_t bytes = sweep_smem_bytes(a.layers, a.rows, kStyled);
@@ -44,6 +59,73 @@ cudaError_t launch_sweep(SweepArgs a, cudaStream_t stream) {
                   (a.height + a.rows - 1) / a.rows, a.frames);
   sweep_kernel<kMorph, kAffine, kStyled><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kMorph, bool kAffine, bool kStyled>
+cudaError_t launch_sweep_rows(SweepArgs a, cudaStream_t stream) {
+  a.rows = sweep_tile_rows(a.layers, kRowChunk);
+  const size_t bytes = sweep_smem_bytes(a.layers, a.rows, kStyled, kRowChunk,
+                                        true);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_rows_kernel<kMorph, kAffine, kStyled>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  sweep_bounds_kernel<kMorph, kAffine>
+      <<<dim3(a.n_chunks, a.layers, a.frames), kSweepChunk, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(1, (a.height + a.rows - 1) / a.rows, a.frames);
+  sweep_rows_kernel<kMorph, kAffine, kStyled>
+      <<<grid, kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kStyled>
+cudaError_t launch_sweep_compact(SweepArgs a, cudaStream_t stream) {
+  a.rows = sweep_tile_rows(a.layers, a.bin_w);
+  const size_t bytes = sweep_smem_bytes(a.layers, a.rows, kStyled, a.bin_w);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_compact_kernel<kStyled>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n_bins + a.bins_per_block - 1) / a.bins_per_block,
+                  (a.height + a.rows - 1) / a.rows, a.frames);
+  sweep_compact_kernel<kStyled><<<grid, kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The arguments every entry point shares.
+inline SweepArgs sweep_args(const void* colors, const void* rules,
+                            const void* pint, const void* pflt,
+                            const void* grad_mats, const void* stop_colors,
+                            const void* fields, void* out, int frames,
+                            int layers, int height, int width,
+                            int colors_per_frame, int n_stop_slots) {
+  SweepArgs a{};
+  a.colors = static_cast<const float*>(colors);
+  a.rules = static_cast<const int*>(rules);
+  a.pint = static_cast<const int*>(pint);
+  a.pflt = static_cast<const float*>(pflt);
+  a.grad_mats = static_cast<const float*>(grad_mats);
+  a.stop_colors = static_cast<const float*>(stop_colors);
+  a.fields = static_cast<const float*>(fields);
+  a.out = static_cast<int*>(out);
+  a.frames = frames;
+  a.layers = layers;
+  a.height = height;
+  a.width = width;
+  a.rows = 1;
+  a.colors_per_frame = colors_per_frame;
+  a.n_stop_slots = n_stop_slots;
+  a.n_bins = 1;
+  a.bins_per_block = 1;
+  return a;
+}
+
+// Grid y and z (row bands, frames) are limited to 65535 blocks.
+inline bool sweep_shape_ok(int layers, int frames, int height, int width) {
+  return layers >= 1 && layers <= kMaxLayers && frames >= 1 &&
+         frames <= 65535 && height >= 1 && height <= 65535 && width >= 1;
 }
 
 }  // namespace swf
@@ -63,38 +145,23 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
               int frames, int layers, int ep, int height, int width,
               int mats_per_layer, int colors_per_frame, int n_stop_slots,
               void* stream) {
-  // Grid y and z (row bands, frames) are limited to 65535 blocks.
-  if (mode < 0 || mode > 2 || layers < 1 || layers > swf::kMaxLayers ||
-      frames < 1 || frames > 65535 || ep < 1 || height < 1 ||
-      height > 65535 || width < 1) {
+  if (mode < 0 || mode > 2 || ep < 1 ||
+      !swf::sweep_shape_ok(layers, frames, height, width)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  swf::SweepArgs a;
+  swf::SweepArgs a = swf::sweep_args(
+      colors, rules, pint, pflt, grad_mats, stop_colors, fields, out, frames,
+      layers, height, width, colors_per_frame, n_stop_slots);
   a.mats = static_cast<const float*>(mats);
   a.tab_s = static_cast<const float*>(tab_s);
   a.tab_e = static_cast<const float*>(tab_e);
   a.ratios = static_cast<const float*>(ratios);
-  a.colors = static_cast<const float*>(colors);
   a.colors_e = static_cast<const float*>(colors_e);
   a.counts = static_cast<const int*>(counts);
-  a.rules = static_cast<const int*>(rules);
-  a.pint = static_cast<const int*>(pint);
-  a.pflt = static_cast<const float*>(pflt);
-  a.grad_mats = static_cast<const float*>(grad_mats);
-  a.stop_colors = static_cast<const float*>(stop_colors);
-  a.fields = static_cast<const float*>(fields);
   a.bounds = static_cast<float*>(bounds);
-  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
-  a.out = static_cast<int*>(out);
-  a.frames = frames;
-  a.layers = layers;
   a.ep = ep;
-  a.height = height;
-  a.width = width;
-  a.rows = 1;
+  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.mats_per_layer = mats_per_layer;
-  a.colors_per_frame = colors_per_frame;
-  a.n_stop_slots = n_stop_slots;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mode == 0) {
@@ -105,6 +172,84 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
   } else {
     err = swf::launch_sweep<true, false, false>(a, s);
   }
+  return static_cast<int>(err);
+}
+
+// The row-band sweep (B4) over swf_sweep's arguments; mode 0: affine
+// (styled when pint is not null), mode 1: morph + affine.  A band sweeps
+// the width in kRowChunk-column chunks.
+int swf_sweep_rows(int mode, const void* mats, const void* tab_s,
+                   const void* tab_e, const void* ratios, const void* colors,
+                   const void* colors_e, const void* counts,
+                   const void* rules, const void* pint, const void* pflt,
+                   const void* grad_mats, const void* stop_colors,
+                   const void* fields, void* bounds, void* out, int frames,
+                   int layers, int ep, int height, int width,
+                   int mats_per_layer, int colors_per_frame,
+                   int n_stop_slots, void* stream) {
+  if (mode < 0 || mode > 1 || ep < 1 || (mode == 1 && pint != nullptr) ||
+      !swf::sweep_shape_ok(layers, frames, height, width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::SweepArgs a = swf::sweep_args(
+      colors, rules, pint, pflt, grad_mats, stop_colors, fields, out, frames,
+      layers, height, width, colors_per_frame, n_stop_slots);
+  a.mats = static_cast<const float*>(mats);
+  a.tab_s = static_cast<const float*>(tab_s);
+  a.tab_e = static_cast<const float*>(tab_e);
+  a.ratios = static_cast<const float*>(ratios);
+  a.colors_e = static_cast<const float*>(colors_e);
+  a.counts = static_cast<const int*>(counts);
+  a.bounds = static_cast<float*>(bounds);
+  a.ep = ep;
+  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
+  a.mats_per_layer = mats_per_layer;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (mode == 1) {
+    err = swf::launch_sweep_rows<true, true, false>(a, s);
+  } else {
+    err = pint != nullptr ? swf::launch_sweep_rows<false, true, true>(a, s)
+                          : swf::launch_sweep_rows<false, true, false>(a, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The compacted sweep (B5) over compact_pre's tables: ctab (F, NB, L, 4,
+// cap) f32 device-space pieces, ccount (F, NB, L) i32, cbounds (F, NB, L,
+// cap / 64, 2) f32, prefix (F, L, NB, H) i64; bins of bin_w <= 256
+// columns, bins_per_block of them walked by one block in turn.  Styled
+// when pint is not null.
+int swf_sweep_compact(const void* colors, const void* rules,
+                      const void* pint, const void* pflt,
+                      const void* grad_mats, const void* stop_colors,
+                      const void* fields, const void* ctab,
+                      const void* ccount, const void* cbounds,
+                      const void* prefix, void* out, int frames, int layers,
+                      int height, int width, int cap, int n_bins, int bin_w,
+                      int bins_per_block, int colors_per_frame,
+                      int n_stop_slots, void* stream) {
+  if (cap < swf::kSweepChunk || cap % swf::kSweepChunk != 0 || bin_w < 1 ||
+      bin_w > 256 || n_bins != (width + bin_w - 1) / bin_w ||
+      bins_per_block < 1 ||
+      !swf::sweep_shape_ok(layers, frames, height, width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::SweepArgs a = swf::sweep_args(
+      colors, rules, pint, pflt, grad_mats, stop_colors, fields, out, frames,
+      layers, height, width, colors_per_frame, n_stop_slots);
+  a.ctab = static_cast<const float*>(ctab);
+  a.ccount = static_cast<const int*>(ccount);
+  a.cbounds = static_cast<const float*>(cbounds);
+  a.prefix = static_cast<const long long*>(prefix);
+  a.cap = cap;
+  a.n_bins = n_bins;
+  a.bin_w = bin_w;
+  a.bins_per_block = bins_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = pint != nullptr
+      ? swf::launch_sweep_compact<true>(a, s)
+      : swf::launch_sweep_compact<false>(a, s);
   return static_cast<int>(err);
 }
 

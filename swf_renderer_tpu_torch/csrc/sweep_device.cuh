@@ -2,14 +2,20 @@
 // transform LOCAL-space edge pieces, rasterize them analytically, resolve
 // and pack — the frame count costs the host nothing.
 //
-// Replaces three TPU kernels:
+// Replaces five TPU kernels:
 //   * `_xform_kernel` (swf_renderer_tpu/ops/transform.py:586, pallas_call
-//     :1710) — the affine sweep, solid and styled (kMorph=false,
-//     kAffine=true);
+//     :1710) — the affine sweep, solid and styled (sweep_block,
+//     kMorph=false, kAffine=true);
 //   * `_xform_kernel(morph=True)` (same file, pallas_call :1875) — the
-//     morph + affine sweep (kMorph=true, kAffine=true);
+//     morph + affine sweep (sweep_block, kMorph=true, kAffine=true);
 //   * `_morph_kernel` (swf_renderer_tpu/ops/morph.py:98, pallas_call :213)
-//     — the morph ratio sweep (kMorph=true, kAffine=false).
+//     — the morph ratio sweep (sweep_block, kMorph=true, kAffine=false);
+//   * `_xform_kernel_rows` (transform.py:1012, pallas_call :1710 and
+//     :1875) — the row-grid sweep (sweep_rows_block): one block owns a
+//     band of rows of one frame across the full width;
+//   * `_xform_kernel(compact=True)` (transform.py:586, pallas_call :1514)
+//     — the compacted sweep (sweep_compact_block): one block walks only
+//     the pieces a host-planned pre-pass gathered for its column bin.
 //
 // What it computes.  A piece is a segment whose transformed |dy| <= 1, so
 // it touches at most the two pixel rows floor(min(y0, y1)) + {0, 1}.  In
@@ -46,6 +52,25 @@
 // with per-thread arrays and 16-way unrolled paint code ran the styled
 // kernel at 3x the solid one on the card.
 //
+// The two tilings of the same function, both byte-equal to the column
+// kernel because every pixel still sums the same integers:
+//   * rows (B4): a block owns a band of rows and sweeps the width in
+//     kRowChunk-column chunks, carrying each row's exact winding from chunk
+//     to chunk (the TPU's "cheap plane" of left pieces becomes that
+//     carry): in a later chunk a piece scatters ramp(x) - ramp(x - 1)
+//     from the chunk's first column on, and a piece whose ramp completed
+//     left of the chunk adds nothing.  The band's rows come from the same
+//     shared-memory budget as the column tile, so the band is short (16
+//     rows at 3 layers and 256-column chunks, 2 at 16 layers).
+//   * compacted (B5): ops/transform.py compact_pre gathers, per (frame,
+//     column bin of `bin_w` columns, layer), the pieces crossing the bin
+//     in table order, already in device pixels, with their 64-slot chunk
+//     row bounds, and the 32.32 sum of dy of the pieces wholly left of the
+//     bin per row (the prefix plane).  A block owns `bins_per_block` bins
+//     of one row band in turn, with planes one bin wide: it seeds each
+//     row's first column with the prefix and walks only the bin's
+//     gathered pieces.
+//
 // Bound on this card: bytes for the output (one u32 a pixel) at the main
 // path's shapes.  The kernel's own cost is the resolve, the piece walk
 // (without the chunk bounds it was two thirds of the kernel: every tile
@@ -65,9 +90,9 @@ namespace swf {
 
 constexpr size_t kSweepSmemBudget = 100 * 1024;
 constexpr int kSweepMaxRows = 32;
-constexpr int kSweepRowStride = kLane + 1;   // long longs, bank-shifted
 constexpr int kSweepChunk = 64;              // pieces per row-bounds chunk
 constexpr int kSweepMaxHits = 1024;          // chunk list of one walk round
+constexpr int kRowChunk = 256;               // row-band kernel's column chunk
 
 struct SweepArgs {
   const float* mats;         // (F, 6) or (F, L, 6) device affines
@@ -90,29 +115,41 @@ struct SweepArgs {
   int n_chunks;              // ceil(ep / kSweepChunk)
   int rows;                  // tile rows
   int mats_per_layer, colors_per_frame, n_stop_slots;
+  // The compacted sweep's tables (compact_pre):
+  const float* ctab;         // (F, NB, L, 4, cap) gathered device pieces
+  const int* ccount;         // (F, NB, L) gathered pieces of each bin
+  const float* cbounds;      // (F, NB, L, cap / kSweepChunk, 2) row bounds
+  const long long* prefix;   // (F, L, NB, H) 32.32 dy of left pieces
+  int cap;                   // gathered slots per (frame, bin, layer)
+  int n_bins, bin_w, bins_per_block;
 };
 
 // Tile rows: the most (a power of two, at most kSweepMaxRows) whose layer
-// accumulators fit the shared-memory budget.
-__host__ __device__ inline int sweep_tile_rows(int layers) {
+// accumulators of tile_w + 1 columns fit the shared-memory budget.
+__host__ __device__ inline int sweep_tile_rows(int layers,
+                                               int tile_w = kLane) {
   int rows = kSweepMaxRows;
-  while (rows > 1 && static_cast<size_t>(layers) * rows * kSweepRowStride * 8
+  while (rows > 1 && static_cast<size_t>(layers) * rows * (tile_w + 1) * 8
                          > kSweepSmemBudget) {
     rows /= 2;
   }
   return rows;
 }
 
-__host__ __device__ inline size_t sweep_plane_bytes(int layers, int rows) {
-  return align16(static_cast<size_t>(layers) * rows * kSweepRowStride * 8);
+__host__ __device__ inline size_t sweep_plane_bytes(int layers, int rows,
+                                                    int tile_w = kLane) {
+  return align16(static_cast<size_t>(layers) * rows * (tile_w + 1) * 8);
 }
 
-// Shared-memory carve-up: accumulators, colours, matrices, rules with the
-// tile's touched flag and the hit count, the hit list, then (styled) the
-// paint records.
+// Shared-memory carve-up: accumulators (rows bank-shifted to tile_w + 1
+// long longs), colours, matrices, rules with the tile's touched flag and
+// the hit count, the hit list, then (styled) the paint records, then (row
+// bands) each row's carried winding.
 __host__ __device__ inline size_t sweep_smem_bytes(int layers, int rows,
-                                                   bool styled) {
-  size_t n = sweep_plane_bytes(layers, rows);
+                                                   bool styled,
+                                                   int tile_w = kLane,
+                                                   bool carry = false) {
+  size_t n = sweep_plane_bytes(layers, rows, tile_w);
   n += align16(static_cast<size_t>(layers) * 4 * 4);   // colours
   n += align16(static_cast<size_t>(layers) * 6 * 4);   // matrices
   n += align16(static_cast<size_t>(layers + 2) * 4);   // rules, flags
@@ -121,7 +158,47 @@ __host__ __device__ inline size_t sweep_smem_bytes(int layers, int rows,
     n += align16(static_cast<size_t>(layers) * kPintStride * 4);
     n += align16(static_cast<size_t>(layers) * kPfltStride * 4);
   }
+  if (carry) n += align16(static_cast<size_t>(layers) * rows * 8);
   return n;
+}
+
+struct SweepShared {
+  long long* plane;   // (L, rows, tile_w + 1) accumulators
+  float* col;         // (L, 4) this frame's colours
+  float* mat;         // (L, 6) this frame's matrices
+  int* rule;          // (L,)
+  int* touched;       // set when a piece or a seed lands in the tile
+  int* n_hits;
+  int* hits;          // (kSweepMaxHits,) hit (layer, chunk) pairs
+  int* pint;          // styled: (L, kPintStride)
+  float* pflt;        // styled: (L, kPfltStride)
+  long long* carry;   // row bands: (L, rows) winding carried across chunks
+};
+
+__device__ inline SweepShared sweep_carve(unsigned char* smem, int layers,
+                                          int rows, int tile_w, bool styled,
+                                          bool carry) {
+  SweepShared s{};
+  s.plane = reinterpret_cast<long long*>(smem);
+  size_t off = sweep_plane_bytes(layers, rows, tile_w);
+  s.col = reinterpret_cast<float*>(smem + off);
+  off += align16(static_cast<size_t>(layers) * 4 * 4);
+  s.mat = reinterpret_cast<float*>(smem + off);
+  off += align16(static_cast<size_t>(layers) * 6 * 4);
+  s.rule = reinterpret_cast<int*>(smem + off);
+  s.touched = s.rule + layers;
+  s.n_hits = s.touched + 1;
+  off += align16(static_cast<size_t>(layers + 2) * 4);
+  s.hits = reinterpret_cast<int*>(smem + off);
+  off += align16(static_cast<size_t>(kSweepMaxHits) * 4);
+  if (styled) {
+    s.pint = reinterpret_cast<int*>(smem + off);
+    off += align16(static_cast<size_t>(layers) * kPintStride * 4);
+    s.pflt = reinterpret_cast<float*>(smem + off);
+    off += align16(static_cast<size_t>(layers) * kPfltStride * 4);
+  }
+  if (carry) s.carry = reinterpret_cast<long long*>(smem + off);
+  return s;
 }
 
 // Antiderivative of clamp(x, 0, 1) (coverage.py _h01).
@@ -162,12 +239,18 @@ __device__ __forceinline__ void device_piece(
 
 // Scatter one device-space piece into a tile: for each of the <= 2 rows
 // it touches that lie in the tile, the differences ramp(x) - ramp(x - 1)
-// over the columns it crosses, ending with the step to dy (at the tile's
-// first column when the piece lies left of it), in 32.32 fixed point.
-// ``plane`` is the layer's accumulator; rows [r0, r1), columns [c0, c1).
+// over the columns it crosses, ending with the step to dy, in 32.32 fixed
+// point.  ``lplane`` is the layer's accumulator (rows ``stride`` long
+// longs apart); rows [r0, r1), columns [c0, c1).  Without ``carry`` the
+// tile's first column takes the piece's whole value there (a piece left
+// of the tile adds dy); with ``carry`` (a later chunk of a row band, whose
+// first column already holds the winding of column c0 - 1) it takes
+// ramp(c0) - ramp(c0 - 1), and a piece whose ramp completed before column
+// c0 - 1 adds nothing.
 __device__ __forceinline__ void scatter_piece(
     float x0, float y0, float x1, float y1, int r0, int c0, float r0f,
-    float r1f, float c0f, float c1f, long long* lplane, int* touched_s) {
+    float r1f, float c0f, float c1f, bool carry, long long* lplane,
+    int stride, int* touched_s) {
   const float rowbase = floorf(fminf(y0, y1));
   for (int k = 0; k < 2; ++k) {
     const float py = rowbase + static_cast<float>(k);
@@ -190,17 +273,12 @@ __device__ __forceinline__ void scatter_piece(
     const float lo = floorf(xmn);
     const float hi = ceilf(xmx);
     if (lo >= c1f) continue;    // the ramp starts right of the tile
+    if (carry && hi <= c0f - 1.0f) continue;   // complete before c0 - 1
     const float span = xmx - xmn;
     const bool thin = span < 1e-9f;
     const float safe_span = thin ? 1.0f : span;
-    const int xs = static_cast<int>(fmaxf(lo, c0f));
-    const int xe = static_cast<int>(
-        fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
-    long long* row = lplane + (static_cast<int>(py) - r0) * kSweepRowStride;
-    *touched_s = 1;
-    long long prev = 0;
-    for (int x = xs; x <= xe; ++x) {
-      const float px = static_cast<float>(x);
+    // The piece's value at pixel column px.
+    auto value = [&](float px) {
       float v = dy;
       if (px < hi) {
         const float rel_mn = xmn - px;
@@ -210,7 +288,16 @@ __device__ __forceinline__ void scatter_piece(
             : (h01(rel_mx) - h01(rel_mn)) / safe_span;
         v = dy * (1.0f - mean);
       }
-      const long long q = to_fixed(v);
+      return v;
+    };
+    const int xs = static_cast<int>(fmaxf(lo, c0f));
+    const int xe = static_cast<int>(
+        fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
+    long long* row = lplane + (static_cast<int>(py) - r0) * stride;
+    *touched_s = 1;
+    long long prev = (carry && lo < c0f) ? to_fixed(value(c0f - 1.0f)) : 0;
+    for (int x = xs; x <= xe; ++x) {
+      const long long q = to_fixed(value(static_cast<float>(x)));
       atomicAdd(reinterpret_cast<unsigned long long*>(&row[x - c0]),
                 static_cast<unsigned long long>(q - prev));
       prev = q;
@@ -267,64 +354,35 @@ __device__ void sweep_bounds_block(const SweepArgs& a, float* red) {
   }
 }
 
-// One block: a tile of kLane columns x a.rows rows of frame blockIdx.z.
+// Frame f's colours, matrices, rules and (styled) paint records into
+// shared memory; clears the touched flag.  Ends synchronised.
 template <bool kMorph, bool kAffine, bool kStyled>
-__device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
+__device__ void sweep_setup(const SweepArgs& a, const SweepShared& s, int f,
+                            float t, float omt) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int c0 = blockIdx.x * kLane;
-  const int r0 = blockIdx.y * a.rows;
-  const int f = blockIdx.z;
   const int L = a.layers;
-  const int R = a.rows;
-  const int c1 = min(c0 + kLane, a.width);    // tile columns [c0, c1)
-  const int r1 = min(r0 + R, a.height);       // tile rows [r0, r1)
-
-  long long* plane = reinterpret_cast<long long*>(smem);
-  size_t off = sweep_plane_bytes(L, R);
-  float* col_s = reinterpret_cast<float*>(smem + off);
-  off += align16(static_cast<size_t>(L) * 4 * 4);
-  float* mat_s = reinterpret_cast<float*>(smem + off);
-  off += align16(static_cast<size_t>(L) * 6 * 4);
-  int* rule_s = reinterpret_cast<int*>(smem + off);
-  int* touched_s = rule_s + L;   // set when a piece lands in the tile
-  int* n_hits_s = touched_s + 1;
-  off += align16(static_cast<size_t>(L + 2) * 4);
-  int* hits_s = reinterpret_cast<int*>(smem + off);
-  off += align16(static_cast<size_t>(kSweepMaxHits) * 4);
-  int* pint_s = nullptr;
-  float* pflt_s = nullptr;
-  if (kStyled) {
-    pint_s = reinterpret_cast<int*>(smem + off);
-    off += align16(static_cast<size_t>(L) * kPintStride * 4);
-    pflt_s = reinterpret_cast<float*>(smem + off);
-  }
-
-  const float t = kMorph ? a.ratios[f] : 0.0f;
-  const float omt = 1.0f - t;
-
-  for (int i = tid; i < L * R * kSweepRowStride; i += nthr) plane[i] = 0;
   for (int i = tid; i < L * 4; i += nthr) {
     if (kMorph) {
-      col_s[i] = omt * a.colors[i] + t * a.colors_e[i];
+      s.col[i] = omt * a.colors[i] + t * a.colors_e[i];
     } else if (a.colors_per_frame) {
-      col_s[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
+      s.col[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
     } else {
-      col_s[i] = a.colors[i];
+      s.col[i] = a.colors[i];
     }
   }
   if (kAffine) {
     for (int i = tid; i < L * 6; i += nthr) {
-      mat_s[i] = a.mats_per_layer
+      s.mat[i] = a.mats_per_layer
           ? a.mats[static_cast<long long>(f) * L * 6 + i]
           : a.mats[static_cast<long long>(f) * 6 + i % 6];
     }
   }
-  for (int i = tid; i < L; i += nthr) rule_s[i] = a.rules[i];
-  if (tid == 0) *touched_s = 0;
+  for (int i = tid; i < L; i += nthr) s.rule[i] = a.rules[i];
+  if (tid == 0) *s.touched = 0;
   if (kStyled) {
-    for (int i = tid; i < L * kPintStride; i += nthr) pint_s[i] = a.pint[i];
-    for (int i = tid; i < L * kPfltStride; i += nthr) pflt_s[i] = a.pflt[i];
+    for (int i = tid; i < L * kPintStride; i += nthr) s.pint[i] = a.pint[i];
+    for (int i = tid; i < L * kPfltStride; i += nthr) s.pflt[i] = a.pflt[i];
   }
   __syncthreads();
   if (kStyled) {
@@ -332,13 +390,13 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
     // gradient matrix and, with per-frame stops, the first stop and the
     // colour steps (f32 differences, as the reference takes them).
     for (int l = tid; l < L; l += nthr) {
-      const int kind = pint_s[l * kPintStride];
+      const int kind = s.pint[l * kPintStride];
       if (kind != kPaintLinear && kind != kPaintFocal) continue;
-      float* P = pflt_s + l * kPfltStride;
+      float* P = s.pflt + l * kPfltStride;
       const float* gm = a.grad_mats + (static_cast<long long>(f) * L + l) * 6;
       for (int k = 0; k < 6; ++k) P[kPInv + k] = gm[k];
       if (a.stop_colors != nullptr) {
-        const int n_stops = pint_s[l * kPintStride + 2];
+        const int n_stops = s.pint[l * kPintStride + 2];
         const float* sc = a.stop_colors
             + (static_cast<long long>(f) * L + l) * a.n_stop_slots * 4;
         for (int ch = 0; ch < 4; ++ch) P[kPC0 + ch] = sc[ch];
@@ -351,79 +409,110 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
     }
     __syncthreads();
   }
+}
 
-  // Placement: ramp differences of every piece that reaches the tile.
+// The piece walk of one tile: rows [r0, r1), columns [c0, c1) of frame f.
+// A chunk's pieces can land in the tile's rows only when some row base
+// lies in [r0 - 1, r1 - 1].  In rounds of kSweepMaxHits (layer, chunk)
+// pairs: every thread tests pairs and lists the hits, then kSweepChunk
+// threads take a listed chunk together.  kCompact reads bin ``bin``'s
+// gathered device-space pieces and chunk bounds; otherwise the layers'
+// local pieces go through device_piece and the pre-pass's bounds.
+template <bool kMorph, bool kAffine, bool kCompact>
+__device__ void sweep_walk(const SweepArgs& a, const SweepShared& s, int f,
+                           int bin, float t, float omt, int stride, int r0,
+                           int r1, int c0, int c1, bool carry) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int L = a.layers;
+  const int R = a.rows;
   const float c0f = static_cast<float>(c0);
   const float c1f = static_cast<float>(c1);
   const float r0f = static_cast<float>(r0);
   const float r1f = static_cast<float>(r1);
-  // A chunk's pieces can land in the tile's rows only when some row base
-  // lies in [r0 - 1, r1 - 1].  In rounds of kSweepMaxHits (layer, chunk)
-  // pairs: every thread tests pairs and lists the hits, then kSweepChunk
-  // threads take a listed chunk together.
-  const float* bounds =
-      a.bounds + static_cast<long long>(f) * L * a.n_chunks * 2;
-  const int n_pairs = L * a.n_chunks;
+  const long long fb =
+      (static_cast<long long>(f) * a.n_bins + bin) * L;   // compacted only
+  const int n_chunks = kCompact ? a.cap / kSweepChunk : a.n_chunks;
+  const float* bounds = kCompact
+      ? a.cbounds + fb * n_chunks * 2
+      : a.bounds + static_cast<long long>(f) * L * n_chunks * 2;
+  const int n_pairs = L * n_chunks;
   for (int base = 0; base < n_pairs; base += kSweepMaxHits) {
-    if (tid == 0) *n_hits_s = 0;
+    if (tid == 0) *s.n_hits = 0;
     __syncthreads();
     for (int pair = base + tid; pair < min(base + kSweepMaxHits, n_pairs);
          pair += nthr) {
       // (a chunk past its layer's count has the empty bounds +-3e38)
       if (bounds[2 * pair + 1] >= r0f - 1.0f && bounds[2 * pair] < r1f) {
-        hits_s[atomicAdd(n_hits_s, 1)] = pair;
+        s.hits[atomicAdd(s.n_hits, 1)] = pair;
       }
     }
     __syncthreads();
-    const int n_hits = *n_hits_s;
+    const int n_hits = *s.n_hits;
     for (int h = tid / kSweepChunk; h < n_hits; h += nthr / kSweepChunk) {
-      const int l = hits_s[h] / a.n_chunks;
-      const int p = (hits_s[h] % a.n_chunks) * kSweepChunk
+      const int l = s.hits[h] / n_chunks;
+      const int p = (s.hits[h] % n_chunks) * kSweepChunk
           + tid % kSweepChunk;
-      if (p >= min(a.counts[l], a.ep)) continue;
       float x0, y0, x1, y1;
-      device_piece<kMorph, kAffine>(
-          a.tab_s + static_cast<long long>(l) * 4 * a.ep,
-          kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep : nullptr,
-          a.ep, p, t, omt, mat_s + l * 6, x0, y0, x1, y1);
-      scatter_piece(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f,
-                    plane + static_cast<long long>(l) * R * kSweepRowStride,
-                    touched_s);
+      if (kCompact) {
+        if (p >= a.ccount[fb + l]) continue;
+        const float* src = a.ctab + (fb + l) * 4 * a.cap;
+        x0 = src[p];
+        y0 = src[a.cap + p];
+        x1 = src[2 * a.cap + p];
+        y1 = src[3 * a.cap + p];
+      } else {
+        if (p >= min(a.counts[l], a.ep)) continue;
+        device_piece<kMorph, kAffine>(
+            a.tab_s + static_cast<long long>(l) * 4 * a.ep,
+            kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep
+                   : nullptr,
+            a.ep, p, t, omt, s.mat + l * 6, x0, y0, x1, y1);
+      }
+      scatter_piece(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f, carry,
+                    s.plane + static_cast<long long>(l) * R * stride, stride,
+                    s.touched);
     }
     __syncthreads();   // the next round rewrites the list
   }
-  __syncthreads();
+}
 
-  const int tile_w = c1 - c0;
-  const int tile_h = r1 - r0;
-  if (*touched_s == 0) {
-    // No piece reaches this tile: every winding is 0, every pixel
-    // transparent black (what the resolve below would compute).
-    for (int p = tid; p < tile_h * kLane; p += nthr) {
-      const int c = p % kLane;
-      if (c < tile_w) {
-        a.out[(static_cast<long long>(f) * a.height + r0 + p / kLane)
-              * a.width + c0 + c] = 0;
-      }
-    }
-    return;
+// Transparent black for a tile no piece reached (every winding 0).
+__device__ void sweep_zero_tile(const SweepArgs& a, int f, int r0,
+                                int tile_h, int c0, int tile_w) {
+  for (int p = threadIdx.x; p < tile_h * tile_w; p += blockDim.x) {
+    a.out[(static_cast<long long>(f) * a.height + r0 + p / tile_w)
+          * a.width + c0 + p % tile_w] = 0;
   }
+}
 
-  // Row prefix (exact integer sums): every pixel's winding, fixed point.
-  for (int r = tid; r < L * R; r += nthr) {
-    long long* p = plane + static_cast<long long>(r) * kSweepRowStride;
+// Row prefix (exact integer sums): every pixel's winding, fixed point.
+// Rows are ``stride`` long longs apart and hold stride - 1 columns.
+__device__ void sweep_row_prefix(long long* plane, int n_rows, int stride) {
+  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
+    long long* p = plane + static_cast<long long>(r) * stride;
     long long acc = 0;
-    for (int c = 0; c < kLane; ++c) {
+    for (int c = 0; c < stride - 1; ++c) {
       acc += p[c];
       p[c] = acc;
     }
   }
-  __syncthreads();
+}
 
-  // Resolve: fill rule, paints, composite, quantize, pack.
-  for (int p = tid; p < tile_h * kLane; p += nthr) {
-    const int r = p / kLane;
-    const int c = p % kLane;
+// Fill rule, paints, composite, quantize, pack of a tile's pixels: rows
+// [r0, r0 + tile_h), columns [c0, c0 + tile_w) of frame f, planes of
+// stride - 1 columns (a constant in the column and row-band kernels, so
+// the index arithmetic folds).  Overwrites the winding slots.
+template <bool kStyled>
+__device__ void sweep_resolve(const SweepArgs& a, const SweepShared& s,
+                              int f, int stride, int r0, int tile_h, int c0,
+                              int tile_w) {
+  const int L = a.layers;
+  const int R = a.rows;
+  const int span = stride - 1;
+  for (int p = threadIdx.x; p < tile_h * span; p += blockDim.x) {
+    const int r = p / span;
+    const int c = p % span;
     if (c >= tile_w) continue;
     const int x = c0 + c;
     const int y = r0 + r;
@@ -440,15 +529,15 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
     float suffix = 1.0f;
     for (int l = L - 1; l >= 0; --l) {
       long long* slot =
-          plane + (static_cast<long long>(l) * R + r) * kSweepRowStride + c;
-      const float cov = fill_cov(from_fixed(*slot), rule_s[l]);
-      float alpha = col_s[4 * l + 3];
+          s.plane + (static_cast<long long>(l) * R + r) * stride + c;
+      const float cov = fill_cov(from_fixed(*slot), s.rule[l]);
+      float alpha = s.col[4 * l + 3];
       float t = 0.0f;
       // An uncovered pixel-layer weighs exactly 0 whatever its paint:
       // skip the gradient solve and the field read there.
       if (kStyled && cov != 0.0f) {
-        const int* I = pint_s + l * kPintStride;
-        const float* P = pflt_s + l * kPfltStride;
+        const int* I = s.pint + l * kPintStride;
+        const float* P = s.pflt + l * kPfltStride;
         if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
           t = grad_t(P, I, px, py);
           alpha = grad_ramp(P, I[2], t, 3);
@@ -473,17 +562,17 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
     float pm[3] = {0.0f, 0.0f, 0.0f};
     for (int l = 0; l < L; ++l) {
       const float* in2 = reinterpret_cast<const float*>(
-          plane + (static_cast<long long>(l) * R + r) * kSweepRowStride + c);
+          s.plane + (static_cast<long long>(l) * R + r) * stride + c);
       const float wgt = in2[0];
       alpha_out = (l == 0) ? wgt : alpha_out + wgt;
-      const int* I = pint_s + l * kPintStride;
-      const float* P = pflt_s + l * kPfltStride;
+      const int* I = s.pint + l * kPintStride;
+      const float* P = s.pflt + l * kPfltStride;
       // A layer of weight 0 (uncovered, transparent or hidden) adds
       // exactly 0 whatever its colour.
       const bool painted = kStyled && wgt != 0.0f;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        float color = col_s[4 * l + ch];
+        float color = s.col[4 * l + ch];
         if (painted) {
           if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
             color = grad_ramp(P, I[2], in2[1], ch);
@@ -498,6 +587,152 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
     }
     const uint32_t packed = quantize_pack(alpha_out, pm);
     a.out[pix] = static_cast<int>(packed);
+  }
+}
+
+// Column tiling (B3, B6, B7): a tile of kLane columns x a.rows rows of
+// frame blockIdx.z.
+template <bool kMorph, bool kAffine, bool kStyled>
+__device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int c0 = blockIdx.x * kLane;
+  const int r0 = blockIdx.y * a.rows;
+  const int f = blockIdx.z;
+  const int R = a.rows;
+  const int stride = kLane + 1;
+  const int c1 = min(c0 + kLane, a.width);    // tile columns [c0, c1)
+  const int r1 = min(r0 + R, a.height);       // tile rows [r0, r1)
+  const SweepShared s = sweep_carve(smem, a.layers, R, kLane, kStyled,
+                                    false);
+  const int* touched_s = s.touched;
+  const float t = kMorph ? a.ratios[f] : 0.0f;
+  const float omt = 1.0f - t;
+
+  for (int i = tid; i < a.layers * R * stride; i += nthr) s.plane[i] = 0;
+  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);
+
+  // Placement: ramp differences of every piece that reaches the tile.
+  sweep_walk<kMorph, kAffine, false>(a, s, f, 0, t, omt, stride, r0, r1, c0,
+                                     c1, false);
+  __syncthreads();
+
+  const int tile_w = c1 - c0;
+  const int tile_h = r1 - r0;
+  if (*touched_s == 0) {
+    sweep_zero_tile(a, f, r0, tile_h, c0, tile_w);
+    return;
+  }
+  sweep_row_prefix(s.plane, a.layers * R, stride);
+  __syncthreads();
+
+  // Resolve: fill rule, paints, composite, quantize, pack.
+  sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, tile_w);
+}
+
+// Row-band tiling (B4): a.rows rows of frame blockIdx.z across the whole
+// width, in chunks of kRowChunk columns; each row's winding at a chunk's
+// last column seeds the next chunk's first column.
+template <bool kMorph, bool kAffine, bool kStyled>
+__device__ void sweep_rows_block(const SweepArgs& a, unsigned char* smem) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int L = a.layers;
+  const int R = a.rows;
+  const int stride = kRowChunk + 1;
+  const int r0 = blockIdx.y * R;
+  const int f = blockIdx.z;
+  const int r1 = min(r0 + R, a.height);
+  const int tile_h = r1 - r0;
+  const SweepShared s = sweep_carve(smem, L, R, kRowChunk, kStyled, true);
+  const float t = kMorph ? a.ratios[f] : 0.0f;
+  const float omt = 1.0f - t;
+
+  for (int i = tid; i < L * R; i += nthr) s.carry[i] = 0;
+  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);
+  for (int c0 = 0; c0 < a.width; c0 += kRowChunk) {
+    const int c1 = min(c0 + kRowChunk, a.width);
+    __syncthreads();   // the previous chunk's resolve has read the planes
+    if (tid == 0) *s.touched = 0;
+    for (int i = tid; i < L * R * stride; i += nthr) s.plane[i] = 0;
+    __syncthreads();
+    if (c0 > 0) {
+      for (int i = tid; i < L * tile_h; i += nthr) {
+        const int l = i / tile_h;
+        const int r = i % tile_h;
+        const long long q = s.carry[l * R + r];
+        if (q != 0) {
+          s.plane[(static_cast<long long>(l) * R + r) * stride] = q;
+          *s.touched = 1;
+        }
+      }
+    }
+    sweep_walk<kMorph, kAffine, false>(a, s, f, 0, t, omt, stride, r0, r1,
+                                       c0, c1, c0 > 0);
+    __syncthreads();
+    // Untouched: every winding of the chunk is 0, and so is the carry.
+    if (*s.touched == 0) {
+      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);
+      continue;
+    }
+    sweep_row_prefix(s.plane, L * R, stride);
+    __syncthreads();
+    for (int i = tid; i < L * R; i += nthr) {
+      s.carry[i] = s.plane[static_cast<long long>(i) * stride + stride - 2];
+    }
+    __syncthreads();
+    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);
+  }
+}
+
+// Compacted tiling (B5): bins blockIdx.x * bins_per_block + k of
+// a.bin_w columns, a.rows rows of frame blockIdx.z; each row starts from
+// the prefix plane's dy of the pieces wholly left of the bin, and the
+// walk reads only the bin's gathered pieces (already in device space).
+// The planes are a bin wide (the width is a run-time value).
+template <bool kStyled>
+__device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int L = a.layers;
+  const int R = a.rows;
+  const int stride = a.bin_w + 1;
+  const int r0 = blockIdx.y * R;
+  const int f = blockIdx.z;
+  const int r1 = min(r0 + R, a.height);
+  const int tile_h = r1 - r0;
+  const SweepShared s = sweep_carve(smem, L, R, a.bin_w, kStyled, false);
+
+  sweep_setup<false, false, kStyled>(a, s, f, 0.0f, 1.0f);
+  for (int k = 0; k < a.bins_per_block; ++k) {
+    const int bin = blockIdx.x * a.bins_per_block + k;
+    if (bin >= a.n_bins) break;   // the same for every thread
+    const int c0 = bin * a.bin_w;
+    const int c1 = min(c0 + a.bin_w, a.width);
+    __syncthreads();   // the previous bin's resolve has read the planes
+    if (tid == 0) *s.touched = 0;
+    for (int i = tid; i < L * R * stride; i += nthr) s.plane[i] = 0;
+    __syncthreads();
+    for (int i = tid; i < L * tile_h; i += nthr) {
+      const int l = i / tile_h;
+      const int r = i % tile_h;
+      const long long q = a.prefix[((static_cast<long long>(f) * L + l)
+                                    * a.n_bins + bin) * a.height + r0 + r];
+      if (q != 0) {
+        s.plane[(static_cast<long long>(l) * R + r) * stride] = q;
+        *s.touched = 1;
+      }
+    }
+    sweep_walk<false, false, true>(a, s, f, bin, 0.0f, 1.0f, stride, r0, r1,
+                                   c0, c1, false);
+    __syncthreads();
+    if (*s.touched == 0) {
+      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);
+      continue;
+    }
+    sweep_row_prefix(s.plane, L * R, stride);
+    __syncthreads();
+    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);
   }
 }
 

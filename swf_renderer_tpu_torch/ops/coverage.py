@@ -23,6 +23,11 @@ PyTorch version (the CPU route, and the yardstick on the card):
 ``coverage`` dispatches like the reference: B9 while the padded edge
 count is at most ``SMEM_EDGE_CAP``, else B10; on a CUDA tensor it
 launches the kernel, on a CPU tensor it runs that kernel's plain version.
+
+A third formulation, ``coverage_grouped`` (B11), has no route of the
+renderer, as in the reference (which calls it only from a benchmark
+tool): the tiled kernel's 128-edge blocks, walked by 8-row strips in
+8-edge groups with reciprocals in place of the divisions.
 ``coverage_plain`` is the reference's XLA formulation (one scan over the
 edges in table order).
 """
@@ -40,7 +45,9 @@ FILL_RULE_EVENODD = 1
 
 TILE_H = 16
 TILE_W = 128
-EDGE_BLOCK = 128          # edges per block of the tiled kernel
+EDGE_BLOCK = 128          # edges per block of the tiled and grouped kernels
+STRIP_H = 8               # pixel rows per strip of the grouped kernel
+GROUP = 8                 # edges summed together by the grouped kernel
 MAX_EDGE_EXTENT = 64.0    # px; geometry.split_edges_y's default bound
 SMEM_EDGE_CAP = 2048      # most edges the banded kernel takes
 PAD_KEY = 3.0e38          # sort key of a padding (all-zero) edge
@@ -281,13 +288,14 @@ def banded_plain(edges_sorted: torch.Tensor, ranges: torch.Tensor,
 
 def _launch_coverage(kind: str, edges_sorted, table, height, width,
                      fill_rule):
-    """Launch ``swf_coverage_banded`` / ``swf_coverage_tiled``
+    """Launch ``swf_coverage_banded`` / ``_tiled`` / ``_grouped``
     (csrc/coverage.cu) on the tensors' card.  Raises if the library does
     not build or the launch is refused."""
     from . import cuda_lib
 
     b, _, num_edges = edges_sorted.shape
-    if b > 65535 or -(-height // TILE_H) > 65535:
+    rows = STRIP_H if kind == "grouped" else TILE_H
+    if b > 65535 or -(-height // rows) > 65535:
         raise ValueError(f"{b} planes of {height} rows exceed the grid")
     out = torch.empty((b, height, width), dtype=torch.float32,
                       device=edges_sorted.device)
@@ -450,6 +458,132 @@ def coverage_tiled(edges_t, height: int, width: int,
 
 
 coverage_tiled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B11: grouped coverage over 128-edge blocks, 8-row strips, 8-edge groups
+# ---------------------------------------------------------------------------
+
+
+def grouped_row_terms(edges, py):
+    """The grouped kernel's per-(edge, row) terms: (dy, xmn, xmx,
+    inv_span) of edges (..., 4 rows of coordinates along dim 0 as x0,
+    y0, x1, y1) in pixel row ``py``, through the reciprocals the
+    reference multiplies by (``coverage.py:440-466``): ``inv_dyd = 1 /
+    safe_dyd``, then ``t = (cy - sy0) * inv_dyd``; ``inv_span = 1 /
+    (span < 1e-9 ? 1 : span)``."""
+    x0, y0, x1, y1 = edges
+    dyd = y1 - y0
+    safe_dyd = torch.where(torch.abs(dyd) < 1e-9, torch.ones_like(dyd), dyd)
+    inv_dyd = true_div(1.0, safe_dyd)
+    dx_seg = x1 - x0
+    sy0 = y0 - py
+    sy1 = y1 - py
+    cy0 = torch.clamp(sy0, 0.0, 1.0)
+    cy1 = torch.clamp(sy1, 0.0, 1.0)
+    dy = cy1 - cy0
+    t0 = (cy0 - sy0) * inv_dyd
+    t1 = (cy1 - sy0) * inv_dyd
+    xa = x0 + t0 * dx_seg
+    xb = x0 + t1 * dx_seg
+    xmn = torch.minimum(xa, xb)
+    xmx = torch.maximum(xa, xb)
+    span = xmx - xmn
+    inv_span = true_div(1.0, torch.where(span < 1e-9, torch.ones_like(span),
+                                         span))
+    return dy, xmn, xmx, span, inv_span
+
+
+def grouped_contribution(dy, xmn, xmx, span, inv_span, px):
+    """The grouped kernel's per-pixel body: ``dy * (1 - mean)`` with the
+    mean of the clamped ramp times ``inv_span``."""
+    rel_mn = xmn - px
+    rel_mx = xmx - px
+    mean = torch.where(span < 1e-9,
+                       torch.clamp(0.5 * (rel_mn + rel_mx), 0.0, 1.0),
+                       (_h01(rel_mx) - _h01(rel_mn)) * inv_span)
+    return dy * (1.0 - mean)
+
+
+def grouped_plain(edges_sorted: torch.Tensor, bounds: torch.Tensor,
+                  height: int, width: int,
+                  fill_rule: int = FILL_RULE_NONZERO) -> torch.Tensor:
+    """Plain PyTorch version of the grouped kernel: for every 128-edge
+    block whose bounds reach an 8-row strip, the block's partial (16
+    groups of 8 edges, each group summed ``((c0 + c1) + (c2 + c3)) + ((c4
+    + c5) + (c6 + c7))`` and added to the partial in turn) is added to the
+    strip's running sum; then the fill rule.  -> (B, H, W)."""
+    b, _, num_edges = edges_sorted.shape
+    dev = edges_sorted.device
+    nb = num_edges // EDGE_BLOCK
+    ty_count = -(-height // STRIP_H)
+    strip_y0 = torch.arange(ty_count, dtype=torch.float32,
+                            device=dev) * STRIP_H
+    hit = ((bounds[..., 1, None] > strip_y0) &
+           (bounds[..., 0, None] < strip_y0 + STRIP_H)).cpu()  # (B, NB, TY)
+    px = torch.arange(width, dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, ty_count * STRIP_H, width), dtype=torch.float32,
+                      device=dev)
+    rows_step = max(STRIP_H, _PLAIN_CHUNK // (EDGE_BLOCK * width)
+                    // STRIP_H * STRIP_H)
+    for p in range(b):
+        for j in range(nb):
+            tys = hit[p, j].nonzero()
+            if tys.numel() == 0:
+                continue
+            r_lo = int(tys.min()) * STRIP_H
+            r_hi = (int(tys.max()) + 1) * STRIP_H
+            edges = edges_sorted[p, :, j * EDGE_BLOCK:(j + 1) * EDGE_BLOCK,
+                                 None, None]              # (4, 128, 1, 1)
+            for r0 in range(r_lo, r_hi, rows_step):
+                r1 = min(r_hi, r0 + rows_step)
+                py = torch.arange(r0, r1, dtype=torch.float32,
+                                  device=dev)[:, None]
+                c = grouped_contribution(*grouped_row_terms(edges, py), px)
+                c = c.view(EDGE_BLOCK // GROUP, GROUP, r1 - r0, width)
+                groups = (((c[:, 0] + c[:, 1]) + (c[:, 2] + c[:, 3]))
+                          + ((c[:, 4] + c[:, 5]) + (c[:, 6] + c[:, 7])))
+                blk = torch.zeros((r1 - r0, width), dtype=torch.float32,
+                                  device=dev)
+                for g in range(EDGE_BLOCK // GROUP):
+                    blk = blk + groups[g]
+                acc[p, r0:r1] = acc[p, r0:r1] + blk
+    return apply_fill_rule(acc[:, :height], fill_rule)
+
+
+def coverage_grouped(edges_t, height: int, width: int,
+                     fill_rule: int = FILL_RULE_NONZERO,
+                     device=None) -> torch.Tensor:
+    """Grouped coverage: (B, 4, E) edges, E a multiple of 128, -> (B, H,
+    W) f32 coverage on the edges' device (as ``coverage_banded``).
+
+    Kernel: replaces ``_grouped_kernel`` (swf_renderer_tpu/ops/
+    coverage.py:404, wrapper ``coverage_grouped`` :486).  Edges sorted by
+    ymin in 128-edge blocks with (ymin, ymax) bounds, as for the tiled
+    kernel; one block of 128 threads per (plane, 8-row strip, 128-column
+    tile) walks the blocks that reach its strip, stages each block's
+    per-(edge, row) terms in shared memory (computed once, not once a
+    column), and each thread sums its column's 8 rows in 8-edge groups,
+    then applies the fill rule.  On the CPU ``grouped_plain`` runs
+    instead."""
+    edges_t = _edges_tensor(edges_t, device)
+    _check_rule(fill_rule)
+    if edges_t.shape[-1] % EDGE_BLOCK:
+        raise ValueError(f"edge count {edges_t.shape[-1]} is not a multiple "
+                         f"of {EDGE_BLOCK}")
+    edges_sorted, key_sorted, pad_sorted = sort_edges(edges_t)
+    bounds = block_bounds(edges_sorted, key_sorted, pad_sorted)
+    if edges_t.device.type == "cpu":
+        return grouped_plain(edges_sorted, bounds, height, width, fill_rule)
+    if edges_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {edges_t.device}")
+    out = _launch_coverage("grouped", edges_sorted, bounds, height, width,
+                           fill_rule)
+    coverage_grouped.launches += 1
+    return out
+
+
+coverage_grouped.launches = 0
 
 
 def coverage(edges_t, height: int, width: int,

@@ -126,11 +126,16 @@ def load(name: str = "swfkernels"):
             elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
+                lib.swf_sweep_rows.restype = i
+                lib.swf_sweep_rows.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
+                lib.swf_sweep_compact.restype = i
+                lib.swf_sweep_compact.argtypes = [p] * 12 + [i] * 10 + [p]
             elif name == "swftexfield":
                 lib.swf_texfield.restype = i
                 lib.swf_texfield.argtypes = [p] * 4 + [i] * 9 + [p]
             elif name == "swfcoverage":
-                for fn in (lib.swf_coverage_banded, lib.swf_coverage_tiled):
+                for fn in (lib.swf_coverage_banded, lib.swf_coverage_tiled,
+                           lib.swf_coverage_grouped):
                     fn.restype = i
                     fn.argtypes = [p] * 3 + [i] * 5 + [p]
             elif name == "swfresolve":

@@ -24,7 +24,7 @@ from ..utils.device import resolve_device
 from .coverage import FILL_RULE_NONZERO, layer_rules, normalize_fill_rule
 from .flatblock import frames_u32_to_u8
 from .transform import (
-    _check_sweep, _pad_tables, _refuse_tilings, _run, _split_uniform,
+    _check_sweep, _pad_tables, _refuse_x_shift, _run, _split_uniform,
 )
 
 
@@ -73,7 +73,7 @@ def render_morph_sweep(ratios, tab_s, tab_e, colors_s, colors_e,
     f32 (morph_pieces); ``colors_s`` / ``colors_e``: (L, 4) f32.  Tensors
     run where they lie; host arrays (morph_pieces' output as it is) go to
     ``device`` — the card unless the caller passes ``"cpu"``."""
-    _refuse_tilings(None, None, x_shift)
+    _refuse_x_shift(x_shift)
     arrays = (ratios, tab_s, tab_e, colors_s, colors_e)
     if device is not None or not all(torch.is_tensor(x) for x in arrays):
         dev = resolve_device(device)

@@ -16,16 +16,30 @@ shape under a new matrix should cost one replay, not a new lowering:
   composite / premultiplied-u8 tail.
 
 ``render_affine_sweep`` and ``render_morph_affine_sweep`` launch the
-kernel for tensors on the card and take ``sweep_plain`` only for tensors
-on the CPU; their ``launches`` attributes count kernel launches.  Frames
-come out as (F, H, W) packed little-endian RGBA held in int32 (view with
-``ops.morph.morph_frames_to_u8``).
+kernel for tensors on the card and take the plain version only for
+tensors on the CPU; their ``launches`` attributes count kernel launches.
+Frames come out as (F, H, W) packed little-endian RGBA held in int32
+(view with ``ops.morph.morph_frames_to_u8``).
 
-Not taken over from the reference: its tiling knobs (``e_chunk``,
-``wblock``, ``blocks_per_step``, ``prefix_cheap``, ``prefilter``,
-``chunk_list``, ``skip_empty``, ``wchunk``, ``x_split``) and the sublane
-copies of the piece tables (``subxy``) are formulations for that
-machine's memories and matrix unit, not part of the function.
+Three tilings compute the same frames byte for byte (every pixel sums
+the same 32.32 fixed-point ramps):
+
+* the column tiling (default): a CUDA block per 128-column tile;
+* ``row_grid=True``: a block per band of rows across the full width,
+  carrying each row's winding from one 256-column chunk to the next
+  (``row_launches``; ``wchunk`` is checked as the reference's knob, but
+  the chunk cannot change a frame, so one width is compiled);
+* ``**plan_compact_sweep(...)`` (``compact_counts``, ``wblock``,
+  ``blocks_per_step``): ``compact_pre`` gathers, per (frame, column bin,
+  layer), the pieces that cross the bin and the fixed-point prefix of
+  those wholly left of it, and the kernel walks only those
+  (``compact_launches``; plain version ``sweep_compact_plain``).
+
+Not taken over from the reference: its other tiling knobs (``e_chunk``,
+``prefix_cheap``, ``prefilter``, ``chunk_list``, ``skip_empty``,
+``x_split``) and the sublane copies of the piece tables (``subxy``) are
+formulations for that machine's memories and matrix unit, not part of
+the function.
 """
 
 from __future__ import annotations
@@ -49,6 +63,9 @@ from .flatblock import (
 
 _GRADIENT_KINDS = (KPAINT_LINEAR, KPAINT_FOCAL)
 SWEEP_CHUNK = 64    # pieces per row-bounds chunk (csrc kSweepChunk)
+LANE = 128          # the reference's lane width (frame heights pad to it)
+ROW_CHUNKS = (128, 256)   # wchunk values taken (the kernel runs 256)
+MAX_BIN_W = 256     # widest column bin of the compacted tiling
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +210,80 @@ def layer_piece_counts(tab, multiple: int = 256) -> tuple:
         n = int(idx[-1]) + 1 if idx.size else 0
         counts.append(-(-n // multiple) * multiple)
     return tuple(counts)
+
+
+def _auto_bps(layers: int, hp: int, e_chunk: int, n_blocks: int) -> int:
+    """The reference's column blocks per grid step for its frame and
+    layer count (``transform.py:1261``): 4, 3 or 2 when they divide the
+    block count of a short, shallow frame, else 1.  Here: the column bins
+    one CUDA block of the compacted tiling walks in turn."""
+    if layers <= 4 and hp <= 1280 and e_chunk <= 256 and n_blocks >= 4:
+        cands = (4, 3, 2) if hp <= 640 else (3, 2)
+        for b in cands:
+            if n_blocks % b == 0:
+                return b
+    return 1
+
+
+def _wblock_for(width: int, hp: int, lists: bool = True) -> int:
+    """The reference's column-block width (``transform.py:1283``): 256
+    for short frames, 128 for tall ones, halved towards 64 until there
+    are 8 blocks (while the half stays a multiple of 8); tall frames with
+    the chunk-list walk (``lists``) take 64 outright."""
+    wp = -(-width // 8) * 8
+    wb = min(wp, 256 if hp <= 640 else 128)
+    while wb > 64 and wp // wb < 8 and (wb // 2) % 8 == 0:
+        wb //= 2
+    if lists and hp > 640 and wp // 64 >= 8:
+        wb = min(wb, 64)
+    return wb
+
+
+def plan_compact_sweep(matrices, tab, height, width, e_chunk: int = 256,
+                       wblock: int = None, blocks_per_step: int = None):
+    """Host plan of the compacted sweep (numpy f64, the reference's
+    ``plan_compact_sweep`` value for value): per layer, the most pieces
+    that cross one column block in any frame, with an epsilon wide enough
+    that the device's exact f32 test never finds more, rounded up to
+    ``e_chunk``.  -> {"compact_counts", "wblock", "blocks_per_step"} to
+    pass to ``render_affine_sweep``, or None when there is a single
+    column block or nothing crosses."""
+    t = np.asarray(tab, np.float64)  # (L, 4, 1, EP)
+    layers = t.shape[0]
+    per_layer = _per_layer_mats(matrices, layers)
+    hp = -(-height // LANE) * LANE
+    wp8 = -(-width // 8) * 8
+    wblock = wblock or _wblock_for(width, hp, lists=False)
+    bps = blocks_per_step or _auto_bps(
+        layers, hp, e_chunk, -(-wp8 // wblock))
+    wp = -(-wp8 // (wblock * bps)) * (wblock * bps)
+    nb = wp // wblock
+    if nb < 2:
+        return None
+    lo = (np.arange(nb, dtype=np.float64) * wblock)[:, None, None]
+    s_pads = []
+    for lyr in range(layers):
+        lm = per_layer[lyr]  # (F, 6) f64
+        x0l, y0l, x1l, y1l = t[lyr, :, 0]  # (EP,)
+        a, b, c, d, e, f = (lm[:, k:k + 1] for k in range(6))
+        x0 = a * x0l + c * y0l + e  # (F, EP)
+        y0 = b * x0l + d * y0l + f
+        x1 = a * x1l + c * y1l + e
+        y1 = b * x1l + d * y1l + f
+        pxmn = np.minimum(x0, x1)
+        pxmx = np.maximum(x0, x1)
+        # f32-vs-f64 transform divergence is ~|x| * 2^-22 worst case
+        # across the 4-op chain; 1e-2 + 1e-5|x| is orders wider.
+        eps = 1e-2 + 1e-5 * np.maximum(np.abs(pxmn), np.abs(pxmx))
+        live = y0 != y1
+        crossing = (live[None] & (pxmx[None] + eps[None] > lo)
+                    & (pxmn[None] - 1.0 - eps[None] < lo + wblock))
+        n = int(crossing.sum(axis=-1).max()) if crossing.size else 0
+        s_pads.append(-(-n // e_chunk) * e_chunk if n else 0)
+    if not any(s_pads):
+        return None
+    return {"compact_counts": tuple(s_pads), "wblock": wblock,
+            "blocks_per_step": bps}
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +438,152 @@ def bake_sweep_fields(field_specs, height: int, width: int,
 
 
 # ---------------------------------------------------------------------------
-# Device half: the plain version
+# Device half: the compacted sweep's pre-pass (plain torch on the device)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CompactTables:
+    """What ``compact_pre`` gathers for the compacted sweep kernel."""
+
+    tab: torch.Tensor       # (F, NB, L, 4, cap) f32 device-space pieces
+    counts: torch.Tensor    # (F, NB, L) int32 pieces gathered per bin
+    crossing: torch.Tensor  # (F, NB, L) int32 pieces crossing the bin
+    bounds: torch.Tensor    # (F, NB, L, cap / 64, 2) f32 chunk row bounds
+    prefix: torch.Tensor    # (F, L, NB, H) int64 32.32 dy of left pieces
+    bin_w: int
+
+    @property
+    def cap(self) -> int:
+        return self.tab.shape[-1]
+
+
+def _to_fixed(v):
+    """f32 -> 32.32 fixed point, half to even (the kernels' to_fixed)."""
+    return torch.round(v.double() * 2.0 ** 32).long()
+
+
+def compact_pre(matrices, tab, compact_counts, wblock: int, height: int,
+                width: int) -> CompactTables:
+    """The compacted sweep's pre-pass (counterpart of the reference's
+    XLA ``_compact_pre``, ``transform.py:287``), in plain PyTorch on the
+    tensors' device.
+
+    Per frame the pieces go to device pixels in the sweep kernel's own
+    operation order (op by op, no multiply-add contracts), so they are
+    bit for bit what the column kernel transforms.  Per column bin b of
+    ``wblock`` columns, [lo, lo + wblock) with lo = b * wblock:
+
+    * a live piece (y0 != y1) is LEFT of the bin when its extent ends at
+      or before lo (``pxmx <= lo``, the reference's test) and so do its
+      row spans ``xmn``/``xmx`` of the rows it touches (the kernel's own
+      values: x0 + t * dx may round an ulp past max(x0, x1));
+    * it is RIGHT of the bin when ``pxmn - 1 >= lo + wblock`` and its row
+      spans start there too; every other live piece CROSSES the bin;
+    * crossing pieces fill the bin's slots of ``compact_counts[l]`` in
+      table order; slots past the capacity are dropped (the plan's
+      capacities cover the crossing counts, ``crossing`` reports them);
+    * the prefix plane holds, per (frame, layer, bin, row), the 32.32
+      fixed-point sum of dy of the left pieces' rows: what those pieces
+      add at every column of the bin in the column kernel.
+
+    The reference gathers through a one-hot matrix product split into 3
+    bf16 parts and keeps the prefix in f32 (its matrix unit); here the
+    gather indexes and the prefix stays in the sweep's fixed point, so
+    the compacted frames equal the column kernel's."""
+    dev = tab.device
+    frames, layers, ep = matrices.shape[0], tab.shape[0], tab.shape[-1]
+    if len(compact_counts) != layers:
+        raise ValueError(
+            f"{len(compact_counts)} compact_counts for {layers} layers")
+    nb = -(-width // wblock)
+    cap = max(SWEEP_CHUNK,
+              -(-max(int(c) for c in compact_counts) // SWEEP_CHUNK)
+              * SWEEP_CHUNK)
+    m3 = (matrices if matrices.ndim == 3
+          else matrices[:, None, :].expand(frames, layers, 6))
+    x0l, y0l, x1l, y1l = (tab[:, ch, 0] for ch in range(4))   # (L, EP)
+    a, b, c, d, e, g = (m3[..., k, None] for k in range(6))   # (F, L, 1)
+    x0 = a * x0l + c * y0l + e                                # (F, L, EP)
+    y0 = b * x0l + d * y0l + g
+    x1 = a * x1l + c * y1l + e
+    y1 = b * x1l + d * y1l + g
+
+    inf = torch.full_like(x0, float("inf"))
+    span_mx, span_mn = -inf, inf
+    rows = []
+    rowbase = torch.floor(torch.minimum(y0, y1))
+    for k in (0.0, 1.0):
+        py = rowbase + k
+        dy, xmn, xmx = edge_row_span(x0, y0, x1, y1, py)
+        hit = dy != 0.0
+        span_mx = torch.where(hit, torch.maximum(span_mx, xmx), span_mx)
+        span_mn = torch.where(hit, torch.minimum(span_mn, xmn), span_mn)
+        rows.append((dy, py))
+    pxmn = torch.minimum(x0, x1)
+    pxmx = torch.maximum(x0, x1)
+    live = y0 != y1
+    lo = torch.arange(nb, dtype=torch.float32, device=dev) * float(wblock)
+    hi = lo + float(wblock)
+    # Left of bins first_left.., right of bins ..first_cross - 1.
+    first_left = torch.searchsorted(
+        lo, torch.maximum(pxmx, span_mx).contiguous(), side="left")
+    first_cross = torch.searchsorted(
+        hi, torch.minimum(pxmn - 1.0, span_mn).contiguous(), side="right")
+
+    pre = torch.zeros((frames, layers, nb, height), dtype=torch.int64,
+                      device=dev)
+    fl = (torch.arange(frames, device=dev)[:, None, None] * layers
+          + torch.arange(layers, device=dev)[None, :, None])
+    for dy, py in rows:
+        ok = live & (first_left < nb) & (dy != 0.0) & (py >= 0.0) & (
+            py < float(height))
+        flat = (fl * nb + first_left) * height + torch.clamp(
+            py, 0.0, height - 1.0).long()
+        pre.view(-1).index_add_(0, flat[ok], _to_fixed(dy)[ok])
+    prefix = torch.cumsum(pre, dim=2)
+
+    ctab = torch.zeros((frames, nb, layers, 4, cap), dtype=torch.float32,
+                       device=dev)
+    crossing = torch.zeros((frames, nb, layers), dtype=torch.int32,
+                           device=dev)
+    caps = torch.tensor([int(c) for c in compact_counts], dtype=torch.int32,
+                        device=dev)
+    coords = torch.stack([x0, y0, x1, y1], dim=2)   # (F, L, 4, EP)
+    bins = torch.arange(nb, device=dev)[:, None]
+    step = max(1, (1 << 25) // max(1, layers * nb * ep))
+    for f0 in range(0, frames, step):
+        sl = slice(f0, f0 + step)
+        cross = (live[sl, :, None, :] & (bins >= first_cross[sl, :, None, :])
+                 & (bins < first_left[sl, :, None, :]))    # (f, L, NB, EP)
+        pos = torch.cumsum(cross, dim=-1, dtype=torch.int32) - 1
+        crossing[sl] = cross.sum(dim=-1, dtype=torch.int32).permute(0, 2, 1)
+        keep = cross & (pos < caps[None, :, None, None])
+        fi, li, bi, pi = keep.nonzero(as_tuple=True)
+        slot = pos[fi, li, bi, pi].long()
+        fi = fi + f0
+        vals = coords[fi, li, :, pi]                        # (K, 4)
+        base = ((fi * nb + bi) * layers + li) * 4
+        flat_tab = ctab.view(-1)
+        for ch in range(4):
+            flat_tab[(base + ch) * cap + slot] = vals[:, ch]
+    counts = torch.minimum(crossing, caps)
+
+    # Row bounds of each 64-slot chunk of gathered pieces (the walk's skip).
+    rb = torch.floor(torch.minimum(ctab[:, :, :, 1], ctab[:, :, :, 3]))
+    filled = (torch.arange(cap, device=dev) < counts[..., None])
+    shape = (frames, nb, layers, cap // SWEEP_CHUNK, SWEEP_CHUNK)
+    bounds = torch.stack([
+        torch.where(filled, rb, torch.full_like(rb, 3.0e38)).view(shape)
+        .amin(dim=-1),
+        torch.where(filled, rb, torch.full_like(rb, -3.0e38)).view(shape)
+        .amax(dim=-1)], dim=-1).contiguous()
+    return CompactTables(ctab, counts.contiguous(), crossing, bounds,
+                         prefix.contiguous(), int(wblock))
+
+
+# ---------------------------------------------------------------------------
+# Device half: the plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -370,18 +606,18 @@ def _frame_paint_rows(pflt_t, paints, grad_mats, stop_colors, f: int):
     return rows
 
 
-def _winding_plain(x0, y0, x1, y1, height: int, px):
-    """Device-space pieces (n,) x4 -> (H, W) winding of one layer.
+def _winding_fixed(x0, y0, x1, y1, height: int, px):
+    """Device-space pieces (n,) x4 -> (H, W') int64 32.32 winding of one
+    layer at the columns ``px`` (1, W').
 
-    The arithmetic is the kernel's, so both agree bit for bit: per piece
+    The arithmetic is the kernels', so both agree bit for bit: per piece
     and touched row, pixels left of floor(xmn) get 0, pixels from
     ceil(xmx) on get dy, the columns between get the trapezoid ramp; the
-    per-pixel sum over pieces is an exact 32.32 fixed-point sum rounded
-    once to f32.  The reference sums the same f32 ramps in f32 (an MXU
-    product per piece chunk plus a prefix plane), so it agrees to f32
-    rounding."""
-    width = px.shape[1]
-    acc = torch.zeros((height, width), dtype=torch.int64, device=px.device)
+    per-pixel sum over pieces is an exact fixed-point sum.  The reference
+    sums the same f32 ramps in f32 (an MXU product per piece chunk plus a
+    prefix plane), so it agrees to f32 rounding."""
+    acc = torch.zeros((height, px.shape[1]), dtype=torch.int64,
+                      device=px.device)
     rowbase = torch.floor(torch.minimum(y0, y1))
     zero = torch.zeros((), dtype=torch.float32, device=px.device)
     for k in (0.0, 1.0):
@@ -391,53 +627,37 @@ def _winding_plain(x0, y0, x1, y1, height: int, px):
         v = torch.where(px < torch.ceil(xmx), span_ramp(dy, xmn, xmx, px),
                         dy)
         v = torch.where(px < torch.floor(xmn), zero, v)
-        q = torch.round(v.double() * 2.0 ** 32).long()
+        q = _to_fixed(v)
         inside = (py >= 0.0) & (py < float(height))
         q = torch.where(inside[:, None], q, torch.zeros_like(q))
         acc.index_add_(0, torch.clamp(py, 0.0, height - 1.0).long(), q)
+    return acc
+
+
+def _from_fixed(acc):
+    """32.32 fixed point -> f32, rounded once."""
     return (acc.double() * 2.0 ** -32).float()
 
 
-def sweep_plain(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
-                width: int, rules, counts, paints=None, grad_mats=None,
-                stop_colors=None, fields=None):
-    """Plain PyTorch version of the three sweep kernels -> (F, H, W)
-    int32 packed RGBA.  ``mats`` None is the morph ratio sweep (no
-    affine); ``tab_e`` / ``ratios`` / ``colors_e`` None is the affine
-    sweep (no lerp).  ``rules`` and ``counts`` are per-layer tuples;
-    ``paints`` None means every layer is a solid colour."""
-    dev = tab_s.device
-    layers = tab_s.shape[0]
-    frames = (mats if mats is not None else ratios).shape[0]
-    morph = tab_e is not None
-    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+def _frame_resolver(colors, colors_e, ratios, height: int, width: int,
+                    paints=None, grad_mats=None, stop_colors=None,
+                    fields=None):
+    """-> resolve(f, covs): frame f's per-layer coverages -> (H, W) int32
+    packed RGBA through the paints and the shared composite tail."""
+    dev = colors.device
+    morph = colors_e is not None
     if paints is not None:
         pint, pflt = paint_tables(tuple(paints))
         pflt_t = torch.as_tensor(pflt, device=dev)
-        pxc = px + 0.5
+        pxc = torch.arange(width, dtype=torch.float32,
+                           device=dev)[None, :] + 0.5
         pyc = torch.arange(height, dtype=torch.float32,
                            device=dev)[:, None] + 0.5
-    out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
-    for f in range(frames):
+
+    def resolve(f, covs):
         if morph:
             t = ratios[f]
             omt = 1.0 - t
-        covs = []
-        for lyr in range(layers):
-            n = min(int(counts[lyr]), tab_s.shape[-1])
-            x0, y0, x1, y1 = (tab_s[lyr, ch, 0, :n] for ch in range(4))
-            if morph:  # ratio lerp BEFORE the frame transform
-                x0, y0, x1, y1 = (
-                    omt * v + t * tab_e[lyr, ch, 0, :n]
-                    for ch, v in enumerate((x0, y0, x1, y1)))
-            if mats is not None:
-                a, b, c, d, e, g = (mats[f, lyr] if mats.ndim == 3
-                                    else mats[f])
-                x0, y0, x1, y1 = (a * x0 + c * y0 + e, b * x0 + d * y0 + g,
-                                  a * x1 + c * y1 + e, b * x1 + d * y1 + g)
-            covs.append(_fill_cov(
-                _winding_plain(x0, y0, x1, y1, height, px), rules[lyr]))
-
         if paints is not None:
             rows = _frame_paint_rows(pflt_t, paints, grad_mats, stop_colors,
                                      f)
@@ -457,7 +677,81 @@ def sweep_plain(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
                                         ch)
             return colors[f, lyr, ch] if colors.ndim == 3 else colors[lyr, ch]
 
-        out[f] = _composite_pack(covs, read_color)
+        return _composite_pack(covs, read_color)
+
+    return resolve
+
+
+def sweep_plain(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
+                width: int, rules, counts, paints=None, grad_mats=None,
+                stop_colors=None, fields=None):
+    """Plain PyTorch version of the sweep kernels, every tiling -> (F, H,
+    W) int32 packed RGBA.  ``mats`` None is the morph ratio sweep (no
+    affine); ``tab_e`` / ``ratios`` / ``colors_e`` None is the affine
+    sweep (no lerp).  ``rules`` and ``counts`` are per-layer tuples;
+    ``paints`` None means every layer is a solid colour."""
+    dev = tab_s.device
+    layers = tab_s.shape[0]
+    frames = (mats if mats is not None else ratios).shape[0]
+    morph = tab_e is not None
+    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    resolve = _frame_resolver(colors, colors_e, ratios, height, width,
+                              paints, grad_mats, stop_colors, fields)
+    out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
+    for f in range(frames):
+        if morph:
+            t = ratios[f]
+            omt = 1.0 - t
+        covs = []
+        for lyr in range(layers):
+            n = min(int(counts[lyr]), tab_s.shape[-1])
+            x0, y0, x1, y1 = (tab_s[lyr, ch, 0, :n] for ch in range(4))
+            if morph:  # ratio lerp BEFORE the frame transform
+                x0, y0, x1, y1 = (
+                    omt * v + t * tab_e[lyr, ch, 0, :n]
+                    for ch, v in enumerate((x0, y0, x1, y1)))
+            if mats is not None:
+                a, b, c, d, e, g = (mats[f, lyr] if mats.ndim == 3
+                                    else mats[f])
+                x0, y0, x1, y1 = (a * x0 + c * y0 + e, b * x0 + d * y0 + g,
+                                  a * x1 + c * y1 + e, b * x1 + d * y1 + g)
+            covs.append(_fill_cov(_from_fixed(
+                _winding_fixed(x0, y0, x1, y1, height, px)), rules[lyr]))
+        out[f] = resolve(f, covs)
+    return out
+
+
+def sweep_compact_plain(tables: CompactTables, colors, height: int,
+                        width: int, rules, paints=None, grad_mats=None,
+                        stop_colors=None, fields=None):
+    """Plain PyTorch version of the compacted sweep kernel on
+    ``compact_pre``'s tables -> (F, H, W) int32 packed RGBA: in each bin
+    a row starts from the prefix plane and adds the 32.32 ramps of the
+    bin's gathered pieces at the bin's columns only; then the paints and
+    the composite tail of ``sweep_plain``."""
+    dev = tables.tab.device
+    frames, nb, layers = tables.counts.shape
+    wb = tables.bin_w
+    counts = tables.counts.cpu()
+    px = torch.arange(nb * wb, dtype=torch.float32, device=dev)[None, :]
+    resolve = _frame_resolver(colors, None, None, height, width, paints,
+                              grad_mats, stop_colors, fields)
+    out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
+    for f in range(frames):
+        covs = []
+        for lyr in range(layers):
+            acc = torch.empty((height, nb * wb), dtype=torch.int64,
+                              device=dev)
+            for b in range(nb):
+                cols = slice(b * wb, (b + 1) * wb)
+                acc[:, cols] = tables.prefix[f, lyr, b][:, None]
+                n = int(counts[f, b, lyr])
+                if n:
+                    acc[:, cols] += _winding_fixed(
+                        *(tables.tab[f, b, lyr, ch, :n] for ch in range(4)),
+                        height, px[:, cols])
+            covs.append(_fill_cov(_from_fixed(acc[:, :width]), rules[lyr]))
+        out[f] = resolve(f, covs)
     return out
 
 
@@ -471,12 +765,17 @@ def _device_counts(counts, device):
     return torch.tensor(counts, dtype=torch.int32, device=device)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
                   width: int, rules, counts, paints=None, grad_mats=None,
-                  stop_colors=None, fields=None):
-    """Launch ``swf_sweep`` (csrc/sweep.cu) on the tensors' card; same
-    arguments and result as ``sweep_plain``.  Raises if the library does
-    not build or the launch is refused."""
+                  stop_colors=None, fields=None, rows=False):
+    """Launch ``swf_sweep`` (csrc/sweep.cu; with ``rows`` the row-band
+    ``swf_sweep_rows``) on the tensors' card; same arguments and result as
+    ``sweep_plain``.  Raises if the library does not build or the launch
+    is refused."""
     from . import cuda_lib
 
     given = [t for t in (mats, tab_s, tab_e, ratios, colors, colors_e,
@@ -494,21 +793,50 @@ def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
     # Scratch of the pre-pass: row bounds of every 64-piece chunk.
     bounds = torch.empty((frames, layers, -(-ep // SWEEP_CHUNK), 2),
                          dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("swfsweep")
+    args = (mode, _ptr(mats), _ptr(tab_s), _ptr(tab_e), _ptr(ratios),
+            _ptr(colors), _ptr(colors_e), _ptr(counts_t), _ptr(rules_t),
+            _ptr(pint_t), _ptr(pflt_t), _ptr(grad_mats), _ptr(stop_colors),
+            _ptr(fields), _ptr(bounds), _ptr(out), frames, layers, ep,
+            height, width, int(mats is not None and mats.ndim == 3),
+            int(colors.ndim == 3),
+            0 if stop_colors is None else stop_colors.shape[2])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = (lib.swf_sweep_rows if rows else lib.swf_sweep)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
+    return out
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    err = cuda_lib.load("swfsweep").swf_sweep(
-        mode, ptr(mats), ptr(tab_s), ptr(tab_e), ptr(ratios), ptr(colors),
-        ptr(colors_e), ptr(counts_t), ptr(rules_t), ptr(pint_t), ptr(pflt_t),
-        ptr(grad_mats), ptr(stop_colors), ptr(fields), ptr(bounds), ptr(out),
-        frames,
-        layers, ep, height, width,
-        int(mats is not None and mats.ndim == 3), int(colors.ndim == 3),
+def _launch_sweep_compact(tables: CompactTables, colors, height: int,
+                          width: int, rules, bins_per_block: int,
+                          paints=None, grad_mats=None, stop_colors=None,
+                          fields=None):
+    """Launch ``swf_sweep_compact`` (csrc/sweep.cu) on the tables' card;
+    same result as ``sweep_compact_plain``."""
+    from . import cuda_lib
+
+    given = [t for t in (colors, grad_mats, stop_colors, fields,
+                         tables.tab, tables.counts, tables.bounds,
+                         tables.prefix) if t is not None]
+    if not all(t.is_contiguous() for t in given):
+        raise ValueError("kernel inputs must be contiguous")
+    dev = tables.tab.device
+    frames, nb, layers = tables.counts.shape
+    rules_t, pint_t, pflt_t = _device_tables(
+        tuple(rules), None if paints is None else tuple(paints), dev)
+    out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
+    err = cuda_lib.load("swfsweep").swf_sweep_compact(
+        _ptr(colors), _ptr(rules_t), _ptr(pint_t), _ptr(pflt_t),
+        _ptr(grad_mats), _ptr(stop_colors), _ptr(fields), _ptr(tables.tab),
+        _ptr(tables.counts), _ptr(tables.bounds), _ptr(tables.prefix),
+        _ptr(out), frames, layers, height, width, tables.cap, nb,
+        tables.bin_w, bins_per_block, int(colors.ndim == 3),
         0 if stop_colors is None else stop_colors.shape[2],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"compacted sweep kernel launch failed: CUDA error {err}")
     return out
 
 
@@ -545,28 +873,51 @@ def _layer_counts(layer_counts, layers: int, ep: int):
     return tuple(min(int(c), ep) for c in layer_counts)
 
 
-def _refuse_tilings(row_grid, compact_counts, x_shift):
-    if row_grid:
-        raise NotImplementedError(
-            "row_grid=True is the row-grid tiling of the sweep: "
-            "ROADMAP.md B4 (_xform_kernel_rows)")
-    if compact_counts is not None:
-        raise NotImplementedError(
-            "compact_counts= is the compacted sweep: ROADMAP.md B5 "
-            "(_xform_kernel(compact=True))")
+def _refuse_x_shift(x_shift):
     if x_shift is not None:
         raise NotImplementedError(
             "x_shift= is the tile-shard origin of the multi-device "
             "renderer: ROADMAP.md A9 (multi-device)")
 
 
-def _run(launch_counter, dev, *args, **kwargs):
+def _check_wchunk(wchunk):
+    if wchunk not in ROW_CHUNKS:
+        raise ValueError(f"wchunk={wchunk}: the row-band sweep takes column "
+                         f"chunks of {' or '.join(map(str, ROW_CHUNKS))}")
+
+
+def _count(counter, attr: str):
+    setattr(counter, attr, getattr(counter, attr) + 1)
+
+
+def _run(launch_counter, dev, *args, attr="launches", rows=False,
+         **kwargs):
+    """The column (or, with ``rows``, row-band) sweep: the plain version
+    for CPU tensors, else the kernel, counted on ``launch_counter.attr``."""
     if dev.type == "cpu":
         return sweep_plain(*args, **kwargs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = _launch_sweep(*args, **kwargs)
-    launch_counter.launches += 1
+    out = _launch_sweep(*args, rows=rows, **kwargs)
+    _count(launch_counter, attr)
+    return out
+
+
+def _run_compact(dev, matrices, tab, colors, height, width, rules,
+                 compact_counts, wblock, bins_per_block, **paint_kwargs):
+    """compact_pre, then the compacted kernel (counted on
+    ``render_affine_sweep.compact_launches``) or, for CPU tensors, its
+    plain version."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    tables = compact_pre(matrices, tab, compact_counts, wblock, height,
+                         width)
+    if dev.type == "cpu":
+        return sweep_compact_plain(tables, colors, height, width, rules,
+                                   **paint_kwargs)
+    out = _launch_sweep_compact(tables, colors, height, width, rules,
+                                bins_per_block, **paint_kwargs)
+    _count(render_affine_sweep, "compact_launches")
     return out
 
 
@@ -574,6 +925,7 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
                         fill_rule=FILL_RULE_NONZERO, layer_counts=None,
                         paints=None, grad_mats=None, stop_colors=None,
                         fields=None, row_grid=None, compact_counts=None,
+                        wblock=None, blocks_per_step=None, wchunk=256,
                         x_shift=None):
     """Rasterize one shape set under every frame's affine fully on device
     -> (F, H, W) int32 packed RGBA (counterpart of the TPU
@@ -588,6 +940,20 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
     packed output, plus field planes when a layer reads them).  On a card
     it matches ``sweep_plain`` within 1 u8 level (chip_smoke.py).
 
+    ``row_grid=True`` takes the row-band tiling (replaces
+    ``_xform_kernel_rows``, transform.py:1012): one block per (band of
+    rows, frame) sweeps the width in 256-column chunks, carrying each
+    row's exact winding (``wchunk``, 128 or 256, is checked and leaves
+    the frames as they are); counted on
+    ``render_affine_sweep.row_launches``.  ``compact_counts`` (with
+    ``wblock`` and ``blocks_per_step``: pass ``**plan_compact_sweep(...)``)
+    takes the compacted tiling (replaces ``_xform_kernel(compact=True)``):
+    ``compact_pre`` gathers each (frame, column bin, layer)'s crossing
+    pieces and the prefix of the pieces left of it, and one block per
+    (``blocks_per_step`` bins, row band, frame) walks only those; counted
+    on ``render_affine_sweep.compact_launches``.  Both give the column
+    tiling's frames byte for byte.
+
     ``matrices``: (F, 6) or per-layer (F, L, 6) f32 device affines;
     ``tab``: (L, 4, 1, EP) f32 local pieces (affine_pieces); ``colors``:
     (L, 4) or per-frame (F, L, 4) straight RGBA; ``fill_rule``: int or
@@ -601,8 +967,9 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
     gradient layer's stop COLORS per frame (color-transform fades);
     ratios stay static.  ``fields`` (NF, F, H, W, 4) carries baked
     straight-RGBA planes for ``KernelPaint.field(slot)`` layers
-    (bake_sweep_fields)."""
-    _refuse_tilings(row_grid, compact_counts, x_shift)
+    (bake_sweep_fields); the row-band tiling takes none, as the
+    reference's."""
+    _refuse_x_shift(x_shift)
     if matrices.ndim not in (2, 3):
         raise ValueError("matrices must be (F, 6) or (F, L, 6)")
     frames = matrices.shape[0]
@@ -654,19 +1021,47 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
                         if stop_colors is not None else ()),
         "fields": (fields, ((n_fields, frames, height, width, 4),)),
     }, frames, layers, ep)
+    rules = layer_rules(fill_rule, layers)
+    counts = _layer_counts(layer_counts, layers, ep)
+    paint_kwargs = dict(paints=paints, grad_mats=grad_mats,
+                        stop_colors=stop_colors, fields=fields)
+    if compact_counts is not None:
+        hp = -(-height // LANE) * LANE
+        wp8 = -(-width // 8) * 8
+        wblock = wblock or _wblock_for(width, hp, lists=False)
+        if not 1 <= wblock <= MAX_BIN_W:
+            raise ValueError(f"wblock={wblock}: the compacted sweep takes "
+                             f"column bins of 1..{MAX_BIN_W}")
+        bps = blocks_per_step or (1 if n_fields else _auto_bps(
+            layers, hp, 256, -(-wp8 // wblock)))
+        return _run_compact(dev, matrices, tab, colors, height, width,
+                            rules, compact_counts, wblock, bps,
+                            **paint_kwargs)
+    if wblock is not None or blocks_per_step is not None:
+        raise ValueError("wblock= and blocks_per_step= tile the compacted "
+                         "sweep (compact_counts=); the column tiling's "
+                         "tiles are 128 columns wide")
+    if row_grid:
+        if n_fields:
+            raise ValueError("field paints need the column-grid sweep "
+                             "kernel (row_grid=False)")
+        _check_wchunk(wchunk)
+        return _run(render_affine_sweep, dev, matrices, tab, None, None,
+                    colors, None, height, width, rules, counts,
+                    attr="row_launches", rows=True, **paint_kwargs)
     return _run(render_affine_sweep, dev, matrices, tab, None, None, colors,
-                None, height, width, layer_rules(fill_rule, layers),
-                _layer_counts(layer_counts, layers, ep), paints=paints,
-                grad_mats=grad_mats, stop_colors=stop_colors, fields=fields)
+                None, height, width, rules, counts, **paint_kwargs)
 
 
 render_affine_sweep.launches = 0
+render_affine_sweep.row_launches = 0
+render_affine_sweep.compact_launches = 0
 
 
 def render_morph_affine_sweep(matrices, ratios, tab_s, tab_e, colors_s,
                               colors_e, height: int, width: int,
                               fill_rule=FILL_RULE_NONZERO, layer_counts=None,
-                              row_grid=None, x_shift=None):
+                              row_grid=None, wchunk=256, x_shift=None):
     """Combined MORPH + TRANSFORM sweep -> (F, H, W) int32 packed RGBA
     (counterpart of the TPU ``render_morph_affine_sweep``): per frame,
     lerp the local piece tables and the colours by the frame's ratio,
@@ -676,12 +1071,14 @@ def render_morph_affine_sweep(matrices, ratios, tab_s, tab_e, colors_s,
     Kernel: replaces ``_xform_kernel(morph=True)`` (swf_renderer_tpu/
     ops/transform.py:586 under the pallas_call at :1875): the affine
     sweep's kernel with the ratio lerp in front (csrc/sweep_device.cuh);
-    same bound and tolerance.
+    same bound and tolerance.  ``row_grid=True`` takes the row-band
+    tiling (``_xform_kernel_rows(morph=True)``, :1875), counted on
+    ``render_morph_affine_sweep.row_launches``.
 
     ``matrices``: (F, 6) or (F, L, 6); ``ratios``: (F,) f32 in [0, 1];
     ``tab_s`` / ``tab_e``: (L, 4, 1, EP) start / end pieces
     (morph_affine_pieces); ``colors_s`` / ``colors_e``: (L, 4)."""
-    _refuse_tilings(row_grid, None, x_shift)
+    _refuse_x_shift(x_shift)
     if matrices.ndim not in (2, 3):
         raise ValueError("matrices must be (F, 6) or (F, L, 6)")
     frames = matrices.shape[0]
@@ -695,10 +1092,15 @@ def render_morph_affine_sweep(matrices, ratios, tab_s, tab_e, colors_s,
         "colors_s": (colors_s, ((layers, 4),)),
         "colors_e": (colors_e, ((layers, 4),)),
     }, frames, layers, ep)
+    if row_grid:
+        _check_wchunk(wchunk)
     return _run(render_morph_affine_sweep, dev, matrices, tab_s, tab_e,
                 ratios, colors_s, colors_e, height, width,
                 layer_rules(fill_rule, layers),
-                _layer_counts(layer_counts, layers, ep))
+                _layer_counts(layer_counts, layers, ep),
+                attr="row_launches" if row_grid else "launches",
+                rows=bool(row_grid))
 
 
 render_morph_affine_sweep.launches = 0
+render_morph_affine_sweep.row_launches = 0

@@ -200,9 +200,8 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
   return a.spb;
 }
 
-template <bool kMorph, bool kAffine, bool kStyled>
-void run_sweep(const swf::SweepArgs& a) {
-  // The pre-pass first: row bounds of every piece chunk.
+template <bool kMorph, bool kAffine>
+void run_sweep_bounds(const swf::SweepArgs& a) {
   blockDim.x = swf::kSweepChunk;
   for (int z = 0; z < a.frames; ++z)
     for (int y = 0; y < a.layers; ++y)
@@ -220,6 +219,56 @@ void run_sweep(const swf::SweepArgs& a) {
         }
         for (auto& th : threads) th.join();
       }
+}
+
+// One emulated kThreads block per (x, y, z) of the grid running body().
+template <class Body>
+void run_grid(int gx, int gy, int gz, size_t smem_bytes, Body body) {
+  std::vector<unsigned char> smem(smem_bytes);
+  blockDim.x = swf::kThreads;
+  for (int z = 0; z < gz; ++z)
+    for (int y = 0; y < gy; ++y)
+      for (int x = 0; x < gx; ++x) {
+        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        std::barrier<> bar(swf::kThreads);
+        std::vector<std::thread> threads;
+        for (int t = 0; t < swf::kThreads; ++t) {
+          threads.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+            block_barrier = &bar;
+            body(smem.data());
+          });
+        }
+        for (auto& th : threads) th.join();
+      }
+}
+
+template <bool kMorph, bool kAffine, bool kStyled>
+void run_sweep_rows(const swf::SweepArgs& a) {
+  run_sweep_bounds<kMorph, kAffine>(a);
+  run_grid(1, (a.height + a.rows - 1) / a.rows, a.frames,
+           swf::sweep_smem_bytes(a.layers, a.rows, kStyled, swf::kRowChunk,
+                                 true),
+           [&](unsigned char* smem) {
+             swf::sweep_rows_block<kMorph, kAffine, kStyled>(a, smem);
+           });
+}
+
+template <bool kStyled>
+void run_sweep_compact(const swf::SweepArgs& a) {
+  run_grid((a.n_bins + a.bins_per_block - 1) / a.bins_per_block,
+           (a.height + a.rows - 1) / a.rows, a.frames,
+           swf::sweep_smem_bytes(a.layers, a.rows, kStyled, a.bin_w),
+           [&](unsigned char* smem) {
+             swf::sweep_compact_block<kStyled>(a, smem);
+           });
+}
+
+template <bool kMorph, bool kAffine, bool kStyled>
+void run_sweep(const swf::SweepArgs& a) {
+  // The pre-pass first: row bounds of every piece chunk.
+  run_sweep_bounds<kMorph, kAffine>(a);
   std::vector<unsigned char> smem(
       swf::sweep_smem_bytes(a.layers, a.rows, kStyled));
   blockDim.x = swf::kThreads;
@@ -267,6 +316,60 @@ extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
   else if (mode == 0) run_sweep<false, true, false>(a);
   else if (mode == 1) run_sweep<true, true, false>(a);
   else run_sweep<true, false, false>(a);
+  return a.rows;
+}
+
+extern "C" int emulate_sweep_rows(int mode, const float* mats,
+                                  const float* tab_s, const float* tab_e,
+                                  const float* ratios, const float* colors,
+                                  const float* colors_e, const int* counts,
+                                  const int* rules, const int* pint,
+                                  const float* pflt, const float* grad_mats,
+                                  const float* stop_colors,
+                                  const float* fields, float* bounds,
+                                  int* out, int frames, int layers, int ep,
+                                  int height, int width, int mats_per_layer,
+                                  int colors_per_frame, int n_stop_slots) {
+  swf::SweepArgs a{};
+  a.mats = mats; a.tab_s = tab_s; a.tab_e = tab_e; a.ratios = ratios;
+  a.colors = colors; a.colors_e = colors_e; a.counts = counts;
+  a.rules = rules; a.pint = pint; a.pflt = pflt; a.grad_mats = grad_mats;
+  a.stop_colors = stop_colors; a.fields = fields; a.out = out;
+  a.bounds = bounds;
+  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
+  a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
+  a.width = width; a.mats_per_layer = mats_per_layer;
+  a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
+  a.rows = swf::sweep_tile_rows(layers, swf::kRowChunk);
+  if (mode == 1) run_sweep_rows<true, true, false>(a);
+  else if (pint) run_sweep_rows<false, true, true>(a);
+  else run_sweep_rows<false, true, false>(a);
+  return a.rows;
+}
+
+extern "C" int emulate_sweep_compact(const float* colors, const int* rules,
+                                     const int* pint, const float* pflt,
+                                     const float* grad_mats,
+                                     const float* stop_colors,
+                                     const float* fields, const float* ctab,
+                                     const int* ccount, const float* cbounds,
+                                     const long long* prefix, int* out,
+                                     int frames, int layers, int height,
+                                     int width, int cap, int n_bins,
+                                     int bin_w, int bins_per_block,
+                                     int colors_per_frame,
+                                     int n_stop_slots) {
+  swf::SweepArgs a{};
+  a.colors = colors; a.rules = rules; a.pint = pint; a.pflt = pflt;
+  a.grad_mats = grad_mats; a.stop_colors = stop_colors; a.fields = fields;
+  a.ctab = ctab; a.ccount = ccount; a.cbounds = cbounds; a.prefix = prefix;
+  a.out = out; a.frames = frames; a.layers = layers; a.height = height;
+  a.width = width; a.cap = cap; a.n_bins = n_bins; a.bin_w = bin_w;
+  a.bins_per_block = bins_per_block; a.colors_per_frame = colors_per_frame;
+  a.n_stop_slots = n_stop_slots;
+  a.rows = swf::sweep_tile_rows(layers, bin_w);
+  if (pint) run_sweep_compact<true>(a);
+  else run_sweep_compact<false>(a);
   return a.rows;
 }
 
@@ -324,6 +427,34 @@ extern "C" void emulate_coverage(int tiled, const float* edges,
             block_barrier = &bar;
             if (tiled) swf::tiled_block(a, smem.data());
             else swf::banded_block(a, smem.data());
+          });
+        }
+        for (auto& th : threads) th.join();
+      }
+}
+
+extern "C" void emulate_grouped(const float* edges, const float* bounds,
+                                float* out, int planes, int n_edges,
+                                int height, int width, int rule) {
+  swf::CoverageArgs a{};
+  a.edges = edges; a.bounds = bounds; a.out = out; a.planes = planes;
+  a.n_edges = n_edges; a.height = height; a.width = width; a.rule = rule;
+  swf::GroupedTerms terms;
+  blockDim.x = swf::kGrpThreads;
+  for (int z = 0; z < planes; ++z)
+    for (int y = 0; y < (height + swf::kGrpStripH - 1) / swf::kGrpStripH;
+         ++y)
+      for (int x = 0; x < (width + swf::kCovBlock - 1) / swf::kCovBlock;
+           ++x) {
+        std::memset(&terms, 0xab, sizeof(terms));   // stale contents
+        std::barrier<> bar(swf::kGrpThreads);
+        std::vector<std::thread> threads;
+        for (int t = 0; t < swf::kGrpThreads; ++t) {
+          threads.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+            block_barrier = &bar;
+            swf::grouped_block(a, terms);
           });
         }
         for (auto& th : threads) th.join();
@@ -458,6 +589,14 @@ def _build_emulator(d, csrc):
     emu.emulate_sweep.restype = ctypes.c_int
     emu.emulate_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 8
+    emu.emulate_sweep_rows.restype = ctypes.c_int
+    emu.emulate_sweep_rows.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+    emu.emulate_sweep_compact.restype = ctypes.c_int
+    emu.emulate_sweep_compact.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 10
+    emu.emulate_grouped.restype = None
+    emu.emulate_grouped.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     emu.emulate_texfield.restype = None
     emu.emulate_texfield.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 10
@@ -685,8 +824,9 @@ def test_emulated_chain_mutants_are_caught(tmp_path, mutant):
 
 def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
                width, rules, counts, paints=None, grad_mats=None,
-               stop_colors=None, fields=None):
-    """The emulated sweep kernel on ``sweep_plain``'s arguments."""
+               stop_colors=None, fields=None, rows=False):
+    """The emulated sweep kernel on ``sweep_plain``'s arguments (with
+    ``rows`` the row-band tiling)."""
     keep = [None if t is None else np.ascontiguousarray(t.numpy())
             for t in (mats, tab_s, tab_e, ratios, colors, colors_e,
                       grad_mats, stop_colors, fields)]
@@ -706,15 +846,16 @@ def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
         return None if x is None else x.ctypes.data
 
     mode = 0 if tab_e is None else (1 if mats is not None else 2)
-    rows = emu.emulate_sweep(
+    args = (
         mode, ptr(mats_a), ptr(ts), ptr(te), ptr(rat), ptr(col), ptr(cole),
         ptr(counts_a), ptr(rules_a), ptr(pint), ptr(pflt), ptr(gm), ptr(sc),
         ptr(fld), bounds.ctypes.data, out.ctypes.data, frames, layers, ep,
         height, width,
         int(mats is not None and mats.ndim == 3), int(colors.ndim == 3),
         0 if sc is None else sc.shape[2])
+    n_rows = (emu.emulate_sweep_rows if rows else emu.emulate_sweep)(*args)
     assert not np.isnan(bounds).any()    # the pre-pass wrote every chunk
-    return torch.from_numpy(out), rows
+    return torch.from_numpy(out), n_rows
 
 
 def test_emulated_morph_affine_sweep_equals_plain_version(emulator):
@@ -804,6 +945,156 @@ def test_emulated_sweep_writes_untouched_tiles_as_zeros(emulator):
     assert float((want != 0).float().mean()) < 0.1
 
 
+def _styled_sweep_case(rng, frames, layers, height, width):
+    """Colour, linear (fading stops), focal and field layers with their
+    gradient matrices, stops and field planes."""
+    ratios = np.array([0.0, 0.4, 1.0], np.float32)
+    stops = rng.uniform(0, 1, (3, 4)).astype(np.float32)
+    paints = (fb.KernelPaint.color(),
+              fb.KernelPaint.gradient(fb.KPAINT_LINEAR, (), ratios, stops,
+                                      spread=1),
+              fb.KernelPaint.gradient(fb.KPAINT_FOCAL, (), ratios[:2],
+                                      stops[:2], focal=0.4, spread=2),
+              fb.KernelPaint.field(0))[:layers]
+    gm = np.zeros((frames, layers, 6), np.float32)
+    gm[:, 1] = (150.0, 10.0, -20.0, 140.0, -16000.0, -9000.0)
+    gm[:, 2] = (300.0, 0.0, 0.0, 300.0, -15000.0, -8000.0)
+    gm[1] *= 1.1
+    sc = rng.uniform(0, 1, (frames, layers, 3, 4)).astype(np.float32)
+    fields = rng.uniform(0, 1, (1, frames, height, width, 4)).astype(
+        np.float32)
+    return dict(paints=paints, grad_mats=torch.as_tensor(gm),
+                stop_colors=torch.as_tensor(sc),
+                fields=torch.as_tensor(fields) if layers > 3 else None)
+
+
+@pytest.mark.parametrize("form,width", [
+    ("affine", 300), ("styled", 520), ("morph-affine", 300)])
+def test_emulated_row_band_sweep_equals_plain_version(emulator, form,
+                                                      width):
+    """The row-band tiling (B4) on 3 frames 50 rows high (bands of 8 rows
+    at 5 layers, 16 at 3; 256-column chunks, two or three of them, the
+    last one ragged, and a ragged last band), blobs overhanging every
+    side, mixed rules: byte-equal to sweep_plain, the function of every
+    tiling."""
+    rng = np.random.default_rng(31 + width)
+    height, frames = 50, 3
+    layers = 3 if form == "styled" else 5
+    tables = random_blobs(rng, layers, height, width, blobs=3)
+    mats = random_tracks(rng, frames, layers, height, width)
+    rules = tuple(int(x) for x in rng.integers(0, 2, layers))
+    kw = {}
+    if form == "morph-affine":
+        pairs = [(t_, t_ + rng.uniform(-9, 9, t_.shape).astype(np.float32),
+                  rng.uniform(0.1, 1, 4), rng.uniform(0.1, 1, 4))
+                 for t_ in tables]
+        tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, mats)
+        args = (torch.as_tensor(mats), torch.as_tensor(tab_s),
+                torch.as_tensor(tab_e),
+                torch.as_tensor(np.array([0.0, 0.37, 1.0], np.float32)),
+                torch.as_tensor(cs), torch.as_tensor(ce))
+    else:
+        tab_s, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers, mats)
+        colors = rng.uniform(0.1, 1, (frames, layers, 4)).astype(np.float32)
+        args = (torch.as_tensor(mats[:, 0] if form == "affine" else mats),
+                torch.as_tensor(tab_s), None, None, torch.as_tensor(colors),
+                None)
+        if form == "styled":
+            kw = _styled_sweep_case(rng, frames, layers, height, width)
+    args += (height, width, rules, sweep.layer_piece_counts(tab_s))
+    want = sweep.sweep_plain(*args, **kw)
+    got, rows = _run_sweep(emulator, *args, rows=True, **kw)
+    assert rows == swf_rows(layers, 256)
+    assert torch.equal(got, want)
+    assert float((want != 0).float().mean()) > 0.01   # the scene is there
+
+
+def swf_rows(layers, tile_w):
+    """csrc sweep_tile_rows: the most rows (a power of two <= 32) whose
+    accumulators of tile_w + 1 long longs fit 100 KB."""
+    rows = 32
+    while rows > 1 and layers * rows * (tile_w + 1) * 8 > 100 * 1024:
+        rows //= 2
+    return rows
+
+
+def _gentle_tracks(rng, frames, layers, height, width):
+    """(F, L, 6) turns of at most 0.15 rad and scales 0.8-1.2 about the
+    frame centre, shifted a few pixels: a wide, short frame keeps its
+    blobs."""
+    th = rng.uniform(-0.15, 0.15, (frames, layers))
+    sc = rng.uniform(0.8, 1.2, (frames, layers))
+    a, b = sc * np.cos(th), sc * np.sin(th)
+    cx, cy = width / 2.0, height / 2.0
+    e = cx - a * cx + b * cy + rng.uniform(-6, 6, (frames, layers))
+    f = cy - b * cx - a * cy + rng.uniform(-6, 6, (frames, layers))
+    return np.stack([a, b, -b, a, e, f], -1).astype(np.float32)
+
+
+def _run_compact(emu, tables, colors, height, width, rules, bps, paints=None,
+                 grad_mats=None, stop_colors=None, fields=None):
+    """The emulated compacted kernel on ``compact_pre``'s tables."""
+    arr = [None if x is None else np.ascontiguousarray(x.numpy())
+           for x in (colors, grad_mats, stop_colors, fields, tables.tab,
+                     tables.counts, tables.bounds, tables.prefix)]
+    col, gm, sc, fld, ctab, cnt, bnd, pre = arr
+    pint = pflt = None
+    if paints is not None:
+        pint, pflt = fb.paint_tables(tuple(paints))
+    rules_a = np.asarray(rules, np.int32)
+    frames, nb, layers = tables.counts.shape
+    out = np.full((frames, height, width), -7, np.int32)
+
+    def ptr(x):
+        return None if x is None else x.ctypes.data
+
+    rows = emu.emulate_sweep_compact(
+        ptr(col), ptr(rules_a), ptr(pint), ptr(pflt), ptr(gm), ptr(sc),
+        ptr(fld), ptr(ctab), ptr(cnt), ptr(bnd), ptr(pre), out.ctypes.data,
+        frames, layers, height, width, tables.cap, nb, tables.bin_w, bps,
+        int(colors.ndim == 3), 0 if sc is None else sc.shape[2])
+    return torch.from_numpy(out), rows
+
+
+@pytest.mark.parametrize("form,wblock,bps", [
+    ("solid", 64, 1), ("styled", 128, 2), ("per-layer", 88, 3)])
+def test_emulated_compact_sweep_equals_plain_versions(emulator, form,
+                                                      wblock, bps):
+    """The compacted tiling (B5) on compact_pre's tables of 2 frames of
+    40x420 (bins of 64, 128 and 88 columns, the last one ragged; bins
+    walked 1, 2 and 3 to a block): byte-equal to sweep_compact_plain and
+    to sweep_plain (the column tiling's function)."""
+    rng = np.random.default_rng(41 + wblock)
+    height, width, frames = 40, 420, 2
+    layers = 4 if form == "styled" else 3
+    tables = random_blobs(rng, layers, height, width, blobs=4)
+    tracks = _gentle_tracks(rng, frames, layers, height, width)
+    mats = tracks if form == "per-layer" else tracks[:, 0]
+    tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers, mats)
+    plan = sweep.plan_compact_sweep(mats, tab, height, width, wblock=wblock,
+                                    blocks_per_step=bps)
+    assert plan is not None and plan["wblock"] == wblock
+    colors = torch.as_tensor(rng.uniform(0.1, 1, (frames, layers, 4))
+                             .astype(np.float32))
+    kw = (_styled_sweep_case(rng, frames, layers, height, width)
+          if form == "styled" else {})
+    rules = tuple(int(x) for x in rng.integers(0, 2, layers))
+    ctabs = sweep.compact_pre(torch.as_tensor(mats), torch.as_tensor(tab),
+                              plan["compact_counts"], wblock, height, width)
+    assert (ctabs.crossing <= torch.as_tensor(plan["compact_counts"],
+                                              dtype=torch.int32)).all()
+    want = sweep.sweep_compact_plain(ctabs, colors, height, width, rules,
+                                     **kw)
+    got, rows = _run_compact(emulator, ctabs, colors, height, width, rules,
+                             bps, **kw)
+    assert rows == swf_rows(layers, wblock)   # planes one bin wide
+    assert torch.equal(got, want)
+    assert torch.equal(want, sweep.sweep_plain(
+        torch.as_tensor(mats), torch.as_tensor(tab), None, None, colors,
+        None, height, width, rules, (tab.shape[-1],) * layers, **kw))
+    assert float((want != 0).float().mean()) > 0.01   # the scene is there
+
+
 @pytest.mark.parametrize("shape,repeating,smoothed,edge_mode,n", [
     ((11, 13), True, True, "flash", 2),
     ((11, 13), False, True, "canvas", 3),
@@ -885,6 +1176,26 @@ def test_emulated_coverage_equals_plain_version(emulator, tiled, n, e_pad,
         height, width, rule)
     assert torch.equal(torch.as_tensor(out), want)
     assert float(want.std()) > 0.05   # not a flat plane
+
+
+@pytest.mark.parametrize("n,e_pad,rule", [(150, 256, 0), (300, 384, 1)])
+def test_emulated_grouped_coverage_equals_plain_version(emulator, n, e_pad,
+                                                        rule):
+    """The grouped coverage kernel (B11) on 2 planes of 37x150 (ragged
+    strips and tiles) against grouped_plain."""
+    rng = np.random.default_rng(3 * n + e_pad)
+    height, width = 37, 150
+    t = torch.as_tensor(_random_edges(rng, 2, n, e_pad, height, width))
+    edges_sorted, key, pad = cov.sort_edges(t)
+    table = cov.block_bounds(edges_sorted, key, pad)
+    want = cov.grouped_plain(edges_sorted, table, height, width, rule)
+    es = np.ascontiguousarray(edges_sorted.numpy())
+    tab = np.ascontiguousarray(table.numpy())
+    out = np.full((2, height, width), np.nan, np.float32)
+    emulator.emulate_grouped(es.ctypes.data, tab.ctypes.data,
+                             out.ctypes.data, 2, e_pad, height, width, rule)
+    assert torch.equal(torch.as_tensor(out), want)
+    assert float(want.std()) > 0.05
 
 
 def test_emulated_resolve_equals_plain_version(emulator):

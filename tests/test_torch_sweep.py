@@ -465,22 +465,21 @@ def _tiny():
     return t(mats), t(tab), t([(1, 0, 0, 1)])
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"row_grid": True}, "B4"), ({"compact_counts": (256,)}, "B5"),
-    ({"x_shift": 3.0}, "A9")])
+@pytest.mark.parametrize("kwargs,item", [({"x_shift": 3.0}, "A9")])
 def test_reference_tilings_raise_naming_their_item(kwargs, item):
+    """The multi-device renderer's tile-shard origin is not ported yet.
+    (``row_grid=True`` and ``compact_counts=`` run: see
+    tests/test_torch_sweep_tilings.py.)"""
     mats, tab, colors = _tiny()
     with pytest.raises(NotImplementedError, match=item):
         tsweep.render_affine_sweep(mats, tab, colors, 20, 20, **kwargs)
-    if "compact_counts" not in kwargs:
-        ratios = t([0.0, 1.0])
-        with pytest.raises(NotImplementedError, match=item):
-            tsweep.render_morph_affine_sweep(mats, ratios, tab, tab, colors,
-                                             colors, 20, 20, **kwargs)
-    if "x_shift" in kwargs:
-        with pytest.raises(NotImplementedError, match=item):
-            tmorph.render_morph_sweep(t([0.0, 1.0]), tab, tab, colors,
-                                      colors, 20, 20, **kwargs)
+    ratios = t([0.0, 1.0])
+    with pytest.raises(NotImplementedError, match=item):
+        tsweep.render_morph_affine_sweep(mats, ratios, tab, tab, colors,
+                                         colors, 20, 20, **kwargs)
+    with pytest.raises(NotImplementedError, match=item):
+        tmorph.render_morph_sweep(t([0.0, 1.0]), tab, tab, colors,
+                                  colors, 20, 20, **kwargs)
 
 
 def test_sweep_wrappers_validate_their_inputs():
