@@ -115,12 +115,29 @@ Phases, each of which exits non-zero on failure before the last line:
              dense1080's planes — and each kernel timed beside the column
              kernel (B3, B6) or the banded / tiled kernel (B9, B10) on the
              same inputs, ``compact_pre`` apart, every frame and plane
-             held against the plain versions.
+             held against the plain versions;
+11. probes — the variants of B1 that the reference's tools/exp_split.py
+             cuts it into (modes full / place / resolve / none, none0,
+             batched kk 4 / 8 / 16, merged) against their plain versions
+             and full / batched / merged against ``render_fused_blocksn``
+             on random scenes at one strip a plane (1/4/16 layers, group
+             6 and 2, 200 and 1920 px wide), the ablated modes into
+             buffers filled with -7 and the observe guard of place and
+             none checked; then on phase 3's headline scene each variant
+             driven once through its wrapper and timed beside B1 (the
+             decomposition: none0, none - none0, place - none, resolve -
+             none0, full); exp_bw's passthroughs (both layouts) and
+             read+sum on (60, 4, 137, 128, 128) f32 planes and exp_scatter
+             D's step probe on 16384 and 131072 tiles, each equal to its
+             plain version and timed beside its plain version and its
+             one-call library yardstick (``torch.add``, ``torch.sum``).
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
-block, the deep and masked and the tilings paths and read right after.  The script prints
-one JSON line describing each kernel (time, bound, plain version's time),
+block, the deep and masked and the tilings paths, and before each probe,
+and read right after.  The script prints
+one JSON line describing each kernel (time, bound, plain version's time,
+library yardstick's time where one call computes the same function),
 then the card's name and power limit as nvidia-smi prints them, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -131,7 +148,6 @@ import json
 import math
 import pathlib
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -156,31 +172,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if proc.returncode != 0:
-        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
-
-
-def time_cuda(torch, fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn`` between CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+sys.path.insert(0, str(ROOT))
+try:
+    from swf_renderer_tpu_torch.tools.timing import card_line, time_ms
+except ImportError as exc:
+    fail(f"the port's package is not beside this script: {exc}")
 
 
 def byte_diff(torch, a, b):
@@ -274,12 +270,7 @@ def work_counts(torch, dev, frames, layers, spp, rules, paints=(),
     ns, nc = dev["ns"], dev["nc"]
     pixels = frames * ns * spp * STRIP_H * nc * LANE
     out_bytes = pixels * 4
-    ng = dev["urc"].shape[0]
-    group = dev["lays"].shape[0]
-    nblk = (dev["flags"] >> 2).view(ng, 1)
-    slot = torch.arange(group, device=nblk.device).view(1, group)
-    used = ((nblk == 0) | (slot < nblk)).repeat_interleave(BLK, dim=1)
-    valid = int(((dev["uval"].view(ng, -1) != 0) & used).sum().item())
+    valid = valid_updates(torch, dev)
     per_layer = 0
     for lyr in range(layers):
         rule_ops = 2 if rules[lyr] == 0 else 5
@@ -293,6 +284,19 @@ def work_counts(torch, dev, frames, layers, spp, rules, paints=(),
             per_layer += 0
     ops = valid + pixels * per_layer + pixels * 21   # quantize + pack
     return in_bytes + out_bytes, ops
+
+
+def valid_updates(torch, dev):
+    """Used slots of the grouped arrays with a nonzero value: the
+    placement's adds."""
+    from swf_renderer_tpu_torch.ops.flatblock import BLK
+
+    ng = dev["urc"].shape[0]
+    group = dev["lays"].shape[0]
+    nblk = (dev["flags"] >> 2).view(ng, 1)
+    slot = torch.arange(group, device=nblk.device).view(1, group)
+    used = ((nblk == 0) | (slot < nblk)).repeat_interleave(BLK, dim=1)
+    return int(((dev["uval"].view(ng, -1) != 0) & used).sum().item())
 
 
 def bound(nbytes, ops):
@@ -462,8 +466,8 @@ def phase_headline(torch, np, report):
     def plain():
         return fusedn_plain(*args, spp=spp)
 
-    ms = time_cuda(torch, kernel, reps=5)
-    plain_ms = time_cuda(torch, plain, reps=3)
+    ms = time_ms(torch, kernel, reps=5)
+    plain_ms = time_ms(torch, plain, reps=3)
     out = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -654,8 +658,8 @@ def phase_renderer(torch, np, report):
         f"{share:.3g}, paint kinds {[p.kind for p in kpaints]}")
     if dmax > TOL_LEVELS:
         fail(f"styled kernel vs plain on the renderer frame: {dmax}")
-    ms = time_cuda(torch, kernel, reps=5)
-    plain_ms = time_cuda(torch, plain, reps=3)
+    ms = time_ms(torch, kernel, reps=5)
+    plain_ms = time_ms(torch, plain, reps=3)
     nbytes, ops = work_counts(torch, dev, 1, layers, spp, rules,
                               paints=kpaints, fields=fields, colors=cols)
     bound_ms, bound_by = bound(nbytes, ops)
@@ -1074,14 +1078,14 @@ def morph_pairs(np):
 def _timed_sweep(torch, what, kernel, plain, counts_args, report):
     """Time one full-width sweep, hold every frame against the plain
     version, work out its bound."""
-    ms = time_cuda(torch, kernel, reps=5)
+    ms = time_ms(torch, kernel, reps=5)
     got = kernel()
     held = {}
 
     def plain_once():
         held["want"] = plain()
 
-    plain_ms = time_cuda(torch, plain_once, reps=1, warmup=0)
+    plain_ms = time_ms(torch, plain_once, reps=1, warmup=0)
     dmax = _check(torch, f"{what}: all {got.shape[0]} frames", got,
                   held.pop("want"))
     nbytes, ops = sweep_work_counts(torch, *counts_args)
@@ -1354,8 +1358,8 @@ def library_yardstick(torch, np, report):
         return bitmap_field_planes(img, d_inv, height, width, 1, False, True,
                                    "flash", device=DEVICE)
 
-    lib_ms = time_cuda(torch, library)
-    ms = time_cuda(torch, kernel)
+    lib_ms = time_ms(torch, library)
+    ms = time_ms(torch, kernel)
     log(f"bitmaps: yardstick {height}x{width} supersample-1 clamp: kernel "
         f"{ms:.3f} ms, grid_sample {lib_ms:.3f} ms")
     report["texfield_yardstick"] = {"kernel_ms": ms, "grid_sample_ms": lib_ms}
@@ -1402,8 +1406,8 @@ def animtex_run(torch, np, what, height, width, frames, report):
     def bake():
         return sweep.bake_sweep_fields(specs, height, width, device=DEVICE)
 
-    ms = time_cuda(torch, bake_kernel)
-    bake_ms = time_cuda(torch, bake)
+    ms = time_ms(torch, bake_kernel)
+    bake_ms = time_ms(torch, bake)
     fields = bake()
     sampled = bake_kernel()
     held = {}
@@ -1412,7 +1416,7 @@ def animtex_run(torch, np, what, height, width, frames, report):
         held["want"] = texfield_plain(d_img, rest, height, width, 2, True,
                                       True, "flash")
 
-    plain_ms = time_cuda(torch, plain_once, reps=1, warmup=0)
+    plain_ms = time_ms(torch, plain_once, reps=1, warmup=0)
     err = _check_fields(torch, f"{what} bake, {rest.shape[0]} frames",
                         sampled, held["want"])
     fields_plain = fields.clone()
@@ -1425,7 +1429,7 @@ def animtex_run(torch, np, what, height, width, frames, report):
             d_mats, d_tab, d_col, height, width, layer_counts=counts,
             paints=kpaints, fields=fields)
 
-    sweep_ms = time_cuda(torch, run_sweep)
+    sweep_ms = time_ms(torch, run_sweep)
     out = run_sweep()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1578,7 +1582,7 @@ def bitmaps_entry_points(torch, np, report):
                                    paint.supersample, False, False, "canvas",
                                    device=DEVICE)
 
-    still_k = time_cuda(torch, still_kernel)
+    still_k = time_ms(torch, still_kernel)
     held = {}
 
     def still_plain():
@@ -1586,7 +1590,7 @@ def bitmaps_entry_points(torch, np, report):
                                       paint.supersample, False, False,
                                       "canvas")
 
-    still_plain_ms = time_cuda(torch, still_plain, reps=3)
+    still_plain_ms = time_ms(torch, still_plain, reps=3)
     still_err = _check_fields(torch, "still 512x512 nearest canvas",
                               still_kernel(), held.pop("want"))
     nbytes, ops = texfield_work(1, height, width, 512 * 512,
@@ -1871,8 +1875,8 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
     def whole():
         return cov.coverage(d_edges, height, width, 0)
 
-    ms = time_cuda(torch, kernel)
-    whole_ms = time_cuda(torch, whole)
+    ms = time_ms(torch, kernel)
+    whole_ms = time_ms(torch, whole)
     got = kernel()
     held = {}
     plain_fn = cov.banded_plain if banded else cov.tiled_plain
@@ -1880,7 +1884,7 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
     def plain():
         held["want"] = plain_fn(es, table, height, width, 0)
 
-    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    plain_ms = time_ms(torch, plain, reps=1, warmup=0)
     err = _check_planes(torch, f"{what}: all {frames * layers} planes",
                         got, held["want"])
 
@@ -1888,7 +1892,7 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
         return composite_solid_layers(got.view(frames, layers, height, width),
                                       d_colors)
 
-    comp_ms = time_cuda(torch, composite)
+    comp_ms = time_ms(torch, composite)
     pm = composite()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1986,7 +1990,7 @@ def wide_run(torch, np, report):
         return scatter_add(frames * layers * plane, idx, d_vals).view(
             frames, layers, height, stride)
 
-    scatter_ms = time_cuda(torch, scatter, reps=3)
+    scatter_ms = time_ms(torch, scatter, reps=3)
     planes = scatter()
     if not torch.equal(planes, scatter()):
         fail("wide8k: two scatters of the same updates differ")
@@ -1995,14 +1999,14 @@ def wide_run(torch, np, report):
         return resolve_frames(planes, d_colors)
 
     resolve_frames.launches = 0
-    ms = time_cuda(torch, kernel)
+    ms = time_ms(torch, kernel)
     got = kernel()
     held = {}
 
     def plain():
         held["want"] = resolve_plain(planes, d_colors, (0,) * layers)
 
-    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    plain_ms = time_ms(torch, plain, reps=1, warmup=0)
     err = _check_planes(torch, f"wide8k: resolve, all {frames} frames", got,
                         held.pop("want"))
     torch.cuda.synchronize()
@@ -2408,27 +2412,27 @@ def headline_planes(torch, np, report, ref_frames):
                  out)
 
     # Each kernel alone on the same inputs, CUDA events, median of 5.
-    ms_place = time_cuda(torch, lambda: fb.place_blocks(
+    ms_place = time_ms(torch, lambda: fb.place_blocks(
         *blocks, frames, layers, ns))
-    ms_res = time_cuda(torch, lambda: fb.resolve_planes_u32(planes, cols,
+    ms_res = time_ms(torch, lambda: fb.resolve_planes_u32(planes, cols,
                                                             nc))
-    ms_dma = time_cuda(torch, lambda: fb.resolve_planes_u32_dma(planes, cols,
+    ms_dma = time_ms(torch, lambda: fb.resolve_planes_u32_dma(planes, cols,
                                                                 nc))
-    ms_call = time_cuda(torch, lambda: fb.render_flat_blocks(
+    ms_call = time_ms(torch, lambda: fb.render_flat_blocks(
         *blocks, cols, height, width, frames, layers, ns, nc))
     held = {}
 
     def plain_place():
         held["planes"] = fb.place_plain(*blocks, frames, layers, ns)
 
-    plain_place_ms = time_cuda(torch, plain_place, reps=1, warmup=0)
+    plain_place_ms = time_ms(torch, plain_place, reps=1, warmup=0)
     err = _equal_planes(torch, f"headline: place, all {frames * layers} "
                         f"frame-layers", planes, held.pop("planes"))
 
     def plain_resolve():
         held["out"] = fb.resolve_u32_plain(planes, cols, nc)
 
-    plain_res_ms = time_cuda(torch, plain_resolve, reps=1, warmup=0)
+    plain_res_ms = time_ms(torch, plain_resolve, reps=1, warmup=0)
     _equal_words(torch, f"headline: resolve_u32, all {frames} frames", out,
                  held.pop("out"))
     rules = (0,) * layers
@@ -2494,7 +2498,7 @@ def headline_fused1(torch, np, report, ref_frames, arrays, geometry, reset,
     launches = read()
     if launches != (0, 0, 0, 1):
         fail(f"render_fused_blocks launches {launches}")
-    ms = time_cuda(torch, lambda: fb.render_fused_blocks(
+    ms = time_ms(torch, lambda: fb.render_fused_blocks(
         *blocks, cols, frames, layers, ns, nc))
     held = {}
 
@@ -2502,7 +2506,7 @@ def headline_fused1(torch, np, report, ref_frames, arrays, geometry, reset,
         held["out"] = fb.fused_blocks_plain(*blocks, cols, frames, layers,
                                             ns, nc)
 
-    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    plain_ms = time_ms(torch, plain, reps=1, warmup=0)
     _equal_words(torch, f"headline: fused1, all {frames} frames", out,
                  held.pop("out"))
     t0 = time.perf_counter()
@@ -2785,12 +2789,12 @@ def _timed_passes(torch, np, tables, paints, colors, height, width, groups,
         ns = args[10]
         _equal_out(torch, f"{what} pass {gi}", out, want, ns, not last)
         del want
-        ms = time_cuda(torch, lambda: render_fused_styled(*args, **kw))
+        ms = time_ms(torch, lambda: render_fused_styled(*args, **kw))
         rec = {"layers": hi - lo, "fields": len(args[7]),
                "lowering_ms": t_lower * 1e3, "packing_ms": t_pack * 1e3,
                "pass_setup_ms": t_pass * 1e3, "kernel_ms": ms}
         if gi == 0:
-            plain_ms = time_cuda(torch, lambda: fused_styled_plain(
+            plain_ms = time_ms(torch, lambda: fused_styled_plain(
                 *args, **kw), reps=3)
             dev = dict(zip(("sidx", "flags", "lays", "urc", "ucm", "uval"),
                            args[:6]), ns=ns, nc=args[11])
@@ -2977,10 +2981,10 @@ def masked_run(torch, np, report):
     unfused = render_fused_styled(*final, bg=planes, emit="u32", **common)
     _equal_words(torch, "masked1080 fused pair vs unfused program",
                  fused[:, :ns], unfused[:, :ns])
-    ms_pre = time_cuda(torch, lambda: render_fused_styled(
+    ms_pre = time_ms(torch, lambda: render_fused_styled(
         *pre, emit="premul", **common))
-    ms_pair = time_cuda(torch, lambda: render_fused_styled(*pair, **pair_kw))
-    plain_ms = time_cuda(torch, lambda: fused_styled_plain(*pair, **pair_kw),
+    ms_pair = time_ms(torch, lambda: render_fused_styled(*pair, **pair_kw))
+    plain_ms = time_ms(torch, lambda: fused_styled_plain(*pair, **pair_kw),
                          reps=3)
     dev = dict(zip(("sidx", "flags", "lays", "urc", "ucm", "uval"),
                    pair[:6]), ns=ns, nc=pair[11])
@@ -3130,7 +3134,7 @@ def renderer_routes(torch, np, report):
     out["render_batch_ms"] = wall * 1e3
     filt = stages["filters"].children[1].filters
     img = torch.rand((1, height, width, 4), device=DEVICE)
-    ms = time_cuda(torch, lambda: apply_filters(img, filt))
+    ms = time_ms(torch, lambda: apply_filters(img, filt))
     log(f"deep_masked: filters (blur 7x7 x3 + drop shadow) on one "
         f"{height}x{width} image: {ms:.3f} ms")
     out["filters_ms"] = ms
@@ -3361,15 +3365,15 @@ def grouped_run(torch, np, what, d_edges, height, width, report):
     def yardstick():
         return cov._launch_coverage(other, es, table, height, width, 0)
 
-    ms = time_cuda(torch, kernel)
-    other_ms = time_cuda(torch, yardstick)
+    ms = time_ms(torch, kernel)
+    other_ms = time_ms(torch, yardstick)
     got = kernel()
     held = {}
 
     def plain():
         held["want"] = cov.grouped_plain(es, bounds, height, width, 0)
 
-    plain_ms = time_cuda(torch, plain, reps=1, warmup=0)
+    plain_ms = time_ms(torch, plain, reps=1, warmup=0)
     err = _check_planes(torch, f"{what}: grouped, all {got.shape[0]} planes",
                         got, held.pop("want"))
     diff = (got - yardstick()).abs()
@@ -3402,7 +3406,7 @@ def _timed_tiling(torch, what, kernel, column, plain, counts_args, report,
     inputs, hold every frame against the plain version and the column
     kernel's frames, work out its bound."""
     out = _timed_sweep(torch, what, kernel, plain, counts_args, report)
-    column_ms = time_cuda(torch, column, reps=5)
+    column_ms = time_ms(torch, column, reps=5)
     got = kernel()
     cmax, share = byte_diff(torch, got, column())
     if cmax > TOL_LEVELS:
@@ -3517,7 +3521,7 @@ def tilings_full_width(torch, np, report, launches):
     tables_c = sweep.compact_pre(d_mats, d_tab, plan["compact_counts"],
                                  plan["wblock"], height, width)
     most = _plan_covers(torch, "anim1080", tables_c, plan)
-    pre_ms = time_cuda(torch, lambda: sweep.compact_pre(
+    pre_ms = time_ms(torch, lambda: sweep.compact_pre(
         d_mats, d_tab, plan["compact_counts"], plan["wblock"], height,
         width))
     compact_bytes = sum(x.numel() * x.element_size() for x in (
@@ -3604,17 +3608,269 @@ def phase_tilings(torch, np, report):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: probes — exp_split's variants of B1, exp_bw, exp_scatter D
+# ---------------------------------------------------------------------------
+
+# (layers, group, width) of the random variant scenes: 2 frames x 40 rows.
+PROBE_CASES = tuple((layers, group, width) for layers in (1, 4, 16)
+                    for group in (6, 2) for width in (200, 1920))
+BW_SHAPE = (60, 4, 137, 128, 128)   # exp_bw's F, L, NS planes, uncut
+
+
+def split_random(torch, np):
+    """Every variant of swf_fused_variant against its plain version (and
+    full / batched / merged against render_fused_blocksn) on random
+    scenes packed at one strip a plane; the ablated modes into buffers
+    filled with -7, so an unwritten word shows; the observe guard: place
+    writes B1's words, none the xor of its loads."""
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_split
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    rng = np.random.default_rng(23)
+    frames, height, n = 2, 40, 0
+    for layers, group, width in PROBE_CASES:
+        tables, colors = build_scene_edges(frames, layers, height, width,
+                                           shapes_per_layer=6,
+                                           seed=int(rng.integers(1 << 30)))
+        d = exp_split.pack(tables, height, width, DEVICE, group=group)
+        cols = torch.as_tensor(colors, device=DEVICE)
+        ns, nc = d["ns"], d["nc"]
+        args = kernel_args(d) + (cols, frames, layers, ns, nc)
+        b1 = render_fused_blocksn(*args, group=group)[:, :ns]
+        calls = exp_split.variants(d, cols, frames, layers, group=group)
+        if len(calls) != 9:
+            fail(f"probes: {sorted(calls)} for L={layers} group={group}")
+        for name, v in calls.items():
+            what = f"probes: {name} L={layers} group={group} w={width}"
+            got = v.call()[:, :ns]
+            _equal_words(torch, what, got, v.plain()[:, :ns])
+            if v.words:
+                _equal_words(torch, f"{what} vs render_fused_blocksn", got,
+                             b1)
+            else:
+                buf = torch.full((frames, ns + 1, 8, nc * 128), -7,
+                                 dtype=torch.int32, device=DEVICE)
+                arrays = args[:7] if name != "none0" else (
+                    args[0], args[1], None, None, None, None, cols)
+                exp_split._launch(name, *arrays, frames, layers, ns, nc,
+                                  group, out=buf)
+                _equal_words(torch, f"{what} (every word written)",
+                             buf[:, :ns], torch.zeros_like(b1))
+            n += 1
+        place = exp_split._launch("place", *args[:7], frames, layers, ns, nc,
+                                  group, observe=True)
+        _equal_words(torch, f"probes: place observed L={layers}",
+                     place[:, :ns], b1)
+        none = exp_split._launch("none", *args[:7], frames, layers, ns, nc,
+                                 group, observe=True)[:, :ns].cpu().numpy()
+        seen = np.bitwise_xor.reduce(np.bitwise_xor.reduce(
+            none.reshape(frames, ns, 8, nc, 128), axis=4), axis=2)
+        want = exp_split.none_observed_plain(*kernel_args(d), frames, layers,
+                                             ns, group).numpy()
+        if not want.any() or not (seen == want[..., None]).all():
+            fail(f"probes: none observed L={layers} group={group}: the "
+                 f"loads' xor differs on {(seen != want[..., None]).sum()} "
+                 f"of {seen.size} chunk blocks")
+        log(f"probes: L={layers} group={group} width={width}: {len(calls)} "
+            f"variants equal their plain versions, observe guards hold")
+    return n
+
+
+def split_headline(torch, np, report, launches):
+    """The variants on the headline scene at one strip a plane: each
+    driven once through its wrapper (its counter set to 0 just before,
+    read just after), then timed beside B1 on the same arrays."""
+    from swf_renderer_tpu_torch.ops.flatblock import (
+        LANE, STRIP_H, render_fused_blocksn,
+    )
+    from swf_renderer_tpu_torch.tools import exp_split
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    frames, layers, height, width = HEADLINE
+    if "headline_scene" not in _HELD:   # phase 3 did not run first
+        _HELD["headline_scene"] = build_scene_edges(frames, layers, height,
+                                                    width, seed=7)
+    tables, colors = _HELD["headline_scene"]
+    t0 = time.perf_counter()
+    d = exp_split.pack(tables, height, width, DEVICE)
+    t_pack = time.perf_counter() - t0
+    cols = torch.as_tensor(colors, device=DEVICE)
+    ns, nc = d["ns"], d["nc"]
+    args = kernel_args(d) + (cols, frames, layers, ns, nc)
+    calls = exp_split.variants(d, cols, frames, layers)
+    outs = {}
+    for name, v in calls.items():
+        v.wrapper.launches = 0
+        torch.cuda.synchronize()
+        outs[name] = v.call()[:, :ns]
+        torch.cuda.synchronize()
+        launches[name] = v.wrapper.launches
+        if launches[name] < 1:
+            fail(f"probes: {name} did not launch its kernel")
+
+    def b1():
+        return render_fused_blocksn(*args, group=exp_split.GROUP)
+
+    b1_words = b1()[:, :ns]
+    ms_b1 = [time_ms(torch, b1)]
+    in_bytes = sum(t.numel() * t.element_size() for t in kernel_args(d))
+    out_bytes = frames * ns * STRIP_H * nc * LANE * 4
+    words_bound = bound(*work_counts(torch, d, frames, layers, 1,
+                                     (0,) * layers, colors=cols))
+    bounds = {"place": bound(in_bytes + out_bytes, valid_updates(torch, d)),
+              "none": bound(in_bytes + out_bytes, 0),
+              "resolve": bound(out_bytes, 0), "none0": bound(out_bytes, 0)}
+    pixels = frames * height * width
+    words_shape = (frames, ns + 1, STRIP_H, nc * LANE)
+
+    def library():   # what the ablated variants compute, in one call
+        return torch.zeros(words_shape, dtype=torch.int32, device=DEVICE)
+
+    out = {}
+    for name, v in calls.items():
+        want = b1_words if v.words else torch.zeros_like(b1_words)
+        _equal_words(torch, f"probes: headline {name}", outs[name], want)
+        ms = time_ms(torch, v.call)
+        plain_ms = time_ms(torch, v.plain, reps=3)
+        # No single call places and resolves: full, batched and merged
+        # have no library yardstick.
+        library_ms = None if v.words else time_ms(torch, library)
+        bound_ms, bound_by = bounds.get(name, words_bound)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": 0,
+                     "library_ms": library_ms}
+        lib = "" if library_ms is None else \
+            f", torch.zeros {library_ms:.3f} ms"
+        log(f"probes: headline {name}: {ms:.3f} ms "
+            f"({pixels / ms / 1e6:.3f} Gpx/s), plain {plain_ms:.3f} ms"
+            f"{lib}, bound {bound_ms:.4f} ms ({bound_by}), launches "
+            f"{launches[name]}")
+    del outs
+    ms_b1.append(time_ms(torch, b1))
+    ms = {k: v["ms"] for k, v in out.items()}
+    decomposition = {
+        "none0": ms["none0"], "none - none0": ms["none"] - ms["none0"],
+        "place - none": ms["place"] - ms["none"],
+        "resolve - none0": ms["resolve"] - ms["none0"], "full": ms["full"],
+        "b1_before_after": ms_b1}
+    log(f"probes: headline decomposition (ms, one strip a plane, "
+        f"{int(d['urc'].shape[0])} groups, packing {t_pack * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                    f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                    for k, v in decomposition.items()))
+    report["split_headline"] = {"groups": int(d["urc"].shape[0]),
+                                "packing_ms": t_pack * 1e3,
+                                "variants": out,
+                                "decomposition": decomposition}
+    return out
+
+
+def probes_bandwidth(torch, np, report, launches):
+    """exp_bw at (60, 4, 137, 128, 128) and exp_scatter D at 16384 and
+    131072 steps: each kernel driven once through its wrapper (counter
+    set to 0 before, read after), held equal to its plain version, timed
+    beside it and beside its one-call library yardstick."""
+    from swf_renderer_tpu_torch.tools import exp_bw, exp_scatter
+
+    x, x_t = exp_bw.planes(DEVICE, shape=BW_SHAPE)
+    probes = {
+        "bw_lns": (exp_bw.passthrough, lambda: exp_bw.passthrough(x, "lns"),
+                   lambda: exp_bw.passthrough_plain(x),
+                   lambda: torch.add(x, 1.0), 2 * x.numel() * 4),
+        "bw_nsl": (exp_bw.passthrough,
+                   lambda: exp_bw.passthrough(x_t, "nsl"),
+                   lambda: exp_bw.passthrough_plain(x_t),
+                   lambda: torch.add(x_t, 1.0), 2 * x.numel() * 4),
+        "bw_read_sum": (exp_bw.read_sum, lambda: exp_bw.read_sum(x_t),
+                        lambda: exp_bw.read_sum_plain(x_t),
+                        lambda: torch.sum(x_t, dim=2),
+                        x.numel() * 4 * (1 + 1 / x.shape[1]))}
+    steps = {}
+    for n in exp_scatter.STEPS:
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(n)
+        steps[n] = torch.randn((n, 8, 128), generator=gen, device=DEVICE)
+        probes[f"step_{n}"] = (
+            exp_scatter.step_probe,
+            lambda s=steps[n]: exp_scatter.step_probe(s),
+            lambda s=steps[n]: s + 1.0, lambda s=steps[n]: torch.add(s, 1.0),
+            2 * steps[n].numel() * 4)
+    out = {}
+    for name, (fn, kernel, plain, library, nbytes) in probes.items():
+        fn.launches = 0
+        torch.cuda.synchronize()
+        got = kernel()
+        torch.cuda.synchronize()
+        launches[name] = fn.launches
+        if fn.launches < 1:
+            fail(f"probes: {name} did not launch its kernel")
+        want = plain()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"probes: {name} differs from its plain version")
+        del got, want
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain)
+        library_ms = time_ms(torch, library)
+        bound_ms, bound_by = bound(nbytes, 0)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": 0.0, "gb_s": nbytes / ms / 1e6}
+        log(f"probes: {name}: {ms:.3f} ms = {nbytes / ms / 1e6:.0f} GB/s "
+            f"({nbytes / ms / 1e6 / (PEAK_BYTES_PER_S / 1e9):.1%} of "
+            f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {nbytes / 1e9:.3f} GB), "
+            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms, launches {launches[name]}")
+    del x, x_t, steps, probes
+    torch.cuda.empty_cache()
+    report["probes_bandwidth"] = out
+    return out
+
+
+def phase_probes(torch, np, report):
+    n = split_random(torch, np)
+    log(f"probes: {n} random variant checks equal")
+    launches = {}
+    kernels = split_headline(torch, np, report, launches)
+    kernels.update(probes_bandwidth(torch, np, report, launches))
+    for key, k in kernels.items():
+        k.update(name=probe_meta(key)[0], launches=launches[key])
+    return {f"probe_{key}": k for key, k in kernels.items()}
+
+
+# Phase 11's keys -> (kernels-line name, the TPU kernel it replaces).
+PROBE_META = {
+    "full": ("exp_split_full", "tools/exp_split.py:36"),
+    "place": ("exp_split_place", "tools/exp_split.py:36"),
+    "resolve": ("exp_split_resolve", "tools/exp_split.py:36"),
+    "none": ("exp_split_none", "tools/exp_split.py:36"),
+    "none0": ("exp_split_none0", "tools/exp_split.py:159"),
+    "batched4": ("exp_split_batched_kk4", "tools/exp_split.py:245"),
+    "batched8": ("exp_split_batched_kk8", "tools/exp_split.py:245"),
+    "batched16": ("exp_split_batched_kk16", "tools/exp_split.py:245"),
+    "merged": ("exp_split_merged", "tools/exp_split.py:379"),
+    "bw_lns": ("exp_bw_passthrough_lns", "tools/exp_bw.py:63"),
+    "bw_nsl": ("exp_bw_passthrough_nsl", "tools/exp_bw.py:63"),
+    "bw_read_sum": ("exp_bw_read_sum", "tools/exp_bw.py:84"),
+    "step": ("exp_scatter_step", "tools/exp_scatter.py:121"),
+}
+
+
+def probe_meta(key):
+    """(name, replaces) of a phase 11 key; "step_<n>" keys name n."""
+    if key.startswith("step_"):
+        name, replaces = PROBE_META["step"]
+        return f"{name}_{key[5:]}", replaces
+    return PROBE_META[key]
+
+
 def main() -> None:
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
-    sys.path.insert(0, str(ROOT))
-    try:
-        import swf_renderer_tpu_torch  # noqa: F401
-    except ImportError as exc:
-        fail(f"the port's package is not beside this script: {exc}")
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -3632,6 +3888,7 @@ def main() -> None:
     kernels.update(phase_flat_blocks(torch, np, report))
     kernels.update(phase_deep_masked(torch, np, report))
     kernels.update(phase_tilings(torch, np, report))
+    kernels.update(phase_probes(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
@@ -3662,12 +3919,17 @@ def main() -> None:
         "affine_compact": (sweep_cu, "swf_renderer_tpu/ops/transform.py:586"),
         "grouped": (coverage_cu, "swf_renderer_tpu/ops/coverage.py:404"),
     }
+    for key in kernels:
+        if key.startswith("probe_"):
+            meta[key] = ("swf_renderer_tpu_torch/csrc/probes.cu"
+                         if key.startswith(("probe_bw_", "probe_step_"))
+                         else flatblock_cu, probe_meta(key[6:])[1])
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],
              replaces=meta[key][1], launches=k["launches"],
              max_abs_err=k["max_abs_err"], ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-             bound_by=k["bound_by"], library_ms=None)
+             bound_by=k["bound_by"], library_ms=k.get("library_ms"))
         for key, k in kernels.items()]}
     card = card_line()
     report.update(kernels=line["kernels"], card=card,

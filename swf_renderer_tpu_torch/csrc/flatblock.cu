@@ -3,8 +3,9 @@
 // (render_fused_blocksn, render_fused_styled: single pass, and the chain,
 // background-seeded, premultiplied-output and mask-group modes of deep
 // and masked draw lists) and its one-block-per-step form
-// (render_fused_blocks).  The device logic and its design notes live
-// in flatblock_device.cuh.
+// (render_fused_blocks); and the variants of the solid kernel that
+// tools/exp_split.py cuts it into (swf_fused_variant).  The device logic
+// and its design notes live in flatblock_device.cuh.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -46,11 +47,11 @@ __global__ void block_index_kernel(const int* sidx, const int* keep,
 }
 
 template <bool kStyled, bool kOne, bool kChain = false,
-          bool kPremul = false>
+          bool kPremul = false, int kVar = kVarFull>
 __global__ void __launch_bounds__(kThreads)
 fused_flatblock_kernel(FusedArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fused_block<kStyled, kOne, kChain, kPremul>(a, smem);
+  fused_block<kStyled, kOne, kChain, kPremul, kVar>(a, smem);
 }
 
 // Zero the premultiplied output's padding rows (plane rows spp*n_chunks*8
@@ -75,7 +76,8 @@ cudaError_t zero_premul_padding(const FusedArgs& a, int frames,
       strip_bytes * a.ns1, 0, strip_bytes, frames, stream);
 }
 
-template <bool kStyled, bool kChain = false, bool kPremul = false>
+template <bool kStyled, bool kChain = false, bool kPremul = false,
+          int kVar = kVarFull>
 cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
                    cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(
@@ -92,9 +94,13 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   a.sg_last = last;
   a.spb = strips_per_block(a.layers, a.spp, kStyled);
   a.n_spg = (a.spp + a.spb - 1) / a.spb;
-  const size_t bytes = smem_bytes(a.layers, a.spb * kStripH, kStyled);
+  size_t bytes = smem_bytes(a.layers, a.spb * kStripH, kStyled);
+  if constexpr (kVar == kVarBatched) {
+    bytes += batched_stage_bytes(a.group, a.kk);
+    if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  }
   err = cudaFuncSetAttribute(
-      fused_flatblock_kernel<kStyled, false, kChain, kPremul>,
+      fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   if (kPremul) {
@@ -103,7 +109,7 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   }
   const dim3 grid(a.n_chunks * a.n_spg, n_strips, frames);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    fused_flatblock_kernel<kStyled, false, kChain, kPremul>
+    fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>
         <<<grid, kThreads, bytes, stream>>>(a);
   }
   return cudaGetLastError();
@@ -206,6 +212,8 @@ int swf_fused_flatblock(int styled, int mode, const void* sidx,
   a.spb = 1;
   a.n_spg = 1;
   a.passes = 3;
+  a.kk = 1;
+  a.observe = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* idx = static_cast<int*>(sg_index);
   cudaError_t err;
@@ -257,6 +265,85 @@ int swf_fused_blocks1(const void* sidx, const void* keep, const void* last,
       a, static_cast<const int*>(keep), static_cast<const int*>(last),
       frames, static_cast<int*>(sg_index),
       static_cast<cudaStream_t>(stream)));
+}
+
+// tools/exp_split.py's variants of the solid kernel (nonzero rule via
+// `rules`, spp 1): variant swf::kVarFull (0, B1's own instantiation) ..
+// swf::kVarBatched (6), flatblock_device.cuh.  kVarMerged: urc is the
+// (ng, 1, 2 * group * 128) array of urc and uval halves, uval unused;
+// kVarBatched: kk groups a stage, ng % kk == 0, refused when the stage
+// and the planes exceed 227 KB of shared memory; kVarNone0: lays, urc,
+// ucm and uval unused.  observe != 0 keeps the ablated work observable
+// (flatblock_device.cuh).  Other arguments as swf_fused_flatblock's.
+int swf_fused_variant(int variant, int kk, int observe, const void* sidx,
+                      const void* flags, const void* lays, const void* urc,
+                      const void* ucm, const void* uval, const void* colors,
+                      const void* rules, void* sg_index, void* out, int ng,
+                      int group, int frames, int layers, int ns1,
+                      int n_chunks, int plane_rows, void* stream) {
+  if (layers < 1 || layers > swf::kMaxLayers || group < 1 || n_chunks < 1 ||
+      ns1 < 1 || ns1 - 1 > 65535 || frames < 1 || frames > 65535 ||
+      variant < swf::kVarFull || variant > swf::kVarBatched ||
+      (variant == swf::kVarBatched && (kk < 1 || ng % kk != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::FusedArgs a = {};
+  a.sidx = static_cast<const int*>(sidx);
+  a.flags = static_cast<const int*>(flags);
+  a.lays = static_cast<const int*>(lays);
+  a.urc = static_cast<const float*>(urc);
+  a.ucm = static_cast<const float*>(ucm);
+  a.uval = variant == swf::kVarMerged
+               ? static_cast<const float*>(urc) + group * swf::kBlk
+               : static_cast<const float*>(uval);
+  a.colors = static_cast<const float*>(colors);
+  a.rules = static_cast<const int*>(rules);
+  a.out = static_cast<int*>(out);
+  a.mask_from = -1;
+  a.ng = ng;
+  a.group = group;
+  a.layers = layers;
+  a.ns1 = ns1;
+  a.n_chunks = n_chunks;
+  a.spp = 1;
+  a.plane_rows = plane_rows;
+  a.passes = 3;
+  a.kk = kk;
+  a.observe = observe;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* idx = static_cast<int*>(sg_index);
+  const int n = ns1 - 1;
+  cudaError_t err;
+  switch (variant) {
+    case swf::kVarFull:
+      err = swf::launch<false>(a, frames, n, idx, s);
+      break;
+    case swf::kVarPlace:
+      err = swf::launch<false, false, false, swf::kVarPlace>(a, frames, n,
+                                                               idx, s);
+      break;
+    case swf::kVarResolve:
+      err = swf::launch<false, false, false, swf::kVarResolve>(a, frames, n,
+                                                                 idx, s);
+      break;
+    case swf::kVarNone:
+      err = swf::launch<false, false, false, swf::kVarNone>(a, frames, n,
+                                                              idx, s);
+      break;
+    case swf::kVarNone0:
+      err = swf::launch<false, false, false, swf::kVarNone0>(a, frames, n,
+                                                               idx, s);
+      break;
+    case swf::kVarMerged:
+      err = swf::launch<false, false, false, swf::kVarMerged>(a, frames, n,
+                                                                idx, s);
+      break;
+    default:
+      err = swf::launch<false, false, false, swf::kVarBatched>(a, frames, n,
+                                                                 idx, s);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 // Packed strips each block of swf_fused_flatblock resolves (spb); a plane's

@@ -125,7 +125,38 @@ struct FusedArgs {
   int spb;              // packed strips owned by one block
   int n_spg;            // strip slices per chunk (ceil(spp / spb))
   int passes;           // one-block form: < 3 splits values in two bf16
+  int kk;               // kVarBatched: groups staged in shared memory
+  int observe;          // kVarPlace / kVarNone: keep the work observable
 };
+
+// Variants of the solid grouped kernel that cut it apart
+// (tools/exp_split.py: `_kernel` :36 with mode full / place / resolve /
+// none, `_kernel0` :159, `_kernel_b` :245, `_kernel_m` :379), spp 1.
+// kVarFull is B1 itself.  The ablations skip phases of fused_block:
+//   kVarPlace   the walk, scatter and carry; zero words;
+//   kVarResolve no walk; prefix and resolve of the zeroed planes (zero
+//               words: coverage 0 everywhere);
+//   kVarNone    the walk loads every update of its supergroup and
+//               scatters nothing; zero words;
+//   kVarNone0   reads no update array; zeroes shared memory, zero words.
+// Nothing reads the planes of kVarPlace or the loads of kVarNone, so
+// nvcc could drop both: a run-time `observe` that the tools never set
+// keeps them (kVarPlace then prefixes and resolves, writing B1's words;
+// kVarNone stores each thread's xor of its loaded words, so the xor of
+// a block's words is that of its supergroup's updates).  The two layout
+// variants write B1's words: kVarMerged reads urc and uval as the halves
+// of one (NG, 1, 2 * group * 128) row per group (a.urc = the array,
+// a.uval = a.urc + group * 128), kVarBatched stages the inputs of `kk`
+// consecutive groups (aligned to kk, as the reference's index map i //
+// kk) into shared memory with one cp.async group, then scatters from
+// there.
+constexpr int kVarFull = 0;
+constexpr int kVarPlace = 1;
+constexpr int kVarResolve = 2;
+constexpr int kVarNone = 3;
+constexpr int kVarNone0 = 4;
+constexpr int kVarMerged = 5;
+constexpr int kVarBatched = 6;
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
@@ -152,6 +183,13 @@ __host__ __device__ inline size_t smem_bytes(int layers, int rows,
 // Largest dynamic shared-memory carve-up a block may take (of the 227 KB
 // an H100 block can address).
 constexpr size_t kSmemBudget = 160 * 1024;
+constexpr size_t kSmemMax = 232448;   // 227 KB: what a block can address
+
+// kVarBatched's stage after the solid carve-up: rc, cm and v of kk
+// groups of group * 128 slots.
+__host__ __device__ inline size_t batched_stage_bytes(int group, int kk) {
+  return static_cast<size_t>(3) * kk * group * kBlk * 4;
+}
 
 // Strips per block: as many of the plane's packed strips as fit the
 // shared-memory budget and one scan row per thread.
@@ -408,14 +446,53 @@ __device__ __forceinline__ void chain_pixel(
   for (int ch = 0; ch < 4; ++ch) out[ch] = acc[ch];
 }
 
+// cp.async of 16 bytes from device to shared memory, its commit and its
+// wait.  Without __CUDA_ARCH__ (the host pass, and the CPU emulation of
+// the tests) the copy is a plain one and the rest are empty.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most n committed groups are still in flight.
+__device__ __forceinline__ void cp_async_wait(int n) {
+#ifdef __CUDA_ARCH__
+  switch (n) {
+    case 7: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+  }
+#endif
+}
+
 // One block: (chunk, strip slice) x strip block x frame.  kOne: the
 // one-block-per-step form (render_fused_blocks): group 1, no flags or
 // layer table (the layer is read from each block's sidx), values split
 // in two bf16 parts when passes < 3.  kChain / kPremul: the chain modes
-// (chain_pixel) and the premultiplied-plane output.
+// (chain_pixel) and the premultiplied-plane output.  kVar: a variant of
+// the solid grouped kernel (kVarFull ... kVarBatched above).
 template <bool kStyled, bool kOne = false, bool kChain = false,
-          bool kPremul = false>
+          bool kPremul = false, int kVar = kVarFull>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
+  static_assert(kVar == kVarFull || (!kStyled && !kOne && !kChain),
+                "the variants are of the solid grouped kernel");
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int chunk = blockIdx.x / a.n_spg;
@@ -456,44 +533,111 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   __syncthreads();
 
   // Placement: this chunk's deltas into the plane, earlier chunks' deltas
-  // of the same row into the carry.
+  // of the same row into the carry.  place(g, k, v, rc, cm) scatters the
+  // update of value v in slot k of group g, its row id at rc and its
+  // column at cm.
+  auto place = [&](int g, int k, float v, const float* rc_p,
+                   const float* cm_p) {
+    const int rc = static_cast<int>(*rc_p);
+    const int sp = rc / nc8;
+    const int local = rc - sp * nc8;
+    const int ch = local >> 3;
+    const int lsp = sp - sp0;
+    if (ch > chunk || lsp < 0 || lsp >= a.spb) return;
+    const int layer = kOne ? (a.sidx[g] / a.ns1) % L
+                           : a.lays[static_cast<long long>(k) * a.ng + g];
+    if (layer < 0 || layer >= L) return;
+    const int row = layer * rows + lsp * kStripH + (local & 7);
+    if (ch == chunk) {
+      atomicAdd(&plane[row * kRowStride + static_cast<int>(*cm_p)], v);
+    } else {
+      atomicAdd(reinterpret_cast<unsigned long long*>(&carry[row]),
+                static_cast<unsigned long long>(to_fixed(v)));
+    }
+  };
   const int sg = f * a.ns1 + s;
   const int g0 = a.sg_first[sg];
   const int g1 = a.sg_last[sg];
-  if (g0 >= 0 && g1 >= g0) {
-    const int gb = a.group * kBlk;
-    const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
-    for (long long j = tid; j < total; j += nthr) {
-      const int g = g0 + static_cast<int>(j / gb);
-      const int rem = static_cast<int>(j % gb);
-      const int k = rem / kBlk;
-      const int nblk = kOne ? 0 : static_cast<int>(
-          static_cast<unsigned>(a.flags[g]) >> 2);
-      if (nblk != 0 && k >= nblk) continue;
-      const long long idx = static_cast<long long>(g) * gb + rem;
-      float v = a.uval[idx];
-      if (kOne && a.passes < 3) v = split_bf16x2(v);
-      if (v == 0.0f) continue;
-      const int rc = static_cast<int>(a.urc[idx]);
-      const int sp = rc / nc8;
-      const int local = rc - sp * nc8;
-      const int ch = local >> 3;
-      const int lsp = sp - sp0;
-      if (ch > chunk || lsp < 0 || lsp >= a.spb) continue;
-      const int layer = kOne ? (a.sidx[g] / a.ns1) % L
-                             : a.lays[static_cast<long long>(k) * a.ng + g];
-      if (layer < 0 || layer >= L) continue;
-      const int row = layer * rows + lsp * kStripH + (local & 7);
-      if (ch == chunk) {
-        atomicAdd(&plane[row * kRowStride + static_cast<int>(a.ucm[idx])],
-                  v);
-      } else {
-        atomicAdd(reinterpret_cast<unsigned long long*>(&carry[row]),
-                  static_cast<unsigned long long>(to_fixed(v)));
+  const int gb = a.group * kBlk;
+  uint32_t seen = 0;   // kVarNone: xor of the words this thread loaded
+  if constexpr (kVar == kVarBatched) {
+    const int n = a.kk * gb;   // floats of one staged array
+    float* stage = reinterpret_cast<float*>(
+        smem + smem_bytes(L, rows, false));           // rc, cm, v
+    for (int b0 = g0 - g0 % a.kk; g0 >= 0 && b0 <= g1; b0 += a.kk) {
+      const long long base = static_cast<long long>(b0) * gb;
+      for (int i = tid; i < 3 * (n / 4); i += nthr) {
+        const int arr = i / (n / 4);
+        const int off = 4 * (i - arr * (n / 4));
+        const float* src = arr == 0 ? a.urc : (arr == 1 ? a.ucm : a.uval);
+        cp_async16(stage + arr * n + off, src + base + off);
+      }
+      cp_async_commit();
+      cp_async_wait(0);
+      __syncthreads();
+      const int lo = g0 > b0 ? g0 : b0;
+      const int hi = g1 < b0 + a.kk - 1 ? g1 : b0 + a.kk - 1;
+      for (int j = tid; j < (hi - lo + 1) * gb; j += nthr) {
+        const int g = lo + j / gb;
+        const int rem = j % gb;
+        const int k = rem / kBlk;
+        const int nblk = static_cast<int>(
+            static_cast<unsigned>(a.flags[g]) >> 2);
+        if (nblk != 0 && k >= nblk) continue;
+        const int si = (g - b0) * gb + rem;
+        const float v = stage[2 * n + si];
+        if (v == 0.0f) continue;
+        place(g, k, v, stage + si, stage + n + si);
+      }
+      __syncthreads();   // the stage is free again
+    }
+  } else if constexpr (kVar != kVarResolve && kVar != kVarNone0) {
+    if (g0 >= 0 && g1 >= g0) {
+      const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
+      for (long long j = tid; j < total; j += nthr) {
+        const int g = g0 + static_cast<int>(j / gb);
+        const int rem = static_cast<int>(j % gb);
+        const int k = rem / kBlk;
+        const int nblk = kOne ? 0 : static_cast<int>(
+            static_cast<unsigned>(a.flags[g]) >> 2);
+        if (nblk != 0 && k >= nblk) continue;
+        const long long idx = static_cast<long long>(g) * gb + rem;
+        // kVarMerged: urc and uval are the halves of a row of 2 * gb.
+        const long long iv =
+            kVar == kVarMerged ? idx + static_cast<long long>(g) * gb : idx;
+        float v = a.uval[iv];
+        if (kOne && a.passes < 3) v = split_bf16x2(v);
+        if (v == 0.0f) continue;
+        if constexpr (kVar == kVarNone) {
+          seen ^= __float_as_uint(v) ^ __float_as_uint(a.urc[iv]) ^
+                  __float_as_uint(a.ucm[idx]) ^
+                  static_cast<uint32_t>(
+                      a.lays[static_cast<long long>(k) * a.ng + g]);
+        } else {
+          place(g, k, v, a.urc + iv, a.ucm + idx);
+        }
       }
     }
   }
   __syncthreads();
+
+  if constexpr (kVar == kVarPlace || kVar == kVarNone ||
+                kVar == kVarNone0) {
+    if (kVar != kVarPlace || a.observe == 0) {
+      const int stride = a.n_chunks * kLane;
+      for (int p = tid; p < rows * kLane; p += nthr) {
+        const int row = p / kLane;
+        const int sp = sp0 + row / kStripH;
+        if (sp >= a.spp) continue;
+        const int word = (kVar == kVarNone && a.observe != 0 && p == tid)
+                             ? static_cast<int>(seen) : 0;
+        a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+               + sp * kStripH + row % kStripH) * stride + chunk * kLane
+              + p % kLane] = word;
+      }
+      return;
+    }
+  }
 
   // In-chunk inclusive prefix (left to right), plus the carry: winding.
   for (int r = tid; r < L * rows; r += nthr) {

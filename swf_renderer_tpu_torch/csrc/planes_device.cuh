@@ -279,42 +279,6 @@ __device__ void resolve_u32_block(const PlanesArgs& a, unsigned char* smem) {
   }
 }
 
-// cp.async of 16 bytes from device to shared memory, its commit and its
-// wait.  Without __CUDA_ARCH__ (the host pass, and the CPU emulation of
-// the tests) the copy is a plain one and the rest are empty.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-#else
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-#endif
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// Waits until at most n committed groups are still in flight.
-__device__ __forceinline__ void cp_async_wait(int n) {
-#ifdef __CUDA_ARCH__
-  switch (n) {
-    case 7: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-  }
-#endif
-}
-
 // B16: blockIdx.y = frame; the frame's strips split in gridDim.x runs.
 // smem: the ring (depth stages), then resolve_smem_bytes.
 __device__ void resolve_dma_block(const PlanesArgs& a, unsigned char* smem) {

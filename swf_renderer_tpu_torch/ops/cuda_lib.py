@@ -32,6 +32,7 @@ LIBRARIES = {
                                   "flatblock_device.cuh")),
     "swfplanes": ("planes.cu", ("planes_device.cuh", "resolve_device.cuh",
                                 "flatblock_device.cuh")),
+    "swfprobes": ("probes.cu", ("probes_device.cuh",)),
 }
 # -fmad=false: no a*b+c contracts into an FMA the reference does not do;
 # IEEE division and square root stay on (no --use_fast_math).
@@ -123,6 +124,9 @@ def load(name: str = "swfkernels"):
                 lib.swf_strips_per_block.argtypes = [i, i, i]
                 lib.swf_fused_blocks1.restype = i
                 lib.swf_fused_blocks1.argtypes = [p] * 10 + [i] * 6 + [p]
+                lib.swf_fused_variant.restype = i
+                lib.swf_fused_variant.argtypes = [i] * 3 + [p] * 10 + [i] * 7 \
+                    + [p]
             elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
@@ -148,6 +152,13 @@ def load(name: str = "swfkernels"):
                 lib.swf_resolve_u32.argtypes = [p] * 4 + [i] * 5 + [p]
                 lib.swf_resolve_u32_dma.restype = i
                 lib.swf_resolve_u32_dma.argtypes = [p] * 4 + [i] * 5 + [p]
+            elif name == "swfprobes":
+                q = ctypes.c_longlong
+                lib.swf_passthrough.restype = i
+                lib.swf_passthrough.argtypes = [p] * 2 + [i] * 4 + [q] * 3 \
+                    + [p]
+                lib.swf_read_sum.restype = i
+                lib.swf_read_sum.argtypes = [p] * 2 + [i] * 4 + [q] * 5 + [p]
             else:
                 raise RuntimeError(f"no ctypes signatures for {name!r}")
             _libs[name] = lib

@@ -24,23 +24,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 
-
-def _time_ms(torch, fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+from .timing import card_line, time_ms
 
 
 def measure(torch, np, config, wblocks, bpss):
@@ -77,13 +62,13 @@ def measure(torch, np, config, wblocks, bpss):
         rows_out.append(row)
         print(json.dumps(row), flush=True)
 
-    emit("column", _time_ms(torch, column), want)
+    emit("column", time_ms(torch, column), want)
 
     def rows():
         return sweep.render_affine_sweep(d_mats, d_tab, d_col, height, width,
                                          layer_counts=counts, row_grid=True)
 
-    emit("rows", _time_ms(torch, rows), rows())
+    emit("rows", time_ms(torch, rows), rows())
 
     plans = [sweep.plan_compact_sweep(mats, tab, height, width)]
     plans += [sweep.plan_compact_sweep(mats, tab, height, width, wblock=wb,
@@ -113,9 +98,9 @@ def measure(torch, np, config, wblocks, bpss):
             return sweep.render_affine_sweep(d_mats, d_tab, d_col, height,
                                              width, **plan)
 
-        emit(f"compact wblock={key[0]} bps={key[1]}", _time_ms(torch, whole),
-             whole(), kernel_ms=_time_ms(torch, kernel),
-             compact_pre_ms=_time_ms(torch, pre),
+        emit(f"compact wblock={key[0]} bps={key[1]}", time_ms(torch, whole),
+             whole(), kernel_ms=time_ms(torch, kernel),
+             compact_pre_ms=time_ms(torch, pre),
              compact_counts=list(plan["compact_counts"]),
              most_crossing=tables_c.crossing.amax(dim=(0, 1)).tolist())
     return rows_out
@@ -137,10 +122,7 @@ def main() -> None:
                else [args.config])
     for config in configs:
         measure(torch, np, config, args.wblock, args.bps)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(card_line())
 
 
 if __name__ == "__main__":

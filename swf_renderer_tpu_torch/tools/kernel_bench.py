@@ -17,23 +17,8 @@ limit.  The reference timed the same cases through chained jitted loops
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 
-
-def _time_ms(torch, fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+from .timing import card_line, time_ms
 
 
 def bench_cases(np):
@@ -80,7 +65,7 @@ def main() -> None:
             def run(kind=kind, table=table):
                 return cov._launch_coverage(kind, es, table, height, width,
                                             0)
-            ms = _time_ms(torch, run)
+            ms = time_ms(torch, run, reps=20)
             outs[kind] = run()
             row[f"{kind}_ms"] = ms
             row[f"{kind}_gpx_s"] = height * width / ms / 1e6
@@ -88,10 +73,7 @@ def main() -> None:
             row[f"grouped_vs_{kind}"] = float(
                 (outs["grouped"] - outs[kind]).abs().max().item())
         print(json.dumps(row), flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(card_line())
 
 
 if __name__ == "__main__":

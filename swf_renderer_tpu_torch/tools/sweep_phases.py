@@ -19,9 +19,9 @@ from __future__ import annotations
 import json
 import pathlib
 import shutil
-import statistics
-import subprocess
 import tempfile
+
+from .timing import card_line, time_ms
 
 # Variant -> the line of sweep_device.cuh it returns in front of.
 STOPS = {
@@ -32,21 +32,6 @@ STOPS = {
                          "quantize, pack.",
     "full": None,
 }
-
-
-def _time_ms(torch, fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main() -> None:
@@ -108,17 +93,14 @@ def main() -> None:
             (tmp / "csrc" / "sweep_device.cuh").write_text(text)
             cuda_lib.CSRC_DIR, cuda_lib.BUILD_DIR = tmp / "csrc", tmp / "build"
             cuda_lib._libs.clear()
-            result["ms"][name] = {"solid": _time_ms(torch, solid),
-                                  "gradient": _time_ms(torch, gradient)}
+            result["ms"][name] = {"solid": time_ms(torch, solid),
+                                  "gradient": time_ms(torch, gradient)}
             shutil.rmtree(tmp, ignore_errors=True)
     finally:
         cuda_lib.CSRC_DIR, cuda_lib.BUILD_DIR = csrc, build
         cuda_lib._libs.clear()
     print(json.dumps(result))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(card_line())
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ carry, op-by-op f32), and g++ is told not to contract FMAs.
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -36,6 +37,7 @@ from swf_renderer_tpu_torch.ops import flatblock as fb
 from swf_renderer_tpu_torch.ops import texfield
 from swf_renderer_tpu_torch.ops import transform as sweep
 from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
+from swf_renderer_tpu_torch.tools import exp_bw, exp_split
 from swf_renderer_tpu_torch.utils.scenes import (
     build_scene_edges, random_blobs, random_tracks,
 )
@@ -123,6 +125,7 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
 #include "coverage_device.cuh"
 #include "resolve_device.cuh"
 #include "planes_device.cuh"
+#include "probes_device.cuh"
 
 // One emulated block of n threads (warps of 32: a barrier and exchange
 // slots each) running body() with blockIdx (x, y, z).
@@ -541,6 +544,90 @@ extern "C" int emulate_resolve_u32(const float* planes, const float* colors,
   return a.depth;
 }
 
+// The variants of the solid kernel (swf_fused_variant), spp 1.
+template <int kVar>
+void run_variant(const swf::FusedArgs& a, int frames,
+                 std::vector<unsigned char>& smem) {
+  for (int z = 0; z < frames; ++z)
+    for (int y = 0; y < a.ns1 - 1; ++y)
+      for (int x = 0; x < a.n_chunks; ++x) {
+        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        run_block(swf::kThreads, x, y, z, [&] {
+          swf::fused_block<false, false, false, false, kVar>(a, smem.data());
+        });
+      }
+}
+
+extern "C" int emulate_variant(int variant, int kk, int observe,
+                               const int* sidx, const int* flags,
+                               const int* lays, const float* urc,
+                               const float* ucm, const float* uval,
+                               const float* colors, const int* rules,
+                               int* out, int ng, int group, int frames,
+                               int layers, int ns1, int n_chunks) {
+  swf::FusedArgs a{};
+  a.sidx = sidx; a.flags = flags; a.lays = lays; a.urc = urc; a.ucm = ucm;
+  a.uval = variant == swf::kVarMerged ? urc + group * swf::kBlk : uval;
+  a.colors = colors; a.rules = rules; a.out = out; a.mask_from = -1;
+  a.ng = ng; a.group = group; a.layers = layers; a.ns1 = ns1;
+  a.n_chunks = n_chunks; a.spp = 1; a.plane_rows = 128; a.passes = 3;
+  a.spb = 1; a.n_spg = 1; a.kk = kk; a.observe = observe;
+  std::vector<int> first(frames * ns1, -1), last(frames * ns1, -1);
+  for (int i = 0; i < ng; ++i) {  // supergroup_index_kernel
+    const int fl = flags[i];
+    if ((fl & 3) == 0) continue;
+    const int sg = (sidx[i] / (layers * ns1)) * ns1 + sidx[i] % ns1;
+    if (fl & 1) first[sg] = i;
+    if (fl & 2) last[sg] = i;
+  }
+  a.sg_first = first.data();
+  a.sg_last = last.data();
+  size_t bytes = swf::smem_bytes(layers, swf::kStripH, false);
+  if (variant == swf::kVarBatched) {
+    bytes += swf::batched_stage_bytes(group, kk);
+    if (bytes > swf::kSmemMax || ng % kk != 0) return -1;
+  }
+  std::vector<unsigned char> smem(bytes);
+  switch (variant) {
+    case swf::kVarFull: run_variant<swf::kVarFull>(a, frames, smem); break;
+    case swf::kVarPlace: run_variant<swf::kVarPlace>(a, frames, smem); break;
+    case swf::kVarResolve:
+      run_variant<swf::kVarResolve>(a, frames, smem); break;
+    case swf::kVarNone: run_variant<swf::kVarNone>(a, frames, smem); break;
+    case swf::kVarNone0: run_variant<swf::kVarNone0>(a, frames, smem); break;
+    case swf::kVarMerged:
+      run_variant<swf::kVarMerged>(a, frames, smem); break;
+    default: run_variant<swf::kVarBatched>(a, frames, smem); break;
+  }
+  return 0;
+}
+
+// The batched kernel's shared memory a block, as its launcher counts it,
+// and the most a block can address.
+extern "C" long long emulate_batched_smem(int layers, int group, int kk) {
+  return static_cast<long long>(swf::smem_bytes(layers, swf::kStripH, false)
+                                + swf::batched_stage_bytes(group, kk));
+}
+extern "C" long long emulate_smem_max() {
+  return static_cast<long long>(swf::kSmemMax);
+}
+
+// The probes: read_sum 0 the passthrough, 1 the read+sum.
+extern "C" void emulate_probe(int read_sum, const float* x, float* out,
+                              int n_f, int n_s, int n_l, int tile,
+                              long long sf, long long ss, long long sl,
+                              long long of, long long os) {
+  swf::ProbeArgs a{};
+  a.x = x; a.out = out; a.n_l = n_l; a.tile = tile; a.sf = sf; a.ss = ss;
+  a.sl = sl; a.of = of; a.os = os;
+  for (int y = 0; y < n_f; ++y)
+    for (int x = 0; x < n_s; ++x)
+      run_block(swf::kProbeThreads, x, y, 0, [&] {
+        if (read_sum) swf::read_sum_block(a);
+        else swf::passthrough_block(a);
+      });
+}
+
 extern "C" void emulate_resolve(const float* delta, const float* colors,
                                 const int* rules, float* out, int frames,
                                 int layers, int height, int stride) {
@@ -612,6 +699,16 @@ def _build_emulator(d, csrc):
     emu.emulate_resolve_u32.restype = ctypes.c_int
     emu.emulate_resolve_u32.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 8
+    emu.emulate_variant.restype = ctypes.c_int
+    emu.emulate_variant.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    emu.emulate_batched_smem.restype = ctypes.c_longlong
+    emu.emulate_batched_smem.argtypes = [ctypes.c_int] * 3
+    emu.emulate_smem_max.restype = ctypes.c_longlong
+    emu.emulate_smem_max.argtypes = []
+    emu.emulate_probe.restype = None
+    emu.emulate_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 4 + [ctypes.c_longlong] * 5
     return emu
 
 
@@ -1314,3 +1411,118 @@ def test_emulated_fused1_equals_plain_version(emulator, passes):
         nc, passes)
     assert torch.equal(torch.from_numpy(out), want)
     assert (want[:, :ns] != 0).any() and not want[:, ns].any()
+
+
+# -- tools/exp_split.py's variants of the solid kernel; the probes ----------
+
+# (height, width, layers): 2 frames, one strip a plane, group 6.
+VARIANT_SCENES = [(24, 200, 3), (40, 300, 1), (16, 2560, 16)]
+VARIANT_KINDS = ["full", "place", "resolve", "none", "none0", "merged",
+                 "batched1", "batched2", "batched4"]
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_scene(height, width, layers):
+    tables, colors = build_scene_edges(2, layers, height, width,
+                                       shapes_per_layer=3, seed=layers + 70)
+    return exp_split.pack(tables, height, width, "cpu"), colors
+
+
+def _emulate_variant(emu, d, colors, layers, kind, observe=0):
+    """The variant's words from the emulated kernel, out pre-filled with
+    -7 so that words it does not write show."""
+    a = {k: _c(d[k].numpy()) for k in ("sidx", "flags", "lays", "urc", "ucm",
+                                        "uval")}
+    variant = "batched" if kind.startswith("batched") else kind
+    kk = int(kind[len("batched"):]) if variant == "batched" else 1
+    urc = (_c(np.concatenate([a["urc"], a["uval"]], axis=2))
+           if kind == "merged" else a["urc"])
+    ns, nc = d["ns"], d["nc"]
+    out = np.full((2, ns + 1, 8, nc * 128), -7, np.int32)
+    rules = np.zeros(layers, np.int32)
+    colors = _c(colors)
+    rc = emu.emulate_variant(
+        exp_split._VARIANTS[variant], kk, observe, a["sidx"].ctypes.data,
+        a["flags"].ctypes.data, a["lays"].ctypes.data, urc.ctypes.data,
+        a["ucm"].ctypes.data, a["uval"].ctypes.data, colors.ctypes.data,
+        rules.ctypes.data, out.ctypes.data, len(a["sidx"]), 6, 2, layers,
+        ns + 1, nc)
+    assert rc == 0
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("kind", VARIANT_KINDS)
+@pytest.mark.parametrize("scene", VARIANT_SCENES)
+def test_emulated_split_variants_equal_plain_versions(emulator, scene, kind):
+    """Every variant of csrc/flatblock.cu's swf_fused_variant against its
+    plain version: full, merged and batched (kk 1, 2, 4) B1's words, the
+    ablated modes zero words on every visited strip."""
+    height, width, layers = scene
+    d, colors = _variant_scene(height, width, layers)
+    ns = d["ns"]
+    v = exp_split.variants(d, torch.as_tensor(colors), 2, layers,
+                           kks=(1, 2, 4))[kind]
+    want = v.plain()[:, :ns]
+    got = _emulate_variant(emulator, d, colors, layers, kind)[:, :ns]
+    assert torch.equal(got, want)
+    assert bool(want.any()) == v.words
+
+
+@pytest.mark.parametrize("scene", VARIANT_SCENES)
+def test_emulated_ablations_keep_their_work_observable(emulator, scene):
+    """The guard that keeps nvcc from dropping the ablated work: with
+    ``observe`` set, mode place writes B1's words (its walk really
+    scattered) and mode none the xor of the words it loaded, spread over
+    each chunk block's words."""
+    height, width, layers = scene
+    d, colors = _variant_scene(height, width, layers)
+    ns, nc = d["ns"], d["nc"]
+    arrays = (d["sidx"], d["flags"], d["lays"], d["urc"], d["ucm"],
+              d["uval"])
+    want = fb.fusedn_plain(*arrays, torch.as_tensor(colors), 2, layers, ns,
+                           nc)[:, :ns]
+    got = _emulate_variant(emulator, d, colors, layers, "place", observe=1)
+    assert torch.equal(got[:, :ns], want)
+    got = _emulate_variant(emulator, d, colors, layers, "none", observe=1)
+    blocks = got[:, :ns].numpy().reshape(2, ns, 8, nc, 128)
+    seen = np.bitwise_xor.reduce(np.bitwise_xor.reduce(blocks, axis=4),
+                                 axis=2)
+    want_seen = exp_split.none_observed_plain(*arrays, 2, layers, ns,
+                                              6).numpy()
+    assert want_seen.any()
+    assert (seen == want_seen[..., None]).all()
+
+
+@pytest.mark.parametrize("layers", [1, 4, 16])
+def test_batched_smem_bytes_is_the_launchers_count(emulator, layers):
+    """exp_split.batched_smem_bytes (the CPU path's refusal) equals the
+    C++ carve-up the launcher refuses by (smem_bytes +
+    batched_stage_bytes against kSmemMax) at every group and kk used."""
+    assert exp_split.SMEM_MAX == emulator.emulate_smem_max()
+    for group in (1, 2, 6):
+        for kk in (1, 2, 4, 8, 16, 32):
+            assert exp_split.batched_smem_bytes(layers, group, kk) == \
+                emulator.emulate_batched_smem(layers, group, kk)
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("lns", (2, 4, 3, 128, 128)), ("nsl", (2, 3, 4, 128, 128)),
+    ("read_sum", (2, 3, 4, 128, 128)), ("step", (1, 64, 1, 8, 128))])
+def test_emulated_probes_equal_plain_versions(emulator, kind, shape):
+    """csrc/probes_device.cuh: the passthrough in both layouts and as the
+    one-tile-a-block step probe, and the read+sum, equal to their plain
+    versions."""
+    x = _c(np.random.default_rng(sum(shape)).standard_normal(shape)
+           .astype(np.float32))
+    layout = "lns" if kind == "lns" else "nsl"
+    geo = exp_bw.geometry(shape, layout)
+    if kind == "read_sum":
+        want = exp_bw.read_sum_plain(torch.from_numpy(x))
+        out_strides = (shape[1] * shape[3] * shape[4], shape[3] * shape[4])
+    else:
+        want = exp_bw.passthrough_plain(torch.from_numpy(x))
+        out_strides = (0, 0)
+    out = np.full(tuple(want.shape), np.nan, np.float32)
+    emulator.emulate_probe(int(kind == "read_sum"), x.ctypes.data,
+                           out.ctypes.data, *geo, *out_strides)
+    assert torch.equal(torch.from_numpy(out), want)
