@@ -130,12 +130,28 @@ Phases, each of which exits non-zero on failure before the last line:
              read+sum on (60, 4, 137, 128, 128) f32 planes and exp_scatter
              D's step probe on 16384 and 131072 tiles, each equal to its
              plain version and timed beside its plain version and its
-             one-call library yardstick (``torch.add``, ``torch.sum``).
+             one-call library yardstick (``torch.add``, ``torch.sum``);
+12. products — placement as a matrix product on the tensor cores (the
+             reference's tools/exp_int8.py, exp_k3.py three / concat and
+             exp_lmask.py) and the merged read of exp_dmamerge.py at any
+             rule and strips per plane: ``cuobjdump -sass`` shows HMMA in
+             the bf16 forms and IMMA in int8; each form against its plain
+             version on phase 11's random scenes (int8 equal; k3 and
+             lmask within B1's envelope: premultiplied bytes 1 level,
+             differing bytes 1e-4, straight levels logged) and
+             ``render_rv`` under three rules equal to its plain version
+             and to ``render_fused_blocksn``; then on phase 3's headline
+             at one strip a plane each form driven once through its
+             wrapper and timed beside B1 (tensor-core operations logged
+             beside the bound), and ``render_rv`` on exp_dmamerge's
+             headline, flat256 and gradients scenes beside B1 at the same
+             strips per plane.  Phase 1 names the ptxas registers, stack
+             and spills of B1 and of the four product kernels.
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
-block, the deep and masked and the tilings paths, and before each probe,
-and read right after.  The script prints
+block, the deep and masked and the tilings paths, and before each probe
+and product form, and read right after.  The script prints
 one JSON line describing each kernel (time, bound, plain version's time,
 library yardstick's time where one call computes the same function),
 then the card's name and power limit as nvidia-smi prints them, and as
@@ -147,7 +163,10 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import threading
 import time
@@ -174,18 +193,10 @@ def log(msg: str) -> None:
 
 sys.path.insert(0, str(ROOT))
 try:
+    from swf_renderer_tpu_torch.tools.exp_split import byte_diff
     from swf_renderer_tpu_torch.tools.timing import card_line, time_ms
 except ImportError as exc:
     fail(f"the port's package is not beside this script: {exc}")
-
-
-def byte_diff(torch, a, b):
-    """(max |a - b| in u8 levels, share of differing bytes) of two packed
-    RGBA int32 tensors."""
-    x = a.contiguous().view(torch.uint8).to(torch.int16)
-    y = b.contiguous().view(torch.uint8).to(torch.int16)
-    d = (x - y).abs()
-    return int(d.max().item()), float((d != 0).float().mean().item())
 
 
 # ---------------------------------------------------------------------------
@@ -222,9 +233,56 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
+    kernels = ptxas_kernels(cuda_lib.build_log)
+    for label, key in PTXAS_WATCH.items():
+        found = [v for k, v in kernels.items() if key in k]
+        if len(found) != 1:
+            fail(f"ptxas: {len(found)} entries for {label} ({key})")
+        v = found[0]
+        log(f"ptxas: {label}: {v['registers']} registers, {v['stack']} B "
+            f"stack, {v['spill_stores']} B spill stores, "
+            f"{v['spill_loads']} B spill loads")
+        _HELD.setdefault("ptxas", {})[label] = v
     for name in cuda_lib.LIBRARIES:
         cuda_lib.load(name)
     bindings.load_library()
+
+
+# Instantiations whose ptxas readings phase 1 names: B1's and the product
+# forms' (mangled-name fragments).
+PTXAS_WATCH = {
+    "B1 fused_block<solid>": "fused_flatblock_kernelILb0ELb0ELb0ELb0ELi0E",
+    "product k3_three": "product_kernelILi7E",
+    "product k3_concat": "product_kernelILi8E",
+    "product lmask": "product_kernelILi9E",
+    "product int8": "product_kernelILi10E",
+}
+
+
+def ptxas_kernels(text):
+    """``nvcc -Xptxas -v`` output -> {mangled kernel: registers, stack,
+    spill stores, spill loads (bytes)}."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            current = out.setdefault(m.group(1), {
+                "registers": None, "stack": None, "spill_stores": None,
+                "spill_loads": None})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            current.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +437,7 @@ def phase_kernels(torch, np):
                 got = render_fused_blocksn(*args, fill_rule=rule, spp=spp)
                 want = fusedn_plain(*args, fill_rule=rule, spp=spp)
                 torch.cuda.synchronize()
-                dmax, share = byte_diff(torch, got[:, :ns], want[:, :ns])
+                dmax, share = byte_diff(got[:, :ns], want[:, :ns])
                 tag = rule if isinstance(rule, int) else "mixed"
                 log(f"kernels: fusedn L={layers} spp={spp} spb={spb[0]} "
                     f"rule={tag}: "
@@ -400,7 +458,7 @@ def phase_kernels(torch, np):
             got = render_fused_styled(*args, fill_rule=mixed, spp=spp)
             want = fused_styled_plain(*args, fill_rule=mixed, spp=spp)
             torch.cuda.synchronize()
-            dmax, share = byte_diff(torch, got[:, :ns], want[:, :ns])
+            dmax, share = byte_diff(got[:, :ns], want[:, :ns])
             log(f"kernels: styled L={layers} spp={spp} spb={spb[1]} kinds="
                 f"{[p.kind for p in paints]}: max diff {dmax}, "
                 f"differing bytes {share:.3g}")
@@ -476,7 +534,7 @@ def phase_headline(torch, np, report):
     if not np.array_equal(got, out_main):
         fail("headline: timed kernel output differs from the main path's")
     want = plain()
-    dmax, share = byte_diff(torch, out[:, :ns], want[:, :ns])
+    dmax, share = byte_diff(out[:, :ns], want[:, :ns])
     log(f"headline: kernel vs plain over all {frames} frames: max diff "
         f"{dmax}, differing bytes {share:.3g}")
     if dmax > TOL_LEVELS:
@@ -650,7 +708,7 @@ def phase_renderer(torch, np, report):
     out = kernel()
     want = plain()
     torch.cuda.synchronize()
-    dmax, share = byte_diff(torch, out[:, :ns], want[:, :ns])
+    dmax, share = byte_diff(out[:, :ns], want[:, :ns])
     got = packed_to_frames(out, 1, ns, nc, spp, 1088, 1920)[0]
     if not np.array_equal(got, frame):
         fail("renderer frame differs from a direct kernel call")
@@ -759,7 +817,7 @@ def premul_bytes(np, frame):
 
 def _check(torch, what, got, want):
     torch.cuda.synchronize()
-    dmax, share = byte_diff(torch, got, want)
+    dmax, share = byte_diff(got, want)
     log(f"sweeps: {what}: max diff {dmax}, differing bytes {share:.3g}")
     if dmax > TOL_LEVELS:
         fail(f"sweep kernel vs plain ({what}): {dmax} levels")
@@ -2230,7 +2288,7 @@ def _equal_words(torch, what, got, want):
     torch.cuda.synchronize()
     if got.shape != want.shape:
         fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-    dmax, share = byte_diff(torch, got, want)
+    dmax, share = byte_diff(got, want)
     if dmax or not torch.equal(got, want):
         fail(f"{what}: kernel vs plain differ ({dmax} levels on "
              f"{share:.3g} of the bytes)")
@@ -3175,7 +3233,7 @@ def _tiling_check(torch, what, got, want, column):
     """A tiling's frames against the plain version and against the column
     kernel's frames on the same inputs (both expected byte-equal)."""
     dmax = _check(torch, what, got, want)
-    cmax, share = byte_diff(torch, got, column)
+    cmax, share = byte_diff(got, column)
     if cmax > TOL_LEVELS:
         fail(f"{what} vs the column kernel: {cmax} levels ({share:.3g})")
     return max(dmax, cmax)
@@ -3408,7 +3466,7 @@ def _timed_tiling(torch, what, kernel, column, plain, counts_args, report,
     out = _timed_sweep(torch, what, kernel, plain, counts_args, report)
     column_ms = time_ms(torch, column, reps=5)
     got = kernel()
-    cmax, share = byte_diff(torch, got, column())
+    cmax, share = byte_diff(got, column())
     if cmax > TOL_LEVELS:
         fail(f"{what} vs the column kernel: {cmax} levels ({share:.3g})")
     if extra_bytes:
@@ -3865,6 +3923,329 @@ def probe_meta(key):
     return PROBE_META[key]
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: products — placement as a matrix product (exp_int8, exp_k3,
+# exp_lmask) and the merged read at any rule and spp (exp_dmamerge)
+# ---------------------------------------------------------------------------
+
+PRODUCT_CONFIGS = ("headline", "flat256", "gradients")   # exp_dmamerge's
+ENVELOPE_SHARE = 1e-4     # B1's envelope: differing straight bytes
+PEAK_BF16_OPS_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
+PRODUCT_META = {   # phase 12's keys -> (kernels-line name, TPU kernel)
+    "int8": ("exp_int8", "tools/exp_int8.py:53"),
+    "k3_three": ("exp_k3_three", "tools/exp_k3.py:53"),
+    "k3_concat": ("exp_k3_concat", "tools/exp_k3.py:53"),
+    "lmask": ("exp_lmask", "tools/exp_lmask.py:36"),
+    "dmamerge": ("exp_dmamerge", "tools/exp_dmamerge.py:59"),
+}
+
+
+def envelope(torch, what, got, want):
+    """A bf16 product form against its plain version: within B1's
+    envelope — premultiplied bytes at most 1 level apart and at most
+    ENVELOPE_SHARE of the straight bytes differing; the straight levels
+    are logged (un-premultiplying scales a premultiplied level by 255 /
+    alpha, so B1's 5 levels are a reading of one scene, not a bound).
+    Returns the straight levels."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    diff = got != want
+    a = got[diff].contiguous().view(torch.uint8).view(-1, 4).to(torch.int32)
+    b = want[diff].contiguous().view(torch.uint8).view(-1, 4).to(torch.int32)
+    if not a.numel():
+        return 0
+
+    def premul(x):
+        return torch.cat([(x[:, :3] * x[:, 3:] + 127) // 255, x[:, 3:]], 1)
+
+    per_px = (a - b).abs().max(dim=1).values
+    straight = int(per_px.max().item())
+    alpha = int(b[int(per_px.argmax().item()), 3].item())
+    pm = int((premul(a) - premul(b)).abs().max().item())
+    share = float((a != b).sum().item()) / (got.numel() * 4)
+    log(f"products: {what}: straight {straight} levels (a pixel of alpha "
+        f"{alpha}), premultiplied {pm}, differing bytes {share:.3g}"
+        + (" (over B1's 5 straight levels: ROADMAP.md queue C)"
+           if straight > 5 else ""))
+    if pm > 1 or share > ENVELOPE_SHARE:
+        fail(f"{what}: outside B1's envelope ({pm} premultiplied levels, "
+             f"differing bytes {share:.3g})")
+    return straight
+
+
+def product_calls(d, limbs, cols, frames, layers, group):
+    """key -> (wrapper, call, plain call, exact) of the four product
+    forms on ``exp_split.pack``'s arrays ``d`` and their int8 limbs."""
+    import functools
+
+    from swf_renderer_tpu_torch.tools import exp_int8, exp_k3, exp_lmask
+    from swf_renderer_tpu_torch.ops.flatblock import fusedn_plain
+
+    a = kernel_args(d) + (cols, frames, layers, d["ns"], d["nc"])
+    a8 = kernel_args(d)[:5] + tuple(limbs) + a[6:]
+    part = functools.partial
+    return {
+        "int8": (exp_int8.run_int8, part(exp_int8.run_int8, *a8, group),
+                 part(exp_int8.int8_plain, *a8, group), True),
+        "k3_three": (exp_k3.run_variant,
+                     part(exp_k3.run_variant, *a, group, False),
+                     part(fusedn_plain, *a, group=group), False),
+        "k3_concat": (exp_k3.run_variant,
+                      part(exp_k3.run_variant, *a, group, True),
+                      part(fusedn_plain, *a, group=group), False),
+        "lmask": (exp_lmask.render_lmask,
+                  part(exp_lmask.render_lmask, *a, group=group),
+                  part(exp_lmask.lmask_plain, *a, group=group), False),
+    }
+
+
+def products_random(torch, np):
+    """The four product forms against their plain versions on phase 11's
+    random scenes (one strip a plane): int8 equal, the bf16 forms within
+    B1's envelope; the merged read (render_rv) at each scene's own strips
+    per plane under the nonzero, even-odd and a mixed rule, equal to its
+    plain version and to render_fused_blocksn."""
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_dmamerge, exp_int8, exp_split
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    rng = np.random.default_rng(29)
+    frames, height, n, worst = 2, 40, 0, 0
+    for layers, group, width in PROBE_CASES:
+        tables, colors = build_scene_edges(frames, layers, height, width,
+                                           shapes_per_layer=6,
+                                           seed=int(rng.integers(1 << 30)))
+        cols = torch.as_tensor(colors, device=DEVICE)
+        d = exp_split.pack(tables, height, width, DEVICE, group=group)
+        ns = d["ns"]
+        limbs = exp_int8.limbs_to_device(d)
+        for key, (_, call, plain, exact) in product_calls(
+                d, limbs, cols, frames, layers, group).items():
+            what = f"{key} L={layers} group={group} w={width}"
+            got, want = call()[:, :ns], plain()[:, :ns]
+            if exact:
+                _equal_words(torch, f"products: {what}", got, want)
+            else:
+                worst = max(worst, envelope(torch, what, got, want))
+            n += 1
+        d, urv, spp = exp_dmamerge.pack_rv(tables, height, width, DEVICE,
+                                           group=group)
+        ns, nc = d["ns"], d["nc"]
+        mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+        for rule in (0, 1, mixed):
+            geo = (cols, frames, layers, ns, nc)
+            got = exp_dmamerge.render_rv(d["sidx"], d["flags"], d["lays"],
+                                         urv, d["ucm"], *geo, group, rule,
+                                         spp)[:, :ns]
+            what = f"products: rv spp={spp} L={layers} group={group} rule=" \
+                   f"{rule if isinstance(rule, int) else 'mixed'}"
+            _equal_words(torch, what, got, exp_dmamerge.rv_plain(
+                d["sidx"], d["flags"], d["lays"], urv, d["ucm"], *geo, group,
+                rule, spp)[:, :ns])
+            _equal_words(torch, f"{what} vs render_fused_blocksn", got,
+                         render_fused_blocksn(*kernel_args(d), *geo,
+                                              group=group, fill_rule=rule,
+                                              spp=spp)[:, :ns])
+            n += 1
+        log(f"products: L={layers} group={group} width={width}: four "
+            f"product forms and rv at spp {spp} under three rules checked")
+    return n, worst
+
+
+def tensor_core_useful_ops(torch, d):
+    """Useful tensor-core operations of a product form, 2 x M x N x K with
+    M = 128 columns, N = 8 rows and K the valid updates, three products
+    (hi / mid / lo or three limbs) each: the same count for every form.
+    What the tiles issue is more — K padded to the tile's depth, and the
+    layer-masked form's products of masked layers — and is not counted."""
+    k = valid_updates(torch, d)
+    return 2 * 128 * 8 * 3 * k, k
+
+
+def products_headline(torch, np, report, launches):
+    """The four product forms on phase 3's headline scene at one strip a
+    plane, and render_rv on exp_dmamerge's headline, flat256 and gradients
+    scenes at their strips per plane: each wrapper driven once (its
+    counter set to 0 just before, read just after), held against its
+    plain version and B1, then timed beside B1 on the same arrays."""
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_dmamerge, exp_int8, exp_split
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    frames, layers, height, width = HEADLINE
+    if "headline_scene" not in _HELD:   # phase 3 did not run first
+        _HELD["headline_scene"] = build_scene_edges(frames, layers, height,
+                                                    width, seed=7)
+    tables, colors = _HELD["headline_scene"]
+    cols = torch.as_tensor(colors, device=DEVICE)
+    d = exp_split.pack(tables, height, width, DEVICE)
+    limbs = exp_int8.limbs_to_device(d)
+    ns, nc = d["ns"], d["nc"]
+    args = kernel_args(d) + (cols, frames, layers, ns, nc)
+
+    def b1():
+        return render_fused_blocksn(*args, group=exp_split.GROUP)
+
+    b1_words = b1()[:, :ns]
+    ms_b1 = [time_ms(torch, b1)]
+    nbytes, ops = work_counts(torch, d, frames, layers, 1, (0,) * layers,
+                              colors=cols)
+    pixels = frames * height * width
+    tc_ops, k = tensor_core_useful_ops(torch, d)
+    out = {}
+    for key, (wrapper, call, plain, exact) in product_calls(
+            d, limbs, cols, frames, layers, exp_split.GROUP).items():
+        wrapper.launches = 0
+        torch.cuda.synchronize()
+        got = call()[:, :ns]
+        torch.cuda.synchronize()
+        launches[key] = wrapper.launches
+        if launches[key] < 1:
+            fail(f"products: {key} did not launch its kernel")
+        want = plain()[:, :ns]
+        if exact:
+            err = _equal_words(torch, f"products: headline {key}", got, want)
+        else:
+            err = envelope(torch, f"headline {key}", got, want)
+        dmax_b1, share_b1 = byte_diff(got, b1_words)
+        del got, want
+        ms = time_ms(torch, call)
+        plain_ms = time_ms(torch, plain, reps=3)
+        kbytes = nbytes
+        if key == "int8":   # 3 B of limbs a slot in place of a 4 B value
+            kbytes += sum(t.numel() for t in limbs) - d["uval"].numel() * 4
+        bound_ms, bound_by = bound(kbytes, ops)
+        peak = PEAK_INT8_OPS_PER_S if key == "int8" else PEAK_BF16_OPS_PER_S
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": err,
+                    "library_ms": None, "tc_useful_ops": tc_ops,
+                    "tc_useful_ms_at_peak": tc_ops / peak * 1e3,
+                    "valid_updates": k, "vs_b1_levels": dmax_b1,
+                    "vs_b1_share": share_b1}
+        log(f"products: headline {key}: {ms:.3f} ms "
+            f"({pixels / ms / 1e6:.3f} Gpx/s), plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), useful tensor-core "
+            f"work {tc_ops / 1e9:.2f} Gop ({tc_ops / peak * 1e3:.4f} ms at "
+            f"peak; the tiles issue more), vs B1 {dmax_b1} levels on "
+            f"{share_b1:.3g} of the bytes, launches {launches[key]}")
+    ms_b1.append(time_ms(torch, b1))
+    del b1_words, limbs, d
+    torch.cuda.empty_cache()
+
+    merged = {}
+    for cfg in PRODUCT_CONFIGS:
+        f, lyr, h, w = (HEADLINE if cfg == "headline"
+                        else exp_dmamerge.CONFIGS[cfg])
+        tbl, clr = ((tables, colors) if cfg == "headline"
+                    else build_scene_edges(f, lyr, h, w, seed=7))
+        c = torch.as_tensor(clr, device=DEVICE)
+        dm, urv, spp = exp_dmamerge.pack_rv(tbl, h, w, DEVICE)
+        geo = (c, f, lyr, dm["ns"], dm["nc"])
+
+        def rv(dm=dm, urv=urv, geo=geo, spp=spp):
+            return exp_dmamerge.render_rv(dm["sidx"], dm["flags"],
+                                          dm["lays"], urv, dm["ucm"], *geo,
+                                          spp=spp)
+
+        def base(dm=dm, geo=geo, spp=spp):
+            return render_fused_blocksn(*kernel_args(dm), *geo, spp=spp)
+
+        def plain(dm=dm, urv=urv, geo=geo, spp=spp):
+            return exp_dmamerge.rv_plain(dm["sidx"], dm["flags"], dm["lays"],
+                                         urv, dm["ucm"], *geo, spp=spp)
+
+        exp_dmamerge.render_rv.launches = 0
+        torch.cuda.synchronize()
+        got = rv()[:, :dm["ns"]]
+        torch.cuda.synchronize()
+        key = f"dmamerge_{cfg}"
+        launches[key] = exp_dmamerge.render_rv.launches
+        if launches[key] < 1:
+            fail(f"products: {key} did not launch its kernel")
+        _equal_words(torch, f"products: {key}", got, plain()[:, :dm["ns"]])
+        _equal_words(torch, f"products: {key} vs render_fused_blocksn", got,
+                     base()[:, :dm["ns"]])
+        del got
+        ms_base = time_ms(torch, base)
+        ms = time_ms(torch, rv)
+        plain_ms = time_ms(torch, plain, reps=3)
+        bound_ms, bound_by = bound(*work_counts(torch, dm, f, lyr, spp,
+                                                (0,) * lyr, colors=c))
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": 0,
+                    "library_ms": None}
+        merged[cfg] = {"spp": spp, "ms": ms, "b1_ms": ms_base}
+        log(f"products: {key} ({f}x{lyr}x{h}x{w}, spp {spp}): {ms:.3f} ms "
+            f"beside B1 {ms_base:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), launches {launches[key]}")
+    log("products: headline at one strip a plane, B1 before / after "
+        f"{ms_b1[0]:.3f} / {ms_b1[1]:.3f} ms; "
+        + ", ".join(f"{k} {v['ms']:.3f}" for k, v in out.items()
+                    if not k.startswith("dmamerge")))
+    report["products_headline"] = {"groups": int(args[0].shape[0]),
+                                   "b1_before_after": ms_b1,
+                                   "forms": out, "merged": merged}
+    return out
+
+
+def sass_check():
+    """``cuobjdump -sass`` of the built fused library: the bf16 product
+    forms issue HMMA and the int8 form IMMA, so that a scalar fallback
+    cannot pass as a tensor-core kernel.  Returns {form: (HMMA, IMMA)
+    counts}."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([tool, "-sass", str(cuda_lib.lib_path(
+        "swfkernels"))], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed: {proc.stderr.strip()[:400]}")
+    text = proc.stdout
+    heads = list(re.finditer(r"Function : (\S+)", text))
+    counts = {}
+    for i, m in enumerate(heads):
+        form = re.search(r"product_kernelILi(\d+)E", m.group(1))
+        if not form:
+            continue
+        end = heads[i + 1].start() if i + 1 < len(heads) else len(text)
+        body = text[m.end():end]
+        counts[int(form.group(1))] = (len(re.findall(r"\bHMMA\.", body)),
+                                      len(re.findall(r"\bIMMA\.", body)))
+    names = {7: "k3_three", 8: "k3_concat", 9: "lmask", 10: "int8"}
+    for v, name in names.items():
+        hmma, imma = counts.get(v, (0, 0))
+        want_hmma = v != 10
+        if (hmma > 0) != want_hmma or (imma > 0) == want_hmma:
+            fail(f"SASS: product form {name} issues {hmma} HMMA and {imma} "
+                 f"IMMA")
+        log(f"products: SASS of {name}: {hmma} HMMA, {imma} IMMA")
+    return {names[v]: counts[v] for v in names}
+
+
+def phase_products(torch, np, report):
+    sass = sass_check()
+    n, worst = products_random(torch, np)
+    log(f"products: {n} random checks held, bf16 forms' straight levels at "
+        f"most {worst}")
+    launches = {}
+    kernels = products_headline(torch, np, report, launches)
+    report["products_sass"] = sass
+    report["ptxas"] = _HELD.get("ptxas", {})
+    out = {}
+    for key, k in kernels.items():
+        base = "dmamerge" if key.startswith("dmamerge") else key
+        name, replaces = PRODUCT_META[base]
+        if base == "dmamerge":
+            name = f"{name}_{key[len('dmamerge_'):]}"
+        k.update(name=name, replaces=replaces, launches=launches[key])
+        if base != "dmamerge" and base != "int8":
+            k["max_abs_err"] = max(k["max_abs_err"], worst)
+        out[f"product_{key}"] = k
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3889,6 +4270,7 @@ def main() -> None:
     kernels.update(phase_deep_masked(torch, np, report))
     kernels.update(phase_tilings(torch, np, report))
     kernels.update(phase_probes(torch, np, report))
+    kernels.update(phase_products(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
@@ -3924,6 +4306,8 @@ def main() -> None:
             meta[key] = ("swf_renderer_tpu_torch/csrc/probes.cu"
                          if key.startswith(("probe_bw_", "probe_step_"))
                          else flatblock_cu, probe_meta(key[6:])[1])
+        elif key.startswith("product_"):
+            meta[key] = (flatblock_cu, kernels[key]["replaces"])
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],
              replaces=meta[key][1], launches=k["launches"],

@@ -3,9 +3,11 @@
 // (render_fused_blocksn, render_fused_styled: single pass, and the chain,
 // background-seeded, premultiplied-output and mask-group modes of deep
 // and masked draw lists) and its one-block-per-step form
-// (render_fused_blocks); and the variants of the solid kernel that
-// tools/exp_split.py cuts it into (swf_fused_variant).  The device logic
-// and its design notes live in flatblock_device.cuh.
+// (render_fused_blocks); the variants of the solid kernel that
+// tools/exp_split.py cuts it into and the reference's design tools place
+// with a matrix product (swf_fused_variant, swf_fused_int8).  The device
+// logic and its design notes live in flatblock_device.cuh and, for the
+// product forms, place_mma_device.cuh.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -16,7 +18,7 @@
 
 #include <cuda_runtime.h>
 
-#include "flatblock_device.cuh"
+#include "place_mma_device.cuh"   // includes flatblock_device.cuh
 
 namespace swf {
 
@@ -76,10 +78,10 @@ cudaError_t zero_premul_padding(const FusedArgs& a, int frames,
       strip_bytes * a.ns1, 0, strip_bytes, frames, stream);
 }
 
-template <bool kStyled, bool kChain = false, bool kPremul = false,
-          int kVar = kVarFull>
-cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
-                   cudaStream_t stream) {
+// Fill sg_index (2 * frames * ns1 ints) with the supergroup index of the
+// packer's flags and point a.sg_first / a.sg_last at it.
+cudaError_t supergroup_index(FusedArgs& a, int frames, int* sg_index,
+                             cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(
       sg_index, 0xff, sizeof(int) * 2 * static_cast<size_t>(frames) * a.ns1,
       stream);
@@ -92,6 +94,15 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   }
   a.sg_first = first;
   a.sg_last = last;
+  return cudaSuccess;
+}
+
+template <bool kStyled, bool kChain = false, bool kPremul = false,
+          int kVar = kVarFull>
+cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
+                   cudaStream_t stream) {
+  cudaError_t err = supergroup_index(a, frames, sg_index, stream);
+  if (err != cudaSuccess) return err;
   a.spb = strips_per_block(a.layers, a.spp, kStyled);
   a.n_spg = (a.spp + a.spb - 1) / a.spb;
   size_t bytes = smem_bytes(a.layers, a.spb * kStripH, kStyled);
@@ -111,6 +122,35 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
     fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>
         <<<grid, kThreads, bytes, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <int kVar>
+__global__ void __launch_bounds__(kThreads)
+product_kernel(FusedArgs a, const int8_t* l0, const int8_t* l1,
+               const int8_t* l2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  product_block<kVar>(a, l0, l1, l2, smem);
+}
+
+// The product forms (place_mma_device.cuh): one strip a plane, one block
+// per (chunk, strip block, frame).
+template <int kVar>
+cudaError_t launch_product(FusedArgs a, const int8_t* l0, const int8_t* l1,
+                           const int8_t* l2, int frames, int n_strips,
+                           int* sg_index, cudaStream_t stream) {
+  cudaError_t err = supergroup_index(a, frames, sg_index, stream);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = product_smem_bytes(a.layers, a.group);
+  if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(product_kernel<kVar>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_chunks, n_strips, frames);
+  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
+    product_kernel<kVar><<<grid, kThreads, bytes, stream>>>(a, l0, l1, l2);
   }
   return cudaGetLastError();
 }
@@ -267,24 +307,32 @@ int swf_fused_blocks1(const void* sidx, const void* keep, const void* last,
       static_cast<cudaStream_t>(stream)));
 }
 
-// tools/exp_split.py's variants of the solid kernel (nonzero rule via
-// `rules`, spp 1): variant swf::kVarFull (0, B1's own instantiation) ..
-// swf::kVarBatched (6), flatblock_device.cuh.  kVarMerged: urc is the
-// (ng, 1, 2 * group * 128) array of urc and uval halves, uval unused;
-// kVarBatched: kk groups a stage, ng % kk == 0, refused when the stage
-// and the planes exceed 227 KB of shared memory; kVarNone0: lays, urc,
-// ucm and uval unused.  observe != 0 keeps the ablated work observable
+// Variants of the solid kernel, with the caller's per-layer `rules` (and
+// `spp` strips a plane for kVarMerged, 1 for the others):
+// tools/exp_split.py's swf::kVarFull (0, B1's own
+// instantiation) .. swf::kVarBatched (6), flatblock_device.cuh, and the
+// bf16 product forms swf::kVarK3Three (7), kVarK3Concat (8) and
+// kVarLmask (9), place_mma_device.cuh (spp 1, group <= 8).  kVarMerged:
+// urc is the (ng, 1, 2 * group * 128) array of urc and uval halves (the
+// reference's (ng, 2, group * 128) block), uval unused; kVarBatched: kk
+// groups a stage, ng % kk == 0, refused when the stage and the planes
+// exceed 227 KB of shared memory; kVarNone0: lays, urc, ucm and uval
+// unused.  observe != 0 keeps the ablated work observable
 // (flatblock_device.cuh).  Other arguments as swf_fused_flatblock's.
 int swf_fused_variant(int variant, int kk, int observe, const void* sidx,
                       const void* flags, const void* lays, const void* urc,
                       const void* ucm, const void* uval, const void* colors,
                       const void* rules, void* sg_index, void* out, int ng,
                       int group, int frames, int layers, int ns1,
-                      int n_chunks, int plane_rows, void* stream) {
+                      int n_chunks, int spp, int plane_rows, void* stream) {
+  const bool product = variant >= swf::kVarK3Three;
   if (layers < 1 || layers > swf::kMaxLayers || group < 1 || n_chunks < 1 ||
       ns1 < 1 || ns1 - 1 > 65535 || frames < 1 || frames > 65535 ||
-      variant < swf::kVarFull || variant > swf::kVarBatched ||
-      (variant == swf::kVarBatched && (kk < 1 || ng % kk != 0))) {
+      spp < 1 || variant < swf::kVarFull || variant > swf::kVarLmask ||
+      (variant == swf::kVarBatched && (kk < 1 || ng % kk != 0)) ||
+      (variant != swf::kVarMerged && spp != 1) ||
+      (product && (group > swf::kMaxProductGroup ||
+                   n_chunks * swf::kStripH > swf::kLane))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swf::FusedArgs a = {};
@@ -305,7 +353,7 @@ int swf_fused_variant(int variant, int kk, int observe, const void* sidx,
   a.layers = layers;
   a.ns1 = ns1;
   a.n_chunks = n_chunks;
-  a.spp = 1;
+  a.spp = spp;
   a.plane_rows = plane_rows;
   a.passes = 3;
   a.kk = kk;
@@ -338,12 +386,63 @@ int swf_fused_variant(int variant, int kk, int observe, const void* sidx,
       err = swf::launch<false, false, false, swf::kVarMerged>(a, frames, n,
                                                                 idx, s);
       break;
-    default:
+    case swf::kVarBatched:
       err = swf::launch<false, false, false, swf::kVarBatched>(a, frames, n,
                                                                  idx, s);
       break;
+    case swf::kVarK3Three:
+      err = swf::launch_product<swf::kVarK3Three>(a, nullptr, nullptr,
+                                                   nullptr, frames, n, idx, s);
+      break;
+    case swf::kVarK3Concat:
+      err = swf::launch_product<swf::kVarK3Concat>(a, nullptr, nullptr,
+                                                    nullptr, frames, n, idx,
+                                                    s);
+      break;
+    default:
+      err = swf::launch_product<swf::kVarLmask>(a, nullptr, nullptr, nullptr,
+                                                 frames, n, idx, s);
+      break;
   }
   return static_cast<int>(err);
+}
+
+// tools/exp_int8.py's form (swf::kVarInt8, place_mma_device.cuh): the
+// limbs l0, l1, l2 (ng, group * 128) int8 of q = round(v * 2^20) in place
+// of uval; spp 1 (n_chunks <= 16), group <= 8.  Other arguments as
+// swf_fused_variant's.
+int swf_fused_int8(const void* sidx, const void* flags, const void* lays,
+                   const void* urc, const void* ucm, const void* l0,
+                   const void* l1, const void* l2, const void* colors,
+                   const void* rules, void* sg_index, void* out, int ng,
+                   int group, int frames, int layers, int ns1, int n_chunks,
+                   void* stream) {
+  if (layers < 1 || layers > swf::kMaxLayers || group < 1 ||
+      group > swf::kMaxProductGroup || n_chunks < 1 ||
+      n_chunks * swf::kStripH > swf::kLane || ns1 < 1 || ns1 - 1 > 65535 ||
+      frames < 1 || frames > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::FusedArgs a = {};
+  a.sidx = static_cast<const int*>(sidx);
+  a.flags = static_cast<const int*>(flags);
+  a.lays = static_cast<const int*>(lays);
+  a.urc = static_cast<const float*>(urc);
+  a.ucm = static_cast<const float*>(ucm);
+  a.colors = static_cast<const float*>(colors);
+  a.rules = static_cast<const int*>(rules);
+  a.out = static_cast<int*>(out);
+  a.mask_from = -1;
+  a.ng = ng;
+  a.group = group;
+  a.layers = layers;
+  a.ns1 = ns1;
+  a.n_chunks = n_chunks;
+  a.spp = 1;
+  return static_cast<int>(swf::launch_product<swf::kVarInt8>(
+      a, static_cast<const int8_t*>(l0), static_cast<const int8_t*>(l1),
+      static_cast<const int8_t*>(l2), frames, ns1 - 1,
+      static_cast<int*>(sg_index), static_cast<cudaStream_t>(stream)));
 }
 
 // Packed strips each block of swf_fused_flatblock resolves (spb); a plane's

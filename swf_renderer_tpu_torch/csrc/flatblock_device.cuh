@@ -482,6 +482,46 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 #endif
 }
 
+// B1's solid carve-up of shared memory (smem_bytes, not styled): the
+// layers' planes, each row's 32.32 carry, the frame's colours and the
+// rules.  A form's own regions start at `end`.
+struct SolidSmem {
+  float* plane;
+  long long* carry;
+  float* col_s;
+  int* rule_s;
+  size_t end;
+};
+
+__device__ __forceinline__ SolidSmem solid_smem(unsigned char* smem, int L,
+                                                int rows) {
+  SolidSmem m;
+  size_t off = smem_plane_bytes(L, rows);
+  m.plane = reinterpret_cast<float*>(smem);
+  m.carry = reinterpret_cast<long long*>(smem + off);
+  off += align16(static_cast<size_t>(L) * rows * 8);
+  m.col_s = reinterpret_cast<float*>(smem + off);
+  off += align16(static_cast<size_t>(L) * 4 * 4);
+  m.rule_s = reinterpret_cast<int*>(smem + off);
+  m.end = off + align16(static_cast<size_t>(L) * 4);
+  return m;
+}
+
+// Zeroes the planes and the carry and loads frame f's colours and the
+// rules; the caller's barrier follows.
+__device__ __forceinline__ void solid_setup(const FusedArgs& a,
+                                            const SolidSmem& m, int L,
+                                            int rows, int f) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  for (int i = tid; i < L * rows * kRowStride; i += nthr) m.plane[i] = 0.0f;
+  for (int i = tid; i < L * rows; i += nthr) m.carry[i] = 0;
+  for (int i = tid; i < L * 4; i += nthr) {
+    m.col_s[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
+  }
+  for (int i = tid; i < L; i += nthr) m.rule_s[i] = a.rules[i];
+}
+
 // One block: (chunk, strip slice) x strip block x frame.  kOne: the
 // one-block-per-step form (render_fused_blocks): group 1, no flags or
 // layer table (the layer is read from each block's sidx), values split
@@ -504,28 +544,20 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   const int sp0 = spg * a.spb;
   const int nc8 = a.n_chunks * kStripH;
 
-  float* plane = reinterpret_cast<float*>(smem);
-  size_t off = smem_plane_bytes(L, rows);
-  long long* carry = reinterpret_cast<long long*>(smem + off);
-  off += align16(static_cast<size_t>(L) * rows * 8);
-  float* col_s = reinterpret_cast<float*>(smem + off);
-  off += align16(static_cast<size_t>(L) * 4 * 4);
-  int* rule_s = reinterpret_cast<int*>(smem + off);
-  off += align16(static_cast<size_t>(L) * 4);
+  const SolidSmem sm = solid_smem(smem, L, rows);
+  float* plane = sm.plane;
+  long long* carry = sm.carry;
+  const float* col_s = sm.col_s;
+  const int* rule_s = sm.rule_s;
   int* pint_s = nullptr;
   float* pflt_s = nullptr;
   if (kStyled) {
-    pint_s = reinterpret_cast<int*>(smem + off);
-    off += align16(static_cast<size_t>(L) * kPintStride * 4);
-    pflt_s = reinterpret_cast<float*>(smem + off);
+    pint_s = reinterpret_cast<int*>(smem + sm.end);
+    pflt_s = reinterpret_cast<float*>(
+        smem + sm.end + align16(static_cast<size_t>(L) * kPintStride * 4));
   }
 
-  for (int i = tid; i < L * rows * kRowStride; i += nthr) plane[i] = 0.0f;
-  for (int i = tid; i < L * rows; i += nthr) carry[i] = 0;
-  for (int i = tid; i < L * 4; i += nthr) {
-    col_s[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
-  }
-  for (int i = tid; i < L; i += nthr) rule_s[i] = a.rules[i];
+  solid_setup(a, sm, L, rows, f);
   if (kStyled) {
     for (int i = tid; i < L * kPintStride; i += nthr) pint_s[i] = a.pint[i];
     for (int i = tid; i < L * kPfltStride; i += nthr) pflt_s[i] = a.pflt[i];

@@ -22,7 +22,8 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 # Library name -> (source, headers it includes).
 LIBRARIES = {
-    "swfkernels": ("flatblock.cu", ("flatblock_device.cuh",)),
+    "swfkernels": ("flatblock.cu", ("flatblock_device.cuh",
+                                    "place_mma_device.cuh")),
     "swfsweep": ("sweep.cu", ("sweep_device.cuh", "flatblock_device.cuh")),
     "swftexfield": ("texfield.cu", ("texfield_device.cuh",
                                     "flatblock_device.cuh")),
@@ -125,8 +126,10 @@ def load(name: str = "swfkernels"):
                 lib.swf_fused_blocks1.restype = i
                 lib.swf_fused_blocks1.argtypes = [p] * 10 + [i] * 6 + [p]
                 lib.swf_fused_variant.restype = i
-                lib.swf_fused_variant.argtypes = [i] * 3 + [p] * 10 + [i] * 7 \
+                lib.swf_fused_variant.argtypes = [i] * 3 + [p] * 10 + [i] * 8 \
                     + [p]
+                lib.swf_fused_int8.restype = i
+                lib.swf_fused_int8.argtypes = [p] * 12 + [i] * 6 + [p]
             elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]

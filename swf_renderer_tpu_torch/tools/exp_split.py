@@ -52,10 +52,15 @@ HEADLINE = (60, 4, 1088, 1920)   # frames, layers, height, width
 GROUP = 6
 MODES = ("full", "place", "resolve", "none")
 KKS = (4, 8, 16)
-# swf_fused_variant's variant numbers (csrc/flatblock_device.cuh kVar*).
+# swf_fused_variant's variant numbers (csrc/flatblock_device.cuh and
+# csrc/place_mma_device.cuh kVar*).
 _VARIANTS = {"full": 0, "place": 1, "resolve": 2, "none": 3, "none0": 4,
-             "merged": 5, "batched": 6}
+             "merged": 5, "batched": 6, "k3_three": 7, "k3_concat": 8,
+             "lmask": 9}
 SMEM_MAX = 232448   # bytes of shared memory an H100 block can address
+# The product forms (exp_k3, exp_lmask, exp_int8; csrc/place_mma_device.cuh
+# kMaxProductGroup): a thread gathers at most four slots of a group.
+MAX_PRODUCT_GROUP = 8
 
 
 def batched_smem_bytes(layers: int, group: int, kk: int) -> int:
@@ -70,6 +75,31 @@ def batched_smem_bytes(layers: int, group: int, kk: int) -> int:
 
     return (a16(layers * STRIP_H * (LANE + 1) * 4) + a16(layers * STRIP_H * 8)
             + a16(layers * 16) + a16(layers * 4) + 3 * kk * group * BLK * 4)
+
+
+def check_product(group: int, n_chunks: int) -> None:
+    """The limits of the product forms, on every device: one strip a
+    plane (a chunk-major plane of 128 rows at most) and at most
+    ``MAX_PRODUCT_GROUP`` placement blocks a group (ValueError)."""
+    if not 1 <= group <= MAX_PRODUCT_GROUP:
+        raise ValueError(f"group {group}: the product forms take 1.."
+                         f"{MAX_PRODUCT_GROUP} placement blocks a group")
+    if fb.plane_rows_for(n_chunks) != LANE:
+        raise ValueError(f"{n_chunks} chunks need "
+                         f"{fb.plane_rows_for(n_chunks)} plane rows: the "
+                         f"product forms place one strip a plane of at most "
+                         f"{LANE} rows (16 chunks)")
+
+
+def byte_diff(a, b) -> tuple[int, float]:
+    """(largest difference in u8 levels, share of differing bytes) between
+    the bytes of two int32 word tensors of one shape."""
+    x = a.contiguous().view(torch.uint8).to(torch.int16)
+    y = b.contiguous().view(torch.uint8).to(torch.int16)
+    if not x.numel():
+        return 0, 0.0
+    d = (x - y).abs()
+    return int(d.max().item()), float((d != 0).float().mean().item())
 
 
 # ---------------------------------------------------------------------------
@@ -96,13 +126,16 @@ def variant_plain(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
 
 
 def merged_plain(sidx, flags, lays, urcval, ucm, colors, frames: int,
-                 layers: int, n_strips: int, n_chunks: int, group: int):
-    """Plain version of ``run_merged``: ``fusedn_plain`` on the two
+                 layers: int, n_strips: int, n_chunks: int, group: int,
+                 fill_rule=FILL_RULE_NONZERO, spp: int = 1):
+    """Plain version of ``run_merged`` (and of exp_dmamerge's
+    ``render_rv`` at any rule and ``spp``): ``fusedn_plain`` on the two
     halves of ``urcval``."""
     gb = group * BLK
     return fb.fusedn_plain(sidx, flags, lays, urcval[..., :gb], ucm,
                            urcval[..., gb:], colors, frames, layers,
-                           n_strips, n_chunks, group=group)
+                           n_strips, n_chunks, group=group,
+                           fill_rule=fill_rule, spp=spp)
 
 
 def none_observed_plain(sidx, flags, lays, urc, ucm, uval, frames: int,
@@ -180,10 +213,11 @@ def _check_merged(sidx, flags, lays, urcval, ucm, colors, frames, layers,
 
 def _launch(variant: str, sidx, flags, lays, urc, ucm, uval, colors,
             frames: int, layers: int, n_strips: int, n_chunks: int,
-            group: int, kk: int = 1, observe: bool = False, out=None):
+            group: int, kk: int = 1, observe: bool = False, out=None,
+            fill_rule=FILL_RULE_NONZERO, spp: int = 1):
     """One launch of ``swf_fused_variant``.  ``observe`` keeps the ablated
     work observable (place then writes B1's words, none the xor of its
-    loads); ``out`` (int32, (F, NS+1, 8, n_chunks*128)) receives the
+    loads); ``out`` (int32, (F, NS+1, spp*8, n_chunks*128)) receives the
     words in place of a new tensor.  Unused arrays may be None."""
     from ..ops import cuda_lib
 
@@ -193,13 +227,13 @@ def _launch(variant: str, sidx, flags, lays, urc, ucm, uval, colors,
         raise ValueError("kernel inputs must be contiguous")
     dev = sidx.device
     ns1 = n_strips + 1
-    shape = (frames, ns1, STRIP_H, n_chunks * LANE)
+    shape = (frames, ns1, spp * STRIP_H, n_chunks * LANE)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=dev)
     elif tuple(out.shape) != shape or out.dtype != torch.int32 or \
             out.device != dev or not out.is_contiguous():
         raise ValueError(f"out: expected contiguous int32 {shape} on {dev}")
-    rules = tuple(int(r) for r in layer_rules(FILL_RULE_NONZERO, layers))
+    rules = tuple(int(r) for r in layer_rules(fill_rule, layers))
     rules_t, _, _ = fb._device_tables(rules, None, dev)
     sg_index = torch.empty(2 * frames * ns1, dtype=torch.int32, device=dev)
 
@@ -210,8 +244,8 @@ def _launch(variant: str, sidx, flags, lays, urc, ucm, uval, colors,
         _VARIANTS[variant], kk, int(observe), ptr(sidx), ptr(flags),
         ptr(lays), ptr(urc), ptr(ucm), ptr(uval), ptr(colors),
         rules_t.data_ptr(), sg_index.data_ptr(), out.data_ptr(),
-        sidx.shape[0], group, frames, layers, ns1, n_chunks,
-        fb.plane_rows_for(n_chunks), torch.cuda.current_stream(dev)
+        sidx.shape[0], group, frames, layers, ns1, n_chunks, spp,
+        fb.plane_rows_for(n_chunks, spp), torch.cuda.current_stream(dev)
         .cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused kernel variant {variant!r} launch failed: "
@@ -376,16 +410,17 @@ def variants(d, colors, frames: int, layers: int, group: int = GROUP,
     return calls
 
 
-def pack(tables, height: int, width: int, device, group: int = GROUP):
+def pack(tables, height: int, width: int, device, group: int = GROUP,
+         spp: int = 1):
     """Edge tables -> the variants' inputs: the native grouped packer's
-    arrays at one strip a plane, on ``device`` (``packed_to_device``'s
-    dict)."""
+    arrays at ``spp`` strips a plane (one by default), on ``device``
+    (``packed_to_device``'s dict)."""
     from ..convert import packed_to_device
     from ..native.bindings import pack_grouped_native
     from ..ops.pipeline import lower_update_lists
 
     packed = pack_grouped_native(lower_update_lists(tables, height, width),
-                                 height, width, group=group)
+                                 height, width, group=group, spp=spp)
     return packed_to_device(*packed, device=device)
 
 

@@ -11,7 +11,9 @@ Here g++ compiles them under a small emulation of the CUDA
 execution model (one std::thread per CUDA thread, a std::barrier for
 ``__syncthreads`` and one per warp for the shuffles and ``__syncwarp``,
 std::atomic_ref for the shared-memory atomics, ``cp.async`` as a plain
-copy, so the pipelined resolve's ring logic runs unchanged), and
+copy, so the pipelined resolve's ring logic runs unchanged; the warp
+ballot and both ``mma.sync`` shapes for ``csrc/place_mma_device.cuh``,
+whose tests are in ``test_torch_kernel_emulated_products.py``), and
 the emulated blocks run at small sizes.  This checks the kernel's
 indexing, strip slicing and arithmetic without a card; the card itself
 runs ``chip_smoke.py``.  Tolerance: byte-equal — the plain versions
@@ -47,6 +49,7 @@ EMULATOR = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <memory>
 #include <algorithm>
@@ -101,10 +104,108 @@ inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 Dim3 gridDim;
-// Warp collectives: each warp has a barrier and an exchange slot a lane.
-struct Warp { std::barrier<>* bar; float* slots; };
+// Warp collectives: each warp has a barrier, an exchange slot a lane and
+// (run_block) kWarpWords exchange words a lane for the ballot and mma.
+constexpr int kWarpWords = 8;
+struct Warp { std::barrier<>* bar; float* slots; unsigned* words; };
 thread_local Warp this_warp;
 inline void __syncwarp() { this_warp.bar->arrive_and_wait(); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int lane = threadIdx.x & 31;
+  this_warp.words[lane * kWarpWords] = pred ? 1u : 0u;
+  __syncwarp();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= this_warp.words[l * kWarpWords] << l;
+  __syncwarp();
+  return m;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// mma.sync fragment layouts of the PTX ISA, (lane, element i) -> (row,
+// col) of the tile; groupID = lane >> 2, threadID_in_group = lane & 3.
+inline void frag_a_bf16(int lane, int i, int& r, int& c) {   // 16 x 16
+  r = (lane >> 2) + ((i & 2) ? 8 : 0);
+  c = (lane & 3) * 2 + (i & 1) + (i >= 4 ? 8 : 0);
+}
+inline void frag_b_bf16(int lane, int i, int& r, int& c) {   // 16 x 8
+  r = (lane & 3) * 2 + (i & 1) + (i >= 2 ? 8 : 0);
+  c = lane >> 2;
+}
+inline void frag_a_s8(int lane, int i, int& r, int& c) {     // 16 x 32
+  r = (lane >> 2) + ((i & 4) ? 8 : 0);
+  c = (lane & 3) * 4 + (i & 3) + (i >= 8 ? 16 : 0);
+}
+inline void frag_b_s8(int lane, int i, int& r, int& c) {     // 32 x 8
+  r = (lane & 3) * 4 + (i & 3) + (i >= 4 ? 16 : 0);
+  c = lane >> 2;
+}
+inline void frag_c(int lane, int i, int& r, int& c) {        // 16 x 8
+  r = (lane >> 2) + (i >= 2 ? 8 : 0);
+  c = (lane & 3) * 2 + (i & 1);
+}
+// Every lane posts its A (4 registers) and B (2) fragments; each then
+// reads the whole tiles back and computes its 4 elements of D.
+inline void post_fragments(const uint32_t* a, const uint32_t* b) {
+  unsigned* w = this_warp.words + (threadIdx.x & 31) * kWarpWords;
+  for (int i = 0; i < 4; ++i) w[i] = a[i];
+  for (int i = 0; i < 2; ++i) w[4 + i] = b[i];
+  __syncwarp();
+}
+// m16n8k16 bf16 x bf16 + f32: an ideal tensor core, the products and
+// their sum with C exact, rounded once to f32 (the card's own sum order
+// and precision differ: the bf16 forms are held to an envelope).
+inline void emu_mma_m16n8k16_bf16(float* d, const uint32_t* a,
+                                  const uint32_t* b) {
+  post_fragments(a, b);
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const unsigned* w = this_warp.words + l * kWarpWords;
+    int r, c;
+    for (int i = 0; i < 8; ++i) {
+      frag_a_bf16(l, i, r, c);
+      A[r][c] = __uint_as_float(((w[i / 2] >> (16 * (i & 1))) & 0xffffu)
+                                << 16);
+    }
+    for (int i = 0; i < 4; ++i) {
+      frag_b_bf16(l, i, r, c);
+      B[r][c] = __uint_as_float(((w[4 + i / 2] >> (16 * (i & 1)))
+                                 & 0xffffu) << 16);
+    }
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    int r, c;
+    frag_c(threadIdx.x & 31, i, r, c);
+    double sum = d[i];
+    for (int k = 0; k < 16; ++k) sum += static_cast<double>(A[r][k]) * B[k][c];
+    d[i] = static_cast<float>(sum);
+  }
+}
+// m16n8k32 s8 x s8 + s32, wrapping.
+inline void emu_mma_m16n8k32_s8(int* d, const uint32_t* a,
+                                const uint32_t* b) {
+  post_fragments(a, b);
+  int A[16][32], B[32][8];
+  for (int l = 0; l < 32; ++l) {
+    const unsigned* w = this_warp.words + l * kWarpWords;
+    int r, c;
+    for (int i = 0; i < 16; ++i) {
+      frag_a_s8(l, i, r, c);
+      A[r][c] = static_cast<int8_t>((w[i / 4] >> (8 * (i & 3))) & 0xffu);
+    }
+    for (int i = 0; i < 8; ++i) {
+      frag_b_s8(l, i, r, c);
+      B[r][c] = static_cast<int8_t>((w[4 + i / 4] >> (8 * (i & 3))) & 0xffu);
+    }
+  }
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    int r, c;
+    frag_c(threadIdx.x & 31, i, r, c);
+    unsigned sum = static_cast<unsigned>(d[i]);
+    for (int k = 0; k < 32; ++k) sum += static_cast<unsigned>(A[r][k] * B[k][c]);
+    d[i] = static_cast<int>(sum);
+  }
+}
 inline float warp_read(float v, int src) {
   const int lane = threadIdx.x & 31;
   this_warp.slots[lane] = v;
@@ -126,6 +227,31 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
 #include "resolve_device.cuh"
 #include "planes_device.cuh"
 #include "probes_device.cuh"
+#include "place_mma_device.cuh"
+
+// Each fragment layout covers its tile exactly once over the 32 lanes:
+// 0, or the number of elements covered zero or several times.
+extern "C" int emulate_fragment_cover() {
+  int bad = 0;
+  auto cover = [&](int rows, int cols, int per_lane,
+                   void (*layout)(int, int, int&, int&)) {
+    std::vector<int> seen(rows * cols, 0);
+    for (int lane = 0; lane < 32; ++lane)
+      for (int i = 0; i < per_lane; ++i) {
+        int r, c;
+        layout(lane, i, r, c);
+        if (r < 0 || r >= rows || c < 0 || c >= cols) { ++bad; continue; }
+        ++seen[r * cols + c];
+      }
+    for (int x : seen) bad += x != 1;
+  };
+  cover(16, 16, 8, frag_a_bf16);
+  cover(16, 8, 4, frag_b_bf16);
+  cover(16, 32, 16, frag_a_s8);
+  cover(32, 8, 8, frag_b_s8);
+  cover(16, 8, 4, frag_c);
+  return bad;
+}
 
 // One emulated block of n threads (warps of 32: a barrier and exchange
 // slots each) running body() with blockIdx (x, y, z).
@@ -135,6 +261,7 @@ void run_block(int n, unsigned x, unsigned y, unsigned z, Body body) {
   std::barrier<> bar(n);
   std::vector<std::unique_ptr<std::barrier<>>> bars;
   std::vector<float> slots(n);
+  std::vector<unsigned> words(n * kWarpWords);
   for (int w = 0; w < n / 32; ++w)
     bars.push_back(std::make_unique<std::barrier<>>(32));
   std::vector<std::thread> threads;
@@ -143,7 +270,8 @@ void run_block(int n, unsigned x, unsigned y, unsigned z, Body body) {
       threadIdx.x = t;
       blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
       block_barrier = &bar;
-      this_warp = Warp{bars[t / 32].get(), slots.data() + (t / 32) * 32};
+      this_warp = Warp{bars[t / 32].get(), slots.data() + (t / 32) * 32,
+                       words.data() + (t / 32) * 32 * kWarpWords};
       body();
     });
   }
@@ -544,13 +672,13 @@ extern "C" int emulate_resolve_u32(const float* planes, const float* colors,
   return a.depth;
 }
 
-// The variants of the solid kernel (swf_fused_variant), spp 1.
+// The variants of the solid kernel (swf_fused_variant).
 template <int kVar>
 void run_variant(const swf::FusedArgs& a, int frames,
                  std::vector<unsigned char>& smem) {
   for (int z = 0; z < frames; ++z)
     for (int y = 0; y < a.ns1 - 1; ++y)
-      for (int x = 0; x < a.n_chunks; ++x) {
+      for (int x = 0; x < a.n_chunks * a.n_spg; ++x) {
         std::memset(smem.data(), 0xab, smem.size());  // stale contents
         run_block(swf::kThreads, x, y, z, [&] {
           swf::fused_block<false, false, false, false, kVar>(a, smem.data());
@@ -564,14 +692,15 @@ extern "C" int emulate_variant(int variant, int kk, int observe,
                                const float* ucm, const float* uval,
                                const float* colors, const int* rules,
                                int* out, int ng, int group, int frames,
-                               int layers, int ns1, int n_chunks) {
+                               int layers, int ns1, int n_chunks, int spp) {
   swf::FusedArgs a{};
   a.sidx = sidx; a.flags = flags; a.lays = lays; a.urc = urc; a.ucm = ucm;
   a.uval = variant == swf::kVarMerged ? urc + group * swf::kBlk : uval;
   a.colors = colors; a.rules = rules; a.out = out; a.mask_from = -1;
   a.ng = ng; a.group = group; a.layers = layers; a.ns1 = ns1;
-  a.n_chunks = n_chunks; a.spp = 1; a.plane_rows = 128; a.passes = 3;
-  a.spb = 1; a.n_spg = 1; a.kk = kk; a.observe = observe;
+  a.n_chunks = n_chunks; a.spp = spp; a.plane_rows = 128; a.passes = 3;
+  a.spb = swf::strips_per_block(layers, spp, false);
+  a.n_spg = (spp + a.spb - 1) / a.spb; a.kk = kk; a.observe = observe;
   std::vector<int> first(frames * ns1, -1), last(frames * ns1, -1);
   for (int i = 0; i < ng; ++i) {  // supergroup_index_kernel
     const int fl = flags[i];
@@ -582,7 +711,7 @@ extern "C" int emulate_variant(int variant, int kk, int observe,
   }
   a.sg_first = first.data();
   a.sg_last = last.data();
-  size_t bytes = swf::smem_bytes(layers, swf::kStripH, false);
+  size_t bytes = swf::smem_bytes(layers, a.spb * swf::kStripH, false);
   if (variant == swf::kVarBatched) {
     bytes += swf::batched_stage_bytes(group, kk);
     if (bytes > swf::kSmemMax || ng % kk != 0) return -1;
@@ -599,6 +728,59 @@ extern "C" int emulate_variant(int variant, int kk, int observe,
       run_variant<swf::kVarMerged>(a, frames, smem); break;
     default: run_variant<swf::kVarBatched>(a, frames, smem); break;
   }
+  return 0;
+}
+
+// The product forms (swf_fused_variant 7-9, swf_fused_int8), spp 1.
+extern "C" int emulate_product(int variant, const int* sidx, const int* flags,
+                               const int* lays, const float* urc,
+                               const float* ucm, const float* uval,
+                               const int8_t* l0, const int8_t* l1,
+                               const int8_t* l2, const float* colors,
+                               const int* rules, int* out, int ng, int group,
+                               int frames, int layers, int ns1,
+                               int n_chunks) {
+  if (group > swf::kMaxProductGroup) return -1;
+  swf::FusedArgs a{};
+  a.sidx = sidx; a.flags = flags; a.lays = lays; a.urc = urc; a.ucm = ucm;
+  a.uval = uval; a.colors = colors; a.rules = rules; a.out = out;
+  a.mask_from = -1; a.ng = ng; a.group = group; a.layers = layers;
+  a.ns1 = ns1; a.n_chunks = n_chunks; a.spp = 1; a.plane_rows = 128;
+  a.spb = 1; a.n_spg = 1; a.passes = 3; a.kk = 1;
+  std::vector<int> first(frames * ns1, -1), last(frames * ns1, -1);
+  for (int i = 0; i < ng; ++i) {  // supergroup_index_kernel
+    const int fl = flags[i];
+    if ((fl & 3) == 0) continue;
+    const int sg = (sidx[i] / (layers * ns1)) * ns1 + sidx[i] % ns1;
+    if (fl & 1) first[sg] = i;
+    if (fl & 2) last[sg] = i;
+  }
+  a.sg_first = first.data();
+  a.sg_last = last.data();
+  std::vector<unsigned char> smem(swf::product_smem_bytes(layers, group));
+  for (int z = 0; z < frames; ++z)
+    for (int y = 0; y < ns1 - 1; ++y)
+      for (int x = 0; x < n_chunks; ++x) {
+        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        run_block(swf::kThreads, x, y, z, [&] {
+          switch (variant) {
+            case swf::kVarK3Three:
+              swf::product_block<swf::kVarK3Three>(a, l0, l1, l2,
+                                                   smem.data());
+              break;
+            case swf::kVarK3Concat:
+              swf::product_block<swf::kVarK3Concat>(a, l0, l1, l2,
+                                                    smem.data());
+              break;
+            case swf::kVarLmask:
+              swf::product_block<swf::kVarLmask>(a, l0, l1, l2, smem.data());
+              break;
+            default:
+              swf::product_block<swf::kVarInt8>(a, l0, l1, l2, smem.data());
+              break;
+          }
+        });
+      }
   return 0;
 }
 
@@ -701,7 +883,12 @@ def _build_emulator(d, csrc):
         ctypes.c_int] * 8
     emu.emulate_variant.restype = ctypes.c_int
     emu.emulate_variant.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    emu.emulate_product.restype = ctypes.c_int
+    emu.emulate_product.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    emu.emulate_fragment_cover.restype = ctypes.c_int
+    emu.emulate_fragment_cover.argtypes = []
     emu.emulate_batched_smem.restype = ctypes.c_longlong
     emu.emulate_batched_smem.argtypes = [ctypes.c_int] * 3
     emu.emulate_smem_max.restype = ctypes.c_longlong
@@ -1428,7 +1615,8 @@ def _variant_scene(height, width, layers):
     return exp_split.pack(tables, height, width, "cpu"), colors
 
 
-def _emulate_variant(emu, d, colors, layers, kind, observe=0):
+def _emulate_variant(emu, d, colors, layers, kind, observe=0, spp=1,
+                     rule=0):
     """The variant's words from the emulated kernel, out pre-filled with
     -7 so that words it does not write show."""
     a = {k: _c(d[k].numpy()) for k in ("sidx", "flags", "lays", "urc", "ucm",
@@ -1438,15 +1626,15 @@ def _emulate_variant(emu, d, colors, layers, kind, observe=0):
     urc = (_c(np.concatenate([a["urc"], a["uval"]], axis=2))
            if kind == "merged" else a["urc"])
     ns, nc = d["ns"], d["nc"]
-    out = np.full((2, ns + 1, 8, nc * 128), -7, np.int32)
-    rules = np.zeros(layers, np.int32)
+    out = np.full((2, ns + 1, spp * 8, nc * 128), -7, np.int32)
+    rules = np.asarray(fb.layer_rules(rule, layers), np.int32)
     colors = _c(colors)
     rc = emu.emulate_variant(
         exp_split._VARIANTS[variant], kk, observe, a["sidx"].ctypes.data,
         a["flags"].ctypes.data, a["lays"].ctypes.data, urc.ctypes.data,
         a["ucm"].ctypes.data, a["uval"].ctypes.data, colors.ctypes.data,
         rules.ctypes.data, out.ctypes.data, len(a["sidx"]), 6, 2, layers,
-        ns + 1, nc)
+        ns + 1, nc, spp)
     assert rc == 0
     return torch.from_numpy(out)
 
@@ -1526,3 +1714,4 @@ def test_emulated_probes_equal_plain_versions(emulator, kind, shape):
     emulator.emulate_probe(int(kind == "read_sum"), x.ctypes.data,
                            out.ctypes.data, *geo, *out_strides)
     assert torch.equal(torch.from_numpy(out), want)
+
