@@ -145,17 +145,38 @@ Phases, each of which exits non-zero on failure before the last line:
              wrapper and timed beside B1 (tensor-core operations logged
              beside the bound), and ``render_rv`` on exp_dmamerge's
              headline, flat256 and gradients scenes beside B1 at the same
-             strips per plane.  Phase 1 names the ptxas registers, stack
-             and spills of B1 and of the four product kernels.
+             strips per plane;
+13. windows — window-targeted placement (the reference's
+             tools/exp_winplace.py: ``render_win``, B1 over per-strip
+             placement blocks with local row ids) and coarse steps with
+             explicit output copies (tools/exp_dma.py: ``run_variant``,
+             bulk copies from a 2-slot shared-memory ring):
+             ``cuobjdump -sass`` shows UBLKCP in the coarse kernel and not
+             in B1; ``render_win`` against ``win_plain`` and
+             ``render_fused_blocksn`` on random scenes (1/4/16 layers; 1,
+             2, 5 and 8 strips a plane, 16 layers splitting 5 and 8 over
+             blocks; nonzero, even-odd and mixed rules), the coarse kernel
+             at coarse 1, 2 and 4 against ``dma_plain`` and B1 on phase
+             11's random scenes, through ``run_variant`` and into buffers
+             filled with -7 (the sentinel strip block stays -7), all
+             byte-equal; then ``render_win`` on
+             exp_winplace's headline (spp 2), flat256, gradients and
+             textured scenes uncut, and the coarse kernel at coarse 1, 2
+             and 4 on phase 3's headline at one strip a plane, each driven
+             once through its wrapper, held equal to its plain version and
+             to B1, and timed beside B1 (group counts and the windowed
+             packing time logged).  Phase 1 names the ptxas registers,
+             stack and spills of B1, of the four product kernels, of the
+             windowed instantiation and of the coarse kernel.
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
-block, the deep and masked and the tilings paths, and before each probe
-and product form, and read right after.  The script prints
-one JSON line describing each kernel (time, bound, plain version's time,
-library yardstick's time where one call computes the same function),
-then the card's name and power limit as nvidia-smi prints them, and as
-its last line ``{"ok": true, "device": {...}}``.
+block, the deep and masked and the tilings paths, and before each probe,
+product form, windowed scene and coarse step, and read right after.  The
+script prints one JSON line describing each kernel (time, bound, plain
+version's time, library yardstick's time where one call computes the
+same function), then the card's name and power limit as nvidia-smi
+prints them, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -256,6 +277,8 @@ PTXAS_WATCH = {
     "product k3_concat": "product_kernelILi8E",
     "product lmask": "product_kernelILi9E",
     "product int8": "product_kernelILi10E",
+    "windowed kVarWin": "fused_flatblock_kernelILb0ELb0ELb0ELb0ELi11E",
+    "coarse": "coarse_kernel",
 }
 
 
@@ -4190,27 +4213,35 @@ def products_headline(torch, np, report, launches):
     return out
 
 
-def sass_check():
-    """``cuobjdump -sass`` of the built fused library: the bf16 product
-    forms issue HMMA and the int8 form IMMA, so that a scalar fallback
-    cannot pass as a tensor-core kernel.  Returns {form: (HMMA, IMMA)
-    counts}."""
+def sass_bodies():
+    """``cuobjdump -sass`` of the built fused library -> {mangled kernel
+    name: its SASS}, read once a run."""
     from swf_renderer_tpu_torch.ops import cuda_lib
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    proc = subprocess.run([tool, "-sass", str(cuda_lib.lib_path(
-        "swfkernels"))], capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"cuobjdump -sass failed: {proc.stderr.strip()[:400]}")
-    text = proc.stdout
-    heads = list(re.finditer(r"Function : (\S+)", text))
+    if "sass" not in _HELD:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        proc = subprocess.run([tool, "-sass", str(cuda_lib.lib_path(
+            "swfkernels"))], capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"cuobjdump -sass failed: {proc.stderr.strip()[:400]}")
+        text = proc.stdout
+        heads = list(re.finditer(r"Function : (\S+)", text))
+        _HELD["sass"] = {
+            m.group(1): text[m.end():heads[i + 1].start()
+                             if i + 1 < len(heads) else len(text)]
+            for i, m in enumerate(heads)}
+    return _HELD["sass"]
+
+
+def sass_check():
+    """The bf16 product forms issue HMMA and the int8 form IMMA, so that a
+    scalar fallback cannot pass as a tensor-core kernel.  Returns {form:
+    (HMMA, IMMA) counts}."""
     counts = {}
-    for i, m in enumerate(heads):
-        form = re.search(r"product_kernelILi(\d+)E", m.group(1))
+    for name, body in sass_bodies().items():
+        form = re.search(r"product_kernelILi(\d+)E", name)
         if not form:
             continue
-        end = heads[i + 1].start() if i + 1 < len(heads) else len(text)
-        body = text[m.end():end]
         counts[int(form.group(1))] = (len(re.findall(r"\bHMMA\.", body)),
                                       len(re.findall(r"\bIMMA\.", body)))
     names = {7: "k3_three", 8: "k3_concat", 9: "lmask", 10: "int8"}
@@ -4246,6 +4277,311 @@ def phase_products(torch, np, report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: windows and coarse steps — window-targeted placement
+# (exp_winplace) and coarse steps with explicit output copies (exp_dma)
+# ---------------------------------------------------------------------------
+
+WIN_CONFIGS = ("headline", "flat256", "gradients", "textured")
+# (height, width) of the random windowed scenes, 2 frames: 1, 2, 5 and 8
+# strips a plane.
+WIN_CASES = ((40, 2560), (40, 1920), (40, 200), (64, 96))
+COARSE_TAG = "UBLKCP"   # the SASS of cp.async.bulk shared -> global
+
+
+def win_random(torch, np):
+    """render_win against win_plain and render_fused_blocksn (the pooled
+    packing at the same strips per plane) on random scenes: 1, 4 and 16
+    layers, 1, 2, 5 and 8 strips a plane (at 16 layers and 5 or 8 the
+    blocks' strip slices are smaller than the plane, so blocks skip
+    windows), nonzero, even-odd and a mixed rule; byte-equal."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_split, exp_winplace
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    lib = cuda_lib.load()
+    rng = np.random.default_rng(31)
+    frames, n = 2, 0
+    for height, width in WIN_CASES:
+        for layers in (1, 4, 16):
+            tables, colors = build_scene_edges(
+                frames, layers, height, width, shapes_per_layer=6,
+                seed=int(rng.integers(1 << 30)))
+            d, spp = exp_winplace.pack(tables, height, width, DEVICE)
+            spb = lib.swf_strips_per_block(layers, spp, 0)
+            if layers == 16 and spp >= 5 and spb >= spp:
+                fail(f"windows: the 16-layer case at {spp} strips a plane "
+                     f"does not split its strips (strips per block {spb})")
+            base = exp_split.pack(tables, height, width, DEVICE, spp=spp)
+            cols = torch.as_tensor(colors, device=DEVICE)
+            ns = d["ns"]
+            geo = (cols, frames, layers, ns, d["nc"])
+            win_args = tuple(d[k] for k in ("sidx", "flags", "lays", "wins",
+                                            "urc", "ucm", "uval")) + geo
+            mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
+            for rule in (0, 1, mixed):
+                tag = rule if isinstance(rule, int) else "mixed"
+                what = (f"windows: {height}x{width} spp={spp} spb={spb} "
+                        f"L={layers} rule={tag}")
+                got = exp_winplace.render_win(*win_args, fill_rule=rule,
+                                              spp=spp)[:, :ns]
+                _equal_words(torch, what, got, exp_winplace.win_plain(
+                    *win_args, fill_rule=rule, spp=spp)[:, :ns])
+                _equal_words(torch, f"{what} vs render_fused_blocksn", got,
+                             render_fused_blocksn(*kernel_args(base), *geo,
+                                                  fill_rule=rule,
+                                                  spp=spp)[:, :ns])
+                n += 1
+            log(f"windows: {height}x{width} spp={spp} spb={spb} L={layers}: "
+                f"{int(base['sidx'].shape[0])} pooled / {d['ng']} windowed "
+                f"groups, three rules equal")
+    return n
+
+
+def coarse_random(torch, np):
+    """The coarse kernel at coarse 1, 2 and 4 against dma_plain and
+    render_fused_blocksn on phase 11's random scenes (one strip a plane):
+    through its wrapper run_variant, and through one launch into a buffer
+    filled with -7, where every strip is written and the sentinel strip
+    block stays -7 (the bulk copies write nothing else)."""
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_dma, exp_split
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    rng = np.random.default_rng(37)
+    frames, height, n = 2, 40, 0
+    for layers, group, width in PROBE_CASES:
+        tables, colors = build_scene_edges(frames, layers, height, width,
+                                           shapes_per_layer=6,
+                                           seed=int(rng.integers(1 << 30)))
+        d = exp_split.pack(tables, height, width, DEVICE, group=group)
+        cols = torch.as_tensor(colors, device=DEVICE)
+        ns, nc = d["ns"], d["nc"]
+        args = kernel_args(d) + (cols, frames, layers, ns, nc)
+        want = exp_dma.dma_plain(*args, group)[:, :ns]
+        _equal_words(torch, f"coarse: B1 L={layers} group={group}",
+                     render_fused_blocksn(*args, group=group)[:, :ns], want)
+        for coarse in exp_dma.COARSES:
+            what = f"coarse: c={coarse} L={layers} group={group} w={width}"
+            _equal_words(torch, f"{what} run_variant",
+                         exp_dma.run_variant(*args, group, coarse)[:, :ns],
+                         want)
+            buf = torch.full((frames, ns + 1, 8, nc * 128), -7,
+                             dtype=torch.int32, device=DEVICE)
+            exp_dma._launch(*args, group, coarse, out=buf)
+            _equal_words(torch, what, buf[:, :ns], want)
+            if not bool((buf[:, ns] == -7).all().item()):
+                fail(f"{what}: the sentinel strip block was written")
+            n += 1
+        log(f"coarse: L={layers} group={group} width={width}: coarse "
+            f"{exp_dma.COARSES} equal B1, sentinel untouched")
+    return n
+
+
+def coarse_sass_check():
+    """The coarse kernel's SASS holds the bulk copy (COARSE_TAG) and B1's
+    does not.  Returns {kernel: count}."""
+    counts = {}
+    for name, body in sass_bodies().items():
+        if "coarse_kernel" in name or \
+                PTXAS_WATCH["B1 fused_block<solid>"] in name:
+            key = "coarse" if "coarse_kernel" in name else "b1"
+            counts[key] = len(re.findall(rf"\b{COARSE_TAG}\b", body))
+            ops = sorted(set(re.findall(r"\b(\w*BLK\w*)(?:\.\w+)*", body)))
+            log(f"windows: SASS of {key}: {counts[key]} {COARSE_TAG}; "
+                f"bulk mnemonics {ops}")
+    if counts.get("coarse", 0) < 1 or counts.get("b1", 1) != 0:
+        fail(f"SASS: {COARSE_TAG} counts {counts} (the coarse kernel must "
+             f"issue bulk copies)")
+    return counts
+
+
+def win_full_width(torch, np, report, launches):
+    """render_win on exp_winplace's headline (spp 2), flat256, gradients
+    and textured scenes, uncut: the windowed packing timed, each wrapper
+    driven once (its counter set to 0 just before, read just after), held
+    against win_plain and B1 at the same strips per plane, then timed
+    beside B1 on the same scene."""
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_split, exp_winplace
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    out = {}
+    for cfg in WIN_CONFIGS:
+        f, lyr, h, w = exp_winplace.CONFIGS[cfg]
+        if cfg == "headline":
+            if (f, lyr, h, w) != HEADLINE:
+                fail(f"windows: headline config {(f, lyr, h, w)}")
+            if "headline_scene" not in _HELD:   # phase 3 did not run first
+                _HELD["headline_scene"] = build_scene_edges(f, lyr, h, w,
+                                                            seed=7)
+            tbl, clr = _HELD["headline_scene"]
+        else:
+            tbl, clr = build_scene_edges(f, lyr, h, w, seed=7)
+        c = torch.as_tensor(clr, device=DEVICE)
+        t0 = time.perf_counter()
+        d, spp = exp_winplace.pack(tbl, h, w, DEVICE)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        base = exp_split.pack(tbl, h, w, DEVICE, spp=spp)
+        geo = (c, f, lyr, d["ns"], d["nc"])
+        win_args = tuple(d[k] for k in ("sidx", "flags", "lays", "wins",
+                                        "urc", "ucm", "uval")) + geo
+
+        def win(a=win_args, spp=spp):
+            return exp_winplace.render_win(*a, spp=spp)
+
+        def plain(a=win_args, spp=spp):
+            return exp_winplace.win_plain(*a, spp=spp)
+
+        def b1(base=base, geo=geo, spp=spp):
+            return render_fused_blocksn(*kernel_args(base), *geo, spp=spp)
+
+        key = f"win_{cfg}"
+        exp_winplace.render_win.launches = 0
+        torch.cuda.synchronize()
+        got = win()[:, :d["ns"]]
+        torch.cuda.synchronize()
+        launches[key] = exp_winplace.render_win.launches
+        if launches[key] < 1:
+            fail(f"windows: {key} did not launch its kernel")
+        _equal_words(torch, f"windows: {key}", got, plain()[:, :d["ns"]])
+        _equal_words(torch, f"windows: {key} vs render_fused_blocksn", got,
+                     b1()[:, :d["ns"]])
+        del got
+        ms_b1 = time_ms(torch, b1)
+        ms = time_ms(torch, win)
+        ms_b1_after = time_ms(torch, b1)
+        plain_ms = time_ms(torch, plain, reps=3)
+        nbytes, ops = work_counts(torch, d, f, lyr, spp, (0,) * lyr,
+                                  colors=c)
+        nbytes += d["wins"].numel() * d["wins"].element_size()
+        bound_ms, bound_by = bound(nbytes, ops)
+        # Groups without padding (flags 0) and with it, pooled and windowed.
+        groups = {"base": int((base["flags"] != 0).sum().item()),
+                  "base_padded": int(base["sidx"].shape[0]),
+                  "windowed": d["ng"],
+                  "windowed_padded": int(d["sidx"].shape[0])}
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": 0,
+                    "library_ms": None, "b1_ms": [ms_b1, ms_b1_after],
+                    "spp": spp, "groups": groups,
+                    "pack_windowed_ms": t_pack * 1e3}
+        log(f"windows: {key} ({f}x{lyr}x{h}x{w}, spp {spp}): {ms:.3f} ms "
+            f"beside B1 {ms_b1:.3f} / {ms_b1_after:.3f} ms "
+            f"({ms / ((ms_b1 + ms_b1_after) / 2) - 1:+.1%}), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"groups pooled {groups['base']} (padded "
+            f"{groups['base_padded']}), windowed {groups['windowed']} "
+            f"(padded {groups['windowed_padded']}; "
+            f"{groups['windowed'] / groups['base'] - 1:+.1%}), windowed "
+            f"packing {t_pack * 1e3:.1f} ms; launches {launches[key]}")
+        del d, base, win_args
+        torch.cuda.empty_cache()
+    return out
+
+
+def coarse_headline(torch, np, report, launches):
+    """exp_dma's run_variant at coarse 1, 2 and 4 on phase 3's headline at
+    one strip a plane: each driven once (its counter set to 0 just before,
+    read just after), held against dma_plain and B1, the sentinel strip
+    block of a -7 buffer checked, then timed beside B1."""
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_blocksn
+    from swf_renderer_tpu_torch.tools import exp_dma, exp_split
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    frames, layers, height, width = HEADLINE
+    if "headline_scene" not in _HELD:   # phase 3 did not run first
+        _HELD["headline_scene"] = build_scene_edges(frames, layers, height,
+                                                    width, seed=7)
+    tables, colors = _HELD["headline_scene"]
+    cols = torch.as_tensor(colors, device=DEVICE)
+    d = exp_split.pack(tables, height, width, DEVICE)
+    ns, nc = d["ns"], d["nc"]
+    args = kernel_args(d) + (cols, frames, layers, ns, nc)
+    ng = int(d["sidx"].shape[0])
+
+    def b1():
+        return render_fused_blocksn(*args, group=exp_split.GROUP)
+
+    def plain():
+        return exp_dma.dma_plain(*args, exp_split.GROUP)
+
+    want = plain()[:, :ns]
+    _equal_words(torch, "coarse: headline B1", b1()[:, :ns], want)
+    ms_b1 = [time_ms(torch, b1)]
+    plain_ms = time_ms(torch, plain, reps=3)
+    bound_ms, bound_by = bound(*work_counts(torch, d, frames, layers, 1,
+                                            (0,) * layers, colors=cols))
+    out = {}
+    for coarse in exp_dma.COARSES:
+        def call(coarse=coarse):
+            return exp_dma.run_variant(*args, exp_split.GROUP, coarse)
+
+        key = f"dma_c{coarse}"
+        exp_dma.run_variant.launches = 0
+        torch.cuda.synchronize()
+        got = call()[:, :ns]
+        torch.cuda.synchronize()
+        launches[key] = exp_dma.run_variant.launches
+        if launches[key] < 1:
+            fail(f"coarse: {key} did not launch its kernel")
+        _equal_words(torch, f"coarse: headline {key}", got, want)
+        del got
+        buf = torch.full((frames, ns + 1, 8, nc * 128), -7,
+                         dtype=torch.int32, device=DEVICE)
+        exp_dma._launch(*args, exp_split.GROUP, coarse, out=buf)
+        _equal_words(torch, f"coarse: headline {key} into -7", buf[:, :ns],
+                     want)
+        if not bool((buf[:, ns] == -7).all().item()):
+            fail(f"coarse: headline {key}: the sentinel strip block was "
+                 f"written")
+        del buf
+        ms = time_ms(torch, call)
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": 0,
+                    "library_ms": None, "steps": ng // coarse}
+        log(f"coarse: headline {key} ({ng // coarse} steps of {ng} groups, "
+            f"{ng // coarse * nc} blocks): {ms:.3f} ms "
+            f"({frames * height * width / ms / 1e6:.3f} Gpx/s), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"launches {launches[key]}")
+    ms_b1.append(time_ms(torch, b1))
+    log(f"coarse: headline at one strip a plane, B1 before / after "
+        f"{ms_b1[0]:.3f} / {ms_b1[1]:.3f} ms; "
+        + ", ".join(f"{k} {v['ms']:.3f} "
+                    f"({v['ms'] / ((ms_b1[0] + ms_b1[1]) / 2) - 1:+.1%})"
+                    for k, v in out.items()))
+    report["coarse_headline"] = {"groups": ng, "b1_before_after": ms_b1,
+                                 "forms": out}
+    del want, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_windows(torch, np, report):
+    sass = coarse_sass_check()
+    n = win_random(torch, np)
+    m = coarse_random(torch, np)
+    log(f"windows: {n} random windowed and {m} random coarse checks equal")
+    launches = {}
+    kernels = win_full_width(torch, np, report, launches)
+    report["win_full_width"] = dict(kernels)
+    kernels.update(coarse_headline(torch, np, report, launches))
+    report["coarse_sass"] = sass
+    out = {}
+    for key, k in kernels.items():
+        if key.startswith("win_"):
+            name = f"exp_winplace_{key[4:]}"
+            replaces = "tools/exp_winplace.py:75"
+        else:
+            name, replaces = f"exp_{key}", "tools/exp_dma.py:39"
+        k.update(name=name, replaces=replaces, launches=launches[key])
+        out[f"window_{key}"] = k
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4271,6 +4607,7 @@ def main() -> None:
     kernels.update(phase_tilings(torch, np, report))
     kernels.update(phase_probes(torch, np, report))
     kernels.update(phase_products(torch, np, report))
+    kernels.update(phase_windows(torch, np, report))
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"
@@ -4306,7 +4643,7 @@ def main() -> None:
             meta[key] = ("swf_renderer_tpu_torch/csrc/probes.cu"
                          if key.startswith(("probe_bw_", "probe_step_"))
                          else flatblock_cu, probe_meta(key[6:])[1])
-        elif key.startswith("product_"):
+        elif key.startswith(("product_", "window_")):
             meta[key] = (flatblock_cu, kernels[key]["replaces"])
     line = {"kernels": [
         dict(name=k["name"], route="cuda", source=meta[key][0],

@@ -5,9 +5,12 @@
 // and masked draw lists) and its one-block-per-step form
 // (render_fused_blocks); the variants of the solid kernel that
 // tools/exp_split.py cuts it into and the reference's design tools place
-// with a matrix product (swf_fused_variant, swf_fused_int8).  The device
-// logic and its design notes live in flatblock_device.cuh and, for the
-// product forms, place_mma_device.cuh.
+// with a matrix product (swf_fused_variant, swf_fused_int8); the
+// window-targeted form of tools/exp_winplace.py (swf_fused_win) and the
+// coarse steps with explicit output copies of tools/exp_dma.py
+// (swf_fused_coarse).  The device logic and its design notes live in
+// flatblock_device.cuh and, for the product forms, place_mma_device.cuh,
+// for the coarse steps coarse_device.cuh.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -18,6 +21,7 @@
 
 #include <cuda_runtime.h>
 
+#include "coarse_device.cuh"
 #include "place_mma_device.cuh"   // includes flatblock_device.cuh
 
 namespace swf {
@@ -151,6 +155,32 @@ cudaError_t launch_product(FusedArgs a, const int8_t* l0, const int8_t* l1,
   const dim3 grid(a.n_chunks, n_strips, frames);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
     product_kernel<kVar><<<grid, kThreads, bytes, stream>>>(a, l0, l1, l2);
+  }
+  return cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(kThreads)
+coarse_kernel(FusedArgs a, int coarse) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  coarse_block(a, coarse, smem);
+}
+
+// The coarse steps (coarse_device.cuh): one block per (chunk, step) of
+// `coarse` groups, ng % coarse == 0, one strip a plane.
+cudaError_t launch_coarse(FusedArgs a, int coarse, int frames, int* sg_index,
+                          cudaStream_t stream) {
+  cudaError_t err = supergroup_index(a, frames, sg_index, stream);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = coarse_smem_bytes(a.layers);
+  err = cudaFuncSetAttribute(coarse_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(a.ng / coarse) * a.n_chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0) {
+    coarse_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
+        a, coarse);
   }
   return cudaGetLastError();
 }
@@ -443,6 +473,87 @@ int swf_fused_int8(const void* sidx, const void* flags, const void* lays,
       a, static_cast<const int8_t*>(l0), static_cast<const int8_t*>(l1),
       static_cast<const int8_t*>(l2), frames, ns1 - 1,
       static_cast<int*>(sg_index), static_cast<cudaStream_t>(stream)));
+}
+
+// tools/exp_winplace.py's form (swf::kVarWin): the per-strip placement
+// blocks of its packer, urc holding row ids LOCAL to each slot's strip
+// window and wins (group, ng) int32 the window of each slot (0 .. spp -
+// 1), at any rule and spp.  Other arguments as swf_fused_variant's.
+int swf_fused_win(const void* sidx, const void* flags, const void* lays,
+                  const void* wins, const void* urc, const void* ucm,
+                  const void* uval, const void* colors, const void* rules,
+                  void* sg_index, void* out, int ng, int group, int frames,
+                  int layers, int ns1, int n_chunks, int spp, int plane_rows,
+                  void* stream) {
+  if (layers < 1 || layers > swf::kMaxLayers || group < 1 || n_chunks < 1 ||
+      ns1 < 1 || ns1 - 1 > 65535 || frames < 1 || frames > 65535 ||
+      spp < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::FusedArgs a = {};
+  a.sidx = static_cast<const int*>(sidx);
+  a.flags = static_cast<const int*>(flags);
+  a.lays = static_cast<const int*>(lays);
+  a.wins = static_cast<const int*>(wins);
+  a.urc = static_cast<const float*>(urc);
+  a.ucm = static_cast<const float*>(ucm);
+  a.uval = static_cast<const float*>(uval);
+  a.colors = static_cast<const float*>(colors);
+  a.rules = static_cast<const int*>(rules);
+  a.out = static_cast<int*>(out);
+  a.mask_from = -1;
+  a.ng = ng;
+  a.group = group;
+  a.layers = layers;
+  a.ns1 = ns1;
+  a.n_chunks = n_chunks;
+  a.spp = spp;
+  a.plane_rows = plane_rows;
+  a.passes = 3;
+  a.kk = 1;
+  return static_cast<int>(
+      swf::launch<false, false, false, swf::kVarWin>(
+          a, frames, ns1 - 1, static_cast<int*>(sg_index),
+          static_cast<cudaStream_t>(stream)));
+}
+
+// tools/exp_dma.py's form (coarse_device.cuh): B1's inputs at one strip a
+// plane, `coarse` groups a step (ng % coarse == 0); out (F, ns1, 8,
+// n_chunks*128) int32 written by bulk copies, the sentinel strip block
+// left unwritten.  rules: the caller's per-layer rules (the tool passes
+// the nonzero rule).  Other arguments as swf_fused_variant's.
+int swf_fused_coarse(int coarse, const void* sidx, const void* flags,
+                     const void* lays, const void* urc, const void* ucm,
+                     const void* uval, const void* colors, const void* rules,
+                     void* sg_index, void* out, int ng, int group,
+                     int frames, int layers, int ns1, int n_chunks,
+                     void* stream) {
+  if (layers < 1 || layers > swf::kMaxLayers || group < 1 || n_chunks < 1 ||
+      ns1 < 1 || frames < 1 || frames > 65535 || coarse < 1 ||
+      ng % coarse != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  swf::FusedArgs a = {};
+  a.sidx = static_cast<const int*>(sidx);
+  a.flags = static_cast<const int*>(flags);
+  a.lays = static_cast<const int*>(lays);
+  a.urc = static_cast<const float*>(urc);
+  a.ucm = static_cast<const float*>(ucm);
+  a.uval = static_cast<const float*>(uval);
+  a.colors = static_cast<const float*>(colors);
+  a.rules = static_cast<const int*>(rules);
+  a.out = static_cast<int*>(out);
+  a.mask_from = -1;
+  a.ng = ng;
+  a.group = group;
+  a.layers = layers;
+  a.ns1 = ns1;
+  a.n_chunks = n_chunks;
+  a.spp = 1;
+  a.plane_rows = swf::kLane;
+  return static_cast<int>(swf::launch_coarse(
+      a, coarse, frames, static_cast<int*>(sg_index),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Packed strips each block of swf_fused_flatblock resolves (spb); a plane's

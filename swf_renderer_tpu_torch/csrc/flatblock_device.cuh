@@ -127,6 +127,7 @@ struct FusedArgs {
   int passes;           // one-block form: < 3 splits values in two bf16
   int kk;               // kVarBatched: groups staged in shared memory
   int observe;          // kVarPlace / kVarNone: keep the work observable
+  const int* wins;      // kVarWin: (group, NG) strip window of each slot
 };
 
 // Variants of the solid grouped kernel that cut it apart
@@ -150,6 +151,14 @@ struct FusedArgs {
 // consecutive groups (aligned to kk, as the reference's index map i //
 // kk) into shared memory with one cp.async group, then scatters from
 // there.
+//
+// kVarWin (tools/exp_winplace.py `_win_kernel` :75, pallas_call :161) is
+// B1 over per-strip placement blocks: each slot's row id is LOCAL to its
+// strip window (rc < n_chunks * 8) and the window index comes from the
+// `wins` table, read like `lays` (a.wins[k * ng + g]).  The TPU shrank
+// its one-hot product to the window; here the window only replaces the
+// division rc / nc8 that finds a slot's packed strip, and the strip
+// slice test skips windows outside the block's slice.  Any rule and spp.
 constexpr int kVarFull = 0;
 constexpr int kVarPlace = 1;
 constexpr int kVarResolve = 2;
@@ -157,6 +166,7 @@ constexpr int kVarNone = 3;
 constexpr int kVarNone0 = 4;
 constexpr int kVarMerged = 5;
 constexpr int kVarBatched = 6;
+constexpr int kVarWin = 11;   // 7-10: place_mma_device.cuh
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
@@ -527,7 +537,7 @@ __device__ __forceinline__ void solid_setup(const FusedArgs& a,
 // layer table (the layer is read from each block's sidx), values split
 // in two bf16 parts when passes < 3.  kChain / kPremul: the chain modes
 // (chain_pixel) and the premultiplied-plane output.  kVar: a variant of
-// the solid grouped kernel (kVarFull ... kVarBatched above).
+// the solid grouped kernel (kVarFull ... kVarBatched, kVarWin above).
 template <bool kStyled, bool kOne = false, bool kChain = false,
           bool kPremul = false, int kVar = kVarFull>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
@@ -571,8 +581,10 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   auto place = [&](int g, int k, float v, const float* rc_p,
                    const float* cm_p) {
     const int rc = static_cast<int>(*rc_p);
-    const int sp = rc / nc8;
-    const int local = rc - sp * nc8;
+    const int sp = kVar == kVarWin
+                       ? a.wins[static_cast<long long>(k) * a.ng + g]
+                       : rc / nc8;
+    const int local = kVar == kVarWin ? rc : rc - sp * nc8;
     const int ch = local >> 3;
     const int lsp = sp - sp0;
     if (ch > chunk || lsp < 0 || lsp >= a.spb) return;

@@ -23,7 +23,8 @@ BUILD_DIR = _PKG_DIR / "_build"
 # Library name -> (source, headers it includes).
 LIBRARIES = {
     "swfkernels": ("flatblock.cu", ("flatblock_device.cuh",
-                                    "place_mma_device.cuh")),
+                                    "place_mma_device.cuh",
+                                    "coarse_device.cuh")),
     "swfsweep": ("sweep.cu", ("sweep_device.cuh", "flatblock_device.cuh")),
     "swftexfield": ("texfield.cu", ("texfield_device.cuh",
                                     "flatblock_device.cuh")),
@@ -130,6 +131,11 @@ def load(name: str = "swfkernels"):
                     + [p]
                 lib.swf_fused_int8.restype = i
                 lib.swf_fused_int8.argtypes = [p] * 12 + [i] * 6 + [p]
+                lib.swf_fused_win.restype = i
+                lib.swf_fused_win.argtypes = [p] * 11 + [i] * 8 + [p]
+                lib.swf_fused_coarse.restype = i
+                lib.swf_fused_coarse.argtypes = [i] + [p] * 10 + [i] * 6 \
+                    + [p]
             elif name == "swfsweep":
                 lib.swf_sweep.restype = i
                 lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]

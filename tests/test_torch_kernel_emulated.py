@@ -841,9 +841,11 @@ extern "C" void emulate_resolve(const float* delta, const float* colors,
 """
 
 
-def _build_emulator(d, csrc):
-    """g++ the emulator over the device headers in ``csrc`` into ``d``."""
-    (d / "emu.cc").write_text(EMULATOR)
+def _build_emulator(d, csrc, extra=""):
+    """g++ the emulator over the device headers in ``csrc`` into ``d``;
+    ``extra`` is C++ appended to it (more headers and entry points, whose
+    ctypes signatures the caller sets)."""
+    (d / "emu.cc").write_text(EMULATOR + extra)
     lib = d / "libemu.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-ffp-contract=off",
