@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (swf_renderer_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, as a CI gate
+    python3 chip_smoke.py --parent DIR   # and an A/B against DIR's kernels
 
 Phases, each of which exits non-zero on failure before the last line:
 
@@ -37,9 +38,12 @@ Phases, each of which exits non-zero on failure before the last line:
              cases (repeat / clamp / canvas, bilinear / nearest,
              supersample 1/2/4, identity, rotated, skewed and far-zoomed
              inverses; textures 17x23, 64x64 and 512x512): fields within
-             1e-6 and u8 bytes equal; ``grid_sample`` timed beside it as a
-             yardstick; through the entry points with the launch counters
-             read: ``render_batch`` of the rotating display list with a
+             1e-6 and u8 bytes equal; every instantiation (supersample 1,
+             2, 4 and the run-time body at 3, each fetch mode and filter,
+             power-of-two and odd texture sides) bit-equal to it;
+             ``grid_sample`` timed beside it as a yardstick; through the
+             entry points with the launch counters read:
+             ``render_batch`` of the rotating display list with a
              bitmap layer (one texfield, one sweep launch),
              ``render_shape_animation`` of a bitmap fill, ``render(stage)``
              of a rotated, unsmoothed 512x512 bitmap (one texfield launch
@@ -166,8 +170,17 @@ Phases, each of which exits non-zero on failure before the last line:
              once through its wrapper, held equal to its plain version and
              to B1, and timed beside B1 (group counts and the windowed
              packing time logged).  Phase 1 names the ptxas registers,
-             stack and spills of B1, of the four product kernels, of the
-             windowed instantiation and of the coarse kernel.
+             stack and spills of B1 (its layer classes 4 and 16), of the
+             four product kernels, of the windowed instantiation, of the
+             coarse kernel and of the texfield kernel at animtex1080.
+
+With ``--parent DIR`` (a checkout of the parent commit) phase 1 also
+builds DIR's kernels and compares every kernel's SASS with theirs, and
+B1 (headline), the styled kernel (renderer frame), the chain kernel
+(deep1080 pass 1), the one-block kernel (headline_fused1), the exp_split
+cuts and the texfield kernel (yardstick, animtex, animtex1080) are
+timed with DIR's build and with this one on the same inputs, parent /
+change / change / parent (``report.json`` ``ab`` and ``ab_sass``).
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
@@ -201,6 +214,9 @@ TOL_LEVELS = 1       # u8 levels per channel, kernel vs plain version
 DEVICE = "cuda"
 HEADLINE = (60, 4, 1088, 1920)   # frames, layers, height, width
 _HELD = {}   # phase 3's headline scene and frames, read again in phase 8
+# --parent DIR: a checkout of the parent commit whose kernels are built
+# beside this one's and timed against them on the same inputs (A/B).
+PARENT_ROOT = None
 
 
 def fail(msg: str) -> None:
@@ -239,8 +255,16 @@ def phase_build():
         except Exception as exc:  # reported below, then the phase fails
             results[name] = (time.perf_counter() - t0, exc)
 
-    threads = [threading.Thread(target=run, args=("g++ native", bindings.build_library)),
-               threading.Thread(target=run, args=("nvcc kernels", cuda_lib.build))]
+    def parent(force):
+        pkg = PARENT_ROOT / "swf_renderer_tpu_torch"
+        _HELD["parent_libs"] = cuda_lib.build_other(pkg / "csrc",
+                                                    pkg / "_build")
+
+    jobs = [("g++ native", bindings.build_library),
+            ("nvcc kernels", cuda_lib.build)]
+    if PARENT_ROOT is not None:
+        jobs.append(("nvcc parent kernels", parent))
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -269,17 +293,92 @@ def phase_build():
     bindings.load_library()
 
 
-# Instantiations whose ptxas readings phase 1 names: B1's and the product
-# forms' (mangled-name fragments).
+# Instantiations whose ptxas readings phase 1 names (mangled-name
+# fragments): B1's at the headline (solid_flatblock_kernel<kVarFull, 4>,
+# the layer class of up to four layers) and at 16 layers, the product
+# forms', the windowed one's and the texfield kernel's at animtex1080
+# (n 2, bilinear, repeat).
 PTXAS_WATCH = {
-    "B1 fused_block<solid>": "fused_flatblock_kernelILb0ELb0ELb0ELb0ELi0E",
+    "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
+    "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
     "product k3_three": "product_kernelILi7E",
     "product k3_concat": "product_kernelILi8E",
     "product lmask": "product_kernelILi9E",
     "product int8": "product_kernelILi10E",
-    "windowed kVarWin": "fused_flatblock_kernelILb0ELb0ELb0ELb0ELi11E",
+    "windowed kVarWin": "solid_flatblock_kernelILi11ELi4E",
     "coarse": "coarse_kernel",
+    "texfield n2 bilinear repeat": "texfield_kernelILi2ELb1ELi0E",
 }
+
+
+def ab_times(torch, name, fn, lib="swfkernels"):
+    """With --parent: ``fn`` timed (CUDA events, median of 5) with the
+    parent's build of ``lib`` swapped in and with this one's, in the
+    order parent, change, change, parent; kept for report.json["ab"] and
+    returned.  None without --parent.  The wrappers count these launches
+    too, so callers time after reading their launch counters."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+
+    parent = _HELD.get("parent_libs")
+    if parent is None:
+        return None
+    mine = cuda_lib.load(lib)
+    times = {"parent_ms": [], "change_ms": []}
+    try:
+        for key, which in (("parent_ms", parent[lib]), ("change_ms", mine),
+                           ("change_ms", mine), ("parent_ms", parent[lib])):
+            cuda_lib._libs[lib] = which
+            times[key].append(time_ms(torch, fn, reps=5))
+    finally:
+        cuda_lib._libs[lib] = mine
+    p, c = (statistics.mean(times[k]) for k in ("parent_ms", "change_ms"))
+    times["change_vs_parent"] = c / p - 1.0
+    _HELD.setdefault("ab", {})[name] = times
+    log(f"A/B: {name}: parent {times['parent_ms'][0]:.4f} / change "
+        f"{times['change_ms'][0]:.4f} / {times['change_ms'][1]:.4f} / "
+        f"parent {times['parent_ms'][1]:.4f} ms ({100 * (c / p - 1):+.1f}% "
+        f"of the means)")
+    return times
+
+
+def sass_of(path):
+    """``cuobjdump -sass`` of a built library -> {mangled kernel: SASS}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {path} failed: {proc.stderr.strip()[:400]}")
+    text = proc.stdout
+    heads = list(re.finditer(r"Function : (\S+)", text))
+    return {m.group(1): text[m.end():heads[i + 1].start()
+                             if i + 1 < len(heads) else len(text)]
+            for i, m in enumerate(heads)}
+
+
+def ab_sass(report):
+    """With --parent: each library's kernels against the parent's, SASS
+    text compared function by function (report.json["ab_sass"])."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+
+    if "parent_libs" not in _HELD:
+        return
+    out = {}
+    pkg = PARENT_ROOT / "swf_renderer_tpu_torch" / "_build"
+    for name in cuda_lib.LIBRARIES:
+        mine = sass_of(cuda_lib.lib_path(name))
+        theirs = sass_of(pkg / f"lib{name}.so")
+        same = sorted(k for k in mine if theirs.get(k) == mine[k])
+        out[name] = {
+            "identical": len(same),
+            "differ": sorted(k for k in mine if k in theirs
+                             and theirs[k] != mine[k]),
+            "only_change": sorted(k for k in mine if k not in theirs),
+            "only_parent": sorted(k for k in theirs if k not in mine)}
+        log(f"A/B: SASS of {name}: {len(same)} kernels identical to the "
+            f"parent's, {len(out[name]['differ'])} differ, "
+            f"{len(out[name]['only_change'])} new, "
+            f"{len(out[name]['only_parent'])} gone")
+    report["ab_sass"] = out
 
 
 def ptxas_kernels(text):
@@ -549,6 +648,7 @@ def phase_headline(torch, np, report):
 
     ms = time_ms(torch, kernel, reps=5)
     plain_ms = time_ms(torch, plain, reps=3)
+    ab = ab_times(torch, "fused_flatblock_solid (headline)", kernel)
     out = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -580,6 +680,7 @@ def phase_headline(torch, np, report):
         "end_to_end_gpx_s": pixels / wall / 1e9,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "ops": ops, "max_diff": dmax, "diff_share": share,
+        "parent_ms": None if ab is None else ab["parent_ms"],
     }
     return {"name": "fused_flatblock_solid", "launches": launches,
             "max_abs_err": dmax, "ms": ms, "plain_ms": plain_ms,
@@ -741,6 +842,7 @@ def phase_renderer(torch, np, report):
         fail(f"styled kernel vs plain on the renderer frame: {dmax}")
     ms = time_ms(torch, kernel, reps=5)
     plain_ms = time_ms(torch, plain, reps=3)
+    ab = ab_times(torch, "fused_flatblock_styled (renderer frame)", kernel)
     nbytes, ops = work_counts(torch, dev, 1, layers, spp, rules,
                               paints=kpaints, fields=fields, colors=cols)
     bound_ms, bound_by = bound(nbytes, ops)
@@ -751,6 +853,7 @@ def phase_renderer(torch, np, report):
         "batch_frames": len(stages), "layers": layers, "spp": spp,
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "max_diff": dmax, "diff_share": share,
+        "parent_ms": None if ab is None else ab["parent_ms"],
     }
     return {"name": "fused_flatblock_styled", "launches": launches,
             "max_abs_err": dmax, "ms": ms, "plain_ms": plain_ms,
@@ -1405,6 +1508,47 @@ def texfield_random(torch, np):
     return worst
 
 
+def texfield_forms_random(torch, np):
+    """Every instantiation of the texfield kernel against its plain
+    version, bit for bit: n 1, 2, 4 (unrolled) and 3 (the run-time body)
+    x bilinear / nearest x repeat / clamp / canvas, on textures of 64x64
+    (power-of-two sides: the wrap a mask), 37x23 (remainders) and 32x48
+    (one of each), with _tex_invs's inverses (samples below zero, across
+    the edges and beyond 2^24 texels).  Returns the number of cases."""
+    from swf_renderer_tpu_torch.ops.texfield import (
+        bitmap_field_planes, texfield_plain,
+    )
+
+    rng = np.random.default_rng(37)
+    height, width = 75, 133
+    cases = 0
+    for shape in ((64, 64), (37, 23), (32, 48)):
+        img = rng.integers(0, 256, (*shape, 4)).astype(np.uint8)
+        img[:2, :3, 3] = 0
+        d_img = torch.from_numpy(img).to(DEVICE)
+        for edge, (repeating, edge_mode) in TEX_EDGES.items():
+            for smoothed in (True, False):
+                for n in (1, 2, 3, 4):
+                    invs = _up(torch, np, _tex_invs(np, rng, *shape))
+                    got = bitmap_field_planes(
+                        d_img, invs, height, width, n, repeating, smoothed,
+                        edge_mode, device=DEVICE)
+                    want = texfield_plain(d_img, invs, height, width, n,
+                                          repeating, smoothed, edge_mode)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        err = float((got - want).abs().max().item())
+                        fail(f"texfield form {shape[0]}x{shape[1]} {edge} "
+                             f"{'bilinear' if smoothed else 'nearest'} "
+                             f"n={n}: not bit-equal to its plain version "
+                             f"(max abs {err:.3g})")
+                    cases += 1
+    log(f"bitmaps: {cases} texfield forms (n 1/2/3/4 x bilinear/nearest x "
+        f"repeat/clamp/canvas x 64x64, 37x23, 32x48) bit-equal to the "
+        f"plain version")
+    return cases
+
+
 def library_yardstick(torch, np, report):
     """grid_sample (bilinear, border padding) computes the texfield of a
     supersample-1 clamped fill up to the final un-premultiply; timed
@@ -1441,9 +1585,12 @@ def library_yardstick(torch, np, report):
 
     lib_ms = time_ms(torch, library)
     ms = time_ms(torch, kernel)
+    ab = ab_times(torch, "texfield (yardstick)", kernel, "swftexfield")
     log(f"bitmaps: yardstick {height}x{width} supersample-1 clamp: kernel "
         f"{ms:.3f} ms, grid_sample {lib_ms:.3f} ms")
-    report["texfield_yardstick"] = {"kernel_ms": ms, "grid_sample_ms": lib_ms}
+    report["texfield_yardstick"] = {
+        "kernel_ms": ms, "grid_sample_ms": lib_ms,
+        "parent_ms": None if ab is None else ab["parent_ms"]}
 
 
 def animtex_run(torch, np, what, height, width, frames, report):
@@ -1488,6 +1635,7 @@ def animtex_run(torch, np, what, height, width, frames, report):
         return sweep.bake_sweep_fields(specs, height, width, device=DEVICE)
 
     ms = time_ms(torch, bake_kernel)
+    ab = ab_times(torch, f"texfield ({what})", bake_kernel, "swftexfield")
     bake_ms = time_ms(torch, bake)
     fields = bake()
     sampled = bake_kernel()
@@ -1539,6 +1687,7 @@ def animtex_run(torch, np, what, height, width, frames, report):
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "ops": ops, "bake_ms": bake_ms,
         "sweep_ms": sweep_ms, "d2h_ms": d2h_ms, "max_abs_err": err,
+        "parent_ms": None if ab is None else ab["parent_ms"],
         "sweep_max_diff": dmax, "library_ms": None,
         "library": "none: no single call wraps or supersamples"}
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1756,6 +1905,7 @@ def _interactive_plain_check(torch, np, renderer, state, stage, frame):
 
 def phase_bitmaps(torch, np, report):
     worst = texfield_random(torch, np)
+    report["texfield_forms_cases"] = texfield_forms_random(torch, np)
     library_yardstick(torch, np, report)
     launches, still_err = bitmaps_entry_points(torch, np, report)
     small = animtex_run(torch, np, "animtex", *ANIMTEX, report)
@@ -2581,6 +2731,9 @@ def headline_fused1(torch, np, report, ref_frames, arrays, geometry, reset,
         fail(f"render_fused_blocks launches {launches}")
     ms = time_ms(torch, lambda: fb.render_fused_blocks(
         *blocks, cols, frames, layers, ns, nc))
+    ab_times(torch, "fused_blocks1 (headline_fused1)",
+             lambda: fb.render_fused_blocks(*blocks, cols, frames, layers,
+                                            ns, nc))
     held = {}
 
     def plain():
@@ -2875,6 +3028,11 @@ def _timed_passes(torch, np, tables, paints, colors, height, width, groups,
                "lowering_ms": t_lower * 1e3, "packing_ms": t_pack * 1e3,
                "pass_setup_ms": t_pass * 1e3, "kernel_ms": ms}
         if gi == 0:
+            if what == "deep1080_solid":
+                ab = ab_times(torch, "fused_flatblock_styled_chain "
+                              "(deep1080 pass 1)",
+                              lambda: render_fused_styled(*args, **kw))
+                rec["parent_ms"] = None if ab is None else ab["parent_ms"]
             plain_ms = time_ms(torch, lambda: fused_styled_plain(
                 *args, **kw), reps=3)
             dev = dict(zip(("sidx", "flags", "lays", "urc", "ucm", "uval"),
@@ -3814,6 +3972,8 @@ def split_headline(torch, np, report, launches):
         want = b1_words if v.words else torch.zeros_like(b1_words)
         _equal_words(torch, f"probes: headline {name}", outs[name], want)
         ms = time_ms(torch, v.call)
+        ab_times(torch, f"exp_split {name} (headline, one strip a plane)",
+                 v.call)
         plain_ms = time_ms(torch, v.plain, reps=3)
         # No single call places and resolves: full, batched and merged
         # have no library yardstick.
@@ -4219,17 +4379,7 @@ def sass_bodies():
     from swf_renderer_tpu_torch.ops import cuda_lib
 
     if "sass" not in _HELD:
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        proc = subprocess.run([tool, "-sass", str(cuda_lib.lib_path(
-            "swfkernels"))], capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            fail(f"cuobjdump -sass failed: {proc.stderr.strip()[:400]}")
-        text = proc.stdout
-        heads = list(re.finditer(r"Function : (\S+)", text))
-        _HELD["sass"] = {
-            m.group(1): text[m.end():heads[i + 1].start()
-                             if i + 1 < len(heads) else len(text)]
-            for i, m in enumerate(heads)}
+        _HELD["sass"] = sass_of(cuda_lib.lib_path("swfkernels"))
     return _HELD["sass"]
 
 
@@ -4586,6 +4736,14 @@ def main() -> None:
     import numpy as np
     import torch
 
+    global PARENT_ROOT
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--parent", type=pathlib.Path, default=None,
+                    help="a checkout of the parent commit: its kernels are "
+                         "built too and timed beside these (A/B)")
+    PARENT_ROOT = ap.parse_args().parent
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
 
@@ -4594,6 +4752,7 @@ def main() -> None:
     t_start = time.perf_counter()
     report = {}
     phase_build()
+    ab_sass(report)
     worst = phase_kernels(torch, np)
     kernels = {"fusedn": phase_headline(torch, np, report),
                "styled": phase_renderer(torch, np, report)}
@@ -4653,6 +4812,8 @@ def main() -> None:
              bound_by=k["bound_by"], library_ms=k.get("library_ms"))
         for key, k in kernels.items()]}
     card = card_line()
+    if "ab" in _HELD:
+        report["ab"] = _HELD["ab"]
     report.update(kernels=line["kernels"], card=card,
                   seconds=time.perf_counter() - t_start)
     OUT_DIR.mkdir(parents=True, exist_ok=True)

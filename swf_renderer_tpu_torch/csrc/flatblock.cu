@@ -60,6 +60,15 @@ fused_flatblock_kernel(FusedArgs a) {
   fused_block<kStyled, kOne, kChain, kPremul, kVar>(a, smem);
 }
 
+// B1 and its variants (the solid grouped kernel): fused_block with the
+// layer loops of the resolve unrolled to kLc >= layers.
+template <int kVar, int kLc>
+__global__ void __launch_bounds__(kThreads)
+solid_flatblock_kernel(FusedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fused_block<false, false, false, false, kVar, kLc>(a, smem);
+}
+
 // Zero the premultiplied output's padding rows (plane rows spp*n_chunks*8
 // and up of every (frame, strip block, channel) plane) and its sentinel
 // strip block NS, which no block of the kernel writes.
@@ -101,6 +110,19 @@ cudaError_t supergroup_index(FusedArgs& a, int frames, int* sg_index,
   return cudaSuccess;
 }
 
+// Allow `bytes` of dynamic shared memory to kernel and launch it on grid.
+cudaError_t launch_kernel(void (*kernel)(FusedArgs), const FusedArgs& a,
+                          dim3 grid, size_t bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
+    kernel<<<grid, kThreads, bytes, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 template <bool kStyled, bool kChain = false, bool kPremul = false,
           int kVar = kVarFull>
 cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
@@ -114,20 +136,23 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
     bytes += batched_stage_bytes(a.group, a.kk);
     if (bytes > kSmemMax) return cudaErrorInvalidValue;
   }
-  err = cudaFuncSetAttribute(
-      fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  if (kPremul) {
-    err = zero_premul_padding(a, frames, stream);
-    if (err != cudaSuccess) return err;
-  }
   const dim3 grid(a.n_chunks * a.n_spg, n_strips, frames);
-  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>
-        <<<grid, kThreads, bytes, stream>>>(a);
+  if constexpr (!kStyled) {
+    constexpr int kSmall = kSolidSmallLayers;
+    return solid_layer_class(a.layers) == kSmall
+               ? launch_kernel(solid_flatblock_kernel<kVar, kSmall>, a, grid,
+                               bytes, stream)
+               : launch_kernel(solid_flatblock_kernel<kVar, kMaxLayers>, a,
+                               grid, bytes, stream);
+  } else {
+    if (kPremul) {
+      err = zero_premul_padding(a, frames, stream);
+      if (err != cudaSuccess) return err;
+    }
+    return launch_kernel(
+        fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>, a,
+        grid, bytes, stream);
   }
-  return cudaGetLastError();
 }
 
 template <int kVar>

@@ -35,6 +35,24 @@
 // padded to 129 floats so those column walks are free of bank
 // conflicts), and every thread resolves pixels of its chunk.
 //
+// B1 and its variants (the solid grouped kernel, solid_flatblock_kernel
+// in flatblock.cu) were redesigned for this card from clock64 readings
+// of each phase (PERF.md): the per-pixel composite took 53% of a block's
+// cycles and the walk 34%, the prefix 6%.  So for them (kSolid):
+//   - solid_walk issues the loads of four slots before it places any,
+//     and steps through the groups without a 64-bit division;
+//   - place_loaded adds the 64-bit fixed-point carry as two native
+//     32-bit atomics (a 64-bit shared atomicAdd is a CAS loop here);
+//   - solid_pixel composites with the layer loops unrolled to a layer
+//     class kLc chosen at launch (4 up to four layers, else 16), the
+//     frame's colours in registers (kLc 4) and the rules as a bit mask:
+//     the generic composite_pack, sized for 16 layers under a run-time
+//     count, indexes its arrays and so keeps them in local memory.
+// The arithmetic is composite_pack's, operation for operation.  The
+// styled, chain and one-block instantiations keep the generic body (their
+// per-layer paints do not fit a register class), and the prefix and the
+// set-up stay as they were.
+//
 // The chain modes (kChain) resolve each pixel with the sequential over
 // chain, a left fold over the layers, in place of the suffix-product
 // form, so that passes of <= 16 layers chained through their
@@ -532,6 +550,148 @@ __device__ __forceinline__ void solid_setup(const FusedArgs& a,
   for (int i = tid; i < L; i += nthr) m.rule_s[i] = a.rules[i];
 }
 
+// The layer class of the solid kernel (kLc of fused_block, chosen at
+// launch): 4 up to four layers, else kMaxLayers.
+constexpr int kSolidSmallLayers = 4;
+__host__ __device__ constexpr int solid_layer_class(int layers) {
+  return layers <= kSolidSmallLayers ? kSolidSmallLayers : kMaxLayers;
+}
+
+// B1's walk (the solid grouped forms but kVarBatched): thread tid takes
+// slots tid, tid + nthr, ... of the supergroup's groups g0..g1, four at
+// a time, and issues every load of the four (flags, value, row id,
+// column, layer, window) before it uses any, so that their round trips
+// to L2 overlap; slot (g, rem) advances by nthr without a division.
+// Skips what fused_block's own walk skips (slots past a group's used
+// count, zero values) and calls place(v, rc, cm, layer, win) on the
+// rest, or (kVarNone) returns the xor of their loaded words.
+template <int kVar, typename Place>
+__device__ __forceinline__ uint32_t solid_walk(const FusedArgs& a, int g0,
+                                               int g1, Place place) {
+  constexpr int kU = 4;
+  const int nthr = blockDim.x;
+  const int gb = a.group * kBlk;
+  uint32_t seen = 0;
+  int g = g0;
+  int rem = threadIdx.x;
+  while (rem >= gb) {
+    rem -= gb;
+    ++g;
+  }
+  while (g <= g1) {
+    int gs[kU], rs[kU], fl[kU], ly[kU], wn[kU];
+    float vs[kU], rcs[kU], cms[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      gs[u] = g;
+      rs[u] = rem;
+      rem += nthr;
+      while (rem >= gb) {
+        rem -= gb;
+        ++g;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (gs[u] <= g1) {
+        const long long idx = static_cast<long long>(gs[u]) * gb + rs[u];
+        // kVarMerged: urc and uval are the halves of a row of 2 * gb.
+        const long long iv = kVar == kVarMerged
+                                 ? idx + static_cast<long long>(gs[u]) * gb
+                                 : idx;
+        const long long kg = static_cast<long long>(rs[u] / kBlk) * a.ng
+                             + gs[u];
+        fl[u] = a.flags[gs[u]];
+        vs[u] = a.uval[iv];
+        rcs[u] = a.urc[iv];
+        cms[u] = a.ucm[idx];
+        ly[u] = a.lays[kg];
+        wn[u] = kVar == kVarWin ? a.wins[kg] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (gs[u] > g1) continue;
+      const int k = rs[u] / kBlk;
+      const int nblk = static_cast<int>(static_cast<unsigned>(fl[u]) >> 2);
+      if ((nblk != 0 && k >= nblk) || vs[u] == 0.0f) continue;
+      if constexpr (kVar == kVarNone) {
+        seen ^= __float_as_uint(vs[u]) ^ __float_as_uint(rcs[u]) ^
+                __float_as_uint(cms[u]) ^ static_cast<uint32_t>(ly[u]);
+      } else {
+        place(vs[u], rcs[u], cms[u], ly[u], wn[u]);
+      }
+    }
+  }
+  return seen;
+}
+
+// B1's resolve of one pixel (composite_pack's arithmetic, operation for
+// operation): w points at the winding of layer 0, layers lstride floats
+// apart; colour(l) the straight RGBA of layer l; bit l of eo set for an
+// even-odd layer.  The layer loops unroll to kLc >= L, so the per-layer
+// values live in registers (the generic composite_pack, sized for 16
+// layers under a run-time count, indexes them and keeps them in local
+// memory); a block whose L == kLc takes a copy without the guards.
+template <bool kExact, int kLc, typename ColourFn>
+__device__ __forceinline__ uint32_t solid_composite(const float* w,
+                                                    int lstride,
+                                                    ColourFn colour,
+                                                    unsigned eo, int L) {
+  float cas[kLc];
+  float4 cl[kLc];
+#pragma unroll
+  for (int l = 0; l < kLc; ++l) {
+    if (kExact || l < L) {
+      cl[l] = colour(l);
+      cas[l] = cl[l].w * fill_cov(w[l * lstride],
+                                  static_cast<int>((eo >> l) & 1u));
+    }
+  }
+  float wgt[kLc];
+  float suffix = 1.0f;
+  bool top = true;   // the front-most layer: its weight is its cas
+#pragma unroll
+  for (int l = kLc - 1; l >= 0; --l) {
+    if (kExact || l < L) {
+      if (kExact ? l == kLc - 1 : top) {
+        wgt[l] = cas[l];
+        suffix = 1.0f - cas[l];
+      } else {
+        wgt[l] = cas[l] * suffix;
+        suffix = suffix * (1.0f - cas[l]);
+      }
+      top = false;
+    }
+  }
+  float alpha_out = wgt[0];
+#pragma unroll
+  for (int l = 1; l < kLc; ++l) {
+    if (kExact || l < L) alpha_out = alpha_out + wgt[l];
+  }
+  float pm[3];
+  pm[0] = cl[0].x * wgt[0];
+  pm[1] = cl[0].y * wgt[0];
+  pm[2] = cl[0].z * wgt[0];
+#pragma unroll
+  for (int l = 1; l < kLc; ++l) {
+    if (kExact || l < L) {
+      pm[0] = pm[0] + cl[l].x * wgt[l];
+      pm[1] = pm[1] + cl[l].y * wgt[l];
+      pm[2] = pm[2] + cl[l].z * wgt[l];
+    }
+  }
+  return quantize_pack(alpha_out, pm);
+}
+
+template <int kLc, typename ColourFn>
+__device__ __forceinline__ uint32_t solid_pixel(const float* w, int lstride,
+                                                ColourFn colour, unsigned eo,
+                                                int L) {
+  return L == kLc ? solid_composite<true, kLc>(w, lstride, colour, eo, L)
+                  : solid_composite<false, kLc>(w, lstride, colour, eo, L);
+}
+
 // One block: (chunk, strip slice) x strip block x frame.  kOne: the
 // one-block-per-step form (render_fused_blocks): group 1, no flags or
 // layer table (the layer is read from each block's sidx), values split
@@ -539,10 +699,12 @@ __device__ __forceinline__ void solid_setup(const FusedArgs& a,
 // (chain_pixel) and the premultiplied-plane output.  kVar: a variant of
 // the solid grouped kernel (kVarFull ... kVarBatched, kVarWin above).
 template <bool kStyled, bool kOne = false, bool kChain = false,
-          bool kPremul = false, int kVar = kVarFull>
+          bool kPremul = false, int kVar = kVarFull, int kLc = kMaxLayers>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   static_assert(kVar == kVarFull || (!kStyled && !kOne && !kChain),
                 "the variants are of the solid grouped kernel");
+  // B1 and its variants: solid_walk, place_loaded and solid_pixel.
+  constexpr bool kSolid = !kStyled && !kOne && !kChain;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int chunk = blockIdx.x / a.n_spg;
@@ -577,14 +739,14 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   // Placement: this chunk's deltas into the plane, earlier chunks' deltas
   // of the same row into the carry.  place(g, k, v, rc, cm) scatters the
   // update of value v in slot k of group g, its row id at rc and its
-  // column at cm.
+  // column at cm (the generic walk of the styled, chain and one-block
+  // forms: the layer is read only for an update that lands in this
+  // block).
   auto place = [&](int g, int k, float v, const float* rc_p,
                    const float* cm_p) {
     const int rc = static_cast<int>(*rc_p);
-    const int sp = kVar == kVarWin
-                       ? a.wins[static_cast<long long>(k) * a.ng + g]
-                       : rc / nc8;
-    const int local = kVar == kVarWin ? rc : rc - sp * nc8;
+    const int sp = rc / nc8;
+    const int local = rc - sp * nc8;
     const int ch = local >> 3;
     const int lsp = sp - sp0;
     if (ch > chunk || lsp < 0 || lsp >= a.spb) return;
@@ -597,6 +759,33 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
     } else {
       atomicAdd(reinterpret_cast<unsigned long long*>(&carry[row]),
                 static_cast<unsigned long long>(to_fixed(v)));
+    }
+  };
+  // The same placement from loaded values (solid_walk, kVarBatched).
+  auto place_loaded = [&](float v, float rcf, float cmf, int layer,
+                          int win) {
+    const int rc = static_cast<int>(rcf);
+    const int sp = kVar == kVarWin ? win : rc / nc8;
+    const int local = kVar == kVarWin ? rc : rc - sp * nc8;
+    const int ch = local >> 3;
+    const int lsp = sp - sp0;
+    if (ch > chunk || lsp < 0 || lsp >= a.spb) return;
+    if (layer < 0 || layer >= L) return;
+    const int row = layer * rows + lsp * kStripH + (local & 7);
+    if (ch == chunk) {
+      atomicAdd(&plane[row * kRowStride + static_cast<int>(cmf)], v);
+    } else {
+      // The 64-bit carry as two native 32-bit adds (a 64-bit shared
+      // atomicAdd is a compare-and-swap loop on this card): the adder
+      // that wraps the low word carries one into the high word, so the
+      // pair ends as the same sum modulo 2^64, whatever the order.
+      const unsigned long long q =
+          static_cast<unsigned long long>(to_fixed(v));
+      unsigned* word = reinterpret_cast<unsigned*>(&carry[row]);
+      const unsigned lo = static_cast<unsigned>(q);
+      const unsigned old = atomicAdd(&word[0], lo);
+      atomicAdd(&word[1], static_cast<unsigned>(q >> 32) +
+                              (old + lo < old ? 1u : 0u));
     }
   };
   const int sg = f * a.ns1 + s;
@@ -631,11 +820,16 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
         const int si = (g - b0) * gb + rem;
         const float v = stage[2 * n + si];
         if (v == 0.0f) continue;
-        place(g, k, v, stage + si, stage + n + si);
+        place_loaded(v, stage[si], stage[n + si],
+                     a.lays[static_cast<long long>(k) * a.ng + g], 0);
       }
       __syncthreads();   // the stage is free again
     }
-  } else if constexpr (kVar != kVarResolve && kVar != kVarNone0) {
+  } else if constexpr (kSolid && kVar != kVarResolve && kVar != kVarNone0) {
+    if (g0 >= 0 && g1 >= g0) {
+      seen = solid_walk<kVar>(a, g0, g1, place_loaded);
+    }
+  } else if constexpr (!kSolid) {
     if (g0 >= 0 && g1 >= g0) {
       const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
       for (long long j = tid; j < total; j += nthr) {
@@ -646,20 +840,10 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
             static_cast<unsigned>(a.flags[g]) >> 2);
         if (nblk != 0 && k >= nblk) continue;
         const long long idx = static_cast<long long>(g) * gb + rem;
-        // kVarMerged: urc and uval are the halves of a row of 2 * gb.
-        const long long iv =
-            kVar == kVarMerged ? idx + static_cast<long long>(g) * gb : idx;
-        float v = a.uval[iv];
+        float v = a.uval[idx];
         if (kOne && a.passes < 3) v = split_bf16x2(v);
         if (v == 0.0f) continue;
-        if constexpr (kVar == kVarNone) {
-          seen ^= __float_as_uint(v) ^ __float_as_uint(a.urc[iv]) ^
-                  __float_as_uint(a.ucm[idx]) ^
-                  static_cast<uint32_t>(
-                      a.lays[static_cast<long long>(k) * a.ng + g]);
-        } else {
-          place(g, k, v, a.urc + iv, a.ucm + idx);
-        }
+        place(g, k, v, a.urc + idx, a.ucm + idx);
       }
     }
   }
@@ -697,6 +881,28 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
 
   // Resolve: fill rule, suffix-product composite, quantize, pack.
   const int stride = a.n_chunks * kLane;
+  // kSolid: the even-odd layers as bits, and the frame's colours in
+  // registers when kLc <= 4 (read from shared memory otherwise).
+  unsigned eo = 0;
+  float4 creg[kLc <= 4 ? kLc : 1];
+  if constexpr (kSolid) {
+#pragma unroll
+    for (int l = 0; l < kLc; ++l) {
+      if (l < L) {
+        eo |= (rule_s[l] != 0 ? 1u : 0u) << l;
+        if constexpr (kLc <= 4) {
+          creg[l] = reinterpret_cast<const float4*>(col_s)[l];
+        }
+      }
+    }
+  }
+  auto colour = [&](int l) -> float4 {
+    if constexpr (kLc <= 4) {
+      return creg[l];
+    } else {
+      return reinterpret_cast<const float4*>(col_s)[l];
+    }
+  };
   for (int p = tid; p < rows * kLane; p += nthr) {
     const int row = p / kLane;
     const int c = p % kLane;
@@ -730,6 +936,12 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
                + sp * kStripH + r8) * stride + chunk * kLane + c] =
             static_cast<int>(quantize_pack(pm4[3], pm4));
       }
+    } else if constexpr (kSolid) {
+      a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+             + sp * kStripH + r8) * stride + chunk * kLane + c] =
+          static_cast<int>(solid_pixel<kLc>(
+              plane + row * kRowStride + c, rows * kRowStride, colour, eo,
+              L));
     } else {
       float cas[kMaxLayers];
       float tpar[kMaxLayers];

@@ -20,29 +20,49 @@ __global__ void __launch_bounds__(kTexThreads) texprep_kernel(TexArgs a) {
   if (i < a.th * a.tw) texprep_texel(a, i);
 }
 
+template <int N, bool kSmooth, int kEdge>
 __global__ void __launch_bounds__(kTexThreads) texfield_kernel(TexArgs a) {
-  texfield_block(a);
+  texfield_block<N, kSmooth, kEdge>(a);
 }
 
-// Persistent grid: as many blocks as can be resident at once, at most
-// one per (frame, tile) item.
+// One block per (32 x 32 tile, frame); frames beyond the grid's z limit
+// loop inside the blocks.
+template <int N, bool kSmooth, int kEdge>
 cudaError_t launch_texfield(const TexArgs& a, cudaStream_t stream) {
-  cudaError_t err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, texfield_kernel, kTexThreads, 0);
-  if (err != cudaSuccess) return err;
-  const long long tiles =
-      static_cast<long long>((a.width + kTexTileW - 1) / kTexTileW) *
-      ((a.height + kTexTileH - 1) / kTexTileH) * a.frames;
-  long long blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (blocks > tiles) blocks = tiles;
-  texfield_kernel<<<static_cast<unsigned>(blocks), kTexThreads, 0, stream>>>(
-      a);
+  const dim3 grid((a.width + kTexTileW - 1) / kTexTileW,
+                  (a.height + kTexTileRows - 1) / kTexTileRows,
+                  a.frames < kTexMaxGridZ ? a.frames : kTexMaxGridZ);
+  texfield_kernel<N, kSmooth, kEdge><<<grid, kTexThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int N, bool kSmooth>
+cudaError_t launch_edge(const TexArgs& a, cudaStream_t stream) {
+  switch (tex_edge(a.repeating, a.canvas)) {
+    case kTexRepeat:
+      return launch_texfield<N, kSmooth, kTexRepeat>(a, stream);
+    case kTexFlash:
+      return launch_texfield<N, kSmooth, kTexFlash>(a, stream);
+    default:
+      return launch_texfield<N, kSmooth, kTexCanvas>(a, stream);
+  }
+}
+
+template <int N>
+cudaError_t launch_n(const TexArgs& a, cudaStream_t stream) {
+  return a.smoothed ? launch_edge<N, true>(a, stream)
+                    : launch_edge<N, false>(a, stream);
+}
+
+// The instantiation for a.n: unrolled for 1, 2 and 4, run-time loops
+// (N = 0) for any other supersample.
+cudaError_t launch_any(const TexArgs& a, cudaStream_t stream) {
+  switch (a.n) {
+    case 1: return launch_n<1>(a, stream);
+    case 2: return launch_n<2>(a, stream);
+    case 4: return launch_n<4>(a, stream);
+    default: return launch_n<0>(a, stream);
+  }
 }
 
 }  // namespace swf
@@ -58,7 +78,8 @@ int swf_texfield(const void* img, void* tex, const void* invs, void* out,
                  int repeating, int smoothed, int canvas, void* stream) {
   if (th < 1 || tw < 1 || static_cast<long long>(th) * tw > (1LL << 30) ||
       frames < 1 || height < 1 || width < 1 || n < 1 ||
-      n > swf::kTexMaxN) {
+      n > swf::kTexMaxN ||
+      (height + swf::kTexTileRows - 1) / swf::kTexTileRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swf::TexArgs a;
@@ -82,7 +103,7 @@ int swf_texfield(const void* img, void* tex, const void* invs, void* out,
                         swf::kTexThreads, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(swf::launch_texfield(a, s));
+  return static_cast<int>(swf::launch_any(a, s));
 }
 
 }  // extern "C"

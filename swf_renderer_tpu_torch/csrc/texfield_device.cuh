@@ -22,28 +22,39 @@
 // a machine without a fast gather; a Hopper SM gathers from shared
 // memory or L1 directly, so this kernel is a direct gather.  A pre-pass
 // converts the u8 texture once into premultiplied f32 texels (Th x Tw
-// float4).  The field kernel runs persistent blocks of 32 x 8 threads
-// that walk (frame, 32 x 8 tile) items, one thread per pixel, read texels
-// through the read-only cache (animtex's 64 KB of texels stay in L1) and
-// store one float4 per pixel into (F, H, W, 4): a warp writes 512
-// contiguous bytes.  A form that first copied textures of up to 64 KB
-// into shared memory was no faster on the card (it kept fewer blocks
-// resident) and was taken out.
+// float4).  The field kernel runs a 3-D grid of (32-column, 32-row tile,
+// frame) blocks of 256 threads; a thread samples one column of its tile
+// at 4 rows 8 apart (4 independent pixels), reads texels through the
+// read-only cache (animtex's 64 KB of texels stay in L1) and stores one
+// float4 per pixel into (F, H, W, 4): a warp writes 512 contiguous bytes.
+// Frames beyond the grid's 65535 z-blocks loop.  The kernel is bound by
+// instruction issue (PERF.md), so the work a pixel is cut where the
+// result allows:
+//   - no 64-bit or run-time division of an index: the grid is the tile;
+//   - texfield_kernel<N, kSmooth, kEdge> is instantiated for n = 1, 2, 4
+//     (the supersamples of every paint the renderer builds) with the
+//     subsample loops unrolled and the offsets compile-time floats, and
+//     for N = 0, any other n, with the run-time loops;
+//   - where n * n is a power of two, x / (n * n) is x * 2^-k: the same
+//     real number rounded once, so the same float;
+//   - the repeat wrap of a power-of-two texture side is a mask: for an
+//     int, x & (side - 1) is the floored modulo.
+// Forms that lost (PERF.md): persistent blocks walking (frame, tile)
+// items paid a 64-bit division and remainder a pixel; copying textures of
+// up to 64 KB into shared memory kept fewer blocks resident.
 //
 // Bound on this card: bytes — the f32 planes it writes (16 B a pixel)
 // outweigh its ~60 f32 operations a bilinear subsample at supersample 2.
-// The kernel itself is bound by instruction issue: the wrap's integer
-// remainders, the IEEE divisions and the tap arithmetic, ~8x the bound
-// at animtex1080 (PERF.md).
 //
 // Rounding (shared with the plain version, ROADMAP.md queue C): texel
-// normalisation and the division by n*n and the un-premultiply are IEEE
-// divisions (__fdiv_rn), never a reciprocal multiply; the repeat wrap is
-// a floored modulo (of integral values, so an integer remainder gives the
-// same index while they are exact in int, with fmodf beyond); floors are
-// floorf; the subsample offsets are f32 roundings of the double
-// (k + 0.5) / n, as JAX weak-types them; the library is built with
-// -fmad=false so the coordinate multiply-adds run op by op.
+// normalisation, the division by n*n (when n*n is not a power of two) and
+// the un-premultiply are IEEE divisions (__fdiv_rn), never a reciprocal
+// multiply; the repeat wrap is a floored modulo (of integral values, so
+// an integer remainder or mask gives the same index while they are exact
+// in int, with fmodf beyond); floors are floorf; the subsample offsets
+// are f32 roundings of the double (k + 0.5) / n, as JAX weak-types them;
+// the library is built with -fmad=false so the coordinate multiply-adds
+// run op by op.
 
 #pragma once
 
@@ -52,12 +63,21 @@
 namespace swf {
 
 constexpr int kTexTileW = 32;
-constexpr int kTexTileH = 8;
+constexpr int kTexTileH = 8;          // thread rows of a block
 constexpr int kTexThreads = kTexTileW * kTexTileH;
+constexpr int kTexRowsPerThread = 4;  // pixels a thread, kTexTileH apart
+constexpr int kTexTileRows = kTexTileH * kTexRowsPerThread;
 constexpr int kTexMaxN = 64;      // subsamples per axis
+constexpr int kTexMaxGridZ = 65535;
 // Below this magnitude an integral float is exact in int arithmetic and
 // x + 1 is exact in float.
 constexpr float kTexExact = 16777216.0f;
+
+// Fetch rules (kEdge): repeat wraps; "flash" clamps edge texels outward;
+// "canvas" reads transparent outside the image.
+constexpr int kTexRepeat = 0;
+constexpr int kTexFlash = 1;
+constexpr int kTexCanvas = 2;
 
 struct TexArgs {
   const unsigned char* img;  // (Th, Tw, 4) u8 straight RGBA
@@ -77,6 +97,15 @@ inline void tex_offsets(TexArgs& a) {
   }
 }
 
+// The same offset at compile time, for the unrolled instantiations.
+__host__ __device__ constexpr float tex_offset(int n, int k) {
+  return static_cast<float>((k + 0.5) / n);
+}
+
+__host__ __device__ constexpr int tex_edge(int repeating, int canvas) {
+  return repeating ? kTexRepeat : (canvas ? kTexCanvas : kTexFlash);
+}
+
 // Pre-pass: texel i of the u8 texture -> premultiplied f32.
 __device__ __forceinline__ void texprep_texel(const TexArgs& a, int i) {
   const unsigned char* p = a.img + 4 * static_cast<size_t>(i);
@@ -93,25 +122,39 @@ __device__ __forceinline__ float4 tex_load(const float4* tex, int i) {
   return __ldg(tex + i);
 }
 
+// One axis of a repeating texture: its side n and, for a power-of-two
+// side, the mask n - 1 (else -1).
+struct TexAxis {
+  int n, mask;
+};
+
+__device__ __forceinline__ TexAxis tex_axis(int n) {
+  return TexAxis{n, (n & (n - 1)) == 0 ? n - 1 : -1};
+}
+
 // The repeat wrap of one axis: floor_mod(x, n) of an integral x (the
-// reference's jnp.mod) as a texel index — an integer remainder while x is
-// exact in int arithmetic, the float remainder beyond.
-__device__ __forceinline__ int wrap_index(float x, int n) {
+// reference's jnp.mod) as a texel index — a mask or an integer remainder
+// while x is exact in int arithmetic, the float remainder beyond.
+__device__ __forceinline__ int wrap_index(float x, TexAxis ax) {
   if (fabsf(x) < kTexExact) {
-    const int r = static_cast<int>(x) % n;
-    return r < 0 ? r + n : r;
+    const int i = static_cast<int>(x);
+    if (ax.mask >= 0) return i & ax.mask;
+    const int r = i % ax.n;
+    return r < 0 ? r + ax.n : r;
   }
-  return static_cast<int>(floor_mod(x, static_cast<float>(n)));
+  return static_cast<int>(floor_mod(x, static_cast<float>(ax.n)));
 }
 
 // wrap_index(x0 + 1, n) from c0 = wrap_index(x0, n).
-__device__ __forceinline__ int wrap_next(float x0, float x1, int c0, int n) {
-  if (fabsf(x0) < kTexExact) return c0 + 1 == n ? 0 : c0 + 1;
-  return wrap_index(x1, n);
+__device__ __forceinline__ int wrap_next(float x0, float x1, int c0,
+                                         TexAxis ax) {
+  if (fabsf(x0) < kTexExact) return c0 + 1 == ax.n ? 0 : c0 + 1;
+  return wrap_index(x1, ax);
 }
 
 // style._fetch of a clipped fill at integral (floored) coordinates: edge
 // texels clamp outward, or read transparent outside under "canvas".
+template <int kEdge>
 __device__ __forceinline__ float4 tex_clipped(const TexArgs& a,
                                               const float4* tex, float ix,
                                               float iy) {
@@ -119,7 +162,7 @@ __device__ __forceinline__ float4 tex_clipped(const TexArgs& a,
   const float h = static_cast<float>(a.th);
   const int cx = static_cast<int>(fminf(fmaxf(ix, 0.0f), w - 1.0f));
   const int cy = static_cast<int>(fminf(fmaxf(iy, 0.0f), h - 1.0f));
-  if (a.canvas &&
+  if (kEdge == kTexCanvas &&
       !(ix >= 0.0f && ix <= w - 1.0f && iy >= 0.0f && iy <= h - 1.0f)) {
     return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
@@ -128,17 +171,18 @@ __device__ __forceinline__ float4 tex_clipped(const TexArgs& a,
 
 // One subsample at texel-space (sx, sy): style._bilinear_sample (texel
 // centres at integer + 0.5) or style._nearest_sample.
+template <bool kSmooth, int kEdge>
 __device__ __forceinline__ float4 tex_sample(const TexArgs& a,
-                                             const float4* tex, float sx,
+                                             const float4* tex, TexAxis ax,
+                                             TexAxis ay, float sx,
                                              float sy) {
-  if (!a.smoothed) {
+  if (!kSmooth) {
     const float fx = floorf(sx);
     const float fy = floorf(sy);
-    if (a.repeating) {
-      return tex_load(
-          tex, wrap_index(fy, a.th) * a.tw + wrap_index(fx, a.tw));
+    if (kEdge == kTexRepeat) {
+      return tex_load(tex, wrap_index(fy, ay) * a.tw + wrap_index(fx, ax));
     }
-    return tex_clipped(a, tex, fx, fy);
+    return tex_clipped<kEdge>(a, tex, fx, fy);
   }
   const float x = sx - 0.5f;
   const float y = sy - 0.5f;
@@ -149,21 +193,21 @@ __device__ __forceinline__ float4 tex_sample(const TexArgs& a,
   const float x1 = x0 + 1.0f;
   const float y1 = y0 + 1.0f;
   float4 c00, c10, c01, c11;
-  if (a.repeating) {
-    const int cx0 = wrap_index(x0, a.tw);
-    const int cy0 = wrap_index(y0, a.th);
-    const int cx1 = wrap_next(x0, x1, cx0, a.tw);
+  if (kEdge == kTexRepeat) {
+    const int cx0 = wrap_index(x0, ax);
+    const int cy0 = wrap_index(y0, ay);
+    const int cx1 = wrap_next(x0, x1, cx0, ax);
     const int r0 = cy0 * a.tw;
-    const int r1 = wrap_next(y0, y1, cy0, a.th) * a.tw;
+    const int r1 = wrap_next(y0, y1, cy0, ay) * a.tw;
     c00 = tex_load(tex, r0 + cx0);
     c10 = tex_load(tex, r0 + cx1);
     c01 = tex_load(tex, r1 + cx0);
     c11 = tex_load(tex, r1 + cx1);
   } else {
-    c00 = tex_clipped(a, tex, x0, y0);
-    c10 = tex_clipped(a, tex, x1, y0);
-    c01 = tex_clipped(a, tex, x0, y1);
-    c11 = tex_clipped(a, tex, x1, y1);
+    c00 = tex_clipped<kEdge>(a, tex, x0, y0);
+    c10 = tex_clipped<kEdge>(a, tex, x1, y0);
+    c01 = tex_clipped<kEdge>(a, tex, x0, y1);
+    c11 = tex_clipped<kEdge>(a, tex, x1, y1);
   }
   const float ux = 1.0f - tx;
   const float uy = 1.0f - ty;
@@ -175,37 +219,55 @@ __device__ __forceinline__ float4 tex_sample(const TexArgs& a,
   return r;
 }
 
+// One pixel (x, y) under the affine m: the n x n subsamples summed ky
+// outer, kx inner, averaged and un-premultiplied.  N > 0: n == N, loops
+// unrolled; N == 0: a.n at run time.
+template <int N, bool kSmooth, int kEdge>
 __device__ __forceinline__ float4 texfield_pixel(const TexArgs& a,
-                                                 const float4* tex, int f,
-                                                 int x, int y) {
-  const float* m = a.invs + 6 * static_cast<size_t>(f);
+                                                 const float* m, TexAxis ax,
+                                                 TexAxis ay, int x, int y) {
   const float ga = m[0], gb = m[1], gc = m[2], gd = m[3], ge = m[4],
               gf = m[5];
   const float px = static_cast<float>(x);
   const float py = static_cast<float>(y);
-  const int n = a.n;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int ky = 0; ky < n; ++ky) {
-    const float pyo = py + a.offs[ky];
-    for (int kx = 0; kx < n; ++kx) {
-      const float pxo = px + a.offs[kx];
-      const float sx = ga * pxo + gc * pyo + ge;
-      const float sy = gb * pxo + gd * pyo + gf;
-      const float4 s = tex_sample(a, tex, sx, sy);
-      acc.x = acc.x + s.x;
-      acc.y = acc.y + s.y;
-      acc.z = acc.z + s.z;
-      acc.w = acc.w + s.w;
+  auto sub = [&](float ox, float oy) {
+    const float pxo = px + ox;
+    const float pyo = py + oy;
+    const float sx = ga * pxo + gc * pyo + ge;
+    const float sy = gb * pxo + gd * pyo + gf;
+    const float4 s = tex_sample<kSmooth, kEdge>(a, a.tex, ax, ay, sx, sy);
+    acc.x = acc.x + s.x;
+    acc.y = acc.y + s.y;
+    acc.z = acc.z + s.z;
+    acc.w = acc.w + s.w;
+  };
+  const int n = N > 0 ? N : a.n;
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int ky = 0; ky < N; ++ky) {
+#pragma unroll
+      for (int kx = 0; kx < N; ++kx) sub(tex_offset(N, kx), tex_offset(N, ky));
+    }
+  } else {
+    for (int ky = 0; ky < n; ++ky) {
+      for (int kx = 0; kx < n; ++kx) sub(a.offs[kx], a.offs[ky]);
     }
   }
-  const float nn = static_cast<float>(n * n);
-  const float alpha = __fdiv_rn(acc.w, nn);
+  // The average: x * 2^-k where n * n = 2^k (exactly x / (n * n)), else
+  // the IEEE quotient.
+  const int nn = n * n;
+  const bool pow2 = (nn & (nn - 1)) == 0;
+  const float nnf = static_cast<float>(nn);
+  const float rcp = 1.0f / nnf;
+  auto mean = [&](float v) { return pow2 ? v * rcp : __fdiv_rn(v, nnf); };
+  const float alpha = mean(acc.w);
   const float safe = fmaxf(alpha, 1e-6f);
   float4 r;
   if (alpha > 1e-6f) {
-    r.x = __fdiv_rn(__fdiv_rn(acc.x, nn), safe);
-    r.y = __fdiv_rn(__fdiv_rn(acc.y, nn), safe);
-    r.z = __fdiv_rn(__fdiv_rn(acc.z, nn), safe);
+    r.x = __fdiv_rn(mean(acc.x), safe);
+    r.y = __fdiv_rn(mean(acc.y), safe);
+    r.z = __fdiv_rn(mean(acc.z), safe);
   } else {
     r.x = r.y = r.z = 0.0f;
   }
@@ -213,21 +275,25 @@ __device__ __forceinline__ float4 texfield_pixel(const TexArgs& a,
   return r;
 }
 
-// One persistent block: every (frame, tile) item of this block's stride.
+// One block: the (blockIdx.x, blockIdx.y) 32 x 32 tile of every frame
+// blockIdx.z + k * gridDim.z.
+template <int N, bool kSmooth, int kEdge>
 __device__ void texfield_block(const TexArgs& a) {
-  const int tid = threadIdx.x;
-  const int tiles_x = (a.width + kTexTileW - 1) / kTexTileW;
-  const int tiles_y = (a.height + kTexTileH - 1) / kTexTileH;
-  const long long per_frame = static_cast<long long>(tiles_x) * tiles_y;
-  const long long items = per_frame * a.frames;
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const int f = static_cast<int>(item / per_frame);
-    const int t = static_cast<int>(item % per_frame);
-    const int x = (t % tiles_x) * kTexTileW + tid % kTexTileW;
-    const int y = (t / tiles_x) * kTexTileH + tid / kTexTileW;
-    if (x < a.width && y < a.height) {
-      a.out[(static_cast<size_t>(f) * a.height + y) * a.width + x] =
-          texfield_pixel(a, a.tex, f, x, y);
+  const int x = blockIdx.x * kTexTileW + threadIdx.x % kTexTileW;
+  const int y0 = blockIdx.y * kTexTileRows + threadIdx.x / kTexTileW;
+  if (x >= a.width) return;
+  const TexAxis ax = tex_axis(a.tw);
+  const TexAxis ay = tex_axis(a.th);
+  for (int f = blockIdx.z; f < a.frames; f += gridDim.z) {
+    const float* m = a.invs + 6 * static_cast<size_t>(f);
+    float4* out = a.out + static_cast<size_t>(f) * a.height * a.width;
+#pragma unroll
+    for (int r = 0; r < kTexRowsPerThread; ++r) {
+      const int y = y0 + r * kTexTileH;
+      if (y < a.height) {
+        out[static_cast<size_t>(y) * a.width + x] =
+            texfield_pixel<N, kSmooth, kEdge>(a, m, ax, ay, x, y);
+      }
     }
   }
 }

@@ -84,26 +84,34 @@ def build(force: bool = False) -> None:
         names = [n for n in LIBRARIES if force or _stale(n)]
         if not names:
             return
-        nvcc = nvcc_path()
-        procs = []
-        for name in names:
-            tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / LIBRARIES[name][0])]
-            procs.append((name, tmp, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        logs, failed = [], []
-        for name, tmp, cmd, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(out)
-            if proc.returncode != 0:
-                failed.append(f"CUDA build failed ({' '.join(cmd)}):\n{out}")
-            else:
-                os.replace(tmp, lib_path(name))
-        build_log = "".join(logs)
-        if failed:
-            raise RuntimeError("\n".join(failed))
+        tmps = {n: BUILD_DIR / f"lib{n}.{os.getpid()}.tmp.so" for n in names}
+        build_log = _nvcc_all(CSRC_DIR, tmps)
+        for name, tmp in tmps.items():
+            os.replace(tmp, lib_path(name))
+
+
+def _nvcc_all(csrc_dir, outputs: dict):
+    """Compile LIBRARIES[name]'s source from ``csrc_dir`` into
+    outputs[name] for every name, one ``nvcc`` each, all started
+    together.  Returns the compilers' output; raises RuntimeError naming
+    every build that failed."""
+    nvcc = nvcc_path()
+    procs = []
+    for name, out_path in outputs.items():
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(out_path),
+               str(pathlib.Path(csrc_dir) / LIBRARIES[name][0])]
+        procs.append((name, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for name, cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"CUDA build failed ({' '.join(cmd)}):\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
 
 
 def load(name: str = "swfkernels"):
@@ -116,59 +124,78 @@ def load(name: str = "swfkernels"):
         if name not in _libs:
             if _stale(name):
                 build()
-            lib = ctypes.CDLL(str(lib_path(name)))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            if name == "swfkernels":
-                lib.swf_fused_flatblock.restype = i
-                lib.swf_fused_flatblock.argtypes = ([i] * 2 + [p] * 17
-                                                    + [i] * 9 + [p])
-                lib.swf_strips_per_block.restype = i
-                lib.swf_strips_per_block.argtypes = [i, i, i]
-                lib.swf_fused_blocks1.restype = i
-                lib.swf_fused_blocks1.argtypes = [p] * 10 + [i] * 6 + [p]
-                lib.swf_fused_variant.restype = i
-                lib.swf_fused_variant.argtypes = [i] * 3 + [p] * 10 + [i] * 8 \
-                    + [p]
-                lib.swf_fused_int8.restype = i
-                lib.swf_fused_int8.argtypes = [p] * 12 + [i] * 6 + [p]
-                lib.swf_fused_win.restype = i
-                lib.swf_fused_win.argtypes = [p] * 11 + [i] * 8 + [p]
-                lib.swf_fused_coarse.restype = i
-                lib.swf_fused_coarse.argtypes = [i] + [p] * 10 + [i] * 6 \
-                    + [p]
-            elif name == "swfsweep":
-                lib.swf_sweep.restype = i
-                lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
-                lib.swf_sweep_rows.restype = i
-                lib.swf_sweep_rows.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
-                lib.swf_sweep_compact.restype = i
-                lib.swf_sweep_compact.argtypes = [p] * 12 + [i] * 10 + [p]
-            elif name == "swftexfield":
-                lib.swf_texfield.restype = i
-                lib.swf_texfield.argtypes = [p] * 4 + [i] * 9 + [p]
-            elif name == "swfcoverage":
-                for fn in (lib.swf_coverage_banded, lib.swf_coverage_tiled,
-                           lib.swf_coverage_grouped):
-                    fn.restype = i
-                    fn.argtypes = [p] * 3 + [i] * 5 + [p]
-            elif name == "swfresolve":
-                lib.swf_resolve.restype = i
-                lib.swf_resolve.argtypes = [p] * 4 + [i] * 4 + [p]
-            elif name == "swfplanes":
-                lib.swf_place.restype = i
-                lib.swf_place.argtypes = [p] * 7 + [i] * 4 + [p]
-                lib.swf_resolve_u32.restype = i
-                lib.swf_resolve_u32.argtypes = [p] * 4 + [i] * 5 + [p]
-                lib.swf_resolve_u32_dma.restype = i
-                lib.swf_resolve_u32_dma.argtypes = [p] * 4 + [i] * 5 + [p]
-            elif name == "swfprobes":
-                q = ctypes.c_longlong
-                lib.swf_passthrough.restype = i
-                lib.swf_passthrough.argtypes = [p] * 2 + [i] * 4 + [q] * 3 \
-                    + [p]
-                lib.swf_read_sum.restype = i
-                lib.swf_read_sum.argtypes = [p] * 2 + [i] * 4 + [q] * 5 + [p]
-            else:
-                raise RuntimeError(f"no ctypes signatures for {name!r}")
-            _libs[name] = lib
+            _libs[name] = bind(name, ctypes.CDLL(str(lib_path(name))))
         return _libs[name]
+
+
+def bind(name: str, lib):
+    """Set the ctypes signatures of library ``name``'s entry points on
+    ``lib`` (a CDLL of that library, from any build) and return it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "swfkernels":
+        lib.swf_fused_flatblock.restype = i
+        lib.swf_fused_flatblock.argtypes = ([i] * 2 + [p] * 17 + [i] * 9
+                                            + [p])
+        lib.swf_strips_per_block.restype = i
+        lib.swf_strips_per_block.argtypes = [i, i, i]
+        lib.swf_fused_blocks1.restype = i
+        lib.swf_fused_blocks1.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.swf_fused_variant.restype = i
+        lib.swf_fused_variant.argtypes = [i] * 3 + [p] * 10 + [i] * 8 \
+            + [p]
+        lib.swf_fused_int8.restype = i
+        lib.swf_fused_int8.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.swf_fused_win.restype = i
+        lib.swf_fused_win.argtypes = [p] * 11 + [i] * 8 + [p]
+        lib.swf_fused_coarse.restype = i
+        lib.swf_fused_coarse.argtypes = [i] + [p] * 10 + [i] * 6 \
+            + [p]
+    elif name == "swfsweep":
+        lib.swf_sweep.restype = i
+        lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
+        lib.swf_sweep_rows.restype = i
+        lib.swf_sweep_rows.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
+        lib.swf_sweep_compact.restype = i
+        lib.swf_sweep_compact.argtypes = [p] * 12 + [i] * 10 + [p]
+    elif name == "swftexfield":
+        lib.swf_texfield.restype = i
+        lib.swf_texfield.argtypes = [p] * 4 + [i] * 9 + [p]
+    elif name == "swfcoverage":
+        for fn in (lib.swf_coverage_banded, lib.swf_coverage_tiled,
+                   lib.swf_coverage_grouped):
+            fn.restype = i
+            fn.argtypes = [p] * 3 + [i] * 5 + [p]
+    elif name == "swfresolve":
+        lib.swf_resolve.restype = i
+        lib.swf_resolve.argtypes = [p] * 4 + [i] * 4 + [p]
+    elif name == "swfplanes":
+        lib.swf_place.restype = i
+        lib.swf_place.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.swf_resolve_u32.restype = i
+        lib.swf_resolve_u32.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.swf_resolve_u32_dma.restype = i
+        lib.swf_resolve_u32_dma.argtypes = [p] * 4 + [i] * 5 + [p]
+    elif name == "swfprobes":
+        q = ctypes.c_longlong
+        lib.swf_passthrough.restype = i
+        lib.swf_passthrough.argtypes = [p] * 2 + [i] * 4 + [q] * 3 \
+            + [p]
+        lib.swf_read_sum.restype = i
+        lib.swf_read_sum.argtypes = [p] * 2 + [i] * 4 + [q] * 5 + [p]
+    else:
+        raise RuntimeError(f"no ctypes signatures for {name!r}")
+    return lib
+
+
+def build_other(csrc_dir, build_dir) -> dict:
+    """Compile every library from another checkout's ``csrc_dir`` into
+    ``build_dir`` (one ``nvcc`` per source, all started together, this
+    module's flags) and return {name: bound CDLL}; raises on a failed
+    build.  The A/B timings of ``chip_smoke.py --parent`` load the parent
+    commit's kernels this way."""
+    build_dir = pathlib.Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    outputs = {name: build_dir / f"lib{name}.so" for name in LIBRARIES}
+    _nvcc_all(csrc_dir, outputs)
+    return {name: bind(name, ctypes.CDLL(str(path)))
+            for name, path in outputs.items()}

@@ -11,7 +11,7 @@ rotating or skewing matrix, or unsmoothed) and ``transform.
 bake_sweep_fields`` (bitmap layers of the animation sweeps).
 
 For tensors on the card the wrapper launches ``csrc/texfield.cu`` (a
-direct gather, one thread per pixel) and counts
+direct gather, four pixels a thread) and counts
 ``bitmap_field_planes.launches``; on the CPU it runs ``texfield_plain``,
 the same arithmetic in PyTorch.  The reference's tiling knobs (``xblk``,
 ``dot_mode``, ``ywin``, ``kstack``, ``frames_per_step``) and its texel cap
@@ -155,11 +155,11 @@ def bitmap_field_planes(img, invs, height: int, width: int,
     caller asks for the CPU).
 
     Kernel: replaces ``_texfield_kernel`` (swf_renderer_tpu/ops/
-    texfield.py:186).  A pre-pass premultiplies the texels; persistent
-    blocks of 32 x 8 threads gather them through the read-only cache and
-    write one float4 per pixel.  Bound on the H100: the bytes of the f32
-    planes.  On a card it matches ``texfield_plain``
-    within 1e-6 (chip_smoke.py).
+    texfield.py:186).  A pre-pass premultiplies the texels; a grid of
+    (32 x 32 tile, frame) blocks gathers them through the read-only
+    cache, unrolled for supersample 1, 2 and 4, and writes one float4
+    per pixel.  Bound on the H100: the bytes of the f32 planes.  On a
+    card it equals ``texfield_plain`` bit for bit (chip_smoke.py).
 
     ``img`` and ``invs`` may be numpy arrays or tensors; ``edge_mode``
     "flash" clamps edge texels outward, "canvas" reads transparent

@@ -76,6 +76,9 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> r(*p);
   int old = r.load();
@@ -504,11 +507,42 @@ extern "C" int emulate_sweep_compact(const float* colors, const int* rules,
   return a.rows;
 }
 
+// The texfield grid: (32-column, 32-row tile) blocks, `gz` z-blocks
+// walking the frames, through the instantiation the launcher picks.
+template <int N, bool kSmooth, int kEdge>
+void run_texfield(const swf::TexArgs& a, int gz) {
+  gridDim.x = (a.width + swf::kTexTileW - 1) / swf::kTexTileW;
+  gridDim.y = (a.height + swf::kTexTileRows - 1) / swf::kTexTileRows;
+  gridDim.z = gz;
+  for (int z = 0; z < gz; ++z)
+    for (unsigned y = 0; y < gridDim.y; ++y)
+      for (unsigned x = 0; x < gridDim.x; ++x)
+        run_block(swf::kTexThreads, x, y, z, [&] {
+          swf::texfield_block<N, kSmooth, kEdge>(a);
+        });
+}
+
+template <int N, bool kSmooth>
+void run_texfield_edge(const swf::TexArgs& a, int gz) {
+  switch (swf::tex_edge(a.repeating, a.canvas)) {
+    case swf::kTexRepeat: run_texfield<N, kSmooth, swf::kTexRepeat>(a, gz); break;
+    case swf::kTexFlash: run_texfield<N, kSmooth, swf::kTexFlash>(a, gz); break;
+    default: run_texfield<N, kSmooth, swf::kTexCanvas>(a, gz); break;
+  }
+}
+
+template <int N>
+void run_texfield_n(const swf::TexArgs& a, int gz) {
+  if (a.smoothed) run_texfield_edge<N, true>(a, gz);
+  else run_texfield_edge<N, false>(a, gz);
+}
+
+// generic != 0 runs the run-time-n body (N = 0) whatever n is.
 extern "C" void emulate_texfield(const unsigned char* img, float* tex,
                                  const float* invs, float* out, int th,
                                  int tw, int frames, int height, int width,
                                  int n, int repeating, int smoothed,
-                                 int canvas, int grid) {
+                                 int canvas, int gz, int generic) {
   swf::TexArgs a{};
   a.img = img; a.tex = reinterpret_cast<float4*>(tex); a.invs = invs;
   a.out = reinterpret_cast<float4*>(out); a.th = th; a.tw = tw;
@@ -516,20 +550,11 @@ extern "C" void emulate_texfield(const unsigned char* img, float* tex,
   a.repeating = repeating; a.smoothed = smoothed; a.canvas = canvas;
   swf::tex_offsets(a);
   for (int i = 0; i < th * tw; ++i) swf::texprep_texel(a, i);
-  gridDim.x = grid;
-  blockDim.x = swf::kTexThreads;
-  for (int x = 0; x < grid; ++x) {
-    std::barrier<> bar(swf::kTexThreads);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < swf::kTexThreads; ++t) {
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = x;
-        block_barrier = &bar;
-        swf::texfield_block(a);
-      });
-    }
-    for (auto& th_ : threads) th_.join();
+  switch (generic ? 0 : n) {
+    case 1: run_texfield_n<1>(a, gz); break;
+    case 2: run_texfield_n<2>(a, gz); break;
+    case 4: run_texfield_n<4>(a, gz); break;
+    default: run_texfield_n<0>(a, gz); break;
   }
 }
 
@@ -870,7 +895,7 @@ def _build_emulator(d, csrc, extra=""):
     emu.emulate_grouped.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     emu.emulate_texfield.restype = None
     emu.emulate_texfield.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 10
+        ctypes.c_int] * 11
     emu.emulate_coverage.restype = None
     emu.emulate_coverage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 5
@@ -1392,8 +1417,8 @@ def test_emulated_texfield_equals_plain_version(emulator, shape, repeating,
                                                 smoothed, edge_mode, n):
     """The texfield kernel: rotated, skewed and far-zoomed inverses over a
     37x45 frame (ragged 32x8 tiles), one far beyond 2^24 texels (the
-    float remainder of the repeat wrap), 4 frames walked by 5 persistent
-    blocks; the pre-pass's premultiplied texels."""
+    float remainder of the repeat wrap), 4 frames walked by 3 z-blocks of
+    the grid; the pre-pass's premultiplied texels."""
     rng = np.random.default_rng(sum(shape) + n)
     img = rng.integers(0, 256, (*shape, 4)).astype(np.uint8)
     img[0, :3, 3] = 0   # transparent texels: the un-premultiply guard
@@ -1407,7 +1432,7 @@ def test_emulated_texfield_equals_plain_version(emulator, shape, repeating,
     emulator.emulate_texfield(
         img.ctypes.data, tex.ctypes.data, invs.ctypes.data, out.ctypes.data,
         shape[0], shape[1], 4, height, width, n, int(repeating),
-        int(smoothed), int(edge_mode == "canvas"), 5)
+        int(smoothed), int(edge_mode == "canvas"), 3, 0)
     want = texfield.texfield_plain(torch.as_tensor(img),
                                    torch.as_tensor(invs), height, width, n,
                                    repeating, smoothed, edge_mode)

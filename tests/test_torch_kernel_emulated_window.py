@@ -328,8 +328,8 @@ MUTANTS = {
                           ""),
     # The window's strip offset (win * nc8 rows) dropped.
     "window_dropped": ("flatblock_device.cuh",
-                       "? a.wins[static_cast<long long>(k) * a.ng + g]",
-                       "? 0"),
+                       "wn[u] = kVar == kVarWin ? a.wins[kg] : 0;",
+                       "wn[u] = 0;"),
 }
 
 
