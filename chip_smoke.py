@@ -170,14 +170,17 @@ Phases, each of which exits non-zero on failure before the last line:
              once through its wrapper, held equal to its plain version and
              to B1, and timed beside B1 (group counts and the windowed
              packing time logged).  Phase 1 names the ptxas registers,
-             stack and spills of B1 (its layer classes 4 and 16), of the
+             stack and spills of B1 (its layer classes 4 and 16), of B2
+             (the styled kernel: single pass, chain and chain +
+             premultiplied; it fails if they keep a stack), of the
              four product kernels, of the windowed instantiation, of the
              coarse kernel and of the texfield kernel at animtex1080.
 
 With ``--parent DIR`` (a checkout of the parent commit) phase 1 also
 builds DIR's kernels and compares every kernel's SASS with theirs, and
-B1 (headline), the styled kernel (renderer frame), the chain kernel
-(deep1080 pass 1), the one-block kernel (headline_fused1), the exp_split
+B1 (headline), the styled kernel (renderer frame), its chain modes
+(deep1080 pass 1 of the solid and the styled arm, masked1080's fused
+pair and pre pass), the one-block kernel (headline_fused1), the exp_split
 cuts and the texfield kernel (yardstick, animtex, animtex1080) are
 timed with DIR's build and with this one on the same inputs, parent /
 change / change / parent (``report.json`` ``ab`` and ``ab_sass``).
@@ -287,6 +290,9 @@ def phase_build():
         log(f"ptxas: {label}: {v['registers']} registers, {v['stack']} B "
             f"stack, {v['spill_stores']} B spill stores, "
             f"{v['spill_loads']} B spill loads")
+        if label.startswith("B2") and (v["stack"] or v["spill_stores"]
+                                       or v["spill_loads"]):
+            fail(f"ptxas: {label} keeps a stack frame or spills: {v}")
         _HELD.setdefault("ptxas", {})[label] = v
     for name in cuda_lib.LIBRARIES:
         cuda_lib.load(name)
@@ -295,12 +301,17 @@ def phase_build():
 
 # Instantiations whose ptxas readings phase 1 names (mangled-name
 # fragments): B1's at the headline (solid_flatblock_kernel<kVarFull, 4>,
-# the layer class of up to four layers) and at 16 layers, the product
-# forms', the windowed one's and the texfield kernel's at animtex1080
-# (n 2, bilinear, repeat).
+# the layer class of up to four layers) and at 16 layers, B2's single
+# pass, chain and chain + premultiplied forms (styled_flatblock_kernel
+# <kChain, kPremul>; phase 1 fails if these keep a stack frame or
+# spill), the product forms', the windowed one's and the texfield
+# kernel's at animtex1080 (n 2, bilinear, repeat).
 PTXAS_WATCH = {
     "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
     "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
+    "B2 single pass": "styled_flatblock_kernelILb0ELb0EE",
+    "B2 chain": "styled_flatblock_kernelILb1ELb0EE",
+    "B2 chain + premul": "styled_flatblock_kernelILb1ELb1EE",
     "product k3_three": "product_kernelILi7E",
     "product k3_concat": "product_kernelILi8E",
     "product lmask": "product_kernelILi9E",
@@ -357,16 +368,22 @@ def sass_of(path):
 
 def ab_sass(report):
     """With --parent: each library's kernels against the parent's, SASS
-    text compared function by function (report.json["ab_sass"])."""
+    text compared function by function (report.json["ab_sass"]), blanks
+    collapsed: cuobjdump pads its columns to the widest instruction of the
+    whole library, so a change to one kernel re-pads the text of all."""
     from swf_renderer_tpu_torch.ops import cuda_lib
 
     if "parent_libs" not in _HELD:
         return
     out = {}
     pkg = PARENT_ROOT / "swf_renderer_tpu_torch" / "_build"
+
+    def words(path):
+        return {k: " ".join(v.split()) for k, v in sass_of(path).items()}
+
     for name in cuda_lib.LIBRARIES:
-        mine = sass_of(cuda_lib.lib_path(name))
-        theirs = sass_of(pkg / f"lib{name}.so")
+        mine = words(cuda_lib.lib_path(name))
+        theirs = words(pkg / f"lib{name}.so")
         same = sorted(k for k in mine if theirs.get(k) == mine[k])
         out[name] = {
             "identical": len(same),
@@ -3028,11 +3045,11 @@ def _timed_passes(torch, np, tables, paints, colors, height, width, groups,
                "lowering_ms": t_lower * 1e3, "packing_ms": t_pack * 1e3,
                "pass_setup_ms": t_pass * 1e3, "kernel_ms": ms}
         if gi == 0:
-            if what == "deep1080_solid":
-                ab = ab_times(torch, "fused_flatblock_styled_chain "
-                              "(deep1080 pass 1)",
-                              lambda: render_fused_styled(*args, **kw))
-                rec["parent_ms"] = None if ab is None else ab["parent_ms"]
+            arm = "" if what == "deep1080_solid" else " styled"
+            ab = ab_times(torch, "fused_flatblock_styled_chain "
+                          f"(deep1080{arm} pass 1)",
+                          lambda: render_fused_styled(*args, **kw))
+            rec["parent_ms"] = None if ab is None else ab["parent_ms"]
             plain_ms = time_ms(torch, lambda: fused_styled_plain(
                 *args, **kw), reps=3)
             dev = dict(zip(("sidx", "flags", "lays", "urc", "ucm", "uval"),
@@ -3225,6 +3242,11 @@ def masked_run(torch, np, report):
     ms_pair = time_ms(torch, lambda: render_fused_styled(*pair, **pair_kw))
     plain_ms = time_ms(torch, lambda: fused_styled_plain(*pair, **pair_kw),
                          reps=3)
+    ab_pair = ab_times(torch, "fused_flatblock_styled_chain (masked1080 "
+                       "pair)", lambda: render_fused_styled(*pair, **pair_kw))
+    ab_pre = ab_times(torch, "fused_flatblock_styled_chain (masked1080 pre "
+                      "pass)", lambda: render_fused_styled(
+                          *pre, emit="premul", **common))
     dev = dict(zip(("sidx", "flags", "lays", "urc", "ucm", "uval"),
                    pair[:6]), ns=ns, nc=pair[11])
     nbytes, ops = chain_work_counts(torch, dev, frames, layers + 1 - half,
@@ -3251,7 +3273,9 @@ def masked_run(torch, np, report):
         "pass_setup_ms": (t_pre[2] + t_pair[2]) * 1e3,
         "pre_kernel_ms": ms_pre, "pair_kernel_ms": ms_pair,
         "pair_plain_ms": plain_ms, "pair_bound_ms": b[0],
-        "pair_bound_by": b[1], "d2h_ms": t_d2h * 1e3}
+        "pair_bound_by": b[1], "d2h_ms": t_d2h * 1e3,
+        "pair_parent_ms": None if ab_pair is None else ab_pair["parent_ms"],
+        "pre_parent_ms": None if ab_pre is None else ab_pre["parent_ms"]}
     return launches
 
 

@@ -1,9 +1,9 @@
 // Fused flat-block kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (ops/flatblock.py): the grouped kernel
-// (render_fused_blocksn, render_fused_styled: single pass, and the chain,
-// background-seeded, premultiplied-output and mask-group modes of deep
-// and masked draw lists) and its one-block-per-step form
-// (render_fused_blocks); the variants of the solid kernel that
+// loaded through ctypes (ops/flatblock.py): the solid grouped kernel
+// (render_fused_blocksn), the styled one (render_fused_styled: single
+// pass, and the chain, background-seeded, premultiplied-output and
+// mask-group modes of deep and masked draw lists) and the one-block-per-
+// step form (render_fused_blocks); the variants of the solid kernel that
 // tools/exp_split.py cuts it into and the reference's design tools place
 // with a matrix product (swf_fused_variant, swf_fused_int8); the
 // window-targeted form of tools/exp_winplace.py (swf_fused_win) and the
@@ -20,6 +20,7 @@
 // synchronise, and returns cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "coarse_device.cuh"
 #include "place_mma_device.cuh"   // includes flatblock_device.cuh
@@ -52,6 +53,7 @@ __global__ void block_index_kernel(const int* sidx, const int* keep,
   }
 }
 
+// The one-block-per-step form (B13: fused_flatblock_kernel<false, true>).
 template <bool kStyled, bool kOne, bool kChain = false,
           bool kPremul = false, int kVar = kVarFull>
 __global__ void __launch_bounds__(kThreads)
@@ -67,6 +69,14 @@ __global__ void __launch_bounds__(kThreads)
 solid_flatblock_kernel(FusedArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   fused_block<false, false, false, false, kVar, kLc>(a, smem);
+}
+
+// B2, the styled grouped kernel, in its modes (kChain, kPremul).
+template <bool kChain, bool kPremul>
+__global__ void __launch_bounds__(kThreads, kStyledMinBlocks)
+styled_flatblock_kernel(FusedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fused_block<true, false, kChain, kPremul>(a, smem);
 }
 
 // Zero the premultiplied output's padding rows (plane rows spp*n_chunks*8
@@ -145,13 +155,19 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
                : launch_kernel(solid_flatblock_kernel<kVar, kMaxLayers>, a,
                                grid, bytes, stream);
   } else {
+    static_assert(kVar == kVarFull, "the variants are of the solid kernel");
     if (kPremul) {
       err = zero_premul_padding(a, frames, stream);
       if (err != cudaSuccess) return err;
     }
-    return launch_kernel(
-        fused_flatblock_kernel<kStyled, false, kChain, kPremul, kVar>, a,
-        grid, bytes, stream);
+    void (*kernel)(FusedArgs) = styled_flatblock_kernel<kChain, kPremul>;
+    // Three blocks share an SM at 16 layers (strips_per_block): ask for
+    // the largest shared-memory carve-out.
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    return launch_kernel(kernel, a, grid, bytes, stream);
   }
 }
 
@@ -247,7 +263,8 @@ cudaError_t launch_one(FusedArgs a, const int* keep, const int* last,
 extern "C" {
 
 // styled == 0: the solid kernel (pint, pflt and fields unused);
-// styled == 1: per-layer paints from pint/pflt, field planes f0..f3.
+// styled == 1: per-layer paints from pint/pflt (16-byte aligned, copied
+// by cp.async), field planes f0..f3.
 // mode (styled only): bit0 the chain composite, seeded from bg (F, ns1,
 // 4, plane_rows, 128) premultiplied planes when bg is not null, with
 // layers [mask_from:] a clip group's mask when mask_from >= 0; bit1
@@ -273,7 +290,9 @@ int swf_fused_flatblock(int styled, int mode, const void* sidx,
       n_chunks < 1 || ns1 < 1 || ns1 - 1 > 65535 || frames < 1 ||
       frames > 65535 || mode < 0 || mode > 3 || (premul && !chain) ||
       (mode != 0 && !styled) || (!chain && (bg != nullptr || mask_from >= 0))
-      || mask_from >= layers) {
+      || mask_from >= layers ||
+      (styled && ((reinterpret_cast<uintptr_t>(pint) |
+                   reinterpret_cast<uintptr_t>(pflt)) & 15) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swf::FusedArgs a;

@@ -1,8 +1,8 @@
 // Device logic of the fused flat-block kernels (place + resolve in one
-// pass), shared by the solid and the styled instantiation.
+// pass): the solid grouped kernel, the styled one and the one-block form.
 //
 // Replaces the TPU kernels `_fusedn_kernel` (swf_renderer_tpu/ops/
-// flatblock.py:784, pallas_call :920) and `_fused_styled_kernel` (:1083,
+// flatblock.py:784, pallas_call :920), `_fused_styled_kernel` (:1083,
 // pallas_call :1276) — in its single-pass form (chain=False, bg=None,
 // emit="u32", mask_from=None) and in the modes of deep and masked draw
 // lists (fused_block<true, false, true, kPremul>: chain=True, a `bg`
@@ -41,17 +41,17 @@
 // cycles and the walk 34%, the prefix 6%.  So for them (kSolid):
 //   - solid_walk issues the loads of four slots before it places any,
 //     and steps through the groups without a 64-bit division;
-//   - place_loaded adds the 64-bit fixed-point carry as two native
-//     32-bit atomics (a 64-bit shared atomicAdd is a CAS loop here);
+//   - place_loaded adds the 64-bit fixed-point carry as two native 32-bit
+//     atomics (a 64-bit shared atomicAdd is a CAS loop here);
 //   - solid_pixel composites with the layer loops unrolled to a layer
 //     class kLc chosen at launch (4 up to four layers, else 16), the
 //     frame's colours in registers (kLc 4) and the rules as a bit mask:
 //     the generic composite_pack, sized for 16 layers under a run-time
 //     count, indexes its arrays and so keeps them in local memory.
 // The arithmetic is composite_pack's, operation for operation.  The
-// styled, chain and one-block instantiations keep the generic body (their
-// per-layer paints do not fit a register class), and the prefix and the
-// set-up stay as they were.
+// one-block form keeps the generic body.  The styled kernel (B2) was
+// redesigned the same way (styled_resolve, below): B1's walk, a strip
+// budget of three blocks an SM, and a layer-by-layer resolve.
 //
 // The chain modes (kChain) resolve each pixel with the sequential over
 // chain, a left fold over the layers, in place of the suffix-product
@@ -219,11 +219,16 @@ __host__ __device__ inline size_t batched_stage_bytes(int group, int kk) {
   return static_cast<size_t>(3) * kk * group * kBlk * 4;
 }
 
+// The styled kernel's budget: three blocks on an SM (228 KB less 1 KB a
+// block for the system) at 16 layers and one strip a block.
+constexpr size_t kStyledSmemBudget = (228 * 1024) / 3 - 1024;
+
 // Strips per block: as many of the plane's packed strips as fit the
 // shared-memory budget and one scan row per thread.
 inline int strips_per_block(int layers, int spp, bool styled) {
+  const size_t budget = styled ? kStyledSmemBudget : kSmemBudget;
   int spb = spp;
-  while (spb > 1 && (smem_bytes(layers, spb * kStripH, styled) > kSmemBudget
+  while (spb > 1 && (smem_bytes(layers, spb * kStripH, styled) > budget
                      || layers * spb * kStripH > kThreads)) {
     --spb;
   }
@@ -388,90 +393,6 @@ __device__ __forceinline__ void block_index(const int* sidx, const int* keep,
   if (packed < 0 || sg >= n_sg) return;
   if (keep[i] == 0) first[sg] = i;
   if (last[i] == 1) last_idx[sg] = i;
-}
-
-// Straight colour (c[0..2]) and alpha of layer l at a pixel: the
-// constant colour, the gradient ramp at (px, py) or the field planes at
-// plane row frow, lane c of strip block s.
-template <bool kStyled>
-__device__ __forceinline__ void layer_rgba(const FusedArgs& a,
-                                           const float* col_s,
-                                           const int* pint_s,
-                                           const float* pflt_s, int l,
-                                           float px, float py, int s,
-                                           long long frow, int c,
-                                           float* rgba) {
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) rgba[ch] = col_s[4 * l + ch];
-  if (kStyled) {
-    const int* I = pint_s + l * kPintStride;
-    const float* P = pflt_s + l * kPfltStride;
-    if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-      const float t = grad_t(P, I, px, py);
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) rgba[ch] = grad_ramp(P, I[2], t, ch);
-    } else if (I[0] == kPaintField) {
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) {
-        rgba[ch] = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
-                                   * a.plane_rows + frow) * kLane + c];
-      }
-    }
-  }
-}
-
-// The chain modes' resolve of one pixel (composite_quantize_pack with
-// chain=True, a bg seed and mask_from): premultiplied (r, g, b, a) into
-// out[0..3].  w(l) is the winding of layer l at the pixel; bg_px points
-// at the pixel's red background value (channels a plane apart) or is
-// null.
-template <bool kStyled, typename WindingFn>
-__device__ __forceinline__ void chain_pixel(
-    const FusedArgs& a, const float* col_s, const int* rule_s,
-    const int* pint_s, const float* pflt_s, WindingFn w, float px,
-    float py, int s, long long frow, int c, const float* bg_px,
-    long long bg_step, float* out) {
-  const int L = a.layers;
-  const int mf = a.mask_from;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (bg_px != nullptr && mf < 0) {
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) acc[ch] = bg_px[ch * bg_step];
-  }
-  float m = 0.0f;
-#pragma unroll
-  for (int l = 0; l < kMaxLayers; ++l) {
-    if (l < L) {
-      const float cov = fill_cov(w(l), rule_s[l]);
-      float rgba[4];
-      layer_rgba<kStyled>(a, col_s, pint_s, pflt_s, l, px, py, s, frow, c,
-                          rgba);
-      const float ca = rgba[3] * cov;
-      if (mf >= 0 && l >= mf) {
-        m = (l == mf) ? ca : ca + m * (1.0f - ca);
-      } else {
-        const float kp = 1.0f - ca;
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          acc[ch] = rgba[ch] * ca + acc[ch] * kp;
-        }
-        acc[3] = ca + acc[3] * kp;
-      }
-    }
-  }
-  if (mf >= 0) {
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) acc[ch] = acc[ch] * m;
-    if (bg_px != nullptr) {
-      const float kp = 1.0f - acc[3];
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) {
-        acc[ch] = acc[ch] + bg_px[ch * bg_step] * kp;
-      }
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) out[ch] = acc[ch];
 }
 
 // cp.async of 16 bytes from device to shared memory, its commit and its
@@ -692,17 +613,337 @@ __device__ __forceinline__ uint32_t solid_pixel(const float* w, int lstride,
                   : solid_composite<false, kLc>(w, lstride, colour, eo, L);
 }
 
-// One block: (chunk, strip slice) x strip block x frame.  kOne: the
-// one-block-per-step form (render_fused_blocks): group 1, no flags or
+// In-chunk inclusive prefix of each of the n_rows plane rows (left to
+// right, one thread a row), plus the row's carry: winding.
+__device__ __forceinline__ void prefix_rows(float* plane,
+                                            const long long* carry,
+                                            int n_rows) {
+  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
+    float* p = plane + r * kRowStride;
+    const float cy = from_fixed(carry[r]);
+    float acc = 0.0f;
+    for (int c = 0; c < kLane; ++c) {
+      acc = acc + p[c];
+      p[c] = acc + cy;
+    }
+  }
+}
+
+// --- B2: the styled grouped kernel -------------------------------------
+//
+// fused_block<true, false, kChain, kPremul> (styled_flatblock_kernel)
+// replaces `_fused_styled_kernel`
+// (swf_renderer_tpu/ops/flatblock.py:1083) in every mode: the single pass
+// (suffix-product composite, packed words out) and the chain modes (a
+// `bg` seed, premultiplied planes out, `mask_from`).  Redesigned for this
+// card from clock64 readings of the generic body it replaces (PERF.md):
+// the resolve took 48-95% of a block's cycles and the walk 23-45%; the
+// generic body unrolled 16 layers of colour, gradient and field code
+// around a per-pixel paint lookup (17,584-19,152 instructions, a 128 B
+// stack in the single pass) and walked the slots one at a time behind a
+// 64-bit division.  So the styled kernel
+//   - walks with B1's solid_walk and place_loaded (four slots' loads in
+//     flight, the carry as two 32-bit adds) and zeroes its planes 16 B a
+//     store while its paint records arrive by cp.async (styled_setup);
+//   - resolves (styled_resolve) layer by layer over a batch of kPx
+//     pixels a thread (rows of its lane kRowStep apart): the layer's
+//     paint kind, rule and colour are read once a batch, not once a
+//     pixel, the batch's pixels are independent, the background of the
+//     chain is loaded before the fold, and the layer loop is a run-time
+//     loop, so the code of each paint kind appears once;
+//   - keeps its registers within four blocks an SM (kStyledMinBlocks);
+//   - holds the single pass's suffix weights in the plane slots the
+//     winding leaves free, so its two sweeps over the layers (top-down
+//     for the weights, bottom-up for the sums) keep no per-layer arrays;
+//   - takes its strips per block from a budget of three blocks on an
+//     SM (strips_per_block, styled).
+// The arithmetic of every pixel is composite_pack's (single pass) and the
+// chain fold's (chain_seed, chain_step, chain_finish), operation for
+// operation; gradient parameters are evaluated again in the second sweep
+// (the same operations, the same value).  Measured and left out
+// (PERF.md): the layer loop unrolled to a class of 4 layers, 1 or 4
+// pixels a batch, field values fetched a layer ahead, 160 KB of strips
+// a block.
+
+// Pixels a thread resolves at once (a batch): rows r, r + kRowStep, ...
+// of the thread's lane, kPx of them; a packed strip of the block (8 rows
+// x 128 lanes over kThreads threads) takes kBatches batches.
+constexpr int kRowStep = kThreads / kLane;
+constexpr int kPx = 2;
+constexpr int kBatches = kStripH / (kRowStep * kPx);
+static_assert(kBatches * kRowStep * kPx == kStripH, "batches tile a strip");
+
+// Blocks of the styled kernel an SM must hold by registers (its launch
+// bound): 64 registers a thread.
+constexpr int kStyledMinBlocks = 4;
+
+// The chain fold of one pixel (composite_quantize_pack with chain=True,
+// a bg seed and mask_from): acc the premultiplied (r, g, b, a), m the
+// mask layers' union alpha; with has_bg, bg_px points at the pixel's red
+// background value (channels bg_step floats apart).
+__device__ __forceinline__ void chain_seed(float* acc, const float* bg_px,
+                                           long long bg_step, bool has_bg,
+                                           int mf) {
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) acc[ch] = 0.0f;
+  if (has_bg && mf < 0) {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) acc[ch] = bg_px[ch * bg_step];
+  }
+}
+
+// Layer l of straight colour rgba and coverage-scaled alpha ca.
+__device__ __forceinline__ void chain_step(float* acc, float& m,
+                                           const float* rgba, float ca,
+                                           int l, int mf) {
+  if (mf >= 0 && l >= mf) {
+    m = (l == mf) ? ca : ca + m * (1.0f - ca);
+  } else {
+    const float kp = 1.0f - ca;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      acc[ch] = rgba[ch] * ca + acc[ch] * kp;
+    }
+    acc[3] = ca + acc[3] * kp;
+  }
+}
+
+__device__ __forceinline__ void chain_finish(float* acc, float m,
+                                             const float* bg_px,
+                                             long long bg_step, bool has_bg,
+                                             int mf) {
+  if (mf >= 0) {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) acc[ch] = acc[ch] * m;
+    if (has_bg) {
+      const float kp = 1.0f - acc[3];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        acc[ch] = acc[ch] + bg_px[ch * bg_step] * kp;
+      }
+    }
+  }
+}
+
+// The styled set-up: planes and carry (one 16-byte aligned run) zeroed
+// 16 B a store while the paint records (pint, pflt: 16-byte aligned, the
+// launcher checks) arrive by cp.async and the frame's colours and the
+// rules by loads issued before the zeroing; the caller's barrier
+// follows.
+__device__ __forceinline__ void styled_setup(const FusedArgs& a,
+                                             unsigned char* smem,
+                                             const SolidSmem& m, int* pint_s,
+                                             float* pflt_s, int L, int rows,
+                                             int f) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  for (int i = tid; i < L * (kPintStride / 4); i += nthr) {
+    cp_async16(reinterpret_cast<float*>(pint_s) + 4 * i,
+               reinterpret_cast<const float*>(a.pint) + 4 * i);
+  }
+  for (int i = tid; i < L * (kPfltStride / 4); i += nthr) {
+    cp_async16(pflt_s + 4 * i, a.pflt + 4 * i);
+  }
+  cp_async_commit();
+  const float cv = tid < L * 4
+      ? a.colors[static_cast<long long>(f) * L * 4 + tid] : 0.0f;
+  const int rv = tid < L ? a.rules[tid] : 0;
+  const int n16 = static_cast<int>(
+      (smem_plane_bytes(L, rows) + align16(static_cast<size_t>(L) * rows * 8))
+      / 16);
+  int4* z = reinterpret_cast<int4*>(smem);
+  for (int i = tid; i < n16; i += nthr) z[i] = make_int4(0, 0, 0, 0);
+  if (tid < L * 4) m.col_s[tid] = cv;
+  if (tid < L) m.rule_s[tid] = rv;
+  cp_async_wait(0);
+}
+
+// The styled resolve of the block (chunk, strip slice from sp0) x strip
+// block s x frame f, after the prefix: its planes hold the winding.
+template <bool kChain, bool kPremul>
+__device__ __forceinline__ void styled_resolve(
+    const FusedArgs& a, const SolidSmem& sm, const int* pint_s,
+    const float* pflt_s, int chunk, int s, int f, int sp0, int rows,
+    int nc8) {
+  const int tid = threadIdx.x;
+  const int L = a.layers;
+  // The block's paint kinds (2 bits a layer) and even-odd rules (a bit).
+  unsigned kinds = 0;
+  unsigned eo = 0;
+  for (int l = 0; l < L; ++l) {
+    kinds |= static_cast<unsigned>(pint_s[l * kPintStride]) << (2 * l);
+    eo |= (sm.rule_s[l] != 0 ? 1u : 0u) << l;
+  }
+  const int mf = a.mask_from;
+  const int c = tid % kLane;
+  const float px = static_cast<float>(chunk * kLane + c) + 0.5f;
+  const long long chan = static_cast<long long>(a.plane_rows) * kLane;
+  const int layer_step = rows * kRowStride;
+  const int stride = a.n_chunks * kLane;
+  // Pixel k of a batch is kRowStep rows below pixel k - 1: dk floats in
+  // the planes, dkp in the field, bg and premultiplied planes, dko in
+  // the words.
+  constexpr int dk = kRowStep * kRowStride;
+  constexpr int dkp = kRowStep * kLane;
+  const int dko = kRowStep * stride;
+
+  for (int q = 0; q < a.spb * kBatches; ++q) {
+    const int sp = sp0 + q / kBatches;
+    if (sp >= a.spp) break;
+    const int r8 = (q % kBatches) * kRowStep * kPx + tid / kLane;
+    // Pixel 0 of the batch: its plane slot (layer 0), its plane row, its
+    // row of the frame.
+    const int slot = ((sp - sp0) * kStripH + r8) * kRowStride + c;
+    const long long frow =
+        static_cast<long long>(sp) * nc8 + chunk * kStripH + r8;
+    const int y = (s * a.spp + sp) * kStripH + r8;
+    const long long pix = frow * kLane + c;   // in a (4, plane_rows, 128)
+    // Straight colour rgba[ch], lo <= ch < hi, of layer l at pixel k.
+    auto paint = [&](int l, int kind, const float4& col, int k, int lo,
+                     int hi, float* rgba) {
+      if (kind == kPaintColor) {
+        rgba[0] = col.x;
+        rgba[1] = col.y;
+        rgba[2] = col.z;
+        rgba[3] = col.w;
+      } else if (kind == kPaintField) {
+        const float* fp = a.fields[pint_s[l * kPintStride + 3]]
+                          + static_cast<long long>(s) * 4 * chan + pix
+                          + k * dkp;
+        for (int ch = lo; ch < hi; ++ch) rgba[ch] = fp[ch * chan];
+      } else {
+        const int* I = pint_s + l * kPintStride;
+        const float* P = pflt_s + l * kPfltStride;
+        const float py = static_cast<float>(y + k * kRowStep) + 0.5f;
+        const float t = grad_t(P, I, px, py);
+        for (int ch = lo; ch < hi; ++ch) {
+          rgba[ch] = grad_ramp(P, I[2], t, ch);
+        }
+      }
+    };
+    // (F, NS+1, 4, plane_rows, 128) planes: this batch's pixel 0, red.
+    const long long at = (static_cast<long long>(f) * a.ns1 + s) * 4 * chan
+                         + pix;
+    int* word = a.out == nullptr ? nullptr
+        : a.out + ((static_cast<long long>(f) * a.ns1 + s)
+                   * (a.spp * kStripH) + sp * kStripH + r8) * stride
+          + chunk * kLane + c;
+
+    if constexpr (kChain) {
+      // The background of the batch's pixels, loaded before the fold.
+      const bool has_bg = a.bg != nullptr;
+      float bgv[kPx][4];
+      if (has_bg) {
+#pragma unroll
+        for (int k = 0; k < kPx; ++k) {
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) {
+            bgv[k][ch] = a.bg[at + ch * chan + k * dkp];
+          }
+        }
+      }
+      float acc[kPx][4];
+      float m[kPx];
+#pragma unroll
+      for (int k = 0; k < kPx; ++k) {
+        chain_seed(acc[k], bgv[k], 1, has_bg, mf);
+        m[k] = 0.0f;
+      }
+      for (int l = 0; l < L; ++l) {
+        const int kind = static_cast<int>((kinds >> (2 * l)) & 3u);
+        const int rule = static_cast<int>((eo >> l) & 1u);
+        const float4 col = reinterpret_cast<const float4*>(sm.col_s)[l];
+        const float* w = sm.plane + l * layer_step + slot;
+#pragma unroll
+        for (int k = 0; k < kPx; ++k) {
+          float rgba[4];
+          paint(l, kind, col, k, 0, 4, rgba);
+          const float ca = rgba[3] * fill_cov(w[k * dk], rule);
+          chain_step(acc[k], m[k], rgba, ca, l, mf);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPx; ++k) {
+        chain_finish(acc[k], m[k], bgv[k], 1, has_bg, mf);
+        if constexpr (kPremul) {
+          float* o = a.out_pm + at + k * dkp;
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) o[ch * chan] = acc[k][ch];
+        } else {
+          word[k * dko] = static_cast<int>(quantize_pack(acc[k][3], acc[k]));
+        }
+      }
+    } else {
+      // Top-down: each layer's weight cas * (the suffix product of the
+      // layers above it), into the layer's plane slot.
+      float suffix[kPx];
+      for (int l = L - 1; l >= 0; --l) {
+        const int kind = static_cast<int>((kinds >> (2 * l)) & 3u);
+        const int rule = static_cast<int>((eo >> l) & 1u);
+        const float4 col = reinterpret_cast<const float4*>(sm.col_s)[l];
+        float* w = sm.plane + l * layer_step + slot;
+#pragma unroll
+        for (int k = 0; k < kPx; ++k) {
+          float rgba[4];
+          paint(l, kind, col, k, 3, 4, rgba);
+          const float cas = rgba[3] * fill_cov(w[k * dk], rule);
+          if (l == L - 1) {
+            w[k * dk] = cas;
+            suffix[k] = 1.0f - cas;
+          } else {
+            w[k * dk] = cas * suffix[k];
+            suffix[k] = suffix[k] * (1.0f - cas);
+          }
+        }
+      }
+      // Bottom-up: alpha and the premultiplied channels, summed left to
+      // right.
+      float alpha_out[kPx];
+      float pm[kPx][3];
+      for (int l = 0; l < L; ++l) {
+        const int kind = static_cast<int>((kinds >> (2 * l)) & 3u);
+        const float4 col = reinterpret_cast<const float4*>(sm.col_s)[l];
+        const float* w = sm.plane + l * layer_step + slot;
+#pragma unroll
+        for (int k = 0; k < kPx; ++k) {
+          float rgba[4];
+          paint(l, kind, col, k, 0, 3, rgba);
+          const float wgt = w[k * dk];
+          if (l == 0) {
+            alpha_out[k] = wgt;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) pm[k][ch] = rgba[ch] * wgt;
+          } else {
+            alpha_out[k] = alpha_out[k] + wgt;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) {
+              pm[k][ch] = pm[k][ch] + rgba[ch] * wgt;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPx; ++k) {
+        word[k * dko] = static_cast<int>(quantize_pack(alpha_out[k], pm[k]));
+      }
+    }
+  }
+}
+
+// One block: (chunk, strip slice) x strip block x frame.  kStyled: the
+// styled kernel (per-layer paints; kChain / kPremul its chain modes and
+// premultiplied-plane output; its own set-up and resolve above).  kOne:
+// the one-block-per-step form (render_fused_blocks): group 1, no flags or
 // layer table (the layer is read from each block's sidx), values split
-// in two bf16 parts when passes < 3.  kChain / kPremul: the chain modes
-// (chain_pixel) and the premultiplied-plane output.  kVar: a variant of
-// the solid grouped kernel (kVarFull ... kVarBatched, kVarWin above).
+// in two bf16 parts when passes < 3.  kVar: a variant of the solid
+// grouped kernel (kVarFull ... kVarBatched, kVarWin above).  kLc: the
+// layer class of B1's resolve.
 template <bool kStyled, bool kOne = false, bool kChain = false,
           bool kPremul = false, int kVar = kVarFull, int kLc = kMaxLayers>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   static_assert(kVar == kVarFull || (!kStyled && !kOne && !kChain),
                 "the variants are of the solid grouped kernel");
+  static_assert(kStyled || !kChain, "the chain modes are styled");
   // B1 and its variants: solid_walk, place_loaded and solid_pixel.
   constexpr bool kSolid = !kStyled && !kOne && !kChain;
   const int tid = threadIdx.x;
@@ -723,25 +964,21 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   const int* rule_s = sm.rule_s;
   int* pint_s = nullptr;
   float* pflt_s = nullptr;
-  if (kStyled) {
+  if constexpr (kStyled) {
     pint_s = reinterpret_cast<int*>(smem + sm.end);
     pflt_s = reinterpret_cast<float*>(
         smem + sm.end + align16(static_cast<size_t>(L) * kPintStride * 4));
-  }
-
-  solid_setup(a, sm, L, rows, f);
-  if (kStyled) {
-    for (int i = tid; i < L * kPintStride; i += nthr) pint_s[i] = a.pint[i];
-    for (int i = tid; i < L * kPfltStride; i += nthr) pflt_s[i] = a.pflt[i];
+    styled_setup(a, smem, sm, pint_s, pflt_s, L, rows, f);
+  } else {
+    solid_setup(a, sm, L, rows, f);
   }
   __syncthreads();
 
   // Placement: this chunk's deltas into the plane, earlier chunks' deltas
   // of the same row into the carry.  place(g, k, v, rc, cm) scatters the
   // update of value v in slot k of group g, its row id at rc and its
-  // column at cm (the generic walk of the styled, chain and one-block
-  // forms: the layer is read only for an update that lands in this
-  // block).
+  // column at cm (the generic walk of the one-block form: the layer is
+  // read only for an update that lands in this block).
   auto place = [&](int g, int k, float v, const float* rc_p,
                    const float* cm_p) {
     const int rc = static_cast<int>(*rc_p);
@@ -825,23 +1062,20 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
       }
       __syncthreads();   // the stage is free again
     }
-  } else if constexpr (kSolid && kVar != kVarResolve && kVar != kVarNone0) {
+  } else if constexpr (!kOne && kVar != kVarResolve && kVar != kVarNone0) {
     if (g0 >= 0 && g1 >= g0) {
       seen = solid_walk<kVar>(a, g0, g1, place_loaded);
     }
-  } else if constexpr (!kSolid) {
+  } else if constexpr (kOne) {
     if (g0 >= 0 && g1 >= g0) {
       const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
       for (long long j = tid; j < total; j += nthr) {
         const int g = g0 + static_cast<int>(j / gb);
         const int rem = static_cast<int>(j % gb);
         const int k = rem / kBlk;
-        const int nblk = kOne ? 0 : static_cast<int>(
-            static_cast<unsigned>(a.flags[g]) >> 2);
-        if (nblk != 0 && k >= nblk) continue;
         const long long idx = static_cast<long long>(g) * gb + rem;
         float v = a.uval[idx];
-        if (kOne && a.passes < 3) v = split_bf16x2(v);
+        if (a.passes < 3) v = split_bf16x2(v);
         if (v == 0.0f) continue;
         place(g, k, v, a.urc + idx, a.ucm + idx);
       }
@@ -867,122 +1101,68 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
     }
   }
 
-  // In-chunk inclusive prefix (left to right), plus the carry: winding.
-  for (int r = tid; r < L * rows; r += nthr) {
-    float* p = plane + r * kRowStride;
-    const float cy = from_fixed(carry[r]);
-    float acc = 0.0f;
-    for (int c = 0; c < kLane; ++c) {
-      acc = acc + p[c];
-      p[c] = acc + cy;
-    }
-  }
+  prefix_rows(plane, carry, L * rows);
   __syncthreads();
 
-  // Resolve: fill rule, suffix-product composite, quantize, pack.
-  const int stride = a.n_chunks * kLane;
-  // kSolid: the even-odd layers as bits, and the frame's colours in
-  // registers when kLc <= 4 (read from shared memory otherwise).
-  unsigned eo = 0;
-  float4 creg[kLc <= 4 ? kLc : 1];
-  if constexpr (kSolid) {
+  if constexpr (kStyled) {
+    styled_resolve<kChain, kPremul>(a, sm, pint_s, pflt_s, chunk, s, f,
+                                    sp0, rows, nc8);
+  } else {
+    // Resolve: fill rule, suffix-product composite, quantize, pack.
+    const int stride = a.n_chunks * kLane;
+    // kSolid: the even-odd layers as bits, and the frame's colours in
+    // registers when kLc <= 4 (read from shared memory otherwise).
+    unsigned eo = 0;
+    float4 creg[kLc <= 4 ? kLc : 1];
+    if constexpr (kSolid) {
 #pragma unroll
-    for (int l = 0; l < kLc; ++l) {
-      if (l < L) {
-        eo |= (rule_s[l] != 0 ? 1u : 0u) << l;
-        if constexpr (kLc <= 4) {
-          creg[l] = reinterpret_cast<const float4*>(col_s)[l];
+      for (int l = 0; l < kLc; ++l) {
+        if (l < L) {
+          eo |= (rule_s[l] != 0 ? 1u : 0u) << l;
+          if constexpr (kLc <= 4) {
+            creg[l] = reinterpret_cast<const float4*>(col_s)[l];
+          }
         }
       }
     }
-  }
-  auto colour = [&](int l) -> float4 {
-    if constexpr (kLc <= 4) {
-      return creg[l];
-    } else {
-      return reinterpret_cast<const float4*>(col_s)[l];
-    }
-  };
-  for (int p = tid; p < rows * kLane; p += nthr) {
-    const int row = p / kLane;
-    const int c = p % kLane;
-    const int sp = sp0 + row / kStripH;
-    if (sp >= a.spp) continue;
-    const int r8 = row % kStripH;
-    const float px = static_cast<float>(chunk * kLane + c) + 0.5f;
-    const float py = static_cast<float>((s * a.spp + sp) * kStripH + r8)
-        + 0.5f;
-    const long long frow =
-        static_cast<long long>(sp) * nc8 + chunk * kStripH + r8;
-
-    if constexpr (kChain) {
-      // Plane (f, s, channel 0) of the bg and premul arrays; channels are
-      // plane_rows * 128 floats apart.
-      const long long step = static_cast<long long>(a.plane_rows) * kLane;
-      const long long px0 =
-          (static_cast<long long>(f) * a.ns1 + s) * 4 * step + frow * kLane
-          + c;
-      float pm4[4];
-      chain_pixel<kStyled>(
-          a, col_s, rule_s, pint_s, pflt_s,
-          [&](int l) { return plane[(l * rows + row) * kRowStride + c]; },
-          px, py, s, frow, c, a.bg == nullptr ? nullptr : a.bg + px0, step,
-          pm4);
-      if constexpr (kPremul) {
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) a.out_pm[px0 + ch * step] = pm4[ch];
+    auto colour = [&](int l) -> float4 {
+      if constexpr (kLc <= 4) {
+        return creg[l];
       } else {
+        return reinterpret_cast<const float4*>(col_s)[l];
+      }
+    };
+    for (int p = tid; p < rows * kLane; p += nthr) {
+      const int row = p / kLane;
+      const int c = p % kLane;
+      const int sp = sp0 + row / kStripH;
+      if (sp >= a.spp) continue;
+      const int r8 = row % kStripH;
+      if constexpr (kSolid) {
         a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
                + sp * kStripH + r8) * stride + chunk * kLane + c] =
-            static_cast<int>(quantize_pack(pm4[3], pm4));
-      }
-    } else if constexpr (kSolid) {
-      a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
-             + sp * kStripH + r8) * stride + chunk * kLane + c] =
-          static_cast<int>(solid_pixel<kLc>(
-              plane + row * kRowStride + c, rows * kRowStride, colour, eo,
-              L));
-    } else {
-      float cas[kMaxLayers];
-      float tpar[kMaxLayers];
+            static_cast<int>(solid_pixel<kLc>(
+                plane + row * kRowStride + c, rows * kRowStride, colour, eo,
+                L));
+      } else {
+        float cas[kMaxLayers];
 #pragma unroll
-      for (int l = 0; l < kMaxLayers; ++l) {
-        if (l < L) {
-          const float w = plane[(l * rows + row) * kRowStride + c];
-          const float cov = fill_cov(w, rule_s[l]);
-          float alpha = col_s[4 * l + 3];
-          tpar[l] = 0.0f;
-          if (kStyled) {
-            const int* I = pint_s + l * kPintStride;
-            const float* P = pflt_s + l * kPfltStride;
-            if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-              tpar[l] = grad_t(P, I, px, py);
-              alpha = grad_ramp(P, I[2], tpar[l], 3);
-            } else if (I[0] == kPaintField) {
-              alpha = a.fields[I[3]][((static_cast<long long>(s) * 4 + 3)
-                                       * a.plane_rows + frow) * kLane + c];
-            }
+        for (int l = 0; l < kMaxLayers; ++l) {
+          if (l < L) {
+            const float w = plane[(l * rows + row) * kRowStride + c];
+            const float cov = fill_cov(w, rule_s[l]);
+            float alpha = col_s[4 * l + 3];
+            cas[l] = alpha * cov;
           }
-          cas[l] = alpha * cov;
         }
+        const uint32_t packed = composite_pack(L, cas, [&](int l, int ch) {
+          float color = col_s[4 * l + ch];
+          return color;
+        });
+        a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+               + sp * kStripH + r8) * stride + chunk * kLane + c] =
+            static_cast<int>(packed);
       }
-      const uint32_t packed = composite_pack(L, cas, [&](int l, int ch) {
-        float color = col_s[4 * l + ch];
-        if (kStyled) {
-          const int* I = pint_s + l * kPintStride;
-          const float* P = pflt_s + l * kPfltStride;
-          if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-            color = grad_ramp(P, I[2], tpar[l], ch);
-          } else if (I[0] == kPaintField) {
-            color = a.fields[I[3]][((static_cast<long long>(s) * 4 + ch)
-                                     * a.plane_rows + frow) * kLane + c];
-          }
-        }
-        return color;
-      });
-      a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
-             + sp * kStripH + r8) * stride + chunk * kLane + c] =
-          static_cast<int>(packed);
     }
   }
 }

@@ -640,9 +640,12 @@ def render_fused_styled(sidx, flags, lays, urc, ucm, uval, colors, fields,
     ``render_fused_styled``).
 
     Kernel: replaces ``_fused_styled_kernel`` (swf_renderer_tpu/ops/
-    flatblock.py:1083); the solid kernel's design with per-layer paint
-    records in shared memory (in-kernel gradients) and field planes read
-    once per pixel.  ``chain=True`` composites with the sequential over
+    flatblock.py:1083) with ``styled_flatblock_kernel`` (csrc/
+    flatblock_device.cuh ``styled_block``): the solid kernel's walk, per-
+    layer paint records in shared memory (in-kernel gradients), field
+    planes read once per pixel, and a resolve that goes layer by layer
+    over a batch of pixels a thread, at the layer class the launcher
+    picks (4 up to four layers, else 16).  ``chain=True`` composites with the sequential over
     chain (a left fold, so passes of <= 16 layers chained through their
     premultiplied planes equal one long chain), seeded from ``bg`` —
     premultiplied planes of an earlier pass, read once per pixel —

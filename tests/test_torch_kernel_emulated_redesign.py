@@ -9,9 +9,11 @@ up to four layers, else 16), which unrolls the resolve's layer loops;
 the walk issues the loads of four slots at once.  Held here at 1, 2, 4
 and 16 layers, 1, 2 and 5 strips a plane (5 at 16 layers splits each
 plane's strips over three blocks), nonzero, even-odd and mixed rules,
-with the ``kVarResolve`` and ``kVarNone0`` cuts at both classes, and
-one styled, one chain / premultiplied / mask and one one-block (kOne)
-case of the instantiations that keep the generic body; the carry of
+with the ``kVarResolve`` and ``kVarNone0`` cuts at both classes, one
+styled and one chain / premultiplied / mask case of the styled kernel
+(its own body since its redesign: ``styled_resolve``, held in full in
+``tests/test_torch_kernel_emulated_styled.py``) and one one-block (kOne)
+case of the generic body; the carry of
 earlier chunks is two native 32-bit adds, the low word's wrap carried
 into the high word, held on supergroups of several groups through B1,
 mode "none"'s loads and kVarBatched.
@@ -250,8 +252,8 @@ def test_emulated_walk_forms_on_long_supergroups(emulator):
 
 
 def test_emulated_styled_keeps_its_body(emulator):
-    """The styled single pass (colour, gradient and field paints) on the
-    generic body, beside the new solid one: equal to fused_styled_plain."""
+    """The styled single pass (colour, gradient and field paints) through
+    the styled kernel's own body (styled_resolve), beside B1's: equal to fused_styled_plain."""
     height, width, layers, spp = 40, 300, 4, 2
     d, colors = _scene(height, width, layers, spp, 41)
     ns, nc = d["ns"], d["nc"]
@@ -271,7 +273,8 @@ def test_emulated_styled_keeps_its_body(emulator):
 
 def test_emulated_chain_premul_mask_keeps_its_body(emulator):
     """A chain pass seeded from background planes, premultiplied planes
-    out, layers 3.. a clip group's mask, 5 strips a plane."""
+    out, layers 3.. a clip group's mask, 5 strips a plane, through the
+    styled kernel's own body (styled_resolve)."""
     height, width, layers, spp = 40, 100, 9, 5
     d, colors = _scene(height, width, layers, spp, 43)
     ns, nc = d["ns"], d["nc"]
