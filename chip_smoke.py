@@ -62,7 +62,8 @@ Phases, each of which exits non-zero on failure before the last line:
              (4 x 4 frames of 320 octagons a layer, tiled) and wide8k
              (16 x 4 x 1088x8320 through ``render_batch_flatblock``, the
              resolve kernel): host lowering, upload, kernel, download
-             timed, every plane held against the plain version; and
+             timed, every banded and tiled plane held equal to its
+             plain version (max abs 0); and
              phase 4's stages through ``backend="direct"`` /
              ``"scanline"``, ``quality="flash-pointaa"``,
              ``validate=True`` and an 8320-px renderer under auto, with
@@ -174,16 +175,20 @@ Phases, each of which exits non-zero on failure before the last line:
              (the styled kernel: single pass, chain and chain +
              premultiplied; it fails if they keep a stack), of the
              four product kernels, of the windowed instantiation, of the
-             coarse kernel and of the texfield kernel at animtex1080.
+             coarse kernel, of the texfield kernel at animtex1080 and of
+             the banded and tiled coverage kernels (it fails if these keep
+             a stack or spill).
 
 With ``--parent DIR`` (a checkout of the parent commit) phase 1 also
 builds DIR's kernels and compares every kernel's SASS with theirs, and
 B1 (headline), the styled kernel (renderer frame), its chain modes
 (deep1080 pass 1 of the solid and the styled arm, masked1080's fused
 pair and pre pass), the one-block kernel (headline_fused1), the exp_split
-cuts and the texfield kernel (yardstick, animtex, animtex1080) are
-timed with DIR's build and with this one on the same inputs, parent /
-change / change / parent (``report.json`` ``ab`` and ``ab_sass``).
+cuts, the texfield kernel (yardstick, animtex, animtex1080) and the
+banded and tiled coverage kernels (direct1080, dense1080, the renderer's
+``direct`` route) are timed with DIR's build and with this one on the
+same inputs, parent / change / change / parent (``report.json`` ``ab``
+and ``ab_sass``).
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
@@ -290,8 +295,8 @@ def phase_build():
         log(f"ptxas: {label}: {v['registers']} registers, {v['stack']} B "
             f"stack, {v['spill_stores']} B spill stores, "
             f"{v['spill_loads']} B spill loads")
-        if label.startswith("B2") and (v["stack"] or v["spill_stores"]
-                                       or v["spill_loads"]):
+        if label.startswith(("B2", "B9", "B10")) and (
+                v["stack"] or v["spill_stores"] or v["spill_loads"]):
             fail(f"ptxas: {label} keeps a stack frame or spills: {v}")
         _HELD.setdefault("ptxas", {})[label] = v
     for name in cuda_lib.LIBRARIES:
@@ -305,7 +310,9 @@ def phase_build():
 # pass, chain and chain + premultiplied forms (styled_flatblock_kernel
 # <kChain, kPremul>; phase 1 fails if these keep a stack frame or
 # spill), the product forms', the windowed one's and the texfield
-# kernel's at animtex1080 (n 2, bilinear, repeat).
+# kernel's at animtex1080 (n 2, bilinear, repeat), and the banded (B9)
+# and tiled (B10) coverage kernels (phase 1 fails if these keep a stack
+# frame or spill, as for B2).
 PTXAS_WATCH = {
     "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
     "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
@@ -319,6 +326,8 @@ PTXAS_WATCH = {
     "windowed kVarWin": "solid_flatblock_kernelILi11ELi4E",
     "coarse": "coarse_kernel",
     "texfield n2 bilinear repeat": "texfield_kernelILi2ELb1ELi0E",
+    "B9 banded": "banded_kernel",
+    "B10 tiled": "tiled_kernel",
 }
 
 
@@ -1940,7 +1949,8 @@ def phase_bitmaps(torch, np, report):
 # Phase 7: layered backends (direct coverage, wide frames)
 # ---------------------------------------------------------------------------
 
-COV_TOL = 1e-6                   # coverage / premul max abs, kernel vs plain
+COV_TOL = 1e-6                   # resolve premul max abs, kernel vs plain
+COV_EXACT = 0.0                  # banded / tiled coverage: byte-equal
 DIRECT = (60, 4, 1088, 1920)     # bench.py --direct, uncut
 DENSE = (4, 4, 1088, 1920, 320)  # frames, layers, height, width, shapes
 WIDE = (16, 4, 1088, 8320)       # stride 8448 > 8192
@@ -1957,41 +1967,57 @@ def _cov_u8(torch, c):
     return torch.round(torch.clamp(c, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def _check_planes(torch, what, got, want):
+def _check_planes(torch, what, got, want, tol=COV_TOL):
     """Coverage or premultiplied planes of a kernel against its plain
-    version: max abs within COV_TOL and equal u8 bytes."""
+    version: max abs within ``tol`` and equal u8 bytes."""
     torch.cuda.synchronize()
     err = float((got - want).abs().max().item())
     same = torch.equal(_cov_u8(torch, got), _cov_u8(torch, want))
     log(f"layered: {what}: max abs diff {err:.3g}, u8 "
         f"{'byte-equal' if same else 'DIFFERENT'}")
-    if err > COV_TOL or not same:
+    if err > tol or not same:
         fail(f"kernel vs plain ({what}): {err}")
     return err
 
 
-# Operations per (edge, pixel of a row the edge spans): the least of the
-# three formulations' bodies (grouped 16, tiled 38, banded 40).
+# Operations per (edge, pixel of a row the edge spans) left of the edge
+# or under its clipped x-extent: the least of the three formulations'
+# bodies (grouped 16, tiled 38, banded 40); a pixel right of the extent
+# adds dy alone.
 COV_OPS_PER_PAIR = 16
+COV_OPS_RIGHT = 1
 
 
 def coverage_work(torch, edges, height, width):
     """(bytes, f32 operations) of analytic coverage of these (B, 4, E)
     planes, the function the banded, tiled and grouped kernels share: the
-    edges read once, the coverage written once; COV_OPS_PER_PAIR
-    operations per (edge, pixel of a row the edge spans), so padding and
+    edges read once, the coverage written once; per (edge, row the edge
+    spans) COV_OPS_RIGHT operations for each pixel right of the edge's
+    clipped x-extent in that row (xmx - px <= 0, ``edge_row_span`` on the
+    card) and COV_OPS_PER_PAIR for each other pixel, so padding and
     horizontal edges count nothing, and 3 per pixel for the rule.  The
     work a kernel adds by its own path through the edges (band windows,
     128-edge blocks, strips) is not counted."""
-    y0, y1 = edges[:, 1], edges[:, 3]
+    from swf_renderer_tpu_torch.ops.coverage import edge_row_span
+
+    x0, y0, x1, y1 = (edges[:, c].reshape(-1) for c in range(4))
     lo = torch.clamp(torch.floor(torch.minimum(y0, y1)), 0, height)
     hi = torch.clamp(torch.ceil(torch.maximum(y0, y1)), 0, height)
     rows = torch.where(y0 != y1, (hi - lo).clamp(min=0),
                        torch.zeros_like(lo))
+    right = torch.zeros((), dtype=torch.int64, device=edges.device)
+    for k in range(int(rows.max().item()) if rows.numel() else 0):
+        sel = rows > k
+        _, _, xmx = edge_row_span(x0[sel], y0[sel], x1[sel], y1[sel],
+                                  lo[sel] + k)
+        right += (width - torch.clamp(torch.ceil(xmx), 0, width)).to(
+            torch.int64).sum()
+    right = int(right.item())
     pairs = int(rows.to(torch.int64).sum().item()) * width
     pixels = edges.shape[0] * height * width
     return (edges.numel() * edges.element_size() + pixels * 4,
-            pairs * COV_OPS_PER_PAIR + pixels * 3)
+            right * COV_OPS_RIGHT + (pairs - right) * COV_OPS_PER_PAIR
+            + pixels * 3)
 
 
 def resolve_work(frames, layers, height, stride, rules):
@@ -2008,7 +2034,7 @@ def resolve_work(frames, layers, height, stride, rules):
 def coverage_random(torch, np):
     """B9 and B10 against their plain versions on closed random paths
     (rectangles, slivers under 1e-9, long unsplit edges, octagons partly
-    off the frame), both rules."""
+    off the frame), both rules: max abs 0."""
     from swf_renderer_tpu_torch.ops import coverage as cov
     from swf_renderer_tpu_torch.utils.scenes import closed_edge_planes
 
@@ -2027,13 +2053,13 @@ def coverage_random(torch, np):
                                         height, width, rule)
                 worst["banded"] = max(worst["banded"], _check_planes(
                     torch, f"banded {height}x{width} E={n}/{e_pad} "
-                    f"rule={rule}", got, want))
+                    f"rule={rule}", got, want, COV_EXACT))
             got = cov.coverage_tiled(t, height, width, rule)
             want = cov.tiled_plain(es, cov.block_bounds(es, key, pad), height,
                                    width, rule)
             worst["tiled"] = max(worst["tiled"], _check_planes(
                 torch, f"tiled {height}x{width} E={n}/{e_pad} rule={rule}",
-                got, want))
+                got, want, COV_EXACT))
     return worst
 
 
@@ -2124,6 +2150,7 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
         return cov.coverage(d_edges, height, width, 0)
 
     ms = time_ms(torch, kernel)
+    ab = ab_times(torch, f"{kind} ({what})", kernel, lib="swfcoverage")
     whole_ms = time_ms(torch, whole)
     got = kernel()
     held = {}
@@ -2134,7 +2161,7 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
 
     plain_ms = time_ms(torch, plain, reps=1, warmup=0)
     err = _check_planes(torch, f"{what}: all {frames * layers} planes",
-                        got, held["want"])
+                        got, held["want"], COV_EXACT)
 
     def composite():
         return composite_solid_layers(got.view(frames, layers, height, width),
@@ -2174,6 +2201,8 @@ def direct_run(torch, np, what, kind, frames, layers, height, width, shapes,
         pixels / wall / 1e9, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": work[0], "ops": work[1],
         "max_abs_err": err, "covered": covered}
+    if ab is not None:
+        report[what]["parent_ms"] = ab["parent_ms"]
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -2313,20 +2342,31 @@ def layered_routes(torch, np, report):
                      "validate=True inspects raw coverage")}
     totals = {"banded": 0, "tiled": 0}
     out = {}
+    launch = cov._launch_coverage
+    seen = []   # the direct route's coverage launches, timed below
+
+    def spy(*args):
+        seen.append(args)
+        return launch(*args)
+
     for name, (kw, path, reason) in routes.items():
         renderer = TorchRenderer(width, height, device=DEVICE, **kw)
         renderer.add_bitmap(bitmap)
         for c in counters.values():
             c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame = renderer.render(stages[0])
-        t_one = time.perf_counter() - t0
-        got_path = renderer.last_stats.path
-        t0 = time.perf_counter()
-        batch = renderer.render_batch(stages)
-        t_batch = time.perf_counter() - t0
-        batch_path = renderer.last_stats.path
+        cov._launch_coverage = spy if name == "direct" else launch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = renderer.render(stages[0])
+            t_one = time.perf_counter() - t0
+            got_path = renderer.last_stats.path
+            t0 = time.perf_counter()
+            batch = renderer.render_batch(stages)
+            t_batch = time.perf_counter() - t0
+            batch_path = renderer.last_stats.path
+        finally:
+            cov._launch_coverage = launch
         got = {k: c.launches for k, c in counters.items()}
         if got_path != path or batch_path != f"per-stage:{reason}":
             fail(f"route {name}: paths {got_path!r}, {batch_path!r}")
@@ -2351,6 +2391,21 @@ def layered_routes(torch, np, report):
         out[name] = {"render_ms": t_one * 1e3, "render_batch_ms":
                      t_batch * 1e3, "path": got_path, "batch_path":
                      batch_path, "launches": got}
+
+    # render(stages[0])'s banded launch, timed alone (and A/B); the
+    # route launched it (4 banded launches, checked above).
+    args = seen[0]
+
+    def route_kernel():
+        return launch(*args)
+
+    route_ms = time_ms(torch, route_kernel)
+    ab_times(torch, "banded (renderer direct route)", route_kernel,
+             lib="swfcoverage")
+    log(f"layered: route direct: banded kernel of render() "
+        f"{route_ms:.4f} ms ({args[1].shape[0]} planes of {args[3]}x"
+        f"{args[4]}, {args[1].shape[-1]} edges)")
+    out["direct"]["banded_ms"] = route_ms
 
     wide_w, wide_h = WIDE_ROUTE
     wide = TorchRenderer(wide_w, wide_h, device=DEVICE)

@@ -17,12 +17,12 @@
 namespace swf {
 
 __global__ void __launch_bounds__(kCovThreads) banded_kernel(CoverageArgs a) {
-  __shared__ float s[4 * kCovEdgeCap];
+  __shared__ BandedTerms s;
   banded_block(a, s);
 }
 
 __global__ void __launch_bounds__(kCovThreads) tiled_kernel(CoverageArgs a) {
-  __shared__ float s[4 * kCovBlock];
+  __shared__ TiledTerms s;
   tiled_block(a, s);
 }
 
@@ -55,6 +55,25 @@ inline dim3 coverage_grid(const CoverageArgs& a) {
   return dim3((a.width + kCovTileW - 1) / kCovTileW, a.tiles_y, a.planes);
 }
 
+// B9's blocks a band (grid x): each walks `per` of the band's column
+// tiles, per as large as leaves kBandMinBlocksPerSm blocks an SM.
+inline unsigned banded_grid_x(unsigned tiles_x, unsigned bands) {
+  int dev = 0, sms = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1) {
+    (void)cudaGetLastError();   // not the launch's error
+    sms = 1;
+  }
+  const unsigned long long want =
+      static_cast<unsigned long long>(sms) * kBandMinBlocksPerSm;
+  const unsigned long long all =
+      static_cast<unsigned long long>(tiles_x) * bands;
+  unsigned per = static_cast<unsigned>(all / want);
+  per = per < 1 ? 1 : (per > tiles_x ? tiles_x : per);
+  return (tiles_x + per - 1) / per;
+}
+
 }  // namespace swf
 
 extern "C" {
@@ -71,7 +90,9 @@ int swf_coverage_banded(const void* edges, const void* ranges, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.ranges = static_cast<const int*>(ranges);
-  swf::banded_kernel<<<swf::coverage_grid(a), swf::kCovThreads, 0,
+  dim3 grid = swf::coverage_grid(a);
+  grid.x = swf::banded_grid_x(grid.x, grid.y * grid.z);
+  swf::banded_kernel<<<grid, swf::kCovThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,8 +14,8 @@
 // ymin with a stable sort (padding, all-zero edges, last), which fixes the
 // order of the float sums:
 //   * B9 (banded): a 16-row band adds `edge_contribution` of the sorted
-//     edges lo..hi-1 of its window, one edge after the other (two IEEE
-//     divisions an edge and pixel: by the clipped dy and by the span);
+//     edges lo..hi-1 of its window, one edge after the other (IEEE
+//     divisions by the clipped dy and by the span);
 //   * B10 (tiled): a 16-row tile walks 128-edge blocks, skips blocks whose
 //     (ymin, ymax) bounds miss its rows, and sums a hit block in the slope
 //     form: x at the clipped row window from the segment start through the
@@ -35,14 +35,37 @@
 //
 // Design.  The TPU grid walks (plane, tile row, tile column[, edge
 // block]) in order with the tile in VMEM and the edges in SMEM.  Here one
-// CUDA block of 256 threads owns one 16 x 128 tile: thread t owns column
-// t % 128 and 8 rows (t / 128 selects the upper or lower half), so each
-// edge's row terms are computed once per thread row and the pixels of a
-// warp are 32 neighbouring columns (coalesced stores).  B9 stages its
-// whole window (at most 2048 edges, 32 KB) in shared memory once; B10
-// stages one 128-edge block at a time with its slopes (one IEEE division
-// per edge, not per pixel).  Rows and columns past the frame compute and
-// are not stored.
+// CUDA block of 256 threads owns one 16 x 128 tile: thread t owns
+// kCovCols = 4 neighbouring columns, 4 (t % 32), and 2 rows, 2 (t / 32),
+// so a warp's pixels are the same 2 rows of all 128 columns (coalesced
+// stores) and a staged term, read once, serves four columns.  The row
+// sums live in shared memory (`CovSums`), read into registers once a
+// round or hit block.  Rows and columns past the frame compute and are
+// not stored.  B9 and B10 split each kernel's per-edge term into its
+// y-only half, computed once per (edge, row) of the tile and staged in
+// shared memory, and its per-pixel half:
+//   * y-only (`banded_row_terms`, `tiled_row_terms`): dy, the clipped
+//     x-range [xmn, xmx] and B9's span or B10's 1 / max(span, 1e-9) —
+//     the divisions by the clipped dy (B9) and B10's reciprocal leave the
+//     pixel loop;
+//   * per pixel (`banded_pixel`, `tiled_pixel`): right of the range
+//     (xmx - px <= 0) both antiderivatives are 0, the mean is +0 and the
+//     term is dy * 1 == dy exactly, so it adds dy alone; else the ramp
+//     (B9's one IEEE division by the span, B10's multiply).
+// An (edge, row) pair whose computed dy is 0 adds +-0 to the row's sums,
+// which leaves every sum as it is but for the sign of a zero, and the
+// fill rule maps both zeros to +0 (inputs finite: the term is 0 times a
+// finite mean).  So B9 stages, per row, only the edges whose computed dy
+// is nonzero, in window order (a warp ballot and a popcount prefix),
+// kBandChunk window edges a round; B10 keeps its merge tree and marks,
+// per row, the trips of four edges that hold a crossing edge (a 32-bit
+// mask a 128-edge block): a row walks only those trips, a non-crossing
+// edge in a walked trip adds 0.0f.  Never a test on the raw y-range:
+// one built from (ymin, |y1 - y0|) rounds and misses rows whose computed
+// dy is nonzero (tests/test_torch_kernel_emulated_coverage.py).  The
+// y-only values are the old per-pixel expressions operation for
+// operation, and the library builds with -fmad=false, so every output
+// byte is the one-edge-a-pixel form's.
 //
 // B11 on the TPU puts 8 edges on the sublanes and an 8-row strip on the
 // lanes so the y-only terms cost one vector op per 8 (edge, row) pairs.
@@ -52,10 +75,9 @@
 // thread walks them for its column with the 8 row sums in registers; the
 // reads are broadcasts (every thread of a warp reads the same term).
 //
-// Bound on this card: operations.  Every (edge, pixel) pair of a window
-// costs ~30 f32 operations (two IEEE divisions in B9, one in B10) against
-// 4 bytes of output a pixel; at direct1080 that is ~1e11 operations for
-// 2 GB of coverage (PERF.md).
+// Bound on this card: operations.  An (edge, pixel) pair of a row the
+// edge crosses costs one add right of the edge and ~16 f32 operations
+// elsewhere, against 4 bytes of output a pixel (PERF.md).
 //
 // Rounding: op by op in IEEE f32 — __fdiv_rn divisions, fminf/fmaxf as
 // the reference's clip/minimum/maximum, and the library is built with
@@ -70,8 +92,15 @@ namespace swf {
 constexpr int kCovTileH = 16;
 constexpr int kCovTileW = 128;
 constexpr int kCovThreads = 256;
-constexpr int kCovRowsPerThread = kCovTileH * kCovTileW / kCovThreads;
+constexpr int kCovCols = 4;          // neighbouring columns a thread owns
+constexpr int kCovRowsPerThread =
+    kCovTileH * kCovTileW / (kCovThreads * kCovCols);
+constexpr int kCovColThreads = kCovTileW / kCovCols;   // threads a row
 constexpr int kCovEdgeCap = 2048;   // most edges a banded table holds
+constexpr int kBandChunk = 64;      // window edges B9 stages a round
+// B9 launches: a block walks several column tiles of its band while the
+// grid keeps at least this many blocks an SM (coverage.cu).
+constexpr int kBandMinBlocksPerSm = 24;
 constexpr int kCovBlock = 128;      // edges per block (tiled, grouped)
 constexpr int kGrpStripH = 8;       // rows of a grouped strip
 constexpr int kGrpGroup = 8;        // edges a grouped sum merges
@@ -94,10 +123,11 @@ __device__ __forceinline__ float cov_h01(float x) {
   return x <= 0.0f ? 0.0f : (x >= 1.0f ? x - 0.5f : 0.5f * x * x);
 }
 
-// B9's per-edge term: `edge_contribution` (coverage.py:63) at the cell
-// origin (px, py).
-__device__ __forceinline__ float banded_term(float x0, float y0, float x1,
-                                             float y1, float px, float py) {
+// B9's y-only half of `edge_contribution` (coverage.py:63) for pixel row
+// py: (dy, xmn, xmx, span).
+__device__ __forceinline__ float4 banded_row_terms(float x0, float y0,
+                                                   float x1, float y1,
+                                                   float py) {
   const float sy0 = y0 - py;
   const float sy1 = y1 - py;
   const float cy0 = cov_clamp01(sy0);
@@ -112,19 +142,27 @@ __device__ __forceinline__ float banded_term(float x0, float y0, float x1,
   const float xb = x0 + t1 * dx;
   const float xmn = fminf(xa, xb);
   const float xmx = fmaxf(xa, xb);
-  const float span = xmx - xmn;
-  const float safe_span = span < 1e-9f ? 1.0f : span;
-  const float rel_mn = xmn - px;
-  const float rel_mx = xmx - px;
-  const float mean =
-      span < 1e-9f ? cov_clamp01(0.5f * (rel_mn + rel_mx))
-                   : __fdiv_rn(cov_h01(rel_mx) - cov_h01(rel_mn), safe_span);
-  return dy * (1.0f - mean);
+  return make_float4(dy, xmn, xmx, xmx - xmn);
 }
 
-// B10's per-edge term: the scalar-loop body (coverage.py:220-252).
-__device__ __forceinline__ float tiled_term(float x0, float y0, float y1,
-                                            float slope, float px, float py) {
+// B9's per-pixel half at column px: dy * (1 - mean).
+__device__ __forceinline__ float banded_pixel(float4 t, float px) {
+  const float rel_mx = t.z - px;
+  if (rel_mx <= 0.0f) return t.x;   // right of the edge: dy * 1
+  const float rel_mn = t.y - px;
+  const float span = t.w;
+  const float mean =
+      span < 1e-9f ? cov_clamp01(0.5f * (rel_mn + rel_mx))
+                   : __fdiv_rn(cov_h01(rel_mx) - cov_h01(rel_mn), span);
+  return t.x * (1.0f - mean);
+}
+
+// B10's y-only half (the scalar-loop body, coverage.py:220-252) for row
+// py: (dy, xmn, xmx, 1 / max(span, 1e-9)), the last -1 for a span under
+// 1e-9 (the clamped-midpoint branch).
+__device__ __forceinline__ float4 tiled_row_terms(float x0, float y0,
+                                                  float y1, float slope,
+                                                  float py) {
   const float sy0 = y0 - py;
   const float sy1 = y1 - py;
   const float cy0 = cov_clamp01(sy0);
@@ -135,115 +173,234 @@ __device__ __forceinline__ float tiled_term(float x0, float y0, float y1,
   const float xmn = fminf(xa, xb);
   const float xmx = fmaxf(xa, xb);
   const float span = xmx - xmn;
-  const float inv_span = __fdiv_rn(1.0f, fmaxf(span, 1e-9f));
-  const float rel_mn = xmn - px;
-  const float rel_mx = xmx - px;
-  const float ramp = (cov_h01(rel_mx) - cov_h01(rel_mn)) * inv_span;
-  const float mean =
-      span < 1e-9f ? cov_clamp01(0.5f * (rel_mn + rel_mx)) : ramp;
-  return dy * (1.0f - mean);
+  const float inv_span =
+      span < 1e-9f ? -1.0f : __fdiv_rn(1.0f, fmaxf(span, 1e-9f));
+  return make_float4(dy, xmn, xmx, inv_span);
 }
 
-// The pixel rows and column of this thread in its tile, and the store.
+// B10's per-pixel half at column px.
+__device__ __forceinline__ float tiled_pixel(float4 t, float px) {
+  const float rel_mx = t.z - px;
+  if (rel_mx <= 0.0f) return t.x;   // right of the edge: dy * 1
+  const float rel_mn = t.y - px;
+  const float mean = t.w < 0.0f
+                         ? cov_clamp01(0.5f * (rel_mn + rel_mx))
+                         : (cov_h01(rel_mx) - cov_h01(rel_mn)) * t.w;
+  return t.x * (1.0f - mean);
+}
+
+// Each thread's running sums, in shared memory (a thread reads and
+// writes only its own): a row's sum is read into a register once a round
+// or hit block, so the row loop needs no register array.
+struct CovSums {
+  float v[kCovRowsPerThread][kCovCols][kCovThreads];
+};
+
+// The pixels of this thread in its tile (kCovCols neighbouring columns
+// of kCovRowsPerThread rows: the rows of a warp are the same), and the
+// store.
 struct CovPixel {
-  int col, row0;
-  __device__ CovPixel(int tid) {
-    col = blockIdx.x * kCovTileW + tid % kCovTileW;
-    row0 = blockIdx.y * kCovTileH + (tid / kCovTileW) * kCovRowsPerThread;
+  int col, row0, half;   // first column, first row; that row in the tile
+  float px[kCovCols];
+  __device__ CovPixel(int tid, int tile_x) {
+    col = tile_x * kCovTileW + (tid % kCovColThreads) * kCovCols;
+    half = (tid / kCovColThreads) * kCovRowsPerThread;
+    row0 = blockIdx.y * kCovTileH + half;
+    for (int c = 0; c < kCovCols; ++c) px[c] = static_cast<float>(col + c);
   }
-  __device__ void store(const CoverageArgs& a, const float* acc) const {
-    if (col >= a.width) return;
+  __device__ void store(const CoverageArgs& a, const CovSums& acc,
+                        int tid) const {
     float* out = a.out + static_cast<size_t>(blockIdx.z) * a.height * a.width;
     for (int j = 0; j < kCovRowsPerThread; ++j) {
       const int y = row0 + j;
-      if (y < a.height) {
-        out[static_cast<size_t>(y) * a.width + col] = fill_cov(acc[j], a.rule);
+      if (y >= a.height) break;
+      for (int c = 0; c < kCovCols; ++c) {
+        if (col + c < a.width) {
+          out[static_cast<size_t>(y) * a.width + col + c] =
+              fill_cov(acc.v[j][c][tid], a.rule);
+        }
       }
     }
   }
 };
 
-// B9: one block = one (plane, band, column tile).  `s` holds 4 x
-// kCovEdgeCap floats of shared memory.
-__device__ void banded_block(const CoverageArgs& a, float* s) {
+// B9's staged round: per row of the band, the y-only terms of the
+// round's window edges whose computed dy is nonzero, in window order.
+struct BandedTerms {
+  float4 t[kCovTileH][kBandChunk];
+  int n[kCovTileH];
+  CovSums acc;
+};
+
+// B10's staged block: per row of the tile, the y-only terms of the
+// block's 128 edges ((0, 0, -inf, 0) for an edge that does not cross the
+// row: it adds 0.0f) and the mask of the trips to walk.
+struct TiledTerms {
+  float4 t[kCovTileH][kCovBlock];
+  unsigned trips[kCovTileH];   // bit u: edges 4u .. 4u + 3
+  CovSums acc;
+};
+
+// B9's round of window edges c0 .. c0 + kBandChunk - 1: warp w stages
+// rows w and w + 8, a lane an edge; ends at a barrier.
+__device__ void banded_stage(const CoverageArgs& a, BandedTerms& s,
+                             const float* e, int n, int c0, float band_y0) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int base0 = 0, base1 = 0;
+  for (int g = c0; g < c0 + kBandChunk && g < n; g += 32) {
+    const int k = g + lane;
+    const bool valid = k < n;
+    float x0 = 0.0f, y0 = 0.0f, x1 = 0.0f, y1 = 0.0f;
+    if (valid) {
+      x0 = e[k];
+      y0 = e[a.n_edges + k];
+      x1 = e[2 * a.n_edges + k];
+      y1 = e[3 * a.n_edges + k];
+    }
+    const float4 t0 = banded_row_terms(
+        x0, y0, x1, y1, band_y0 + static_cast<float>(warp));
+    const float4 t1 = banded_row_terms(
+        x0, y0, x1, y1, band_y0 + static_cast<float>(warp + 8));
+    const unsigned m0 = __ballot_sync(0xffffffffu, valid && t0.x != 0.0f);
+    const unsigned m1 = __ballot_sync(0xffffffffu, valid && t1.x != 0.0f);
+    if ((m0 >> lane) & 1u) s.t[warp][base0 + __popc(m0 & below)] = t0;
+    if ((m1 >> lane) & 1u) s.t[warp + 8][base1 + __popc(m1 & below)] = t1;
+    base0 += __popc(m0);
+    base1 += __popc(m1);
+  }
+  if (lane == 0) {
+    s.n[warp] = base0;
+    s.n[warp + 8] = base1;
+  }
+  __syncthreads();
+}
+
+// B9: one block = one (plane, band) and the column tiles blockIdx.x * per
+// .. + per - 1 (per = the tiles a row / gridDim.x, rounded up).  A
+// window of one round is staged once for all of them.
+__device__ void banded_block(const CoverageArgs& a, BandedTerms& s) {
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int* r = a.ranges + (static_cast<size_t>(b) * a.tiles_y + blockIdx.y) * 2;
   const int lo = r[0];
   const int n = r[1] - lo > 0 ? r[1] - lo : 0;
-  const float* e = a.edges + static_cast<size_t>(b) * 4 * a.n_edges;
-  for (int i = tid; i < n; i += kCovThreads) {
-    for (int c = 0; c < 4; ++c) {
-      s[c * kCovEdgeCap + i] = e[static_cast<size_t>(c) * a.n_edges + lo + i];
-    }
-  }
-  __syncthreads();
-  const CovPixel pix(tid);
-  const float px = static_cast<float>(pix.col);
-  float acc[kCovRowsPerThread];
-  for (int j = 0; j < kCovRowsPerThread; ++j) acc[j] = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    const float x0 = s[k];
-    const float y0 = s[kCovEdgeCap + k];
-    const float x1 = s[2 * kCovEdgeCap + k];
-    const float y1 = s[3 * kCovEdgeCap + k];
+  const float* e = a.edges + static_cast<size_t>(b) * 4 * a.n_edges + lo;
+  const float band_y0 = static_cast<float>(blockIdx.y * kCovTileH);
+  const int tiles_x = (a.width + kCovTileW - 1) / kCovTileW;
+  const int per = (tiles_x + gridDim.x - 1) / gridDim.x;
+  const int xt1 = min(static_cast<int>(blockIdx.x + 1) * per, tiles_x);
+  const bool once = n <= kBandChunk;
+  if (once && n > 0) banded_stage(a, s, e, n, 0, band_y0);
+  for (int xt = blockIdx.x * per; xt < xt1; ++xt) {
+    const CovPixel pix(tid, xt);
     for (int j = 0; j < kCovRowsPerThread; ++j) {
-      acc[j] = acc[j] + banded_term(x0, y0, x1, y1, px,
-                                    static_cast<float>(pix.row0 + j));
+      for (int c = 0; c < kCovCols; ++c) s.acc.v[j][c][tid] = 0.0f;
     }
+    for (int c0 = 0; c0 < n; c0 += kBandChunk) {
+      if (!once) {
+        __syncthreads();   // the previous round is no longer read
+        banded_stage(a, s, e, n, c0, band_y0);
+      }
+#pragma unroll 1
+      for (int j = 0; j < kCovRowsPerThread; ++j) {
+        const int row = pix.half + j;
+        const int cnt = s.n[row];
+        float sum[kCovCols];
+#pragma unroll
+        for (int c = 0; c < kCovCols; ++c) sum[c] = s.acc.v[j][c][tid];
+        for (int i = 0; i < cnt; ++i) {
+          const float4 term = s.t[row][i];
+#pragma unroll
+          for (int c = 0; c < kCovCols; ++c) {
+            sum[c] = sum[c] + banded_pixel(term, pix.px[c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kCovCols; ++c) s.acc.v[j][c][tid] = sum[c];
+      }
+    }
+    pix.store(a, s.acc, tid);
   }
-  pix.store(a, acc);
 }
 
-// B10: one block = one (plane, tile row, column tile).  `s` holds 4 x
-// kCovBlock floats of shared memory (x0, y0, y1, slope).
-__device__ void tiled_block(const CoverageArgs& a, float* s) {
+// B10: one block = one (plane, tile row, column tile).  Warp w stages
+// edges 32 (w % 4) .. + 31 of each hit block for rows 8 (w / 4) .. + 7.
+__device__ void tiled_block(const CoverageArgs& a, TiledTerms& s) {
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int b = blockIdx.z;
   const int nb = a.n_edges / kCovBlock;
   const float tile_y0 = static_cast<float>(blockIdx.y * kCovTileH);
   const float tile_y1 = tile_y0 + static_cast<float>(kCovTileH);
   const float* e = a.edges + static_cast<size_t>(b) * 4 * a.n_edges;
   const float* bnd = a.bounds + static_cast<size_t>(b) * nb * 2;
-  const CovPixel pix(tid);
-  const float px = static_cast<float>(pix.col);
-  float acc[kCovRowsPerThread];
-  for (int j = 0; j < kCovRowsPerThread; ++j) acc[j] = 0.0f;
+  const int g = warp % 4;
+  const int srow = (warp / 4) * (kCovTileH / 2);
+  unsigned char* trip_bytes = reinterpret_cast<unsigned char*>(s.trips);
+  const CovPixel pix(tid, blockIdx.x);
+  for (int j = 0; j < kCovRowsPerThread; ++j) {
+    for (int c = 0; c < kCovCols; ++c) s.acc.v[j][c][tid] = 0.0f;
+  }
   for (int blk = 0; blk < nb; ++blk) {
     // The same test in every thread: the branch is uniform per block.
     if (!(bnd[2 * blk + 1] > tile_y0 && bnd[2 * blk] < tile_y1)) continue;
-    __syncthreads();   // the previous block's edges are no longer read
-    if (tid < kCovBlock) {
-      const int i = blk * kCovBlock + tid;
+    __syncthreads();   // the previous block's terms are no longer read
+    {
+      const int k = 32 * g + lane;
+      const int i = blk * kCovBlock + k;
       const float x0 = e[i];
       const float y0 = e[a.n_edges + i];
       const float x1 = e[2 * a.n_edges + i];
       const float y1 = e[3 * a.n_edges + i];
       const float dyd = y1 - y0;
-      s[tid] = x0;
-      s[kCovBlock + tid] = y0;
-      s[2 * kCovBlock + tid] = y1;
-      s[3 * kCovBlock + tid] =
+      const float slope =
           fabsf(dyd) < 1e-9f ? 0.0f : __fdiv_rn(x1 - x0, dyd);
-    }
-    __syncthreads();
-    float part[kCovRowsPerThread];
-    for (int j = 0; j < kCovRowsPerThread; ++j) part[j] = 0.0f;
-    for (int k = 0; k < kCovBlock; k += 4) {
-      for (int j = 0; j < kCovRowsPerThread; ++j) {
-        const float py = static_cast<float>(pix.row0 + j);
-        float p[4];
-        for (int u = 0; u < 4; ++u) {
-          p[u] = tiled_term(s[k + u], s[kCovBlock + k + u],
-                            s[2 * kCovBlock + k + u],
-                            s[3 * kCovBlock + k + u], px, py);
+      for (int j = 0; j < kCovTileH / 2; ++j) {
+        const int row = srow + j;
+        const float4 t = tiled_row_terms(
+            x0, y0, y1, slope, tile_y0 + static_cast<float>(row));
+        const bool cross = t.x != 0.0f;
+        s.t[row][k] = cross ? t : make_float4(0.0f, 0.0f, -INFINITY, 0.0f);
+        const unsigned m = __ballot_sync(0xffffffffu, cross);
+        unsigned tb = 0;
+        for (int q = 0; q < 8; ++q) {
+          tb |= ((m >> (4 * q)) & 0xfu) != 0u ? 1u << q : 0u;
         }
-        part[j] = part[j] + ((p[0] + p[1]) + (p[2] + p[3]));
+        if (lane == 0) {
+          trip_bytes[row * 4 + g] = static_cast<unsigned char>(tb);
+        }
       }
     }
-    for (int j = 0; j < kCovRowsPerThread; ++j) acc[j] = acc[j] + part[j];
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < kCovRowsPerThread; ++j) {
+      const int row = pix.half + j;
+      unsigned m = s.trips[row];
+      float part[kCovCols] = {};
+      while (m != 0u) {
+        const int u = __ffs(m) - 1;
+        m &= m - 1u;
+        const float4 t0 = s.t[row][4 * u];
+        const float4 t1 = s.t[row][4 * u + 1];
+        const float4 t2 = s.t[row][4 * u + 2];
+        const float4 t3 = s.t[row][4 * u + 3];
+#pragma unroll
+        for (int c = 0; c < kCovCols; ++c) {
+          const float px = pix.px[c];
+          part[c] = part[c] + ((tiled_pixel(t0, px) + tiled_pixel(t1, px)) +
+                               (tiled_pixel(t2, px) + tiled_pixel(t3, px)));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kCovCols; ++c) {
+        s.acc.v[j][c][tid] = s.acc.v[j][c][tid] + part[c];
+      }
+    }
   }
-  pix.store(a, acc);
+  pix.store(a, s.acc, tid);
 }
 
 // B11's staged terms of one 128-edge block: per row of the strip and

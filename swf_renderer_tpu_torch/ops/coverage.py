@@ -322,10 +322,11 @@ def coverage_banded(edges_t, height: int, width: int,
     ``device``: the card unless the caller asks for the CPU).
 
     Kernel: replaces ``_banded_kernel`` (swf_renderer_tpu/ops/
-    coverage.py:559).  One block per (plane, 16-row band, 128-column
-    tile) stages the band's window of sorted edges in shared memory; each
-    thread owns one column of 8 rows and adds the edges' contributions
-    one by one.  On the CPU ``banded_plain`` runs instead."""
+    coverage.py:559).  One block per (plane, 16-row band) and one or
+    more of its 128-column tiles stages the y-only terms of each (window
+    edge, row) whose clipped dy is nonzero in shared memory; each thread
+    owns four columns of two rows and adds those edges' contributions one
+    by one, in window order.  On the CPU ``banded_plain`` runs instead."""
     edges_t = _edges_tensor(edges_t, device)
     _check_rule(fill_rule)
     if edges_t.shape[-1] > SMEM_EDGE_CAP:
@@ -437,9 +438,10 @@ def coverage_tiled(edges_t, height: int, width: int,
     Kernel: replaces ``_coverage_kernel`` (swf_renderer_tpu/ops/
     coverage.py:169) in its production (``scalar_loop``) body.  One block
     per (plane, 16-row tile, 128-column tile) walks the 128-edge blocks,
-    skips those whose bounds miss its rows, stages each hit block's edges
-    and slopes in shared memory and sums it four edges a trip.  On the CPU
-    ``tiled_plain`` runs instead."""
+    skips those whose bounds miss its rows, stages each hit block's
+    y-only terms per (edge, row) in shared memory and sums it four edges
+    a trip, walking only the trips with an edge whose clipped dy is
+    nonzero.  On the CPU ``tiled_plain`` runs instead."""
     edges_t = _edges_tensor(edges_t, device)
     _check_rule(fill_rule)
     if edges_t.shape[-1] % EDGE_BLOCK:

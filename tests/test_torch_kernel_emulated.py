@@ -123,6 +123,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 // mma.sync fragment layouts of the PTX ISA, (lane, element i) -> (row,
 // col) of the tile; groupID = lane >> 2, threadID_in_group = lane & 3.
 inline void frag_a_bf16(int lane, int i, int& r, int& c) {   // 16 x 16
@@ -558,6 +559,11 @@ extern "C" void emulate_texfield(const unsigned char* img, float* tex,
   }
 }
 
+// Blocks a band of the banded kernel (gridDim.x; each walks the column
+// tiles it is given); 0: one a column tile.
+int emu_band_grid_x = 0;
+extern "C" void set_band_grid_x(int n) { emu_band_grid_x = n; }
+
 extern "C" void emulate_coverage(int tiled, const float* edges,
                                  const int* ranges, const float* bounds,
                                  float* out, int planes, int n_edges,
@@ -567,25 +573,25 @@ extern "C" void emulate_coverage(int tiled, const float* edges,
   a.planes = planes; a.n_edges = n_edges; a.height = height;
   a.width = width; a.tiles_y = (height + swf::kCovTileH - 1) / swf::kCovTileH;
   a.rule = rule;
-  std::vector<float> smem(4 * swf::kCovEdgeCap);
-  blockDim.x = swf::kCovThreads;
+  std::vector<float> smem(
+      std::max(sizeof(swf::BandedTerms), sizeof(swf::TiledTerms)) /
+      sizeof(float));
+  const int tiles_x = (width + swf::kCovTileW - 1) / swf::kCovTileW;
+  gridDim.x = tiled || emu_band_grid_x < 1
+                  ? tiles_x : std::min(emu_band_grid_x, tiles_x);
   for (int z = 0; z < planes; ++z)
     for (int y = 0; y < a.tiles_y; ++y)
-      for (int x = 0; x < (width + swf::kCovTileW - 1) / swf::kCovTileW;
-           ++x) {
+      for (int x = 0; x < static_cast<int>(gridDim.x); ++x) {
         std::fill(smem.begin(), smem.end(), -7.0f);   // stale contents
-        std::barrier<> bar(swf::kCovThreads);
-        std::vector<std::thread> threads;
-        for (int t = 0; t < swf::kCovThreads; ++t) {
-          threads.emplace_back([&, t] {
-            threadIdx.x = t;
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            block_barrier = &bar;
-            if (tiled) swf::tiled_block(a, smem.data());
-            else swf::banded_block(a, smem.data());
-          });
-        }
-        for (auto& th : threads) th.join();
+        run_block(swf::kCovThreads, x, y, z, [&] {
+          if (tiled) {
+            swf::tiled_block(a, *reinterpret_cast<swf::TiledTerms*>(
+                                    smem.data()));
+          } else {
+            swf::banded_block(a, *reinterpret_cast<swf::BandedTerms*>(
+                                     smem.data()));
+          }
+        });
       }
 }
 
@@ -899,6 +905,8 @@ def _build_emulator(d, csrc, extra=""):
     emu.emulate_coverage.restype = None
     emu.emulate_coverage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 5
+    emu.set_band_grid_x.restype = None
+    emu.set_band_grid_x.argtypes = [ctypes.c_int]
     emu.emulate_resolve.restype = None
     emu.emulate_resolve.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     emu.emulate_fused1.restype = None
