@@ -33,7 +33,8 @@ Phases, each of which exits non-zero on failure before the last line:
              1088x1920, solid and with a fading gradient layer), a
              morph-affine and a 16-ratio morph run at the same size, each
              timed (CUDA events, median of 5 after a warm-up) and held
-             against the plain version on every frame;
+             against the plain version on every frame (the affine sweep,
+             B3, word for word; the morph sweeps within 1 level);
 6. bitmaps — the texfield kernel against its plain version on random
              cases (repeat / clamp / canvas, bilinear / nearest,
              supersample 1/2/4, identity, rotated, skewed and far-zoomed
@@ -120,7 +121,8 @@ Phases, each of which exits non-zero on failure before the last line:
              dense1080's planes — and each kernel timed beside the column
              kernel (B3, B6) or the banded / tiled kernel (B9, B10) on the
              same inputs, ``compact_pre`` apart, every frame and plane
-             held against the plain versions;
+             held against the plain versions (B4's, like B3's in phases 5
+             and 6, word for word, and equal to B3's);
 11. probes — the variants of B1 that the reference's tools/exp_split.py
              cuts it into (modes full / place / resolve / none, none0,
              batched kk 4 / 8 / 16, merged) against their plain versions
@@ -184,9 +186,11 @@ builds DIR's kernels and compares every kernel's SASS with theirs, and
 B1 (headline), the styled kernel (renderer frame), its chain modes
 (deep1080 pass 1 of the solid and the styled arm, masked1080's fused
 pair and pre pass), the one-block kernel (headline_fused1), the exp_split
-cuts, the texfield kernel (yardstick, animtex, animtex1080) and the
+cuts, the texfield kernel (yardstick, animtex, animtex1080), the
 banded and tiled coverage kernels (direct1080, dense1080, the renderer's
-``direct`` route) are timed with DIR's build and with this one on the
+``direct`` route), the affine sweep B3 (anim1080 solid and styled, one
+interactive F = 1 frame) and its row bands B4 (anim1080 solid and
+styled, morph_affine1080) are timed with DIR's build and with this one on the
 same inputs, parent / change / change / parent (``report.json`` ``ab``
 and ``ab_sass``).
 
@@ -295,7 +299,7 @@ def phase_build():
         log(f"ptxas: {label}: {v['registers']} registers, {v['stack']} B "
             f"stack, {v['spill_stores']} B spill stores, "
             f"{v['spill_loads']} B spill loads")
-        if label.startswith(("B2", "B9", "B10")) and (
+        if (label.startswith(("B2", "B9", "B10")) or label in NO_STACK) and (
                 v["stack"] or v["spill_stores"] or v["spill_loads"]):
             fail(f"ptxas: {label} keeps a stack frame or spills: {v}")
         _HELD.setdefault("ptxas", {})[label] = v
@@ -312,7 +316,10 @@ def phase_build():
 # spill), the product forms', the windowed one's and the texfield
 # kernel's at animtex1080 (n 2, bilinear, repeat), and the banded (B9)
 # and tiled (B10) coverage kernels (phase 1 fails if these keep a stack
-# frame or spill, as for B2).
+# frame or spill, as for B2), and the affine sweep's column (B3,
+# sweep_tile_kernel<kStyled, kLc>) and row-band (B4, sweep_rows_kernel
+# <kMorph, kAffine, kStyled, kLc>) instantiations at anim1080 and
+# morph_affine1080 (the solid ones in NO_STACK).
 PTXAS_WATCH = {
     "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
     "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
@@ -328,7 +335,13 @@ PTXAS_WATCH = {
     "texfield n2 bilinear repeat": "texfield_kernelILi2ELb1ELi0E",
     "B9 banded": "banded_kernel",
     "B10 tiled": "tiled_kernel",
+    "B3 solid": "sweep_tile_kernelILb0ELi4E",
+    "B3 styled": "sweep_tile_kernelILb1ELi16E",
+    "B4 solid": "sweep_rows_kernelILb0ELb1ELb0ELi4E",
+    "B4 styled": "sweep_rows_kernelILb0ELb1ELb1ELi16E",
+    "B4 morph": "sweep_rows_kernelILb1ELb1ELb0ELi4E",
 }
+NO_STACK = ("B3 solid", "B4 solid", "B4 morph")
 
 
 def ab_times(torch, name, fn, lib="swfkernels"):
@@ -967,12 +980,17 @@ def premul_bytes(np, frame):
         [(x[..., :3] * x[..., 3:] + 127) // 255, x[..., 3:]], -1)
 
 
-def _check(torch, what, got, want):
+def _check(torch, what, got, want, exact=False):
+    """A sweep's frames against the plain version's: within TOL_LEVELS,
+    or with ``exact`` (B3, B4) equal word for word."""
     torch.cuda.synchronize()
     dmax, share = byte_diff(got, want)
-    log(f"sweeps: {what}: max diff {dmax}, differing bytes {share:.3g}")
-    if dmax > TOL_LEVELS:
-        fail(f"sweep kernel vs plain ({what}): {dmax} levels")
+    same = bool(torch.equal(got, want))
+    log(f"sweeps: {what}: max diff {dmax}, differing bytes {share:.3g}"
+        f"{', words equal' if same else ''}")
+    if dmax > TOL_LEVELS or (exact and not same):
+        fail(f"sweep kernel vs plain ({what}): {dmax} levels, words "
+             f"{'equal' if same else 'differ'}")
     return dmax
 
 
@@ -1013,7 +1031,7 @@ def sweeps_random(torch, np):
                 tag = rule if isinstance(rule, int) else "mixed"
                 worst["affine"] = max(worst["affine"], _check(
                     torch, f"affine {height}x{width} L={layers} rule={tag} "
-                    f"mats{tuple(mats.shape)}", got, want))
+                    f"mats{tuple(mats.shape)}", got, want, exact=True))
 
             # Styled: the paint kinds of phase 2, matrices and stops per
             # frame, field planes per frame.
@@ -1048,7 +1066,7 @@ def sweeps_random(torch, np):
                     torch, f"styled affine {height}x{width} L={layers} "
                     f"kinds={[p.kind for p in paints]} "
                     f"stops={'per-frame' if stops is not None else 'static'}",
-                    got, want))
+                    got, want, exact=True))
 
             # Morph + affine and the ratio sweep on the same pairs.
             pairs = [(s, s + rng.uniform(-9, 9, s.shape).astype(np.float32),
@@ -1285,9 +1303,10 @@ def morph_pairs(np):
     return [(s, e, a, b) for s, e, a, b in zip(start, end, c0, c1)]
 
 
-def _timed_sweep(torch, what, kernel, plain, counts_args, report):
+def _timed_sweep(torch, what, kernel, plain, counts_args, report,
+                 exact=False):
     """Time one full-width sweep, hold every frame against the plain
-    version, work out its bound."""
+    version (``exact``: word for word), work out its bound."""
     ms = time_ms(torch, kernel, reps=5)
     got = kernel()
     held = {}
@@ -1297,7 +1316,7 @@ def _timed_sweep(torch, what, kernel, plain, counts_args, report):
 
     plain_ms = time_ms(torch, plain_once, reps=1, warmup=0)
     dmax = _check(torch, f"{what}: all {got.shape[0]} frames", got,
-                  held.pop("want"))
+                  held.pop("want"), exact)
     nbytes, ops = sweep_work_counts(torch, *counts_args)
     bound_ms, bound_by = bound(nbytes, ops)
     pixels = got.numel()
@@ -1347,7 +1366,8 @@ def sweeps_full_width(torch, np, report):
     out = {"affine": _timed_sweep(
         torch, "anim1080", kernel, plain,
         (d_mats, d_tab, None, None, counts, height, width, rules, None,
-         None, (d_col,)), report)}
+         None, (d_col,)), report, exact=True)}
+    ab_times(torch, "affine_sweep B3 (anim1080)", kernel, "swfsweep")
     res = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1392,7 +1412,9 @@ def sweeps_full_width(torch, np, report):
     grad = _timed_sweep(
         torch, "anim1080_gradient", kernel_g, plain_g,
         (d_mats, d_tab, None, None, counts, height, width, rules, kpaints,
-         None, (d_col, d_gm, d_sc)), report)
+         None, (d_col, d_gm, d_sc)), report, exact=True)
+    ab_times(torch, "affine_sweep B3 styled (anim1080_gradient)", kernel_g,
+             "swfsweep")
     out["affine"]["max_abs_err"] = max(out["affine"]["max_abs_err"],
                                        grad["max_abs_err"])
 
@@ -1694,7 +1716,7 @@ def animtex_run(torch, np, what, height, width, frames, report):
                              width, rules, counts, paints=kpaints,
                              fields=fields_plain)
     dmax = _check(torch, f"{what}: all {frames} frames through the sweep",
-                  out, want)
+                  out, want, exact=True)
     covered = float((host[..., 3] > 0).mean())
     del fields_plain, want, out
     nbytes, ops = texfield_work(int(rest.shape[0]), height, width, 64 * 64,
@@ -1768,6 +1790,7 @@ def bitmaps_entry_points(torch, np, report):
         data=encode_x_swf_bmp2_argb(np.random.default_rng(11).integers(
             0, 256, (64, 64, 4)).astype(np.uint8)))
     total = 0
+    affine = 0   # B3's launches on these routes
 
     # (a) render_batch of the 60-stage rotating display list, bitmap layer.
     stages = rotating_stages(np, SWEEP_FRAMES, bitmap=small)
@@ -1780,6 +1803,7 @@ def bitmaps_entry_points(torch, np, report):
     batch_ms = (time.perf_counter() - t0) * 1e3
     got = read()
     total += got["texfield"]
+    affine += got["affine"]
     if (renderer.last_stats.path != "transform-sweep"
             or got["texfield"] != 1 or got["affine"] != 1):
         fail(f"render_batch with a bitmap layer: path "
@@ -1798,6 +1822,7 @@ def bitmaps_entry_points(torch, np, report):
                                   device=DEVICE)
     got = read()
     total += got["texfield"]
+    affine += got["affine"]
     if got["texfield"] != 1 or got["affine"] != 1 or not anim[..., 3].any():
         fail(f"render_shape_animation of a bitmap fill: launches {got}")
     log(f"bitmaps: render_shape_animation x8 of a bitmap fill: launches "
@@ -1874,6 +1899,7 @@ def bitmaps_entry_points(torch, np, report):
             probe_state = live._frame_sweep_state[1]
     got = read()
     total += got["texfield"]
+    affine += got["affine"]
     want_paths = ["flatblock"] + ["transform-sweep-1f"] * 29
     if paths != want_paths or got != {"texfield": 30, "affine": 29,
                                       "styled": 1}:
@@ -1891,13 +1917,15 @@ def bitmaps_entry_points(torch, np, report):
         "still_bound_ms": still_bound, "still_bound_by": still_by,
         "still_max_abs_err": still_err, "interactive_first_ms": walls[0],
         "interactive_median_ms": per_frame, "interactive_walls_ms": walls}
-    return total, still_err
+    return total, still_err, affine
 
 
 def _interactive_plain_check(torch, np, renderer, state, stage, frame):
     """One F = 1 sweep frame against the plain versions on the card: the
     texfield plane through texfield_plain, the sweep through
-    sweep_plain, on the renderer's cached pieces."""
+    sweep_plain, on the renderer's cached pieces; then B3 on the same
+    inputs (the field plane texfield_plain's) held to sweep_plain's words
+    and timed against the parent's build."""
     from swf_renderer_tpu_torch.ops import style as style_ops
     from swf_renderer_tpu_torch.ops import transform as sweep
     from swf_renderer_tpu_torch.ops.morph import morph_frames_to_u8
@@ -1917,11 +1945,22 @@ def _interactive_plain_check(torch, np, renderer, state, stage, frame):
         _up(torch, np, s.invs), *SWEEP_SIZE, s.paint.supersample,
         s.paint.repeating, s.paint.smoothed, s.paint.edge_mode)
         for s in specs])
+    d_mats, d_colors = _up(torch, np, mats), _up(torch, np, colors)
+    rules = sweep.layer_rules(state["rule"], len(draws))
     want = sweep.sweep_plain(
-        _up(torch, np, mats), state["tab"], None, None,
-        _up(torch, np, colors), None, *SWEEP_SIZE,
-        sweep.layer_rules(state["rule"], len(draws)), state["layer_counts"],
-        paints=kpaints, fields=fields)
+        d_mats, state["tab"], None, None, d_colors, None, *SWEEP_SIZE,
+        rules, state["layer_counts"], paints=kpaints, fields=fields)
+
+    def f1_sweep():
+        return sweep.render_affine_sweep(
+            d_mats, state["tab"], d_colors, *SWEEP_SIZE, fill_rule=rules,
+            layer_counts=state["layer_counts"], paints=kpaints,
+            fields=fields)
+
+    _check(torch, "interactive call 10, B3 F = 1 on the same inputs",
+           f1_sweep(), want, exact=True)
+    ab_times(torch, "affine_sweep B3 (interactive F = 1)", f1_sweep,
+             "swfsweep")
     want = morph_frames_to_u8(want, *SWEEP_SIZE)[0]
     diff = int(np.abs(want.astype(np.int32) - frame.astype(np.int32)).max())
     log(f"bitmaps: interactive call 10 vs plain versions: max diff {diff}")
@@ -1933,7 +1972,7 @@ def phase_bitmaps(torch, np, report):
     worst = texfield_random(torch, np)
     report["texfield_forms_cases"] = texfield_forms_random(torch, np)
     library_yardstick(torch, np, report)
-    launches, still_err = bitmaps_entry_points(torch, np, report)
+    launches, still_err, affine = bitmaps_entry_points(torch, np, report)
     small = animtex_run(torch, np, "animtex", *ANIMTEX, report)
     k = animtex_run(torch, np, "animtex1080", *SWEEP_SIZE, SWEEP_FRAMES,
                     report)
@@ -1942,7 +1981,7 @@ def phase_bitmaps(torch, np, report):
                              k["max_abs_err"]))
     if k["launches"] < 1:
         fail("texfield: no launch on the main path")
-    return {"texfield": k}
+    return {"texfield": k, "affine_launches": affine}
 
 
 # ---------------------------------------------------------------------------
@@ -3489,12 +3528,13 @@ COV_VS_OTHER_MAX = 2.5e-4     # every pixel
 COV_VS_OTHER_SHARE = {"direct1080": 5e-5, "dense1080": 3e-4}   # above TOL
 
 
-def _tiling_check(torch, what, got, want, column):
+def _tiling_check(torch, what, got, want, column, exact=False):
     """A tiling's frames against the plain version and against the column
-    kernel's frames on the same inputs (both expected byte-equal)."""
-    dmax = _check(torch, what, got, want)
+    kernel's frames on the same inputs (both expected byte-equal; with
+    ``exact``, B4's gate, held to equal words)."""
+    dmax = _check(torch, what, got, want, exact)
     cmax, share = byte_diff(got, column)
-    if cmax > TOL_LEVELS:
+    if cmax > TOL_LEVELS or (exact and not torch.equal(got, column)):
         fail(f"{what} vs the column kernel: {cmax} levels ({share:.3g})")
     return max(dmax, cmax)
 
@@ -3565,7 +3605,7 @@ def tilings_random(torch, np):
             column = sweep.render_affine_sweep(
                 *args, fill_rule=mixed, layer_counts=counts)
             worst["affine_rows"] = max(worst["affine_rows"], _tiling_check(
-                torch, f"rows {tag}", got, want, column))
+                torch, f"rows {tag}", got, want, column, exact=True))
             if row_styled:
                 kw = dict(fill_rule=mixed, layer_counts=counts, **row_styled)
                 got = sweep.render_affine_sweep(
@@ -3577,7 +3617,8 @@ def tilings_random(torch, np):
                 column = sweep.render_affine_sweep(
                     d_tracks, d_tab, colors, height, width, **kw)
                 worst["affine_rows"] = max(worst["affine_rows"], _tiling_check(
-                    torch, f"styled rows {tag}", got, want, column))
+                    torch, f"styled rows {tag}", got, want, column,
+                    exact=True))
 
             # B5: solid under one matrix track, styled under per-layer
             # tracks; the plan's bins, then 256- or 120-column bins.
@@ -3635,7 +3676,7 @@ def tilings_random(torch, np):
             worst["morph_affine_rows"] = max(
                 worst["morph_affine_rows"],
                 _tiling_check(torch, f"morph-affine rows {tag}", got, want,
-                              column))
+                              column, exact=True))
     return worst
 
 
@@ -3719,16 +3760,19 @@ def grouped_run(torch, np, what, d_edges, height, width, report):
 
 
 def _timed_tiling(torch, what, kernel, column, plain, counts_args, report,
-                  extra_bytes=0):
+                  extra_bytes=0, exact=False):
     """Time one full-width tiling beside the column kernel on the same
     inputs, hold every frame against the plain version and the column
-    kernel's frames, work out its bound."""
-    out = _timed_sweep(torch, what, kernel, plain, counts_args, report)
+    kernel's frames (``exact``: word for word), work out its bound."""
+    out = _timed_sweep(torch, what, kernel, plain, counts_args, report,
+                       exact)
     column_ms = time_ms(torch, column, reps=5)
     got = kernel()
-    cmax, share = byte_diff(got, column())
-    if cmax > TOL_LEVELS:
+    col = column()
+    cmax, share = byte_diff(got, col)
+    if cmax > TOL_LEVELS or (exact and not torch.equal(got, col)):
         fail(f"{what} vs the column kernel: {cmax} levels ({share:.3g})")
+    del col
     if extra_bytes:
         nbytes = report[what]["bytes"] + extra_bytes
         out["bound_ms"], out["bound_by"] = bound(nbytes, report[what]["ops"])
@@ -3869,11 +3913,14 @@ def tilings_full_width(torch, np, report, launches):
     grad_extra = (d_col, styled["grad_mats"], styled["stop_colors"])
     out["affine_rows"] = _timed_tiling(
         torch, "anim1080_rows", rows, column(), plain(),
-        counts_args + (None, None, (d_col,)), report)
+        counts_args + (None, None, (d_col,)), report, exact=True)
+    ab_times(torch, "affine_sweep_rows B4 (anim1080)", rows, "swfsweep")
     grad = _timed_tiling(
         torch, "anim1080_gradient_rows", lambda: rows(**styled),
         column(**styled), plain(**styled),
-        counts_args + (kpaints, None, grad_extra), report)
+        counts_args + (kpaints, None, grad_extra), report, exact=True)
+    ab_times(torch, "affine_sweep_rows B4 styled (anim1080_gradient)",
+             lambda: rows(**styled), "swfsweep")
     out["affine_rows"]["max_abs_err"] = max(out["affine_rows"]["max_abs_err"],
                                             grad["max_abs_err"])
     out["affine_compact"] = _timed_tiling(
@@ -3901,7 +3948,9 @@ def tilings_full_width(torch, np, report, launches):
         lambda: sweep.sweep_plain(dm[0], dm[2], dm[3], dm[1], dm[4], dm[5],
                                   height, width, mrules, mcounts),
         (dm[0], dm[2], dm[3], dm[1], mcounts, height, width, mrules, None,
-         None, (dm[4], dm[5])), report)
+         None, (dm[4], dm[5])), report, exact=True)
+    ab_times(torch, "morph_affine_sweep_rows B4 (morph_affine1080)",
+             morph_rows, "swfsweep")
     out["grouped"] = grouped_run(torch, np, "direct1080",
                                  *planes["direct1080"], report)
     dense_g = grouped_run(torch, np, "dense1080", *planes["dense1080"],
@@ -4838,7 +4887,11 @@ def main() -> None:
     for key, k in kernels.items():
         k["max_abs_err"] = max(k["max_abs_err"], worst[key])
     kernels.update(phase_sweeps(torch, np, report))
-    kernels.update(phase_bitmaps(torch, np, report))
+    bitmaps = phase_bitmaps(torch, np, report)
+    # B3's user routes: phase 5's render_batch, phase 6's render_batch,
+    # render_shape_animation and interactive loop.
+    kernels["affine"]["launches"] += bitmaps.pop("affine_launches")
+    kernels.update(bitmaps)
     kernels.update(phase_layered(torch, np, report))
     kernels.update(phase_flat_blocks(torch, np, report))
     kernels.update(phase_deep_masked(torch, np, report))

@@ -1,6 +1,7 @@
 // Animation sweep kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (ops/transform.py, ops/morph.py): the column
-// tiling (swf_sweep), the row-band tiling (swf_sweep_rows) and the
+// tiling (swf_sweep; its affine mode is B3, tile_sweep_block), the
+// row-band tiling (swf_sweep_rows, B4, tile_sweep_block) and the
 // compacted tiling (swf_sweep_compact).  The device logic and its design
 // notes live in sweep_device.cuh.
 //
@@ -30,10 +31,26 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs a) {
   sweep_block<kMorph, kAffine, kStyled>(a, smem);
 }
 
-template <bool kMorph, bool kAffine, bool kStyled>
-__global__ void __launch_bounds__(kThreads) sweep_rows_kernel(SweepArgs a) {
+template <bool kMorph, bool kAffine>
+__global__ void __launch_bounds__(kThreads) fine_bounds_kernel(SweepArgs a) {
+  __shared__ float red[2 * kThreads];
+  fine_bounds_block<kMorph, kAffine>(a, red);
+}
+
+// B3: the affine column sweep (solid: layer class kLc; styled).
+template <bool kStyled, int kLc>
+__global__ void __launch_bounds__(kThreads, tile_min_blocks(kStyled, kLc))
+    sweep_tile_kernel(SweepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sweep_rows_block<kMorph, kAffine, kStyled>(a, smem);
+  tile_sweep_block<false, true, kStyled, kLc, kLane>(a, smem);
+}
+
+// B4: the row bands.
+template <bool kMorph, bool kAffine, bool kStyled, int kLc>
+__global__ void __launch_bounds__(kThreads, tile_min_blocks(kStyled, kLc))
+    sweep_rows_kernel(SweepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  tile_sweep_block<kMorph, kAffine, kStyled, kLc, kRowChunk>(a, smem);
 }
 
 template <bool kStyled>
@@ -61,23 +78,54 @@ cudaError_t launch_sweep(SweepArgs a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kMorph, bool kAffine, bool kStyled>
-cudaError_t launch_sweep_rows(SweepArgs a, cudaStream_t stream) {
-  a.rows = sweep_tile_rows(a.layers, kRowChunk);
-  const size_t bytes = sweep_smem_bytes(a.layers, a.rows, kStyled, kRowChunk,
-                                        true);
+// B3 (kTileW = kLane: a block a run of 128-column tiles, tile_run) and
+// B4 (kTileW = kRowChunk: a block a band of rows), after the pre-pass of
+// kFineChunk-piece bounds; the solid forms in the layer class of B1
+// (4 up to four layers, else 16).
+template <bool kMorph, bool kAffine, bool kStyled, int kLc, int kTileW>
+cudaError_t launch_tiles(SweepArgs a, cudaStream_t stream) {
+  a.rows = tile_rows(a.layers, kTileW);
+  a.n_chunks = (a.ep + kFineChunk - 1) / kFineChunk;
+  const size_t bytes = tile_smem_bytes(a.layers, a.rows, kTileW, kStyled);
+  constexpr bool kBand = kTileW != kLane;
+  void (*kernel)(SweepArgs);
+  if constexpr (kBand) {
+    kernel = sweep_rows_kernel<kMorph, kAffine, kStyled, kLc>;
+  } else {
+    kernel = sweep_tile_kernel<kStyled, kLc>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_rows_kernel<kMorph, kAffine, kStyled>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  sweep_bounds_kernel<kMorph, kAffine>
-      <<<dim3(a.n_chunks, a.layers, a.frames), kSweepChunk, 0, stream>>>(a);
+  fine_bounds_kernel<kMorph, kAffine>
+      <<<dim3((a.ep + kThreads - 1) / kThreads, a.layers, a.frames),
+         kThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(1, (a.height + a.rows - 1) / a.rows, a.frames);
-  sweep_rows_kernel<kMorph, kAffine, kStyled>
-      <<<grid, kThreads, bytes, stream>>>(a);
+  const int bands = (a.height + a.rows - 1) / a.rows;
+  const int tiles = (a.width + kLane - 1) / kLane;
+  a.bins_per_block = kBand ? 1 : tile_run(a.frames, bands, tiles);
+  const dim3 grid(kBand ? 1 : (tiles + a.bins_per_block - 1)
+                                  / a.bins_per_block,
+                  bands, a.frames);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kMorph, bool kAffine, bool kStyled, int kTileW>
+cudaError_t launch_tiles_lc(SweepArgs a, cudaStream_t stream) {
+  if constexpr (kStyled) {   // layer by layer at any count
+    return launch_tiles<kMorph, kAffine, true, kMaxLayers, kTileW>(a,
+                                                                   stream);
+  } else {
+    if (solid_layer_class(a.layers) != kSolidSmallLayers) {
+      return launch_tiles<kMorph, kAffine, false, kMaxLayers, kTileW>(
+          a, stream);
+    }
+    return launch_tiles<kMorph, kAffine, false, kSolidSmallLayers, kTileW>(
+        a, stream);
+  }
 }
 
 template <bool kStyled>
@@ -134,7 +182,7 @@ extern "C" {
 
 // mode 0: affine sweep (styled when pint is not null); mode 1: morph +
 // affine sweep; mode 2: morph ratio sweep (no matrices).  Tables are
-// (L, 4, EP) f32; bounds is scratch of F * L * ceil(EP / 64) * 2 floats;
+// (L, 4, EP) f32; bounds is scratch of F * L * ceil(EP / 16) * 2 floats;
 // out is (F, H, W) int32 holding packed u32 RGBA.
 int swf_sweep(int mode, const void* mats, const void* tab_s,
               const void* tab_e, const void* ratios, const void* colors,
@@ -165,8 +213,9 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mode == 0) {
-    err = pint != nullptr ? swf::launch_sweep<false, true, true>(a, s)
-                          : swf::launch_sweep<false, true, false>(a, s);
+    err = pint != nullptr
+        ? swf::launch_tiles_lc<false, true, true, swf::kLane>(a, s)
+        : swf::launch_tiles_lc<false, true, false, swf::kLane>(a, s);
   } else if (mode == 1) {
     err = swf::launch_sweep<true, true, false>(a, s);
   } else {
@@ -207,10 +256,11 @@ int swf_sweep_rows(int mode, const void* mats, const void* tab_s,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mode == 1) {
-    err = swf::launch_sweep_rows<true, true, false>(a, s);
+    err = swf::launch_tiles_lc<true, true, false, swf::kRowChunk>(a, s);
   } else {
-    err = pint != nullptr ? swf::launch_sweep_rows<false, true, true>(a, s)
-                          : swf::launch_sweep_rows<false, true, false>(a, s);
+    err = pint != nullptr
+        ? swf::launch_tiles_lc<false, true, true, swf::kRowChunk>(a, s)
+        : swf::launch_tiles_lc<false, true, false, swf::kRowChunk>(a, s);
   }
   return static_cast<int>(err);
 }

@@ -4,15 +4,16 @@
 //
 // Replaces five TPU kernels:
 //   * `_xform_kernel` (swf_renderer_tpu/ops/transform.py:586, pallas_call
-//     :1710) — the affine sweep, solid and styled (sweep_block,
-//     kMorph=false, kAffine=true);
+//     :1710) — the affine sweep, solid and styled (B3: tile_sweep_block,
+//     kTileW = kLane; redesigned, see the section at the end);
 //   * `_xform_kernel(morph=True)` (same file, pallas_call :1875) — the
 //     morph + affine sweep (sweep_block, kMorph=true, kAffine=true);
 //   * `_morph_kernel` (swf_renderer_tpu/ops/morph.py:98, pallas_call :213)
 //     — the morph ratio sweep (sweep_block, kMorph=true, kAffine=false);
 //   * `_xform_kernel_rows` (transform.py:1012, pallas_call :1710 and
-//     :1875) — the row-grid sweep (sweep_rows_block): one block owns a
-//     band of rows of one frame across the full width;
+//     :1875) — the row-grid sweep (B4: tile_sweep_block, kTileW =
+//     kRowChunk): one block owns a band of rows of one frame across the
+//     full width;
 //   * `_xform_kernel(compact=True)` (transform.py:586, pallas_call :1514)
 //     — the compacted sweep (sweep_compact_block): one block walks only
 //     the pieces a host-planned pre-pass gathered for its column bin.
@@ -52,8 +53,11 @@
 // with per-thread arrays and 16-way unrolled paint code ran the styled
 // kernel at 3x the solid one on the card.
 //
-// The two tilings of the same function, both byte-equal to the column
-// kernel because every pixel still sums the same integers:
+// The generic form below (sweep_block, sweep_walk, sweep_resolve) runs
+// the morph sweeps (B6, B7) and, with the compacted tiling, B5; B3 and B4
+// run the redesigned tile_sweep_block at the end of this file.  The two
+// tilings of the same function, both byte-equal to the column kernel
+// because every pixel still sums the same integers:
 //   * rows (B4): a block owns a band of rows and sweeps the width in
 //     kRowChunk-column chunks, carrying each row's exact winding from chunk
 //     to chunk (the TPU's "cheap plane" of left pieces becomes that
@@ -77,8 +81,9 @@
 // read every piece from L2), the setup and the serial row prefix; a tile
 // no piece reaches skips prefix and resolve and writes zeros.
 //
-// Tolerance against the plain version on the card: at most 1 u8 level
-// (chip_smoke.py); by construction byte-equal.  Rounding as in
+// Tolerance against the plain version on the card: B3 and B4 equal words
+// (chip_smoke.py), the others at most 1 u8 level; by construction all
+// byte-equal.  Rounding as in
 // flatblock_device.cuh: op-by-op IEEE f32, -fmad=false, rintf, floored
 // modulo.
 
@@ -172,7 +177,7 @@ struct SweepShared {
   int* hits;          // (kSweepMaxHits,) hit (layer, chunk) pairs
   int* pint;          // styled: (L, kPintStride)
   float* pflt;        // styled: (L, kPfltStride)
-  long long* carry;   // row bands: (L, rows) winding carried across chunks
+  long long* carry;   // (L, rows) each row's winding left of the tile
 };
 
 __device__ inline SweepShared sweep_carve(unsigned char* smem, int layers,
@@ -630,61 +635,6 @@ __device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
   sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, tile_w);
 }
 
-// Row-band tiling (B4): a.rows rows of frame blockIdx.z across the whole
-// width, in chunks of kRowChunk columns; each row's winding at a chunk's
-// last column seeds the next chunk's first column.
-template <bool kMorph, bool kAffine, bool kStyled>
-__device__ void sweep_rows_block(const SweepArgs& a, unsigned char* smem) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int L = a.layers;
-  const int R = a.rows;
-  const int stride = kRowChunk + 1;
-  const int r0 = blockIdx.y * R;
-  const int f = blockIdx.z;
-  const int r1 = min(r0 + R, a.height);
-  const int tile_h = r1 - r0;
-  const SweepShared s = sweep_carve(smem, L, R, kRowChunk, kStyled, true);
-  const float t = kMorph ? a.ratios[f] : 0.0f;
-  const float omt = 1.0f - t;
-
-  for (int i = tid; i < L * R; i += nthr) s.carry[i] = 0;
-  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);
-  for (int c0 = 0; c0 < a.width; c0 += kRowChunk) {
-    const int c1 = min(c0 + kRowChunk, a.width);
-    __syncthreads();   // the previous chunk's resolve has read the planes
-    if (tid == 0) *s.touched = 0;
-    for (int i = tid; i < L * R * stride; i += nthr) s.plane[i] = 0;
-    __syncthreads();
-    if (c0 > 0) {
-      for (int i = tid; i < L * tile_h; i += nthr) {
-        const int l = i / tile_h;
-        const int r = i % tile_h;
-        const long long q = s.carry[l * R + r];
-        if (q != 0) {
-          s.plane[(static_cast<long long>(l) * R + r) * stride] = q;
-          *s.touched = 1;
-        }
-      }
-    }
-    sweep_walk<kMorph, kAffine, false>(a, s, f, 0, t, omt, stride, r0, r1,
-                                       c0, c1, c0 > 0);
-    __syncthreads();
-    // Untouched: every winding of the chunk is 0, and so is the carry.
-    if (*s.touched == 0) {
-      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);
-      continue;
-    }
-    sweep_row_prefix(s.plane, L * R, stride);
-    __syncthreads();
-    for (int i = tid; i < L * R; i += nthr) {
-      s.carry[i] = s.plane[static_cast<long long>(i) * stride + stride - 2];
-    }
-    __syncthreads();
-    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);
-  }
-}
-
 // Compacted tiling (B5): bins blockIdx.x * bins_per_block + k of
 // a.bin_w columns, a.rows rows of frame blockIdx.z; each row starts from
 // the prefix plane's dy of the pieces wholly left of the bin, and the
@@ -733,6 +683,761 @@ __device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
     sweep_row_prefix(s.plane, L * R, stride);
     __syncthreads();
     sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);
+  }
+}
+
+// --- B3 and B4: the affine sweep redesigned for this card ---------------
+//
+// tile_sweep_block replaces sweep_block for the column sweep (B3: the
+// affine sweep, solid and styled, kTileW = kLane) and sweep_rows_block
+// for the row bands (B4: solid, styled, morph + affine, kTileW =
+// kRowChunk, a band's chunks in turn).  Redesigned from clock64 readings
+// of the generic body (PERF.md §6): at anim1080 a tile read ~1300
+// pieces (64-piece chunks span many rows), ~180 of them wholly left of
+// the tile added dy at its first column through 64-bit shared atomics
+// (compare-and-swap loops), which also marked the tile as reached, so
+// the serial row prefix and the two-pass resolve ran on two thirds of
+// the tiles, where three quarters have all windings 0.  So
+//   - a pre-pass (fine_bounds_block) writes row bounds of kFineChunk-piece
+//     chunks: a tile walks ~2.5x fewer pieces;
+//   - differences go in as two native 32-bit atomics (add_fixed), and a
+//     piece wholly left of the tile adds its step to dy to its row's
+//     carry, not to a column, without marking the tile; a tile that no
+//     piece crosses and whose rows' carries are all 0 has every winding
+//     0 and writes zeros;
+//   - a warp scans a row (4 columns a lane, a shuffle scan of the lane
+//     totals, the carry added at the front): integer sums, so the same
+//     integers as the serial prefix; the solid composite of kLc <= 4
+//     layers runs on those windings in registers (tile_composite, B1's
+//     solid_composite op for op); the styled resolve and more layers read
+//     them from the plane slots, layer by layer (tile_layered, B2's
+//     order); a pixel whose windings are all 0 writes 0 at once;
+//   - the frame's tables load while the planes are zeroed (tile_setup),
+//     and on large grids a B3 block walks five column tiles of its band
+//     (one hit list, one set-up); the words go out 16 bytes a store.
+// Every pixel sums the same integers as sweep_plain's index_add_ and
+// composites in composite_quantize_pack's order: byte-equal (the zero
+// shortcuts take the colours and paints as finite, as the generic form's
+// untouched tiles do).
+
+constexpr int kFineChunk = 16;                 // pieces a row-bounds chunk
+constexpr size_t kTileSmemBudget = 100 * 1024;   // a block's planes
+// Blocks an SM the kernels' register bound asks for.  Up to 4 layers
+// the planes fill the budget and leave room for two blocks, so the
+// styled and small-class forms may take 128 registers a thread (without
+// a bound ptxas kept the styled ones at 80, with spills); the 16-layer
+// class's shorter planes leave room for three, as its 80 registers did.
+__host__ __device__ constexpr int tile_min_blocks(bool styled, int lc) {
+  return styled || lc <= kSolidSmallLayers ? 2 : 3;
+}
+// B3 blocks walk kTileRun column tiles of their band in turn (its hit
+// list built once, the frame's tables loaded once) when the grid keeps
+// at least kTileRunBlocks blocks; one tile a block otherwise.
+constexpr int kTileRun = 5;
+constexpr long long kTileRunBlocks = 2048;
+
+__host__ __device__ inline int tile_run(int frames, int bands, int tiles) {
+  const long long blocks = static_cast<long long>(frames) * bands
+      * ((tiles + kTileRun - 1) / kTileRun);
+  return blocks >= kTileRunBlocks ? kTileRun : 1;
+}
+
+// Rows of a tile (B3) or band (B4): the most (a power of two, at most
+// kSweepMaxRows) whose layer planes of tile_w long longs fit the budget.
+__host__ __device__ inline int tile_rows(int layers, int tile_w) {
+  int rows = kSweepMaxRows;
+  while (rows > 1 && static_cast<size_t>(layers) * rows * tile_w * 8
+                         > kTileSmemBudget) {
+    rows /= 2;
+  }
+  return rows;
+}
+
+__host__ __device__ inline size_t tile_zeroed_bytes(int layers, int rows,
+                                                    int tile_w) {
+  return align16(static_cast<size_t>(layers) * rows * tile_w * 8) +
+         align16(static_cast<size_t>(layers) * rows * 8);
+}
+
+// Shared-memory carve-up: planes (rows of tile_w long longs, 16-byte
+// aligned for the scan's vector loads), each row's carry, then
+// sweep_smem_bytes's colours, matrices, rules and flags, hit list and
+// (styled) paint records.
+__host__ __device__ inline size_t tile_smem_bytes(int layers, int rows,
+                                                  int tile_w, bool styled) {
+  size_t n = tile_zeroed_bytes(layers, rows, tile_w);
+  n += align16(static_cast<size_t>(layers) * 4 * 4);
+  n += align16(static_cast<size_t>(layers) * 6 * 4);
+  n += align16(static_cast<size_t>(layers + 2) * 4);
+  n += align16(static_cast<size_t>(kSweepMaxHits) * 4);
+  if (styled) {
+    n += align16(static_cast<size_t>(layers) * kPintStride * 4);
+    n += align16(static_cast<size_t>(layers) * kPfltStride * 4);
+  }
+  return n;
+}
+
+__device__ inline SweepShared tile_carve(unsigned char* smem, int layers,
+                                         int rows, int tile_w, bool styled) {
+  SweepShared s{};
+  s.plane = reinterpret_cast<long long*>(smem);
+  size_t off = align16(static_cast<size_t>(layers) * rows * tile_w * 8);
+  s.carry = reinterpret_cast<long long*>(smem + off);
+  off = tile_zeroed_bytes(layers, rows, tile_w);
+  s.col = reinterpret_cast<float*>(smem + off);
+  off += align16(static_cast<size_t>(layers) * 4 * 4);
+  s.mat = reinterpret_cast<float*>(smem + off);
+  off += align16(static_cast<size_t>(layers) * 6 * 4);
+  s.rule = reinterpret_cast<int*>(smem + off);
+  s.touched = s.rule + layers;
+  s.n_hits = s.touched + 1;
+  off += align16(static_cast<size_t>(layers + 2) * 4);
+  s.hits = reinterpret_cast<int*>(smem + off);
+  off += align16(static_cast<size_t>(kSweepMaxHits) * 4);
+  if (styled) {
+    s.pint = reinterpret_cast<int*>(smem + off);
+    off += align16(static_cast<size_t>(layers) * kPintStride * 4);
+    s.pflt = reinterpret_cast<float*>(smem + off);
+  }
+  return s;
+}
+
+// Pre-pass of B3 and B4, one block of blockDim.x pieces per (piece run,
+// layer, frame): the lowest and highest row base of each kFineChunk-piece
+// chunk (the reduction of sweep_bounds_block over shorter chunks; bounds
+// is (F, L, n_chunks, 2) with n_chunks = ceil(ep / kFineChunk)).
+template <bool kMorph, bool kAffine>
+__device__ void fine_bounds_block(const SweepArgs& a, float* red) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int l = blockIdx.y;
+  const int f = blockIdx.z;
+  const int p = blockIdx.x * nthr + tid;
+  float lo = 3.0e38f;
+  float hi = -3.0e38f;
+  if (p < min(a.counts[l], a.ep)) {
+    const float t = kMorph ? a.ratios[f] : 0.0f;
+    const float* M = nullptr;
+    if (kAffine) {
+      M = a.mats + (a.mats_per_layer
+                        ? (static_cast<long long>(f) * a.layers + l) * 6
+                        : static_cast<long long>(f) * 6);
+    }
+    float x0, y0, x1, y1;
+    device_piece<kMorph, kAffine>(
+        a.tab_s + static_cast<long long>(l) * 4 * a.ep,
+        kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep : nullptr,
+        a.ep, p, t, 1.0f - t, M, x0, y0, x1, y1);
+    lo = hi = floorf(fminf(y0, y1));
+  }
+  red[tid] = lo;
+  red[nthr + tid] = hi;
+  __syncthreads();
+  for (int s = kFineChunk / 2; s > 0; s /= 2) {
+    if (tid % kFineChunk < s) {
+      red[tid] = fminf(red[tid], red[tid + s]);
+      red[nthr + tid] = fmaxf(red[nthr + tid], red[nthr + tid + s]);
+    }
+    __syncthreads();
+  }
+  const int chunk = p / kFineChunk;
+  if (tid % kFineChunk == 0 && chunk < a.n_chunks) {
+    float* b = a.bounds + ((static_cast<long long>(f) * a.layers + l)
+                           * a.n_chunks + chunk) * 2;
+    b[0] = red[tid];
+    b[1] = red[nthr + tid];
+  }
+}
+
+// Adds q to a 32.32 slot as two native 32-bit shared atomics (a 64-bit
+// shared atomicAdd is a compare-and-swap loop on this card): the adder
+// whose add wraps the low word carries one into the high word, so the
+// slot ends as the same sum modulo 2^64 in any order.
+__device__ __forceinline__ void add_fixed(long long* slot, long long q) {
+  const unsigned long long u = static_cast<unsigned long long>(q);
+  unsigned* w = reinterpret_cast<unsigned*>(slot);
+  const unsigned lo = static_cast<unsigned>(u);
+  unsigned hi = static_cast<unsigned>(u >> 32);
+  if (lo != 0u) {
+    const unsigned old = atomicAdd(&w[0], lo);
+    hi += old + lo < old ? 1u : 0u;
+  }
+  if (hi != 0u) atomicAdd(&w[1], hi);
+}
+
+// One device-space piece into a tile (B3) or a band's chunk (B4):
+// scatter_piece's terms and values, operation for operation, the
+// differences added by add_fixed.  Without ``carry`` a piece wholly left
+// of the tile (hi <= c0: its value at c0 is dy) adds to_fixed(dy) to its
+// row's carry, which the scan adds at the row's front, and leaves the
+// tile unmarked; a piece that reaches the tile's columns marks it.
+__device__ __forceinline__ void tile_scatter(
+    float x0, float y0, float x1, float y1, int r0, int c0, float r0f,
+    float r1f, float c0f, float c1f, bool carry, long long* lplane,
+    int stride, long long* lcarry, int* touched_s) {
+  const float rowbase = floorf(fminf(y0, y1));
+  for (int k = 0; k < 2; ++k) {
+    const float py = rowbase + static_cast<float>(k);
+    if (!(py >= r0f && py < r1f)) continue;
+    const float sy0 = y0 - py;
+    const float sy1 = y1 - py;
+    const float cy0 = clamp01(sy0);
+    const float cy1 = clamp01(sy1);
+    const float dy = cy1 - cy0;
+    if (dy == 0.0f) continue;
+    const float dyd = sy1 - sy0;
+    const float safe = fabsf(dyd) < 1e-9f ? 1.0f : dyd;
+    const float t0 = (cy0 - sy0) / safe;
+    const float t1 = (cy1 - sy0) / safe;
+    const float dxs = x1 - x0;
+    const float xa = x0 + t0 * dxs;
+    const float xb = x0 + t1 * dxs;
+    const float xmn = fminf(xa, xb);
+    const float xmx = fmaxf(xa, xb);
+    const float lo = floorf(xmn);
+    const float hi = ceilf(xmx);
+    if (lo >= c1f) continue;    // the ramp starts right of the tile
+    if (carry && hi <= c0f - 1.0f) continue;   // complete before c0 - 1
+    const int ri = static_cast<int>(py) - r0;
+    if (!carry && hi <= c0f) {
+      add_fixed(&lcarry[ri], to_fixed(dy));
+      continue;
+    }
+    const float span = xmx - xmn;
+    const bool thin = span < 1e-9f;
+    const float safe_span = thin ? 1.0f : span;
+    // The piece's value at pixel column px.
+    auto value = [&](float px) {
+      float v = dy;
+      if (px < hi) {
+        const float rel_mn = xmn - px;
+        const float rel_mx = xmx - px;
+        const float mean = thin
+            ? clamp01(0.5f * (rel_mn + rel_mx))
+            : (h01(rel_mx) - h01(rel_mn)) / safe_span;
+        v = dy * (1.0f - mean);
+      }
+      return v;
+    };
+    const int xs = static_cast<int>(fmaxf(lo, c0f));
+    const int xe = static_cast<int>(
+        fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
+    long long* row = lplane + ri * stride;
+    *touched_s = 1;
+    long long prev = (carry && lo < c0f) ? to_fixed(value(c0f - 1.0f)) : 0;
+    for (int x = xs; x <= xe; ++x) {
+      const long long q = to_fixed(value(static_cast<float>(x)));
+      add_fixed(&row[x - c0], q - prev);
+      prev = q;
+    }
+  }
+}
+
+// The hit list of pairs [base, base + kSweepMaxHits) of L x n_chunks:
+// (layer, chunk) pairs whose row bounds reach rows [r0, r1) (a chunk
+// past its layer's count has the empty bounds +-3e38).  Returns the
+// count; ends synchronised.
+__device__ __forceinline__ int tile_hits(const SweepShared& s,
+                                         const float* bounds, int base,
+                                         int n_pairs, float r0f, float r1f) {
+  const int tid = threadIdx.x;
+  if (tid == 0) *s.n_hits = 0;
+  __syncthreads();
+  for (int pair = base + tid; pair < min(base + kSweepMaxHits, n_pairs);
+       pair += blockDim.x) {
+    if (bounds[2 * pair + 1] >= r0f - 1.0f && bounds[2 * pair] < r1f) {
+      s.hits[atomicAdd(s.n_hits, 1)] = pair;
+    }
+  }
+  __syncthreads();
+  return *s.n_hits;
+}
+
+// The listed chunks' pieces, kFineChunk threads a chunk, into the tile:
+// rows [r0, r1), columns [c0, c1) of frame f.
+template <bool kMorph, bool kAffine>
+__device__ __forceinline__ void tile_place(const SweepArgs& a,
+                                           const SweepShared& s, int n_hits,
+                                           float t, float omt, int stride,
+                                           int r0, int r1, int c0, int c1,
+                                           bool carry) {
+  const int tid = threadIdx.x;
+  const int R = a.rows;
+  const float c0f = static_cast<float>(c0);
+  const float c1f = static_cast<float>(c1);
+  const float r0f = static_cast<float>(r0);
+  const float r1f = static_cast<float>(r1);
+  for (int h = tid / kFineChunk; h < n_hits;
+       h += blockDim.x / kFineChunk) {
+    const int l = s.hits[h] / a.n_chunks;
+    const int p = (s.hits[h] % a.n_chunks) * kFineChunk + tid % kFineChunk;
+    if (p >= min(a.counts[l], a.ep)) continue;
+    float x0, y0, x1, y1;
+    device_piece<kMorph, kAffine>(
+        a.tab_s + static_cast<long long>(l) * 4 * a.ep,
+        kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep : nullptr,
+        a.ep, p, t, omt, s.mat + l * 6, x0, y0, x1, y1);
+    tile_scatter(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f, carry,
+                 s.plane + static_cast<long long>(l) * R * stride, stride,
+                 s.carry + l * R, s.touched);
+  }
+}
+
+// B1's solid_composite (composite_pack's arithmetic, operation for
+// operation) over windings wind(l) and straight colours colour(l).
+template <bool kExact, int kLc, typename WindFn, typename ColourFn>
+__device__ __forceinline__ uint32_t tile_composite(WindFn wind,
+                                                   ColourFn colour,
+                                                   unsigned eo, int L) {
+  float cas[kLc];
+  float4 cl[kLc];
+#pragma unroll
+  for (int l = 0; l < kLc; ++l) {
+    if (kExact || l < L) {
+      cl[l] = colour(l);
+      cas[l] = cl[l].w * fill_cov(wind(l), static_cast<int>((eo >> l) & 1u));
+    }
+  }
+  float wgt[kLc];
+  float suffix = 1.0f;
+  bool top = true;   // the front-most layer: its weight is its cas
+#pragma unroll
+  for (int l = kLc - 1; l >= 0; --l) {
+    if (kExact || l < L) {
+      if (kExact ? l == kLc - 1 : top) {
+        wgt[l] = cas[l];
+        suffix = 1.0f - cas[l];
+      } else {
+        wgt[l] = cas[l] * suffix;
+        suffix = suffix * (1.0f - cas[l]);
+      }
+      top = false;
+    }
+  }
+  float alpha_out = wgt[0];
+#pragma unroll
+  for (int l = 1; l < kLc; ++l) {
+    if (kExact || l < L) alpha_out = alpha_out + wgt[l];
+  }
+  float pm[3];
+  pm[0] = cl[0].x * wgt[0];
+  pm[1] = cl[0].y * wgt[0];
+  pm[2] = cl[0].z * wgt[0];
+#pragma unroll
+  for (int l = 1; l < kLc; ++l) {
+    if (kExact || l < L) {
+      pm[0] = pm[0] + cl[l].x * wgt[l];
+      pm[1] = pm[1] + cl[l].y * wgt[l];
+      pm[2] = pm[2] + cl[l].z * wgt[l];
+    }
+  }
+  return quantize_pack(alpha_out, pm);
+}
+
+// Words of the lane's four pixels from x on (px0 its first word),
+// those at tile columns < tile_w: 16 bytes a store when rows are.
+__device__ __forceinline__ void tile_store(const SweepArgs& a, long long px0,
+                                           int cl, int tile_w,
+                                           const uint32_t* w) {
+  if (cl + 3 < tile_w && a.width % 4 == 0) {
+    *reinterpret_cast<int4*>(a.out + px0) = make_int4(
+        static_cast<int>(w[0]), static_cast<int>(w[1]),
+        static_cast<int>(w[2]), static_cast<int>(w[3]));
+  } else {
+    for (int k = 0; k < 4 && cl + k < tile_w; ++k) {
+      a.out[px0 + k] = static_cast<int>(w[k]);
+    }
+  }
+}
+
+// The resolve of the lane's four pixels layer by layer (B2's single
+// pass): the styled one (kPaint: gradient and field paints) and the
+// solid one above 4 layers.  The plane slots of the row hold the
+// windings as floats (the first word of each long long), then the
+// weights; pixel k is column c0 + cl + k of row y.  A pixel whose
+// windings are all 0 is transparent black whatever its (finite) paints:
+// its word is 0 without the composite.
+template <bool kPaint>
+__device__ __forceinline__ void tile_layered(const SweepArgs& a,
+                                             const SweepShared& s, int r,
+                                             int y, long long pix, int cl,
+                                             int tile_w, int stride,
+                                             uint32_t* words) {
+  const int L = a.layers;
+  const int R = a.rows;
+  const float py = static_cast<float>(y) + 0.5f;
+  const float px = static_cast<float>(pix % a.width) + 0.5f;
+  const long long plane_px =
+      static_cast<long long>(a.frames) * a.height * a.width;
+  auto slots = [&](int l) {
+    return reinterpret_cast<float*>(
+        s.plane + (static_cast<long long>(l) * R + r) * stride + cl);
+  };
+  auto field = [&](const int* I) {
+    return reinterpret_cast<const float4*>(a.fields)
+        + static_cast<long long>(I[3]) * plane_px + pix;
+  };
+  bool blank[4] = {true, true, true, true};
+  for (int l = 0; l < L; ++l) {
+    const float* w = slots(l);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) blank[k] = blank[k] && w[2 * k] == 0.0f;
+  }
+  if (blank[0] && blank[1] && blank[2] && blank[3]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) words[k] = 0u;
+    return;
+  }
+  // Top down: each layer's weight cas * (the suffix product of the
+  // layers above it), into its slots.
+  float suffix[4];
+  for (int l = L - 1; l >= 0; --l) {
+    const int* I = kPaint ? s.pint + l * kPintStride : nullptr;
+    const float* P = kPaint ? s.pflt + l * kPfltStride : nullptr;
+    const int rule = s.rule[l];
+    const float col_a = s.col[4 * l + 3];
+    float* w = slots(l);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float cov = fill_cov(w[2 * k], rule);
+      float alpha = col_a;
+      // An uncovered pixel-layer weighs exactly 0 whatever its paint.
+      if (kPaint && cov != 0.0f && cl + k < tile_w) {
+        if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+          const float tg = grad_t(P, I, px + static_cast<float>(k), py);
+          alpha = grad_ramp(P, I[2], tg, 3);
+        } else if (I[0] == kPaintField) {
+          alpha = field(I)[k].w;
+        }
+      }
+      const float cas = alpha * cov;
+      if (l == L - 1) {
+        w[2 * k] = cas;
+        suffix[k] = 1.0f - cas;
+      } else {
+        w[2 * k] = cas * suffix[k];
+        suffix[k] = suffix[k] * (1.0f - cas);
+      }
+    }
+  }
+  // Bottom up: alpha and the premultiplied channels, summed left to
+  // right (a weight of 0 adds exactly 0 whatever its colour).
+  float alpha_out[4];
+  float pm[4][3];
+  for (int l = 0; l < L; ++l) {
+    const int* I = kPaint ? s.pint + l * kPintStride : nullptr;
+    const float* P = kPaint ? s.pflt + l * kPfltStride : nullptr;
+    const float* w = slots(l);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float wgt = w[2 * k];
+      float rgb[3] = {s.col[4 * l], s.col[4 * l + 1], s.col[4 * l + 2]};
+      if (kPaint && wgt != 0.0f && cl + k < tile_w) {
+        if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
+          const float tg = grad_t(P, I, px + static_cast<float>(k), py);
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            rgb[ch] = grad_ramp(P, I[2], tg, ch);
+          }
+        } else if (I[0] == kPaintField) {
+          const float4 v = field(I)[k];
+          rgb[0] = v.x;
+          rgb[1] = v.y;
+          rgb[2] = v.z;
+        }
+      }
+      if (l == 0) {
+        alpha_out[k] = wgt;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) pm[k][ch] = rgb[ch] * wgt;
+      } else {
+        alpha_out[k] = alpha_out[k] + wgt;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          pm[k][ch] = pm[k][ch] + rgb[ch] * wgt;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    words[k] = blank[k] ? 0u : quantize_pack(alpha_out[k], pm[k]);
+  }
+}
+
+// Scan and resolve of a tile (B3) or a band's chunk (B4) whose planes
+// hold the walk's differences and whose carries the winding at the
+// tile's left border: warp w takes rows w, w + 8, ...; a lane takes four
+// columns of each 128-column segment.  kLc: the solid composite's layer
+// class (windings in registers and tile_composite when kLc <= 4, else
+// tile_layered).  Leaves each row's carry at its winding in the tile's
+// last column.
+template <bool kStyled, int kLc, int kTileW>
+__device__ void tile_resolve(const SweepArgs& a, const SweepShared& s,
+                             int f, int r0, int tile_h, int c0, int tile_w,
+                             unsigned eo, const float4* creg) {
+  constexpr bool kInReg = !kStyled && kLc <= 4;
+  const int lane = threadIdx.x & 31;
+  const int L = a.layers;
+  const int R = a.rows;
+  for (int r = threadIdx.x >> 5; r < tile_h; r += blockDim.x >> 5) {
+    const int y = r0 + r;
+#pragma unroll 1
+    for (int seg = 0; seg < kTileW / kLane; ++seg) {
+      const int cl = seg * kLane + 4 * lane;
+      const long long pix =
+          (static_cast<long long>(f) * a.height + y) * a.width + c0 + cl;
+      float wr[kInReg ? kLc : 1][4];
+      auto scan = [&](int l) {
+        long long* row = s.plane + (static_cast<long long>(l) * R + r)
+            * kTileW + cl;
+        const longlong2 v01 = reinterpret_cast<const longlong2*>(row)[0];
+        const longlong2 v23 = reinterpret_cast<const longlong2*>(row)[1];
+        const long long d[4] = {v01.x, v01.y, v23.x, v23.y};
+        long long q[4];
+        long long acc = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc += d[k];
+          q[k] = acc;
+        }
+        // Inclusive scan of the lane totals across the warp.
+        long long inc = acc;
+#pragma unroll
+        for (int dl = 1; dl < 32; dl *= 2) {
+          const long long u = __shfl_up_sync(0xffffffffu, inc, dl);
+          if (lane >= dl) inc += u;
+        }
+        long long* cy = s.carry + l * R + r;
+        const long long front = *cy + (inc - acc);
+        const long long total = __shfl_sync(0xffffffffu, inc, 31);
+        __syncwarp();
+        if (lane == 0) *cy = *cy + total;
+        __syncwarp();
+        float w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = from_fixed(front + q[k]);
+        if constexpr (kInReg) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wr[l][k] = w[k];
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            reinterpret_cast<float*>(row + k)[0] = w[k];
+          }
+        }
+      };
+      uint32_t words[4];
+      if constexpr (kInReg) {
+#pragma unroll
+        for (int l = 0; l < kLc; ++l) {
+          if (l < L) scan(l);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          bool blank = true;
+#pragma unroll
+          for (int l = 0; l < kLc; ++l) {
+            if (l < L) blank = blank && wr[l][k] == 0.0f;
+          }
+          auto wind = [&](int l) { return wr[l][k]; };
+          auto colour = [&](int l) { return creg[l]; };
+          words[k] = blank ? 0u
+              : L == kLc ? tile_composite<true, kLc>(wind, colour, eo, L)
+                         : tile_composite<false, kLc>(wind, colour, eo, L);
+        }
+      } else {
+        for (int l = 0; l < L; ++l) scan(l);
+        tile_layered<kStyled>(a, s, r, y, pix, cl, tile_w, kTileW, words);
+      }
+      if (cl < tile_w) tile_store(a, pix, cl, tile_w, words);
+    }
+  }
+}
+
+// Zeroes n16 16-byte words of shared memory from p.
+__device__ __forceinline__ void tile_zero_smem(unsigned char* p, size_t n16) {
+  int4* z = reinterpret_cast<int4*>(p);
+  for (size_t i = threadIdx.x; i < n16; i += blockDim.x) {
+    z[i] = make_int4(0, 0, 0, 0);
+  }
+}
+
+// sweep_setup's tables of frame f for tile_sweep_block, with the planes
+// and carries (the first zero16 16-byte words) zeroed while they arrive:
+// the colours, matrices and rules are loaded into registers (one value a
+// thread) and the paint records by cp.async before the zeroing.  Ends
+// synchronised.
+template <bool kMorph, bool kAffine, bool kStyled>
+__device__ void tile_setup(const SweepArgs& a, const SweepShared& s,
+                           unsigned char* smem, size_t zero16, int f,
+                           float t, float omt) {
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int L = a.layers;
+  if (kStyled) {
+    for (int i = tid; i < L * (kPintStride / 4); i += nthr) {
+      cp_async16(reinterpret_cast<float*>(s.pint) + 4 * i,
+                 reinterpret_cast<const float*>(a.pint) + 4 * i);
+    }
+    for (int i = tid; i < L * (kPfltStride / 4); i += nthr) {
+      cp_async16(s.pflt + 4 * i, a.pflt + 4 * i);
+    }
+    cp_async_commit();
+  }
+  // Thread i < 11 L holds colour i, matrix entry i - 4 L or rule
+  // i - 10 L (11 L <= 176 < kThreads).
+  float v = 0.0f;
+  int rv = 0;
+  if (tid < L * 4) {
+    if (kMorph) {
+      v = omt * a.colors[tid] + t * a.colors_e[tid];
+    } else if (a.colors_per_frame) {
+      v = a.colors[static_cast<long long>(f) * L * 4 + tid];
+    } else {
+      v = a.colors[tid];
+    }
+  } else if (tid < L * 10) {
+    const int i = tid - L * 4;
+    if (kAffine) {
+      v = a.mats_per_layer ? a.mats[static_cast<long long>(f) * L * 6 + i]
+                           : a.mats[static_cast<long long>(f) * 6 + i % 6];
+    }
+  } else if (tid < L * 11) {
+    rv = a.rules[tid - L * 10];
+  }
+  tile_zero_smem(smem, zero16);
+  if (tid < L * 4) {
+    s.col[tid] = v;
+  } else if (tid < L * 10) {
+    if (kAffine) s.mat[tid - L * 4] = v;
+  } else if (tid < L * 11) {
+    s.rule[tid - L * 10] = rv;
+  }
+  if (tid == 0) *s.touched = 0;
+  if (kStyled) cp_async_wait(0);
+  __syncthreads();
+  if (kStyled) {
+    // This frame's part of the gradient records (sweep_setup's).
+    for (int l = tid; l < L; l += nthr) {
+      const int kind = s.pint[l * kPintStride];
+      if (kind != kPaintLinear && kind != kPaintFocal) continue;
+      float* P = s.pflt + l * kPfltStride;
+      const float* gm = a.grad_mats + (static_cast<long long>(f) * L + l) * 6;
+      for (int k = 0; k < 6; ++k) P[kPInv + k] = gm[k];
+      if (a.stop_colors != nullptr) {
+        const int n_stops = s.pint[l * kPintStride + 2];
+        const float* sc = a.stop_colors
+            + (static_cast<long long>(f) * L + l) * a.n_stop_slots * 4;
+        for (int ch = 0; ch < 4; ++ch) P[kPC0 + ch] = sc[ch];
+        for (int k = 0; k + 1 < n_stops; ++k) {
+          for (int ch = 0; ch < 4; ++ch) {
+            P[kPDc + 4 * k + ch] = sc[4 * (k + 1) + ch] - sc[4 * k + ch];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Transparent black for a tile whose windings are all 0.
+__device__ __forceinline__ void tile_zero_words(const SweepArgs& a, int f,
+                                                int r0, int tile_h, int c0,
+                                                int tile_w) {
+  const int quads = (tile_w + 3) / 4;
+  const uint32_t zero[4] = {0u, 0u, 0u, 0u};
+  for (int i = threadIdx.x; i < tile_h * quads; i += blockDim.x) {
+    const int cl = 4 * (i % quads);
+    tile_store(a, (static_cast<long long>(f) * a.height + r0 + i / quads)
+                      * a.width + c0 + cl, cl, tile_w, zero);
+  }
+}
+
+// One block of B3 (kTileW = kLane: the a.bins_per_block tiles of columns
+// from blockIdx.x * a.bins_per_block * kLane, each on its own) or of B4
+// (kTileW = kRowChunk: the band's chunks left to right, each row's
+// winding at a chunk's last column carried into the next), rows
+// blockIdx.y * a.rows ... of frame blockIdx.z.
+template <bool kMorph, bool kAffine, bool kStyled, int kLc, int kTileW>
+__device__ void tile_sweep_block(const SweepArgs& a, unsigned char* smem) {
+  constexpr bool kBand = kTileW != kLane;
+  const int tid = threadIdx.x;
+  const int L = a.layers;
+  const int R = a.rows;
+  const int r0 = blockIdx.y * R;
+  const int f = blockIdx.z;
+  const int r1 = min(r0 + R, a.height);
+  const int tile_h = r1 - r0;
+  const SweepShared s = tile_carve(smem, L, R, kTileW, kStyled);
+  const float t = kMorph ? a.ratios[f] : 0.0f;
+  const float omt = 1.0f - t;
+  const size_t plane16 =
+      align16(static_cast<size_t>(L) * R * kTileW * 8) / 16;
+
+  tile_setup<kMorph, kAffine, kStyled>(
+      a, s, smem, tile_zeroed_bytes(L, R, kTileW) / 16, f, t, omt);
+  unsigned eo = 0;
+  float4 creg[!kStyled && kLc <= 4 ? kLc : 1];
+  if constexpr (!kStyled) {
+#pragma unroll
+    for (int l = 0; l < kLc; ++l) {
+      if (l < L) {
+        eo |= (s.rule[l] != 0 ? 1u : 0u) << l;
+        if constexpr (kLc <= 4) {
+          creg[l] = reinterpret_cast<const float4*>(s.col)[l];
+        }
+      }
+    }
+  }
+  const float* bounds =
+      a.bounds + static_cast<long long>(f) * L * a.n_chunks * 2;
+  const int n_pairs = L * a.n_chunks;
+  const float r0f = static_cast<float>(r0);
+  const float r1f = static_cast<float>(r1);
+  // A band's chunks or tiles share its rows, so one list serves them all
+  // when it holds every pair.
+  const int run = kBand ? 1 : a.bins_per_block;
+  const bool listed = (kBand || run > 1) && n_pairs <= kSweepMaxHits;
+  const int n_listed = listed ? tile_hits(s, bounds, 0, n_pairs, r0f, r1f)
+                              : 0;
+  const int c_first = kBand ? 0 : blockIdx.x * run * kTileW;
+  const int c_end = kBand ? a.width : min(c_first + run * kTileW, a.width);
+  for (int c0 = c_first; c0 < c_end; c0 += kTileW) {
+    const int c1 = min(c0 + kTileW, a.width);
+    const bool carry = kBand && c0 > 0;
+    if (c0 > c_first) {
+      __syncthreads();   // the previous chunk's resolve has read the planes
+      if (tid == 0) *s.touched = 0;
+      // B4 carries each row's winding on; a B3 tile starts its own.
+      tile_zero_smem(smem, kBand ? plane16
+                                 : tile_zeroed_bytes(L, R, kTileW) / 16);
+      __syncthreads();
+    }
+    if (listed) {
+      tile_place<kMorph, kAffine>(a, s, n_listed, t, omt, kTileW, r0, r1,
+                                  c0, c1, carry);
+    } else {
+      for (int base = 0; base < n_pairs; base += kSweepMaxHits) {
+        const int n_hits = tile_hits(s, bounds, base, n_pairs, r0f, r1f);
+        tile_place<kMorph, kAffine>(a, s, n_hits, t, omt, kTileW, r0, r1,
+                                    c0, c1, carry);
+        __syncthreads();   // the next round rewrites the list
+      }
+    }
+    __syncthreads();
+    // Every winding of the tile is 0 when no piece reached its columns
+    // and every row's carry is 0.
+    for (int i = tid; i < L * tile_h; i += blockDim.x) {
+      if (s.carry[(i / tile_h) * R + i % tile_h] != 0) *s.touched = 1;
+    }
+    __syncthreads();
+    if (*s.touched == 0) {
+      tile_zero_words(a, f, r0, tile_h, c0, c1 - c0);
+      continue;
+    }
+    tile_resolve<kStyled, kLc, kTileW>(a, s, f, r0, tile_h, c0, c1 - c0,
+                                       eo, creg);
   }
 }
 

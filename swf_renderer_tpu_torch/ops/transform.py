@@ -63,6 +63,7 @@ from .flatblock import (
 
 _GRADIENT_KINDS = (KPAINT_LINEAR, KPAINT_FOCAL)
 SWEEP_CHUNK = 64    # pieces per row-bounds chunk (csrc kSweepChunk)
+FINE_CHUNK = 16     # the affine and row-band sweeps' (kFineChunk)
 LANE = 128          # the reference's lane width (frame heights pad to it)
 ROW_CHUNKS = (128, 256)   # wchunk values taken (the kernel runs 256)
 MAX_BIN_W = 256     # widest column bin of the compacted tiling
@@ -790,8 +791,9 @@ def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
         tuple(rules), None if paints is None else tuple(paints), dev)
     counts_t = _device_counts(tuple(int(c) for c in counts), dev)
     out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
-    # Scratch of the pre-pass: row bounds of every 64-piece chunk.
-    bounds = torch.empty((frames, layers, -(-ep // SWEEP_CHUNK), 2),
+    # Scratch of the pre-pass: row bounds of every piece chunk (16 pieces
+    # for the affine and row-band sweeps, 64 for the morph ones).
+    bounds = torch.empty((frames, layers, -(-ep // FINE_CHUNK), 2),
                          dtype=torch.float32, device=dev)
     lib = cuda_lib.load("swfsweep")
     args = (mode, _ptr(mats), _ptr(tab_s), _ptr(tab_e), _ptr(ratios),
@@ -933,12 +935,14 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
 
     Kernel: replaces ``_xform_kernel`` (swf_renderer_tpu/ops/
     transform.py:586).  A pre-pass writes the row bounds of every
-    64-piece chunk; then one CUDA block per (128-column x row-band tile,
+    16-piece chunk; then one CUDA block per (128-column x row-band tile,
     frame) walks the chunks that reach its rows, scatters ramp
-    differences in 32.32 fixed point into shared memory, prefix-sums rows
-    and resolves (csrc/sweep_device.cuh).  Bound on the H100: bytes (the
-    packed output, plus field planes when a layer reads them).  On a card
-    it matches ``sweep_plain`` within 1 u8 level (chip_smoke.py).
+    differences in 32.32 fixed point into shared memory (a piece left of
+    the tile into its row's carry), scans rows a warp each and resolves;
+    a tile whose windings are all 0 writes zeros (csrc/sweep_device.cuh
+    tile_sweep_block).  Bound on the H100: bytes (the packed output, plus
+    field planes when a layer reads them).  On a card it equals
+    ``sweep_plain`` word for word (chip_smoke.py).
 
     ``row_grid=True`` takes the row-band tiling (replaces
     ``_xform_kernel_rows``, transform.py:1012): one block per (band of

@@ -225,6 +225,24 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
   const int lane = threadIdx.x & 31;
   return warp_read(v, lane >= d ? lane - d : lane);
 }
+// 64-bit shuffles through the lanes' exchange words.
+inline long long warp_read64(long long v, int src) {
+  const int lane = threadIdx.x & 31;
+  std::memcpy(this_warp.words + lane * kWarpWords, &v, 8);
+  __syncwarp();
+  long long u;
+  std::memcpy(&u, this_warp.words + src * kWarpWords, 8);
+  __syncwarp();
+  return u;
+}
+inline long long __shfl_sync(unsigned, long long v, int src) {
+  return warp_read64(v, src);
+}
+inline long long __shfl_up_sync(unsigned, long long v, int d) {
+  const int lane = threadIdx.x & 31;
+  return warp_read64(v, lane >= d ? lane - d : lane);
+}
+struct longlong2 { long long x, y; };
 #include "sweep_device.cuh"  // includes flatblock_device.cuh
 #include "texfield_device.cuh"
 #include "coverage_device.cuh"
@@ -379,15 +397,61 @@ void run_grid(int gx, int gy, int gz, size_t smem_bytes, Body body) {
       }
 }
 
-template <bool kMorph, bool kAffine, bool kStyled>
-void run_sweep_rows(const swf::SweepArgs& a) {
-  run_sweep_bounds<kMorph, kAffine>(a);
-  run_grid(1, (a.height + a.rows - 1) / a.rows, a.frames,
-           swf::sweep_smem_bytes(a.layers, a.rows, kStyled, swf::kRowChunk,
-                                 true),
-           [&](unsigned char* smem) {
-             swf::sweep_rows_block<kMorph, kAffine, kStyled>(a, smem);
-           });
+// The pre-pass of B3 and B4: blocks of kThreads pieces a (layer, frame).
+template <bool kMorph, bool kAffine>
+void run_fine_bounds(const swf::SweepArgs& a) {
+  for (int z = 0; z < a.frames; ++z)
+    for (int y = 0; y < a.layers; ++y)
+      for (int x = 0; x < (a.ep + swf::kThreads - 1) / swf::kThreads; ++x) {
+        std::vector<float> red(2 * swf::kThreads, -7.0f);
+        run_block(swf::kThreads, x, y, z, [&] {
+          swf::fine_bounds_block<kMorph, kAffine>(a, red.data());
+        });
+      }
+}
+
+// B3 (kTileW = kLane) and B4 (kTileW = kRowChunk) as csrc/sweep.cu
+// launch_tiles shapes them -> tile rows; emu_tile_run > 0 sets B3's
+// tiles a block in place of tile_run's choice.
+int emu_tile_run = 0;
+extern "C" void set_tile_run(int n) { emu_tile_run = n; }
+template <bool kMorph, bool kAffine, bool kStyled, int kLc, int kTileW>
+int run_tiles(swf::SweepArgs a) {
+  a.rows = swf::tile_rows(a.layers, kTileW);
+  a.n_chunks = (a.ep + swf::kFineChunk - 1) / swf::kFineChunk;
+  run_fine_bounds<kMorph, kAffine>(a);
+  std::vector<unsigned char> smem(
+      swf::tile_smem_bytes(a.layers, a.rows, kTileW, kStyled));
+  const int bands = (a.height + a.rows - 1) / a.rows;
+  const int tiles = (a.width + swf::kLane - 1) / swf::kLane;
+  a.bins_per_block = kTileW == swf::kLane
+      ? (emu_tile_run > 0 ? emu_tile_run
+                          : swf::tile_run(a.frames, bands, tiles)) : 1;
+  const int gx = kTileW == swf::kLane
+      ? (tiles + a.bins_per_block - 1) / a.bins_per_block : 1;
+  for (int z = 0; z < a.frames; ++z)
+    for (int y = 0; y < (a.height + a.rows - 1) / a.rows; ++y)
+      for (int x = 0; x < gx; ++x) {
+        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        run_block(swf::kThreads, x, y, z, [&] {
+          swf::tile_sweep_block<kMorph, kAffine, kStyled, kLc, kTileW>(
+              a, smem.data());
+        });
+      }
+  return a.rows;
+}
+
+// The layer class as launch_tiles_lc picks it.
+template <bool kMorph, bool kAffine, bool kStyled, int kTileW>
+int run_tiles_lc(const swf::SweepArgs& a) {
+  if constexpr (kStyled) {
+    return run_tiles<kMorph, kAffine, true, swf::kMaxLayers, kTileW>(a);
+  } else {
+    if (swf::solid_layer_class(a.layers) != swf::kSolidSmallLayers)
+      return run_tiles<kMorph, kAffine, false, swf::kMaxLayers, kTileW>(a);
+    return run_tiles<kMorph, kAffine, false, swf::kSolidSmallLayers,
+                     kTileW>(a);
+  }
 }
 
 template <bool kStyled>
@@ -447,9 +511,9 @@ extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
   a.width = width; a.mats_per_layer = mats_per_layer;
   a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
   a.rows = swf::sweep_tile_rows(layers);
-  if (mode == 0 && pint) run_sweep<false, true, true>(a);
-  else if (mode == 0) run_sweep<false, true, false>(a);
-  else if (mode == 1) run_sweep<true, true, false>(a);
+  if (mode == 0 && pint) return run_tiles_lc<false, true, true, swf::kLane>(a);
+  if (mode == 0) return run_tiles_lc<false, true, false, swf::kLane>(a);
+  if (mode == 1) run_sweep<true, true, false>(a);
   else run_sweep<true, false, false>(a);
   return a.rows;
 }
@@ -475,11 +539,9 @@ extern "C" int emulate_sweep_rows(int mode, const float* mats,
   a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
   a.width = width; a.mats_per_layer = mats_per_layer;
   a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
-  a.rows = swf::sweep_tile_rows(layers, swf::kRowChunk);
-  if (mode == 1) run_sweep_rows<true, true, false>(a);
-  else if (pint) run_sweep_rows<false, true, true>(a);
-  else run_sweep_rows<false, true, false>(a);
-  return a.rows;
+  if (mode == 1) return run_tiles_lc<true, true, false, swf::kRowChunk>(a);
+  if (pint) return run_tiles_lc<false, true, true, swf::kRowChunk>(a);
+  return run_tiles_lc<false, true, false, swf::kRowChunk>(a);
 }
 
 extern "C" int emulate_sweep_compact(const float* colors, const int* rules,
@@ -907,6 +969,8 @@ def _build_emulator(d, csrc, extra=""):
         + [ctypes.c_int] * 5
     emu.set_band_grid_x.restype = None
     emu.set_band_grid_x.argtypes = [ctypes.c_int]
+    emu.set_tile_run.restype = None
+    emu.set_tile_run.argtypes = [ctypes.c_int]
     emu.emulate_resolve.restype = None
     emu.emulate_resolve.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     emu.emulate_fused1.restype = None
@@ -1158,13 +1222,16 @@ def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
     rules_a = np.asarray(rules, np.int32)
     counts_a = np.asarray(counts, np.int32)
     out = np.full((frames, height, width), -7, np.int32)
-    bounds = np.full((frames, layers, -(-ep // sweep.SWEEP_CHUNK), 2),
-                     np.nan, np.float32)
+    mode = 0 if tab_e is None else (1 if mats is not None else 2)
+    # Row bounds of 16-piece chunks for the affine and row-band sweeps
+    # (csrc kFineChunk), 64-piece ones for the morph sweeps.
+    chunk = sweep.FINE_CHUNK if rows or mode == 0 else sweep.SWEEP_CHUNK
+    bounds = np.full((frames, layers, -(-ep // chunk), 2), np.nan,
+                     np.float32)
 
     def ptr(x):
         return None if x is None else x.ctypes.data
 
-    mode = 0 if tab_e is None else (1 if mats is not None else 2)
     args = (
         mode, ptr(mats_a), ptr(ts), ptr(te), ptr(rat), ptr(col), ptr(cole),
         ptr(counts_a), ptr(rules_a), ptr(pint), ptr(pflt), ptr(gm), ptr(sc),
