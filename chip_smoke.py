@@ -33,8 +33,8 @@ Phases, each of which exits non-zero on failure before the last line:
              1088x1920, solid and with a fading gradient layer), a
              morph-affine and a 16-ratio morph run at the same size, each
              timed (CUDA events, median of 5 after a warm-up) and held
-             against the plain version on every frame (the affine sweep,
-             B3, word for word; the morph sweeps within 1 level);
+             against the plain version on every frame, word for word (B3,
+             B6, B7);
 6. bitmaps — the texfield kernel against its plain version on random
              cases (repeat / clamp / canvas, bilinear / nearest,
              supersample 1/2/4, identity, rotated, skewed and far-zoomed
@@ -121,8 +121,9 @@ Phases, each of which exits non-zero on failure before the last line:
              dense1080's planes — and each kernel timed beside the column
              kernel (B3, B6) or the banded / tiled kernel (B9, B10) on the
              same inputs, ``compact_pre`` apart, every frame and plane
-             held against the plain versions (B4's, like B3's in phases 5
-             and 6, word for word, and equal to B3's);
+             held against the plain versions (B4's, like B3's, B6's and
+             B7's in phases 5 and 6, word for word, and equal to B3's and
+             B6's);
 11. probes — the variants of B1 that the reference's tools/exp_split.py
              cuts it into (modes full / place / resolve / none, none0,
              batched kk 4 / 8 / 16, merged) against their plain versions
@@ -189,7 +190,8 @@ pair and pre pass), the one-block kernel (headline_fused1), the exp_split
 cuts, the texfield kernel (yardstick, animtex, animtex1080), the
 banded and tiled coverage kernels (direct1080, dense1080, the renderer's
 ``direct`` route), the affine sweep B3 (anim1080 solid and styled, one
-interactive F = 1 frame) and its row bands B4 (anim1080 solid and
+interactive F = 1 frame), the morph sweeps B6 (morph_affine1080) and B7
+(morph1080) and the row bands B4 (anim1080 solid and
 styled, morph_affine1080) are timed with DIR's build and with this one on the
 same inputs, parent / change / change / parent (``report.json`` ``ab``
 and ``ab_sass``).
@@ -316,10 +318,11 @@ def phase_build():
 # spill), the product forms', the windowed one's and the texfield
 # kernel's at animtex1080 (n 2, bilinear, repeat), and the banded (B9)
 # and tiled (B10) coverage kernels (phase 1 fails if these keep a stack
-# frame or spill, as for B2), and the affine sweep's column (B3,
-# sweep_tile_kernel<kStyled, kLc>) and row-band (B4, sweep_rows_kernel
-# <kMorph, kAffine, kStyled, kLc>) instantiations at anim1080 and
-# morph_affine1080 (the solid ones in NO_STACK).
+# frame or spill, as for B2), and the sweeps' column (sweep_tile_kernel
+# <kMorph, kAffine, kStyled, kLc>: B3 affine, B6 morph + affine, B7 morph
+# ratio) and row-band (B4, sweep_rows_kernel<kMorph, kAffine, kStyled,
+# kLc>) instantiations at anim1080, morph_affine1080 and morph1080 (the
+# solid ones in NO_STACK).
 PTXAS_WATCH = {
     "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
     "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
@@ -335,13 +338,16 @@ PTXAS_WATCH = {
     "texfield n2 bilinear repeat": "texfield_kernelILi2ELb1ELi0E",
     "B9 banded": "banded_kernel",
     "B10 tiled": "tiled_kernel",
-    "B3 solid": "sweep_tile_kernelILb0ELi4E",
-    "B3 styled": "sweep_tile_kernelILb1ELi16E",
+    "B3 solid": "sweep_tile_kernelILb0ELb1ELb0ELi4E",
+    "B3 styled": "sweep_tile_kernelILb0ELb1ELb1ELi16E",
+    "B6 morph + affine": "sweep_tile_kernelILb1ELb1ELb0ELi4E",
+    "B7 morph": "sweep_tile_kernelILb1ELb0ELb0ELi4E",
     "B4 solid": "sweep_rows_kernelILb0ELb1ELb0ELi4E",
     "B4 styled": "sweep_rows_kernelILb0ELb1ELb1ELi16E",
     "B4 morph": "sweep_rows_kernelILb1ELb1ELb0ELi4E",
 }
-NO_STACK = ("B3 solid", "B4 solid", "B4 morph")
+NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B6 morph + affine",
+            "B7 morph")
 
 
 def ab_times(torch, name, fn, lib="swfkernels"):
@@ -392,7 +398,10 @@ def ab_sass(report):
     """With --parent: each library's kernels against the parent's, SASS
     text compared function by function (report.json["ab_sass"]), blanks
     collapsed: cuobjdump pads its columns to the widest instruction of the
-    whole library, so a change to one kernel re-pads the text of all."""
+    whole library, so a change to one kernel re-pads the text of all.  A
+    kernel's own name is blanked in its text, so a kernel whose template
+    arguments were renamed and whose text did not change pairs with the
+    parent's under its old name ("renamed")."""
     from swf_renderer_tpu_torch.ops import cuda_lib
 
     if "parent_libs" not in _HELD:
@@ -401,20 +410,30 @@ def ab_sass(report):
     pkg = PARENT_ROOT / "swf_renderer_tpu_torch" / "_build"
 
     def words(path):
-        return {k: " ".join(v.split()) for k, v in sass_of(path).items()}
+        return {k: " ".join(v.replace(k, "<self>").split())
+                for k, v in sass_of(path).items()}
 
     for name in cuda_lib.LIBRARIES:
         mine = words(cuda_lib.lib_path(name))
         theirs = words(pkg / f"lib{name}.so")
+        gone = {v: k for k, v in theirs.items() if k not in mine}
+        renamed = sorted([gone[v], k] for k, v in mine.items()
+                         if k not in theirs and v in gone)
+        new_names = {k for _, k in renamed}
+        old_names = {k for k, _ in renamed}
         same = sorted(k for k in mine if theirs.get(k) == mine[k])
         out[name] = {
-            "identical": len(same),
+            "identical": len(same) + len(renamed),
+            "renamed": renamed,
             "differ": sorted(k for k in mine if k in theirs
                              and theirs[k] != mine[k]),
-            "only_change": sorted(k for k in mine if k not in theirs),
-            "only_parent": sorted(k for k in theirs if k not in mine)}
-        log(f"A/B: SASS of {name}: {len(same)} kernels identical to the "
-            f"parent's, {len(out[name]['differ'])} differ, "
+            "only_change": sorted(k for k in mine if k not in theirs
+                                  and k not in new_names),
+            "only_parent": sorted(k for k in theirs if k not in mine
+                                  and k not in old_names)}
+        log(f"A/B: SASS of {name}: {out[name]['identical']} kernels "
+            f"identical to the parent's ({len(renamed)} of them renamed), "
+            f"{len(out[name]['differ'])} differ, "
             f"{len(out[name]['only_change'])} new, "
             f"{len(out[name]['only_parent'])} gone")
     report["ab_sass"] = out
@@ -982,7 +1001,7 @@ def premul_bytes(np, frame):
 
 def _check(torch, what, got, want, exact=False):
     """A sweep's frames against the plain version's: within TOL_LEVELS,
-    or with ``exact`` (B3, B4) equal word for word."""
+    or with ``exact`` (B3, B4, B6, B7) equal word for word."""
     torch.cuda.synchronize()
     dmax, share = byte_diff(got, want)
     same = bool(torch.equal(got, want))
@@ -1087,7 +1106,7 @@ def sweeps_random(torch, np):
                 width, mixed, counts)
             worst["morph_affine"] = max(worst["morph_affine"], _check(
                 torch, f"morph-affine {height}x{width} L={layers}", got,
-                want))
+                want, exact=True))
             tab_s, tab_e, cs, ce = morph_pieces(pairs)
             args = (ratios, _up(torch, np, tab_s), _up(torch, np, tab_e),
                     _up(torch, np, cs), _up(torch, np, ce), height, width)
@@ -1096,7 +1115,8 @@ def sweeps_random(torch, np):
                 None, args[1], args[2], ratios, args[3], args[4], height,
                 width, mixed, (tab_s.shape[-1],) * layers)
             worst["morph"] = max(worst["morph"], _check(
-                torch, f"morph {height}x{width} L={layers}", got, want))
+                torch, f"morph {height}x{width} L={layers}", got, want,
+                exact=True))
     return worst
 
 
@@ -1208,22 +1228,67 @@ def morph_stages(np, frames):
         for i in range(frames)]
 
 
+def _record_sweeps(sweep):
+    """Record every column or row-band sweep launch (its arguments and
+    its words) until the returned ``restore`` is called: a route's frames
+    are then held against ``sweep_plain`` on the very tables the route
+    built.  Recording launches nothing and touches no count."""
+    calls = []
+    launch = sweep._launch_sweep
+
+    def recorded(*args, **kwargs):
+        out = launch(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    sweep._launch_sweep = recorded
+    return calls, lambda: setattr(sweep, "_launch_sweep", launch)
+
+
+def _route_equals_plain(torch, sweep, what, calls):
+    """Each recorded launch's words equal ``sweep_plain``'s on its own
+    arguments -> the number of words compared."""
+    words = 0
+    for args, kwargs, out in calls:
+        plain = {k: v for k, v in kwargs.items() if k != "rows"}
+        want = sweep.sweep_plain(*args, **plain)
+        if out.shape != want.shape or not torch.equal(out, want):
+            bad = (int((out != want).sum()) if out.shape == want.shape
+                   else "all")
+            fail(f"{what}: {bad} words differ from sweep_plain")
+        words += out.numel()
+    calls.clear()
+    return words
+
+
 def sweeps_entry_points(torch, np, report):
     """The slice's main path through the user entry points, launch
-    counters set to 0 before and read after -> launches per kernel."""
+    counters set to 0 before and read after -> launches per kernel.
+    Every route's frames equal sweep_plain's words on the tables the
+    route built."""
     from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.morph import render_morph_sweep
+
+    wrappers = {"affine": sweep.render_affine_sweep,
+                "morph_affine": sweep.render_morph_affine_sweep,
+                "morph": render_morph_sweep}
+    for w in wrappers.values():
+        w.launches = 0
+    calls, restore = _record_sweeps(sweep)
+    try:
+        return _sweep_routes(torch, np, report, sweep, wrappers, calls)
+    finally:
+        restore()
+
+
+def _sweep_routes(torch, np, report, sweep, wrappers, calls):
+    """sweeps_entry_points' routes, each launch recorded in ``calls``."""
     from swf_renderer_tpu_torch.ops.morph import (
         morph_frames_to_u8, morph_pieces, render_morph_sweep,
     )
     from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
 
     height, width = SWEEP_SIZE
-    wrappers = {"affine": sweep.render_affine_sweep,
-                "morph_affine": sweep.render_morph_affine_sweep,
-                "morph": render_morph_sweep}
-    for w in wrappers.values():
-        w.launches = 0
-
     stages = rotating_stages(np, SWEEP_FRAMES)
     renderer = TorchRenderer(width, height, device=DEVICE)
     torch.cuda.synchronize()
@@ -1238,6 +1303,8 @@ def sweeps_entry_points(torch, np, report):
              f"{wrappers['affine'].launches} times, expected exactly 1")
     if frames.shape != (SWEEP_FRAMES, height, width, 4):
         fail(f"sweep frames {frames.shape}")
+    exact = {"render_batch": _route_equals_plain(
+        torch, sweep, "render_batch (affine sweep)", calls)}
     covered = float((frames[..., 3] > 0).mean())
     if not 0.01 < covered < 1.0:
         fail(f"sweep covered share {covered}")
@@ -1258,6 +1325,8 @@ def sweeps_entry_points(torch, np, report):
     if diff.max() > 2 or far >= 1e-3:
         fail(f"sweep frame vs per-frame render: {int(diff.max())} levels, "
              f"share {far}")
+    exact["render"] = _route_equals_plain(torch, sweep, "render (probe)",
+                                          calls)
 
     mstages = morph_stages(np, MORPH_RATIOS)
     t0 = time.perf_counter()
@@ -1269,8 +1338,11 @@ def sweeps_entry_points(torch, np, report):
              f"morph-affine launches {wrappers['morph_affine'].launches}")
     if float((mframes[..., 3] > 0).mean()) < 0.01:
         fail("morph timeline rendered nothing")
+    exact["morph_timeline"] = _route_equals_plain(
+        torch, sweep, "render_batch (morph timeline)", calls)
     log(f"sweeps: render_batch morph timeline x{MORPH_RATIOS} wall "
-        f"{mwall * 1e3:.1f} ms (1 morph-affine launch)")
+        f"{mwall * 1e3:.1f} ms (1 morph-affine launch, "
+        f"{exact['morph_timeline']} words equal to sweep_plain)")
 
     # render_morph_sweep is its own entry point (no renderer route).
     pairs = morph_pairs(np)
@@ -1283,12 +1355,16 @@ def sweeps_entry_points(torch, np, report):
     rwall = time.perf_counter() - t0
     if wrappers["morph"].launches != 1 or not out[..., 3].any():
         fail(f"render_morph_sweep launches {wrappers['morph'].launches}")
+    exact["render_morph_sweep"] = _route_equals_plain(
+        torch, sweep, "render_morph_sweep", calls)
     log(f"sweeps: render_morph_sweep x{MORPH_RATIOS} wall "
-        f"{rwall * 1e3:.1f} ms (1 launch)")
+        f"{rwall * 1e3:.1f} ms (1 launch, "
+        f"{exact['render_morph_sweep']} words equal to sweep_plain)")
     report["sweep_entry"] = {
         "render_batch_ms": wall * 1e3, "frames": SWEEP_FRAMES,
         "morph_timeline_ms": mwall * 1e3, "render_morph_sweep_ms": rwall * 1e3,
-        "probe_max_diff": int(diff.max()), "probe_share_gt1": far}
+        "probe_max_diff": int(diff.max()), "probe_share_gt1": far,
+        "words_equal_plain": exact}
     return {k: w.launches for k, w in wrappers.items()}
 
 
@@ -1438,7 +1514,9 @@ def sweeps_full_width(torch, np, report):
     out["morph_affine"] = _timed_sweep(
         torch, "morph_affine1080", kernel_ma, plain_ma,
         (d[0], d[2], d[3], d[1], mcounts, height, width, rules, None, None,
-         (d[4], d[5])), report)
+         (d[4], d[5])), report, exact=True)
+    ab_times(torch, "morph_affine_sweep B6 (morph_affine1080)", kernel_ma,
+             "swfsweep")
 
     tab_s, tab_e, cs, ce = morph_pieces(pairs)
     e = [_up(torch, np, x) for x in (ratios, tab_s, tab_e, cs, ce)]
@@ -1454,7 +1532,8 @@ def sweeps_full_width(torch, np, report):
     out["morph"] = _timed_sweep(
         torch, "morph1080", kernel_m, plain_m,
         (None, e[1], e[2], e[0], full, height, width, rules, None, None,
-         (e[3], e[4])), report)
+         (e[3], e[4])), report, exact=True)
+    ab_times(torch, "morph_sweep B7 (morph1080)", kernel_m, "swfsweep")
     return out
 
 

@@ -1,9 +1,9 @@
 // Animation sweep kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (ops/transform.py, ops/morph.py): the column
-// tiling (swf_sweep; its affine mode is B3, tile_sweep_block), the
-// row-band tiling (swf_sweep_rows, B4, tile_sweep_block) and the
-// compacted tiling (swf_sweep_compact).  The device logic and its design
-// notes live in sweep_device.cuh.
+// tiling (swf_sweep: B3 affine, B6 morph + affine, B7 morph ratio, all
+// tile_sweep_block), the row-band tiling (swf_sweep_rows, B4,
+// tile_sweep_block) and the compacted tiling (swf_sweep_compact, B5).
+// The device logic and its design notes live in sweep_device.cuh.
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -19,30 +19,18 @@
 namespace swf {
 
 template <bool kMorph, bool kAffine>
-__global__ void __launch_bounds__(kSweepChunk) sweep_bounds_kernel(
-    SweepArgs a) {
-  __shared__ float red[2 * kSweepChunk];
-  sweep_bounds_block<kMorph, kAffine>(a, red);
-}
-
-template <bool kMorph, bool kAffine, bool kStyled>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  sweep_block<kMorph, kAffine, kStyled>(a, smem);
-}
-
-template <bool kMorph, bool kAffine>
 __global__ void __launch_bounds__(kThreads) fine_bounds_kernel(SweepArgs a) {
   __shared__ float red[2 * kThreads];
   fine_bounds_block<kMorph, kAffine>(a, red);
 }
 
-// B3: the affine column sweep (solid: layer class kLc; styled).
-template <bool kStyled, int kLc>
+// The column sweeps: B3 affine (solid: layer class kLc; styled), B6
+// morph + affine and B7 morph ratio (solid).
+template <bool kMorph, bool kAffine, bool kStyled, int kLc>
 __global__ void __launch_bounds__(kThreads, tile_min_blocks(kStyled, kLc))
     sweep_tile_kernel(SweepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  tile_sweep_block<false, true, kStyled, kLc, kLane>(a, smem);
+  tile_sweep_block<kMorph, kAffine, kStyled, kLc, kLane>(a, smem);
 }
 
 // B4: the row bands.
@@ -60,39 +48,21 @@ __global__ void __launch_bounds__(kThreads) sweep_compact_kernel(
   sweep_compact_block<kStyled>(a, smem);
 }
 
-template <bool kMorph, bool kAffine, bool kStyled>
-cudaError_t launch_sweep(SweepArgs a, cudaStream_t stream) {
-  a.rows = sweep_tile_rows(a.layers);
-  const size_t bytes = sweep_smem_bytes(a.layers, a.rows, kStyled);
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<kMorph, kAffine, kStyled>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  sweep_bounds_kernel<kMorph, kAffine>
-      <<<dim3(a.n_chunks, a.layers, a.frames), kSweepChunk, 0, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.width + kLane - 1) / kLane,
-                  (a.height + a.rows - 1) / a.rows, a.frames);
-  sweep_kernel<kMorph, kAffine, kStyled><<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// B3 (kTileW = kLane: a block a run of 128-column tiles, tile_run) and
-// B4 (kTileW = kRowChunk: a block a band of rows), after the pre-pass of
-// kFineChunk-piece bounds; the solid forms in the layer class of B1
-// (4 up to four layers, else 16).
+// The column sweeps (kTileW = kLane: a block a run of 128-column tiles,
+// tile_run) and B4 (kTileW = kRowChunk: a block a band of rows), after
+// the pre-pass of kFineChunk-piece bounds; the solid forms in the layer
+// class of B1 (4 up to four layers, else 16).
 template <bool kMorph, bool kAffine, bool kStyled, int kLc, int kTileW>
 cudaError_t launch_tiles(SweepArgs a, cudaStream_t stream) {
+  constexpr bool kBand = kTileW != kLane;
   a.rows = tile_rows(a.layers, kTileW);
   a.n_chunks = (a.ep + kFineChunk - 1) / kFineChunk;
   const size_t bytes = tile_smem_bytes(a.layers, a.rows, kTileW, kStyled);
-  constexpr bool kBand = kTileW != kLane;
   void (*kernel)(SweepArgs);
   if constexpr (kBand) {
     kernel = sweep_rows_kernel<kMorph, kAffine, kStyled, kLc>;
   } else {
-    kernel = sweep_tile_kernel<kStyled, kLc>;
+    kernel = sweep_tile_kernel<kMorph, kAffine, kStyled, kLc>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -208,7 +178,6 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
   a.counts = static_cast<const int*>(counts);
   a.bounds = static_cast<float*>(bounds);
   a.ep = ep;
-  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.mats_per_layer = mats_per_layer;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -217,9 +186,9 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
         ? swf::launch_tiles_lc<false, true, true, swf::kLane>(a, s)
         : swf::launch_tiles_lc<false, true, false, swf::kLane>(a, s);
   } else if (mode == 1) {
-    err = swf::launch_sweep<true, true, false>(a, s);
+    err = swf::launch_tiles_lc<true, true, false, swf::kLane>(a, s);
   } else {
-    err = swf::launch_sweep<true, false, false>(a, s);
+    err = swf::launch_tiles_lc<true, false, false, swf::kLane>(a, s);
   }
   return static_cast<int>(err);
 }
@@ -251,7 +220,6 @@ int swf_sweep_rows(int mode, const void* mats, const void* tab_s,
   a.counts = static_cast<const int*>(counts);
   a.bounds = static_cast<float*>(bounds);
   a.ep = ep;
-  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.mats_per_layer = mats_per_layer;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

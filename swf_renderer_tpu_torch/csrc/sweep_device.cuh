@@ -7,16 +7,18 @@
 //     :1710) — the affine sweep, solid and styled (B3: tile_sweep_block,
 //     kTileW = kLane; redesigned, see the section at the end);
 //   * `_xform_kernel(morph=True)` (same file, pallas_call :1875) — the
-//     morph + affine sweep (sweep_block, kMorph=true, kAffine=true);
+//     morph + affine sweep (B6: tile_sweep_block, kMorph, kAffine,
+//     kTileW = kLane; redesigned, see the section at the end);
 //   * `_morph_kernel` (swf_renderer_tpu/ops/morph.py:98, pallas_call :213)
-//     — the morph ratio sweep (sweep_block, kMorph=true, kAffine=false);
+//     — the morph ratio sweep (B7: tile_sweep_block, kMorph, no kAffine,
+//     kTileW = kLane; redesigned);
 //   * `_xform_kernel_rows` (transform.py:1012, pallas_call :1710 and
 //     :1875) — the row-grid sweep (B4: tile_sweep_block, kTileW =
 //     kRowChunk): one block owns a band of rows of one frame across the
 //     full width;
 //   * `_xform_kernel(compact=True)` (transform.py:586, pallas_call :1514)
-//     — the compacted sweep (sweep_compact_block): one block walks only
-//     the pieces a host-planned pre-pass gathered for its column bin.
+//     — the compacted sweep (B5: sweep_compact_block): one block walks
+//     only the pieces a host-planned pre-pass gathered for its column bin.
 //
 // What it computes.  A piece is a segment whose transformed |dy| <= 1, so
 // it touches at most the two pixel rows floor(min(y0, y1)) + {0, 1}.  In
@@ -36,28 +38,28 @@
 // lists: formulations for its matrix unit and its sequential grid.  Here
 // one CUDA block owns a tile of kLane columns x `rows` rows of one frame
 // with every layer's accumulator in shared memory.  Its threads walk the
-// layers' pieces (a few thousand, L2-resident, read coalesced), transform
-// each, and for a piece that reaches the tile scatter the DIFFERENCES
+// layers' pieces (a few thousand, L2-resident, read coalesced), in device
+// space, and for a piece that reaches the tile scatter the DIFFERENCES
 // ramp(x) - ramp(x - 1) over the columns the piece crosses, ending with
-// the step to dy; a piece wholly left of the tile adds dy at the tile's
-// first column (a pre-pass kernel has written each 64-piece chunk's row
-// bounds, so the walk skips chunks that miss the tile's rows).  A row
-// prefix then rebuilds every pixel's winding.
-// Differences and prefix are 32.32 fixed point in 64-bit shared atomics:
-// integer sums telescope exactly and do not depend on the order the
-// atomics land in, so the result is the same on every run, for every tile
-// shape, and equal to the plain PyTorch version (ops/transform.py
+// the step to dy (a pre-pass kernel has written each chunk's row bounds,
+// so the walk skips chunks that miss the tile's rows).  A row prefix then
+// rebuilds every pixel's winding.  Differences and prefix are 32.32 fixed
+// point: integer sums telescope exactly and do not depend on the order
+// the atomics land in, so the result is the same on every run, for every
+// tile shape, and equal to the plain PyTorch version (ops/transform.py
 // sweep_plain), which sums the same integers with index_add_.  The
 // winding rounds to f32 once.  The resolve loops over the layers present
 // and keeps each layer's weight in that layer's own plane slot: a form
 // with per-thread arrays and 16-way unrolled paint code ran the styled
 // kernel at 3x the solid one on the card.
 //
-// The generic form below (sweep_block, sweep_walk, sweep_resolve) runs
-// the morph sweeps (B6, B7) and, with the compacted tiling, B5; B3 and B4
-// run the redesigned tile_sweep_block at the end of this file.  The two
-// tilings of the same function, both byte-equal to the column kernel
-// because every pixel still sums the same integers:
+// Every column and row-band sweep (B3, B4, B6, B7) runs tile_sweep_block
+// at the end of this file.  The first form (sweep_walk, scatter_piece,
+// sweep_resolve: a piece left of the tile adds dy at its first column
+// through 64-bit shared atomics, a serial row prefix) is left to the
+// compacted tiling, B5.  The two tilings of the same function, both
+// byte-equal to the column kernel because every pixel still sums the same
+// integers:
 //   * rows (B4): a block owns a band of rows and sweeps the width in
 //     kRowChunk-column chunks, carrying each row's exact winding from chunk
 //     to chunk (the TPU's "cheap plane" of left pieces becomes that
@@ -76,13 +78,13 @@
 //     gathered pieces.
 //
 // Bound on this card: bytes for the output (one u32 a pixel) at the main
-// path's shapes.  The kernel's own cost is the resolve, the piece walk
-// (without the chunk bounds it was two thirds of the kernel: every tile
-// read every piece from L2), the setup and the serial row prefix; a tile
-// no piece reaches skips prefix and resolve and writes zeros.
+// path's shapes.  The kernel's own cost is the piece walk (without the
+// chunk bounds it was two thirds of the kernel: every tile read every
+// piece from L2), the resolve and the setup; a tile whose windings are
+// all 0 skips the scan and the resolve and writes zeros.
 //
-// Tolerance against the plain version on the card: B3 and B4 equal words
-// (chip_smoke.py), the others at most 1 u8 level; by construction all
+// Tolerance against the plain version on the card: B3, B4, B6 and B7
+// equal words (chip_smoke.py), B5 at most 1 u8 level; by construction all
 // byte-equal.  Rounding as in
 // flatblock_device.cuh: op-by-op IEEE f32, -fmad=false, rintf, floored
 // modulo.
@@ -146,14 +148,12 @@ __host__ __device__ inline size_t sweep_plane_bytes(int layers, int rows,
   return align16(static_cast<size_t>(layers) * rows * (tile_w + 1) * 8);
 }
 
-// Shared-memory carve-up: accumulators (rows bank-shifted to tile_w + 1
-// long longs), colours, matrices, rules with the tile's touched flag and
-// the hit count, the hit list, then (styled) the paint records, then (row
-// bands) each row's carried winding.
+// Shared-memory carve-up of B5: accumulators (rows bank-shifted to
+// tile_w + 1 long longs), colours, matrices, rules with the tile's touched
+// flag and the hit count, the hit list, then (styled) the paint records.
 __host__ __device__ inline size_t sweep_smem_bytes(int layers, int rows,
                                                    bool styled,
-                                                   int tile_w = kLane,
-                                                   bool carry = false) {
+                                                   int tile_w = kLane) {
   size_t n = sweep_plane_bytes(layers, rows, tile_w);
   n += align16(static_cast<size_t>(layers) * 4 * 4);   // colours
   n += align16(static_cast<size_t>(layers) * 6 * 4);   // matrices
@@ -163,7 +163,6 @@ __host__ __device__ inline size_t sweep_smem_bytes(int layers, int rows,
     n += align16(static_cast<size_t>(layers) * kPintStride * 4);
     n += align16(static_cast<size_t>(layers) * kPfltStride * 4);
   }
-  if (carry) n += align16(static_cast<size_t>(layers) * rows * 8);
   return n;
 }
 
@@ -181,8 +180,8 @@ struct SweepShared {
 };
 
 __device__ inline SweepShared sweep_carve(unsigned char* smem, int layers,
-                                          int rows, int tile_w, bool styled,
-                                          bool carry) {
+                                          int rows, int tile_w,
+                                          bool styled) {
   SweepShared s{};
   s.plane = reinterpret_cast<long long*>(smem);
   size_t off = sweep_plane_bytes(layers, rows, tile_w);
@@ -200,9 +199,7 @@ __device__ inline SweepShared sweep_carve(unsigned char* smem, int layers,
     s.pint = reinterpret_cast<int*>(smem + off);
     off += align16(static_cast<size_t>(layers) * kPintStride * 4);
     s.pflt = reinterpret_cast<float*>(smem + off);
-    off += align16(static_cast<size_t>(layers) * kPfltStride * 4);
   }
-  if (carry) s.carry = reinterpret_cast<long long*>(smem + off);
   return s;
 }
 
@@ -246,16 +243,12 @@ __device__ __forceinline__ void device_piece(
 // it touches that lie in the tile, the differences ramp(x) - ramp(x - 1)
 // over the columns it crosses, ending with the step to dy, in 32.32 fixed
 // point.  ``lplane`` is the layer's accumulator (rows ``stride`` long
-// longs apart); rows [r0, r1), columns [c0, c1).  Without ``carry`` the
-// tile's first column takes the piece's whole value there (a piece left
-// of the tile adds dy); with ``carry`` (a later chunk of a row band, whose
-// first column already holds the winding of column c0 - 1) it takes
-// ramp(c0) - ramp(c0 - 1), and a piece whose ramp completed before column
-// c0 - 1 adds nothing.
+// longs apart); rows [r0, r1), columns [c0, c1).  The tile's first column
+// takes the piece's whole value there (a piece left of the tile adds dy).
 __device__ __forceinline__ void scatter_piece(
     float x0, float y0, float x1, float y1, int r0, int c0, float r0f,
-    float r1f, float c0f, float c1f, bool carry, long long* lplane,
-    int stride, int* touched_s) {
+    float r1f, float c0f, float c1f, long long* lplane, int stride,
+    int* touched_s) {
   const float rowbase = floorf(fminf(y0, y1));
   for (int k = 0; k < 2; ++k) {
     const float py = rowbase + static_cast<float>(k);
@@ -278,7 +271,6 @@ __device__ __forceinline__ void scatter_piece(
     const float lo = floorf(xmn);
     const float hi = ceilf(xmx);
     if (lo >= c1f) continue;    // the ramp starts right of the tile
-    if (carry && hi <= c0f - 1.0f) continue;   // complete before c0 - 1
     const float span = xmx - xmn;
     const bool thin = span < 1e-9f;
     const float safe_span = thin ? 1.0f : span;
@@ -300,7 +292,7 @@ __device__ __forceinline__ void scatter_piece(
         fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
     long long* row = lplane + (static_cast<int>(py) - r0) * stride;
     *touched_s = 1;
-    long long prev = (carry && lo < c0f) ? to_fixed(value(c0f - 1.0f)) : 0;
+    long long prev = 0;
     for (int x = xs; x <= xe; ++x) {
       const long long q = to_fixed(value(static_cast<float>(x)));
       atomicAdd(reinterpret_cast<unsigned long long*>(&row[x - c0]),
@@ -310,77 +302,20 @@ __device__ __forceinline__ void scatter_piece(
   }
 }
 
-// Pre-pass, one block of kSweepChunk threads per (chunk, layer, frame):
-// the lowest and highest row base among the chunk's pieces.  Pieces are
-// path-ordered, so a chunk spans few rows and a tile's walk skips most
-// chunks on two compares instead of reading and transforming 64 pieces
-// (the chunk bounds of transform.py:1630-1687, exact here: both kernels
-// run device_piece).
-template <bool kMorph, bool kAffine>
-__device__ void sweep_bounds_block(const SweepArgs& a, float* red) {
-  const int tid = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int l = blockIdx.y;
-  const int f = blockIdx.z;
-  const int p = chunk * kSweepChunk + tid;
-  float lo = 3.0e38f;
-  float hi = -3.0e38f;
-  if (p < min(a.counts[l], a.ep)) {
-    const float t = kMorph ? a.ratios[f] : 0.0f;
-    const float* M = nullptr;
-    if (kAffine) {
-      M = a.mats + (a.mats_per_layer
-                        ? (static_cast<long long>(f) * a.layers + l) * 6
-                        : static_cast<long long>(f) * 6);
-    }
-    float x0, y0, x1, y1;
-    device_piece<kMorph, kAffine>(
-        a.tab_s + static_cast<long long>(l) * 4 * a.ep,
-        kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep : nullptr,
-        a.ep, p, t, 1.0f - t, M, x0, y0, x1, y1);
-    lo = hi = floorf(fminf(y0, y1));
-  }
-  red[tid] = lo;
-  red[kSweepChunk + tid] = hi;
-  __syncthreads();
-  for (int s = kSweepChunk / 2; s > 0; s /= 2) {
-    if (tid < s) {
-      red[tid] = fminf(red[tid], red[tid + s]);
-      red[kSweepChunk + tid] =
-          fmaxf(red[kSweepChunk + tid], red[kSweepChunk + tid + s]);
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    float* b = a.bounds + ((static_cast<long long>(f) * a.layers + l)
-                           * a.n_chunks + chunk) * 2;
-    b[0] = red[0];
-    b[1] = red[kSweepChunk];
-  }
-}
-
-// Frame f's colours, matrices, rules and (styled) paint records into
-// shared memory; clears the touched flag.  Ends synchronised.
-template <bool kMorph, bool kAffine, bool kStyled>
-__device__ void sweep_setup(const SweepArgs& a, const SweepShared& s, int f,
-                            float t, float omt) {
+// Frame f's colours, rules and (styled) paint records into shared
+// memory (B5: its pieces are already in device space); clears the touched
+// flag.  Ends synchronised.
+template <bool kStyled>
+__device__ void sweep_setup(const SweepArgs& a, const SweepShared& s,
+                            int f) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int L = a.layers;
   for (int i = tid; i < L * 4; i += nthr) {
-    if (kMorph) {
-      s.col[i] = omt * a.colors[i] + t * a.colors_e[i];
-    } else if (a.colors_per_frame) {
+    if (a.colors_per_frame) {
       s.col[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
     } else {
       s.col[i] = a.colors[i];
-    }
-  }
-  if (kAffine) {
-    for (int i = tid; i < L * 6; i += nthr) {
-      s.mat[i] = a.mats_per_layer
-          ? a.mats[static_cast<long long>(f) * L * 6 + i]
-          : a.mats[static_cast<long long>(f) * 6 + i % 6];
     }
   }
   for (int i = tid; i < L; i += nthr) s.rule[i] = a.rules[i];
@@ -416,17 +351,15 @@ __device__ void sweep_setup(const SweepArgs& a, const SweepShared& s, int f,
   }
 }
 
-// The piece walk of one tile: rows [r0, r1), columns [c0, c1) of frame f.
-// A chunk's pieces can land in the tile's rows only when some row base
-// lies in [r0 - 1, r1 - 1].  In rounds of kSweepMaxHits (layer, chunk)
-// pairs: every thread tests pairs and lists the hits, then kSweepChunk
-// threads take a listed chunk together.  kCompact reads bin ``bin``'s
-// gathered device-space pieces and chunk bounds; otherwise the layers'
-// local pieces go through device_piece and the pre-pass's bounds.
-template <bool kMorph, bool kAffine, bool kCompact>
+// The piece walk of one compacted bin: rows [r0, r1), columns [c0, c1)
+// of frame f, bin ``bin``'s gathered device-space pieces and their chunk
+// row bounds.  A chunk's pieces can land in the tile's rows only when
+// some row base lies in [r0 - 1, r1 - 1].  In rounds of kSweepMaxHits
+// (layer, chunk) pairs: every thread tests pairs and lists the hits, then
+// kSweepChunk threads take a listed chunk together.
 __device__ void sweep_walk(const SweepArgs& a, const SweepShared& s, int f,
-                           int bin, float t, float omt, int stride, int r0,
-                           int r1, int c0, int c1, bool carry) {
+                           int bin, int stride, int r0, int r1, int c0,
+                           int c1) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int L = a.layers;
@@ -435,12 +368,9 @@ __device__ void sweep_walk(const SweepArgs& a, const SweepShared& s, int f,
   const float c1f = static_cast<float>(c1);
   const float r0f = static_cast<float>(r0);
   const float r1f = static_cast<float>(r1);
-  const long long fb =
-      (static_cast<long long>(f) * a.n_bins + bin) * L;   // compacted only
-  const int n_chunks = kCompact ? a.cap / kSweepChunk : a.n_chunks;
-  const float* bounds = kCompact
-      ? a.cbounds + fb * n_chunks * 2
-      : a.bounds + static_cast<long long>(f) * L * n_chunks * 2;
+  const long long fb = (static_cast<long long>(f) * a.n_bins + bin) * L;
+  const int n_chunks = a.cap / kSweepChunk;
+  const float* bounds = a.cbounds + fb * n_chunks * 2;
   const int n_pairs = L * n_chunks;
   for (int base = 0; base < n_pairs; base += kSweepMaxHits) {
     if (tid == 0) *s.n_hits = 0;
@@ -458,23 +388,13 @@ __device__ void sweep_walk(const SweepArgs& a, const SweepShared& s, int f,
       const int l = s.hits[h] / n_chunks;
       const int p = (s.hits[h] % n_chunks) * kSweepChunk
           + tid % kSweepChunk;
-      float x0, y0, x1, y1;
-      if (kCompact) {
-        if (p >= a.ccount[fb + l]) continue;
-        const float* src = a.ctab + (fb + l) * 4 * a.cap;
-        x0 = src[p];
-        y0 = src[a.cap + p];
-        x1 = src[2 * a.cap + p];
-        y1 = src[3 * a.cap + p];
-      } else {
-        if (p >= min(a.counts[l], a.ep)) continue;
-        device_piece<kMorph, kAffine>(
-            a.tab_s + static_cast<long long>(l) * 4 * a.ep,
-            kMorph ? a.tab_e + static_cast<long long>(l) * 4 * a.ep
-                   : nullptr,
-            a.ep, p, t, omt, s.mat + l * 6, x0, y0, x1, y1);
-      }
-      scatter_piece(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f, carry,
+      if (p >= a.ccount[fb + l]) continue;
+      const float* src = a.ctab + (fb + l) * 4 * a.cap;
+      const float x0 = src[p];
+      const float y0 = src[a.cap + p];
+      const float x1 = src[2 * a.cap + p];
+      const float y1 = src[3 * a.cap + p];
+      scatter_piece(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f,
                     s.plane + static_cast<long long>(l) * R * stride, stride,
                     s.touched);
     }
@@ -595,46 +515,6 @@ __device__ void sweep_resolve(const SweepArgs& a, const SweepShared& s,
   }
 }
 
-// Column tiling (B3, B6, B7): a tile of kLane columns x a.rows rows of
-// frame blockIdx.z.
-template <bool kMorph, bool kAffine, bool kStyled>
-__device__ void sweep_block(const SweepArgs& a, unsigned char* smem) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int c0 = blockIdx.x * kLane;
-  const int r0 = blockIdx.y * a.rows;
-  const int f = blockIdx.z;
-  const int R = a.rows;
-  const int stride = kLane + 1;
-  const int c1 = min(c0 + kLane, a.width);    // tile columns [c0, c1)
-  const int r1 = min(r0 + R, a.height);       // tile rows [r0, r1)
-  const SweepShared s = sweep_carve(smem, a.layers, R, kLane, kStyled,
-                                    false);
-  const int* touched_s = s.touched;
-  const float t = kMorph ? a.ratios[f] : 0.0f;
-  const float omt = 1.0f - t;
-
-  for (int i = tid; i < a.layers * R * stride; i += nthr) s.plane[i] = 0;
-  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);
-
-  // Placement: ramp differences of every piece that reaches the tile.
-  sweep_walk<kMorph, kAffine, false>(a, s, f, 0, t, omt, stride, r0, r1, c0,
-                                     c1, false);
-  __syncthreads();
-
-  const int tile_w = c1 - c0;
-  const int tile_h = r1 - r0;
-  if (*touched_s == 0) {
-    sweep_zero_tile(a, f, r0, tile_h, c0, tile_w);
-    return;
-  }
-  sweep_row_prefix(s.plane, a.layers * R, stride);
-  __syncthreads();
-
-  // Resolve: fill rule, paints, composite, quantize, pack.
-  sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, tile_w);
-}
-
 // Compacted tiling (B5): bins blockIdx.x * bins_per_block + k of
 // a.bin_w columns, a.rows rows of frame blockIdx.z; each row starts from
 // the prefix plane's dy of the pieces wholly left of the bin, and the
@@ -651,9 +531,9 @@ __device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
   const int f = blockIdx.z;
   const int r1 = min(r0 + R, a.height);
   const int tile_h = r1 - r0;
-  const SweepShared s = sweep_carve(smem, L, R, a.bin_w, kStyled, false);
+  const SweepShared s = sweep_carve(smem, L, R, a.bin_w, kStyled);
 
-  sweep_setup<false, false, kStyled>(a, s, f, 0.0f, 1.0f);
+  sweep_setup<kStyled>(a, s, f);
   for (int k = 0; k < a.bins_per_block; ++k) {
     const int bin = blockIdx.x * a.bins_per_block + k;
     if (bin >= a.n_bins) break;   // the same for every thread
@@ -673,8 +553,7 @@ __device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
         *s.touched = 1;
       }
     }
-    sweep_walk<false, false, true>(a, s, f, bin, 0.0f, 1.0f, stride, r0, r1,
-                                   c0, c1, false);
+    sweep_walk(a, s, f, bin, stride, r0, r1, c0, c1);
     __syncthreads();
     if (*s.touched == 0) {
       sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);
@@ -686,18 +565,18 @@ __device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
   }
 }
 
-// --- B3 and B4: the affine sweep redesigned for this card ---------------
+// --- B3, B4, B6, B7: the sweeps redesigned for this card ----------------
 //
-// tile_sweep_block replaces sweep_block for the column sweep (B3: the
-// affine sweep, solid and styled, kTileW = kLane) and sweep_rows_block
-// for the row bands (B4: solid, styled, morph + affine, kTileW =
-// kRowChunk, a band's chunks in turn).  Redesigned from clock64 readings
-// of the generic body (PERF.md §6): at anim1080 a tile read ~1300
-// pieces (64-piece chunks span many rows), ~180 of them wholly left of
-// the tile added dy at its first column through 64-bit shared atomics
-// (compare-and-swap loops), which also marked the tile as reached, so
-// the serial row prefix and the two-pass resolve ran on two thirds of
-// the tiles, where three quarters have all windings 0.  So
+// tile_sweep_block runs the column sweeps (kTileW = kLane: B3 the affine
+// sweep, solid and styled; B6 morph + affine; B7 morph ratio) and the row
+// bands (B4: solid, styled, morph + affine, kTileW = kRowChunk, a band's
+// chunks in turn).  Redesigned from clock64 readings of the first form
+// (PERF.md §6): at anim1080 a tile read ~1300 pieces (64-piece chunks
+// span many rows), ~180 of them wholly left of the tile added dy at its
+// first column through 64-bit shared atomics (compare-and-swap loops),
+// which also marked the tile as reached, so the serial row prefix and the
+// two-pass resolve ran on two thirds of the tiles, where three quarters
+// have all windings 0.  So
 //   - a pre-pass (fine_bounds_block) writes row bounds of kFineChunk-piece
 //     chunks: a tile walks ~2.5x fewer pieces;
 //   - differences go in as two native 32-bit atomics (add_fixed), and a
@@ -713,11 +592,11 @@ __device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
 //     them from the plane slots, layer by layer (tile_layered, B2's
 //     order); a pixel whose windings are all 0 writes 0 at once;
 //   - the frame's tables load while the planes are zeroed (tile_setup),
-//     and on large grids a B3 block walks five column tiles of its band
-//     (one hit list, one set-up); the words go out 16 bytes a store.
+//     and on large grids a column block walks five column tiles of its
+//     band (one hit list, one set-up); the words go out 16 bytes a store.
 // Every pixel sums the same integers as sweep_plain's index_add_ and
 // composites in composite_quantize_pack's order: byte-equal (the zero
-// shortcuts take the colours and paints as finite, as the generic form's
+// shortcuts take the colours and paints as finite, as the first form's
 // untouched tiles do).
 
 constexpr int kFineChunk = 16;                 // pieces a row-bounds chunk
@@ -730,16 +609,22 @@ constexpr size_t kTileSmemBudget = 100 * 1024;   // a block's planes
 __host__ __device__ constexpr int tile_min_blocks(bool styled, int lc) {
   return styled || lc <= kSolidSmallLayers ? 2 : 3;
 }
-// B3 blocks walk kTileRun column tiles of their band in turn (its hit
-// list built once, the frame's tables loaded once) when the grid keeps
-// at least kTileRunBlocks blocks; one tile a block otherwise.
+// Column blocks (B3, B6, B7) walk a run of up to kTileRun column tiles
+// of their band in turn (its hit list built once, the frame's tables
+// loaded once): the longest run that keeps at least kTileRunBlocks
+// blocks, one tile a block where none does (a 16-frame 1080p morph keeps
+// 2,176 blocks at four tiles a run, anim1080's 60 frames 6,120 at five).
 constexpr int kTileRun = 5;
 constexpr long long kTileRunBlocks = 2048;
 
 __host__ __device__ inline int tile_run(int frames, int bands, int tiles) {
-  const long long blocks = static_cast<long long>(frames) * bands
-      * ((tiles + kTileRun - 1) / kTileRun);
-  return blocks >= kTileRunBlocks ? kTileRun : 1;
+  for (int run = kTileRun; run > 1; --run) {
+    if (static_cast<long long>(frames) * bands * ((tiles + run - 1) / run)
+        >= kTileRunBlocks) {
+      return run;
+    }
+  }
+  return 1;
 }
 
 // Rows of a tile (B3) or band (B4): the most (a power of two, at most
@@ -802,10 +687,11 @@ __device__ inline SweepShared tile_carve(unsigned char* smem, int layers,
   return s;
 }
 
-// Pre-pass of B3 and B4, one block of blockDim.x pieces per (piece run,
-// layer, frame): the lowest and highest row base of each kFineChunk-piece
-// chunk (the reduction of sweep_bounds_block over shorter chunks; bounds
-// is (F, L, n_chunks, 2) with n_chunks = ceil(ep / kFineChunk)).
+// Pre-pass of tile_sweep_block, one block of blockDim.x pieces per (piece
+// run, layer, frame): the lowest and highest row base of each
+// kFineChunk-piece chunk (bounds is (F, L, n_chunks, 2) with n_chunks =
+// ceil(ep / kFineChunk)).  Pieces are path-ordered, so a chunk spans few
+// rows and a tile's walk skips most chunks on two compares.
 template <bool kMorph, bool kAffine>
 __device__ void fine_bounds_block(const SweepArgs& a, float* red) {
   const int tid = threadIdx.x;

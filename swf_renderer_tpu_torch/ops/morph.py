@@ -63,11 +63,11 @@ def render_morph_sweep(ratios, tab_s, tab_e, colors_s, colors_e,
     view with ``morph_frames_to_u8``).
 
     Kernel: replaces ``_morph_kernel`` (swf_renderer_tpu/ops/
-    morph.py:98): the sweep kernel's instantiation without the affine
-    (csrc/sweep_device.cuh) — lerp pieces and colours by the ratio,
-    analytic ramps, fixed-point row sums, composite, quantize.  Bound on
-    the H100: bytes (the packed output).  On a card it matches
-    ``sweep_plain`` within 1 u8 level (chip_smoke.py).
+    morph.py:98): the column sweep's instantiation without the affine
+    (csrc/sweep_device.cuh tile_sweep_block) — lerp pieces and colours
+    by the ratio, analytic ramps, fixed-point row sums, composite,
+    quantize.  Bound on the H100: bytes (the packed output).  On a card
+    it equals ``sweep_plain`` word for word (chip_smoke.py).
 
     ``ratios``: (R,) f32 in [0, 1]; ``tab_s`` / ``tab_e``: (L, 4, 1, EP)
     f32 (morph_pieces); ``colors_s`` / ``colors_e``: (L, 4) f32.  Tensors

@@ -62,8 +62,9 @@ from .flatblock import (
 )
 
 _GRADIENT_KINDS = (KPAINT_LINEAR, KPAINT_FOCAL)
-SWEEP_CHUNK = 64    # pieces per row-bounds chunk (csrc kSweepChunk)
-FINE_CHUNK = 16     # the affine and row-band sweeps' (kFineChunk)
+SWEEP_CHUNK = 64    # gathered slots per row-bounds chunk of the
+                    # compacted sweep (csrc kSweepChunk)
+FINE_CHUNK = 16     # pieces per row-bounds chunk of the others (kFineChunk)
 LANE = 128          # the reference's lane width (frame heights pad to it)
 ROW_CHUNKS = (128, 256)   # wchunk values taken (the kernel runs 256)
 MAX_BIN_W = 256     # widest column bin of the compacted tiling
@@ -791,8 +792,7 @@ def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
         tuple(rules), None if paints is None else tuple(paints), dev)
     counts_t = _device_counts(tuple(int(c) for c in counts), dev)
     out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
-    # Scratch of the pre-pass: row bounds of every piece chunk (16 pieces
-    # for the affine and row-band sweeps, 64 for the morph ones).
+    # Scratch of the pre-pass: row bounds of every 16-piece chunk.
     bounds = torch.empty((frames, layers, -(-ep // FINE_CHUNK), 2),
                          dtype=torch.float32, device=dev)
     lib = cuda_lib.load("swfsweep")
@@ -1074,8 +1074,10 @@ def render_morph_affine_sweep(matrices, ratios, tab_s, tab_e, colors_s,
 
     Kernel: replaces ``_xform_kernel(morph=True)`` (swf_renderer_tpu/
     ops/transform.py:586 under the pallas_call at :1875): the affine
-    sweep's kernel with the ratio lerp in front (csrc/sweep_device.cuh);
-    same bound and tolerance.  ``row_grid=True`` takes the row-band
+    sweep's kernel (csrc/sweep_device.cuh tile_sweep_block) with the
+    ratio lerp in front of the transform, and the colours lerped in the
+    set-up.  Same bound; on a card it equals ``sweep_plain`` word for
+    word (chip_smoke.py).  ``row_grid=True`` takes the row-band
     tiling (``_xform_kernel_rows(morph=True)``, :1875), counted on
     ``render_morph_affine_sweep.row_launches``.
 

@@ -1,31 +1,38 @@
-"""Where the affine sweep kernels' time goes: the column sweep (B3, solid
-and styled) and the row-band sweep (B4).
+"""Where the sweep kernels' time goes: the column sweeps (B3 affine, solid
+and styled; B6 morph + affine; B7 morph ratio) and the row-band sweep
+(B4).
 
     python3 -m swf_renderer_tpu_torch.tools.sweep_phases [--csrc DIR]
-        [--parent DIR] [--build NAME=DIR] [--variants]
+        [--parent DIR] [--build NAME=DIR] [--variants [NAME,...]]
+        [--cases NAME,...] [--rounds N]
 
 Needs one NVIDIA card and ``nvcc``.  Builds ``sweep.cu`` from ``DIR``
 (default: this package's ``csrc``) as it is, a copy with ``clock64()``
-stamps around the phases of ``sweep_block`` and ``sweep_rows_block``
-(setup, the walk's hit list, its scatter, the row prefix, the resolve,
-the zeroed tiles' stores; thread 0's cycles summed over blocks into a
-device array) and a copy whose main kernels return at once (the bounds
-pre-pass alone).  On the animation benchmark scene uncut (anim1080: 60
-frames x 3 layers x 1088x1920, solid and with a fading gradient layer),
-one interactive F = 1 frame of it (a field layer, as the renderer's
-bitmap loop sends) and morph_affine1080 (16 frames), built as
+stamps around the phases of ``tile_sweep_block`` (and of the generic
+``sweep_block`` where the source still has it, as the parents of the
+morph redesign do: setup, the walk's hit list, its scatter, the row
+prefix or zero test, the resolve, the zeroed tiles' stores; thread 0's
+cycles summed over blocks into a device array) and a copy whose main
+kernels return at once (the bounds pre-pass alone).  On the animation
+benchmark scene uncut (anim1080: 60 frames x 3 layers x 1088x1920, solid
+and with a fading gradient layer), one interactive F = 1 frame of it (a field layer, as the renderer's
+bitmap loop sends), 16 layers of it, morph_affine1080 (16 frames,
+column and row bands) and morph1080 (16 ratios), built as
 ``chip_smoke.py`` builds them, it prints for each case: ms of every
 build (twice, in the order parent, change, the rest, then back), each
 output against ``sweep_plain`` (equal words), cycles a block and each
 phase's share, ptxas registers / stack / spills, the SASS instruction
 count with its CALLs, its shared atomics by kind and its loops; and, on
-the card's own tables, the pieces a tile walks, the (piece, row) pairs
-that land in it and the columns each scatters (mean, most), and the
-share of tiles no piece reaches and of tiles whose windings are all 0.
-``--parent`` builds another checkout's ``csrc`` beside, ``--build
-NAME=DIR`` any other ``csrc`` directory, ``--variants`` the design
-elements of ``VARIANTS`` (edits of the committed form).  One JSON object
-of the builds, one a case, then the card's name and power limit.
+the card's own tables, the pieces a tile walks (64-, 32- and 16-piece
+chunks), the (piece, row) pairs that land in it and the columns each
+scatters (mean, most), and the share of tiles no piece reaches and of
+tiles whose windings are all 0.  ``--parent`` builds another checkout's
+``csrc`` beside, ``--build NAME=DIR`` any other ``csrc`` directory,
+``--variants`` the design elements of ``VARIANTS`` (edits of the
+committed form; all, or the named ones), ``--cases`` only the named
+cases, ``--rounds`` N passes there and back over the builds (1).  One
+JSON object of the builds, one a case, then the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -46,20 +53,29 @@ FRAMES, HEIGHT, WIDTH, MORPH_FRAMES = 60, 1088, 1920, 16
 # Stamp slots: a base (0 the column sweep, 8 the row bands) + phase.
 PHASES = ("setup", "hit_list", "scatter", "prefix", "resolve", "zero_store")
 KERNELS = {"column": 0, "rows": 8}   # case kind -> stamp base
-# Kernel -> mangled-name fragments, the redesigned form's first, then
-# the generic form's (sweep_block / sweep_rows_block, 64-piece bounds).
+# Kernel -> mangled-name fragments: the current form's first, then the
+# one before it (B3's two-parameter sweep_tile_kernel<kStyled, kLc>, and
+# the generic sweep_kernel with 64-piece bounds that ran B6 and B7 before
+# they moved onto tile_sweep_block).
 NAMES = {
-    "column_solid": ("sweep_tile_kernelILb0ELi4E",
-                     "sweep_kernelILb0ELb1ELb0E"),
-    "column_styled": ("sweep_tile_kernelILb1E", "sweep_kernelILb0ELb1ELb1E"),
-    "column_solid_16": ("sweep_tile_kernelILb0ELi16E",),
-    "rows_solid": ("sweep_rows_kernelILb0ELb1ELb0ELi4E",
-                   "sweep_rows_kernelILb0ELb1ELb0E"),
+    "column_solid": ("sweep_tile_kernelILb0ELb1ELb0ELi4E",
+                     "sweep_tile_kernelILb0ELi4E"),
+    "column_styled": ("sweep_tile_kernelILb0ELb1ELb1E",
+                      "sweep_tile_kernelILb1ELi16E"),
+    "column_solid_16": ("sweep_tile_kernelILb0ELb1ELb0ELi16E",
+                        "sweep_tile_kernelILb0ELi16E"),
+    "column_morph_affine": ("sweep_tile_kernelILb1ELb1ELb0ELi4E",
+                            "sweep_kernelILb1ELb1ELb0E"),
+    "column_morph": ("sweep_tile_kernelILb1ELb0ELb0ELi4E",
+                     "sweep_kernelILb1ELb0ELb0E"),
+    "rows_solid": ("sweep_rows_kernelILb0ELb1ELb0ELi4E",),
     "rows_styled": ("sweep_rows_kernelILb0ELb1ELb1E",),
-    "rows_morph": ("sweep_rows_kernelILb1ELb1ELb0ELi4E",
-                   "sweep_rows_kernelILb1ELb1ELb0E"),
-    "bounds": ("fine_bounds_kernelILb0ELb1E",
-               "sweep_bounds_kernelILb0ELb1E"),
+    "rows_morph": ("sweep_rows_kernelILb1ELb1ELb0ELi4E",),
+    "bounds": ("fine_bounds_kernelILb0ELb1E",),
+    "bounds_morph_affine": ("fine_bounds_kernelILb1ELb1E",
+                            "sweep_bounds_kernelILb1ELb1E"),
+    "bounds_morph": ("fine_bounds_kernelILb1ELb0E",
+                     "sweep_bounds_kernelILb1ELb0E"),
 }
 
 _HELPER = """
@@ -84,8 +100,8 @@ extern "C" int swf_sw_stamps(unsigned long long* host, int zero) {
 """
 
 # (anchor, replacement) edits of sweep_device.cuh that stamp the phases,
-# per form of the source; the first form whose anchors all occur exactly
-# once is used.  Slots of a base: +0 setup, +1 hit list, +2 scatter, +3
+# per form of the source; every form whose anchors all occur exactly
+# once is applied (the parent of the morph redesign holds both).  Slots of a base: +0 setup, +1 hit list, +2 scatter, +3
 # prefix, +4 resolve, +5 a zeroed tile's stores, +6 tiles (row bands:
 # chunks), +7 zeroed tiles.
 _WALK = [
@@ -106,7 +122,7 @@ _WALK = [
      "    swf_stamp(sb_ + 2, clock64() - w1_);\n  }\n}\n"),
 ]
 FORMS = {
-    "generic two-pass": _WALK + [
+    "generic column": _WALK + [
         ("  for (int i = tid; i < a.layers * R * stride; i += nthr) "
          "s.plane[i] = 0;\n"
          "  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);\n",
@@ -133,51 +149,6 @@ FORMS = {
          "  sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, "
          "tile_w);\n  __syncthreads();\n"
          "  swf_stamp(4, clock64() - st3_);\n}\n"),
-        ("  for (int i = tid; i < L * R; i += nthr) s.carry[i] = 0;\n"
-         "  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);\n"
-         "  for (int c0 = 0; c0 < a.width; c0 += kRowChunk) {\n"
-         "    const int c1 = min(c0 + kRowChunk, a.width);\n",
-         "  const long long st0_ = clock64();\n"
-         "  for (int i = tid; i < L * R; i += nthr) s.carry[i] = 0;\n"
-         "  sweep_setup<kMorph, kAffine, kStyled>(a, s, f, t, omt);\n"
-         "  swf_stamp(8, clock64() - st0_);\n"
-         "  for (int c0 = 0; c0 < a.width; c0 += kRowChunk) {\n"
-         "    const long long sc0_ = clock64();\n"
-         "    const int c1 = min(c0 + kRowChunk, a.width);\n"),
-        ("    sweep_walk<kMorph, kAffine, false>(a, s, f, 0, t, omt, stride, "
-         "r0, r1,\n                                       c0, c1, c0 > 0);\n"
-         "    __syncthreads();\n"
-         "    // Untouched: every winding of the chunk is 0, and so is the "
-         "carry.\n"
-         "    if (*s.touched == 0) {\n"
-         "      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);\n"
-         "      continue;\n    }\n"
-         "    sweep_row_prefix(s.plane, L * R, stride);\n"
-         "    __syncthreads();\n"
-         "    for (int i = tid; i < L * R; i += nthr) {\n"
-         "      s.carry[i] = s.plane[static_cast<long long>(i) * stride + "
-         "stride - 2];\n    }\n    __syncthreads();\n"
-         "    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - "
-         "c0);\n  }\n}\n",
-         "    __syncthreads();\n    swf_stamp(8, clock64() - sc0_);\n"
-         "    sweep_walk<kMorph, kAffine, false>(a, s, f, 0, t, omt, stride, "
-         "r0, r1,\n                                       c0, c1, c0 > 0);\n"
-         "    __syncthreads();\n"
-         "    swf_stamp(14, 1);\n    const long long sc2_ = clock64();\n"
-         "    if (*s.touched == 0) {\n"
-         "      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);\n"
-         "      __syncthreads();\n      swf_stamp(13, clock64() - sc2_);\n"
-         "      swf_stamp(15, 1);\n      continue;\n    }\n"
-         "    sweep_row_prefix(s.plane, L * R, stride);\n"
-         "    __syncthreads();\n"
-         "    for (int i = tid; i < L * R; i += nthr) {\n"
-         "      s.carry[i] = s.plane[static_cast<long long>(i) * stride + "
-         "stride - 2];\n    }\n    __syncthreads();\n"
-         "    const long long sc3_ = clock64();\n"
-         "    swf_stamp(11, sc3_ - sc2_);\n"
-         "    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - "
-         "c0);\n    __syncthreads();\n"
-         "    swf_stamp(12, clock64() - sc3_);\n  }\n}\n"),
     ],
 }
 
@@ -251,28 +222,14 @@ FORMS["warp scan, register composite"] = [
 # "resolve" the warp scan with the resolve.
 
 # The copy whose main kernels return at once: the bounds pre-pass alone
-# (per form of sweep.cu, the first that applies).
-_BOUNDS_ONLY = {
-    "generic": [
-        ("sweep.cu", "  sweep_block<kMorph, kAffine, kStyled>(a, smem);\n",
-         "  if (a.frames > 0) return;\n"
-         "  sweep_block<kMorph, kAffine, kStyled>(a, smem);\n"),
-        ("sweep.cu",
-         "  sweep_rows_block<kMorph, kAffine, kStyled>(a, smem);\n",
-         "  if (a.frames > 0) return;\n"
-         "  sweep_rows_block<kMorph, kAffine, kStyled>(a, smem);\n")],
-    "tiles": [
-        ("sweep.cu",
-         "  tile_sweep_block<false, true, kStyled, kLc, kLane>(a, smem);\n",
-         "  if (a.frames > 0) return;\n"
-         "  tile_sweep_block<false, true, kStyled, kLc, kLane>(a, smem);\n"),
-        ("sweep.cu",
-         "  tile_sweep_block<kMorph, kAffine, kStyled, kLc, kRowChunk>(a, "
-         "smem);\n",
-         "  if (a.frames > 0) return;\n"
-         "  tile_sweep_block<kMorph, kAffine, kStyled, kLc, kRowChunk>(a, "
-         "smem);\n")],
-}
+# (the kernel bodies of every form of sweep.cu; those that occur).
+_BOUNDS_ONLY = (
+    "  sweep_block<kMorph, kAffine, kStyled>(a, smem);\n",
+    "  tile_sweep_block<false, true, kStyled, kLc, kLane>(a, smem);\n",
+    "  tile_sweep_block<kMorph, kAffine, kStyled, kLc, kLane>(a, smem);\n",
+    "  tile_sweep_block<kMorph, kAffine, kStyled, kLc, kRowChunk>(a, "
+    "smem);\n",
+)
 
 # Design elements measured beside the committed form, as edits
 # (file, anchor, replacement) of its sources.
@@ -317,6 +274,14 @@ VARIANTS = {
          "kSweepMaxHits;",
          "const bool listed = !kBand && run > 1 && n_pairs <= "
          "kSweepMaxHits;")],
+    "runs of five tiles or one (the earlier rule)": [
+        ("sweep_device.cuh", "  for (int run = kTileRun; run > 1; --run) {",
+         "  for (int run = kTileRun; run > 1; run = 1) {")],
+    "32-piece chunks": [("sweep_device.cuh", "kFineChunk = 16;",
+                         "kFineChunk = 32;")],
+    "tile runs from 1024 blocks": [
+        ("sweep_device.cuh", "kTileRunBlocks = 2048;",
+         "kTileRunBlocks = 1024;")],
     "no all-zero pixel shortcut": [
         ("sweep_device.cuh", "          words[k] = blank ? 0u\n",
          "          words[k] = false ? 0u\n"),
@@ -330,16 +295,35 @@ VARIANTS = {
 
 
 def stamped_source(text: str):
-    """sweep_device.cuh with the phase stamps: (form name, text)."""
+    """sweep_device.cuh with the phase stamps: (form names, text)."""
+    names = []
     for name, edits in FORMS.items():
         if all(text.count(old) == 1 for old, _ in edits):
             for old, new in edits:
                 text = text.replace(old, new)
-            head = "namespace swf {\n"
-            return name, text.replace(head, head + _HELPER, 1)
-    bad = {name: [old[:60] for old, _ in edits if text.count(old) != 1]
-           for name, edits in FORMS.items()}
-    raise SystemExit(f"sweep_device.cuh matches no stamped form: {bad}")
+            names.append(name)
+    if not names:
+        bad = {name: [old[:60] for old, _ in edits if text.count(old) != 1]
+               for name, edits in FORMS.items()}
+        raise SystemExit(f"sweep_device.cuh matches no stamped form: {bad}")
+    head = "namespace swf {\n"
+    return " + ".join(names), text.replace(head, head + _HELPER, 1)
+
+
+def bounds_only_sources(csrc: pathlib.Path, dest: pathlib.Path):
+    """A copy of ``csrc`` whose main sweep kernels return at once (every
+    edit of ``_BOUNDS_ONLY`` whose anchor occurs once); False when none
+    applies."""
+    shutil.copytree(csrc, dest)
+    path = dest / "sweep.cu"
+    text = path.read_text()
+    done = 0
+    for old in _BOUNDS_ONLY:
+        if text.count(old) == 1:
+            text = text.replace(old, "  if (a.frames > 0) return;\n" + old)
+            done += 1
+    path.write_text(text)
+    return done > 0
 
 
 def sass_counts(lib: pathlib.Path, kernel: str):
@@ -407,6 +391,7 @@ def cases(np, torch):
     """Case name -> (kind, kernel call, plain call, transformed pieces
     (F, L, n) x4, rows a tile, tile width)."""
     from ..ops import flatblock, style as style_ops, transform as sweep
+    from ..ops.morph import morph_pieces, render_morph_sweep
     from ..utils.scenes import anim_scene
 
     def up(x):
@@ -459,6 +444,11 @@ def cases(np, torch):
     mcounts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
         sweep.layer_piece_counts(tab_s), sweep.layer_piece_counts(tab_e)))
     dm = [up(x) for x in (m16, ratios, tab_s, tab_e, cs, ce)]
+    # The ratio sweep (B7) on the same pairs, no matrices: morph1080.
+    rtab_s, rtab_e, rcs, rce = morph_pieces(pairs)
+    rfull = (rtab_s.shape[-1],) * layers
+    rm = [up(x) for x in (ratios, rtab_s, rtab_e, rcs, rce)]
+    ident = up(np.tile(np.float32([1, 0, 0, 1, 0, 0]), (MORPH_FRAMES, 1)))
 
     def pieces(mats_, ts, te=None, rt=None, cnt=counts):
         x0, y0, x1, y1 = (ts[:, ch, 0][None] for ch in range(4))
@@ -503,6 +493,19 @@ def cases(np, torch):
                                    column(d_mats, row_grid=True, **styled),
                                    plain(d_mats, **styled),
                                    pieces(d_mats, d_tab), row_rows, 256),
+        "morph_affine1080": (
+            "column",
+            lambda: sweep.render_morph_affine_sweep(
+                *dm, HEIGHT, WIDTH, layer_counts=mcounts),
+            lambda: sweep.sweep_plain(dm[0], dm[2], dm[3], dm[1], dm[4],
+                                      dm[5], HEIGHT, WIDTH, rules, mcounts),
+            pieces(dm[0], dm[2], dm[3], dm[1], mcounts), col_rows, 128),
+        "morph1080": (
+            "column",
+            lambda: render_morph_sweep(*rm, HEIGHT, WIDTH),
+            lambda: sweep.sweep_plain(None, rm[1], rm[2], rm[0], rm[3],
+                                      rm[4], HEIGHT, WIDTH, rules, rfull),
+            pieces(ident, rm[1], rm[2], rm[0], rfull), col_rows, 128),
         "morph_affine1080_rows": (
             "rows",
             lambda: sweep.render_morph_affine_sweep(
@@ -546,6 +549,7 @@ def piece_stats(torch, piece_tuple, rows, tile_w, chunk=64):
 
     walked = walked_by(chunk)
     walked16 = walked_by(16)
+    walked32 = walked_by(32)
     c0 = torch.arange(nt, device=x0.device).float() * tile_w
     c1 = torch.clamp(c0 + tile_w, max=float(WIDTH))
     cross_cols = []
@@ -588,6 +592,7 @@ def piece_stats(torch, piece_tuple, rows, tile_w, chunk=64):
         "pieces_walked_a_tile_mean": float(walked.mean()),
         "pieces_walked_a_tile_most": int(walked.max()),
         "pieces_walked_a_tile_mean_16_piece_chunks": float(walked16.mean()),
+        "pieces_walked_a_tile_mean_32_piece_chunks": float(walked32.mean()),
         "crossing_pairs_a_tile_mean": float(n_cross.mean()),
         "crossing_pairs_a_tile_most": int(n_cross.max()),
         "left_pairs_a_tile_mean": float(n_left.mean()),
@@ -614,8 +619,13 @@ def main() -> None:
                         default=cuda_lib.CSRC_DIR)
     parser.add_argument("--parent", type=pathlib.Path, default=None,
                         help="another checkout's csrc, timed beside")
-    parser.add_argument("--variants", action="store_true",
-                        help="also build and time VARIANTS")
+    parser.add_argument("--variants", nargs="?", const="", default=None,
+                        metavar="NAME,...",
+                        help="also build and time VARIANTS (all, or these)")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="passes there and back over the builds")
+    parser.add_argument("--cases", default=None, metavar="NAME,...",
+                        help="only these cases (default: every case)")
     parser.add_argument("--build", action="append", default=[],
                         metavar="NAME=DIR",
                         help="another csrc directory, timed beside")
@@ -635,12 +645,9 @@ def main() -> None:
         (sources["stamped"] / "sweep.cu").write_text(
             (sources["stamped"] / "sweep.cu").read_text() + _READ)
         skipped = []
-        for i, edits in enumerate(_BOUNDS_ONLY.values()):
-            if variant_sources(args.csrc, tmp / f"bounds{i}", edits):
-                sources["bounds_only"] = tmp / f"bounds{i}"
-                break
-        else:
+        if not bounds_only_sources(args.csrc, tmp / "bounds"):
             raise SystemExit("sweep.cu: the bounds-only edits do not apply")
+        sources["bounds_only"] = tmp / "bounds"
         if args.parent is not None:
             sources["parent"] = tmp / "parent"
             shutil.copytree(args.parent, sources["parent"])
@@ -648,8 +655,15 @@ def main() -> None:
             name, _, d = spec.partition("=")
             sources[name] = tmp / f"build{i}"
             shutil.copytree(d, sources[name])
-        if args.variants:
+        if args.variants is not None:
+            wanted = set(args.variants.split(",")) if args.variants else \
+                set(VARIANTS)
+            unknown = sorted(wanted - set(VARIANTS))
+            if unknown:
+                raise SystemExit(f"unknown variants {unknown}")
             for i, (name, edits) in enumerate(VARIANTS.items()):
+                if name not in wanted:
+                    continue
                 d = tmp / f"variant{i}"
                 if variant_sources(args.csrc, d, edits):
                     sources[name] = d
@@ -676,8 +690,14 @@ def main() -> None:
         order = ["parent"] * ("parent" in libs) + ["change"] + [
             n for n in libs if n not in ("parent", "change")]
         mine = cuda_lib._libs.get("swfsweep")
-        for name, (kind, run, plain, pcs, rows, tile_w) in cases(
-                np, torch).items():
+        chosen = cases(np, torch)
+        if args.cases is not None:
+            keep = args.cases.split(",")
+            unknown = sorted(set(keep) - set(chosen))
+            if unknown:
+                raise SystemExit(f"unknown cases {unknown}: {sorted(chosen)}")
+            chosen = {k: chosen[k] for k in keep}
+        for name, (kind, run, plain, pcs, rows, tile_w) in chosen.items():
             want = plain()
             row = {"kind": kind, "ms": {n: [] for n in order},
                    "equal_plain": {}}
@@ -693,7 +713,7 @@ def main() -> None:
                     if n != "bounds_only":
                         row["equal_plain"][n] = bool(torch.equal(got, want))
                     del got
-                for names in (order, order[::-1]):
+                for names in (order, order[::-1]) * args.rounds:
                     for n in names:
                         cuda_lib._libs["swfsweep"] = libs[n][0]
                         row["ms"][n].append(time_ms(torch, run))

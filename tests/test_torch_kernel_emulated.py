@@ -353,27 +353,6 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
   return a.spb;
 }
 
-template <bool kMorph, bool kAffine>
-void run_sweep_bounds(const swf::SweepArgs& a) {
-  blockDim.x = swf::kSweepChunk;
-  for (int z = 0; z < a.frames; ++z)
-    for (int y = 0; y < a.layers; ++y)
-      for (int x = 0; x < a.n_chunks; ++x) {
-        std::vector<float> red(2 * swf::kSweepChunk, -7.0f);
-        std::barrier<> bar(swf::kSweepChunk);
-        std::vector<std::thread> threads;
-        for (int t = 0; t < swf::kSweepChunk; ++t) {
-          threads.emplace_back([&, t] {
-            threadIdx.x = t;
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            block_barrier = &bar;
-            swf::sweep_bounds_block<kMorph, kAffine>(a, red.data());
-          });
-        }
-        for (auto& th : threads) th.join();
-      }
-}
-
 // One emulated kThreads block per (x, y, z) of the grid running body().
 template <class Body>
 void run_grid(int gx, int gy, int gz, size_t smem_bytes, Body body) {
@@ -410,9 +389,10 @@ void run_fine_bounds(const swf::SweepArgs& a) {
       }
 }
 
-// B3 (kTileW = kLane) and B4 (kTileW = kRowChunk) as csrc/sweep.cu
-// launch_tiles shapes them -> tile rows; emu_tile_run > 0 sets B3's
-// tiles a block in place of tile_run's choice.
+// The column sweeps (kTileW = kLane: B3, B6, B7) and B4 (kTileW =
+// kRowChunk) as csrc/sweep.cu launch_tiles shapes them -> tile rows;
+// emu_tile_run > 0 sets a column block's tiles in place of tile_run's
+// choice.
 int emu_tile_run = 0;
 extern "C" void set_tile_run(int n) { emu_tile_run = n; }
 template <bool kMorph, bool kAffine, bool kStyled, int kLc, int kTileW>
@@ -464,31 +444,6 @@ void run_sweep_compact(const swf::SweepArgs& a) {
            });
 }
 
-template <bool kMorph, bool kAffine, bool kStyled>
-void run_sweep(const swf::SweepArgs& a) {
-  // The pre-pass first: row bounds of every piece chunk.
-  run_sweep_bounds<kMorph, kAffine>(a);
-  std::vector<unsigned char> smem(
-      swf::sweep_smem_bytes(a.layers, a.rows, kStyled));
-  blockDim.x = swf::kThreads;
-  for (int z = 0; z < a.frames; ++z)
-    for (int y = 0; y < (a.height + a.rows - 1) / a.rows; ++y)
-      for (int x = 0; x < (a.width + swf::kLane - 1) / swf::kLane; ++x) {
-        std::memset(smem.data(), 0xab, smem.size());  // stale contents
-        std::barrier<> bar(swf::kThreads);
-        std::vector<std::thread> threads;
-        for (int t = 0; t < swf::kThreads; ++t) {
-          threads.emplace_back([&, t] {
-            threadIdx.x = t;
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            block_barrier = &bar;
-            swf::sweep_block<kMorph, kAffine, kStyled>(a, smem.data());
-          });
-        }
-        for (auto& th : threads) th.join();
-      }
-}
-
 extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
                              const float* tab_e, const float* ratios,
                              const float* colors, const float* colors_e,
@@ -506,16 +461,13 @@ extern "C" int emulate_sweep(int mode, const float* mats, const float* tab_s,
   a.rules = rules; a.pint = pint; a.pflt = pflt; a.grad_mats = grad_mats;
   a.stop_colors = stop_colors; a.fields = fields; a.out = out;
   a.bounds = bounds;
-  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
   a.width = width; a.mats_per_layer = mats_per_layer;
   a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
-  a.rows = swf::sweep_tile_rows(layers);
   if (mode == 0 && pint) return run_tiles_lc<false, true, true, swf::kLane>(a);
   if (mode == 0) return run_tiles_lc<false, true, false, swf::kLane>(a);
-  if (mode == 1) run_sweep<true, true, false>(a);
-  else run_sweep<true, false, false>(a);
-  return a.rows;
+  if (mode == 1) return run_tiles_lc<true, true, false, swf::kLane>(a);
+  return run_tiles_lc<true, false, false, swf::kLane>(a);
 }
 
 extern "C" int emulate_sweep_rows(int mode, const float* mats,
@@ -535,7 +487,6 @@ extern "C" int emulate_sweep_rows(int mode, const float* mats,
   a.rules = rules; a.pint = pint; a.pflt = pflt; a.grad_mats = grad_mats;
   a.stop_colors = stop_colors; a.fields = fields; a.out = out;
   a.bounds = bounds;
-  a.n_chunks = (ep + swf::kSweepChunk - 1) / swf::kSweepChunk;
   a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
   a.width = width; a.mats_per_layer = mats_per_layer;
   a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
@@ -1223,11 +1174,10 @@ def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
     counts_a = np.asarray(counts, np.int32)
     out = np.full((frames, height, width), -7, np.int32)
     mode = 0 if tab_e is None else (1 if mats is not None else 2)
-    # Row bounds of 16-piece chunks for the affine and row-band sweeps
-    # (csrc kFineChunk), 64-piece ones for the morph sweeps.
-    chunk = sweep.FINE_CHUNK if rows or mode == 0 else sweep.SWEEP_CHUNK
-    bounds = np.full((frames, layers, -(-ep // chunk), 2), np.nan,
-                     np.float32)
+    # The pre-pass's scratch as ops.transform sizes it: row bounds of
+    # 16-piece chunks (csrc kFineChunk).
+    scratch = np.full((frames, layers, -(-ep // sweep.FINE_CHUNK), 2),
+                      np.nan, np.float32)
 
     def ptr(x):
         return None if x is None else x.ctypes.data
@@ -1235,12 +1185,12 @@ def _run_sweep(emu, mats, tab_s, tab_e, ratios, colors, colors_e, height,
     args = (
         mode, ptr(mats_a), ptr(ts), ptr(te), ptr(rat), ptr(col), ptr(cole),
         ptr(counts_a), ptr(rules_a), ptr(pint), ptr(pflt), ptr(gm), ptr(sc),
-        ptr(fld), bounds.ctypes.data, out.ctypes.data, frames, layers, ep,
+        ptr(fld), scratch.ctypes.data, out.ctypes.data, frames, layers, ep,
         height, width,
         int(mats is not None and mats.ndim == 3), int(colors.ndim == 3),
         0 if sc is None else sc.shape[2])
     n_rows = (emu.emulate_sweep_rows if rows else emu.emulate_sweep)(*args)
-    assert not np.isnan(bounds).any()    # the pre-pass wrote every chunk
+    assert not np.isnan(scratch).any()   # every chunk written
     return torch.from_numpy(out), n_rows
 
 

@@ -1,11 +1,12 @@
-"""The affine sweep kernels as redesigned for the H100 — the column sweep
-(B3, solid and styled) and the row bands (B4: solid, styled, morph +
-affine) — run on the CPU under the g++ emulation of
-``tests/test_torch_kernel_emulated.py`` against their unchanged plain
-version ``sweep_plain``.
+"""The sweep kernels as redesigned for the H100 — the column sweeps (B3:
+affine, solid and styled; B6: morph + affine; B7: morph ratio) and the
+row bands (B4: solid, styled, morph + affine) — run on the CPU under the
+g++ emulation of ``tests/test_torch_kernel_emulated.py`` against their
+unchanged plain version ``sweep_plain``.
 
 ``csrc/sweep_device.cuh`` ``tile_sweep_block``: row bounds of 16-piece
-chunks, differences added as two 32-bit atomics with the low word's
+chunks (the morph forms' pre-pass also staging every device-space
+piece), differences added as two 32-bit atomics with the low word's
 carry-out, a piece wholly left of a tile adding its dy to its row's
 carry (a tile no piece crosses and whose carries are all 0 writes
 zeros), a warp scanning each row, the solid composite in registers at up
@@ -15,15 +16,17 @@ table built for the edge cases (pieces wider than 128 columns, pieces
 wholly left of a tile, vertical pieces whose span is under 1e-9, pieces
 ending an ulp past a row, off-frame pieces), styled linear, focal and
 field layers, B4 carrying each row across three 256-column chunks and
-its morph + affine form.  Three mutants of the new body must each fail
-on the case named for it, and one case holds B3 against the JAX
-package's ``_xform_kernel`` in Pallas interpret mode.  B3 blocks that
-walk several column tiles in turn (large grids) are forced on four
-cases.
+its morph + affine form; B6 and B7 at ratios 0, 0.37 and 1, also on a
+morph of the edge-case table (pieces degenerate at one ratio endpoint
+only, pieces wholly left of a tile at one ratio and crossing it at
+another).  Five mutants of the new body must each fail on the case
+named for it, and one case each holds B3, B6 and B7 against the JAX
+package's kernels in Pallas interpret mode.  Column blocks that walk
+several column tiles in turn (large grids) are forced on six cases.
 
 Tolerance: byte-equal to ``sweep_plain`` (``torch.equal``: it performs
 the kernels' arithmetic, the same 32.32 integers summed, and g++
-contracts no FMA); against the JAX kernel the envelope of
+contracts no FMA); against the JAX kernels the envelope of
 ``tests/test_torch_sweep.py`` (at most 1 premultiplied level).
 """
 
@@ -46,7 +49,9 @@ from swf_renderer_tpu_torch.utils.scenes import random_blobs, random_tracks
 from tests.test_torch_kernel_emulated import (
     _build_emulator, _run_sweep, _styled_sweep_case,
 )
-from tests.test_torch_sweep import _affine_scene, assert_close, j, t
+from tests.test_torch_sweep import (
+    RATIOS, _affine_scene, _pairs, _rotation_mats, assert_close, j, t,
+)
 
 SUMS = "b3_16_layers_styled"   # the case of the sums-order mutant
 
@@ -54,7 +59,8 @@ SUMS = "b3_16_layers_styled"   # the case of the sums-order mutant
 # run-time switch (swf_mutant): (flag, anchor, replacement, the case it
 # must fail).  1: add_fixed drops the low word's carry-out; 2: the lane's
 # scan exclusive (a pixel's winding without its own column); 3: the
-# styled resolve's sums taken top down.
+# styled resolve's sums taken top down; 4: the morph colour lerp with t
+# and 1 - t swapped; 5: the piece lerp's x0 with t and 1 - t swapped.
 MUTANTS = {
     "carry_out_dropped": (
         1, "    hi += old + lo < old ? 1u : 0u;\n",
@@ -71,6 +77,17 @@ MUTANTS = {
         "  float pm[4][3];\n  for (int i_ = 0; i_ < L; ++i_) {\n"
         "    const int l = swf_mutant == 3 ? L - 1 - i_ : i_;\n",
         SUMS),
+    "colour_lerp_swapped": (
+        4, "      v = omt * a.colors[tid] + t * a.colors_e[tid];\n",
+        "      v = swf_mutant == 4 ? t * a.colors[tid] + omt * a.colors_e[tid]"
+        "\n                          : omt * a.colors[tid] + t * "
+        "a.colors_e[tid];\n",
+        "b7_3_layers_nonzero"),
+    "piece_lerp_swapped": (
+        5, "    x0 = omt * x0 + t * te[p];\n",
+        "    x0 = swf_mutant == 5 ? t * x0 + omt * te[p]\n"
+        "                         : omt * x0 + t * te[p];\n",
+        "b6_3_layers_evenodd"),
 }
 # The sums' first term follows the loop, not the layer, in the mutant.
 _FIRST = ("      if (l == 0) {\n        alpha_out[k] = wgt;\n",
@@ -158,6 +175,39 @@ def edge_pieces(height, width):
     return tab, (n, n)
 
 
+def morph_edge_pieces(rng, height, width):
+    """(tab_s, tab_e, counts): edge_pieces' table as the start pieces,
+    each piece moved by up to 150 columns and 2 rows (its dy kept) at the
+    end, so a piece wholly left of a tile at one ratio crosses it at
+    another; every 7th piece degenerate (a point) at the start only, every
+    7th from the 4th at the end only."""
+    tab_s, counts = edge_pieces(height, width)
+    n = counts[0]
+    shift = np.zeros_like(tab_s)
+    shift[:, 0::2, 0, :n] = rng.uniform(-150, 150, (2, 1, n))
+    shift[:, 1::2, 0, :n] = rng.uniform(-2, 2, (2, 1, n))
+    tab_e = tab_s + shift
+    tab_s[:, 2:, 0, 0:n:7] = tab_s[:, :2, 0, 0:n:7]
+    tab_e[:, 2:, 0, 3:n:7] = tab_e[:, :2, 0, 3:n:7]
+    return tab_s, tab_e, counts
+
+
+def left_then_crossing(tab_s, tab_e, counts, tile_w=128):
+    """Pieces of layer 0 wholly left of the second column tile at one
+    ratio endpoint and crossing its columns at the other."""
+    n = counts[0]
+    xs = [np.sort(tb[0, 0::2, 0, :n], axis=0) for tb in (tab_s, tab_e)]
+
+    def left(x):
+        return x[1] < tile_w
+
+    def crossing(x):
+        return (x[1] >= tile_w) & (x[0] < 2 * tile_w)
+
+    return int(np.sum((left(xs[0]) & crossing(xs[1]))
+                      | (left(xs[1]) & crossing(xs[0]))))
+
+
 def _blobs(rng, layers, height, width, frames, per_layer, blobs):
     tables = random_blobs(rng, layers, height, width, blobs=blobs)
     mats = random_tracks(rng, frames, layers, height, width)
@@ -172,6 +222,8 @@ def case(name):
     rng = np.random.default_rng(sum(map(ord, name)))
     frames = 2
     rows = name.startswith("b4")
+    if name.startswith(("b6", "b7")):
+        return morph_case(name, rng), {}, False
     if "edge_pieces" in name:
         height, width = 40, 700 if rows else 300
         tab, counts = edge_pieces(height, width)
@@ -241,11 +293,56 @@ def case(name):
             kw, rows)
 
 
+def morph_case(name, rng):
+    """The column morph sweeps: B6 (morph + affine, per-layer matrices
+    above one layer) and B7 (morph ratio), 3 ratios with 0 and 1 exact,
+    on random blobs morphing into moved copies or on morph_edge_pieces.
+    -> sweep_plain's positional arguments."""
+    ratios = torch.as_tensor(np.array([0.0, 0.37, 1.0], np.float32))
+    affine = name.startswith("b6")
+    if "edge_pieces" in name:
+        height, width = 40, 300
+        tab_s, tab_e, counts = morph_edge_pieces(rng, height, width)
+        layers = 2
+        mats = np.asarray([(1, 0, 0, 1, 0, 0), (1, 0, 0, 1, 0.37, -0.21),
+                           (1, 0, 0, 1, -0.5, 0.3)], np.float32)
+        cs, ce = (rng.uniform(0.1, 1, (layers, 4)).astype(np.float32)
+                  for _ in range(2))
+    else:
+        layers = int(name.split("_")[1])
+        height, width = {1: (70, 300), 3: (90, 200), 16: (40, 150)}[layers]
+        tables = random_blobs(rng, layers, height, width, blobs=8)
+        pairs = [(t_, t_ + rng.uniform(-9, 9, t_.shape).astype(np.float32),
+                  rng.uniform(0.1, 1, 4), rng.uniform(0.1, 1, 4))
+                 for t_ in tables]
+        if affine:
+            mats = random_tracks(rng, 3, layers, height, width)
+            if layers == 1:
+                mats = mats[:, 0]
+            tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, mats)
+            counts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+                sweep.layer_piece_counts(tab_s),
+                sweep.layer_piece_counts(tab_e)))
+        else:
+            tab_s, tab_e, cs, ce = tmorph.morph_pieces(pairs)
+            counts = (tab_s.shape[-1],) * layers   # as render_morph_sweep
+    rules = {"nonzero": (0,) * layers, "evenodd": (1,) * layers}.get(
+        name.split("_")[-1], tuple(int(x) for x in rng.integers(0, 2,
+                                                                layers)))
+    return (torch.as_tensor(mats) if affine else None,
+            torch.as_tensor(tab_s), torch.as_tensor(tab_e), ratios,
+            torch.as_tensor(cs), torch.as_tensor(ce), height, width, rules,
+            counts)
+
+
 CASES = ["b3_1_layer_nonzero", "b3_3_layers_evenodd", "b3_16_layers_mixed",
          "b3_edge_pieces_nonzero", "b3_edge_pieces_evenodd",
          "b3_4_layers_styled", "b3_16_layers_styled", "b4_3_layers_mixed",
          "b4_16_layers_mixed", "b4_edge_pieces_evenodd", "b4_3_layers_styled",
-         "b4_3_layers_morph_affine"]
+         "b4_3_layers_morph_affine", "b6_1_layer_nonzero",
+         "b6_3_layers_evenodd", "b6_16_layers_mixed", "b7_3_layers_nonzero",
+         "b7_3_layers_evenodd", "b6_morph_edge_pieces_evenodd",
+         "b7_morph_edge_pieces_nonzero"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -263,12 +360,13 @@ def test_redesigned_sweep_equals_plain_version(emulators, name):
 
 @pytest.mark.parametrize("name,run", [
     ("b3_3_layers_evenodd", 2), ("b3_edge_pieces_nonzero", 2),
-    ("b3_edge_pieces_evenodd", 3), ("b3_4_layers_styled", 3)])
+    ("b3_edge_pieces_evenodd", 3), ("b3_4_layers_styled", 3),
+    ("b6_3_layers_evenodd", 2), ("b7_morph_edge_pieces_nonzero", 2)])
 def test_redesigned_sweep_tile_runs_equal_plain_version(emulators, name,
                                                         run):
-    """B3 blocks walking 2 or 3 column tiles of their band in turn (the
-    launcher's choice for large grids, forced here; a ragged last run):
-    byte-equal to sweep_plain."""
+    """Column blocks (B3, B6, B7) walking 2 or 3 column tiles of their
+    band in turn (the launcher's choice for large grids, forced here; a
+    ragged last run): byte-equal to sweep_plain."""
     args, kw, rows = case(name)
     emu = emulators[0]
     try:
@@ -315,3 +413,56 @@ def test_redesigned_sweep_matches_jax_kernel(emulators):
         t(colors), None, height, width, (kw["fill_rule"],) * len(tables),
         counts)
     assert_close(want, tmorph.morph_frames_to_u8(got, height, width), 0)
+
+
+def test_morph_edge_pieces_hold_their_cases():
+    """The morph edge-case table has pieces degenerate at one ratio
+    endpoint only (each way) and pieces wholly left of a tile at one
+    ratio that cross it at another."""
+    tab_s, tab_e, counts = morph_edge_pieces(np.random.default_rng(3), 40,
+                                             300)
+    n = counts[0]
+
+    def point(tab):
+        return ((tab[0, 0, 0, :n] == tab[0, 2, 0, :n])
+                & (tab[0, 1, 0, :n] == tab[0, 3, 0, :n]))
+
+    assert (point(tab_s) & ~point(tab_e)).any()
+    assert (point(tab_e) & ~point(tab_s)).any()
+    assert left_then_crossing(tab_s, tab_e, counts) > 0
+
+
+@pytest.mark.parametrize("form", ["morph_affine", "morph"])
+def test_redesigned_morph_sweeps_match_jax_kernels(emulators, form):
+    """B6 and B7 under the emulation against the JAX package's
+    ``render_morph_affine_sweep`` / ``render_morph_sweep`` (Pallas
+    interpret mode) on the pairs of tests/test_torch_sweep.py, at that
+    file's envelope."""
+    if form == "morph_affine":
+        height, width = 80, 100
+        pairs = _pairs()
+        mats = _rotation_mats(4, 50.0, 40.0, 1.1)
+        ts, ss, te, se, cs, ce = jsweep.morph_affine_pieces(pairs, mats)
+        counts = tuple(max(a, b) for a, b in zip(
+            jsweep.layer_piece_counts(ts), jsweep.layer_piece_counts(te)))
+        rules = (0, 1)
+        want = jsweep.render_morph_affine_sweep(
+            j(mats), j(RATIOS), j(ts), j(ss), j(te), j(se), j(cs), j(ce),
+            height, width, fill_rule=rules, layer_counts=counts)
+    else:
+        height, width = 72, 110
+        pairs = _pairs(seed=8, layers=3)
+        ts, te, ss, se, cs, ce = jmorph.morph_pieces(pairs)
+        mats = None
+        rules = (1, 0, 1)
+        counts = (ts.shape[-1],) * len(pairs)
+        want = jmorph.render_morph_sweep(
+            j(RATIOS), j(ts), j(te), j(ss), j(se), j(cs), j(ce), height,
+            width, fill_rule=rules)
+    got, _ = _run_sweep(
+        emulators[0], t(mats),
+        convert.sweep_table_to_device(ts, ss, device="cpu"),
+        convert.sweep_table_to_device(te, se, device="cpu"), t(RATIOS),
+        t(cs), t(ce), height, width, rules, counts)
+    assert_close(jmorph.morph_frames_to_u8(want, height, width),
+                 tmorph.morph_frames_to_u8(got, height, width), 0)
