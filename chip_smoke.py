@@ -180,7 +180,29 @@ Phases, each of which exits non-zero on failure before the last line:
              four product kernels, of the windowed instantiation, of the
              coarse kernel, of the texfield kernel at animtex1080 and of
              the banded and tiled coverage kernels (it fails if these keep
-             a stack or spill).
+             a stack or spill);
+14. movies — .swf files built in code by the port's emitter (frame RECT
+             38400 x 21600 twips = 1920x1080) through the user entry
+             points: movie_anim1080 (``emit_movie_timeline``, 60 frames at
+             30 fps: 8 DefineShape3 polygons and stars, 6 solid and 2
+             linear-gradient fills, moved every frame by PlaceFlagMove,
+             one fading) through ``render_movie_timeline`` in FWS (three
+             calls), CWS and ZWS, each one B3 launch and no B2;
+             movie_morph1080 (a DefineMorphShape2 at 3 depths, a 16-frame
+             ratio track, moving matrices), one B6 launch; movie_still1080
+             (background, DefineFont2 + DefineText, a two-shape sprite
+             under a colour transform, a scale-9 sprite under a
+             non-uniform scale, a DefineBitsLossless2 fill under a rotated
+             matrix) through ``render_movie``, B2 and B8; every frame
+             equal word for word to the renderer's render of the stages
+             built by hand, each recorded launch equal to its plain
+             version (sweep_plain, fused_styled_plain word for word,
+             texfield_plain within 1e-6); parse and stage-build ms and
+             each render's wall split by replaying its launches (kernel by
+             CUDA events, upload, download); then ``python3 -m
+             swf_renderer_tpu_torch`` in a subprocess: ``--frames DIR
+             --stats`` on movie_anim1080 and ``-o`` on movie_still1080,
+             the PNGs read back equal to the in-process frames.
 
 With ``--parent DIR`` (a checkout of the parent commit) phase 1 also
 builds DIR's kernels and compares every kernel's SASS with theirs, and
@@ -198,8 +220,9 @@ and ``ab_sass``).
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
-block, the deep and masked and the tilings paths, and before each probe,
-product form, windowed scene and coarse step, and read right after.  The
+block, the deep and masked and the tilings paths, before each probe,
+product form, windowed scene and coarse step, and before each movie entry
+point call, and read right after.  The
 script prints one JSON line describing each kernel (time, bound, plain
 version's time, library yardstick's time where one call computes the
 same function), then the card's name and power limit as nvidia-smi
@@ -210,6 +233,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -4939,6 +4963,405 @@ def phase_windows(torch, np, report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: movies — .swf files built by the port's emitter, parsed on the
+# host and rendered through the renderer's routes (B3, B6, B2 + B8), and
+# the command-line renderer
+# ---------------------------------------------------------------------------
+
+MOVIE_SIZE = (1920, 1080)   # width, height: a 38400 x 21600 twip RECT
+MOVIE_FRAMES = 60           # movie_anim1080, 30 fps
+MORPH_MOVIE_FRAMES = 16     # movie_morph1080's ratio track
+
+
+class _Recorder:
+    """Record every launch of the styled kernel (``ops.flatblock.
+    _launch`` with ``styled``) and of the texfield kernel (``ops.texfield.
+    _launch``) with its arguments and output, until ``restore``; like
+    ``_record_sweeps``, recording launches nothing and counts nothing."""
+
+    def __init__(self):
+        from swf_renderer_tpu_torch.ops import flatblock, texfield
+
+        self.mods = (flatblock, texfield)
+        self.orig = (flatblock._launch, texfield._launch)
+        self.styled, self.tex = [], []
+
+        def styled(*args, **kwargs):
+            out = self.orig[0](*args, **kwargs)
+            if args[0]:
+                self.styled.append((args, kwargs, out))
+            return out
+
+        def tex(*args, **kwargs):
+            out = self.orig[1](*args, **kwargs)
+            self.tex.append((args, kwargs, out))
+            return out
+
+        flatblock._launch, texfield._launch = styled, tex
+
+    def restore(self):
+        self.mods[0]._launch, self.mods[1]._launch = self.orig
+
+    def clear(self):
+        self.styled.clear()
+        self.tex.clear()
+
+
+def _styled_plain_args(args, kwargs):
+    """``ops.flatblock._launch``'s arguments -> ``fused_styled_plain``'s."""
+    (_styled, sidx, flags, lays, urc, ucm, uval, colors, fields, paints,
+     frames, layers, n_strips, n_chunks, group, fill_rule, spp) = args
+    return ((sidx, flags, lays, urc, ucm, uval, colors, fields, frames,
+             layers, n_strips, n_chunks, paints),
+            dict(group=group, fill_rule=fill_rule, spp=spp, **kwargs))
+
+
+def _recorded_equal_plain(torch, what, rec):
+    """Each recorded styled launch equals ``fused_styled_plain`` word for
+    word, each texfield launch ``texfield_plain`` within TEX_TOL -> (max
+    abs difference, words and field values compared)."""
+    from swf_renderer_tpu_torch.ops.flatblock import fused_styled_plain
+    from swf_renderer_tpu_torch.ops.texfield import texfield_plain
+
+    worst, n = 0.0, 0
+    for args, kwargs, out in list(rec.styled):
+        a, k = _styled_plain_args(args, kwargs)
+        want = fused_styled_plain(*a, **k)
+        if out.shape != want.shape or not torch.equal(out, want):
+            fail(f"movies: {what}: the styled kernel's words differ from "
+                 "fused_styled_plain")
+        n += out.numel()
+    for args, _kwargs, out in list(rec.tex):
+        img, invs, height, width, sub, repeating, smoothed, canvas = args
+        want = texfield_plain(img, invs, height, width, sub, repeating,
+                              smoothed, "canvas" if canvas else "flash")
+        worst = max(worst, _check_fields(torch, f"movies: {what}", out,
+                                         want))
+        n += out.numel()
+    return worst, n
+
+
+def _replay_split(torch, np, wall_ms, launches, frames, background):
+    """A render's wall split by replaying its recorded launches: kernel =
+    CUDA-event time of each launch again, upload = the pageable
+    host-to-card copy of the inputs the host built (its paint tables and
+    fields excluded), download = the pageable copy of the returned
+    frames' bytes from the card, composite = the renderer's host
+    compositing of the stage background under the frames
+    (``_composite_background``, numpy), host = the rest of the wall
+    (parse, stage build, plan, lowering, packing)."""
+    from swf_renderer_tpu_torch.runtime.renderer import (
+        _composite_background,
+    )
+
+    t0 = time.perf_counter()
+    _composite_background(frames, background if frames.ndim == 3
+                          else [background] * frames.shape[0])
+    composite = (time.perf_counter() - t0) * 1e3
+    dev = torch.device(DEVICE)
+    kernel = sum(time_ms(torch, lambda f=getattr(mod, name), a=a, k=k:
+                         f(*a, **k), reps=3)
+                 for mod, name, a, k, _ins in launches)
+    host_inputs = [t.cpu() for *_call, ins in launches for t in ins
+                   if t is not None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in host_inputs:
+        t.to(dev)
+    torch.cuda.synchronize()
+    upload = (time.perf_counter() - t0) * 1e3
+    on_card = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card.cpu()
+    download = (time.perf_counter() - t0) * 1e3
+    return {"wall_ms": wall_ms, "kernel_ms": kernel, "upload_ms": upload,
+            "download_ms": download, "composite_ms": composite,
+            "host_ms": wall_ms - kernel - upload - download - composite,
+            "upload_bytes": sum(t.numel() * t.element_size()
+                                for t in host_inputs)}
+
+
+def _sweep_launches(sweep, calls):
+    """Recorded sweep launches -> replayable (module, launcher name,
+    args, kwargs, inputs the host built); replayed once recording ends."""
+    return [(sweep, "_launch_sweep", args, kwargs,
+             [t for t in args[:6] if t is not None])
+            for args, kwargs, _o in calls]
+
+
+def _styled_launches(rec):
+    flatblock, texfield = rec.mods
+    out = [(flatblock, "_launch", a, k, a[1:8]) for a, k, _o in rec.styled]
+    out += [(texfield, "_launch", a, k, a[:2]) for a, k, _o in rec.tex]
+    return out
+
+
+def _log_split(what, split, card):
+    log(f"movies: {what}: wall {split['wall_ms']:.1f} ms = host (parse, "
+        f"plan, lowering) {split['host_ms']:.1f} + upload "
+        f"{split['upload_ms']:.2f} ({split['upload_bytes']} B) + kernel "
+        f"{split['kernel_ms']:.3f} + download {split['download_ms']:.1f} + "
+        f"background composite on the host {split['composite_ms']:.1f} "
+        f"(replayed) [{card}]")
+
+
+def _load_timed(torch, data, movie, timeline):
+    """(parse ms, stage-build ms) of one movie, medians of 5:
+    ``parse_movie`` alone, then the loader (which parses again) less
+    it."""
+    from swf_renderer_tpu_torch.models.swf_binary import parse_movie
+
+    load = movie.load_movie_timeline if timeline else movie.load_movie_stage
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    parse = median_ms(parse_movie)
+    return parse, median_ms(load) - parse
+
+
+def movies_anim(torch, np, report, route, card):
+    """movie_anim1080 in FWS (three calls), CWS and ZWS through
+    ``render_movie_timeline``: each one B3 launch and no B2, the frames
+    equal word for word to ``render_batch`` of the stages built by hand
+    and the route's launch to ``sweep_plain`` on its own tables."""
+    from swf_renderer_tpu_torch.models.swf_binary import compress_movie
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.runtime import movie
+    from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
+    from swf_renderer_tpu_torch.utils import movie_scenes
+
+    width, height = MOVIE_SIZE
+    data, stages = movie_scenes.anim_movie(
+        movie_scenes.port_mods(), width, height, frames=MOVIE_FRAMES)
+    parse_ms, build_ms = _load_timed(torch, data, movie, True)
+    calls, restore = _record_sweeps(sweep)
+    walls, outs, words = [], {}, 0
+    try:
+        for sig in ("FWS", "FWS", "FWS", "CWS", "ZWS"):
+            src = data if sig == "FWS" else compress_movie(data, sig)
+            frames, wall, got = route(movie.render_movie_timeline, src)
+            if got["affine"] != 1 or got["styled"] != 0:
+                fail(f"movies: movie_anim1080 ({sig}) launched {got}: one "
+                     "B3 launch and no B2 expected")
+            if sig == "FWS":
+                walls.append(wall)
+                last = _sweep_launches(sweep, calls)
+            words += _route_equals_plain(torch, sweep,
+                                         f"movie_anim1080 ({sig})", calls)
+            if frames.shape != (MOVIE_FRAMES, height, width, 4):
+                fail(f"movies: movie_anim1080 frames {frames.shape}")
+            outs.setdefault(sig, frames)
+            if not np.array_equal(frames, outs["FWS"]):
+                fail(f"movies: movie_anim1080 {sig} frames differ from FWS")
+        renderer = TorchRenderer(width, height, device=DEVICE)
+        hand = renderer.render_batch(stages)
+        words += _route_equals_plain(torch, sweep, "movie_anim1080 (hand)",
+                                     calls)
+    finally:
+        restore()
+    if renderer.last_stats.path != "transform-sweep":
+        fail(f"movies: movie_anim1080 path {renderer.last_stats.path!r}")
+    if not np.array_equal(hand, outs["FWS"]):
+        fail("movies: movie_anim1080 differs from render_batch of the "
+             "hand-built stages")
+    wall = statistics.median(walls)
+    split = _replay_split(torch, np, wall, last, outs["FWS"],
+                          stages[0].background_color)
+    _log_split(f"movie_anim1080 ({MOVIE_FRAMES} x {height}x{width}, "
+               "render_movie_timeline, median of 3)", split, card)
+    log(f"movies: movie_anim1080: parse {parse_ms:.2f} ms, stage build "
+        f"{build_ms:.2f} ms; FWS {len(data)} B, walls "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms; CWS and ZWS frames "
+        f"equal; {words} words equal sweep_plain; frames equal the "
+        f"hand-built stages' [{card}]")
+    report["movie_anim1080"] = dict(split, parse_ms=parse_ms,
+                                    stage_build_ms=build_ms, walls_ms=walls,
+                                    bytes=len(data), words_checked=words)
+    return data, outs["FWS"]
+
+
+def movies_morph(torch, np, report, route, card):
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.runtime import movie
+    from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
+    from swf_renderer_tpu_torch.utils import movie_scenes
+
+    width, height = MOVIE_SIZE
+    data, stages = movie_scenes.morph_movie(
+        movie_scenes.port_mods(), width, height, frames=MORPH_MOVIE_FRAMES)
+    parse_ms, build_ms = _load_timed(torch, data, movie, True)
+    calls, restore = _record_sweeps(sweep)
+    try:
+        frames, wall, got = route(movie.render_movie_timeline, data)
+        if got["morph_affine"] != 1 or got["styled"] != 0:
+            fail(f"movies: movie_morph1080 launched {got}: one B6 launch "
+                 "expected")
+        last = _sweep_launches(sweep, calls)
+        words = _route_equals_plain(torch, sweep, "movie_morph1080", calls)
+        renderer = TorchRenderer(width, height, device=DEVICE)
+        hand = renderer.render_batch(stages)
+        words += _route_equals_plain(torch, sweep, "movie_morph1080 (hand)",
+                                     calls)
+    finally:
+        restore()
+    if renderer.last_stats.path != "transform-sweep":
+        fail(f"movies: movie_morph1080 path {renderer.last_stats.path!r}")
+    if frames.shape != (MORPH_MOVIE_FRAMES, height, width, 4) \
+            or not np.array_equal(hand, frames):
+        fail("movies: movie_morph1080 differs from render_batch of the "
+             "hand-built stages")
+    split = _replay_split(torch, np, wall, last, frames,
+                          stages[0].background_color)
+    _log_split(f"movie_morph1080 ({MORPH_MOVIE_FRAMES} x {height}x{width}, "
+               "3 morphs)", split, card)
+    log(f"movies: movie_morph1080: parse {parse_ms:.2f} ms, stage build "
+        f"{build_ms:.2f} ms; {words} words equal sweep_plain; frames equal "
+        f"the hand-built stages' [{card}]")
+    report["movie_morph1080"] = dict(split, parse_ms=parse_ms,
+                                     stage_build_ms=build_ms,
+                                     words_checked=words)
+
+
+def movies_still(torch, np, report, route, card):
+    """movie_still1080 through ``render_movie``: B2 and B8 launched, each
+    launch equal to its plain version, the frame equal to ``render`` of
+    the stage built by hand."""
+    from swf_renderer_tpu_torch.runtime import movie
+    from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
+    from swf_renderer_tpu_torch.utils import movie_scenes
+
+    width, height = MOVIE_SIZE
+    data, stage, bitmaps = movie_scenes.still_movie(
+        movie_scenes.port_mods(), width, height)
+    parse_ms, build_ms = _load_timed(torch, data, movie, False)
+    rec = _Recorder()
+    try:
+        frame, wall, got = route(movie.render_movie, data)
+        if got["styled"] < 1 or got["texfield"] < 1:
+            fail(f"movies: movie_still1080 launched {got}: B2 and B8 "
+                 "expected")
+        last = _styled_launches(rec)
+        tex_err, n = _recorded_equal_plain(torch, "movie_still1080", rec)
+        rec.clear()
+        renderer = TorchRenderer(width, height, device=DEVICE)
+        for b in bitmaps:
+            renderer.add_bitmap(b)
+        hand = renderer.render(stage)
+        _recorded_equal_plain(torch, "movie_still1080 (hand)", rec)
+    finally:
+        rec.restore()
+    if renderer.last_stats.path != "flatblock":
+        fail(f"movies: movie_still1080 path {renderer.last_stats.path!r}")
+    if frame.shape != (height, width, 4) or not np.array_equal(hand, frame):
+        fail("movies: movie_still1080 differs from render of the "
+             "hand-built stage")
+    split = _replay_split(torch, np, wall, last, frame,
+                          stage.background_color)
+    _log_split("movie_still1080 (text, sprite, scale-9, rotated bitmap)",
+               split, card)
+    log(f"movies: movie_still1080: parse {parse_ms:.2f} ms, stage build "
+        f"{build_ms:.2f} ms; launches {got}; {n} words and field values "
+        f"equal their plain versions (texfield max abs {tex_err:.3g}); the "
+        f"frame equals the hand-built stage's [{card}]")
+    report["movie_still1080"] = dict(split, parse_ms=parse_ms,
+                                     stage_build_ms=build_ms, launches=got,
+                                     texfield_max_abs=tex_err)
+    return data, frame, got, tex_err
+
+
+def movies_cli(np, report, anim, anim_frames, still, still_frame, card):
+    """``python3 -m swf_renderer_tpu_torch`` in a subprocess on the card:
+    ``--frames DIR --stats`` on movie_anim1080 and ``-o`` on
+    movie_still1080, the PNGs read back equal to the in-process frames."""
+    from swf_renderer_tpu_torch.utils.png import read_png
+
+    out = OUT_DIR / "movies"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    (out / "movie_anim1080.swf").write_bytes(anim)
+    (out / "movie_still1080.swf").write_bytes(still)
+    walls = {}
+    for what, args in (
+            ("frames", ["movie_anim1080.swf", "--frames", "frames",
+                        "--stats"]),
+            ("still", ["movie_still1080.swf", "-o", "still.png"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "swf_renderer_tpu_torch"] + args,
+            cwd=out, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        walls[what] = (time.perf_counter() - t0) * 1e3
+        if proc.returncode != 0:
+            fail(f"movies: the CLI ({' '.join(args)}) exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        if what == "frames":
+            stats = json.loads(proc.stderr.strip().splitlines()[-1])
+    pngs = sorted((out / "frames").glob("*.png"))
+    if len(pngs) != len(anim_frames):
+        fail(f"movies: the CLI wrote {len(pngs)} PNGs")
+    for p, f in zip(pngs, anim_frames):
+        if not np.array_equal(read_png(p), f):
+            fail(f"movies: the CLI's {p.name} differs from the in-process "
+                 "frame")
+    if not np.array_equal(read_png(out / "still.png"), still_frame):
+        fail("movies: the CLI's still.png differs from render_movie's")
+    log(f"movies: CLI --frames ({len(pngs)} PNGs) wall "
+        f"{walls['frames']:.0f} ms "
+        f"(its --stats: render {stats['seconds'] * 1e3:.1f} ms), -o "
+        f"still.png wall {walls['still']:.0f} ms; every PNG equals the "
+        f"in-process frame [{card}]")
+    report["movies_cli"] = {"frames_wall_ms": walls["frames"],
+                            "still_wall_ms": walls["still"],
+                            "render_seconds": stats["seconds"]}
+    shutil.rmtree(out / "frames")
+
+
+def phase_movies(torch, np, report):
+    """Phase 14 -> launches of B2, B3, B6 and B8 on the movie routes, and
+    the worst texfield difference."""
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.flatblock import render_fused_styled
+    from swf_renderer_tpu_torch.ops.texfield import bitmap_field_planes
+
+    wrappers = {"styled": render_fused_styled,
+                "affine": sweep.render_affine_sweep,
+                "morph_affine": sweep.render_morph_affine_sweep,
+                "texfield": bitmap_field_planes}
+
+    launches = dict.fromkeys(wrappers, 0)
+
+    def route(entry, src):
+        """One call of a movie entry point on the card, the counts set
+        to 0 just before and read just after -> (result, wall ms, the
+        launches of this call, also added to the phase's)."""
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = entry(src, device=DEVICE)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, n in got.items():
+            launches[k] += n
+        return out, wall, got
+
+    card = card_line()
+    anim, anim_frames = movies_anim(torch, np, report, route, card)
+    movies_morph(torch, np, report, route, card)
+    still, still_frame, _got, tex_err = movies_still(torch, np, report,
+                                                     route, card)
+    log(f"movies: launches on the movie routes {launches}")
+    movies_cli(np, report, anim, anim_frames, still, still_frame, card)
+    return launches, tex_err
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4978,6 +5401,11 @@ def main() -> None:
     kernels.update(phase_probes(torch, np, report))
     kernels.update(phase_products(torch, np, report))
     kernels.update(phase_windows(torch, np, report))
+    movies, tex_err = phase_movies(torch, np, report)
+    for key, n in movies.items():
+        kernels[key]["launches"] += n
+    kernels["texfield"]["max_abs_err"] = max(
+        kernels["texfield"]["max_abs_err"], tex_err)
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"

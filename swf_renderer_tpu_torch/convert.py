@@ -1,15 +1,19 @@
 """Carry the reference renderer's state into the port.
 
-The renderer has no weights: its state is paints, draw lists and packed
-scenes.  These helpers read plain attributes (numpy arrays and Python
-values) from any object or dict that has the fields, so state built by
-the JAX package — or loaded from disk — becomes the port's without this
-module importing that package.
+The renderer has no weights: its state is the movie's bytes and what they
+define — parsed tags, stages, paints, draw lists and packed scenes.
+These helpers read plain attributes (numpy arrays and Python values) from
+any object or dict that has the fields, so state built by the JAX package
+— or loaded from disk — becomes the port's without this module importing
+that package; ``to_plain`` turns a parsed tree of either package into one
+neutral form, so the two can be compared.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
+import struct
 
 import numpy as np
 import torch
@@ -24,6 +28,42 @@ def _get(obj, name, default=None):
     if isinstance(obj, dict):
         return obj.get(name, default)
     return getattr(obj, name, default)
+
+
+def to_plain(obj):
+    """A parsed ``Movie``, ``Stage`` or tag tree of either package -> a
+    neutral nested form that compares equal exactly when the trees do.
+
+    A dataclass becomes (class name, ((field, value), ...)) over the
+    fields its equality compares (a ``compare=False`` cache is left
+    out), an enum
+    (class name, member name), a numpy array (dtype, shape, bytes), a
+    float ("float", its 8 bytes) so that NaN and -0.0 compare bit for
+    bit, a numpy scalar (dtype, bytes); tuples, lists and dicts stay
+    those containers of plain values; str, bytes, int, bool and None
+    stay themselves.  Anything else raises TypeError."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,
+                tuple((f.name, to_plain(getattr(obj, f.name)))
+                      for f in dataclasses.fields(obj) if f.compare))
+    if isinstance(obj, enum.Enum):
+        return (type(obj).__name__, obj.name)
+    if isinstance(obj, np.ndarray):
+        return (str(obj.dtype), obj.shape,
+                np.ascontiguousarray(obj).tobytes())
+    if isinstance(obj, np.generic):
+        return (str(obj.dtype), obj.tobytes())
+    if isinstance(obj, float):
+        return ("float", struct.pack("<d", obj))
+    if obj is None or isinstance(obj, (str, bytes, bool, int)):
+        return obj
+    if isinstance(obj, bytearray):
+        return bytes(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_plain(v) for v in obj)
+    if isinstance(obj, dict):
+        return {to_plain(k): to_plain(v) for k, v in obj.items()}
+    raise TypeError(f"to_plain: no plain form for {type(obj).__name__}")
 
 
 def paint_from_numpy(obj) -> style_ops.Paint:

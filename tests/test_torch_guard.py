@@ -71,6 +71,17 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_scan_covers_the_movie_front_end_and_the_cli():
+    """The SWF front end, the movie loader, the image writers and
+    ``python -m swf_renderer_tpu_torch`` are among the modules scanned
+    and imported above."""
+    mods = set(_port_modules())
+    for name in ("utils.bits", "models.sound", "models.screenvideo",
+                 "models.swf_binary", "runtime.movie", "utils.png",
+                 "utils.pam", "utils.movie_scenes", "__main__"):
+        assert f"swf_renderer_tpu_torch.{name}" in mods, name
+
+
 def test_entry_points_without_device_or_card_raise(monkeypatch):
     from swf_renderer_tpu_torch.models import display
     from swf_renderer_tpu_torch.ops import style as style_ops
