@@ -112,7 +112,7 @@ Phases, each of which exits non-zero on failure before the last line:
              scenes (1/3/16 layers, 100x300 and 400x550, mixed rules),
              with the plan's capacities checked against every crossing
              count; grouped coverage (B11) against ``grouped_plain`` on
-             phase 7's random paths; then the main path once —
+             phase 7's random paths (max abs 0); then the main path once —
              ``render_affine_sweep(row_grid=True)`` and
              ``render_affine_sweep(**plan_compact_sweep(...))`` on
              anim1080 and anim1080_gradient,
@@ -120,7 +120,8 @@ Phases, each of which exits non-zero on failure before the last line:
              morph_affine1080, ``coverage_grouped`` on direct1080's and
              dense1080's planes — and each kernel timed beside the column
              kernel (B3, B6) or the banded / tiled kernel (B9, B10) on the
-             same inputs, ``compact_pre`` apart, every frame and plane
+             same inputs (B11 also against the parent's build with
+             --parent), ``compact_pre`` apart, every frame and plane
              held against the plain versions (B4's, like B3's, B6's and
              B7's in phases 5 and 6, word for word, and equal to B3's and
              B6's);
@@ -295,8 +296,8 @@ def phase_build():
 
     def parent(force):
         pkg = PARENT_ROOT / "swf_renderer_tpu_torch"
-        _HELD["parent_libs"] = cuda_lib.build_other(pkg / "csrc",
-                                                    pkg / "_build")
+        _HELD["parent_libs"], _HELD["parent_log"] = cuda_lib.build_other(
+            pkg / "csrc", pkg / "_build")
 
     jobs = [("g++ native", bindings.build_library),
             ("nvcc kernels", cuda_lib.build)]
@@ -325,7 +326,8 @@ def phase_build():
         log(f"ptxas: {label}: {v['registers']} registers, {v['stack']} B "
             f"stack, {v['spill_stores']} B spill stores, "
             f"{v['spill_loads']} B spill loads")
-        if (label.startswith(("B2", "B9", "B10")) or label in NO_STACK) and (
+        if (label.startswith(("B2", "B9", "B10", "B11")) or
+                label in NO_STACK) and (
                 v["stack"] or v["spill_stores"] or v["spill_loads"]):
             fail(f"ptxas: {label} keeps a stack frame or spills: {v}")
         _HELD.setdefault("ptxas", {})[label] = v
@@ -340,9 +342,11 @@ def phase_build():
 # pass, chain and chain + premultiplied forms (styled_flatblock_kernel
 # <kChain, kPremul>; phase 1 fails if these keep a stack frame or
 # spill), the product forms', the windowed one's and the texfield
-# kernel's at animtex1080 (n 2, bilinear, repeat), and the banded (B9)
-# and tiled (B10) coverage kernels (phase 1 fails if these keep a stack
-# frame or spill, as for B2), and the sweeps' column (sweep_tile_kernel
+# kernel's at animtex1080 (n 2, bilinear, repeat), the banded (B9),
+# tiled (B10) and grouped (B11) coverage kernels (phase 1 fails if these
+# keep a stack frame or spill, as for B2), the one-block form B13 at the
+# headline (solid_flatblock_kernel<kVarOne, 4>, in NO_STACK), and the
+# sweeps' column (sweep_tile_kernel
 # <kMorph, kAffine, kStyled, kLc>: B3 affine, B6 morph + affine, B7 morph
 # ratio) and row-band (B4, sweep_rows_kernel<kMorph, kAffine, kStyled,
 # kLc>) instantiations at anim1080, morph_affine1080 and morph1080 (the
@@ -362,6 +366,8 @@ PTXAS_WATCH = {
     "texfield n2 bilinear repeat": "texfield_kernelILi2ELb1ELi0E",
     "B9 banded": "banded_kernel",
     "B10 tiled": "tiled_kernel",
+    "B11 grouped": "grouped_kernel",
+    "B13 one-block": "solid_flatblock_kernelILi12ELi4E",
     "B3 solid": "sweep_tile_kernelILb0ELb1ELb0ELi4E",
     "B3 styled": "sweep_tile_kernelILb0ELb1ELb1ELi16E",
     "B6 morph + affine": "sweep_tile_kernelILb1ELb1ELb0ELi4E",
@@ -371,7 +377,7 @@ PTXAS_WATCH = {
     "B4 morph": "sweep_rows_kernelILb1ELb1ELb0ELi4E",
 }
 NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B6 morph + affine",
-            "B7 morph")
+            "B7 morph", "B13 one-block")
 
 
 def ab_times(torch, name, fn, lib="swfkernels"):
@@ -2092,7 +2098,7 @@ def phase_bitmaps(torch, np, report):
 # ---------------------------------------------------------------------------
 
 COV_TOL = 1e-6                   # resolve premul max abs, kernel vs plain
-COV_EXACT = 0.0                  # banded / tiled coverage: byte-equal
+COV_EXACT = 0.0                  # banded / tiled / grouped: byte-equal
 DIRECT = (60, 4, 1088, 1920)     # bench.py --direct, uncut
 DENSE = (4, 4, 1088, 1920, 320)  # frames, layers, height, width, shapes
 WIDE = (16, 4, 1088, 8320)       # stride 8448 > 8192
@@ -2918,6 +2924,43 @@ def headline_planes(torch, np, report, ref_frames):
     return entries, arrays, (ns, nc), reset, read
 
 
+# B13's kernel by mangled-name fragment: the first design's generic body
+# (fused_flatblock_kernel<false, true>) and B1's solid body at kVarOne
+# (solid_flatblock_kernel<12, kLc>); and B1 at the headline's layer
+# class beside them (solid_flatblock_kernel<kVarFull, 4>).
+B13_KERNELS = ("fused_flatblock_kernelILb0ELb1E",
+               "solid_flatblock_kernelILi12E",
+               "solid_flatblock_kernelILi0ELi4E")
+
+
+def b13_census():
+    """ptxas readings and SASS census (``coverage_phases.sass_census``:
+    instructions, local loads and stores, compare-and-swap atomics,
+    loops) of B13's kernels, and of B1's beside them, in this build and,
+    with --parent, the parent's: {build: {kernel: readings}}."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+    from swf_renderer_tpu_torch.tools.coverage_phases import sass_census
+
+    builds = {"change": (cuda_lib.lib_path("swfkernels"),
+                         cuda_lib.build_log)}
+    if "parent_libs" in _HELD:
+        builds["parent"] = (PARENT_ROOT / "swf_renderer_tpu_torch" / "_build"
+                            / "libswfkernels.so", _HELD["parent_log"])
+    out = {}
+    for which, (path, text) in builds.items():
+        ptx = ptxas_kernels(text)
+        for name, body in sass_of(path).items():
+            if any(k in name for k in B13_KERNELS):
+                v = {**ptx.get(name, {}), **sass_census(body)}
+                out.setdefault(which, {})[name] = v
+                log(f"flat_blocks: SASS census ({which}) {name}: "
+                    f"{v.get('registers')} registers, {v.get('stack')} B "
+                    f"stack, {v['instructions']} instructions, STL "
+                    f"{v['stl']}, LDL {v['ldl']}, CAS {v['cas']}, loops "
+                    f"{v['loops'][:6]}")
+    return out
+
+
 def headline_fused1(torch, np, report, ref_frames, arrays, geometry, reset,
                     read):
     """The headline's blocks sorted for the one-block fused kernel (B13):
@@ -2983,7 +3026,7 @@ def headline_fused1(torch, np, report, ref_frames, arrays, geometry, reset,
         "first_call_ms": t_call * 1e3, "kernel_ms": ms, "plain_ms": plain_ms,
         "bound_ms": b[0], "bound_by": b[1], "group_ms": t_group * 1e3,
         "vs_phase3_premul_max": vs3[0], "vs_phase3_max": vs3[1],
-        "vs_phase3_share": vs3[2]}
+        "vs_phase3_share": vs3[2], "sass": b13_census()}
     return dict(launches=launches[3], max_abs_err=0, ms=ms, plain_ms=plain_ms,
                 bound_ms=b[0], bound_by=b[1])
 
@@ -3785,7 +3828,8 @@ def tilings_random(torch, np):
 
 def grouped_random(torch, np):
     """B11 against grouped_plain on closed random paths (both rules; the
-    phase 7 frames and edge counts that are multiples of 128)."""
+    phase 7 frames and edge counts that are multiples of 128): max abs
+    0."""
     from swf_renderer_tpu_torch.ops import coverage as cov
     from swf_renderer_tpu_torch.utils.scenes import closed_edge_planes
 
@@ -3804,15 +3848,15 @@ def grouped_random(torch, np):
             want = cov.grouped_plain(es, bounds, height, width, rule)
             worst = max(worst, _check_planes(
                 torch, f"grouped {height}x{width} E={n}/{e_pad} rule={rule}",
-                got, want))
+                got, want, tol=COV_EXACT))
     return worst
 
 
 def grouped_run(torch, np, what, d_edges, height, width, report):
     """B11 on phase 7's planes of one scene: the kernel timed beside the
-    kernel phase 7 routes them to (banded or tiled), held against
-    grouped_plain (1e-6, u8 equal) and against that kernel's coverage
-    (COV_VS_OTHER_*)."""
+    kernel phase 7 routes them to (banded or tiled) and, with --parent,
+    against the parent's build, held against grouped_plain (max abs 0)
+    and against that kernel's coverage (COV_VS_OTHER_*)."""
     from swf_renderer_tpu_torch.ops import coverage as cov
 
     es, key, pad = cov.sort_edges(d_edges)
@@ -3829,6 +3873,7 @@ def grouped_run(torch, np, what, d_edges, height, width, report):
 
     ms = time_ms(torch, kernel)
     other_ms = time_ms(torch, yardstick)
+    ab_times(torch, f"grouped ({what})", kernel, lib="swfcoverage")
     got = kernel()
     held = {}
 
@@ -3837,7 +3882,7 @@ def grouped_run(torch, np, what, d_edges, height, width, report):
 
     plain_ms = time_ms(torch, plain, reps=1, warmup=0)
     err = _check_planes(torch, f"{what}: grouped, all {got.shape[0]} planes",
-                        got, held.pop("want"))
+                        got, held.pop("want"), tol=COV_EXACT)
     diff = (got - yardstick()).abs()
     vs_other = float(diff.max().item())
     over = float((diff > COV_VS_OTHER_TOL).float().mean().item())

@@ -28,52 +28,57 @@
 //     group's 8 terms merge ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 +
 //     c7)) and the groups add to the block's partial in turn, which is
 //     then added to the strip's running sum.
-// The three round differently, so they share no per-edge function.  Their
+// The three round differently in their y-only terms, so those are
+// separate functions (B10's and B11's per-pixel halves are the same
+// operations and share `tiled_pixel`).  Their
 // plain versions (ops/coverage.py banded_plain, tiled_plain,
 // grouped_plain) repeat each kernel's order; the host steps (sort, band
 // windows, block bounds) run in PyTorch before the launch.
 //
 // Design.  The TPU grid walks (plane, tile row, tile column[, edge
 // block]) in order with the tile in VMEM and the edges in SMEM.  Here one
-// CUDA block of 256 threads owns one 16 x 128 tile: thread t owns
-// kCovCols = 4 neighbouring columns, 4 (t % 32), and 2 rows, 2 (t / 32),
-// so a warp's pixels are the same 2 rows of all 128 columns (coalesced
-// stores) and a staged term, read once, serves four columns.  The row
-// sums live in shared memory (`CovSums`), read into registers once a
-// round or hit block.  Rows and columns past the frame compute and are
-// not stored.  B9 and B10 split each kernel's per-edge term into its
-// y-only half, computed once per (edge, row) of the tile and staged in
-// shared memory, and its per-pixel half:
-//   * y-only (`banded_row_terms`, `tiled_row_terms`): dy, the clipped
-//     x-range [xmn, xmx] and B9's span or B10's 1 / max(span, 1e-9) —
-//     the divisions by the clipped dy (B9) and B10's reciprocal leave the
-//     pixel loop;
-//   * per pixel (`banded_pixel`, `tiled_pixel`): right of the range
-//     (xmx - px <= 0) both antiderivatives are 0, the mean is +0 and the
-//     term is dy * 1 == dy exactly, so it adds dy alone; else the ramp
-//     (B9's one IEEE division by the span, B10's multiply).
+// CUDA block of 256 threads owns one 16 x 128 tile (B11: two of its 8-row
+// strips): thread t owns kCovCols = 4 neighbouring columns, 4 (t % 32),
+// and 2 rows, 2 (t / 32), so a warp's pixels are the same 2 rows of all
+// 128 columns (coalesced stores) and a staged term, read once, serves
+// four columns.  The row sums live in shared memory (`CovSums`), read
+// into registers once a round or hit block.  Rows and columns past the
+// frame compute and are not stored.  Each kernel's per-edge term is split
+// into its y-only half, computed once per (edge, row) of the tile and
+// staged in shared memory, and its per-pixel half:
+//   * y-only (`banded_row_terms`, `tiled_row_terms`,
+//     `grouped_row_terms`): dy, the clipped x-range [xmn, xmx] and B9's
+//     span or B10's / B11's 1 / span — the divisions by the clipped dy
+//     (B9) and the reciprocals leave the pixel loop;
+//   * per pixel (`banded_pixel`, `tiled_pixel`, B11's the same
+//     operations as B10's): right of the range (xmx - px <= 0) both
+//     antiderivatives are 0, the mean is +0 and the term is dy * 1 == dy
+//     exactly, so it adds dy alone; else the ramp (B9's one IEEE division
+//     by the span, B10's and B11's multiply).
 // An (edge, row) pair whose computed dy is 0 adds +-0 to the row's sums,
 // which leaves every sum as it is but for the sign of a zero, and the
 // fill rule maps both zeros to +0 (inputs finite: the term is 0 times a
 // finite mean).  So B9 stages, per row, only the edges whose computed dy
 // is nonzero, in window order (a warp ballot and a popcount prefix),
-// kBandChunk window edges a round; B10 keeps its merge tree and marks,
-// per row, the trips of four edges that hold a crossing edge (a 32-bit
-// mask a 128-edge block): a row walks only those trips, a non-crossing
-// edge in a walked trip adds 0.0f.  Never a test on the raw y-range:
-// one built from (ymin, |y1 - y0|) rounds and misses rows whose computed
-// dy is nonzero (tests/test_torch_kernel_emulated_coverage.py).  The
-// y-only values are the old per-pixel expressions operation for
-// operation, and the library builds with -fmad=false, so every output
-// byte is the one-edge-a-pixel form's.
+// kBandChunk window edges a round; B10 and B11 keep their merge trees and
+// mark, per row, the trips of four edges (B10) or the edges (B11, whose
+// groups of 8 are walked where one of their bits is set) that cross it:
+// a row walks only those trips or groups, a non-crossing edge in a walked
+// one adds 0.0f.  Never a test on the raw y-range: one built from (ymin,
+// |y1 - y0|) rounds and misses rows whose computed dy is nonzero
+// (tests/test_torch_kernel_emulated_coverage.py).  The y-only values are
+// the old per-pixel expressions operation for operation, and the library
+// builds with -fmad=false, so every output byte is the one-edge-a-pixel
+// form's.
 //
 // B11 on the TPU puts 8 edges on the sublanes and an 8-row strip on the
 // lanes so the y-only terms cost one vector op per 8 (edge, row) pairs.
-// Here one block of 128 threads owns an 8 x 128 strip tile: for each hit
-// block the 128 threads first compute the y-only terms of (their edge,
-// each of the 8 rows) into shared memory (1024 pairs, 16 KB), then each
-// thread walks them for its column with the 8 row sums in registers; the
-// reads are broadcasts (every thread of a warp reads the same term).
+// Its first design here (one block of 128 threads an 8 x 128 strip tile,
+// one column a thread, all 8 x 128 (edge, row) terms staged and walked)
+// spent 83% of its cycles walking pairs of which 96% (direct1080) had a
+// computed dy of 0 (PERF.md): 23.3 ms against B9's 2.2.  Its redesign is
+// B10's tile with the strip kept as the unit of the bounds test: a
+// 128-edge block is staged for the strips it reaches.
 //
 // Bound on this card: operations.  An (edge, pixel) pair of a row the
 // edge crosses costs one add right of the edge and ~16 f32 operations
@@ -103,8 +108,6 @@ constexpr int kBandChunk = 64;      // window edges B9 stages a round
 constexpr int kBandMinBlocksPerSm = 24;
 constexpr int kCovBlock = 128;      // edges per block (tiled, grouped)
 constexpr int kGrpStripH = 8;       // rows of a grouped strip
-constexpr int kGrpGroup = 8;        // edges a grouped sum merges
-constexpr int kGrpThreads = 128;    // one column each
 
 struct CoverageArgs {
   const float* edges;   // (B, 4, E) sorted by ymin: rows x0, y0, x1, y1
@@ -178,7 +181,8 @@ __device__ __forceinline__ float4 tiled_row_terms(float x0, float y0,
   return make_float4(dy, xmn, xmx, inv_span);
 }
 
-// B10's per-pixel half at column px.
+// B10's per-pixel half at column px (B11's too: its leaves are the same
+// operations on its own y-only terms).
 __device__ __forceinline__ float tiled_pixel(float4 t, float px) {
   const float rel_mx = t.z - px;
   if (rel_mx <= 0.0f) return t.x;   // right of the edge: dy * 1
@@ -403,38 +407,101 @@ __device__ void tiled_block(const CoverageArgs& a, TiledTerms& s) {
   pix.store(a, s.acc, tid);
 }
 
-// B11's staged terms of one 128-edge block: per row of the strip and
-// edge, dy, xmn, xmx and inv_span (negative for a span under 1e-9).
+// B11's y-only half (coverage.py:440-466, through the reciprocals the
+// reference multiplies by) of an edge for row py, after its dy: (dy, xmn,
+// xmx, 1 / span), the last -1 for a span under 1e-9 (the clamped-midpoint
+// branch).  inv_dyd = 1 / safe_dyd and dx = x1 - x0 are the edge's.
+__device__ __forceinline__ float4 grouped_row_terms(float x0, float dx,
+                                                    float inv_dyd, float sy0,
+                                                    float cy0, float cy1,
+                                                    float dy) {
+  const float t0 = (cy0 - sy0) * inv_dyd;
+  const float t1 = (cy1 - sy0) * inv_dyd;
+  const float xa = x0 + t0 * dx;
+  const float xb = x0 + t1 * dx;
+  const float xmn = fminf(xa, xb);
+  const float xmx = fmaxf(xa, xb);
+  const float span = xmx - xmn;
+  return make_float4(dy, xmn, xmx,
+                     span < 1e-9f ? -1.0f : __fdiv_rn(1.0f, span));
+}
+
+// B11's staged block: per row of the tile (two 8-row strips), the y-only
+// terms of the block's 128 edges, written only where the computed dy is
+// nonzero, and the mask of those edges (bit k of word q: edge 32 q + k).
 struct GroupedTerms {
-  float dy[kGrpStripH][kCovBlock];
-  float xmn[kGrpStripH][kCovBlock];
-  float xmx[kGrpStripH][kCovBlock];
-  float inv[kGrpStripH][kCovBlock];
+  float4 t[kCovTileH][kCovBlock];
+  unsigned leaves[kCovTileH][kCovBlock / 32];
+  CovSums acc;
 };
 
-// B11: one block of kGrpThreads threads = one (plane, 8-row strip, column
-// tile); thread t owns column t of the tile.
+// One 8-edge group of B11 at the thread's columns: the leaves (B10's
+// per-pixel half: the same operations) merged ((c0 + c1) + (c2 + c3)) +
+// ((c4 + c5) + (c6 + c7)); a leaf whose bit in lm is clear adds 0.0f.
+__device__ __forceinline__ void grouped_group(const float4* tg, unsigned lm,
+                                              const float* px, float* grp) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float half[kCovCols];
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const int u = 4 * h + 2 * pr;
+      const bool l0 = (lm >> u) & 1u;
+      const bool l1 = (lm >> (u + 1)) & 1u;
+      float4 t0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 t1 = t0;
+      if (l0) t0 = tg[u];
+      if (l1) t1 = tg[u + 1];
+#pragma unroll
+      for (int c = 0; c < kCovCols; ++c) {
+        const float pv = (l0 ? tiled_pixel(t0, px[c]) : 0.0f) +
+                         (l1 ? tiled_pixel(t1, px[c]) : 0.0f);
+        half[c] = pr == 0 ? pv : half[c] + pv;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCovCols; ++c) {
+      grp[c] = h == 0 ? half[c] : grp[c] + half[c];
+    }
+  }
+}
+
+// B11: one block = one (plane, 16-row tile = 8-row strips 2 blockIdx.y
+// and 2 blockIdx.y + 1, column tile).  A 128-edge block whose bounds
+// reach either strip is staged once for both: warp w stages edges 32 (w
+// % 4) .. + 31 for the rows of strip w / 4 (none for a strip the bounds
+// miss: its rows add nothing, as the strip skips the block).  Each row
+// then walks the 8-edge groups that hold an edge with a nonzero dy, in
+// order, adding each group's sum to the block's partial, which is then
+// added to the row's running sum.
 __device__ void grouped_block(const CoverageArgs& a, GroupedTerms& s) {
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int b = blockIdx.z;
   const int nb = a.n_edges / kCovBlock;
-  const int col = blockIdx.x * kCovBlock + tid;
-  const int row0 = blockIdx.y * kGrpStripH;
-  const float strip_y0 = static_cast<float>(row0);
-  const float px = static_cast<float>(col);
+  const float tile_y0 = static_cast<float>(blockIdx.y * kCovTileH);
   const float* e = a.edges + static_cast<size_t>(b) * 4 * a.n_edges;
   const float* bnd = a.bounds + static_cast<size_t>(b) * nb * 2;
-  float acc[kGrpStripH];
-  for (int r = 0; r < kGrpStripH; ++r) acc[r] = 0.0f;
+  const int q = warp % 4;                 // edges 32 q .. 32 q + 31
+  const int strip = warp / 4;             // rows 8 strip .. 8 strip + 7
+  const float strip_y0 = tile_y0 + static_cast<float>(strip * kGrpStripH);
+  const CovPixel pix(tid, blockIdx.x);
+  for (int j = 0; j < kCovRowsPerThread; ++j) {
+    for (int c = 0; c < kCovCols; ++c) s.acc.v[j][c][tid] = 0.0f;
+  }
   for (int blk = 0; blk < nb; ++blk) {
-    // The same test in every thread: the branch is uniform per block.
-    if (!(bnd[2 * blk + 1] > strip_y0 &&
-          bnd[2 * blk] < strip_y0 + static_cast<float>(kGrpStripH))) {
-      continue;
-    }
+    // The same tests in every thread: the branch is uniform per block.
+    const float lo = bnd[2 * blk];
+    const float hi = bnd[2 * blk + 1];
+    const float mid = tile_y0 + static_cast<float>(kGrpStripH);
+    const bool hit0 = hi > tile_y0 && lo < mid;
+    const bool hit1 = hi > mid && lo < mid + static_cast<float>(kGrpStripH);
+    if (!hit0 && !hit1) continue;
     __syncthreads();   // the previous block's terms are no longer read
-    {
-      const int i = blk * kCovBlock + tid;
+    if (strip == 0 ? hit0 : hit1) {
+      const int k = 32 * q + lane;
+      const int i = blk * kCovBlock + k;
       const float x0 = e[i];
       const float y0 = e[a.n_edges + i];
       const float x1 = e[2 * a.n_edges + i];
@@ -444,54 +511,51 @@ __device__ void grouped_block(const CoverageArgs& a, GroupedTerms& s) {
       const float inv_dyd = __fdiv_rn(1.0f, safe_dyd);
       const float dx = x1 - x0;
       for (int r = 0; r < kGrpStripH; ++r) {
+        const int row = strip * kGrpStripH + r;
         const float py = strip_y0 + static_cast<float>(r);
         const float sy0 = y0 - py;
         const float sy1 = y1 - py;
         const float cy0 = cov_clamp01(sy0);
         const float cy1 = cov_clamp01(sy1);
-        const float t0 = (cy0 - sy0) * inv_dyd;
-        const float t1 = (cy1 - sy0) * inv_dyd;
-        const float xa = x0 + t0 * dx;
-        const float xb = x0 + t1 * dx;
-        const float xmn = fminf(xa, xb);
-        const float xmx = fmaxf(xa, xb);
-        const float span = xmx - xmn;
-        s.dy[r][tid] = cy1 - cy0;
-        s.xmn[r][tid] = xmn;
-        s.xmx[r][tid] = xmx;
-        s.inv[r][tid] = span < 1e-9f ? -1.0f : __fdiv_rn(1.0f, span);
+        const float dy = cy1 - cy0;
+        const bool cross = dy != 0.0f;
+        if (cross) {
+          s.t[row][k] = grouped_row_terms(x0, dx, inv_dyd, sy0, cy0, cy1,
+                                          dy);
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, cross);
+        if (lane == 0) s.leaves[row][q] = m;
+      }
+    } else if (lane == 0) {
+      for (int r = 0; r < kGrpStripH; ++r) {
+        s.leaves[strip * kGrpStripH + r][q] = 0u;
       }
     }
     __syncthreads();
-    for (int r = 0; r < kGrpStripH; ++r) {
-      float part = 0.0f;
-      for (int g = 0; g < kCovBlock; g += kGrpGroup) {
-        float c[kGrpGroup];
+#pragma unroll 1
+    for (int j = 0; j < kCovRowsPerThread; ++j) {
+      const int row = pix.half + j;
+      float part[kCovCols] = {};
+#pragma unroll 1
+      for (int w = 0; w < kCovBlock / 32; ++w) {
+        unsigned m = s.leaves[row][w];
+        while (m != 0u) {
+          const int g = (__ffs(m) - 1) >> 3;   // the group in the word
+          const unsigned lm = (m >> (8 * g)) & 0xffu;
+          m &= ~(0xffu << (8 * g));
+          float grp[kCovCols];
+          grouped_group(&s.t[row][32 * w + 8 * g], lm, pix.px, grp);
 #pragma unroll
-        for (int u = 0; u < kGrpGroup; ++u) {
-          const int k = g + u;
-          const float rel_mn = s.xmn[r][k] - px;
-          const float rel_mx = s.xmx[r][k] - px;
-          const float inv = s.inv[r][k];
-          const float mean =
-              inv < 0.0f ? cov_clamp01(0.5f * (rel_mn + rel_mx))
-                         : (cov_h01(rel_mx) - cov_h01(rel_mn)) * inv;
-          c[u] = s.dy[r][k] * (1.0f - mean);
+          for (int c = 0; c < kCovCols; ++c) part[c] = part[c] + grp[c];
         }
-        part = part + (((c[0] + c[1]) + (c[2] + c[3]))
-                       + ((c[4] + c[5]) + (c[6] + c[7])));
       }
-      acc[r] = acc[r] + part;
+#pragma unroll
+      for (int c = 0; c < kCovCols; ++c) {
+        s.acc.v[j][c][tid] = s.acc.v[j][c][tid] + part[c];
+      }
     }
   }
-  if (col >= a.width) return;
-  float* out = a.out + static_cast<size_t>(b) * a.height * a.width;
-  for (int r = 0; r < kGrpStripH; ++r) {
-    const int y = row0 + r;
-    if (y < a.height) {
-      out[static_cast<size_t>(y) * a.width + col] = fill_cov(acc[r], a.rule);
-    }
-  }
+  pix.store(a, s.acc, tid);
 }
 
 }  // namespace swf

@@ -53,22 +53,14 @@ __global__ void block_index_kernel(const int* sidx, const int* keep,
   }
 }
 
-// The one-block-per-step form (B13: fused_flatblock_kernel<false, true>).
-template <bool kStyled, bool kOne, bool kChain = false,
-          bool kPremul = false, int kVar = kVarFull>
-__global__ void __launch_bounds__(kThreads)
-fused_flatblock_kernel(FusedArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  fused_block<kStyled, kOne, kChain, kPremul, kVar>(a, smem);
-}
-
-// B1 and its variants (the solid grouped kernel): fused_block with the
-// layer loops of the resolve unrolled to kLc >= layers.
+// B1 and its variants (the solid grouped kernel), the one-block form
+// B13 among them (kVarOne): fused_block with the layer loops of the
+// resolve unrolled to kLc >= layers.
 template <int kVar, int kLc>
 __global__ void __launch_bounds__(kThreads)
 solid_flatblock_kernel(FusedArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fused_block<false, false, false, false, kVar, kLc>(a, smem);
+  fused_block<false, false, false, kVar, kLc>(a, smem);
 }
 
 // B2, the styled grouped kernel, in its modes (kChain, kPremul).
@@ -76,7 +68,7 @@ template <bool kChain, bool kPremul>
 __global__ void __launch_bounds__(kThreads, kStyledMinBlocks)
 styled_flatblock_kernel(FusedArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fused_block<true, false, kChain, kPremul>(a, smem);
+  fused_block<true, kChain, kPremul>(a, smem);
 }
 
 // Zero the premultiplied output's padding rows (plane rows spp*n_chunks*8
@@ -226,8 +218,9 @@ cudaError_t launch_coarse(FusedArgs a, int coarse, int frames, int* sg_index,
   return cudaGetLastError();
 }
 
-// The one-block-per-step form: one block of 128 slots a step, blocks
-// sorted by (frame, strip, layer); strip NS of every frame is zeroed.
+// The one-block-per-step form (B13): B1's solid body at kVarOne over
+// blocks of 128 slots sorted by (frame, strip, layer), one CUDA block a
+// (chunk, strip, frame); strip NS of every frame is zeroed.
 cudaError_t launch_one(FusedArgs a, const int* keep, const int* last,
                        int frames, int* sg_index, cudaStream_t stream) {
   const size_t n_sg = static_cast<size_t>(frames) * a.ns1;
@@ -242,14 +235,13 @@ cudaError_t launch_one(FusedArgs a, const int* keep, const int* last,
         sg_index, sg_index + n_sg);
   }
   const size_t bytes = smem_bytes(a.layers, kStripH, false);
-  err = cudaFuncSetAttribute(fused_flatblock_kernel<false, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
   const dim3 grid(a.n_chunks, a.ns1 - 1, frames);
-  if (grid.y > 0) {
-    fused_flatblock_kernel<false, true><<<grid, kThreads, bytes, stream>>>(a);
-  }
+  err = solid_layer_class(a.layers) == kSolidSmallLayers
+            ? launch_kernel(solid_flatblock_kernel<kVarOne, kSolidSmallLayers>,
+                            a, grid, bytes, stream)
+            : launch_kernel(solid_flatblock_kernel<kVarOne, kMaxLayers>, a,
+                            grid, bytes, stream);
+  if (err != cudaSuccess) return err;
   const size_t row_bytes = sizeof(int) * kStripH * a.n_chunks * kLane;
   err = cudaMemset2DAsync(
       a.out + static_cast<size_t>(a.ns1 - 1) * kStripH * a.n_chunks * kLane,

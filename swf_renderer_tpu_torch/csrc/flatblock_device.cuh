@@ -5,10 +5,10 @@
 // flatblock.py:784, pallas_call :920), `_fused_styled_kernel` (:1083,
 // pallas_call :1276) — in its single-pass form (chain=False, bg=None,
 // emit="u32", mask_from=None) and in the modes of deep and masked draw
-// lists (fused_block<true, false, true, kPremul>: chain=True, a `bg`
-// seed, emit="premul", mask_from) — and `_fused_kernel` (:618,
-// pallas_call :709), the one-block-per-step form over blocks sorted by
-// (frame, strip, layer) (fused_block<false, true>).
+// lists (fused_block<true, true, kPremul>: chain=True, a `bg` seed,
+// emit="premul", mask_from) — and `_fused_kernel` (:618, pallas_call
+// :709), the one-block-per-step form over blocks sorted by (frame,
+// strip, layer) (B1's solid body at kVarOne, below).
 //
 // What it computes, per (frame, strip block): the grouped placement
 // blocks of the native packer hold coalesced winding deltas (rc, cm, v)
@@ -49,9 +49,10 @@
 //     the generic composite_pack, sized for 16 layers under a run-time
 //     count, indexes its arrays and so keeps them in local memory.
 // The arithmetic is composite_pack's, operation for operation.  The
-// one-block form keeps the generic body.  The styled kernel (B2) was
-// redesigned the same way (styled_resolve, below): B1's walk, a strip
-// budget of three blocks an SM, and a layer-by-layer resolve.
+// one-block form (B13) runs on this body too (kVarOne).  The styled
+// kernel (B2) was redesigned the same way (styled_resolve, below): B1's
+// walk, a strip budget of three blocks an SM, and a layer-by-layer
+// resolve.
 //
 // The chain modes (kChain) resolve each pixel with the sequential over
 // chain, a left fold over the layers, in place of the suffix-product
@@ -170,6 +171,16 @@ struct FusedArgs {
 // kk) into shared memory with one cp.async group, then scatters from
 // there.
 //
+// kVarOne is the one-block-per-step form (B13, `_fused_kernel`,
+// render_fused_blocks) on B1's body: group 1, blocks sorted by (frame,
+// strip, layer) with the supergroup index of block_index, no flags or
+// layer table (a slot's layer is read from its block's sidx, every slot
+// of a block may hold an update), and values split in two bf16 parts
+// when passes < 3.  Its first design ran the generic walk (one slot at a
+// time behind a 64-bit division, the carry as a 64-bit compare-and-swap
+// loop) and the generic composite (stack-indexed arrays: 128 B of stack,
+// 48 local stores): 3.46 ms on the headline against B1's 1.41 (PERF.md).
+//
 // kVarWin (tools/exp_winplace.py `_win_kernel` :75, pallas_call :161) is
 // B1 over per-strip placement blocks: each slot's row id is LOCAL to its
 // strip window (rc < n_chunks * 8) and the window index comes from the
@@ -185,6 +196,7 @@ constexpr int kVarNone0 = 4;
 constexpr int kVarMerged = 5;
 constexpr int kVarBatched = 6;
 constexpr int kVarWin = 11;   // 7-10: place_mma_device.cuh
+constexpr int kVarOne = 12;
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
@@ -483,9 +495,11 @@ __host__ __device__ constexpr int solid_layer_class(int layers) {
 // a time, and issues every load of the four (flags, value, row id,
 // column, layer, window) before it uses any, so that their round trips
 // to L2 overlap; slot (g, rem) advances by nthr without a division.
-// Skips what fused_block's own walk skips (slots past a group's used
-// count, zero values) and calls place(v, rc, cm, layer, win) on the
-// rest, or (kVarNone) returns the xor of their loaded words.
+// Skips slots past a group's used count and zero values, and calls
+// place(v, rc, cm, layer, win) on the rest, or (kVarNone) returns the
+// xor of their loaded words.  kVarOne reads no flags or layer table: a
+// slot's layer comes from its block's sidx, its value is split in two
+// bf16 parts when passes < 3 (before the zero test).
 template <int kVar, typename Place>
 __device__ __forceinline__ uint32_t solid_walk(const FusedArgs& a, int g0,
                                                int g1, Place place) {
@@ -522,12 +536,14 @@ __device__ __forceinline__ uint32_t solid_walk(const FusedArgs& a, int g0,
                                  : idx;
         const long long kg = static_cast<long long>(rs[u] / kBlk) * a.ng
                              + gs[u];
-        fl[u] = a.flags[gs[u]];
+        fl[u] = kVar == kVarOne ? 0 : a.flags[gs[u]];
         vs[u] = a.uval[iv];
         rcs[u] = a.urc[iv];
         cms[u] = a.ucm[idx];
-        ly[u] = a.lays[kg];
+        ly[u] = kVar == kVarOne ? (a.sidx[gs[u]] / a.ns1) % a.layers
+                                : a.lays[kg];
         wn[u] = kVar == kVarWin ? a.wins[kg] : 0;
+        if (kVar == kVarOne && a.passes < 3) vs[u] = split_bf16x2(vs[u]);
       }
     }
 #pragma unroll
@@ -631,7 +647,7 @@ __device__ __forceinline__ void prefix_rows(float* plane,
 
 // --- B2: the styled grouped kernel -------------------------------------
 //
-// fused_block<true, false, kChain, kPremul> (styled_flatblock_kernel)
+// fused_block<true, kChain, kPremul> (styled_flatblock_kernel)
 // replaces `_fused_styled_kernel`
 // (swf_renderer_tpu/ops/flatblock.py:1083) in every mode: the single pass
 // (suffix-product composite, packed words out) and the chain modes (a
@@ -932,20 +948,15 @@ __device__ __forceinline__ void styled_resolve(
 
 // One block: (chunk, strip slice) x strip block x frame.  kStyled: the
 // styled kernel (per-layer paints; kChain / kPremul its chain modes and
-// premultiplied-plane output; its own set-up and resolve above).  kOne:
-// the one-block-per-step form (render_fused_blocks): group 1, no flags or
-// layer table (the layer is read from each block's sidx), values split
-// in two bf16 parts when passes < 3.  kVar: a variant of the solid
-// grouped kernel (kVarFull ... kVarBatched, kVarWin above).  kLc: the
-// layer class of B1's resolve.
-template <bool kStyled, bool kOne = false, bool kChain = false,
-          bool kPremul = false, int kVar = kVarFull, int kLc = kMaxLayers>
+// premultiplied-plane output; its own set-up and resolve above).  kVar:
+// a variant of the solid grouped kernel (kVarFull ... kVarBatched,
+// kVarWin, kVarOne above).  kLc: the layer class of B1's resolve.
+template <bool kStyled, bool kChain = false, bool kPremul = false,
+          int kVar = kVarFull, int kLc = kMaxLayers>
 __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
-  static_assert(kVar == kVarFull || (!kStyled && !kOne && !kChain),
+  static_assert(kVar == kVarFull || (!kStyled && !kChain),
                 "the variants are of the solid grouped kernel");
   static_assert(kStyled || !kChain, "the chain modes are styled");
-  // B1 and its variants: solid_walk, place_loaded and solid_pixel.
-  constexpr bool kSolid = !kStyled && !kOne && !kChain;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int chunk = blockIdx.x / a.n_spg;
@@ -975,30 +986,7 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
   __syncthreads();
 
   // Placement: this chunk's deltas into the plane, earlier chunks' deltas
-  // of the same row into the carry.  place(g, k, v, rc, cm) scatters the
-  // update of value v in slot k of group g, its row id at rc and its
-  // column at cm (the generic walk of the one-block form: the layer is
-  // read only for an update that lands in this block).
-  auto place = [&](int g, int k, float v, const float* rc_p,
-                   const float* cm_p) {
-    const int rc = static_cast<int>(*rc_p);
-    const int sp = rc / nc8;
-    const int local = rc - sp * nc8;
-    const int ch = local >> 3;
-    const int lsp = sp - sp0;
-    if (ch > chunk || lsp < 0 || lsp >= a.spb) return;
-    const int layer = kOne ? (a.sidx[g] / a.ns1) % L
-                           : a.lays[static_cast<long long>(k) * a.ng + g];
-    if (layer < 0 || layer >= L) return;
-    const int row = layer * rows + lsp * kStripH + (local & 7);
-    if (ch == chunk) {
-      atomicAdd(&plane[row * kRowStride + static_cast<int>(*cm_p)], v);
-    } else {
-      atomicAdd(reinterpret_cast<unsigned long long*>(&carry[row]),
-                static_cast<unsigned long long>(to_fixed(v)));
-    }
-  };
-  // The same placement from loaded values (solid_walk, kVarBatched).
+  // of the same row into the carry (solid_walk, kVarBatched).
   auto place_loaded = [&](float v, float rcf, float cmf, int layer,
                           int win) {
     const int rc = static_cast<int>(rcf);
@@ -1062,23 +1050,9 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
       }
       __syncthreads();   // the stage is free again
     }
-  } else if constexpr (!kOne && kVar != kVarResolve && kVar != kVarNone0) {
+  } else if constexpr (kVar != kVarResolve && kVar != kVarNone0) {
     if (g0 >= 0 && g1 >= g0) {
       seen = solid_walk<kVar>(a, g0, g1, place_loaded);
-    }
-  } else if constexpr (kOne) {
-    if (g0 >= 0 && g1 >= g0) {
-      const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
-      for (long long j = tid; j < total; j += nthr) {
-        const int g = g0 + static_cast<int>(j / gb);
-        const int rem = static_cast<int>(j % gb);
-        const int k = rem / kBlk;
-        const long long idx = static_cast<long long>(g) * gb + rem;
-        float v = a.uval[idx];
-        if (a.passes < 3) v = split_bf16x2(v);
-        if (v == 0.0f) continue;
-        place(g, k, v, a.urc + idx, a.ucm + idx);
-      }
     }
   }
   __syncthreads();
@@ -1108,20 +1082,19 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
     styled_resolve<kChain, kPremul>(a, sm, pint_s, pflt_s, chunk, s, f,
                                     sp0, rows, nc8);
   } else {
-    // Resolve: fill rule, suffix-product composite, quantize, pack.
+    // B1's resolve (solid_pixel): fill rule, suffix-product composite,
+    // quantize, pack; the even-odd layers as bits, and the frame's
+    // colours in registers when kLc <= 4 (read from shared memory
+    // otherwise).
     const int stride = a.n_chunks * kLane;
-    // kSolid: the even-odd layers as bits, and the frame's colours in
-    // registers when kLc <= 4 (read from shared memory otherwise).
     unsigned eo = 0;
     float4 creg[kLc <= 4 ? kLc : 1];
-    if constexpr (kSolid) {
 #pragma unroll
-      for (int l = 0; l < kLc; ++l) {
-        if (l < L) {
-          eo |= (rule_s[l] != 0 ? 1u : 0u) << l;
-          if constexpr (kLc <= 4) {
-            creg[l] = reinterpret_cast<const float4*>(col_s)[l];
-          }
+    for (int l = 0; l < kLc; ++l) {
+      if (l < L) {
+        eo |= (rule_s[l] != 0 ? 1u : 0u) << l;
+        if constexpr (kLc <= 4) {
+          creg[l] = reinterpret_cast<const float4*>(col_s)[l];
         }
       }
     }
@@ -1138,31 +1111,11 @@ __device__ void fused_block(const FusedArgs& a, unsigned char* smem) {
       const int sp = sp0 + row / kStripH;
       if (sp >= a.spp) continue;
       const int r8 = row % kStripH;
-      if constexpr (kSolid) {
-        a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
-               + sp * kStripH + r8) * stride + chunk * kLane + c] =
-            static_cast<int>(solid_pixel<kLc>(
-                plane + row * kRowStride + c, rows * kRowStride, colour, eo,
-                L));
-      } else {
-        float cas[kMaxLayers];
-#pragma unroll
-        for (int l = 0; l < kMaxLayers; ++l) {
-          if (l < L) {
-            const float w = plane[(l * rows + row) * kRowStride + c];
-            const float cov = fill_cov(w, rule_s[l]);
-            float alpha = col_s[4 * l + 3];
-            cas[l] = alpha * cov;
-          }
-        }
-        const uint32_t packed = composite_pack(L, cas, [&](int l, int ch) {
-          float color = col_s[4 * l + ch];
-          return color;
-        });
-        a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
-               + sp * kStripH + r8) * stride + chunk * kLane + c] =
-            static_cast<int>(packed);
-      }
+      a.out[((static_cast<long long>(f) * a.ns1 + s) * (a.spp * kStripH)
+             + sp * kStripH + r8) * stride + chunk * kLane + c] =
+          static_cast<int>(solid_pixel<kLc>(
+              plane + row * kRowStride + c, rows * kRowStride, colour, eo,
+              L));
     }
   }
 }

@@ -294,8 +294,7 @@ def _launch_coverage(kind: str, edges_sorted, table, height, width,
     from . import cuda_lib
 
     b, _, num_edges = edges_sorted.shape
-    rows = STRIP_H if kind == "grouped" else TILE_H
-    if b > 65535 or -(-height // rows) > 65535:
+    if b > 65535 or -(-height // TILE_H) > 65535:
         raise ValueError(f"{b} planes of {height} rows exceed the grid")
     out = torch.empty((b, height, width), dtype=torch.float32,
                       device=edges_sorted.device)
@@ -562,12 +561,13 @@ def coverage_grouped(edges_t, height: int, width: int,
     Kernel: replaces ``_grouped_kernel`` (swf_renderer_tpu/ops/
     coverage.py:404, wrapper ``coverage_grouped`` :486).  Edges sorted by
     ymin in 128-edge blocks with (ymin, ymax) bounds, as for the tiled
-    kernel; one block of 128 threads per (plane, 8-row strip, 128-column
-    tile) walks the blocks that reach its strip, stages each block's
-    per-(edge, row) terms in shared memory (computed once, not once a
-    column), and each thread sums its column's 8 rows in 8-edge groups,
-    then applies the fill rule.  On the CPU ``grouped_plain`` runs
-    instead."""
+    kernel; one block of 256 threads per (plane, two 8-row strips,
+    128-column tile) walks the blocks that reach either strip, stages
+    each block's per-(edge, row) terms where the edge crosses the row
+    (computed once, not once a column), and each thread sums 4 columns of
+    2 rows over the 8-edge groups that hold a crossing edge, in the
+    reference's merge order, then applies the fill rule.  On the CPU
+    ``grouped_plain`` runs instead."""
     edges_t = _edges_tensor(edges_t, device)
     _check_rule(fill_rule)
     if edges_t.shape[-1] % EDGE_BLOCK:

@@ -187,15 +187,16 @@ def bind(name: str, lib):
     return lib
 
 
-def build_other(csrc_dir, build_dir) -> dict:
+def build_other(csrc_dir, build_dir):
     """Compile every library from another checkout's ``csrc_dir`` into
     ``build_dir`` (one ``nvcc`` per source, all started together, this
-    module's flags) and return {name: bound CDLL}; raises on a failed
-    build.  The A/B timings of ``chip_smoke.py --parent`` load the parent
-    commit's kernels this way."""
+    module's flags) and return ({name: bound CDLL}, the compilers'
+    output); raises on a failed build.  The A/B timings of
+    ``chip_smoke.py --parent`` load the parent commit's kernels this
+    way."""
     build_dir = pathlib.Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     outputs = {name: build_dir / f"lib{name}.so" for name in LIBRARIES}
-    _nvcc_all(csrc_dir, outputs)
-    return {name: bind(name, ctypes.CDLL(str(path)))
-            for name, path in outputs.items()}
+    log = _nvcc_all(csrc_dir, outputs)
+    return ({name: bind(name, ctypes.CDLL(str(path)))
+             for name, path in outputs.items()}, log)

@@ -1251,10 +1251,12 @@ def render_fused_blocks(sidx, keep, last, urc, ucm, uval, colors,
     value.
 
     Kernel: replaces ``_fused_kernel`` (swf_renderer_tpu/ops/
-    flatblock.py:618) with the design of render_fused_blocksn's kernel
-    (one CUDA block per 128-column chunk of a strip, the layer planes in
-    shared memory, left-to-right prefix, fixed-point carry), reading the
-    sorted blocks directly: supergroups start at ``keep == 0`` and end at
+    flatblock.py:618) with render_fused_blocksn's kernel body
+    (``solid_flatblock_kernel<kVarOne, kLc>``: one CUDA block per
+    128-column chunk of a strip, the layer planes in shared memory,
+    four slots' loads in flight, left-to-right prefix, fixed-point carry
+    as two 32-bit adds, the composite in registers), reading the sorted
+    blocks directly: supergroups start at ``keep == 0`` and end at
     ``last == 1`` (csrc/flatblock.cu).  It equals render_fused_blocksn
     on group_blocks_fused of the same blocks word for word.  Bound:
     bytes (the packed output written once).  On the CPU

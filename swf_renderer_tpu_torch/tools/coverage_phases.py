@@ -1,23 +1,25 @@
-"""Where the direct coverage kernels' time goes: banded (B9) and tiled
-(B10).
+"""Where the direct coverage kernels' time goes: banded (B9), tiled
+(B10) and grouped (B11).
 
     python3 -m swf_renderer_tpu_torch.tools.coverage_phases [--csrc DIR]
         [--parent DIR] [--variants]
 
 Needs one NVIDIA card and ``nvcc``.  Builds ``coverage.cu`` from ``DIR``
 (default: this package's ``csrc``) twice, as it is and a copy with
-``clock64()`` stamps around the phases of ``banded_block`` and
-``tiled_block`` (staging, edge loop, store, the rest), thread 0's cycles
-summed over blocks into a device array.  On direct1080 (B9: 60 x 4
-planes of 1088x1920, 256 edges padded) and dense1080 (B10: 4 x 4 planes,
-3200 edges), built as ``chip_smoke.py`` builds them, it prints for each
-kernel: ms of every build (twice, in the order parent, change, stamped,
-variants, then back), each output against the plain version (max abs,
-equality), cycles a block and each phase's share, ptxas registers /
-stack / spills, the SASS instruction count with its CALLs and its
-loops, and the (edge, pixel) pairs the
-kernel's walk meets beside those whose computed dy is nonzero (of those,
-the pixels right of the edge's clipped x-extent, which add dy alone).
+``clock64()`` stamps around the phases of ``banded_block``,
+``tiled_block`` and ``grouped_block`` (staging, edge loop, store, the
+rest), thread 0's cycles summed over blocks into a device array.  On
+direct1080 (B9 and B11: 60 x 4 planes of 1088x1920, 256 edges padded)
+and dense1080 (B10 and B11: 4 x 4 planes, 3200 edges), built as
+``chip_smoke.py`` builds them, it prints for each kernel and scene: ms
+of every build (twice, in the order parent, change, stamped, variants,
+then back), each output against the plain version (max abs, equality),
+cycles a block and each phase's share, ptxas registers / stack /
+spills, the SASS instruction count with its CALLs, local loads and
+stores, compare-and-swap atomics and loops, and the (edge, pixel) pairs
+the kernel's walk meets beside those whose computed dy is nonzero (of
+those, the pixels right of the edge's clipped x-extent, which add dy
+alone; for B11 also the 8-edge groups holding such a pair).
 ``--parent`` builds another checkout's ``csrc`` beside, ``--build
 NAME=DIR`` any other ``csrc`` directory, ``--variants`` the design
 elements of ``VARIANTS`` (edits of the committed form).  One
@@ -41,9 +43,13 @@ from .timing import card_line, time_ms
 DIRECT = (60, 4, 1088, 1920, 16)    # frames, layers, height, width, shapes
 DENSE = (4, 4, 1088, 1920, 320)
 PHASES = ("stage", "loop", "store", "rest")
+# (kernel, scene, its dimensions, first stamp slot)
+CASES = (("banded", "direct1080", DIRECT, 0), ("tiled", "dense1080", DENSE, 8),
+         ("grouped", "direct1080", DIRECT, 16),
+         ("grouped", "dense1080", DENSE, 16))
 
 _HELPER = """
-__device__ unsigned long long swf_cov_stamp[16];
+__device__ unsigned long long swf_cov_stamp[24];
 // Thread 0 of the block adds its phase cycles at slot base .. base + 4.
 __device__ __forceinline__ void swf_stamp_out(int base, long long t0,
                                               long long stage,
@@ -80,11 +86,11 @@ __device__ __forceinline__ void swf_stamp_sum(int base, long long t0,
 _READ = """
 extern "C" int swf_cov_stamps(unsigned long long* host, int zero) {
   if (zero) {
-    unsigned long long z[16] = {0};
+    unsigned long long z[24] = {0};
     return (int)cudaMemcpyToSymbol(swf::swf_cov_stamp, z, sizeof(z));
   }
   return (int)cudaMemcpyFromSymbol(host, swf::swf_cov_stamp,
-                                   16 * sizeof(unsigned long long));
+                                   24 * sizeof(unsigned long long));
 }
 """
 
@@ -110,6 +116,11 @@ def _close(tail, base):
 
 
 _SB = "    const long long sb_ = clock64();\n    sst_ += sb_ - sa_;\n"
+# The end of the staged tiled_block (B10) and grouped_block (B11): the
+# row loop's add of the block's partial, the loops' ends, the store.
+_ACC_TAIL = ("#pragma unroll\n      for (int c = 0; c < kCovCols; ++c) {\n"
+             "        s.acc.v[j][c][tid] = s.acc.v[j][c][tid] + part[c];\n"
+             "      }\n    }\n  }\n  pix.store(a, s.acc, tid);\n}")
 FORMS = {
     "staged terms": [
         _entry("__device__ void banded_block(const CoverageArgs& a, "
@@ -150,8 +161,8 @@ FORMS = {
          "    __syncthreads();\n" + _SB + "#pragma unroll 1\n    for (int j "
          "= 0; j < kCovRowsPerThread; ++j) {\n      const int row = pix.half "
          "+ j;\n      unsigned m"),
-        _close("s.acc.v[j][c][tid] + part[c];\n      }\n    }\n  }\n"
-               "  pix.store(a, s.acc, tid);\n}", 8),
+        _close("(tiled_pixel(t2, px) + tiled_pixel(t3, px)));\n"
+               "        }\n      }\n" + _ACC_TAIL, 8),
     ],
     "one edge at a time": [
         _entry("__device__ void banded_block(const CoverageArgs& a, "
@@ -177,6 +188,61 @@ FORMS = {
     ],
 }
 
+# The same for B11's grouped_block, applied beside FORMS (its slots 16
+# .. 20).
+GROUPED_FORMS = {
+    "grouped staged terms": [
+        _entry("__device__ void grouped_block(const CoverageArgs& a, "
+               "GroupedTerms& s) {\n"),
+        ("    __syncthreads();   // the previous block's terms are no longer "
+         "read\n    if (strip == 0 ? hit0 : hit1) {\n",
+         "    const long long sa_ = clock64();\n"
+         "    __syncthreads();   // the previous block's terms are no longer "
+         "read\n    if (strip == 0 ? hit0 : hit1) {\n"),
+        ("    __syncthreads();\n#pragma unroll 1\n    for (int j = 0; j < "
+         "kCovRowsPerThread; ++j) {\n      const int row = pix.half + j;\n"
+         "      float part[kCovCols] = {};\n",
+         "    __syncthreads();\n" + _SB + "#pragma unroll 1\n    for (int j "
+         "= 0; j < kCovRowsPerThread; ++j) {\n      const int row = pix.half "
+         "+ j;\n      float part[kCovCols] = {};\n"),
+        _close("part[c] = part[c] + grp[c];\n        }\n      }\n"
+               + _ACC_TAIL, 16),
+    ],
+    "grouped first design": [
+        _entry("__device__ void grouped_block(const CoverageArgs& a, "
+               "GroupedTerms& s) {\n"),
+        ("    __syncthreads();   // the previous block's terms are no longer "
+         "read\n    {\n      const int i = blk",
+         "    const long long sa_ = clock64();\n"
+         "    __syncthreads();   // the previous block's terms are no longer "
+         "read\n    {\n      const int i = blk"),
+        ("    __syncthreads();\n    for (int r = 0; r < kGrpStripH; ++r) {\n"
+         "      float part = 0.0f;\n",
+         "    __syncthreads();\n" + _SB + "    for (int r = 0; r < "
+         "kGrpStripH; ++r) {\n      float part = 0.0f;\n"),
+        ("      acc[r] = acc[r] + part;\n    }\n  }\n"
+         "  if (col >= a.width) return;\n"
+         "  float* out = a.out + static_cast<size_t>(b) * a.height * "
+         "a.width;\n"
+         "  for (int r = 0; r < kGrpStripH; ++r) {\n"
+         "    const int y = row0 + r;\n"
+         "    if (y < a.height) {\n"
+         "      out[static_cast<size_t>(y) * a.width + col] = "
+         "fill_cov(acc[r], a.rule);\n    }\n  }\n}",
+         "      acc[r] = acc[r] + part;\n    }\n"
+         "    slp_ += clock64() - sb_;\n  }\n"
+         "  const long long st2_ = clock64();\n"
+         "  float* out = a.out + static_cast<size_t>(b) * a.height * "
+         "a.width;\n"
+         "  for (int r = 0; r < kGrpStripH && col < a.width; ++r) {\n"
+         "    const int y = row0 + r;\n"
+         "    if (y < a.height) {\n"
+         "      out[static_cast<size_t>(y) * a.width + col] = "
+         "fill_cov(acc[r], a.rule);\n    }\n  }\n"
+         "  swf_stamp_out(16, st0_, sst_, slp_, st2_);\n}"),
+    ],
+}
+
 # Design elements measured beside the committed form, as edits
 # (file, anchor, replacement) of its sources.
 _RIGHT = "  if (rel_mx <= 0.0f) return t.x;   // right of the edge: dy * 1\n"
@@ -196,7 +262,7 @@ VARIANTS = {
         ("coverage_device.cuh", _RIGHT + "  const float rel_mn = t.y - px;\n"
          "  const float span", "  const float rel_mn = t.y - px;\n"
          "  const float span")],
-    "B10 without the right-of-edge path": [
+    "B10 and B11 without the right-of-edge path": [
         ("coverage_device.cuh", _RIGHT + "  const float rel_mn = t.y - px;\n"
          "  const float mean", "  const float rel_mn = t.y - px;\n"
          "  const float mean")],
@@ -205,6 +271,9 @@ VARIANTS = {
          "__launch_bounds__(kCovThreads, 4) banded_kernel"),
         ("coverage.cu", "__launch_bounds__(kCovThreads) tiled_kernel",
          "__launch_bounds__(kCovThreads, 4) tiled_kernel")],
+    "B11 without a block bound": [
+        ("coverage.cu", "__launch_bounds__(kCovThreads, 5) grouped_kernel",
+         "__launch_bounds__(kCovThreads) grouped_kernel")],
     "6 blocks an SM": [
         ("coverage.cu", "__launch_bounds__(kCovThreads) banded_kernel",
          "__launch_bounds__(kCovThreads, 6) banded_kernel"),
@@ -214,14 +283,19 @@ VARIANTS = {
 
 
 def stamped_source(text: str):
-    """coverage_device.cuh with the phase stamps: (form name, text)."""
-    for name, edits in FORMS.items():
-        if all(text.count(old) == 1 for old, _ in edits):
-            for old, new in edits:
-                text = text.replace(old, new)
-            head = "namespace swf {\n"
-            return name, text.replace(head, head + _HELPER, 1)
-    raise SystemExit("coverage_device.cuh matches no stamped form")
+    """coverage_device.cuh with the phase stamps: (form names, text)."""
+    names = []
+    for forms in (FORMS, GROUPED_FORMS):
+        for name, edits in forms.items():
+            if all(text.count(old) == 1 for old, _ in edits):
+                for old, new in edits:
+                    text = text.replace(old, new)
+                names.append(name)
+                break
+        else:
+            raise SystemExit("coverage_device.cuh matches no stamped form")
+    head = "namespace swf {\n"
+    return " + ".join(names), text.replace(head, head + _HELPER, 1)
 
 
 def variant_sources(csrc: pathlib.Path, dest: pathlib.Path, edits):
@@ -259,29 +333,41 @@ def ptxas_of(log: str, kernel: str):
     return out
 
 
+def sass_census(body: str):
+    """Instructions, CALLs, local loads and stores (STL / LDL),
+    compare-and-swap atomics (ATOMS.CAS / ATOM.CAS: a 64-bit shared
+    atomicAdd is a loop of them) and loops (backward branches:
+    instructions from target to branch, largest first) of one kernel's
+    SASS text."""
+    ins = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for addr, op in ins:
+        b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if b and int(b.group(1), 16) < addr:
+            lo = int(b.group(1), 16)
+            loops.append(sum(1 for a, _ in ins if lo <= a <= addr))
+
+    def count(pattern):
+        return sum(1 for _, op in ins if re.search(pattern, op))
+
+    return {"instructions": len(ins), "calls": count(r"\bCALL"),
+            "stl": count(r"\bSTL\b"), "ldl": count(r"\bLDL\b"),
+            "cas": count(r"\bATOMS?\.CAS"),
+            "loops": sorted(loops, reverse=True)}
+
+
 def sass_counts(lib: pathlib.Path, kernel: str):
-    """Instructions, CALLs and loops (backward branches: instructions
-    from target to branch, largest first) of ``kernel``'s SASS."""
+    """``sass_census`` of the first kernel of ``lib`` whose mangled name
+    holds ``kernel``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     heads = list(re.finditer(r"Function : (\S+)", text))
     for i, m in enumerate(heads):
-        if kernel not in m.group(1):
-            continue
-        body = text[m.end():heads[i + 1].start() if i + 1 < len(heads)
-                    else len(text)]
-        ins = [(int(a, 16), op) for a, op in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-        loops = []
-        for addr, op in ins:
-            b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
-            if b and int(b.group(1), 16) < addr:
-                lo = int(b.group(1), 16)
-                loops.append(sum(1 for a, _ in ins if lo <= a <= addr))
-        return {"instructions": len(ins),
-                "calls": sum(1 for _, op in ins if "CALL" in op),
-                "loops": sorted(loops, reverse=True)}
+        if kernel in m.group(1):
+            return sass_census(text[m.end():heads[i + 1].start()
+                                    if i + 1 < len(heads) else len(text)])
     return {}
 
 
@@ -372,6 +458,40 @@ def tiled_pairs(torch, cov, es, bounds, height, width):
     return out
 
 
+def grouped_pairs(torch, cov, es, bounds, height, width):
+    """Pairs met by B11's first design (hit blocks x 128 edges x the
+    strip's 8 rows x its pixels), those whose computed dy is nonzero (of
+    those, the pixels right of the clipped x-extent), and the 8-edge
+    groups a row with at least one such edge."""
+    p, _, e = es.shape
+    nb = e // cov.EDGE_BLOCK
+    ty = -(-height // cov.STRIP_H)
+    width_p = -(-width // cov.EDGE_BLOCK) * cov.EDGE_BLOCK
+    s0 = torch.arange(ty, device=es.device).float() * cov.STRIP_H
+    hit = ((bounds[..., 1, None] > s0) & (bounds[..., 0, None]
+                                          < s0 + cov.STRIP_H))  # (P, NB, TY)
+    edges = es.view(p, 4, nb, cov.EDGE_BLOCK).permute(1, 0, 2, 3)[..., None]
+    out = {"evaluated": int(hit.sum()) * cov.EDGE_BLOCK * cov.STRIP_H
+           * width_p, "crossing": 0, "crossing_right": 0, "groups": 0,
+           "hit_blocks_mean": float(hit.sum(dim=1).float().mean())}
+    rows_cross = torch.zeros((p, ty, cov.STRIP_H), dtype=torch.int64,
+                             device=es.device)
+    for r in range(cov.STRIP_H):
+        py = s0 + r                                         # (TY,)
+        dy, _, xmx, _, _ = cov.grouped_row_terms(edges, py)  # (P, NB, 128, TY)
+        cross = (dy != 0) & hit[:, :, None, :] & (py < height)
+        out["crossing"] += int(cross.sum()) * width_p
+        out["crossing_right"] += int(right_pixels(torch, xmx, width_p)[cross]
+                                     .sum())
+        out["groups"] += int(cross.view(p, nb, cov.EDGE_BLOCK // cov.GROUP,
+                                        cov.GROUP, ty).any(dim=3).sum())
+        rows_cross[:, :, r] = cross.sum(dim=(1, 2))
+    out["group_pairs"] = out.pop("groups") * cov.GROUP * width_p
+    out["crossing_row_mean"] = float(rows_cross.float().mean())
+    out["crossing_row_max"] = int(rows_cross.max())
+    return out
+
+
 def build_all(cuda_lib, tmp, sources):
     """{name: csrc dir} -> {name: bound library}, ptxas logs; one nvcc a
     build, all started together."""
@@ -453,14 +573,17 @@ def main() -> None:
         order = ["parent"] * ("parent" in libs) + ["change", "stamped"] + [
             n for n in libs if n not in ("parent", "change", "stamped")]
         mine = cuda_lib._libs.get("swfcoverage")
-        for kind, dims, base in (("banded", DIRECT, 0), ("tiled", DENSE, 8)):
-            edges, height, width = scene(np, cov, dims)
+        scenes = {}
+        for kind, what, dims, base in CASES:
+            if what not in scenes:
+                scenes[what] = scene(np, cov, dims)
+            edges, height, width = scenes[what]
             d = torch.from_numpy(edges).cuda()
             es, key, pad = cov.sort_edges(d)
             table = (cov.band_ranges(d, key, height) if kind == "banded"
                      else cov.block_bounds(es, key, pad))
-            plain_fn = cov.banded_plain if kind == "banded" else \
-                cov.tiled_plain
+            plain_fn = {"banded": cov.banded_plain, "tiled": cov.tiled_plain,
+                        "grouped": cov.grouped_plain}[kind]
             want = plain_fn(es, table, height, width, 0)
 
             def run():
@@ -482,7 +605,7 @@ def main() -> None:
                     row.setdefault("equal_plain", {})[name] = bool(
                         torch.equal(got, want))
                     del got
-                buf = (ctypes.c_ulonglong * 16)()
+                buf = (ctypes.c_ulonglong * 24)()
                 if stamps.swf_cov_stamps(buf, 1) != 0:
                     raise SystemExit("stamp reset failed")
                 cuda_lib._libs["swfcoverage"] = stamps
@@ -506,10 +629,10 @@ def main() -> None:
                             for n in order}
             row["sass"] = {n: sass_counts(libs[n][1], f"{kind}_kernel")
                            for n in ("change", "parent") if n in libs}
-            row["pairs"] = (banded_pairs if kind == "banded"
-                            else tiled_pairs)(torch, cov, es, table, height,
-                                              width)
-            print(json.dumps({kind: row}), flush=True)
+            row["pairs"] = {"banded": banded_pairs, "tiled": tiled_pairs,
+                            "grouped": grouped_pairs}[kind](
+                torch, cov, es, table, height, width)
+            print(json.dumps({f"{kind} {what}": row}), flush=True)
             del d, es, table, want
             torch.cuda.empty_cache()
     finally:

@@ -8,9 +8,10 @@ logic, ``csrc/sweep_device.cuh`` all of the sweep kernels',
 ``csrc/resolve_device.cuh`` the resolve kernel's and
 ``csrc/planes_device.cuh`` the placement and plane-resolve kernels'.
 Here g++ compiles them under a small emulation of the CUDA
-execution model (one std::thread per CUDA thread, a std::barrier for
-``__syncthreads`` and one per warp for the shuffles and ``__syncwarp``,
-std::atomic_ref for the shared-memory atomics, ``cp.async`` as a plain
+execution model (one fiber per CUDA thread, all of a block's on one OS
+thread, switching at ``__syncthreads`` and at the per-warp barrier of
+the shuffles and ``__syncwarp``, std::atomic_ref for the shared-memory
+atomics, ``cp.async`` as a plain
 copy, so the pipelined resolve's ring logic runs unchanged; the warp
 ballot and both ``mma.sync`` shapes for ``csrc/place_mma_device.cuh``,
 whose tests are in ``test_torch_kernel_emulated_products.py``), and
@@ -46,26 +47,142 @@ from swf_renderer_tpu_torch.utils.scenes import (
 
 EMULATOR = r"""
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <algorithm>
-#include <thread>
+#include <type_traits>
 #include <vector>
+#include <sys/mman.h>
 using std::fmaxf;
 using std::fminf;
 using std::min;
 #define __host__
 #define __device__
 #define __forceinline__ inline
+// Every CUDA thread of an emulated block is a fiber on the calling OS
+// thread (run_block): a fiber runs until it waits at a barrier that the
+// others have not all reached, then the next fiber that can go on runs.
+// A block costs no thread creation and a barrier one switch a fiber, so
+// a launch runs on one core however many threads its blocks have.  The
+// state below is that of the running fiber: one launch at a time.
 struct Dim3 { unsigned x = 1, y = 1, z = 1; };
-thread_local Dim3 threadIdx, blockIdx;
+Dim3 threadIdx, blockIdx;
 Dim3 blockDim;
-thread_local std::barrier<>* block_barrier;
-inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+struct EmuBarrier { int n = 0, count = 0; unsigned gen = 0; };
+// x86-64: save the callee-saved registers, MXCSR and the x87 control
+// word on this stack, store its pointer at *save, switch to load.
+extern "C" void emu_switch(void** save, void* load);
+asm(R"(
+  .text
+  .p2align 4
+  .globl emu_switch
+  .hidden emu_switch
+  .type emu_switch, @function
+emu_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $8, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $8, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_switch, .-emu_switch
+)");
+namespace emu {
+constexpr size_t kStack = 256 * 1024;   // a fiber's, below a guard page
+struct Fiber { void* sp = nullptr; bool done = false; };
+std::vector<Fiber> fibers;
+std::vector<char*> stacks;
+void* sched_sp = nullptr;
+int current = 0;
+long long progress = 0;   // barrier arrivals and finished fibers
+void (*entry_fn)(void*) = nullptr;
+void* entry_obj = nullptr;
+inline void yield() { emu_switch(&fibers[current].sp, sched_sp); }
+extern "C" void emu_fiber_main() {
+  entry_fn(entry_obj);
+  fibers[current].done = true;
+  ++progress;
+  yield();   // never resumed
+  std::abort();
+}
+inline void wait(EmuBarrier& b) {
+  ++progress;
+  if (++b.count == b.n) {
+    b.count = 0;
+    ++b.gen;
+    return;
+  }
+  const unsigned gen = b.gen;
+  do yield(); while (b.gen == gen);
+}
+// Runs fn(obj) as n fibers to their ends; enter(t) sets fiber t's
+// thread state before each of its turns.  Aborts on a deadlock (a round
+// in which no fiber arrived at a barrier or finished).
+template <class Enter>
+void run(int n, void (*fn)(void*), void* obj, Enter enter) {
+  while (static_cast<int>(stacks.size()) < n) {
+    char* m = static_cast<char*>(mmap(nullptr, kStack + 4096,
+                                      PROT_READ | PROT_WRITE,
+                                      MAP_PRIVATE | MAP_ANONYMOUS, -1, 0));
+    if (m == MAP_FAILED || mprotect(m, 4096, PROT_NONE) != 0) std::abort();
+    stacks.push_back(m + 4096);
+  }
+  unsigned mxcsr = 0;
+  unsigned short fcw = 0;
+  asm volatile("stmxcsr %0" : "=m"(mxcsr));
+  asm volatile("fnstcw %0" : "=m"(fcw));
+  const uintptr_t csr = mxcsr | (static_cast<uintptr_t>(fcw) << 32);
+  fibers.assign(n, Fiber{});
+  for (int t = 0; t < n; ++t) {
+    void** sp = reinterpret_cast<void**>(
+        reinterpret_cast<uintptr_t>(stacks[t] + kStack) & ~uintptr_t{15});
+    *--sp = nullptr;   // emu_fiber_main's return address: it never returns
+    *--sp = reinterpret_cast<void*>(&emu_fiber_main);
+    for (int r = 0; r < 6; ++r) *--sp = nullptr;
+    *--sp = reinterpret_cast<void*>(csr);
+    fibers[t].sp = sp;
+  }
+  entry_fn = fn;
+  entry_obj = obj;
+  for (int alive = n; alive > 0;) {
+    const long long before = progress;
+    alive = 0;
+    for (int t = 0; t < n; ++t) {
+      if (fibers[t].done) continue;
+      enter(t);
+      current = t;
+      emu_switch(&sched_sp, fibers[t].sp);
+      alive += !fibers[t].done;
+    }
+    if (alive > 0 && progress == before) {
+      std::fprintf(stderr, "emulated block deadlocked at a barrier\n");
+      std::abort();
+    }
+  }
+}
+}  // namespace emu
+EmuBarrier* block_barrier;
+inline void __syncthreads() { emu::wait(*block_barrier); }
 inline float atomicAdd(float* p, float v) {
   return std::atomic_ref<float>(*p).fetch_add(v);
 }
@@ -110,9 +227,9 @@ Dim3 gridDim;
 // Warp collectives: each warp has a barrier, an exchange slot a lane and
 // (run_block) kWarpWords exchange words a lane for the ballot and mma.
 constexpr int kWarpWords = 8;
-struct Warp { std::barrier<>* bar; float* slots; unsigned* words; };
-thread_local Warp this_warp;
-inline void __syncwarp() { this_warp.bar->arrive_and_wait(); }
+struct Warp { EmuBarrier* bar; float* slots; unsigned* words; };
+Warp this_warp;
+inline void __syncwarp() { emu::wait(*this_warp.bar); }
 inline unsigned __ballot_sync(unsigned, int pred) {
   const int lane = threadIdx.x & 31;
   this_warp.words[lane * kWarpWords] = pred ? 1u : 0u;
@@ -280,24 +397,20 @@ extern "C" int emulate_fragment_cover() {
 template <class Body>
 void run_block(int n, unsigned x, unsigned y, unsigned z, Body body) {
   blockDim.x = n;
-  std::barrier<> bar(n);
-  std::vector<std::unique_ptr<std::barrier<>>> bars;
-  std::vector<float> slots(n);
-  std::vector<unsigned> words(n * kWarpWords);
-  for (int w = 0; w < n / 32; ++w)
-    bars.push_back(std::make_unique<std::barrier<>>(32));
-  std::vector<std::thread> threads;
-  for (int t = 0; t < n; ++t) {
-    threads.emplace_back([&, t] {
-      threadIdx.x = t;
-      blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-      block_barrier = &bar;
-      this_warp = Warp{bars[t / 32].get(), slots.data() + (t / 32) * 32,
-                       words.data() + (t / 32) * 32 * kWarpWords};
-      body();
-    });
-  }
-  for (auto& th : threads) th.join();
+  blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+  EmuBarrier bar{n};
+  const int n_warps = (n + 31) / 32;
+  std::vector<EmuBarrier> bars(n_warps);
+  for (int w = 0; w < n_warps; ++w) bars[w].n = std::min(32, n - 32 * w);
+  std::vector<float> slots(n_warps * 32);
+  std::vector<unsigned> words(n_warps * 32 * kWarpWords);
+  block_barrier = &bar;
+  emu::run(n, [](void* b) { (*static_cast<Body*>(b))(); }, &body,
+           [&](int t) {
+             threadIdx.x = t;
+             this_warp = Warp{&bars[t / 32], slots.data() + (t / 32) * 32,
+                              words.data() + (t / 32) * 32 * kWarpWords};
+           });
 }
 
 extern "C" int emulate(int styled, const int* sidx, const int* flags,
@@ -329,26 +442,17 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
   a.n_spg = (spp + a.spb - 1) / a.spb;
   std::vector<unsigned char> smem(
       swf::smem_bytes(layers, a.spb * swf::kStripH, styled != 0));
-  blockDim.x = swf::kThreads;
   for (int z = 0; z < frames; ++z)
     for (int y = 0; y < ns1 - 1; ++y)
       for (int x = 0; x < n_chunks * a.n_spg; ++x) {
         std::memset(smem.data(), 0xab, smem.size());  // stale contents
-        std::barrier<> bar(swf::kThreads);
-        std::vector<std::thread> threads;
-        for (int t = 0; t < swf::kThreads; ++t) {
-          threads.emplace_back([&, t] {
-            threadIdx.x = t;
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            block_barrier = &bar;
-            if (!styled) swf::fused_block<false>(a, smem.data());
-            else if (mode == 0) swf::fused_block<true>(a, smem.data());
-            else if (mode == 1)
-              swf::fused_block<true, false, true, false>(a, smem.data());
-            else swf::fused_block<true, false, true, true>(a, smem.data());
-          });
-        }
-        for (auto& th : threads) th.join();
+        run_block(swf::kThreads, x, y, z, [&] {
+          if (!styled) swf::fused_block<false>(a, smem.data());
+          else if (mode == 0) swf::fused_block<true>(a, smem.data());
+          else if (mode == 1)
+            swf::fused_block<true, true, false>(a, smem.data());
+          else swf::fused_block<true, true, true>(a, smem.data());
+        });
       }
   return a.spb;
 }
@@ -357,22 +461,11 @@ extern "C" int emulate(int styled, const int* sidx, const int* flags,
 template <class Body>
 void run_grid(int gx, int gy, int gz, size_t smem_bytes, Body body) {
   std::vector<unsigned char> smem(smem_bytes);
-  blockDim.x = swf::kThreads;
   for (int z = 0; z < gz; ++z)
     for (int y = 0; y < gy; ++y)
       for (int x = 0; x < gx; ++x) {
         std::memset(smem.data(), 0xab, smem.size());  // stale contents
-        std::barrier<> bar(swf::kThreads);
-        std::vector<std::thread> threads;
-        for (int t = 0; t < swf::kThreads; ++t) {
-          threads.emplace_back([&, t] {
-            threadIdx.x = t;
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            block_barrier = &bar;
-            body(smem.data());
-          });
-        }
-        for (auto& th : threads) th.join();
+        run_block(swf::kThreads, x, y, z, [&] { body(smem.data()); });
       }
 }
 
@@ -614,25 +707,14 @@ extern "C" void emulate_grouped(const float* edges, const float* bounds,
   swf::CoverageArgs a{};
   a.edges = edges; a.bounds = bounds; a.out = out; a.planes = planes;
   a.n_edges = n_edges; a.height = height; a.width = width; a.rule = rule;
-  swf::GroupedTerms terms;
-  blockDim.x = swf::kGrpThreads;
+  auto terms = std::make_unique<swf::GroupedTerms>();
   for (int z = 0; z < planes; ++z)
-    for (int y = 0; y < (height + swf::kGrpStripH - 1) / swf::kGrpStripH;
-         ++y)
-      for (int x = 0; x < (width + swf::kCovBlock - 1) / swf::kCovBlock;
+    for (int y = 0; y < (height + swf::kCovTileH - 1) / swf::kCovTileH; ++y)
+      for (int x = 0; x < (width + swf::kCovTileW - 1) / swf::kCovTileW;
            ++x) {
-        std::memset(&terms, 0xab, sizeof(terms));   // stale contents
-        std::barrier<> bar(swf::kGrpThreads);
-        std::vector<std::thread> threads;
-        for (int t = 0; t < swf::kGrpThreads; ++t) {
-          threads.emplace_back([&, t] {
-            threadIdx.x = t;
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            block_barrier = &bar;
-            swf::grouped_block(a, terms);
-          });
-        }
-        for (auto& th : threads) th.join();
+        std::memset(terms.get(), 0xab, sizeof(*terms));   // stale contents
+        run_block(swf::kCovThreads, x, y, z,
+                  [&] { swf::grouped_block(a, *terms); });
       }
 }
 
@@ -656,14 +738,22 @@ extern "C" void emulate_fused1(const int* sidx, const int* keep,
   a.sg_last = last_idx.data();
   std::vector<unsigned char> smem(swf::smem_bytes(layers, swf::kStripH,
                                                   false));
-  for (int z = 0; z < frames; ++z)
-    for (int y = 0; y < ns1 - 1; ++y)
-      for (int x = 0; x < n_chunks; ++x) {
-        std::memset(smem.data(), 0xab, smem.size());  // stale contents
-        run_block(swf::kThreads, x, y, z, [&] {
-          swf::fused_block<false, true>(a, smem.data());
-        });
-      }
+  // launch_one: B1's solid body at kVarOne, kLc the layer class.
+  auto run = [&](auto lc) {
+    for (int z = 0; z < frames; ++z)
+      for (int y = 0; y < ns1 - 1; ++y)
+        for (int x = 0; x < n_chunks; ++x) {
+          std::memset(smem.data(), 0xab, smem.size());  // stale contents
+          run_block(swf::kThreads, x, y, z, [&] {
+            swf::fused_block<false, false, false, swf::kVarOne,
+                             decltype(lc)::value>(a, smem.data());
+          });
+        }
+  };
+  if (swf::solid_layer_class(layers) == swf::kSolidSmallLayers)
+    run(std::integral_constant<int, swf::kSolidSmallLayers>{});
+  else
+    run(std::integral_constant<int, swf::kMaxLayers>{});
   const size_t row = static_cast<size_t>(swf::kStripH) * n_chunks * swf::kLane;
   for (int f = 0; f < frames; ++f)   // the sentinel strip's memset
     std::memset(out + (static_cast<size_t>(f) * ns1 + ns1 - 1) * row, 0,
@@ -725,7 +815,7 @@ void run_variant(const swf::FusedArgs& a, int frames,
       for (int x = 0; x < a.n_chunks * a.n_spg; ++x) {
         std::memset(smem.data(), 0xab, smem.size());  // stale contents
         run_block(swf::kThreads, x, y, z, [&] {
-          swf::fused_block<false, false, false, false, kVar>(a, smem.data());
+          swf::fused_block<false, false, false, kVar>(a, smem.data());
         });
       }
 }
@@ -861,25 +951,13 @@ extern "C" void emulate_resolve(const float* delta, const float* colors,
   a.delta = delta; a.colors = colors; a.rules = rules; a.out = out;
   a.frames = frames; a.layers = layers; a.height = height;
   a.stride = stride;
-  blockDim.x = swf::kResThreads;
   std::vector<float> carries(swf::kResWarps * layers);
   for (int y = 0; y < frames; ++y)
     for (int x = 0; x < height / swf::kStripH; ++x) {
       std::fill(carries.begin(), carries.end(), -7.0f);
-      std::vector<std::unique_ptr<std::barrier<>>> bars;
-      std::vector<float> slots(swf::kResThreads);
-      for (int w = 0; w < swf::kResWarps; ++w)
-        bars.push_back(std::make_unique<std::barrier<>>(32));
-      std::vector<std::thread> threads;
-      for (int t = 0; t < swf::kResThreads; ++t) {
-        threads.emplace_back([&, t] {
-          threadIdx.x = t;
-          blockIdx.x = x; blockIdx.y = y;
-          this_warp = Warp{bars[t / 32].get(), slots.data() + (t / 32) * 32};
-          swf::resolve_row(a, carries.data() + (t / 32) * layers);
-        });
-      }
-      for (auto& th : threads) th.join();
+      run_block(swf::kResThreads, x, y, 0, [&] {
+        swf::resolve_row(a, carries.data() + (threadIdx.x / 32) * layers);
+      });
     }
 }
 """
@@ -947,6 +1025,18 @@ def _build_emulator(d, csrc, extra=""):
     emu.emulate_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
         ctypes.c_int] * 4 + [ctypes.c_longlong] * 5
     return emu
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions run on one intra-op thread in these modules:
+    their tensors are small, and the test run's workers share the
+    machine's cores, where more threads an op only wait on each other.
+    Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

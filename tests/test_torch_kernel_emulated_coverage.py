@@ -1,22 +1,25 @@
-"""The direct coverage kernels as redesigned for the H100 — banded (B9)
-and tiled (B10) — run on the CPU under the g++ emulation of
-``tests/test_torch_kernel_emulated.py`` against their unchanged plain
-versions ``banded_plain`` / ``tiled_plain``.
+"""The direct coverage kernels as redesigned for the H100 — banded (B9),
+tiled (B10) and grouped (B11) — run on the CPU under the g++ emulation
+of ``tests/test_torch_kernel_emulated.py`` against their unchanged
+plain versions ``banded_plain`` / ``tiled_plain`` / ``grouped_plain``.
 
-``csrc/coverage_device.cuh`` ``banded_block`` / ``tiled_block``: the
-y-only terms of every (edge, row) of a tile staged in shared memory,
-B9's rows walking only the window edges whose computed dy is nonzero
-(rounds of ``kBandChunk`` edges), B10's rows only the trips of four
-edges that hold one (its merge tree kept), and a pixel right of an edge
+``csrc/coverage_device.cuh`` ``banded_block`` / ``tiled_block`` /
+``grouped_block``: the y-only terms of every (edge, row) of a tile
+staged in shared memory, B9's rows walking only the window edges whose
+computed dy is nonzero (rounds of ``kBandChunk`` edges), B10's rows
+only the trips of four edges that hold one and B11's only the 8-edge
+groups that hold one (their merge trees kept; B11's two 8-row strips a
+block each tested against the bounds), and a pixel right of an edge
 adding dy alone.  Held here on ``_random_edges`` and
 ``closed_edge_planes`` tables and on a table built for the edge cases
 (endpoints an ulp past a row, vertical, horizontal, |dy| under 1e-9,
-long unsplit and off-frame edges), both rules, ragged tiles on both
-axes, B9 windows of one to 32 rounds (2048 edges) and rows crossed by
-more than 128 edges; B9 blocks with one column tile and walking two.
-Four mutants of the new bodies must fail, and one
-case for each kernel holds it against the JAX package's own kernel in
-Pallas interpret mode.
+long unsplit and off-frame edges), both rules, ragged tiles and strips
+on both axes, B9 windows of one to 32 rounds (2048 edges), rows crossed
+by more than 128 edges, B11 blocks whose bounds reach one of a tile's
+two strips only; B9 blocks with one column tile and walking two.  Six
+mutants of the new bodies must fail, and one case for each of B9 and
+B10 holds it against the JAX package's own kernel in Pallas interpret
+mode.
 
 Tolerance: byte-equal to the plain versions (``torch.equal``: they
 perform the kernels' arithmetic and g++ contracts no FMA); against the
@@ -38,7 +41,9 @@ from swf_renderer_tpu.ops import coverage as jc
 from swf_renderer_tpu_torch.ops import coverage as cov
 from swf_renderer_tpu_torch.ops import cuda_lib
 from swf_renderer_tpu_torch.utils.scenes import closed_edge_planes
-from tests.test_torch_kernel_emulated import _build_emulator, _random_edges
+from tests.test_torch_kernel_emulated import (  # noqa: F401 (fixture)
+    _build_emulator, _random_edges, one_torch_thread,
+)
 
 JAX_TOL = 1e-5
 
@@ -47,7 +52,9 @@ JAX_TOL = 1e-5
 # it must fail).  1 and 4: the crossing test on the raw y-range
 # (ymin below the row's end and ymin + |dy| past its start: the extent
 # rounds), in B9 and in B10; 2: the right-of-edge path taken at
-# rel_mx < 1; 3: B10's trip merged left to right.
+# rel_mx < 1; 3: B10's trip merged left to right; 5: the right-of-edge
+# path of B10's and B11's per-pixel half taken at rel_mx < 1; 6: B11's
+# group merged left to right.
 _RAW = ("(fminf(y0, y1) < py + 1.0f && "
         "fminf(y0, y1) + fabsf(y1 - y0) > py)")
 MUTANTS = {
@@ -88,9 +95,25 @@ MUTANTS = {
         "        const bool cross = swf_mutant == 4\n"
         f"            ? {_RAW}\n            : t.x != 0.0f;\n",
         "b10_edges_evenodd"),
+    "b11_right_of_edge_below_1": (
+        5, "  if (rel_mx <= 0.0f) return t.x;   // right of the edge: dy * 1\n"
+           "  const float rel_mn = t.y - px;\n  const float mean",
+        "  if (swf_mutant == 5 ? rel_mx < 1.0f : rel_mx <= 0.0f) return t.x;\n"
+        "  const float rel_mn = t.y - px;\n  const float mean", "b11_closed"),
+    "b11_group_left_to_right": (
+        6, "        const float pv = (l0 ? tiled_pixel(t0, px[c]) : 0.0f) +\n"
+           "                         (l1 ? tiled_pixel(t1, px[c]) : 0.0f);\n"
+           "        half[c] = pr == 0 ? pv : half[c] + pv;\n",
+        "        const float a0 = l0 ? tiled_pixel(t0, px[c]) : 0.0f;\n"
+        "        const float a1 = l1 ? tiled_pixel(t1, px[c]) : 0.0f;\n"
+        "        half[c] = pr == 0 ? a0 + a1\n"
+        "            : (swf_mutant == 6 ? (half[c] + a0) + a1\n"
+        "                               : half[c] + (a0 + a1));\n",
+        "b11_random"),
 }
 FLAGS = {1: "b9_raw_y_range", 2: "right_of_edge_below_1",
-         3: "b10_trip_left_to_right", 4: "b10_raw_y_range"}
+         3: "b10_trip_left_to_right", 4: "b10_raw_y_range",
+         5: "b11_right_of_edge_below_1", 6: "b11_group_left_to_right"}
 
 
 @pytest.fixture(scope="module")
@@ -159,6 +182,22 @@ def edge_case_table(height, width, e_pad):
     return t
 
 
+def strip_bands_table(rng, height, width):
+    """(1, 4, 384): three blocks of 128 edges in narrow bands of rows —
+    rows 3-7.5 (the first strip of the first 16-row tile only), 17-22
+    (the first strip of the second tile only) and 38.5-41.5 (both strips
+    of the third) — so B11 blocks meet bounds that reach one of their two
+    strips."""
+    t = np.zeros((1, 4, 384), np.float32)
+    for j, (lo, hi) in enumerate(((3.0, 7.5), (17.0, 22.0), (38.5, 41.5))):
+        sl = slice(128 * j, 128 * (j + 1))
+        t[0, 0, sl] = rng.uniform(-5, width + 5, 128)
+        t[0, 2, sl] = rng.uniform(-5, width + 5, 128)
+        t[0, 1, sl] = rng.uniform(lo, hi, 128)
+        t[0, 3, sl] = rng.uniform(lo, hi, 128)
+    return t
+
+
 def tables(name):
     """name -> (edges (planes, 4, E), height, width, rule): ragged tiles
     on both axes throughout."""
@@ -185,6 +224,12 @@ def tables(name):
     if rest == "dense2000":       # 16 blocks; rows crossed by ~1000 edges
         return _random_edges(np.random.default_rng(13), 1, 2000, 2048, 21,
                              140), 21, 140, 1
+    if rest == "closed44":        # a tile whose second strip is ragged
+        return closed_edge_planes(np.random.default_rng(19), 2, 300, 384,
+                                  44, 150), 44, 150, 0
+    if rest == "strip_bands":
+        return strip_bands_table(np.random.default_rng(23), 44, 150), 44, \
+            150, 1
     raise KeyError(name)
 
 
@@ -195,6 +240,16 @@ def run_case(emu, name):
     planes, _, e_pad = t.shape
     tt = torch.as_tensor(t)
     es, key, pad = cov.sort_edges(tt)
+    if name.startswith("b11_"):
+        bounds = cov.block_bounds(es, key, pad)
+        want = cov.grouped_plain(es, bounds, height, width, rule)
+        es_np = np.ascontiguousarray(es.numpy())
+        tab = np.ascontiguousarray(bounds.numpy())
+        out = np.full((planes, height, width), np.nan, np.float32)
+        emu.emulate_grouped(es_np.ctypes.data, tab.ctypes.data,
+                            out.ctypes.data, planes, e_pad, height, width,
+                            rule)
+        return torch.as_tensor(out), want
     if tiled:
         table = cov.block_bounds(es, key, pad)
         want = cov.tiled_plain(es, table, height, width, rule)
@@ -213,7 +268,9 @@ def run_case(emu, name):
 
 CASES = ["b9_random", "b9_closed", "b9_closed768", "b9_edges",
          "b9_edges_evenodd", "b9_dense2048", "b10_random", "b10_closed",
-         "b10_edges", "b10_edges_evenodd", "b10_dense2000"]
+         "b10_edges", "b10_edges_evenodd", "b10_dense2000", "b11_random",
+         "b11_closed", "b11_closed44", "b11_closed768", "b11_edges",
+         "b11_edges_evenodd", "b11_dense2000", "b11_strip_bands"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -257,6 +314,33 @@ def test_case_tables_reach_the_rounds_and_rows_they_name():
         raw = (ymin < py + 1.0) & (ymin + torch.abs(e[3] - e[1]) > py)
         missed += int(((dy != 0) & ~raw).sum())
     assert missed >= 2
+
+
+def test_grouped_tables_reach_what_they_name():
+    """B11's cases: the strip-band table's blocks reach one strip of the
+    first two 16-row tiles and both of the third; the edge-case table's
+    pairs include spans under 1e-9 and dy-zero pairs in hit blocks; the
+    closed tables hold pixels right of an edge."""
+    t, height, _, _ = tables("b11_strip_bands")
+    tt = torch.as_tensor(t)
+    es, key, pad = cov.sort_edges(tt)
+    b = cov.block_bounds(es, key, pad)[0]
+    s0 = torch.arange(-(-height // 8), dtype=torch.float32) * 8
+    hit = (b[:, 1, None] > s0) & (b[:, 0, None] < s0 + 8)    # (3, strips)
+    assert hit.tolist()[0][:2] == [True, False]
+    assert hit.tolist()[1][2:4] == [True, False]
+    assert hit.tolist()[2][4:6] == [True, True]
+    e = torch.as_tensor(edge_case_table(37, 150, 128)[0])[:, None, :]
+    py = torch.arange(37, dtype=torch.float32)[:, None]
+    dy, xmn, xmx, span, _ = cov.grouped_row_terms(e, py)
+    cross = dy != 0
+    assert bool((cross & (span < 1e-9)).any()) and bool((~cross).any())
+    t, height, width, _ = tables("b11_closed")
+    tt = torch.as_tensor(t)
+    es = cov.sort_edges(tt)[0]
+    dy, _, xmx, _, _ = cov.grouped_row_terms(
+        es[0][:, :, None], torch.arange(height, dtype=torch.float32))
+    assert bool(((dy != 0) & (xmx < width - 1)).any())
 
 
 @pytest.mark.parametrize("flag", sorted(FLAGS))

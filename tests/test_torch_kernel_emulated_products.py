@@ -22,8 +22,8 @@ from swf_renderer_tpu_torch.ops import cuda_lib
 from swf_renderer_tpu_torch.ops import flatblock as fb
 from swf_renderer_tpu_torch.tools import exp_split
 from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
-from tests.test_torch_kernel_emulated import (
-    _build_emulator, _c, _emulate_variant, _variant_scene,
+from tests.test_torch_kernel_emulated import (  # noqa: F401 (fixture)
+    _build_emulator, _c, _emulate_variant, _variant_scene, one_torch_thread,
 )
 
 

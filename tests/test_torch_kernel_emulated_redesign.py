@@ -1,7 +1,7 @@
-"""B1's resolve half and the texfield kernel (B8) as redesigned for the
-H100, run on the CPU under the g++ emulation of
-``tests/test_torch_kernel_emulated.py`` against the unchanged plain
-versions.
+"""B1's resolve half, the one-block form on its body (B13) and the
+texfield kernel (B8) as redesigned for the H100, run on the CPU under
+the g++ emulation of ``tests/test_torch_kernel_emulated.py`` against
+the unchanged plain versions.
 
 B1 (``csrc/flatblock_device.cuh`` ``fused_block`` for the solid grouped
 kernel): the launcher picks the layer class ``solid_layer_class(L)`` (4
@@ -12,11 +12,13 @@ plane's strips over three blocks), nonzero, even-odd and mixed rules,
 with the ``kVarResolve`` and ``kVarNone0`` cuts at both classes, one
 styled and one chain / premultiplied / mask case of the styled kernel
 (its own body since its redesign: ``styled_resolve``, held in full in
-``tests/test_torch_kernel_emulated_styled.py``) and one one-block (kOne)
-case of the generic body; the carry of
-earlier chunks is two native 32-bit adds, the low word's wrap carried
-into the high word, held on supergroups of several groups through B1,
-mode "none"'s loads and kVarBatched.
+``tests/test_torch_kernel_emulated_styled.py``), and the one-block form
+(B13) on the same body at ``kVarOne`` (a slot's layer from its block's
+``sidx``, values split in two bf16 parts when ``passes`` < 3) at 1, 4,
+9 and 16 layers, passes 2 and 3, both rules; the carry of earlier
+chunks is two native 32-bit adds, the low word's wrap carried into the
+high word, held on supergroups of several groups through B1, mode
+"none"'s loads and kVarBatched.
 
 B8 (``csrc/texfield_device.cuh``): ``texfield_block<N, kSmooth,
 kEdge>`` at n = 1, 2 and 4 (unrolled) and the run-time body (N = 0) at
@@ -45,9 +47,9 @@ from swf_renderer_tpu_torch.ops import texfield
 from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
 from swf_renderer_tpu_torch.tools import exp_split
 from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
-from tests.test_torch_kernel_emulated import (
+from tests.test_torch_kernel_emulated import (  # noqa: F401 (fixture)
     _bg_planes, _build_emulator, _c, _chain_paints, _emulate_variant,
-    _flat_blocks, _run,
+    _flat_blocks, _run, one_torch_thread,
 )
 
 SOLID = r"""
@@ -62,8 +64,7 @@ void run_solid(const swf::FusedArgs& a, int frames, size_t bytes) {
       for (int x = 0; x < a.n_chunks * a.n_spg; ++x) {
         std::memset(smem.data(), 0xab, smem.size());  // stale contents
         run_block(swf::kThreads, x, y, z, [&] {
-          swf::fused_block<false, false, false, false, kVar, kLc>(
-              a, smem.data());
+          swf::fused_block<false, false, false, kVar, kLc>(a, smem.data());
         });
       }
 }
@@ -295,29 +296,68 @@ def test_emulated_chain_premul_mask_keeps_its_body(emulator):
     assert torch.equal(got, want)
 
 
-def test_emulated_one_block_form_keeps_its_body(emulator):
-    """The one-block form (kOne) on sorted blocks, mixed rules, passes 2:
-    equal to fused_blocks_plain, strip NS zeroed."""
-    frames, layers = 2, 4
+def _emulate_fused1(emu, frames, layers, height, width, seed, rule, passes,
+                    empty_layer=None):
+    """B13 (launch_one: B1's solid body at kVarOne, the layer class the
+    launcher picks) on sort_blocks_fused blocks, and fused_blocks_plain's
+    words; out pre-filled with -7 so that words it does not write show."""
     (sidx, keep, urc, ucm, uval, ns, nc), colors = _flat_blocks(
-        frames, layers, 40, 300, seed=45)
+        frames, layers, height, width, seed=seed, empty_layer=empty_layer)
     blocks = fb.sort_blocks_fused(sidx, keep, urc, ucm, uval, layers, ns,
                                   block_pad_multiple=16)
     si, ke, la, rc, cm, uv = (_c(x) for x in blocks)
-    rule = (0, 1, 1, 0)
     rules = np.asarray(rule, np.int32)
     colors = _c(np.asarray(colors, np.float32))
     want = fb.fused_blocks_plain(*map(torch.as_tensor, blocks),
                                  torch.as_tensor(colors), frames,
-                                 layers, ns, nc, fill_rule=rule, passes=2)
+                                 layers, ns, nc, fill_rule=rule,
+                                 passes=passes)
     out = np.full(want.shape, -7, np.int32)
-    emulator.emulate_fused1(
+    emu.emulate_fused1(
         si.ctypes.data, ke.ctypes.data, la.ctypes.data, rc.ctypes.data,
         cm.ctypes.data, uv.ctypes.data, colors.ctypes.data,
         rules.ctypes.data, out.ctypes.data, len(si), frames, layers, ns + 1,
-        nc, 2)
-    assert torch.equal(torch.from_numpy(out), want)
+        nc, passes)
+    return torch.from_numpy(out), want, ns
+
+
+def test_emulated_one_block_form_keeps_its_body(emulator):
+    """The one-block form (B13, B1's body at kVarOne) on sorted blocks,
+    mixed rules, passes 2: equal to fused_blocks_plain, strip NS
+    zeroed."""
+    got, want, ns = _emulate_fused1(emulator, 2, 4, 40, 300, 45,
+                                    (0, 1, 1, 0), 2)
+    assert torch.equal(got, want)
     assert (want[:, :ns] != 0).any()
+
+
+# (layers, height, width, rules, passes, empty layer): layer classes 4
+# (1 and 4 layers) and 16 (9 and 16), both rules and mixed, the values
+# whole (passes 3) and split in two bf16 parts (passes 2), ragged
+# 128-column chunks.
+FUSED1_CASES = {
+    "1_layer_nonzero_p3": (1, 40, 300, (0,), 3, None),
+    "1_layer_evenodd_p2": (1, 24, 200, (1,), 2, None),
+    "4_layers_evenodd_p3": (4, 40, 300, (1, 1, 1, 1), 3, 1),
+    "9_layers_mixed_p2": (9, 24, 200, tuple(i % 2 for i in range(9)), 2,
+                          None),
+    "16_layers_nonzero_p3": (16, 16, 260, (0,) * 16, 3, None),
+    "16_layers_mixed_p2": (16, 16, 260, tuple(int(i % 3 == 1)
+                                              for i in range(16)), 2, 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED1_CASES))
+def test_emulated_one_block_form_equals_plain_version(emulator, case):
+    """B13 on B1's body: words equal to fused_blocks_plain at 1, 4, 9
+    and 16 layers, passes 2 and 3, both rules; strip NS zeroed."""
+    layers, height, width, rule, passes, empty = FUSED1_CASES[case]
+    got, want, ns = _emulate_fused1(emulator, 2, layers, height, width,
+                                    60 + layers + passes, rule, passes,
+                                    empty_layer=empty)
+    assert torch.equal(got, want)
+    assert (want[:, :ns] != 0).any() and not want[:, ns].any()
+    assert len(torch.unique(want)) > 20
 
 
 # -- B8 -----------------------------------------------------------------

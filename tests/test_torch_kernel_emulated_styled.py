@@ -2,8 +2,8 @@
 CPU under the g++ emulation of ``tests/test_torch_kernel_emulated.py``
 against the unchanged plain version ``fused_styled_plain``.
 
-``csrc/flatblock_device.cuh`` ``fused_block<true, false, kChain,
-kPremul>`` (its resolve ``styled_resolve``): B1's walk (four slots'
+``csrc/flatblock_device.cuh`` ``fused_block<true, kChain, kPremul>``
+(its resolve ``styled_resolve``): B1's walk (four slots'
 loads in flight, the carry as two 32-bit adds), strips a block from the
 three-blocks-an-SM budget, and a resolve that goes layer by layer over
 a batch of pixels a thread.  Held here at 1, 3, 4, 5 and 16 layers; colour, linear, focal and field paints mixed; nonzero, even-odd
@@ -39,8 +39,8 @@ from swf_renderer_tpu_torch.ops import cuda_lib
 from swf_renderer_tpu_torch.ops import flatblock as fb
 from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
 from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
-from tests.test_torch_kernel_emulated import (
-    _bg_planes, _build_emulator, _c, _chain_paints, _run,
+from tests.test_torch_kernel_emulated import (  # noqa: F401 (fixture)
+    _bg_planes, _build_emulator, _c, _chain_paints, _run, one_torch_thread,
 )
 from tests.test_torch_multipass import _paints, levels
 

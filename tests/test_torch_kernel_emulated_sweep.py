@@ -46,8 +46,8 @@ from swf_renderer_tpu_torch.ops import flatblock as fb
 from swf_renderer_tpu_torch.ops import morph as tmorph
 from swf_renderer_tpu_torch.ops import transform as sweep
 from swf_renderer_tpu_torch.utils.scenes import random_blobs, random_tracks
-from tests.test_torch_kernel_emulated import (
-    _build_emulator, _run_sweep, _styled_sweep_case,
+from tests.test_torch_kernel_emulated import (  # noqa: F401 (fixture)
+    _build_emulator, _run_sweep, _styled_sweep_case, one_torch_thread,
 )
 from tests.test_torch_sweep import (
     RATIOS, _affine_scene, _pairs, _rotation_mats, assert_close, j, t,

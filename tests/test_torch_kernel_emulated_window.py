@@ -36,13 +36,20 @@ from swf_renderer_tpu_torch.ops import flatblock as fb
 from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
 from swf_renderer_tpu_torch.tools import exp_dma, exp_split, exp_winplace
 from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
-from tests.test_torch_kernel_emulated import _build_emulator, _c
+from tests.test_torch_kernel_emulated import (  # noqa: F401 (fixture)
+    _build_emulator, _c, one_torch_thread,
+)
 
 BULK = r"""
 // cp.async.bulk shared -> global, deferred (see the test module's note).
 struct BulkCopy { void* dst; const void* src; unsigned bytes; };
-thread_local std::vector<BulkCopy> bulk_open;
-thread_local std::vector<std::vector<BulkCopy>> bulk_groups;
+// Each emulated thread's open copies and committed groups (indexed by
+// threadIdx.x: a block's threads are fibers of one OS thread).
+struct BulkState {
+  std::vector<BulkCopy> open;
+  std::vector<std::vector<BulkCopy>> groups;
+};
+BulkState bulk_state[1024];
 std::atomic<long long> bulk_copies{0}, bulk_at_exit{0}, bulk_misaligned{0};
 inline void emu_fence_proxy_async() {}
 inline void emu_bulk_copy_s2g(int* dst, const int* src, unsigned bytes) {
@@ -51,24 +58,27 @@ inline void emu_bulk_copy_s2g(int* dst, const int* src, unsigned bytes) {
     ++bulk_misaligned;
   }
   ++bulk_copies;
-  bulk_open.push_back({dst, src, bytes});
+  bulk_state[threadIdx.x].open.push_back({dst, src, bytes});
 }
 inline void emu_bulk_commit() {
-  bulk_groups.push_back(std::move(bulk_open));
-  bulk_open.clear();
+  BulkState& s = bulk_state[threadIdx.x];
+  s.groups.push_back(std::move(s.open));
+  s.open.clear();
 }
 inline void emu_bulk_wait(int n) {
-  while (static_cast<int>(bulk_groups.size()) > n) {
-    for (const BulkCopy& c : bulk_groups.front())
+  BulkState& s = bulk_state[threadIdx.x];
+  while (static_cast<int>(s.groups.size()) > n) {
+    for (const BulkCopy& c : s.groups.front())
       std::memcpy(c.dst, c.src, c.bytes);
-    bulk_groups.erase(bulk_groups.begin());
+    s.groups.erase(s.groups.begin());
   }
 }
 // The block's exit: what is still pending (or never committed) is
 // counted, then performed.
 inline void emu_bulk_exit() {
-  bulk_at_exit += static_cast<long long>(bulk_groups.size()) +
-                  (bulk_open.empty() ? 0 : 1);
+  const BulkState& s = bulk_state[threadIdx.x];
+  bulk_at_exit += static_cast<long long>(s.groups.size()) +
+                  (s.open.empty() ? 0 : 1);
   emu_bulk_commit();
   emu_bulk_wait(0);
 }
@@ -113,8 +123,7 @@ extern "C" int emulate_win(const int* sidx, const int* flags,
       for (int x = 0; x < n_chunks * a.n_spg; ++x) {
         std::memset(smem.data(), 0xab, smem.size());  // stale contents
         run_block(swf::kThreads, x, y, z, [&] {
-          swf::fused_block<false, false, false, false, swf::kVarWin>(
-              a, smem.data());
+          swf::fused_block<false, false, false, swf::kVarWin>(a, smem.data());
         });
       }
   return a.spb;
