@@ -75,12 +75,16 @@ Phases, each of which exits non-zero on failure before the last line:
              versions (equal) on random scenes (1/4/16 layers, 200, 300,
              1920 and 2047 px wide, 8, 40 and 1088 rows, every rule, the
              empty-group scene; step and prefixed both ways, passes 2
-             and 3, n_buf 2 and 3) and random planes; then the headline
+             and 3, n_buf 2 and 3) and random planes (n_buf 2, 3 and 4:
+             a shallower ring at 16 layers), the pipelined resolve also
+             against the grid one's words; then the headline
              scene through ``render_flat_blocks`` (headline_planes: one
              place and one resolve launch; native packing, upload, each
              kernel, download timed; every plane and frame held against
              the plain versions, the pipelined resolve against the grid
-             one, the frames against phase 3's), through
+             one, the frames against phase 3's; the plane resolves'
+             registers, stack and SASS census: B16 must issue bulk
+             copies, UBLKCP, and no cp.async, LDGSTS), through
              ``sort_blocks_fused`` + ``render_fused_blocks``
              (headline_fused1: also equal to ``render_fused_blocksn`` on
              ``group_blocks_fused`` of the same blocks), and the port's
@@ -108,7 +112,8 @@ Phases, each of which exits non-zero on failure before the last line:
              planes, one and per-layer matrix tracks, the plan's bins and
              256- / 120-column bins) against ``sweep_plain``, B5 also
              against ``sweep_compact_plain`` on ``compact_pre``'s tables,
-             each also against the column kernel's frames, on random
+             each also against the column kernel's frames (B4 and B5
+             word for word), on random
              scenes (1/3/16 layers, 100x300 and 400x550, mixed rules),
              with the plan's capacities checked against every crossing
              count; grouped coverage (B11) against ``grouped_plain`` on
@@ -122,9 +127,10 @@ Phases, each of which exits non-zero on failure before the last line:
              kernel (B3, B6) or the banded / tiled kernel (B9, B10) on the
              same inputs (B11 also against the parent's build with
              --parent), ``compact_pre`` apart, every frame and plane
-             held against the plain versions (B4's, like B3's, B6's and
-             B7's in phases 5 and 6, word for word, and equal to B3's and
-             B6's);
+             held against the plain versions (B4's and B5's, like B3's,
+             B6's and B7's in phases 5 and 6, word for word, and equal to
+             B3's and B6's); B5's registers, stack and SASS census (no
+             stack, no compare-and-swap loop);
 11. probes — the variants of B1 that the reference's tools/exp_split.py
              cuts it into (modes full / place / resolve / none, none0,
              batched kk 4 / 8 / 16, merged) against their plain versions
@@ -214,10 +220,12 @@ cuts, the texfield kernel (yardstick, animtex, animtex1080), the
 banded and tiled coverage kernels (direct1080, dense1080, the renderer's
 ``direct`` route), the affine sweep B3 (anim1080 solid and styled, one
 interactive F = 1 frame), the morph sweeps B6 (morph_affine1080) and B7
-(morph1080) and the row bands B4 (anim1080 solid and
-styled, morph_affine1080) are timed with DIR's build and with this one on the
-same inputs, parent / change / change / parent (``report.json`` ``ab``
-and ``ab_sass``).
+(morph1080), the row bands B4 (anim1080 solid and
+styled, morph_affine1080), the compacted bins B5 (anim1080 solid and
+styled; the parent's kernel reads 64-slot row bounds, made from the same
+tables) and the plane resolves B15 and B16 (headline_planes) are timed
+with DIR's build and with this one on the same inputs, parent / change /
+change / parent (``report.json`` ``ab`` and ``ab_sass``).
 
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
@@ -349,8 +357,9 @@ def phase_build():
 # sweeps' column (sweep_tile_kernel
 # <kMorph, kAffine, kStyled, kLc>: B3 affine, B6 morph + affine, B7 morph
 # ratio) and row-band (B4, sweep_rows_kernel<kMorph, kAffine, kStyled,
-# kLc>) instantiations at anim1080, morph_affine1080 and morph1080 (the
-# solid ones in NO_STACK).
+# kLc>) instantiations at anim1080, morph_affine1080 and morph1080, the
+# compacted bins (B5, sweep_bin_kernel<kStyled, kLc>) at anim1080 and the
+# pipelined plane resolve (B16) (the solid sweeps and B16 in NO_STACK).
 PTXAS_WATCH = {
     "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
     "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
@@ -375,9 +384,13 @@ PTXAS_WATCH = {
     "B4 solid": "sweep_rows_kernelILb0ELb1ELb0ELi4E",
     "B4 styled": "sweep_rows_kernelILb0ELb1ELb1ELi16E",
     "B4 morph": "sweep_rows_kernelILb1ELb1ELb0ELi4E",
+    "B5 solid": "sweep_bin_kernelILb0ELi4E",
+    "B5 styled": "sweep_bin_kernelILb1ELi16E",
+    "B16 pipelined resolve": "resolve_dma_kernel",
 }
-NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B6 morph + affine",
-            "B7 morph", "B13 one-block")
+NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B5 solid",
+            "B6 morph + affine", "B7 morph", "B13 one-block",
+            "B16 pipelined resolve")
 
 
 def ab_times(torch, name, fn, lib="swfkernels"):
@@ -1031,7 +1044,7 @@ def premul_bytes(np, frame):
 
 def _check(torch, what, got, want, exact=False):
     """A sweep's frames against the plain version's: within TOL_LEVELS,
-    or with ``exact`` (B3, B4, B6, B7) equal word for word."""
+    or with ``exact`` (B3-B7) equal word for word."""
     torch.cuda.synchronize()
     dmax, share = byte_diff(got, want)
     same = bool(torch.equal(got, want))
@@ -2700,7 +2713,9 @@ def flat_random(torch, np):
     """B13-B16 against their plain versions: the random scenes of
     FLAT_CASES (2 frames, nonzero / even-odd / mixed rules), the
     reference's empty-group scene, and random planes with deltas in every
-    chunk; step and prefixed both ways, passes 2 and 3, n_buf 2 and 3."""
+    chunk; step and prefixed both ways, passes 2 and 3, n_buf 2 and 3
+    (random planes also 4: at 16 layers a shallower ring); B16 also
+    against B15's words."""
     from swf_renderer_tpu_torch.native.bindings import pack_blocks_native
     from swf_renderer_tpu_torch.ops import flatblock as fb
     from swf_renderer_tpu_torch.ops.pipeline import lower_update_lists
@@ -2729,6 +2744,7 @@ def flat_random(torch, np):
         mixed = tuple(int(x) for x in rng.integers(0, 2, layers))
         tag = f"L={layers} {height}x{width} ({nc} chunks)"
         planes = {}
+        b15 = None
         for step in (False, True):
             got = fb.place_blocks(*blocks, f, layers, ns, step=step)
             want = fb.place_plain(*blocks, f, layers, ns, step=step)
@@ -2743,12 +2759,15 @@ def flat_random(torch, np):
                                             prefixed)
                 _equal_words(torch, f"resolve_u32 {tag} rule={rule} "
                              f"prefixed={prefixed}", got, want)
+                b15 = got
                 n_cases += 1
             for n_buf in (2, 3):
                 dma = fb.resolve_planes_u32_dma(planes[True], cols, nc,
                                                 fill_rule=rule, n_buf=n_buf)
                 _equal_words(torch, f"resolve_u32_dma {tag} rule={rule} "
                              f"n_buf={n_buf}", dma, want)
+                _equal_words(torch, f"resolve_u32_dma {tag} rule={rule} "
+                             f"n_buf={n_buf} vs resolve_u32", dma, b15)
                 n_cases += 1
         sorted_blocks = _flat_upload(torch, np, fb.sort_blocks_fused(
             *arrays, layers, ns, block_pad_multiple=64))
@@ -2780,15 +2799,18 @@ def flat_random(torch, np):
         for rule in (0, 1, mixed):
             for prefixed, p in ((False, raw_t), (True, stepped)):
                 want = fb.resolve_u32_plain(p, cols, 16, rule, prefixed)
+                b15 = fb.resolve_planes_u32(p, cols, 16, rule, prefixed)
                 _equal_words(torch, f"resolve_u32 random L={layers} "
-                             f"rule={rule} prefixed={prefixed}",
-                             fb.resolve_planes_u32(p, cols, 16, rule,
-                                                   prefixed), want)
+                             f"rule={rule} prefixed={prefixed}", b15, want)
                 n_cases += 1
-            for n_buf in (2, 3):
+            # n_buf 4 at 16 layers: the ring goes shallower (3 slots).
+            for n_buf in (2, 3, 4):
+                dma = fb.resolve_planes_u32_dma(stepped, cols, 16, rule,
+                                                n_buf)
                 _equal_words(torch, f"resolve_u32_dma random L={layers} "
-                             f"n_buf={n_buf}", fb.resolve_planes_u32_dma(
-                                 stepped, cols, 16, rule, n_buf), want)
+                             f"n_buf={n_buf}", dma, want)
+                _equal_words(torch, f"resolve_u32_dma random L={layers} "
+                             f"n_buf={n_buf} vs resolve_u32", dma, b15)
                 n_cases += 1
     log(f"flat_blocks: {n_cases} random comparisons equal (planes max abs "
         f"0, packed words equal)")
@@ -2871,6 +2893,13 @@ def headline_planes(torch, np, report, ref_frames):
                                                                 nc))
     ms_call = time_ms(torch, lambda: fb.render_flat_blocks(
         *blocks, cols, height, width, frames, layers, ns, nc))
+    ab_dma = ab_times(torch, "resolve_u32_dma B16 (headline_planes)",
+                      lambda: fb.resolve_planes_u32_dma(planes, cols, nc),
+                      "swfplanes")
+    ab_res = ab_times(torch, "resolve_u32 B15 (headline_planes)",
+                      lambda: fb.resolve_planes_u32(planes, cols, nc),
+                      "swfplanes")
+    census = b16_census()
     held = {}
 
     def plain_place():
@@ -2910,7 +2939,8 @@ def headline_planes(torch, np, report, ref_frames):
         "place_bound_ms": b_place[0], "resolve_bound_ms": b_res[0],
         "place_bytes": w_place[0], "resolve_bytes": w_res[0],
         "vs_phase3_premul_max": vs3[0], "vs_phase3_max": vs3[1],
-        "vs_phase3_share": vs3[2]}
+        "vs_phase3_share": vs3[2], "resolve_dma_ab": ab_dma,
+        "resolve_ab": ab_res, "resolve_census": census}
     entries = {
         "place": dict(launches=main[0] + dma_route[0], max_abs_err=err,
                       ms=ms_place, plain_ms=plain_place_ms,
@@ -2922,6 +2952,37 @@ def headline_planes(torch, np, report, ref_frames):
                                 ms=ms_dma, plain_ms=plain_res_ms,
                                 bound_ms=b_res[0], bound_by=b_res[1])}
     return entries, arrays, (ns, nc), reset, read
+
+
+def b16_census():
+    """ptxas registers / stack and SASS census of the plane resolves
+    (``planes_phases.census``: bulk copies, cp.async, block barriers,
+    mbarrier operations) in this build and, with --parent, the
+    parent's; fails unless B16 issues bulk copies (UBLKCP) and no
+    cp.async (LDGSTS)."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+    from swf_renderer_tpu_torch.tools.planes_phases import census
+
+    builds = {"change": (cuda_lib.lib_path("swfplanes"),
+                         cuda_lib.build_log)}
+    if "parent_libs" in _HELD:
+        builds["parent"] = (PARENT_ROOT / "swf_renderer_tpu_torch" / "_build"
+                            / "libswfplanes.so", _HELD["parent_log"])
+    out = {}
+    for which, (path, text) in builds.items():
+        ptx = ptxas_kernels(text)
+        for name, v in census(path).items():
+            v = {**ptx.get(name, {}), **v}
+            out.setdefault(which, {})[name] = v
+            log(f"flat_blocks: SASS census ({which}) {name}: "
+                f"{v.get('registers')} registers, {v.get('stack')} B stack, "
+                f"{v['instructions']} instructions, UBLKCP {v['ublkcp']}, "
+                f"LDGSTS {v['ldgsts']}, BAR.SYNC {v['bar_sync']}, SYNCS "
+                f"{v['syncs']}")
+    dma = [v for k, v in out["change"].items() if "resolve_dma" in k]
+    if len(dma) != 1 or not dma[0]["ublkcp"] or dma[0]["ldgsts"]:
+        fail(f"B16's SASS: expected bulk copies and no cp.async: {dma}")
+    return out
 
 
 # B13's kernel by mangled-name fragment: the first design's generic body
@@ -3677,7 +3738,7 @@ COV_VS_OTHER_SHARE = {"direct1080": 5e-5, "dense1080": 3e-4}   # above TOL
 def _tiling_check(torch, what, got, want, column, exact=False):
     """A tiling's frames against the plain version and against the column
     kernel's frames on the same inputs (both expected byte-equal; with
-    ``exact``, B4's gate, held to equal words)."""
+    ``exact``, B4's and B5's gate, held to equal words)."""
     dmax = _check(torch, what, got, want, exact)
     cmax, share = byte_diff(got, column)
     if cmax > TOL_LEVELS or (exact and not torch.equal(got, column)):
@@ -3701,7 +3762,8 @@ def tilings_random(torch, np):
     """B4 (solid, styled, morph + affine) and B5
     (solid, styled with gradients, stops and fields, per-layer matrices;
     planned and 256 / 120-column bins) against sweep_plain, B5 also
-    against sweep_compact_plain, each also against the column kernel."""
+    against sweep_compact_plain, each also against the column kernel:
+    equal words."""
     from swf_renderer_tpu_torch.ops import transform as sweep
     from swf_renderer_tpu_torch.ops.coverage import layer_rules
     from swf_renderer_tpu_torch.ops.flatblock import KPAINT_FIELD, KernelPaint
@@ -3796,9 +3858,10 @@ def tilings_random(torch, np):
                             f"{'styled' if kw else 'solid'}")
                     worst["affine_compact"] = max(
                         worst["affine_compact"],
-                        _tiling_check(torch, what, got, want, column),
+                        _tiling_check(torch, what, got, want, column,
+                                      exact=True),
                         _check(torch, what + " vs compact plain", got,
-                               want_c))
+                               want_c, exact=True))
 
             # B4's morph + affine form.
             pairs = [(s_, s_ + rng.uniform(-9, 9, s_.shape).astype(
@@ -3932,14 +3995,53 @@ def _timed_tiling(torch, what, kernel, column, plain, counts_args, report,
     return out
 
 
+# B5's kernels by mangled-name fragment: the first design's
+# (sweep_compact_kernel<kStyled>) and the bins on the tiled body
+# (sweep_bin_kernel<kStyled, kLc>).
+B5_KERNELS = ("sweep_compact_kernel", "sweep_bin_kernel")
+
+
+def b5_census():
+    """ptxas readings and SASS census (``coverage_phases.sass_census``:
+    instructions, local loads and stores, compare-and-swap atomics) of
+    B5's kernels in this build and, with --parent, the parent's; fails if
+    this build's keep a stack or a compare-and-swap loop."""
+    from swf_renderer_tpu_torch.ops import cuda_lib
+    from swf_renderer_tpu_torch.tools.coverage_phases import sass_census
+
+    builds = {"change": (cuda_lib.lib_path("swfsweep"), cuda_lib.build_log)}
+    if "parent_libs" in _HELD:
+        builds["parent"] = (PARENT_ROOT / "swf_renderer_tpu_torch" / "_build"
+                            / "libswfsweep.so", _HELD["parent_log"])
+    out = {}
+    for which, (path, text) in builds.items():
+        ptx = ptxas_kernels(text)
+        for name, body in sass_of(path).items():
+            if any(k in name for k in B5_KERNELS):
+                v = {**ptx.get(name, {}), **sass_census(body)}
+                v.pop("loops")
+                out.setdefault(which, {})[name] = v
+                log(f"tilings: SASS census ({which}) {name}: "
+                    f"{v.get('registers')} registers, {v.get('stack')} B "
+                    f"stack, {v['instructions']} instructions, STL "
+                    f"{v['stl']}, LDL {v['ldl']}, CAS {v['cas']}")
+    mine = out.get("change", {})
+    if len(mine) != 3 or any(v.get("stack") or v["cas"]
+                             for v in mine.values()):
+        fail(f"B5's kernels keep a stack or a CAS loop: {mine}")
+    return out
+
+
 def tilings_full_width(torch, np, report, launches):
     """anim1080 and anim1080_gradient through the row-band and compacted
     tilings, morph_affine1080 through the row-band one (the main path
     once, counters read), then each timed beside the column kernel; B11
     on direct1080's and dense1080's planes."""
     from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.ops import cuda_lib
     from swf_renderer_tpu_torch.ops import style as style_ops
     from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.tools.sweep_phases import tables_at_chunk
     from swf_renderer_tpu_torch.utils.scenes import anim_scene, \
         build_scene_edges
 
@@ -4052,9 +4154,18 @@ def tilings_full_width(torch, np, report, launches):
                                          None, height, width, rules, counts,
                                          **kw)
 
+    # The parent's compacted kernel (--parent) reads 64-slot row bounds.
+    tables_64 = tables_at_chunk(tables_c, 64) if "parent_libs" in _HELD \
+        else None
+
     def compact_kernel(tbl, **kw):
-        return lambda: sweep._launch_sweep_compact(
-            tbl, d_col, height, width, rules, plan["blocks_per_step"], **kw)
+        def run():
+            on_parent = tables_64 is not None and cuda_lib._libs.get(
+                "swfsweep") is _HELD["parent_libs"]["swfsweep"]
+            return sweep._launch_sweep_compact(
+                tables_64 if on_parent else tbl, d_col, height, width, rules,
+                plan["blocks_per_step"], **kw)
+        return run
 
     out = {}
     counts_args = (d_mats, d_tab, None, None, counts, height, width, rules)
@@ -4074,18 +4185,30 @@ def tilings_full_width(torch, np, report, launches):
     out["affine_compact"] = _timed_tiling(
         torch, "anim1080_compact", compact_kernel(tables_c), column(),
         plain(), counts_args + (None, None, (d_col,)), report,
-        extra_bytes=compact_bytes)
+        extra_bytes=compact_bytes, exact=True)
     want_c = sweep.sweep_compact_plain(tables_c, d_col, height, width, rules)
     out["affine_compact"]["max_abs_err"] = max(
         out["affine_compact"]["max_abs_err"],
         _check(torch, "anim1080_compact vs compact plain",
-               compact_kernel(tables_c)(), want_c))
+               compact_kernel(tables_c)(), want_c, exact=True))
     del want_c
+    ab_times(torch, "affine_sweep_compact B5 (anim1080)",
+             compact_kernel(tables_c), "swfsweep")
     grad = _timed_tiling(
         torch, "anim1080_gradient_compact",
         compact_kernel(tables_c, **styled), column(**styled),
         plain(**styled), counts_args + (kpaints, None, grad_extra), report,
-        extra_bytes=compact_bytes)
+        extra_bytes=compact_bytes, exact=True)
+    want_c = sweep.sweep_compact_plain(tables_c, d_col, height, width, rules,
+                                       **styled)
+    grad["max_abs_err"] = max(
+        grad["max_abs_err"],
+        _check(torch, "anim1080_gradient_compact vs compact plain",
+               compact_kernel(tables_c, **styled)(), want_c, exact=True))
+    del want_c
+    ab_times(torch, "affine_sweep_compact B5 styled (anim1080_gradient)",
+             compact_kernel(tables_c, **styled), "swfsweep")
+    report["anim1080_compact"]["census"] = b5_census()
     out["affine_compact"]["max_abs_err"] = max(
         out["affine_compact"]["max_abs_err"], grad["max_abs_err"])
     mrules = (0,) * layers

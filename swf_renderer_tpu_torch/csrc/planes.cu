@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "planes_device.cuh"
 
 namespace swf {
@@ -31,7 +33,8 @@ __global__ void __launch_bounds__(kThreads) resolve_u32_kernel(PlanesArgs a) {
   resolve_u32_block(a, resolve_smem);
 }
 
-__global__ void __launch_bounds__(kThreads) resolve_dma_kernel(PlanesArgs a) {
+__global__ void __launch_bounds__(kDmaThreads) resolve_dma_kernel(
+    PlanesArgs a) {
   extern __shared__ __align__(16) unsigned char dma_smem[];
   resolve_dma_block(a, dma_smem);
 }
@@ -125,39 +128,44 @@ int swf_resolve_u32(const void* planes, const void* colors, const void* rules,
 }
 
 // The same function as swf_resolve_u32 on prefixed planes, through an
-// n_buf-deep cp.async ring (planes 16-byte aligned; the ring shallower
-// where n_buf stages do not fit shared memory, refused where one does
-// not).
+// n_buf-deep ring of bulk copies (planes and colours 16-byte aligned; the
+// ring shallower where n_buf stages do not fit shared memory, refused
+// where one does not).  Persistent blocks, as many as the SMs hold, each
+// a run of (frame, strip) items of equal length give or take one.
 int swf_resolve_u32_dma(const void* planes, const void* colors,
                         const void* rules, void* out, int frames, int layers,
                         int ns1, int n_chunks, int n_buf, void* stream) {
   const int depth = layers < 1 || n_buf < 1 ? 0
                                              : swf::dma_depth(layers, n_buf);
-  if (!swf::planes_shape_ok(frames, layers, ns1, n_chunks) || depth < 1) {
+  if (!swf::planes_shape_ok(frames, layers, ns1, n_chunks) || depth < 1 ||
+      reinterpret_cast<uintptr_t>(planes) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(colors) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swf::PlanesArgs a = swf::planes_args(planes, colors, rules, out, frames,
                                        layers, ns1, n_chunks);
   a.depth = depth;
   const size_t bytes = depth * swf::dma_stage_bytes(layers) +
-                       swf::resolve_smem_bytes(layers);
+                       swf::dma_rest_bytes(layers, depth);
   cudaError_t err = cudaFuncSetAttribute(
       swf::resolve_dma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0;
-  int sms = 132;
+  int sms = 0;
+  int per_sm = 0;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Persistent blocks: about two per SM, each a run of one frame's strips.
-  const int ns = ns1 - 1;
-  int runs = (2 * sms + frames - 1) / frames;
-  runs = runs < 1 ? 1 : (runs > ns ? ns : runs);
-  const dim3 grid(runs, frames);
-  swf::resolve_dma_kernel<<<grid, swf::kThreads, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(a);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, swf::resolve_dma_kernel, swf::kDmaThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = static_cast<long long>(frames) * (ns1 - 1);
+  long long blocks = static_cast<long long>(sms) * (per_sm > 1 ? per_sm : 1);
+  blocks = blocks < items ? blocks : items;
+  swf::resolve_dma_kernel<<<static_cast<unsigned>(blocks), swf::kDmaThreads,
+                            bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

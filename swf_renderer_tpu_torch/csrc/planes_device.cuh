@@ -44,19 +44,31 @@
 //   16-byte load per layer, 512 contiguous bytes a warp), composites the
 //   layers in registers and writes 4 packed words.  Bound: bytes (each
 //   plane value read once, each pixel written once).
-// - Pipelined resolve (B16): the Hopper counterpart of the manual DMA.
-//   Persistent blocks each own a run of one frame's strips and stream them
-//   through a ring of n_buf shared-memory stages filled by cp.async; the
-//   block resolves stage t while the copies of stages t+1 .. t+n_buf-1 are
-//   in flight, through the same resolve_chunk_row as B15.  A stage is a
-//   COLUMN SLICE of a strip: one 128-column chunk of the 8 rows, all
-//   layers (L x 4 KB; the reference's stage is the whole strip, L x 64 KB,
-//   which does not fit n_buf deep at 16 layers).  Stages run chunk by
-//   chunk, so the carry, computed per strip from the chunk totals before
-//   its first stage, runs in the reference's order.  Where n_buf stages
-//   of L x 4 KB do not fit the shared-memory budget the ring goes
-//   shallower (dma_depth).
-//
+// - Pipelined resolve (B16): the Hopper counterpart of the manual DMA,
+//   redesigned around the bulk-copy engine.  A stage is a COLUMN SLICE of
+//   a strip: one 128-column chunk of its 8 rows, all layers (L x 4 KB;
+//   the reference's stage is the whole strip, L x 64 KB, which does not
+//   fit n_buf deep at 16 layers), plus the frame's colours.  In the
+//   chunk-major layout a layer's stage is 4 contiguous KB, so one
+//   producer thread (a ninth warp) fills a ring slot with L + 1
+//   cp.async.bulk copies that complete on the slot's "full" mbarrier
+//   (expect_tx); the eight consumer warps, one a pixel row, wait on that
+//   barrier's phase, resolve through B15's resolve_chunk_row and arrive
+//   on the slot's "empty" barrier, which the producer waits on before it
+//   refills the slot.  The stage loop has no block barrier.  The
+//   persistent grid is the SMs times the blocks an SM holds, and the
+//   (frame, strip) items are dealt out in equal contiguous runs (one
+//   strip more or less), a run crossing frames where it must.  The carry
+//   needs no extra read: the ladder over the chunk totals is causal (chunk
+//   j's inclusive sum reads only chunks <= j), so each consumer warp keeps
+//   the ladder's four levels (shifts 1, 2, 4, 8) of the chunks seen so far
+//   per layer and completes chunk j's carry from the stage's own lane-127
+//   values, the same additions in the same order as strip_carries.
+//   Where n_buf stages do not fit the shared-memory budget the ring goes
+//   shallower (dma_depth).  Bound: bytes (each plane value read once,
+//   each pixel written once); the stage split it was redesigned from and
+//   its times are in PERF.md §6.
+
 // Rounding: op by op in IEEE f32, -fmad=false, rintf, IEEE division; the
 // even-odd rule is the floored modulo.
 
@@ -222,16 +234,29 @@ __device__ __forceinline__ void resolve_chunk_row(
                                                            w[3]);
 }
 
-// Shared memory of both resolves after the DMA ring: colours, rules, the
-// warps' carries.
+// Shared memory of the grid resolve (B15): colours, rules, the warps'
+// carries.
 __host__ __device__ inline size_t resolve_smem_bytes(int layers) {
   return align16(static_cast<size_t>(layers) * 4 * 4) +
          align16(static_cast<size_t>(layers) * 4) +
          static_cast<size_t>(kStripH) * layers * kPlaneChunks * 4;
 }
 
+// The pipelined resolve's threads: eight consumer warps (a pixel row
+// each) and the producer warp.
+constexpr int kDmaThreads = kThreads + 32;
+
+// A ring slot: the L layers' 8 x 128 stage, then the frame's colours.
 __host__ __device__ inline size_t dma_stage_bytes(int layers) {
-  return static_cast<size_t>(layers) * kStageRowFloats * 4;
+  return static_cast<size_t>(layers) * (kStageRowFloats + 4) * 4;
+}
+
+// After the ring: the rules, each consumer warp's carry ladder (L x 16
+// floats) and each slot's full and empty mbarriers.
+__host__ __device__ inline size_t dma_rest_bytes(int layers, int depth) {
+  return align16(static_cast<size_t>(layers) * 4) +
+         static_cast<size_t>(kStripH) * layers * kPlaneChunks * 4 +
+         static_cast<size_t>(depth) * 16;
 }
 
 // Ring depth of the pipelined resolve: n_buf, or as many stages as fit
@@ -239,10 +264,97 @@ __host__ __device__ inline size_t dma_stage_bytes(int layers) {
 __host__ __device__ inline int dma_depth(int layers, int n_buf) {
   int depth = n_buf < kMaxDmaDepth ? n_buf : kMaxDmaDepth;
   while (depth > 0 && depth * dma_stage_bytes(layers) +
-                          resolve_smem_bytes(layers) > kDmaSmemBudget) {
+                          dma_rest_bytes(layers, depth) > kDmaSmemBudget) {
     --depth;
   }
   return depth;
+}
+
+// mbarriers and bulk copies from global to shared memory.  Without
+// __CUDA_ARCH__ and without __CUDACC__ (the g++ emulation of the tests)
+// they call functions that the emulation defines before it includes this
+// header.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+#if defined(__CUDA_ARCH__)
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+#else
+  return 0u;
+#endif
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+#elif !defined(__CUDACC__)
+  emu_mbar_init(bar, count);
+#endif
+}
+
+// The barriers' initialisation made visible to the async proxy.
+__device__ __forceinline__ void mbar_fence_init() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+// The producer's arrival, announcing `bytes` of copies to complete.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+#elif !defined(__CUDACC__)
+  emu_mbar_expect_tx(bar, bytes);
+#endif
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+#elif !defined(__CUDACC__)
+  emu_mbar_arrive(bar);
+#endif
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+#elif !defined(__CUDACC__)
+  emu_mbar_wait(bar, parity);
+#endif
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-B aligned)
+// from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(float* dst, const float* src,
+                                              unsigned bytes,
+                                              unsigned long long* bar) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+#elif !defined(__CUDACC__)
+  emu_bulk_copy_g2s(dst, src, bytes, bar);
+#endif
 }
 
 __device__ __forceinline__ void load_tables(const PlanesArgs& a, int f,
@@ -279,65 +391,120 @@ __device__ void resolve_u32_block(const PlanesArgs& a, unsigned char* smem) {
   }
 }
 
-// B16: blockIdx.y = frame; the frame's strips split in gridDim.x runs.
-// smem: the ring (depth stages), then resolve_smem_bytes.
+// Where the pipelined resolve's stage t lies, advanced a stage at a time
+// (no division in the stage loops): chunk j of strip s of frame f, in
+// ring slot `slot`, that slot's use of parity `phase`.
+struct DmaCursor {
+  int f, s, j, slot;
+  unsigned phase;
+  __device__ __forceinline__ void next(int ns, int nc, int depth) {
+    if (++j == nc) {
+      j = 0;
+      if (++s == ns) {
+        s = 0;
+        ++f;
+      }
+    }
+    if (++slot == depth) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// B16: a persistent block of kDmaThreads owns the (frame, strip) items
+// [n b / G, n (b + 1) / G) of n = frames * strips, G = gridDim.x; its
+// stage t is chunk t % n_chunks of item t / n_chunks, in ring slot
+// t % depth.  smem: the ring (depth slots), then dma_rest_bytes.
 __device__ void resolve_dma_block(const PlanesArgs& a, unsigned char* smem) {
   const int L = a.layers;
   const int depth = a.depth;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const size_t stage_floats = static_cast<size_t>(L) * kStageRowFloats;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nc = a.n_chunks;
+  const int ns = a.ns1 - 1;
+  const size_t stage_floats = dma_stage_bytes(L) / 4;
   float* ring = reinterpret_cast<float*>(smem);
   unsigned char* rest = smem + depth * dma_stage_bytes(L);
-  float* col_s = reinterpret_cast<float*>(rest);
-  int* rule_s = reinterpret_cast<int*>(rest + align16(L * 4 * 4));
-  float* carry = reinterpret_cast<float*>(rest + align16(L * 4 * 4) +
-                                          align16(L * 4));
-  const int f = blockIdx.y;
-  const int ns = a.ns1 - 1;
-  const int per = (ns + gridDim.x - 1) / gridDim.x;
-  const int s0 = blockIdx.x * per;
-  const int s1 = s0 + per < ns ? s0 + per : ns;
-  if (s0 >= s1) return;                       // uniform across the block
-  const int y = tid >> 5;
-  carry += y * L * kPlaneChunks;
-  load_tables(a, f, col_s, rule_s);
-  const int n_stages = (s1 - s0) * a.n_chunks;
-  // Stage t: chunk t % n_chunks of strip s0 + t / n_chunks, into slot
-  // t % depth; 16 bytes a copy, 256 copies a layer.
-  auto fetch = [&](int t) {
-    const int s = s0 + t / a.n_chunks;
-    const int j = t % a.n_chunks;
-    float* stage = ring + static_cast<size_t>(t % depth) * stage_floats;
-    for (int i = tid; i < L * (kStageRowFloats / 4); i += nthr) {
-      const int l = i / (kStageRowFloats / 4);
-      const int q = i % (kStageRowFloats / 4);
-      const int row = q / (kLane / 4);
-      const int c4 = (q % (kLane / 4)) * 4;
-      cp_async16(stage + l * kStageRowFloats + row * kLane + c4,
-                 plane_row(a, f, l, s, j * kStripH + row) + c4);
+  int* rule_s = reinterpret_cast<int*>(rest);
+  float* ladders = reinterpret_cast<float*>(rest + align16(L * 4));
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      rest + align16(L * 4) + static_cast<size_t>(kStripH) * L *
+                                  kPlaneChunks * 4);
+  unsigned long long* empty = full + depth;
+  const long long n_items = static_cast<long long>(a.frames) * ns;
+  const long long i0 = n_items * blockIdx.x / gridDim.x;
+  const long long i1 = n_items * (blockIdx.x + 1) / gridDim.x;
+  const int n_stages = static_cast<int>(i1 - i0) * nc;
+  DmaCursor c{static_cast<int>(i0 / ns), static_cast<int>(i0 % ns), 0, 0,
+              0u};
+  if (tid == 0) {
+    for (int i = 0; i < depth; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kThreads);
     }
-  };
-  for (int t = 0; t < depth - 1; ++t) {
-    if (t < n_stages) fetch(t);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  const int stride = a.n_chunks * kLane;
-  for (int t = 0; t < n_stages; ++t) {
-    if (t + depth - 1 < n_stages) fetch(t + depth - 1);
-    cp_async_commit();
-    cp_async_wait(depth - 1);                 // stage t has landed
-    __syncthreads();
-    const int s = s0 + t / a.n_chunks;
-    const int j = t % a.n_chunks;
-    if (j == 0) strip_carries(a, f, s, y, carry);
-    const float* stage = ring + static_cast<size_t>(t % depth) * stage_floats;
-    int* out_row = a.out + (static_cast<size_t>(f) * ns * kStripH +
-                            static_cast<size_t>(s) * kStripH + y) * stride;
+  for (int i = tid; i < L; i += blockDim.x) rule_s[i] = a.rules[i];
+  __syncthreads();
+  if (warp == kStripH) {
+    // The producer: one thread issues every stage's copies.
+    if (lane != 0) return;
+    for (int t = 0; t < n_stages; ++t, c.next(ns, nc, depth)) {
+      if (t >= depth) mbar_wait(empty + c.slot, c.phase ^ 1u);
+      float* stage = ring + c.slot * stage_floats;
+      mbar_expect_tx(full + c.slot,
+                     static_cast<unsigned>(dma_stage_bytes(L)));
+      for (int l = 0; l < L; ++l) {
+        bulk_copy_g2s(stage + l * kStageRowFloats,
+                      plane_row(a, c.f, l, c.s, c.j * kStripH),
+                      kStageRowFloats * 4, full + c.slot);
+      }
+      bulk_copy_g2s(stage + L * kStageRowFloats,
+                    a.colors + static_cast<size_t>(c.f) * L * 4,
+                    a.layers * 16, full + c.slot);
+    }
+    return;
+  }
+  // The consumers: warp y resolves pixel row y of every stage.  Its
+  // ladder holds, per layer, 16 floats: [0] the last chunk total (shift
+  // 1), [1, 2] the last two sums of shift 1 (shift 2), [3, 7) the last
+  // four of shift 2 (shift 4), [7, 15) the last eight of shift 4 (shift
+  // 8), [15] this stage's carry; all 0 at a strip's first chunk, so a
+  // shift past the first chunk adds 0.0 as the lane ladder does.
+  const int y = warp;
+  float* ladder = ladders + y * L * kPlaneChunks;
+  const int stride = nc * kLane;
+  for (int t = 0; t < n_stages; ++t, c.next(ns, nc, depth)) {
+    const int j = c.j;
+    const float* stage = ring + c.slot * stage_floats;
+    mbar_wait(full + c.slot, c.phase);
+    for (int l = lane; l < L; l += 32) {
+      float* h = ladder + l * kPlaneChunks;
+      if (j == 0) {
+        for (int k = 0; k < kPlaneChunks - 1; ++k) h[k] = 0.0f;
+      }
+      const float x = stage[l * kStageRowFloats + y * kLane + kLane - 1];
+      const float sum1 = x + h[0];
+      const float sum2 = sum1 + h[1 + (j & 1)];
+      const float sum4 = sum2 + h[3 + (j & 3)];
+      const float sum8 = sum4 + h[7 + (j & 7)];
+      h[0] = x;
+      h[1 + (j & 1)] = sum1;
+      h[3 + (j & 3)] = sum2;
+      h[7 + (j & 7)] = sum4;
+      h[kPlaneChunks - 1] = sum8 - x;
+    }
+    __syncwarp();   // every lane's carry is written
+    int* out_row = a.out + ((static_cast<size_t>(c.f) * ns + c.s) * kStripH +
+                            y) * stride;
     resolve_chunk_row(
         a, [&](int l) { return stage + l * kStageRowFloats + y * kLane; },
-        carry, j, col_s, rule_s, out_row + j * kLane);
-    __syncthreads();                          // slot t % depth is free
+        ladder, kPlaneChunks - 1, stage + L * kStageRowFloats, rule_s,
+        out_row + j * kLane);
+    mbar_arrive(empty + c.slot);
+    __syncwarp();
   }
 }
 

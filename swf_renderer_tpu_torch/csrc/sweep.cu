@@ -2,7 +2,8 @@
 // loaded through ctypes (ops/transform.py, ops/morph.py): the column
 // tiling (swf_sweep: B3 affine, B6 morph + affine, B7 morph ratio, all
 // tile_sweep_block), the row-band tiling (swf_sweep_rows, B4,
-// tile_sweep_block) and the compacted tiling (swf_sweep_compact, B5).
+// tile_sweep_block) and the compacted tiling (swf_sweep_compact, B5,
+// bin_sweep_block).
 // The device logic and its design notes live in sweep_device.cuh.
 //
 // Build:
@@ -41,11 +42,12 @@ __global__ void __launch_bounds__(kThreads, tile_min_blocks(kStyled, kLc))
   tile_sweep_block<kMorph, kAffine, kStyled, kLc, kRowChunk>(a, smem);
 }
 
-template <bool kStyled>
-__global__ void __launch_bounds__(kThreads) sweep_compact_kernel(
-    SweepArgs a) {
+// B5: the compacted bins (solid: layer class kLc; styled).
+template <bool kStyled, int kLc>
+__global__ void __launch_bounds__(kThreads, tile_min_blocks(kStyled, kLc))
+    sweep_bin_kernel(SweepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sweep_compact_block<kStyled>(a, smem);
+  bin_sweep_block<kStyled, kLc>(a, smem);
 }
 
 // The column sweeps (kTileW = kLane: a block a run of 128-column tiles,
@@ -98,18 +100,31 @@ cudaError_t launch_tiles_lc(SweepArgs a, cudaStream_t stream) {
   }
 }
 
-template <bool kStyled>
-cudaError_t launch_sweep_compact(SweepArgs a, cudaStream_t stream) {
-  a.rows = sweep_tile_rows(a.layers, a.bin_w);
-  const size_t bytes = sweep_smem_bytes(a.layers, a.rows, kStyled, a.bin_w);
+// B5 over compact_pre's tables: 128-column tiles of tile_rows rows, a
+// block bins_per_block bins of its band.
+template <bool kStyled, int kLc>
+cudaError_t launch_bins(SweepArgs a, cudaStream_t stream) {
+  a.rows = tile_rows(a.layers, kLane);
+  a.n_chunks = a.cap / kFineChunk;
+  const size_t bytes = tile_smem_bytes(a.layers, a.rows, kLane, kStyled);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_compact_kernel<kStyled>,
+      sweep_bin_kernel<kStyled, kLc>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_bins + a.bins_per_block - 1) / a.bins_per_block,
                   (a.height + a.rows - 1) / a.rows, a.frames);
-  sweep_compact_kernel<kStyled><<<grid, kThreads, bytes, stream>>>(a);
+  sweep_bin_kernel<kStyled, kLc><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The layer class as launch_tiles_lc picks it.
+inline cudaError_t launch_bins_lc(SweepArgs a, bool styled,
+                                  cudaStream_t stream) {
+  if (styled) return launch_bins<true, kMaxLayers>(a, stream);
+  if (solid_layer_class(a.layers) != kSolidSmallLayers) {
+    return launch_bins<false, kMaxLayers>(a, stream);
+  }
+  return launch_bins<false, kSolidSmallLayers>(a, stream);
 }
 
 // The arguments every entry point shares.
@@ -235,9 +250,9 @@ int swf_sweep_rows(int mode, const void* mats, const void* tab_s,
 
 // The compacted sweep (B5) over compact_pre's tables: ctab (F, NB, L, 4,
 // cap) f32 device-space pieces, ccount (F, NB, L) i32, cbounds (F, NB, L,
-// cap / 64, 2) f32, prefix (F, L, NB, H) i64; bins of bin_w <= 256
-// columns, bins_per_block of them walked by one block in turn.  Styled
-// when pint is not null.
+// cap / 16, 2) f32 row bounds of 16-slot chunks, prefix (F, L, NB, H)
+// i64; bins of bin_w <= 256 columns, bins_per_block of them walked by one
+// block in turn.  Styled when pint is not null.
 int swf_sweep_compact(const void* colors, const void* rules,
                       const void* pint, const void* pflt,
                       const void* grad_mats, const void* stop_colors,
@@ -247,7 +262,7 @@ int swf_sweep_compact(const void* colors, const void* rules,
                       int height, int width, int cap, int n_bins, int bin_w,
                       int bins_per_block, int colors_per_frame,
                       int n_stop_slots, void* stream) {
-  if (cap < swf::kSweepChunk || cap % swf::kSweepChunk != 0 || bin_w < 1 ||
+  if (cap < swf::kFineChunk || cap % swf::kFineChunk != 0 || bin_w < 1 ||
       bin_w > 256 || n_bins != (width + bin_w - 1) / bin_w ||
       bins_per_block < 1 ||
       !swf::sweep_shape_ok(layers, frames, height, width)) {
@@ -265,10 +280,7 @@ int swf_sweep_compact(const void* colors, const void* rules,
   a.bin_w = bin_w;
   a.bins_per_block = bins_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = pint != nullptr
-      ? swf::launch_sweep_compact<true>(a, s)
-      : swf::launch_sweep_compact<false>(a, s);
-  return static_cast<int>(err);
+  return static_cast<int>(swf::launch_bins_lc(a, pint != nullptr, s));
 }
 
 }  // extern "C"

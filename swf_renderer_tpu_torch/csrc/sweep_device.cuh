@@ -17,8 +17,9 @@
 //     kRowChunk): one block owns a band of rows of one frame across the
 //     full width;
 //   * `_xform_kernel(compact=True)` (transform.py:586, pallas_call :1514)
-//     — the compacted sweep (B5: sweep_compact_block): one block walks
-//     only the pieces a host-planned pre-pass gathered for its column bin.
+//     — the compacted sweep (B5: bin_sweep_block, tile_sweep_block's
+//     steps): one block walks only the pieces a host-planned pre-pass
+//     gathered for its column bin.
 //
 // What it computes.  A piece is a segment whose transformed |dy| <= 1, so
 // it touches at most the two pixel rows floor(min(y0, y1)) + {0, 1}.  In
@@ -42,24 +43,17 @@
 // space, and for a piece that reaches the tile scatter the DIFFERENCES
 // ramp(x) - ramp(x - 1) over the columns the piece crosses, ending with
 // the step to dy (a pre-pass kernel has written each chunk's row bounds,
-// so the walk skips chunks that miss the tile's rows).  A row prefix then
-// rebuilds every pixel's winding.  Differences and prefix are 32.32 fixed
+// so the walk skips chunks that miss the tile's rows).  A row scan then
+// rebuilds every pixel's winding.  Differences and scan are 32.32 fixed
 // point: integer sums telescope exactly and do not depend on the order
 // the atomics land in, so the result is the same on every run, for every
 // tile shape, and equal to the plain PyTorch version (ops/transform.py
 // sweep_plain), which sums the same integers with index_add_.  The
-// winding rounds to f32 once.  The resolve loops over the layers present
-// and keeps each layer's weight in that layer's own plane slot: a form
-// with per-thread arrays and 16-way unrolled paint code ran the styled
-// kernel at 3x the solid one on the card.
+// winding rounds to f32 once.
 //
-// Every column and row-band sweep (B3, B4, B6, B7) runs tile_sweep_block
-// at the end of this file.  The first form (sweep_walk, scatter_piece,
-// sweep_resolve: a piece left of the tile adds dy at its first column
-// through 64-bit shared atomics, a serial row prefix) is left to the
-// compacted tiling, B5.  The two tilings of the same function, both
-// byte-equal to the column kernel because every pixel still sums the same
-// integers:
+// Every sweep (B3, B4, B5, B6, B7) runs the tiled body at the end of this
+// file.  The three tilings of the same function, all byte-equal to the
+// column kernel because every pixel still sums the same integers:
 //   * rows (B4): a block owns a band of rows and sweeps the width in
 //     kRowChunk-column chunks, carrying each row's exact winding from chunk
 //     to chunk (the TPU's "cheap plane" of left pieces becomes that
@@ -70,22 +64,21 @@
 //     rows at 3 layers and 256-column chunks, 2 at 16 layers).
 //   * compacted (B5): ops/transform.py compact_pre gathers, per (frame,
 //     column bin of `bin_w` columns, layer), the pieces crossing the bin
-//     in table order, already in device pixels, with their 64-slot chunk
-//     row bounds, and the 32.32 sum of dy of the pieces wholly left of the
-//     bin per row (the prefix plane).  A block owns `bins_per_block` bins
-//     of one row band in turn, with planes one bin wide: it seeds each
-//     row's first column with the prefix and walks only the bin's
-//     gathered pieces.
-//
+//     in table order, already in device pixels, with the row bounds of
+//     their kFineChunk-slot chunks, and the 32.32 sum of dy of the pieces
+//     wholly left of the bin per row (the prefix plane).  A block owns
+//     `bins_per_block` bins of one row band in turn (bin_sweep_block), in
+//     128-column tiles: the prefix seeds each row's carry and the walk
+//     reads only the bin's gathered pieces.
+
 // Bound on this card: bytes for the output (one u32 a pixel) at the main
 // path's shapes.  The kernel's own cost is the piece walk (without the
 // chunk bounds it was two thirds of the kernel: every tile read every
 // piece from L2), the resolve and the setup; a tile whose windings are
 // all 0 skips the scan and the resolve and writes zeros.
 //
-// Tolerance against the plain version on the card: B3, B4, B6 and B7
-// equal words (chip_smoke.py), B5 at most 1 u8 level; by construction all
-// byte-equal.  Rounding as in
+// Tolerance against the plain version on the card: equal words
+// (chip_smoke.py); by construction all byte-equal.  Rounding as in
 // flatblock_device.cuh: op-by-op IEEE f32, -fmad=false, rintf, floored
 // modulo.
 
@@ -95,9 +88,7 @@
 
 namespace swf {
 
-constexpr size_t kSweepSmemBudget = 100 * 1024;
 constexpr int kSweepMaxRows = 32;
-constexpr int kSweepChunk = 64;              // pieces per row-bounds chunk
 constexpr int kSweepMaxHits = 1024;          // chunk list of one walk round
 constexpr int kRowChunk = 256;               // row-band kernel's column chunk
 
@@ -119,52 +110,17 @@ struct SweepArgs {
                              // highest row base of each piece chunk
   int* out;                  // (F, H, W) packed RGBA u32 bits
   int frames, layers, ep, height, width;
-  int n_chunks;              // ceil(ep / kSweepChunk)
+  int n_chunks;              // ceil(ep / kFineChunk), B5: cap / kFineChunk
   int rows;                  // tile rows
   int mats_per_layer, colors_per_frame, n_stop_slots;
   // The compacted sweep's tables (compact_pre):
   const float* ctab;         // (F, NB, L, 4, cap) gathered device pieces
   const int* ccount;         // (F, NB, L) gathered pieces of each bin
-  const float* cbounds;      // (F, NB, L, cap / kSweepChunk, 2) row bounds
+  const float* cbounds;      // (F, NB, L, cap / kFineChunk, 2) row bounds
   const long long* prefix;   // (F, L, NB, H) 32.32 dy of left pieces
   int cap;                   // gathered slots per (frame, bin, layer)
   int n_bins, bin_w, bins_per_block;
 };
-
-// Tile rows: the most (a power of two, at most kSweepMaxRows) whose layer
-// accumulators of tile_w + 1 columns fit the shared-memory budget.
-__host__ __device__ inline int sweep_tile_rows(int layers,
-                                               int tile_w = kLane) {
-  int rows = kSweepMaxRows;
-  while (rows > 1 && static_cast<size_t>(layers) * rows * (tile_w + 1) * 8
-                         > kSweepSmemBudget) {
-    rows /= 2;
-  }
-  return rows;
-}
-
-__host__ __device__ inline size_t sweep_plane_bytes(int layers, int rows,
-                                                    int tile_w = kLane) {
-  return align16(static_cast<size_t>(layers) * rows * (tile_w + 1) * 8);
-}
-
-// Shared-memory carve-up of B5: accumulators (rows bank-shifted to
-// tile_w + 1 long longs), colours, matrices, rules with the tile's touched
-// flag and the hit count, the hit list, then (styled) the paint records.
-__host__ __device__ inline size_t sweep_smem_bytes(int layers, int rows,
-                                                   bool styled,
-                                                   int tile_w = kLane) {
-  size_t n = sweep_plane_bytes(layers, rows, tile_w);
-  n += align16(static_cast<size_t>(layers) * 4 * 4);   // colours
-  n += align16(static_cast<size_t>(layers) * 6 * 4);   // matrices
-  n += align16(static_cast<size_t>(layers + 2) * 4);   // rules, flags
-  n += align16(static_cast<size_t>(kSweepMaxHits) * 4);
-  if (styled) {
-    n += align16(static_cast<size_t>(layers) * kPintStride * 4);
-    n += align16(static_cast<size_t>(layers) * kPfltStride * 4);
-  }
-  return n;
-}
 
 struct SweepShared {
   long long* plane;   // (L, rows, tile_w + 1) accumulators
@@ -178,30 +134,6 @@ struct SweepShared {
   float* pflt;        // styled: (L, kPfltStride)
   long long* carry;   // (L, rows) each row's winding left of the tile
 };
-
-__device__ inline SweepShared sweep_carve(unsigned char* smem, int layers,
-                                          int rows, int tile_w,
-                                          bool styled) {
-  SweepShared s{};
-  s.plane = reinterpret_cast<long long*>(smem);
-  size_t off = sweep_plane_bytes(layers, rows, tile_w);
-  s.col = reinterpret_cast<float*>(smem + off);
-  off += align16(static_cast<size_t>(layers) * 4 * 4);
-  s.mat = reinterpret_cast<float*>(smem + off);
-  off += align16(static_cast<size_t>(layers) * 6 * 4);
-  s.rule = reinterpret_cast<int*>(smem + off);
-  s.touched = s.rule + layers;
-  s.n_hits = s.touched + 1;
-  off += align16(static_cast<size_t>(layers + 2) * 4);
-  s.hits = reinterpret_cast<int*>(smem + off);
-  off += align16(static_cast<size_t>(kSweepMaxHits) * 4);
-  if (styled) {
-    s.pint = reinterpret_cast<int*>(smem + off);
-    off += align16(static_cast<size_t>(layers) * kPintStride * 4);
-    s.pflt = reinterpret_cast<float*>(smem + off);
-  }
-  return s;
-}
 
 // Antiderivative of clamp(x, 0, 1) (coverage.py _h01).
 __device__ __forceinline__ float h01(float x) {
@@ -239,338 +171,13 @@ __device__ __forceinline__ void device_piece(
   }
 }
 
-// Scatter one device-space piece into a tile: for each of the <= 2 rows
-// it touches that lie in the tile, the differences ramp(x) - ramp(x - 1)
-// over the columns it crosses, ending with the step to dy, in 32.32 fixed
-// point.  ``lplane`` is the layer's accumulator (rows ``stride`` long
-// longs apart); rows [r0, r1), columns [c0, c1).  The tile's first column
-// takes the piece's whole value there (a piece left of the tile adds dy).
-__device__ __forceinline__ void scatter_piece(
-    float x0, float y0, float x1, float y1, int r0, int c0, float r0f,
-    float r1f, float c0f, float c1f, long long* lplane, int stride,
-    int* touched_s) {
-  const float rowbase = floorf(fminf(y0, y1));
-  for (int k = 0; k < 2; ++k) {
-    const float py = rowbase + static_cast<float>(k);
-    if (!(py >= r0f && py < r1f)) continue;
-    const float sy0 = y0 - py;
-    const float sy1 = y1 - py;
-    const float cy0 = clamp01(sy0);
-    const float cy1 = clamp01(sy1);
-    const float dy = cy1 - cy0;
-    if (dy == 0.0f) continue;
-    const float dyd = sy1 - sy0;
-    const float safe = fabsf(dyd) < 1e-9f ? 1.0f : dyd;
-    const float t0 = (cy0 - sy0) / safe;
-    const float t1 = (cy1 - sy0) / safe;
-    const float dxs = x1 - x0;
-    const float xa = x0 + t0 * dxs;
-    const float xb = x0 + t1 * dxs;
-    const float xmn = fminf(xa, xb);
-    const float xmx = fmaxf(xa, xb);
-    const float lo = floorf(xmn);
-    const float hi = ceilf(xmx);
-    if (lo >= c1f) continue;    // the ramp starts right of the tile
-    const float span = xmx - xmn;
-    const bool thin = span < 1e-9f;
-    const float safe_span = thin ? 1.0f : span;
-    // The piece's value at pixel column px.
-    auto value = [&](float px) {
-      float v = dy;
-      if (px < hi) {
-        const float rel_mn = xmn - px;
-        const float rel_mx = xmx - px;
-        const float mean = thin
-            ? clamp01(0.5f * (rel_mn + rel_mx))
-            : (h01(rel_mx) - h01(rel_mn)) / safe_span;
-        v = dy * (1.0f - mean);
-      }
-      return v;
-    };
-    const int xs = static_cast<int>(fmaxf(lo, c0f));
-    const int xe = static_cast<int>(
-        fminf(fmaxf(hi, static_cast<float>(xs)), c1f - 1.0f));
-    long long* row = lplane + (static_cast<int>(py) - r0) * stride;
-    *touched_s = 1;
-    long long prev = 0;
-    for (int x = xs; x <= xe; ++x) {
-      const long long q = to_fixed(value(static_cast<float>(x)));
-      atomicAdd(reinterpret_cast<unsigned long long*>(&row[x - c0]),
-                static_cast<unsigned long long>(q - prev));
-      prev = q;
-    }
-  }
-}
-
-// Frame f's colours, rules and (styled) paint records into shared
-// memory (B5: its pieces are already in device space); clears the touched
-// flag.  Ends synchronised.
-template <bool kStyled>
-__device__ void sweep_setup(const SweepArgs& a, const SweepShared& s,
-                            int f) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int L = a.layers;
-  for (int i = tid; i < L * 4; i += nthr) {
-    if (a.colors_per_frame) {
-      s.col[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
-    } else {
-      s.col[i] = a.colors[i];
-    }
-  }
-  for (int i = tid; i < L; i += nthr) s.rule[i] = a.rules[i];
-  if (tid == 0) *s.touched = 0;
-  if (kStyled) {
-    for (int i = tid; i < L * kPintStride; i += nthr) s.pint[i] = a.pint[i];
-    for (int i = tid; i < L * kPfltStride; i += nthr) s.pflt[i] = a.pflt[i];
-  }
-  __syncthreads();
-  if (kStyled) {
-    // This frame's part of the gradient records: the composed device ->
-    // gradient matrix and, with per-frame stops, the first stop and the
-    // colour steps (f32 differences, as the reference takes them).
-    for (int l = tid; l < L; l += nthr) {
-      const int kind = s.pint[l * kPintStride];
-      if (kind != kPaintLinear && kind != kPaintFocal) continue;
-      float* P = s.pflt + l * kPfltStride;
-      const float* gm = a.grad_mats + (static_cast<long long>(f) * L + l) * 6;
-      for (int k = 0; k < 6; ++k) P[kPInv + k] = gm[k];
-      if (a.stop_colors != nullptr) {
-        const int n_stops = s.pint[l * kPintStride + 2];
-        const float* sc = a.stop_colors
-            + (static_cast<long long>(f) * L + l) * a.n_stop_slots * 4;
-        for (int ch = 0; ch < 4; ++ch) P[kPC0 + ch] = sc[ch];
-        for (int k = 0; k + 1 < n_stops; ++k) {
-          for (int ch = 0; ch < 4; ++ch) {
-            P[kPDc + 4 * k + ch] = sc[4 * (k + 1) + ch] - sc[4 * k + ch];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The piece walk of one compacted bin: rows [r0, r1), columns [c0, c1)
-// of frame f, bin ``bin``'s gathered device-space pieces and their chunk
-// row bounds.  A chunk's pieces can land in the tile's rows only when
-// some row base lies in [r0 - 1, r1 - 1].  In rounds of kSweepMaxHits
-// (layer, chunk) pairs: every thread tests pairs and lists the hits, then
-// kSweepChunk threads take a listed chunk together.
-__device__ void sweep_walk(const SweepArgs& a, const SweepShared& s, int f,
-                           int bin, int stride, int r0, int r1, int c0,
-                           int c1) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int L = a.layers;
-  const int R = a.rows;
-  const float c0f = static_cast<float>(c0);
-  const float c1f = static_cast<float>(c1);
-  const float r0f = static_cast<float>(r0);
-  const float r1f = static_cast<float>(r1);
-  const long long fb = (static_cast<long long>(f) * a.n_bins + bin) * L;
-  const int n_chunks = a.cap / kSweepChunk;
-  const float* bounds = a.cbounds + fb * n_chunks * 2;
-  const int n_pairs = L * n_chunks;
-  for (int base = 0; base < n_pairs; base += kSweepMaxHits) {
-    if (tid == 0) *s.n_hits = 0;
-    __syncthreads();
-    for (int pair = base + tid; pair < min(base + kSweepMaxHits, n_pairs);
-         pair += nthr) {
-      // (a chunk past its layer's count has the empty bounds +-3e38)
-      if (bounds[2 * pair + 1] >= r0f - 1.0f && bounds[2 * pair] < r1f) {
-        s.hits[atomicAdd(s.n_hits, 1)] = pair;
-      }
-    }
-    __syncthreads();
-    const int n_hits = *s.n_hits;
-    for (int h = tid / kSweepChunk; h < n_hits; h += nthr / kSweepChunk) {
-      const int l = s.hits[h] / n_chunks;
-      const int p = (s.hits[h] % n_chunks) * kSweepChunk
-          + tid % kSweepChunk;
-      if (p >= a.ccount[fb + l]) continue;
-      const float* src = a.ctab + (fb + l) * 4 * a.cap;
-      const float x0 = src[p];
-      const float y0 = src[a.cap + p];
-      const float x1 = src[2 * a.cap + p];
-      const float y1 = src[3 * a.cap + p];
-      scatter_piece(x0, y0, x1, y1, r0, c0, r0f, r1f, c0f, c1f,
-                    s.plane + static_cast<long long>(l) * R * stride, stride,
-                    s.touched);
-    }
-    __syncthreads();   // the next round rewrites the list
-  }
-}
-
-// Transparent black for a tile no piece reached (every winding 0).
-__device__ void sweep_zero_tile(const SweepArgs& a, int f, int r0,
-                                int tile_h, int c0, int tile_w) {
-  for (int p = threadIdx.x; p < tile_h * tile_w; p += blockDim.x) {
-    a.out[(static_cast<long long>(f) * a.height + r0 + p / tile_w)
-          * a.width + c0 + p % tile_w] = 0;
-  }
-}
-
-// Row prefix (exact integer sums): every pixel's winding, fixed point.
-// Rows are ``stride`` long longs apart and hold stride - 1 columns.
-__device__ void sweep_row_prefix(long long* plane, int n_rows, int stride) {
-  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
-    long long* p = plane + static_cast<long long>(r) * stride;
-    long long acc = 0;
-    for (int c = 0; c < stride - 1; ++c) {
-      acc += p[c];
-      p[c] = acc;
-    }
-  }
-}
-
-// Fill rule, paints, composite, quantize, pack of a tile's pixels: rows
-// [r0, r0 + tile_h), columns [c0, c0 + tile_w) of frame f, planes of
-// stride - 1 columns (a constant in the column and row-band kernels, so
-// the index arithmetic folds).  Overwrites the winding slots.
-template <bool kStyled>
-__device__ void sweep_resolve(const SweepArgs& a, const SweepShared& s,
-                              int f, int stride, int r0, int tile_h, int c0,
-                              int tile_w) {
-  const int L = a.layers;
-  const int R = a.rows;
-  const int span = stride - 1;
-  for (int p = threadIdx.x; p < tile_h * span; p += blockDim.x) {
-    const int r = p / span;
-    const int c = p % span;
-    if (c >= tile_w) continue;
-    const int x = c0 + c;
-    const int y = r0 + r;
-    const float px = static_cast<float>(x) + 0.5f;
-    const float py = static_cast<float>(y) + 0.5f;
-    const long long pix = (static_cast<long long>(f) * a.height + y) * a.width
-        + x;
-
-    // Two passes over the layers present, no per-thread arrays: top
-    // down for the suffix-product weights (each layer's winding slot in
-    // the plane is overwritten with its weight and gradient parameter —
-    // this thread alone owns the pixel), then bottom up for the sums, in
-    // composite_quantize_pack's order.
-    float suffix = 1.0f;
-    for (int l = L - 1; l >= 0; --l) {
-      long long* slot =
-          s.plane + (static_cast<long long>(l) * R + r) * stride + c;
-      const float cov = fill_cov(from_fixed(*slot), s.rule[l]);
-      float alpha = s.col[4 * l + 3];
-      float t = 0.0f;
-      // An uncovered pixel-layer weighs exactly 0 whatever its paint:
-      // skip the gradient solve and the field read there.
-      if (kStyled && cov != 0.0f) {
-        const int* I = s.pint + l * kPintStride;
-        const float* P = s.pflt + l * kPfltStride;
-        if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-          t = grad_t(P, I, px, py);
-          alpha = grad_ramp(P, I[2], t, 3);
-        } else if (I[0] == kPaintField) {
-          alpha = a.fields[((static_cast<long long>(I[3]) * a.frames) * a.height
-                            * a.width + pix) * 4 + 3];
-        }
-      }
-      const float cas = alpha * cov;
-      float wgt = cas;
-      if (l == L - 1) {
-        suffix = 1.0f - cas;
-      } else {
-        wgt = cas * suffix;
-        suffix = suffix * (1.0f - cas);
-      }
-      float* out2 = reinterpret_cast<float*>(slot);
-      out2[0] = wgt;
-      out2[1] = t;
-    }
-    float alpha_out = 0.0f;
-    float pm[3] = {0.0f, 0.0f, 0.0f};
-    for (int l = 0; l < L; ++l) {
-      const float* in2 = reinterpret_cast<const float*>(
-          s.plane + (static_cast<long long>(l) * R + r) * stride + c);
-      const float wgt = in2[0];
-      alpha_out = (l == 0) ? wgt : alpha_out + wgt;
-      const int* I = s.pint + l * kPintStride;
-      const float* P = s.pflt + l * kPfltStride;
-      // A layer of weight 0 (uncovered, transparent or hidden) adds
-      // exactly 0 whatever its colour.
-      const bool painted = kStyled && wgt != 0.0f;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        float color = s.col[4 * l + ch];
-        if (painted) {
-          if (I[0] == kPaintLinear || I[0] == kPaintFocal) {
-            color = grad_ramp(P, I[2], in2[1], ch);
-          } else if (I[0] == kPaintField) {
-            color = a.fields[((static_cast<long long>(I[3]) * a.frames)
-                              * a.height * a.width + pix) * 4 + ch];
-          }
-        }
-        const float term = color * wgt;
-        pm[ch] = (l == 0) ? term : pm[ch] + term;
-      }
-    }
-    const uint32_t packed = quantize_pack(alpha_out, pm);
-    a.out[pix] = static_cast<int>(packed);
-  }
-}
-
-// Compacted tiling (B5): bins blockIdx.x * bins_per_block + k of
-// a.bin_w columns, a.rows rows of frame blockIdx.z; each row starts from
-// the prefix plane's dy of the pieces wholly left of the bin, and the
-// walk reads only the bin's gathered pieces (already in device space).
-// The planes are a bin wide (the width is a run-time value).
-template <bool kStyled>
-__device__ void sweep_compact_block(const SweepArgs& a, unsigned char* smem) {
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int L = a.layers;
-  const int R = a.rows;
-  const int stride = a.bin_w + 1;
-  const int r0 = blockIdx.y * R;
-  const int f = blockIdx.z;
-  const int r1 = min(r0 + R, a.height);
-  const int tile_h = r1 - r0;
-  const SweepShared s = sweep_carve(smem, L, R, a.bin_w, kStyled);
-
-  sweep_setup<kStyled>(a, s, f);
-  for (int k = 0; k < a.bins_per_block; ++k) {
-    const int bin = blockIdx.x * a.bins_per_block + k;
-    if (bin >= a.n_bins) break;   // the same for every thread
-    const int c0 = bin * a.bin_w;
-    const int c1 = min(c0 + a.bin_w, a.width);
-    __syncthreads();   // the previous bin's resolve has read the planes
-    if (tid == 0) *s.touched = 0;
-    for (int i = tid; i < L * R * stride; i += nthr) s.plane[i] = 0;
-    __syncthreads();
-    for (int i = tid; i < L * tile_h; i += nthr) {
-      const int l = i / tile_h;
-      const int r = i % tile_h;
-      const long long q = a.prefix[((static_cast<long long>(f) * L + l)
-                                    * a.n_bins + bin) * a.height + r0 + r];
-      if (q != 0) {
-        s.plane[(static_cast<long long>(l) * R + r) * stride] = q;
-        *s.touched = 1;
-      }
-    }
-    sweep_walk(a, s, f, bin, stride, r0, r1, c0, c1);
-    __syncthreads();
-    if (*s.touched == 0) {
-      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);
-      continue;
-    }
-    sweep_row_prefix(s.plane, L * R, stride);
-    __syncthreads();
-    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);
-  }
-}
-
-// --- B3, B4, B6, B7: the sweeps redesigned for this card ----------------
+// --- The tiled body: the sweeps redesigned for this card -----------------
 //
 // tile_sweep_block runs the column sweeps (kTileW = kLane: B3 the affine
 // sweep, solid and styled; B6 morph + affine; B7 morph ratio) and the row
 // bands (B4: solid, styled, morph + affine, kTileW = kRowChunk, a band's
-// chunks in turn).  Redesigned from clock64 readings of the first form
+// chunks in turn); bin_sweep_block runs the compacted bins (B5) through
+// the same steps.  Redesigned from clock64 readings of the first form
 // (PERF.md §6): at anim1080 a tile read ~1300 pieces (64-piece chunks
 // span many rows), ~180 of them wholly left of the tile added dy at its
 // first column through 64-bit shared atomics (compare-and-swap loops),
@@ -645,9 +252,9 @@ __host__ __device__ inline size_t tile_zeroed_bytes(int layers, int rows,
 }
 
 // Shared-memory carve-up: planes (rows of tile_w long longs, 16-byte
-// aligned for the scan's vector loads), each row's carry, then
-// sweep_smem_bytes's colours, matrices, rules and flags, hit list and
-// (styled) paint records.
+// aligned for the scan's vector loads), each row's carry, then the
+// colours, matrices, rules and flags (the tile's touched flag, the hit
+// count), the hit list and (styled) the paint records.
 __host__ __device__ inline size_t tile_smem_bytes(int layers, int rows,
                                                   int tile_w, bool styled) {
   size_t n = tile_zeroed_bytes(layers, rows, tile_w);
@@ -751,9 +358,12 @@ __device__ __forceinline__ void add_fixed(long long* slot, long long q) {
   if (hi != 0u) atomicAdd(&w[1], hi);
 }
 
-// One device-space piece into a tile (B3) or a band's chunk (B4):
-// scatter_piece's terms and values, operation for operation, the
-// differences added by add_fixed.  Without ``carry`` a piece wholly left
+// One device-space piece into a tile (B3, B5) or a band's chunk (B4):
+// for each of the <= 2 rows it touches that lie in the tile, the
+// differences ramp(x) - ramp(x - 1) over the columns [c0, c1) it
+// crosses, ending with the step to dy, in 32.32 fixed point, each added
+// by add_fixed (coverage.py edge_contribution's terms, operation for
+// operation).  Without ``carry`` a piece wholly left
 // of the tile (hi <= c0: its value at c0 is dy) adds to_fixed(dy) to its
 // row's carry, which the scan adds at the row's front, and leaves the
 // tile unmarked; a piece that reaches the tile's columns marks it.
@@ -921,11 +531,13 @@ __device__ __forceinline__ uint32_t tile_composite(WindFn wind,
 }
 
 // Words of the lane's four pixels from x on (px0 its first word),
-// those at tile columns < tile_w: 16 bytes a store when rows are.
+// those at tile columns < tile_w: 16 bytes a store when rows are 16-byte
+// aligned (kBin: when px0 is, a bin starting at any column).
+template <bool kBin = false>
 __device__ __forceinline__ void tile_store(const SweepArgs& a, long long px0,
                                            int cl, int tile_w,
                                            const uint32_t* w) {
-  if (cl + 3 < tile_w && a.width % 4 == 0) {
+  if (cl + 3 < tile_w && (kBin ? px0 % 4 == 0 : a.width % 4 == 0)) {
     *reinterpret_cast<int4*>(a.out + px0) = make_int4(
         static_cast<int>(w[0]), static_cast<int>(w[1]),
         static_cast<int>(w[2]), static_cast<int>(w[3]));
@@ -1057,8 +669,8 @@ __device__ __forceinline__ void tile_layered(const SweepArgs& a,
 // columns of each 128-column segment.  kLc: the solid composite's layer
 // class (windings in registers and tile_composite when kLc <= 4, else
 // tile_layered).  Leaves each row's carry at its winding in the tile's
-// last column.
-template <bool kStyled, int kLc, int kTileW>
+// last column.  kBin: B5's tiles, whose first column is any.
+template <bool kStyled, int kLc, int kTileW, bool kBin = false>
 __device__ void tile_resolve(const SweepArgs& a, const SweepShared& s,
                              int f, int r0, int tile_h, int c0, int tile_w,
                              unsigned eo, const float4* creg) {
@@ -1136,7 +748,7 @@ __device__ void tile_resolve(const SweepArgs& a, const SweepShared& s,
         for (int l = 0; l < L; ++l) scan(l);
         tile_layered<kStyled>(a, s, r, y, pix, cl, tile_w, kTileW, words);
       }
-      if (cl < tile_w) tile_store(a, pix, cl, tile_w, words);
+      if (cl < tile_w) tile_store<kBin>(a, pix, cl, tile_w, words);
     }
   }
 }
@@ -1149,8 +761,9 @@ __device__ __forceinline__ void tile_zero_smem(unsigned char* p, size_t n16) {
   }
 }
 
-// sweep_setup's tables of frame f for tile_sweep_block, with the planes
-// and carries (the first zero16 16-byte words) zeroed while they arrive:
+// Frame f's colours, matrices, rules and (styled) paint records for the
+// tiled body, with the planes and carries (the first zero16 16-byte
+// words) zeroed while they arrive:
 // the colours, matrices and rules are loaded into registers (one value a
 // thread) and the paint records by cp.async before the zeroing.  Ends
 // synchronised.
@@ -1204,7 +817,9 @@ __device__ void tile_setup(const SweepArgs& a, const SweepShared& s,
   if (kStyled) cp_async_wait(0);
   __syncthreads();
   if (kStyled) {
-    // This frame's part of the gradient records (sweep_setup's).
+    // This frame's part of the gradient records: the composed device ->
+    // gradient matrix and, with per-frame stops, the first stop and the
+    // colour steps (f32 differences, as the reference takes them).
     for (int l = tid; l < L; l += nthr) {
       const int kind = s.pint[l * kPintStride];
       if (kind != kPaintLinear && kind != kPaintFocal) continue;
@@ -1228,6 +843,7 @@ __device__ void tile_setup(const SweepArgs& a, const SweepShared& s,
 }
 
 // Transparent black for a tile whose windings are all 0.
+template <bool kBin = false>
 __device__ __forceinline__ void tile_zero_words(const SweepArgs& a, int f,
                                                 int r0, int tile_h, int c0,
                                                 int tile_w) {
@@ -1235,8 +851,9 @@ __device__ __forceinline__ void tile_zero_words(const SweepArgs& a, int f,
   const uint32_t zero[4] = {0u, 0u, 0u, 0u};
   for (int i = threadIdx.x; i < tile_h * quads; i += blockDim.x) {
     const int cl = 4 * (i % quads);
-    tile_store(a, (static_cast<long long>(f) * a.height + r0 + i / quads)
-                      * a.width + c0 + cl, cl, tile_w, zero);
+    tile_store<kBin>(a, (static_cast<long long>(f) * a.height + r0
+                         + i / quads) * a.width + c0 + cl, cl, tile_w,
+                     zero);
   }
 }
 
@@ -1324,6 +941,142 @@ __device__ void tile_sweep_block(const SweepArgs& a, unsigned char* smem) {
     }
     tile_resolve<kStyled, kLc, kTileW>(a, s, f, r0, tile_h, c0, c1 - c0,
                                        eo, creg);
+  }
+}
+
+// The listed chunks of bin (f, bin)'s gathered device-space pieces
+// (fb = (f * n_bins + bin) * L), kFineChunk threads a chunk, into the
+// tile: rows [r0, r1), columns [c0, c1).
+__device__ __forceinline__ void bin_place(const SweepArgs& a,
+                                          const SweepShared& s, long long fb,
+                                          int n_hits, int r0, int r1, int c0,
+                                          int c1) {
+  const int tid = threadIdx.x;
+  const int R = a.rows;
+  const float c0f = static_cast<float>(c0);
+  const float c1f = static_cast<float>(c1);
+  const float r0f = static_cast<float>(r0);
+  const float r1f = static_cast<float>(r1);
+  for (int h = tid / kFineChunk; h < n_hits;
+       h += blockDim.x / kFineChunk) {
+    const int l = s.hits[h] / a.n_chunks;
+    const int p = (s.hits[h] % a.n_chunks) * kFineChunk + tid % kFineChunk;
+    if (p >= a.ccount[fb + l]) continue;
+    const float* src = a.ctab + (fb + l) * 4 * a.cap;
+    tile_scatter(src[p], src[a.cap + p], src[2 * a.cap + p],
+                 src[3 * a.cap + p], r0, c0, r0f, r1f, c0f, c1f, false,
+                 s.plane + static_cast<long long>(l) * R * kLane, kLane,
+                 s.carry + l * R, s.touched);
+  }
+}
+
+// One block of B5: bins blockIdx.x * a.bins_per_block + k of a.bin_w
+// columns, rows blockIdx.y * a.rows ... of frame blockIdx.z, each in
+// kLane-column tiles.  A tile seeds each row's carry with the prefix
+// plane (the dy of the pieces wholly left of its bin) and walks only the
+// bin's gathered pieces, through B3's steps: a gathered piece wholly left
+// of the tile adds its dy to the carry, so a bin's second tile (bins
+// wider than kLane) sums the same integers as the first's carry would.
+template <bool kStyled, int kLc>
+__device__ void bin_sweep_block(const SweepArgs& a, unsigned char* smem) {
+  const int tid = threadIdx.x;
+  const int L = a.layers;
+  const int R = a.rows;
+  const int r0 = blockIdx.y * R;
+  const int f = blockIdx.z;
+  const int r1 = min(r0 + R, a.height);
+  const int tile_h = r1 - r0;
+  const SweepShared s = tile_carve(smem, L, R, kLane, kStyled);
+  const size_t plane16 = align16(static_cast<size_t>(L) * R * kLane * 8) / 16;
+
+  tile_setup<false, false, kStyled>(
+      a, s, smem, tile_zeroed_bytes(L, R, kLane) / 16, f, 0.0f, 1.0f);
+  unsigned eo = 0;
+  float4 creg[!kStyled && kLc <= 4 ? kLc : 1];
+  if constexpr (!kStyled) {
+#pragma unroll
+    for (int l = 0; l < kLc; ++l) {
+      if (l < L) {
+        eo |= (s.rule[l] != 0 ? 1u : 0u) << l;
+        if constexpr (kLc <= 4) {
+          creg[l] = reinterpret_cast<const float4*>(s.col)[l];
+        }
+      }
+    }
+  }
+  const int n_pairs = L * a.n_chunks;
+  const float r0f = static_cast<float>(r0);
+  const float r1f = static_cast<float>(r1);
+  bool first = true;
+  // Whether the planes may hold a walk's differences or a resolve's
+  // weights: a tile written as zeros had no piece reach its columns, so
+  // it leaves its planes zero for the next one (whose seeds overwrite
+  // every carry it reads).
+  bool dirty = false;
+  for (int k = 0; k < a.bins_per_block; ++k) {
+    const int bin = blockIdx.x * a.bins_per_block + k;
+    if (bin >= a.n_bins) break;   // the same for every thread
+    const long long fb = (static_cast<long long>(f) * a.n_bins + bin) * L;
+    const float* bounds = a.cbounds + fb * a.n_chunks * 2;
+    const int b0 = bin * a.bin_w;
+    const int b1 = min(b0 + a.bin_w, a.width);
+    for (int c0 = b0; c0 < b1; c0 += kLane) {
+      const int c1 = min(c0 + kLane, b1);
+      // The first walk round's row bounds and this thread's prefix seed
+      // (L * rows <= 100 < kThreads: one a thread) load before the
+      // zeroing, which hides their latency.
+      float2 bp[kSweepMaxHits / kThreads];
+#pragma unroll
+      for (int q = 0; q < kSweepMaxHits / kThreads; ++q) {
+        const int pair = tid + q * kThreads;
+        bp[q] = pair < n_pairs ? make_float2(bounds[2 * pair],
+                                             bounds[2 * pair + 1])
+                               : make_float2(3.0e38f, -3.0e38f);
+      }
+      long long seed = 0;
+      if (tid < L * tile_h) {
+        seed = a.prefix[((static_cast<long long>(f) * L + tid / tile_h)
+                         * a.n_bins + bin) * a.height + r0 + tid % tile_h];
+      }
+      if (!first) {
+        __syncthreads();   // the previous tile's resolve has read the planes
+        if (dirty) tile_zero_smem(smem, plane16);
+      }
+      first = false;
+      if (tid == 0) {
+        *s.touched = 0;
+        *s.n_hits = 0;
+      }
+      __syncthreads();
+      if (tid < L * tile_h) s.carry[(tid / tile_h) * R + tid % tile_h] = seed;
+#pragma unroll
+      for (int q = 0; q < kSweepMaxHits / kThreads; ++q) {
+        if (bp[q].y >= r0f - 1.0f && bp[q].x < r1f) {
+          s.hits[atomicAdd(s.n_hits, 1)] = tid + q * kThreads;
+        }
+      }
+      __syncthreads();   // the seeds and the list are in place
+      bin_place(a, s, fb, *s.n_hits, r0, r1, c0, c1);
+      __syncthreads();   // the next round rewrites the list
+      for (int base = kSweepMaxHits; base < n_pairs; base += kSweepMaxHits) {
+        const int n_hits = tile_hits(s, bounds, base, n_pairs, r0f, r1f);
+        bin_place(a, s, fb, n_hits, r0, r1, c0, c1);
+        __syncthreads();
+      }
+      // Every winding of the tile is 0 when no piece reached its columns
+      // and every row's carry is 0.
+      for (int i = tid; i < L * tile_h; i += blockDim.x) {
+        if (s.carry[(i / tile_h) * R + i % tile_h] != 0) *s.touched = 1;
+      }
+      __syncthreads();
+      dirty = *s.touched != 0;
+      if (!dirty) {
+        tile_zero_words<true>(a, f, r0, tile_h, c0, c1 - c0);
+        continue;
+      }
+      tile_resolve<kStyled, kLc, kLane, true>(a, s, f, r0, tile_h, c0,
+                                              c1 - c0, eo, creg);
+    }
   }
 }
 

@@ -62,8 +62,8 @@ from .flatblock import (
 )
 
 _GRADIENT_KINDS = (KPAINT_LINEAR, KPAINT_FOCAL)
-SWEEP_CHUNK = 64    # gathered slots per row-bounds chunk of the
-                    # compacted sweep (csrc kSweepChunk)
+SWEEP_CHUNK = 16    # gathered slots per row-bounds chunk of the
+                    # compacted sweep (csrc kFineChunk)
 FINE_CHUNK = 16     # pieces per row-bounds chunk of the others (kFineChunk)
 LANE = 128          # the reference's lane width (frame heights pad to it)
 ROW_CHUNKS = (128, 256)   # wchunk values taken (the kernel runs 256)
@@ -451,7 +451,7 @@ class CompactTables:
     tab: torch.Tensor       # (F, NB, L, 4, cap) f32 device-space pieces
     counts: torch.Tensor    # (F, NB, L) int32 pieces gathered per bin
     crossing: torch.Tensor  # (F, NB, L) int32 pieces crossing the bin
-    bounds: torch.Tensor    # (F, NB, L, cap / 64, 2) f32 chunk row bounds
+    bounds: torch.Tensor    # (F, NB, L, cap / 16, 2) f32 chunk row bounds
     prefix: torch.Tensor    # (F, L, NB, H) int64 32.32 dy of left pieces
     bin_w: int
 
@@ -571,7 +571,7 @@ def compact_pre(matrices, tab, compact_counts, wblock: int, height: int,
             flat_tab[(base + ch) * cap + slot] = vals[:, ch]
     counts = torch.minimum(crossing, caps)
 
-    # Row bounds of each 64-slot chunk of gathered pieces (the walk's skip).
+    # Row bounds of each 16-slot chunk of gathered pieces (the walk's skip).
     rb = torch.floor(torch.minimum(ctab[:, :, :, 1], ctab[:, :, :, 3]))
     filled = (torch.arange(cap, device=dev) < counts[..., None])
     shape = (frames, nb, layers, cap // SWEEP_CHUNK, SWEEP_CHUNK)
@@ -954,8 +954,10 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
     takes the compacted tiling (replaces ``_xform_kernel(compact=True)``):
     ``compact_pre`` gathers each (frame, column bin, layer)'s crossing
     pieces and the prefix of the pieces left of it, and one block per
-    (``blocks_per_step`` bins, row band, frame) walks only those; counted
-    on ``render_affine_sweep.compact_launches``.  Both give the column
+    (``blocks_per_step`` bins, row band, frame) walks only those through
+    the column tiling's steps, the prefix seeding each row's carry
+    (csrc/sweep_device.cuh bin_sweep_block); counted on
+    ``render_affine_sweep.compact_launches``.  Both give the column
     tiling's frames byte for byte.
 
     ``matrices``: (F, 6) or per-layer (F, L, 6) f32 device affines;

@@ -1,6 +1,6 @@
 """Where the sweep kernels' time goes: the column sweeps (B3 affine, solid
-and styled; B6 morph + affine; B7 morph ratio) and the row-band sweep
-(B4).
+and styled; B6 morph + affine; B7 morph ratio), the row-band sweep (B4)
+and the compacted sweep (B5).
 
     python3 -m swf_renderer_tpu_torch.tools.sweep_phases [--csrc DIR]
         [--parent DIR] [--build NAME=DIR] [--variants [NAME,...]]
@@ -10,15 +10,19 @@ Needs one NVIDIA card and ``nvcc``.  Builds ``sweep.cu`` from ``DIR``
 (default: this package's ``csrc``) as it is, a copy with ``clock64()``
 stamps around the phases of ``tile_sweep_block`` (and of the generic
 ``sweep_block`` where the source still has it, as the parents of the
-morph redesign do: setup, the walk's hit list, its scatter, the row
+morph redesign do, and of the compacted body, ``bin_sweep_block`` or a
+parent's first design: setup, the walk's hit list, its scatter, the row
 prefix or zero test, the resolve, the zeroed tiles' stores; thread 0's
-cycles summed over blocks into a device array) and a copy whose main
-kernels return at once (the bounds pre-pass alone).  On the animation
-benchmark scene uncut (anim1080: 60 frames x 3 layers x 1088x1920, solid
-and with a fading gradient layer), one interactive F = 1 frame of it (a field layer, as the renderer's
-bitmap loop sends), 16 layers of it, morph_affine1080 (16 frames,
-column and row bands) and morph1080 (16 ratios), built as
-``chip_smoke.py`` builds them, it prints for each case: ms of every
+cycles summed over blocks into a device array)
+and a copy whose main kernels return at once (the bounds pre-pass
+alone).  On the animation benchmark scene uncut (anim1080: 60 frames x
+3 layers x 1088x1920, solid and with a fading gradient layer; also
+through the compacted tiling on ``compact_pre``'s tables of the host
+plan, the kernel alone), one interactive F = 1 frame of it (a field
+layer, as the renderer's bitmap loop sends), 16 layers of it,
+morph_affine1080 (16 frames, column and row bands) and morph1080 (16
+ratios), built as ``chip_smoke.py`` builds them, it prints for each
+case: ms of every
 build (twice, in the order parent, change, the rest, then back), each
 output against ``sweep_plain`` (equal words), cycles a block and each
 phase's share, ptxas registers / stack / spills, the SASS instruction
@@ -26,7 +30,9 @@ count with its CALLs, its shared atomics by kind and its loops; and, on
 the card's own tables, the pieces a tile walks (64-, 32- and 16-piece
 chunks), the (piece, row) pairs that land in it and the columns each
 scatters (mean, most), and the share of tiles no piece reaches and of
-tiles whose windings are all 0.  ``--parent`` builds another checkout's
+tiles whose windings are all 0 (compacted: the pieces gathered a bin
+and those a bin's walk reads at 64- and 16-piece row bounds; a parent
+build is handed its 64-piece bounds).  ``--parent`` builds another checkout's
 ``csrc`` beside, ``--build NAME=DIR`` any other ``csrc`` directory,
 ``--variants`` the design elements of ``VARIANTS`` (edits of the
 committed form; all, or the named ones), ``--cases`` only the named
@@ -52,7 +58,7 @@ from .timing import card_line, time_ms
 FRAMES, HEIGHT, WIDTH, MORPH_FRAMES = 60, 1088, 1920, 16
 # Stamp slots: a base (0 the column sweep, 8 the row bands) + phase.
 PHASES = ("setup", "hit_list", "scatter", "prefix", "resolve", "zero_store")
-KERNELS = {"column": 0, "rows": 8}   # case kind -> stamp base
+KERNELS = {"column": 0, "rows": 8, "compact": 0}   # kind -> stamp base
 # Kernel -> mangled-name fragments: the current form's first, then the
 # one before it (B3's two-parameter sweep_tile_kernel<kStyled, kLc>, and
 # the generic sweep_kernel with 64-piece bounds that ran B6 and B7 before
@@ -71,6 +77,10 @@ NAMES = {
     "rows_solid": ("sweep_rows_kernelILb0ELb1ELb0ELi4E",),
     "rows_styled": ("sweep_rows_kernelILb0ELb1ELb1E",),
     "rows_morph": ("sweep_rows_kernelILb1ELb1ELb0ELi4E",),
+    "compact_solid": ("sweep_bin_kernelILb0ELi4E",
+                      "sweep_compact_kernelILb0EE"),
+    "compact_styled": ("sweep_bin_kernelILb1ELi16E",
+                       "sweep_compact_kernelILb1EE"),
     "bounds": ("fine_bounds_kernelILb0ELb1E",),
     "bounds_morph_affine": ("fine_bounds_kernelILb1ELb1E",
                             "sweep_bounds_kernelILb1ELb1E"),
@@ -221,6 +231,89 @@ FORMS["warp scan, register composite"] = [
 # In the redesigned form "prefix" is the zero test of the windings and
 # "resolve" the warp scan with the resolve.
 
+# The first design's compacted body (a parent checkout's, before B5 moved
+# onto the tiled body): its bins' set-up (zeroing and prefix seeds)
+# counts as setup, the walk's hit list and scatter as _WALK's.
+FORMS["first compacted body"] = _WALK + [
+    ("  sweep_setup<kStyled>(a, s, f);\n"
+     "  for (int k = 0; k < a.bins_per_block; ++k) {\n",
+     "  const long long st0_ = clock64();\n"
+     "  sweep_setup<kStyled>(a, s, f);\n"
+     "  swf_stamp(0, clock64() - st0_);\n"
+     "  for (int k = 0; k < a.bins_per_block; ++k) {\n"),
+    ("    __syncthreads();   // the previous bin's resolve has read the "
+     "planes\n    if (tid == 0) *s.touched = 0;\n",
+     "    const long long sb0_ = clock64();\n"
+     "    __syncthreads();   // the previous bin's resolve has read the "
+     "planes\n    if (tid == 0) *s.touched = 0;\n"),
+    ("        s.plane[(static_cast<long long>(l) * R + r) * stride] = q;\n"
+     "        *s.touched = 1;\n      }\n    }\n",
+     "        s.plane[(static_cast<long long>(l) * R + r) * stride] = q;\n"
+     "        *s.touched = 1;\n      }\n    }\n"
+     "    swf_stamp(0, clock64() - sb0_);\n"),
+    ("    __syncthreads();\n    if (*s.touched == 0) {\n"
+     "      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);\n"
+     "      continue;\n    }\n"
+     "    sweep_row_prefix(s.plane, L * R, stride);\n    __syncthreads();\n"
+     "    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);"
+     "\n  }\n}\n",
+     "    __syncthreads();\n    swf_stamp(6, 1);\n"
+     "    const long long sz_ = clock64();\n    if (*s.touched == 0) {\n"
+     "      sweep_zero_tile(a, f, r0, tile_h, c0, c1 - c0);\n"
+     "      __syncthreads();\n      swf_stamp(5, clock64() - sz_);\n"
+     "      swf_stamp(7, 1);\n      continue;\n    }\n"
+     "    sweep_row_prefix(s.plane, L * R, stride);\n    __syncthreads();\n"
+     "    const long long sp_ = clock64();\n    swf_stamp(3, sp_ - sz_);\n"
+     "    sweep_resolve<kStyled>(a, s, f, stride, r0, tile_h, c0, c1 - c0);"
+     "\n    __syncthreads();\n    swf_stamp(4, clock64() - sp_);\n"
+     "  }\n}\n"),
+]
+
+# The compacted tiling on the tiled body (bin_sweep_block): a tile's
+# zeroing, prefix seeds and first hit list count as setup.
+FORMS["bins on the tiled body"] = [
+    ("  tile_setup<false, false, kStyled>(\n"
+     "      a, s, smem, tile_zeroed_bytes(L, R, kLane) / 16, f, 0.0f, 1.0f);"
+     "\n",
+     "  const long long st0_ = clock64();\n"
+     "  tile_setup<false, false, kStyled>(\n"
+     "      a, s, smem, tile_zeroed_bytes(L, R, kLane) / 16, f, 0.0f, 1.0f);"
+     "\n  swf_stamp(0, clock64() - st0_);\n"),
+    ("      // The first walk round's row bounds and this thread's prefix "
+     "seed\n",
+     "      const long long sc0_ = clock64();\n"
+     "      // The first walk round's row bounds and this thread's prefix "
+     "seed\n"),
+    ("      __syncthreads();   // the seeds and the list are in place\n",
+     "      __syncthreads();   // the seeds and the list are in place\n"
+     "      const long long sp_ = clock64();\n"
+     "      swf_stamp(0, sp_ - sc0_);\n"),
+    ("        bin_place(a, s, fb, n_hits, r0, r1, c0, c1);\n"
+     "        __syncthreads();\n      }\n",
+     "        bin_place(a, s, fb, n_hits, r0, r1, c0, c1);\n"
+     "        __syncthreads();\n      }\n"
+     "      const long long sz_ = clock64();\n"
+     "      swf_stamp(2, sz_ - sp_);\n"),
+    ("      __syncthreads();\n      dirty = *s.touched != 0;\n"
+     "      if (!dirty) {\n"
+     "        tile_zero_words<true>(a, f, r0, tile_h, c0, c1 - c0);\n"
+     "        continue;\n      }\n"
+     "      tile_resolve<kStyled, kLc, kLane, true>(a, s, f, r0, tile_h, c0,"
+     "\n                                              c1 - c0, eo, creg);\n"
+     "    }\n",
+     "      __syncthreads();\n      swf_stamp(6, 1);\n"
+     "      const long long sr_ = clock64();\n"
+     "      swf_stamp(3, sr_ - sz_);\n      dirty = *s.touched != 0;\n"
+     "      if (!dirty) {\n"
+     "        tile_zero_words<true>(a, f, r0, tile_h, c0, c1 - c0);\n"
+     "        __syncthreads();\n        swf_stamp(5, clock64() - sr_);\n"
+     "        swf_stamp(7, 1);\n        continue;\n      }\n"
+     "      tile_resolve<kStyled, kLc, kLane, true>(a, s, f, r0, tile_h, c0,"
+     "\n                                              c1 - c0, eo, creg);\n"
+     "      __syncthreads();\n      swf_stamp(4, clock64() - sr_);\n"
+     "    }\n"),
+]
+
 # The copy whose main kernels return at once: the bounds pre-pass alone
 # (the kernel bodies of every form of sweep.cu; those that occur).
 _BOUNDS_ONLY = (
@@ -282,6 +375,10 @@ VARIANTS = {
     "tile runs from 1024 blocks": [
         ("sweep_device.cuh", "kTileRunBlocks = 2048;",
          "kTileRunBlocks = 1024;")],
+    "B5 re-zeroes its planes every tile": [
+        ("sweep_device.cuh",
+         "        if (dirty) tile_zero_smem(smem, plane16);\n",
+         "        tile_zero_smem(smem, plane16);\n")],
     "no all-zero pixel shortcut": [
         ("sweep_device.cuh", "          words[k] = blank ? 0u\n",
          "          words[k] = false ? 0u\n"),
@@ -387,9 +484,58 @@ def build_all(cuda_lib, tmp, sources):
     return libs, logs, errors
 
 
-def cases(np, torch):
+def tables_at_chunk(tables, chunk: int):
+    """``compact_pre``'s tables with row bounds of ``chunk``-slot chunks
+    (a multiple of the tables' own): the min of the lowest and the max of
+    the highest row bases of the chunks they join.  The first design of
+    the compacted kernel reads 64-slot bounds."""
+    import dataclasses
+
+    import torch
+
+    *lead, n, two = tables.bounds.shape
+    k = chunk // (tables.cap // n)
+    b = tables.bounds.view(*lead, n // k, k, two)
+    return dataclasses.replace(tables, bounds=torch.stack(
+        [b[..., 0].amin(-1), b[..., 1].amax(-1)], -1).contiguous())
+
+
+def compact_stats(torch, tables, rows):
+    """Per (frame, row band, bin): the pieces gathered for the bin (all
+    layers) and those its walk reads at 64- and 16-slot row bounds."""
+    f_, nb, l_, _, cap = tables.tab.shape
+    rb = torch.floor(torch.minimum(tables.tab[:, :, :, 1],
+                                   tables.tab[:, :, :, 3]))
+    filled = torch.arange(cap, device=rb.device) < tables.counts[..., None]
+    bands = -(-HEIGHT // rows)
+    r0 = torch.arange(bands, device=rb.device).float() * rows
+
+    def walked_by(size):
+        shape = (f_, nb, l_, cap // size, size)
+        lo = torch.where(filled, rb, torch.full_like(rb, 3.0e38)).view(
+            shape).amin(-1)
+        hi = torch.where(filled, rb, torch.full_like(rb, -3.0e38)).view(
+            shape).amax(-1)
+        n = filled.view(shape).sum(-1).float()
+        hit = (hi[..., None] >= r0 - 1) & (lo[..., None] < r0 + rows)
+        return (hit * n[..., None]).sum(dim=(2, 3))      # (F, NB, bands)
+
+    gathered = tables.counts.sum(-1).float()
+    w64, w16 = walked_by(64), walked_by(16)
+    return {"bins": f_ * nb * bands,
+            "pieces_gathered_a_bin_mean": float(gathered.mean()),
+            "pieces_gathered_a_bin_most": int(gathered.max()),
+            "pieces_walked_a_tile_mean_64_slot_chunks": float(w64.mean()),
+            "pieces_walked_a_tile_mean_16_slot_chunks": float(w16.mean()),
+            "share_tiles_walking_nothing_16": float((w16 == 0).float()
+                                                    .mean())}
+
+
+def cases(np, torch, on_parent=lambda: False):
     """Case name -> (kind, kernel call, plain call, transformed pieces
-    (F, L, n) x4, rows a tile, tile width)."""
+    (F, L, n) x4 or (compacted) the tables, rows a tile, tile width).
+    ``on_parent()`` tells whether the parent's build is swapped in (its
+    compacted kernel reads 64-slot row bounds)."""
     from ..ops import flatblock, style as style_ops, transform as sweep
     from ..ops.morph import morph_pieces, render_morph_sweep
     from ..utils.scenes import anim_scene
@@ -464,6 +610,17 @@ def cases(np, torch):
         return out, live
 
     col_rows = 32 if layers * 32 * 129 * 8 <= 100 * 1024 else 16
+    # The compacted tiling on the host plan's tables, the kernel alone.
+    plan = sweep.plan_compact_sweep(mats, tab, HEIGHT, WIDTH)
+    tables_c = sweep.compact_pre(d_mats, d_tab, plan["compact_counts"],
+                                 plan["wblock"], HEIGHT, WIDTH)
+    tables_64 = tables_at_chunk(tables_c, 64)
+
+    def compact(**kw):
+        return lambda: sweep._launch_sweep_compact(
+            tables_64 if on_parent() else tables_c, d_col, HEIGHT, WIDTH,
+            rules, plan["blocks_per_step"], **kw)
+
     row_rows = 16
     # 16 layers (the layer class above 4): the scene's layers cycled,
     # translucent colours.
@@ -486,6 +643,11 @@ def cases(np, torch):
             lambda: sweep.sweep_plain(d_mats, tab16, None, None, col16, None,
                                       HEIGHT, WIDTH, rules16, counts16),
             pieces(d_mats, tab16, cnt=counts16), 4, 128),
+        "anim1080_compact": ("compact", compact(), plain(d_mats),
+                             tables_c, col_rows, plan["wblock"]),
+        "anim1080_gradient_compact": ("compact", compact(**styled),
+                                      plain(d_mats, **styled), tables_c,
+                                      col_rows, plan["wblock"]),
         "anim1080_rows": ("rows", column(d_mats, row_grid=True),
                           plain(d_mats), pieces(d_mats, d_tab), row_rows,
                           256),
@@ -690,7 +852,8 @@ def main() -> None:
         order = ["parent"] * ("parent" in libs) + ["change"] + [
             n for n in libs if n not in ("parent", "change")]
         mine = cuda_lib._libs.get("swfsweep")
-        chosen = cases(np, torch)
+        chosen = cases(np, torch, lambda: "parent" in libs and cuda_lib.
+                       _libs.get("swfsweep") is libs["parent"][0])
         if args.cases is not None:
             keep = args.cases.split(",")
             unknown = sorted(set(keep) - set(chosen))
@@ -740,7 +903,9 @@ def main() -> None:
             row["blocks"] = blocks
             row["share"] = {ph: buf[base + i] / max(total, 1)
                             for i, ph in enumerate(PHASES)}
-            row["pieces"] = piece_stats(torch, pcs, rows, tile_w)
+            row["pieces"] = (compact_stats(torch, pcs, rows)
+                             if kind == "compact" else
+                             piece_stats(torch, pcs, rows, tile_w))
             print(json.dumps({name: row}), flush=True)
             del want
             torch.cuda.empty_cache()

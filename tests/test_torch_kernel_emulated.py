@@ -11,8 +11,10 @@ Here g++ compiles them under a small emulation of the CUDA
 execution model (one fiber per CUDA thread, all of a block's on one OS
 thread, switching at ``__syncthreads`` and at the per-warp barrier of
 the shuffles and ``__syncwarp``, std::atomic_ref for the shared-memory
-atomics, ``cp.async`` as a plain
-copy, so the pipelined resolve's ring logic runs unchanged; the warp
+atomics, ``cp.async`` as a plain copy, mbarriers and ``cp.async.bulk``
+global-to-shared copies for the pipelined plane resolve (a copy lands at
+once and completes its bytes on its barrier, a wait yields the fiber
+until the phase completed), so its ring logic runs unchanged; the warp
 ballot and both ``mma.sync`` shapes for ``csrc/place_mma_device.cuh``,
 whose tests are in ``test_torch_kernel_emulated_products.py``), and
 the emulated blocks run at small sizes.  This checks the kernel's
@@ -53,6 +55,7 @@ EMULATOR = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <algorithm>
 #include <type_traits>
@@ -220,6 +223,8 @@ inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
 struct int4 { int x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
@@ -360,6 +365,49 @@ inline long long __shfl_up_sync(unsigned, long long v, int d) {
   return warp_read64(v, lane >= d ? lane - d : lane);
 }
 struct longlong2 { long long x, y; };
+// mbarriers and cp.async.bulk global -> shared (the pipelined plane
+// resolve).  A barrier's state lives beside it, keyed by its address; a
+// copy lands at once and completes its bytes on the barrier; a wait
+// yields its fiber until the phase of the parity asked for has
+// completed.  Arrivals and completed bytes count as progress.
+struct EmuMbar { unsigned count = 0, pending = 0, phase = 0; long long tx = 0; };
+std::map<const void*, EmuMbar> emu_mbars;
+long long emu_bulk_copies = 0, emu_bulk_misaligned = 0;
+inline void emu_mbar_done(EmuMbar& m) {
+  ++emu::progress;
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.count;
+  }
+}
+inline void emu_mbar_init(unsigned long long* bar, unsigned count) {
+  emu_mbars[bar] = EmuMbar{count, count, 0, 0};
+}
+inline void emu_mbar_arrive(unsigned long long* bar) {
+  EmuMbar& m = emu_mbars.at(bar);
+  if (m.pending == 0) std::abort();   // more arrivals than the count
+  --m.pending;
+  emu_mbar_done(m);
+}
+inline void emu_mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  emu_mbars.at(bar).tx += bytes;
+  emu_mbar_arrive(bar);
+}
+inline void emu_mbar_wait(unsigned long long* bar, unsigned parity) {
+  while ((emu_mbars.at(bar).phase & 1u) == parity) emu::yield();
+}
+inline void emu_bulk_copy_g2s(float* dst, const float* src, unsigned bytes,
+                              unsigned long long* bar) {
+  if (bytes % 16 || reinterpret_cast<uintptr_t>(dst) % 16 ||
+      reinterpret_cast<uintptr_t>(src) % 16) {
+    ++emu_bulk_misaligned;
+  }
+  ++emu_bulk_copies;
+  std::memcpy(dst, src, bytes);
+  EmuMbar& m = emu_mbars.at(bar);
+  m.tx -= bytes;
+  emu_mbar_done(m);
+}
 #include "sweep_device.cuh"  // includes flatblock_device.cuh
 #include "texfield_device.cuh"
 #include "coverage_device.cuh"
@@ -527,13 +575,15 @@ int run_tiles_lc(const swf::SweepArgs& a) {
   }
 }
 
-template <bool kStyled>
-void run_sweep_compact(const swf::SweepArgs& a) {
+// B5 as csrc/sweep.cu launch_bins shapes it, in the layer class
+// launch_bins_lc picks.
+template <bool kStyled, int kLc>
+void run_bins(swf::SweepArgs a) {
   run_grid((a.n_bins + a.bins_per_block - 1) / a.bins_per_block,
            (a.height + a.rows - 1) / a.rows, a.frames,
-           swf::sweep_smem_bytes(a.layers, a.rows, kStyled, a.bin_w),
+           swf::tile_smem_bytes(a.layers, a.rows, swf::kLane, kStyled),
            [&](unsigned char* smem) {
-             swf::sweep_compact_block<kStyled>(a, smem);
+             swf::bin_sweep_block<kStyled, kLc>(a, smem);
            });
 }
 
@@ -608,9 +658,12 @@ extern "C" int emulate_sweep_compact(const float* colors, const int* rules,
   a.width = width; a.cap = cap; a.n_bins = n_bins; a.bin_w = bin_w;
   a.bins_per_block = bins_per_block; a.colors_per_frame = colors_per_frame;
   a.n_stop_slots = n_stop_slots;
-  a.rows = swf::sweep_tile_rows(layers, bin_w);
-  if (pint) run_sweep_compact<true>(a);
-  else run_sweep_compact<false>(a);
+  a.rows = swf::tile_rows(layers, swf::kLane);
+  a.n_chunks = cap / swf::kFineChunk;
+  if (pint) run_bins<true, swf::kMaxLayers>(a);
+  else if (swf::solid_layer_class(layers) != swf::kSolidSmallLayers)
+    run_bins<false, swf::kMaxLayers>(a);
+  else run_bins<false, swf::kSolidSmallLayers>(a);
   return a.rows;
 }
 
@@ -780,28 +833,40 @@ extern "C" void emulate_place(const int* sidx, const int* keep,
 }
 
 // dma == 0: the grid resolve; else the pipelined one at n_buf with
-// `runs` blocks a frame.  Returns the ring depth used.
+// `blocks` persistent blocks.  Returns the ring depth used; stats (dma)
+// = (bulk copies issued, misaligned copies).
 extern "C" int emulate_resolve_u32(const float* planes, const float* colors,
                                    const int* rules, int* out, int frames,
                                    int layers, int ns1, int n_chunks,
                                    int prefixed, int dma, int n_buf,
-                                   int runs) {
+                                   int blocks, long long* stats) {
   swf::PlanesArgs a{};
   a.planes = planes; a.colors = colors; a.rules = rules; a.out = out;
   a.frames = frames; a.layers = layers; a.ns1 = ns1; a.n_chunks = n_chunks;
   a.prefixed = dma ? 1 : prefixed;
   a.depth = dma ? swf::dma_depth(layers, n_buf) : 1;
   std::vector<unsigned char> smem(
-      (dma ? a.depth * swf::dma_stage_bytes(layers) : 0) +
-      swf::resolve_smem_bytes(layers));
-  gridDim.x = dma ? runs : ns1 - 1;
-  for (int y = 0; y < frames; ++y)
-    for (int x = 0; x < static_cast<int>(gridDim.x); ++x) {
+      dma ? a.depth * swf::dma_stage_bytes(layers) +
+                swf::dma_rest_bytes(layers, a.depth)
+          : swf::resolve_smem_bytes(layers));
+  emu_bulk_copies = emu_bulk_misaligned = 0;
+  if (dma) {
+    gridDim.x = blocks;
+    for (int x = 0; x < blocks; ++x) {
       std::memset(smem.data(), 0xab, smem.size());  // stale contents
-      run_block(swf::kThreads, x, y, 0, [&] {
-        if (dma) swf::resolve_dma_block(a, smem.data());
-        else swf::resolve_u32_block(a, smem.data());
-      });
+      run_block(swf::kDmaThreads, x, 0, 0,
+                [&] { swf::resolve_dma_block(a, smem.data()); });
+    }
+    stats[0] = emu_bulk_copies;
+    stats[1] = emu_bulk_misaligned;
+    return a.depth;
+  }
+  gridDim.x = ns1 - 1;
+  for (int y = 0; y < frames; ++y)
+    for (int x = 0; x < ns1 - 1; ++x) {
+      std::memset(smem.data(), 0xab, smem.size());  // stale contents
+      run_block(swf::kThreads, x, y, 0,
+                [&] { swf::resolve_u32_block(a, smem.data()); });
     }
   return a.depth;
 }
@@ -1008,7 +1073,7 @@ def _build_emulator(d, csrc, extra=""):
     emu.emulate_place.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     emu.emulate_resolve_u32.restype = ctypes.c_int
     emu.emulate_resolve_u32.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 8
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     emu.emulate_variant.restype = ctypes.c_int
     emu.emulate_variant.argtypes = [ctypes.c_int] * 3 + [
         ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
@@ -1436,10 +1501,10 @@ def test_emulated_row_band_sweep_equals_plain_version(emulator, form,
 
 
 def swf_rows(layers, tile_w):
-    """csrc sweep_tile_rows: the most rows (a power of two <= 32) whose
-    accumulators of tile_w + 1 long longs fit 100 KB."""
+    """csrc tile_rows: the most rows (a power of two <= 32) whose planes
+    of tile_w long longs fit 100 KB."""
     rows = 32
-    while rows > 1 and layers * rows * (tile_w + 1) * 8 > 100 * 1024:
+    while rows > 1 and layers * rows * tile_w * 8 > 100 * 1024:
         rows //= 2
     return rows
 
@@ -1482,21 +1547,52 @@ def _run_compact(emu, tables, colors, height, width, rules, bps, paints=None,
     return torch.from_numpy(out), rows
 
 
-@pytest.mark.parametrize("form,wblock,bps", [
-    ("solid", 64, 1), ("styled", 128, 2), ("per-layer", 88, 3)])
-def test_emulated_compact_sweep_equals_plain_versions(emulator, form,
-                                                      wblock, bps):
-    """The compacted tiling (B5) on compact_pre's tables of 2 frames of
-    40x420 (bins of 64, 128 and 88 columns, the last one ragged; bins
-    walked 1, 2 and 3 to a block): byte-equal to sweep_compact_plain and
-    to sweep_plain (the column tiling's function)."""
-    rng = np.random.default_rng(41 + wblock)
+def _rect_pieces(height, width):
+    """One layer: a rectangle spanning most of the frame's width (its
+    top and bottom flat), so that the bins between its sides hold no
+    crossing piece and rows where its left side is carry its dy."""
+    x0, x1, y0, y1 = 12.0, width - 10.0, 5.0, height - 5.0
+    return [np.asarray([(x0, y0, x1, y0), (x1, y0, x1, y1),
+                        (x1, y1, x0, y1), (x0, y1, x0, y0)], np.float32)]
+
+
+# The compacted tiling's cases: name -> (form, bin width, bins a block).
+COMPACT_CASES = {
+    "solid-64": ("solid", 64, 1),
+    "styled-128": ("styled", 128, 2),
+    "per-layer-88": ("per-layer", 88, 3),
+    "solid-256": ("solid", 256, 1),
+    "styled-256": ("styled", 256, 2),
+    "solid-30": ("solid", 30, 4),
+    "16-layers-128": ("16-layers", 128, 2),
+    "prefix-only-64": ("prefix-only", 64, 2),
+    "edge-pieces-128": ("edge-pieces", 128, 2),
+}
+
+
+def _compact_case(name):
+    """(mats, tab, compact_pre's tables, colours, height, width, rules,
+    bins a block, paint kwargs) of COMPACT_CASES[name] on 2 frames of
+    40x420."""
+    form, wblock, bps = COMPACT_CASES[name]
+    rng = np.random.default_rng(41 + wblock + len(name))
     height, width, frames = 40, 420, 2
-    layers = 4 if form == "styled" else 3
-    tables = random_blobs(rng, layers, height, width, blobs=4)
-    tracks = _gentle_tracks(rng, frames, layers, height, width)
-    mats = tracks if form == "per-layer" else tracks[:, 0]
-    tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers, mats)
+    layers = {"styled": 4, "16-layers": 16, "prefix-only": 2,
+              "edge-pieces": 2}.get(form, 3)
+    if form == "edge-pieces":
+        from tests.test_torch_kernel_emulated_sweep import edge_pieces
+        tab, _ = edge_pieces(height, width)
+        mats = np.asarray([(1, 0, 0, 1, 0, 0), (1, 0, 0, 1, -3.25, 0.5)],
+                          np.float32)
+    else:
+        tables = random_blobs(rng, layers, height, width, blobs=4)
+        tracks = _gentle_tracks(rng, frames, layers, height, width)
+        if form == "prefix-only":
+            tables = _rect_pieces(height, width) + tables[1:]
+            tracks[:, :, :4] = (1.0, 0.0, 0.0, 1.0)
+            tracks[1, :, 4:] += (3.5, 1.25)
+        mats = tracks if form == "per-layer" else tracks[:, 0]
+        tab, _ = sweep.affine_pieces(tables, [(0,) * 4] * layers, mats)
     plan = sweep.plan_compact_sweep(mats, tab, height, width, wblock=wblock,
                                     blocks_per_step=bps)
     assert plan is not None and plan["wblock"] == wblock
@@ -1509,16 +1605,37 @@ def test_emulated_compact_sweep_equals_plain_versions(emulator, form,
                               plan["compact_counts"], wblock, height, width)
     assert (ctabs.crossing <= torch.as_tensor(plan["compact_counts"],
                                               dtype=torch.int32)).all()
+    return mats, tab, ctabs, colors, height, width, rules, bps, kw
+
+
+@pytest.mark.parametrize("name", sorted(COMPACT_CASES))
+def test_emulated_compact_sweep_equals_plain_versions(emulator, name):
+    """The compacted tiling (B5) on bin_sweep_block, B3's tiled steps:
+    compact_pre's tables of 2 frames of 40x420 (bins of 30, 64, 88, 128
+    and 256 columns, the last one ragged, 256-column bins in two
+    128-column tiles, 30-column bins starting off a 16-byte boundary;
+    1-4 bins a block; 2, 3, 4 and 16 layers; styled
+    colour, linear, focal and field layers; bins with no crossing piece
+    under a nonzero prefix; the edge-case table of the column kernel's
+    tests): byte-equal to sweep_compact_plain and to sweep_plain (the
+    column tiling's function)."""
+    mats, tab, ctabs, colors, height, width, rules, bps, kw = \
+        _compact_case(name)
+    layers = tab.shape[0]
     want = sweep.sweep_compact_plain(ctabs, colors, height, width, rules,
                                      **kw)
     got, rows = _run_compact(emulator, ctabs, colors, height, width, rules,
                              bps, **kw)
-    assert rows == swf_rows(layers, wblock)   # planes one bin wide
+    assert rows == swf_rows(layers, 128)   # 128-column tiles
     assert torch.equal(got, want)
     assert torch.equal(want, sweep.sweep_plain(
         torch.as_tensor(mats), torch.as_tensor(tab), None, None, colors,
         None, height, width, rules, (tab.shape[-1],) * layers, **kw))
     assert float((want != 0).float().mean()) > 0.01   # the scene is there
+    if name.startswith("prefix-only"):
+        empty = ctabs.counts.sum(-1) == 0                        # (F, NB)
+        seeded = ctabs.prefix.abs().sum(dim=(1, 3)) != 0         # (F, NB)
+        assert bool((empty & seeded).any())
 
 
 @pytest.mark.parametrize("shape,repeating,smoothed,edge_mode,n", [
@@ -1695,12 +1812,13 @@ def test_emulated_plane_resolves_equal_plain_version(emulator, layers,
     rules = np.asarray(fb.layer_rules(rule, layers), np.int32)
     cols = torch.as_tensor(colors)
 
-    def emulate(planes, prefixed, dma=0, n_buf=0, runs=1):
+    def emulate(planes, prefixed, dma=0, n_buf=0, blocks=1):
         out = np.full((frames, ns * 8, n_chunks * 128), -7, np.int32)
+        stats = np.zeros(2, np.int64)
         depth = emulator.emulate_resolve_u32(
             _c(planes).ctypes.data, colors.ctypes.data, rules.ctypes.data,
             out.ctypes.data, frames, layers, ns + 1, n_chunks, int(prefixed),
-            dma, n_buf, runs)
+            dma, n_buf, blocks, stats.ctypes.data)
         return torch.from_numpy(out), depth
 
     for prefixed in (False, True):
@@ -1711,10 +1829,224 @@ def test_emulated_plane_resolves_equal_plain_version(emulator, layers,
         got, _ = emulate(planes, prefixed)
         assert torch.equal(got, want)
     assert len(torch.unique(want)) > 100
-    for n_buf, runs in ((1, 1), (2, 2), (3, 1), (4, 2)):
-        got, depth = emulate(planes, True, 1, n_buf, runs)
+    for n_buf, blocks in ((1, 1), (2, 3), (3, 1), (4, 3)):
+        got, depth = emulate(planes, True, 1, n_buf, blocks)
         assert depth == (3 if (n_buf, layers) == (4, 16) else n_buf)
         assert torch.equal(got, want)
+
+
+def dma_depth(layers, n_buf):
+    """csrc dma_depth: n_buf (at most 8) slots of L x (4 KB + 16 B), or
+    as many as fit 227 KB beside the rules, the eight consumer warps'
+    carry ladders (L x 16 floats each) and two mbarriers a slot."""
+    depth = min(n_buf, 8)
+    while depth > 0 and depth * layers * 4112 + -(-layers * 4 // 16) * 16 \
+            + 8 * layers * 64 + 16 * depth > 227 * 1024:
+        depth -= 1
+    return depth
+
+
+def _dma_case(emu, layers, n_buf, blocks=(4, 5)):
+    """The pipelined resolve (B16) on random prefixed planes of 2 frames x
+    3 strips (6 items: 4 and 5 blocks deal them unevenly, runs crossing
+    frames), chunks of every strip carrying: -> (words of each block
+    count, resolve_u32_plain's words, ring depth, bulk copies issued)."""
+    frames, ns = 2, 3
+    n_chunks = {1: 5, 4: 3, 16: 2}[layers]
+    rng = np.random.default_rng(layers * 10 + n_buf)
+    raw = rng.normal(0, 0.4, (frames, layers, ns + 1, 128, 128)).astype(
+        np.float32)
+    raw[rng.uniform(size=raw.shape) < 0.6] = 0.0
+    planes = np.cumsum(raw, -1, dtype=np.float32)
+    colors = rng.uniform(0, 1, (frames, layers, 4)).astype(np.float32)
+    colors[0, 0, 3], colors[1, -1, 3] = 0.0, 1.0
+    rule = tuple(int(x) for x in rng.integers(0, 2, layers))
+    rules = np.asarray(fb.layer_rules(rule, layers), np.int32)
+    want = fb.resolve_u32_plain(torch.as_tensor(planes),
+                                torch.as_tensor(colors), n_chunks, rule)
+    outs, depth, copies = [], None, []
+    for g in blocks:
+        out = np.full((frames, ns * 8, n_chunks * 128), -7, np.int32)
+        stats = np.zeros(2, np.int64)
+        depth = emu.emulate_resolve_u32(
+            planes.ctypes.data, colors.ctypes.data, rules.ctypes.data,
+            out.ctypes.data, frames, layers, ns + 1, n_chunks, 1, 1, n_buf,
+            g, stats.ctypes.data)
+        assert stats[1] == 0                       # no misaligned copy
+        outs.append(torch.from_numpy(out))
+        copies.append(int(stats[0]))
+    return outs, want, depth, copies, frames * ns * n_chunks
+
+
+@pytest.mark.parametrize("n_buf", [1, 2, 3, 8])
+@pytest.mark.parametrize("layers", [1, 4, 16])
+def test_emulated_pipelined_resolve_equals_plain_version(emulator, layers,
+                                                         n_buf):
+    """B16 on the bulk-copy ring: each slot filled by L + 1 bulk copies
+    that complete on its full mbarrier, consumer warps releasing it on
+    its empty one; n_buf 1, 2, 3 and 8 (8 at 16 layers: the ring goes
+    shallower to 3); the (frame, strip) items dealt to 4 and 5 blocks:
+    word for word resolve_u32_plain."""
+    outs, want, depth, copies, stages = _dma_case(emulator, layers, n_buf)
+    assert depth == dma_depth(layers, n_buf)
+    assert depth == (3 if (layers, n_buf) == (16, 8) else n_buf)
+    for got, n in zip(outs, copies):
+        assert n == stages * (layers + 1)          # every stage copied once
+        assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 100
+
+
+# Mutants of B5 and B16, built together into one scratch copy behind a
+# run-time switch (swf_mutant): name -> (flag, header, anchor,
+# replacement, the test and case it must fail).
+KERNEL_MUTANTS = {
+    "b5_prefix_seed_dropped": (
+        21, "sweep_device.cuh",
+        "        seed = a.prefix[",
+        "        seed = swf_mutant == 21 ? 0 : a.prefix[",
+        ("compact", "prefix-only-64")),
+    "b5_planes_not_rezeroed": (
+        22, "sweep_device.cuh",
+        "      dirty = *s.touched != 0;\n",
+        "      dirty = swf_mutant != 22 && *s.touched != 0;\n",
+        ("compact", "solid-64")),
+    "b16_ladder_not_reset": (
+        11, "planes_device.cuh",
+        "      if (j == 0) {\n",
+        "      if (j == 0 && swf_mutant != 11) {\n",
+        ("dma", (4, 3))),
+    "b16_strip_dealt_twice_another_never": (
+        12, "planes_device.cuh",
+        "  const long long i0 = n_items * blockIdx.x / gridDim.x;\n"
+        "  const long long i1 = n_items * (blockIdx.x + 1) / gridDim.x;\n",
+        "  const long long shift_ = swf_mutant == 12 && blockIdx.x == 1;\n"
+        "  const long long i0 = n_items * blockIdx.x / gridDim.x - shift_;\n"
+        "  const long long i1 = n_items * (blockIdx.x + 1) / gridDim.x -"
+        " shift_;\n",
+        ("dma", (1, 2))),
+}
+
+
+@pytest.fixture(scope="module")
+def mutant_emulator(tmp_path_factory):
+    """The emulator over a copy of csrc holding every KERNEL_MUTANTS edit
+    behind swf_mutant (0: the committed kernels)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    d = tmp_path_factory.mktemp("cuda_emu_kernel_mutants")
+    csrc = d / "csrc"
+    shutil.copytree(cuda_lib.CSRC_DIR, csrc)
+    for name, (_, header, before, after, _) in KERNEL_MUTANTS.items():
+        path = csrc / header
+        text = path.read_text()
+        assert text.count(before) == 1, name
+        path.write_text(text.replace(before, after))
+    for header in {m[1] for m in KERNEL_MUTANTS.values()}:
+        path = csrc / header
+        path.write_text(path.read_text().replace(
+            "#pragma once\n", "#pragma once\nextern int swf_mutant;\n", 1))
+    emu = _build_emulator(d, csrc, """
+int swf_mutant = 0;
+extern "C" void set_mutant(int m) { swf_mutant = m; }
+""")
+    emu.set_mutant.restype = None
+    emu.set_mutant.argtypes = [ctypes.c_int]
+    return emu
+
+
+@pytest.mark.parametrize("mutant", sorted(KERNEL_MUTANTS))
+def test_emulated_kernel_mutants_are_caught(mutant_emulator, mutant):
+    """Each mutant of B5's bin body or B16's ring fails the case named
+    for it, which the unmutated build of the same copy passes."""
+    flag, _, _, _, (kind, case) = KERNEL_MUTANTS[mutant]
+
+    def run():
+        if kind == "compact":
+            test_emulated_compact_sweep_equals_plain_versions(
+                mutant_emulator, case)
+        else:
+            test_emulated_pipelined_resolve_equals_plain_version(
+                mutant_emulator, *case)
+
+    mutant_emulator.set_mutant(0)
+    run()
+    mutant_emulator.set_mutant(flag)
+    try:
+        with pytest.raises(AssertionError):
+            run()
+    finally:
+        mutant_emulator.set_mutant(0)
+
+
+def test_emulated_compact_sweep_matches_jax_kernel(emulator):
+    """B5 on bin_sweep_block against the reference's compacted
+    ``_xform_kernel`` in Pallas interpret mode (``render_affine_sweep``
+    with the plan's ``compact_counts``): the three-layer scene of
+    tests/test_torch_sweep_tilings.py, first 2 frames, within the
+    envelope ROADMAP.md pins for the compacted tiling (premultiplied 1
+    level, 21 straight levels on a share of at most 1.7e-5)."""
+    import jax.numpy as jnp
+
+    from swf_renderer_tpu.ops import morph as jmorph
+    from swf_renderer_tpu.ops import transform as jsweep
+    from swf_renderer_tpu_torch.ops import morph as tmorph
+    from tests.test_torch_sweep import assert_close
+    from tests.test_torch_sweep_tilings import _compact_scene
+
+    height, width, tables, colors, mats, _ = _compact_scene("three-layers")
+    mats = mats[:2]
+    colarr = np.asarray(colors, np.float32)
+    tab, subxy, _ = jsweep.affine_pieces(tables, colors, mats)
+    plan = jsweep.plan_compact_sweep(mats, tab, height, width)
+    want = jmorph.morph_frames_to_u8(jsweep.render_affine_sweep(
+        jnp.asarray(mats), jnp.asarray(tab), jnp.asarray(subxy),
+        jnp.asarray(colarr), height, width, **plan), height, width)
+    ctabs = sweep.compact_pre(torch.as_tensor(mats),
+                              torch.as_tensor(np.asarray(tab)),
+                              plan["compact_counts"], plan["wblock"], height,
+                              width)
+    got, _ = _run_compact(emulator, ctabs, torch.as_tensor(colarr), height,
+                          width, (0, 0, 0), plan["blocks_per_step"])
+    assert_close(np.asarray(want), tmorph.morph_frames_to_u8(got, height,
+                                                             width), 21,
+                 1.7e-5)
+
+
+def test_emulated_pipelined_resolve_matches_jax_kernel(emulator):
+    """B16 on the bulk-copy ring against the reference's
+    ``_resolve_dma_kernel`` in Pallas interpret mode
+    (``resolve_planes_u32_dma``) on random prefixed planes of 2 frames x
+    16 layers x 3 strips, 2 chunks, mixed rules: within the plane
+    resolve's pinned envelope (1 level, premultiplied 1, on a share of at
+    most 2e-5)."""
+    import jax.numpy as jnp
+
+    from swf_renderer_tpu.ops import flatblock as jfb
+    from tests.test_torch_flat_blocks import _diff
+
+    layers, n_chunks, frames, ns = 16, 2, 2, 3
+    rng = np.random.default_rng(161)
+    raw = rng.normal(0, 0.4, (frames, layers, ns + 1, 128, 128)).astype(
+        np.float32)
+    raw[rng.uniform(size=raw.shape) < 0.6] = 0.0
+    raw[..., n_chunks * 8:, :] = 0.0
+    planes = np.cumsum(raw, -1, dtype=np.float32)
+    colors = rng.uniform(0, 1, (frames, layers, 4)).astype(np.float32)
+    rule = tuple(int(x) for x in rng.integers(0, 2, layers))
+    want = np.asarray(jfb.resolve_planes_u32_dma(
+        jnp.asarray(planes), jnp.asarray(colors), n_chunks, fill_rule=rule))
+    out = np.full((frames, ns * 8, n_chunks * 128), -7, np.int32)
+    stats = np.zeros(2, np.int64)
+    rules = np.asarray(fb.layer_rules(rule, layers), np.int32)
+    emulator.emulate_resolve_u32(
+        planes.ctypes.data, colors.ctypes.data, rules.ctypes.data,
+        out.ctypes.data, frames, layers, ns + 1, n_chunks, 1, 1, 3, 4,
+        stats.ctypes.data)
+    got = torch.from_numpy(out)
+    assert torch.equal(got, fb.resolve_u32_plain(
+        torch.as_tensor(planes), torch.as_tensor(colors), n_chunks, rule))
+    dmax, share, pmax = _diff(want, got)
+    assert dmax <= 1 and pmax <= 1 and share <= 2e-5, (dmax, share, pmax)
 
 
 @pytest.mark.parametrize("passes", [3, 2])
