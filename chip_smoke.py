@@ -349,7 +349,9 @@ def phase_build():
 # the layer class of up to four layers) and at 16 layers, B2's single
 # pass, chain and chain + premultiplied forms (styled_flatblock_kernel
 # <kChain, kPremul>; phase 1 fails if these keep a stack frame or
-# spill), the product forms', the windowed one's and the texfield
+# spill), the product forms' (the layer-masked one, product_kernel
+# <kVarLmask, kLc>, and the coarse steps, coarse_kernel<kLc, kOne>, at
+# both layer classes, in NO_STACK), the windowed one's and the texfield
 # kernel's at animtex1080 (n 2, bilinear, repeat), the banded (B9),
 # tiled (B10) and grouped (B11) coverage kernels (phase 1 fails if these
 # keep a stack frame or spill, as for B2), the one-block form B13 at the
@@ -368,10 +370,14 @@ PTXAS_WATCH = {
     "B2 chain + premul": "styled_flatblock_kernelILb1ELb1EE",
     "product k3_three": "product_kernelILi7E",
     "product k3_concat": "product_kernelILi8E",
-    "product lmask": "product_kernelILi9E",
+    "product lmask": "product_kernelILi9ELi4E",
+    "product lmask at 16 layers": "product_kernelILi9ELi16E",
     "product int8": "product_kernelILi10E",
     "windowed kVarWin": "solid_flatblock_kernelILi11ELi4E",
-    "coarse": "coarse_kernel",
+    "coarse": "coarse_kernelILi4ELb0E",
+    "coarse at 16 layers": "coarse_kernelILi16ELb0E",
+    "coarse 1": "coarse_kernelILi4ELb1E",
+    "coarse 1 at 16 layers": "coarse_kernelILi16ELb1E",
     "texfield n2 bilinear repeat": "texfield_kernelILi2ELb1ELi0E",
     "B9 banded": "banded_kernel",
     "B10 tiled": "tiled_kernel",
@@ -390,7 +396,9 @@ PTXAS_WATCH = {
 }
 NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B5 solid",
             "B6 morph + affine", "B7 morph", "B13 one-block",
-            "B16 pipelined resolve")
+            "B16 pipelined resolve", "product lmask",
+            "product lmask at 16 layers", "coarse", "coarse at 16 layers",
+            "coarse 1", "coarse 1 at 16 layers")
 
 
 def ab_times(torch, name, fn, lib="swfkernels"):
@@ -4038,10 +4046,8 @@ def tilings_full_width(torch, np, report, launches):
     once, counters read), then each timed beside the column kernel; B11
     on direct1080's and dense1080's planes."""
     from swf_renderer_tpu_torch.ops import coverage as cov
-    from swf_renderer_tpu_torch.ops import cuda_lib
     from swf_renderer_tpu_torch.ops import style as style_ops
     from swf_renderer_tpu_torch.ops import transform as sweep
-    from swf_renderer_tpu_torch.tools.sweep_phases import tables_at_chunk
     from swf_renderer_tpu_torch.utils.scenes import anim_scene, \
         build_scene_edges
 
@@ -4154,18 +4160,9 @@ def tilings_full_width(torch, np, report, launches):
                                          None, height, width, rules, counts,
                                          **kw)
 
-    # The parent's compacted kernel (--parent) reads 64-slot row bounds.
-    tables_64 = tables_at_chunk(tables_c, 64) if "parent_libs" in _HELD \
-        else None
-
     def compact_kernel(tbl, **kw):
-        def run():
-            on_parent = tables_64 is not None and cuda_lib._libs.get(
-                "swfsweep") is _HELD["parent_libs"]["swfsweep"]
-            return sweep._launch_sweep_compact(
-                tables_64 if on_parent else tbl, d_col, height, width, rules,
-                plan["blocks_per_step"], **kw)
-        return run
+        return lambda: sweep._launch_sweep_compact(
+            tbl, d_col, height, width, rules, plan["blocks_per_step"], **kw)
 
     out = {}
     counts_args = (d_mats, d_tab, None, None, counts, height, width, rules)
@@ -4694,6 +4691,7 @@ def products_headline(torch, np, report, launches):
         dmax_b1, share_b1 = byte_diff(got, b1_words)
         del got, want
         ms = time_ms(torch, call)
+        ab = ab_times(torch, f"products {key} headline", call)
         plain_ms = time_ms(torch, plain, reps=3)
         kbytes = nbytes
         if key == "int8":   # 3 B of limbs a slot in place of a 4 B value
@@ -4706,6 +4704,8 @@ def products_headline(torch, np, report, launches):
                     "tc_useful_ms_at_peak": tc_ops / peak * 1e3,
                     "valid_updates": k, "vs_b1_levels": dmax_b1,
                     "vs_b1_share": share_b1}
+        if ab is not None:
+            out[key]["ab"] = ab
         log(f"products: headline {key}: {ms:.3f} ms "
             f"({pixels / ms / 1e6:.3f} Gpx/s), plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), useful tensor-core "
@@ -4783,25 +4783,29 @@ def sass_bodies():
 
 
 def sass_check():
-    """The bf16 product forms issue HMMA and the int8 form IMMA, so that a
-    scalar fallback cannot pass as a tensor-core kernel.  Returns {form:
-    (HMMA, IMMA) counts}."""
+    """The k3 forms issue HMMA, the layer-masked form HGMMA (warpgroup
+    products) at both layer classes and the int8 form IMMA, each nothing
+    else, so that neither a scalar fallback nor the other instruction
+    passes.  Returns {form: (HMMA, HGMMA, IMMA) counts}."""
     counts = {}
     for name, body in sass_bodies().items():
-        form = re.search(r"product_kernelILi(\d+)E", name)
+        form = re.search(r"product_kernelILi(\d+)E(?:Li(\d+)E)?", name)
         if not form:
             continue
-        counts[int(form.group(1))] = (len(re.findall(r"\bHMMA\.", body)),
-                                      len(re.findall(r"\bIMMA\.", body)))
-    names = {7: "k3_three", 8: "k3_concat", 9: "lmask", 10: "int8"}
-    for v, name in names.items():
-        hmma, imma = counts.get(v, (0, 0))
-        want_hmma = v != 10
-        if (hmma > 0) != want_hmma or (imma > 0) == want_hmma:
-            fail(f"SASS: product form {name} issues {hmma} HMMA and {imma} "
-                 f"IMMA")
-        log(f"products: SASS of {name}: {hmma} HMMA, {imma} IMMA")
-    return {names[v]: counts[v] for v in names}
+        key = int(form.group(1)), int(form.group(2) or 0)
+        counts[key] = tuple(len(re.findall(rf"\b{op}\.", body))
+                            for op in ("HMMA", "HGMMA", "IMMA"))
+    names = {(7, 0): ("k3_three", 0), (8, 0): ("k3_concat", 0),
+             (9, 4): ("lmask", 1), (9, 16): ("lmask at 16 layers", 1),
+             (10, 0): ("int8", 2)}
+    for key, (name, want) in names.items():
+        got = counts.get(key, (0, 0, 0))
+        if any((n > 0) != (i == want) for i, n in enumerate(got)):
+            fail(f"SASS: product form {name} issues {got[0]} HMMA, "
+                 f"{got[1]} HGMMA and {got[2]} IMMA")
+        log(f"products: SASS of {name}: {got[0]} HMMA, {got[1]} HGMMA, "
+            f"{got[2]} IMMA")
+    return {name: counts[key] for key, (name, _) in names.items()}
 
 
 def phase_products(torch, np, report):
@@ -4929,20 +4933,31 @@ def coarse_random(torch, np):
 
 
 def coarse_sass_check():
-    """The coarse kernel's SASS holds the bulk copy (COARSE_TAG) and B1's
-    does not.  Returns {kernel: count}."""
+    """The coarse kernel's SASS at both layer classes, for coarse 1 and
+    above, holds the bulk copy (COARSE_TAG) and no 64-bit
+    compare-and-swap (the loop a 64-bit shared atomicAdd becomes: the
+    carry is two 32-bit atomics, as B1's), and B1's holds no bulk copy.
+    Returns {kernel: (bulk copies, 64-bit CAS)}."""
     counts = {}
     for name, body in sass_bodies().items():
-        if "coarse_kernel" in name or \
-                PTXAS_WATCH["B1 fused_block<solid>"] in name:
-            key = "coarse" if "coarse_kernel" in name else "b1"
-            counts[key] = len(re.findall(rf"\b{COARSE_TAG}\b", body))
-            ops = sorted(set(re.findall(r"\b(\w*BLK\w*)(?:\.\w+)*", body)))
-            log(f"windows: SASS of {key}: {counts[key]} {COARSE_TAG}; "
-                f"bulk mnemonics {ops}")
-    if counts.get("coarse", 0) < 1 or counts.get("b1", 1) != 0:
-        fail(f"SASS: {COARSE_TAG} counts {counts} (the coarse kernel must "
-             f"issue bulk copies)")
+        lc = re.search(r"coarse_kernelILi(\d+)ELb(\d)E", name)
+        if not lc and PTXAS_WATCH["B1 fused_block<solid>"] not in name:
+            continue
+        key = (f"coarse{lc.group(1)}" + ("_one" if lc.group(2) == "1"
+                                         else "")) if lc else "b1"
+        cas = re.findall(r"\b(ATOMS?\.CAS\S*)", body)
+        counts[key] = (len(re.findall(rf"\b{COARSE_TAG}\b", body)),
+                       sum(1 for op in cas if "64" in op))
+        ops = sorted(set(re.findall(r"\b(\w*BLK\w*)(?:\.\w+)*", body)))
+        log(f"windows: SASS of {key}: {counts[key][0]} {COARSE_TAG}, "
+            f"{counts[key][1]} 64-bit CAS (CAS forms {sorted(set(cas))}); "
+            f"bulk mnemonics {ops}")
+    coarse = [v for k, v in counts.items() if k.startswith("coarse")]
+    if len(coarse) != 4 or any(n < 1 or cas for n, cas in coarse) or \
+            counts.get("b1", (1, 0))[0] != 0:
+        fail(f"SASS: {COARSE_TAG} and 64-bit CAS counts {counts} (the "
+             f"coarse kernel must issue bulk copies and no 64-bit CAS "
+             f"loop)")
     return counts
 
 
@@ -5088,9 +5103,12 @@ def coarse_headline(torch, np, report, launches):
                  f"written")
         del buf
         ms = time_ms(torch, call)
+        ab = ab_times(torch, f"coarse {coarse} headline", call)
         out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "max_abs_err": 0,
                     "library_ms": None, "steps": ng // coarse}
+        if ab is not None:
+            out[key]["ab"] = ab
         log(f"coarse: headline {key} ({ng // coarse} steps of {ng} groups, "
             f"{ng // coarse * nc} blocks): {ms:.3f} ms "
             f"({frames * height * width / ms / 1e6:.3f} Gpx/s), plain "

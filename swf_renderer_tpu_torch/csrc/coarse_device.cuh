@@ -18,10 +18,18 @@
 // (step + 1) * coarse): it walks each of them to its last group (the
 // supergroup index of B1's launcher), even past its range.  So no group
 // is placed twice, and padding groups (flags 0) belong to no block.  Per
-// supergroup, as B1 at one strip a plane: zero the planes and the carry
-// and load the frame's colours (solid_setup), scatter this chunk's
-// deltas into shared memory with float atomics and earlier chunks' into
-// the row's 32.32 carry, prefix each row, resolve the 8 x 128 words.
+// supergroup, B1's body at one strip a plane (flatblock_device.cuh): zero
+// the planes and the carry and load the frame's colours (solid_setup),
+// walk the groups four slots' loads at a time without a 64-bit division
+// (solid_walk), place this chunk's deltas into shared memory and earlier
+// chunks' into the row's 32.32 carry as two 32-bit atomics (place_slot),
+// prefix each row (prefix_rows) and resolve the 8 x 128 words with the
+// layer loops unrolled to the class kLc chosen at launch, the colours in
+// registers and the rules as a bit mask (solid_pixel).  Its first design
+// placed one slot at a time behind a 64-bit division, added the carry
+// with a 64-bit compare-and-swap loop and resolved through the generic
+// composite_pack (128 B of stack): 3.46-3.70 ms on the headline against
+// B1's 1.63-1.70 in the same call (H100, PERF.md).
 //
 // Output.  The words go into one slot of a 2-slot ring in shared memory
 // (the reference's N_BUF).  The writing threads make their writes
@@ -63,16 +71,6 @@ constexpr int kRingWords = kStripH * kLane;       // one slot: 8 x 128 words
 __host__ __device__ inline size_t coarse_smem_bytes(int layers) {
   return smem_bytes(layers, kStripH, false) +
          static_cast<size_t>(kNBuf) * kRingWords * 4;
-}
-
-// This thread's generic-proxy writes to shared memory become visible to
-// the async proxy (the bulk copies).
-__device__ __forceinline__ void bulk_fence_shared() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-#elif !defined(__CUDACC__)
-  emu_fence_proxy_async();
-#endif
 }
 
 // One bulk copy of `bytes` (a multiple of 16, both ends 16-B aligned)
@@ -119,7 +117,13 @@ __device__ __forceinline__ void bulk_wait_all() {
 }
 
 // One block: blockIdx.x = step * n_chunks + chunk; the supergroup index
-// in a.sg_last.  Spp 1: a.n_chunks * 8 row ids, 8 plane rows a layer.
+// in a.sg_last.  Spp 1 (a.spb 1): a.n_chunks * 8 row ids, 8 plane rows a
+// layer; kLc the layer class of B1's resolve.  kOne: coarse 1, where a
+// block owns at most one supergroup.  The loop over a block's
+// supergroups costs B1's body 32 registers (80 against 48 at kLc 4: three
+// blocks an SM, not five) and 28% at coarse 1 (H100, PERF.md); kOne
+// leaves the loop after its supergroup, so nothing is live across it.
+template <int kLc, bool kOne>
 __device__ void coarse_block(const FusedArgs& a, int coarse,
                              unsigned char* smem) {
   const int tid = threadIdx.x;
@@ -128,11 +132,9 @@ __device__ void coarse_block(const FusedArgs& a, int coarse,
   const int step = static_cast<int>(blockIdx.x / a.n_chunks);
   const int L = a.layers;
   const SolidSmem sm = solid_smem(smem, L, kStripH);
-  float* plane = sm.plane;
-  long long* carry = sm.carry;
   int* ring = reinterpret_cast<int*>(smem + sm.end);
-  const int gb = a.group * kBlk;
   const int stride = a.n_chunks * kLane;
+  const int nc8 = a.n_chunks * kStripH;
   const int g_lo = step * coarse;
   const int g_hi = g_lo + coarse < a.ng ? g_lo + coarse : a.ng;
   int n = 0;   // supergroups this block has resolved
@@ -149,64 +151,26 @@ __device__ void coarse_block(const FusedArgs& a, int coarse,
     solid_setup(a, sm, L, kStripH, f);
     __syncthreads();
 
-    // Placement of groups g0..g1: this chunk's deltas into the plane,
-    // earlier chunks' deltas of the same row into the carry.
-    const long long total = static_cast<long long>(g1 - g0 + 1) * gb;
-    for (long long j = tid; j < total; j += nthr) {
-      const int g = g0 + static_cast<int>(j / gb);
-      const int rem = static_cast<int>(j % gb);
-      const int k = rem / kBlk;
-      const int nblk = static_cast<int>(
-          static_cast<unsigned>(a.flags[g]) >> 2);
-      if (nblk != 0 && k >= nblk) continue;
-      const long long idx = static_cast<long long>(g) * gb + rem;
-      const float v = a.uval[idx];
-      if (v == 0.0f) continue;
-      const int rc = static_cast<int>(a.urc[idx]);
-      const int ch = rc >> 3;
-      if (ch > chunk) continue;
-      const int layer = a.lays[static_cast<long long>(k) * a.ng + g];
-      if (layer < 0 || layer >= L) continue;
-      const int row = layer * kStripH + (rc & 7);
-      if (ch == chunk) {
-        atomicAdd(&plane[row * kRowStride + static_cast<int>(a.ucm[idx])],
-                  v);
-      } else {
-        atomicAdd(reinterpret_cast<unsigned long long*>(&carry[row]),
-                  static_cast<unsigned long long>(to_fixed(v)));
-      }
-    }
+    // Placement (B1's walk): this chunk's deltas into the plane, earlier
+    // chunks' deltas of the same row into the carry.
+    solid_walk<kVarFull>(a, g0, g1, [&](float v, float rcf, float cmf,
+                                        int layer, int win) {
+      place_slot<kVarFull>(a, sm.plane, sm.carry, L, kStripH, chunk, 0,
+                           nc8, v, rcf, cmf, layer, win);
+    });
+    __syncthreads();
+    prefix_rows(sm.plane, sm.carry, L * kStripH);
     __syncthreads();
 
-    // In-chunk inclusive prefix (left to right), plus the carry.
-    for (int r = tid; r < L * kStripH; r += nthr) {
-      float* p = plane + r * kRowStride;
-      const float cy = from_fixed(carry[r]);
-      float acc = 0.0f;
-      for (int c = 0; c < kLane; ++c) {
-        acc = acc + p[c];
-        p[c] = acc + cy;
-      }
-    }
-    __syncthreads();
-
-    // Resolve into the ring slot: nonzero rule, suffix-product
-    // composite, quantize, pack.
+    // Resolve into the ring slot (B1's solid_pixel): fill rule,
+    // suffix-product composite, quantize, pack.
+    const SolidColours<kLc> colour(sm.col_s, sm.rule_s, L);
     for (int p = tid; p < kRingWords; p += nthr) {
-      const int r8 = p / kLane;
-      const int c = p % kLane;
-      float cas[kMaxLayers];
-#pragma unroll
-      for (int l = 0; l < kMaxLayers; ++l) {
-        if (l < L) {
-          const float w = plane[(l * kStripH + r8) * kRowStride + c];
-          cas[l] = sm.col_s[4 * l + 3] * fill_cov(w, sm.rule_s[l]);
-        }
-      }
-      slot[p] = static_cast<int>(composite_pack(
-          L, cas, [&](int l, int ch) { return sm.col_s[4 * l + ch]; }));
+      slot[p] = static_cast<int>(solid_pixel<kLc>(
+          sm.plane + (p / kLane) * kRowStride + p % kLane,
+          kStripH * kRowStride, colour, colour.eo, L));
     }
-    bulk_fence_shared();
+    fence_proxy_async();
     __syncthreads();
     if (tid == 0) {
       int* dst = a.out + (static_cast<long long>(f) * a.ns1 + s) * kStripH *
@@ -218,6 +182,7 @@ __device__ void coarse_block(const FusedArgs& a, int coarse,
       bulk_commit();
     }
     ++n;
+    if constexpr (kOne) break;
   }
   if (tid == 0) bulk_wait_all();
 }

@@ -171,8 +171,20 @@ product_kernel(FusedArgs a, const int8_t* l0, const int8_t* l1,
   product_block<kVar>(a, l0, l1, l2, smem);
 }
 
-// The product forms (place_mma_device.cuh): one strip a plane, one block
-// per (chunk, strip block, frame).
+// The layer-masked form (lmask_block: warpgroup products, N = 8 kLc);
+// at four layers three blocks an SM by a register bound (80 registers,
+// no spill; 2.79 against 3.47 ms at the 95 it takes unbounded on the
+// H100, PERF.md).
+template <int kVar, int kLc>
+__global__ void __launch_bounds__(kThreads, kLc == kSolidSmallLayers ? 3 : 1)
+product_kernel(FusedArgs a) {
+  static_assert(kVar == kVarLmask, "the layer-masked form");
+  extern __shared__ __align__(16) unsigned char smem[];
+  lmask_block<kLc>(a, smem);
+}
+
+// The k3 and int8 forms (place_mma_device.cuh): one strip a plane, one
+// block per (chunk, strip block, frame).
 template <int kVar>
 cudaError_t launch_product(FusedArgs a, const int8_t* l0, const int8_t* l1,
                            const int8_t* l2, int frames, int n_strips,
@@ -192,27 +204,52 @@ cudaError_t launch_product(FusedArgs a, const int8_t* l0, const int8_t* l1,
   return cudaGetLastError();
 }
 
+// The layer-masked form at the layer class of a.layers: one block of two
+// warpgroups per (chunk, strip block, frame), one strip a plane.
+template <int kLc>
+cudaError_t launch_lmask(FusedArgs a, int frames, int n_strips,
+                         int* sg_index, cudaStream_t stream) {
+  cudaError_t err = supergroup_index(a, frames, sg_index, stream);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = lmask_smem_bytes(a.layers, kLc);
+  err = cudaFuncSetAttribute(product_kernel<kVarLmask, kLc>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_chunks, n_strips, frames);
+  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
+    product_kernel<kVarLmask, kLc><<<grid, kThreads, bytes, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+// B1's body at one strip a plane over coarse steps, the layer loops of
+// the resolve unrolled to kLc >= layers; kOne for coarse 1.
+template <int kLc, bool kOne>
 __global__ void __launch_bounds__(kThreads)
 coarse_kernel(FusedArgs a, int coarse) {
   extern __shared__ __align__(16) unsigned char smem[];
-  coarse_block(a, coarse, smem);
+  coarse_block<kLc, kOne>(a, coarse, smem);
 }
 
 // The coarse steps (coarse_device.cuh): one block per (chunk, step) of
-// `coarse` groups, ng % coarse == 0, one strip a plane.
+// `coarse` groups, ng % coarse == 0, one strip a plane (a.spb 1).
+template <int kLc>
 cudaError_t launch_coarse(FusedArgs a, int coarse, int frames, int* sg_index,
                           cudaStream_t stream) {
   cudaError_t err = supergroup_index(a, frames, sg_index, stream);
   if (err != cudaSuccess) return err;
+  void (*kernel)(FusedArgs, int) = coarse == 1 ? coarse_kernel<kLc, true>
+                                               : coarse_kernel<kLc, false>;
   const size_t bytes = coarse_smem_bytes(a.layers);
-  err = cudaFuncSetAttribute(coarse_kernel,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const long long blocks = static_cast<long long>(a.ng / coarse) * a.n_chunks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (blocks > 0) {
-    coarse_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
+    kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
         a, coarse);
   }
   return cudaGetLastError();
@@ -466,8 +503,10 @@ int swf_fused_variant(int variant, int kk, int observe, const void* sidx,
                                                     s);
       break;
     default:
-      err = swf::launch_product<swf::kVarLmask>(a, nullptr, nullptr, nullptr,
-                                                 frames, n, idx, s);
+      err = swf::solid_layer_class(layers) == swf::kSolidSmallLayers
+                ? swf::launch_lmask<swf::kSolidSmallLayers>(a, frames, n, idx,
+                                                            s)
+                : swf::launch_lmask<swf::kMaxLayers>(a, frames, n, idx, s);
       break;
   }
   return static_cast<int>(err);
@@ -587,9 +626,15 @@ int swf_fused_coarse(int coarse, const void* sidx, const void* flags,
   a.n_chunks = n_chunks;
   a.spp = 1;
   a.plane_rows = swf::kLane;
-  return static_cast<int>(swf::launch_coarse(
-      a, coarse, frames, static_cast<int*>(sg_index),
-      static_cast<cudaStream_t>(stream)));
+  a.spb = 1;
+  a.n_spg = 1;
+  int* idx = static_cast<int*>(sg_index);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      swf::solid_layer_class(layers) == swf::kSolidSmallLayers
+          ? swf::launch_coarse<swf::kSolidSmallLayers>(a, coarse, frames,
+                                                       idx, s)
+          : swf::launch_coarse<swf::kMaxLayers>(a, coarse, frames, idx, s));
 }
 
 // Packed strips each block of swf_fused_flatblock resolves (spb); a plane's

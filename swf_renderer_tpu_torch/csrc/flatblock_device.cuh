@@ -443,6 +443,31 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 #endif
 }
 
+// Adds v to a 32.32 fixed-point carry in shared memory as two native
+// 32-bit atomics (a 64-bit shared atomicAdd is a compare-and-swap loop on
+// this card): the adder that wraps the low word carries one into the high
+// word, so the pair ends as the same sum modulo 2^64, whatever the order.
+__device__ __forceinline__ void carry_add(long long* carry, float v) {
+  const unsigned long long q = static_cast<unsigned long long>(to_fixed(v));
+  unsigned* word = reinterpret_cast<unsigned*>(carry);
+  const unsigned lo = static_cast<unsigned>(q);
+  const unsigned old = atomicAdd(&word[0], lo);
+  const unsigned wrap = old + lo < old ? 1u : 0u;
+  atomicAdd(&word[1], static_cast<unsigned>(q >> 32) + wrap);
+}
+
+// This thread's generic-proxy writes to shared memory become visible to
+// the async proxy (bulk copies, wgmma operands).  Without __CUDA_ARCH__
+// and without __CUDACC__ (the g++ emulation of the tests) it calls a
+// function that the emulation defines before it includes this header.
+__device__ __forceinline__ void fence_proxy_async() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  emu_fence_proxy_async();
+#endif
+}
+
 // B1's solid carve-up of shared memory (smem_bytes, not styled): the
 // layers' planes, each row's 32.32 carry, the frame's colours and the
 // rules.  A form's own regions start at `end`.
@@ -628,6 +653,67 @@ __device__ __forceinline__ uint32_t solid_pixel(const float* w, int lstride,
   return L == kLc ? solid_composite<true, kLc>(w, lstride, colour, eo, L)
                   : solid_composite<false, kLc>(w, lstride, colour, eo, L);
 }
+
+// B1's placement of one slot that solid_walk loaded (its `place`): this
+// chunk's delta into the plane (a float atomic: a layer's coalesced
+// updates never share a target), an earlier chunk's delta of the same row
+// into the row's 32.32 carry.  rows plane rows a layer, the block's strip
+// slice from sp0 (a.spb strips), nc8 = n_chunks * 8.  fused_block writes
+// the same operations out in its own lambda, and B1's resolve its own
+// SolidColours: called from there, these helpers changed nvcc's code for
+// B1 and B2 (tools/design_phases.py variants, PERF.md).
+template <int kVar>
+__device__ __forceinline__ void place_slot(const FusedArgs& a, float* plane,
+                                           long long* carry, int L,
+                                           int rows, int chunk, int sp0,
+                                           int nc8, float v, float rcf,
+                                           float cmf, int layer, int win) {
+  const int rc = static_cast<int>(rcf);
+  const int sp = kVar == kVarWin ? win : rc / nc8;
+  const int local = kVar == kVarWin ? rc : rc - sp * nc8;
+  const int ch = local >> 3;
+  const int lsp = sp - sp0;
+  if (ch > chunk || lsp < 0 || lsp >= a.spb) return;
+  if (layer < 0 || layer >= L) return;
+  const int row = layer * rows + lsp * kStripH + (local & 7);
+  if (ch == chunk) {
+    atomicAdd(&plane[row * kRowStride + static_cast<int>(cmf)], v);
+  } else {
+    carry_add(&carry[row], v);
+  }
+}
+
+// B1's resolve inputs: bit l of eo set for an even-odd layer l, and the
+// straight colour of layer l (operator()), the frame's colours in
+// registers when kLc <= 4 (read from shared memory otherwise).
+template <int kLc>
+struct SolidColours {
+  unsigned eo = 0;
+  float4 creg[kLc <= 4 ? kLc : 1];
+  const float* col_s;
+
+  __device__ __forceinline__ SolidColours(const float* col, const int* rule_s,
+                                          int L)
+      : col_s(col) {
+#pragma unroll
+    for (int l = 0; l < kLc; ++l) {
+      if (l < L) {
+        eo |= (rule_s[l] != 0 ? 1u : 0u) << l;
+        if constexpr (kLc <= 4) {
+          creg[l] = reinterpret_cast<const float4*>(col_s)[l];
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ float4 operator()(int l) const {
+    if constexpr (kLc <= 4) {
+      return creg[l];
+    } else {
+      return reinterpret_cast<const float4*>(col_s)[l];
+    }
+  }
+};
 
 // In-chunk inclusive prefix of each of the n_rows plane rows (left to
 // right, one thread a row), plus the row's carry: winding.

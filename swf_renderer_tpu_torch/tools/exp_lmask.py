@@ -6,9 +6,10 @@ Port of the reference's ``tools/exp_lmask.py``.  In place of one update
 a placement block into the block's (dynamically indexed) layer plane,
 every layer takes a product over ALL of a group's slots with the values
 of the other layers masked to zero, into an accumulator of its own
-(static on the TPU: a compile-time index; here a register fragment a
-layer that lives across the whole walk).  More products (L of them a
-group), no dynamic layer index.  Every slot is placed (the reference
+(static on the TPU: a compile-time index; here one warpgroup product
+with the layers side by side in its N dimension, whose zeros are the
+masking, into an accumulator that lives in registers across the whole
+walk).  No dynamic layer index.  Every slot is placed (the reference
 does not skip a group's unused slots); the planes are 128 rows, so the
 frame is at most 16 chunks (2047 px) wide at one strip a plane.
 
@@ -61,14 +62,16 @@ def render_lmask(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
     fixed at 128 rows) or the group holds more than 8 placement blocks.
 
     Kernel: replaces ``_lmask_kernel`` (tools/exp_lmask.py:36,
-    pallas_call :117).  B1's grid, walk and 32.32 carry; the chunk's
-    slots gathered per group; per layer, ``mma.sync`` m16n8k16 bf16 ->
-    f32 products (hi, mid, lo) of every gathered slot, masked to the
-    layer, into that layer's register fragment; the fragments are stored
-    once before the resolve (csrc/place_mma_device.cuh).  Bound: B1's
-    bytes.  On the card it agrees with ``lmask_plain`` within B1's
-    envelope.  Inputs as ``render_fused_blocksn``'s at one strip a
-    plane."""
+    pallas_call :117).  B1's grid and 32.32 carry; a group's in-chunk
+    slots, whatever their block or layer, form one K run; with the layer
+    folded into N, each warpgroup's ``wgmma`` m64nNk16 bf16 -> f32
+    products (N = 8 x the layer class, hi / mid / lo along K) take the
+    step matrix from registers and the parts' tile from shared memory
+    into one accumulator kept in registers over the walk, and the
+    resolve reads it there (csrc/place_mma_device.cuh ``lmask_block``).
+    Bound: B1's bytes.  On the card it agrees with ``lmask_plain``
+    within B1's envelope.  Inputs as ``render_fused_blocksn``'s at one
+    strip a plane."""
     dev = exp_split._device_or_raise(fb._check_inputs(
         sidx, flags, lays, urc, ucm, uval, colors, frames, layers, group))
     exp_split.check_product(group, n_chunks)

@@ -15,8 +15,10 @@ atomics, ``cp.async`` as a plain copy, mbarriers and ``cp.async.bulk``
 global-to-shared copies for the pipelined plane resolve (a copy lands at
 once and completes its bytes on its barrier, a wait yields the fiber
 until the phase completed), so its ring logic runs unchanged; the warp
-ballot and both ``mma.sync`` shapes for ``csrc/place_mma_device.cuh``,
-whose tests are in ``test_torch_kernel_emulated_products.py``), and
+ballot, both ``mma.sync`` shapes and the ``wgmma`` m64nNk16 bf16 form
+(A from registers, B through its matrix descriptor, each group deferred
+to the wait that retires it) for ``csrc/place_mma_device.cuh``, whose
+tests are in ``test_torch_kernel_emulated_products.py``), and
 the emulated blocks run at small sizes.  This checks the kernel's
 indexing, strip slicing and arithmetic without a card; the card itself
 runs ``chip_smoke.py``.  Tolerance: byte-equal — the plain versions
@@ -223,6 +225,10 @@ inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
 struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
@@ -331,6 +337,92 @@ inline void emu_mma_m16n8k32_s8(int* d, const uint32_t* a,
     for (int k = 0; k < 32; ++k) sum += static_cast<unsigned>(A[r][k] * B[k][c]);
     d[i] = static_cast<int>(sum);
   }
+}
+// wgmma m64nNk16 bf16 -> f32, A from registers, B from shared memory by
+// its matrix descriptor (MN-major, no swizzle: element (k, n) at the
+// address + (k / 8) * leading + (n / 8) * stride + (k % 8) * 16 + (n % 8)
+// * 2 bytes), an ideal tensor core as the mma.sync shapes above.  A warp
+// of the warpgroup computes its 16 rows of D from its own A rows, so each
+// lane posts its fragment to its warp and keeps its rows gid and gid + 8.
+// The products are deferred: each thread keeps its committed groups and
+// performs the oldest, reading B from shared memory then, only when a
+// wait leaves fewer in flight.  So a kernel that writes a B tile before
+// the products reading it have been waited for shows in the words.
+// Descriptors carry offsets from emu_smem_base, the emulated block's
+// shared memory.
+unsigned char* emu_smem_base = nullptr;
+inline unsigned emu_smem_offset(const void* p) {
+  return static_cast<unsigned>(static_cast<const unsigned char*>(p) -
+                               emu_smem_base);
+}
+struct EmuWgmma { float* d; int n; uint64_t desc; float a[2][16]; };
+struct EmuWgmmaState {
+  std::vector<EmuWgmma> open;
+  std::vector<std::vector<EmuWgmma>> groups;
+};
+EmuWgmmaState emu_wgmma_state[1024];   // by threadIdx.x
+inline void emu_fence_proxy_async() {}
+inline void emu_wgmma_bf16(float* d, int n, const uint32_t* a,
+                           uint64_t desc) {
+  const int lane = threadIdx.x & 31;
+  unsigned* w = this_warp.words + lane * kWarpWords;
+  for (int i = 0; i < 4; ++i) w[i] = a[i];
+  __syncwarp();
+  EmuWgmma op{d, n, desc, {}};
+  for (int l = 0; l < 32; ++l) {
+    const unsigned* lw = this_warp.words + l * kWarpWords;
+    for (int i = 0; i < 8; ++i) {
+      int r, c;
+      frag_a_bf16(l, i, r, c);
+      if (r % 8 != lane >> 2) continue;
+      op.a[r / 8][c] = __uint_as_float(((lw[i / 2] >> (16 * (i & 1)))
+                                        & 0xffffu) << 16);
+    }
+  }
+  __syncwarp();
+  if ((desc >> 49) != 0) std::abort();   // base offset, swizzle: none used
+  emu_wgmma_state[threadIdx.x].open.push_back(op);
+}
+inline void emu_wgmma_commit() {
+  EmuWgmmaState& s = emu_wgmma_state[threadIdx.x];
+  s.groups.push_back(std::move(s.open));
+  s.open.clear();
+}
+inline void emu_wgmma_wait(int n) {
+  EmuWgmmaState& s = emu_wgmma_state[threadIdx.x];
+  const int lane = threadIdx.x & 31;
+  while (static_cast<int>(s.groups.size()) > n) {
+    for (const EmuWgmma& op : s.groups.front()) {
+      const unsigned char* b = emu_smem_base + ((op.desc & 0x3fffu) << 4);
+      const size_t lead = ((op.desc >> 16) & 0x3fffu) << 4;
+      const size_t stride = ((op.desc >> 32) & 0x3fffu) << 4;
+      for (int j = 0; j < op.n / 8; ++j) {
+        for (int i = 0; i < 4; ++i) {
+          int r, c;
+          frag_c(lane, i, r, c);
+          const int col = 8 * j + c;
+          double sum = op.d[4 * j + i];
+          for (int k = 0; k < 16; ++k) {
+            uint16_t bits;
+            std::memcpy(&bits, b + (k / 8) * lead + (col / 8) * stride +
+                                   (k % 8) * 16 + (col % 8) * 2, 2);
+            sum += static_cast<double>(op.a[r / 8][k]) *
+                   __uint_as_float(static_cast<unsigned>(bits) << 16);
+          }
+          op.d[4 * j + i] = static_cast<float>(sum);
+        }
+      }
+    }
+    s.groups.erase(s.groups.begin());
+  }
+}
+// Products issued or committed and never waited for, over every thread.
+inline int emu_wgmma_pending() {
+  int n = 0;
+  for (const EmuWgmmaState& s : emu_wgmma_state) {
+    n += static_cast<int>(s.groups.size() + s.open.size());
+  }
+  return n;
 }
 inline float warp_read(float v, int src) {
   const int lane = threadIdx.x & 31;
@@ -956,29 +1048,40 @@ extern "C" int emulate_product(int variant, const int* sidx, const int* flags,
   }
   a.sg_first = first.data();
   a.sg_last = last.data();
-  std::vector<unsigned char> smem(swf::product_smem_bytes(layers, group));
+  // The layer-masked form at its layer class; 16-B aligned, as the
+  // card's dynamic shared memory.
+  const int lc = swf::solid_layer_class(layers);
+  const size_t bytes = variant == swf::kVarLmask
+                           ? swf::lmask_smem_bytes(layers, lc)
+                           : swf::product_smem_bytes(layers, group);
+  std::vector<float4> mem((bytes + 15) / 16);
+  auto* smem = reinterpret_cast<unsigned char*>(mem.data());
+  emu_smem_base = smem;
   for (int z = 0; z < frames; ++z)
     for (int y = 0; y < ns1 - 1; ++y)
       for (int x = 0; x < n_chunks; ++x) {
-        std::memset(smem.data(), 0xab, smem.size());  // stale contents
+        std::memset(smem, 0xab, mem.size() * 16);  // stale contents
         run_block(swf::kThreads, x, y, z, [&] {
           switch (variant) {
             case swf::kVarK3Three:
-              swf::product_block<swf::kVarK3Three>(a, l0, l1, l2,
-                                                   smem.data());
+              swf::product_block<swf::kVarK3Three>(a, l0, l1, l2, smem);
               break;
             case swf::kVarK3Concat:
-              swf::product_block<swf::kVarK3Concat>(a, l0, l1, l2,
-                                                    smem.data());
+              swf::product_block<swf::kVarK3Concat>(a, l0, l1, l2, smem);
               break;
             case swf::kVarLmask:
-              swf::product_block<swf::kVarLmask>(a, l0, l1, l2, smem.data());
+              if (lc == swf::kSolidSmallLayers) {
+                swf::lmask_block<swf::kSolidSmallLayers>(a, smem);
+              } else {
+                swf::lmask_block<swf::kMaxLayers>(a, smem);
+              }
               break;
             default:
-              swf::product_block<swf::kVarInt8>(a, l0, l1, l2, smem.data());
+              swf::product_block<swf::kVarInt8>(a, l0, l1, l2, smem);
               break;
           }
         });
+        if (emu_wgmma_pending() != 0) return -2;   // products not waited for
       }
   return 0;
 }

@@ -1,11 +1,14 @@
 """The product forms' device code (``csrc/place_mma_device.cuh``: the
-placement of the reference's tools/exp_k3.py, exp_lmask.py and
-exp_int8.py as ``mma.sync`` tiles) and exp_dmamerge's merged read at any
-rule and spp, run on the CPU under the g++ emulation of
+placement of the reference's tools/exp_k3.py and exp_int8.py as
+``mma.sync`` tiles, exp_lmask.py as warpgroup ``wgmma`` products with
+the layers in N) and exp_dmamerge's merged read at any rule and spp, run
+on the CPU under the g++ emulation of
 ``tests/test_torch_kernel_emulated.py`` (whose emulator carries the two
-``mma.sync`` shapes, m16n8k16 bf16 and m16n8k32 s8, after the PTX ISA's
-fragment layouts, an ideal tensor core that sums a tile exactly and
-rounds once, and the warp ballot), against the plain versions.
+``mma.sync`` shapes, m16n8k16 bf16 and m16n8k32 s8, and ``wgmma``
+m64nNk16 bf16 with A from registers and B through its matrix descriptor,
+after the PTX ISA's fragment layouts, an ideal tensor core that sums a
+tile exactly and rounds once, each ``wgmma`` group performed only at the
+wait that retires it, and the warp ballot), against the plain versions.
 
 A file of its own so that the test runner's workers take it apart from
 the other emulated kernels.  Tolerance: int8 and the merged read
@@ -72,7 +75,8 @@ def test_emulated_fragment_layouts_cover_their_tiles(emulator):
 @pytest.mark.parametrize("scene", PRODUCT_SCENES)
 def test_emulated_product_forms_equal_plain_versions(emulator, scene, form):
     """The product forms' device code (warp-ballot gather, mma.sync tiles
-    built in registers, the emulation's ideal tensor core) against the
+    built in registers or, for lmask, wgmma over shared-memory part tiles
+    with the layers in N, the emulation's ideal tensor core) against the
     plain versions: int8 byte-equal to ``int8_plain`` (exact integer
     sums), the bf16 forms within B1's envelope of ``fusedn_plain`` (k3)
     and ``lmask_plain``; out pre-filled with -7, so every visited word
@@ -138,3 +142,39 @@ def test_emulated_merged_at_any_rule_and_spp(emulator, height, width, layers,
                          fill_rule=rule, spp=spp)[:, :ns]
     assert torch.equal(got, want) and torch.equal(want, b1)
     assert want.any() and (got != -7).all()
+
+
+# -- mutation checks: broken copies of the layer-masked form are caught ----
+
+LMASK_MUTANTS = {
+    # Two groups of products left in flight: a tile buffer is written
+    # again while the products that read it may still run.
+    "wait_one_more": ("      wgmma_wait<1>();\n", "      wgmma_wait<2>();\n"),
+    # A group's later batch written without the barrier that follows
+    # both warpgroups' waits.
+    "batch_barrier_dropped": (
+        "      if (b0 > 0) __syncthreads();   // the buffer's products are "
+        "done\n", ""),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(LMASK_MUTANTS))
+def test_emulated_lmask_mutants_are_caught(tmp_path, mutant):
+    """Each mutant of the layer-masked form's pipeline leaves the
+    envelope under the emulation, whose products read their B tiles only
+    when a wait retires them."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    before, after = LMASK_MUTANTS[mutant]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC_DIR, csrc)
+    header = csrc / "place_mma_device.cuh"
+    text = header.read_text()
+    assert text.count(before) == 1
+    header.write_text(text.replace(before, after))
+    emu = _build_emulator(tmp_path, csrc)
+    with pytest.raises(AssertionError):
+        test_emulated_product_forms_equal_plain_versions(
+            emu, PRODUCT_SCENES[0], "lmask")

@@ -51,7 +51,6 @@ struct BulkState {
 };
 BulkState bulk_state[1024];
 std::atomic<long long> bulk_copies{0}, bulk_at_exit{0}, bulk_misaligned{0};
-inline void emu_fence_proxy_async() {}
 inline void emu_bulk_copy_s2g(int* dst, const int* src, unsigned bytes) {
   if (bytes % 16 || reinterpret_cast<uintptr_t>(dst) % 16 ||
       reinterpret_cast<uintptr_t>(src) % 16) {
@@ -147,6 +146,7 @@ extern "C" int emulate_coarse(int coarse, const int* sidx, const int* flags,
   a.uval = uval; a.colors = colors; a.rules = rules; a.out = out;
   a.mask_from = -1; a.ng = ng; a.group = group; a.layers = layers;
   a.ns1 = ns1; a.n_chunks = n_chunks; a.spp = 1; a.plane_rows = 128;
+  a.spb = 1; a.n_spg = 1;
   std::vector<int> first(frames * ns1, -1), last(frames * ns1, -1);
   supergroup_index(sidx, flags, ng, layers, ns1, first, last);
   a.sg_first = first.data();
@@ -158,7 +158,21 @@ extern "C" int emulate_coarse(int coarse, const int* sidx, const int* flags,
   for (int x = 0; x < (ng / coarse) * n_chunks; ++x) {
     std::memset(bytes, 0xab, smem.size() * 16);  // stale contents
     run_block(swf::kThreads, x, 0, 0, [&] {
-      swf::coarse_block(a, coarse, bytes);
+      const bool small = swf::solid_layer_class(layers) ==
+                         swf::kSolidSmallLayers;
+      if (coarse == 1) {   // launch_coarse's choice
+        if (small) {
+          swf::coarse_block<swf::kSolidSmallLayers, true>(a, 1, bytes);
+        } else {
+          swf::coarse_block<swf::kMaxLayers, true>(a, 1, bytes);
+        }
+      } else {
+        if (small) {
+          swf::coarse_block<swf::kSolidSmallLayers, false>(a, coarse, bytes);
+        } else {
+          swf::coarse_block<swf::kMaxLayers, false>(a, coarse, bytes);
+        }
+      }
       emu_bulk_exit();
     });
   }
