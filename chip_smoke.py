@@ -149,8 +149,9 @@ Phases, each of which exits non-zero on failure before the last line:
 12. products — placement as a matrix product on the tensor cores (the
              reference's tools/exp_int8.py, exp_k3.py three / concat and
              exp_lmask.py) and the merged read of exp_dmamerge.py at any
-             rule and strips per plane: ``cuobjdump -sass`` shows HMMA in
-             the bf16 forms and IMMA in int8; each form against its plain
+             rule and strips per plane: ``cuobjdump -sass`` shows HGMMA
+             in the bf16 forms and IGMMA in int8 (warpgroup products, at
+             both layer classes, no HMMA or IMMA); each form against its plain
              version on phase 11's random scenes (int8 equal; k3 and
              lmask within B1's envelope: premultiplied bytes 1 level,
              differing bytes 1e-4, straight levels logged) and
@@ -349,10 +350,10 @@ def phase_build():
 # the layer class of up to four layers) and at 16 layers, B2's single
 # pass, chain and chain + premultiplied forms (styled_flatblock_kernel
 # <kChain, kPremul>; phase 1 fails if these keep a stack frame or
-# spill), the product forms' (the layer-masked one, product_kernel
-# <kVarLmask, kLc>, and the coarse steps, coarse_kernel<kLc, kOne>, at
-# both layer classes, in NO_STACK), the windowed one's and the texfield
-# kernel's at animtex1080 (n 2, bilinear, repeat), the banded (B9),
+# spill), the product forms' (product_kernel<kVar, kLc>, every form at
+# both layer classes, in NO_STACK), the coarse steps' (coarse_kernel<kLc,
+# kOne>, both layer classes, in NO_STACK), the windowed one's and the
+# texfield kernel's at animtex1080 (n 2, bilinear, repeat), the banded (B9),
 # tiled (B10) and grouped (B11) coverage kernels (phase 1 fails if these
 # keep a stack frame or spill, as for B2), the one-block form B13 at the
 # headline (solid_flatblock_kernel<kVarOne, 4>, in NO_STACK), and the
@@ -368,11 +369,14 @@ PTXAS_WATCH = {
     "B2 single pass": "styled_flatblock_kernelILb0ELb0EE",
     "B2 chain": "styled_flatblock_kernelILb1ELb0EE",
     "B2 chain + premul": "styled_flatblock_kernelILb1ELb1EE",
-    "product k3_three": "product_kernelILi7E",
-    "product k3_concat": "product_kernelILi8E",
+    "product k3_three": "product_kernelILi7ELi4E",
+    "product k3_three at 16 layers": "product_kernelILi7ELi16E",
+    "product k3_concat": "product_kernelILi8ELi4E",
+    "product k3_concat at 16 layers": "product_kernelILi8ELi16E",
     "product lmask": "product_kernelILi9ELi4E",
     "product lmask at 16 layers": "product_kernelILi9ELi16E",
-    "product int8": "product_kernelILi10E",
+    "product int8": "product_kernelILi10ELi4E",
+    "product int8 at 16 layers": "product_kernelILi10ELi16E",
     "windowed kVarWin": "solid_flatblock_kernelILi11ELi4E",
     "coarse": "coarse_kernelILi4ELb0E",
     "coarse at 16 layers": "coarse_kernelILi16ELb0E",
@@ -396,8 +400,11 @@ PTXAS_WATCH = {
 }
 NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B5 solid",
             "B6 morph + affine", "B7 morph", "B13 one-block",
-            "B16 pipelined resolve", "product lmask",
-            "product lmask at 16 layers", "coarse", "coarse at 16 layers",
+            "B16 pipelined resolve", "product k3_three",
+            "product k3_three at 16 layers", "product k3_concat",
+            "product k3_concat at 16 layers", "product lmask",
+            "product lmask at 16 layers", "product int8",
+            "product int8 at 16 layers", "coarse", "coarse at 16 layers",
             "coarse 1", "coarse 1 at 16 layers")
 
 
@@ -4783,28 +4790,35 @@ def sass_bodies():
 
 
 def sass_check():
-    """The k3 forms issue HMMA, the layer-masked form HGMMA (warpgroup
-    products) at both layer classes and the int8 form IMMA, each nothing
-    else, so that neither a scalar fallback nor the other instruction
-    passes.  Returns {form: (HMMA, HGMMA, IMMA) counts}."""
+    """Every product form issues warpgroup products and no warp-level
+    ones, at both layer classes: the bf16 forms (k3 three and concat, the
+    layer-masked form) HGMMA, the int8 form IGMMA, each nothing else of
+    HMMA, HGMMA, IMMA and IGMMA, so that neither a scalar fallback, a
+    warp-level product nor the other type passes.  The null HGMMA that
+    ptxas adds where a group is committed (destination RZ) is no product
+    and is not counted.  Returns {form: (HMMA, HGMMA, IMMA, IGMMA)
+    counts}."""
+    ops = ("HMMA", "HGMMA", "IMMA", "IGMMA")
     counts = {}
     for name, body in sass_bodies().items():
-        form = re.search(r"product_kernelILi(\d+)E(?:Li(\d+)E)?", name)
+        form = re.search(r"product_kernelILi(\d+)ELi(\d+)E", name)
         if not form:
             continue
-        key = int(form.group(1)), int(form.group(2) or 0)
-        counts[key] = tuple(len(re.findall(rf"\b{op}\.", body))
-                            for op in ("HMMA", "HGMMA", "IMMA"))
-    names = {(7, 0): ("k3_three", 0), (8, 0): ("k3_concat", 0),
-             (9, 4): ("lmask", 1), (9, 16): ("lmask at 16 layers", 1),
-             (10, 0): ("int8", 2)}
+        key = int(form.group(1)), int(form.group(2))
+        counts[key] = tuple(len(re.findall(rf"\b{op}\.\S+\s+(?!RZ\b)",
+                                           body)) for op in ops)
+    names = {}
+    for var, form, want in ((7, "k3_three", 1), (8, "k3_concat", 1),
+                            (9, "lmask", 1), (10, "int8", 3)):
+        names[(var, 4)] = (form, want)
+        names[(var, 16)] = (f"{form} at 16 layers", want)
     for key, (name, want) in names.items():
-        got = counts.get(key, (0, 0, 0))
+        got = counts.get(key, (0,) * len(ops))
         if any((n > 0) != (i == want) for i, n in enumerate(got)):
-            fail(f"SASS: product form {name} issues {got[0]} HMMA, "
-                 f"{got[1]} HGMMA and {got[2]} IMMA")
-        log(f"products: SASS of {name}: {got[0]} HMMA, {got[1]} HGMMA, "
-            f"{got[2]} IMMA")
+            fail(f"SASS: product form {name} issues "
+                 + ", ".join(f"{n} {op}" for n, op in zip(got, ops)))
+        log(f"products: SASS of {name}: "
+            + ", ".join(f"{n} {op}" for n, op in zip(got, ops)))
     return {name: counts[key] for key, (name, _) in names.items()}
 
 

@@ -163,64 +163,55 @@ cudaError_t launch(FusedArgs a, int frames, int n_strips, int* sg_index,
   }
 }
 
-template <int kVar>
-__global__ void __launch_bounds__(kThreads)
+// The product forms (product_block: warpgroup products, N = 8 x the
+// layers a pass); at four layers three blocks an SM by a register bound
+// with one accumulator (80 registers for the layer-masked form, no
+// spill; 2.79 against 3.47 ms at the 95 it takes unbounded on the H100,
+// PERF.md), two with three.  The bf16 forms read a.uval (l0, l1, l2
+// null), int8 its limbs.
+template <int kVar, int kLc>
+__global__ void __launch_bounds__(kThreads,
+                                  ProductForm<kVar, kLc>::kMinBlocks)
 product_kernel(FusedArgs a, const int8_t* l0, const int8_t* l1,
                const int8_t* l2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  product_block<kVar>(a, l0, l1, l2, smem);
+  product_block<kVar, kLc>(a, l0, l1, l2, smem);
 }
 
-// The layer-masked form (lmask_block: warpgroup products, N = 8 kLc);
-// at four layers three blocks an SM by a register bound (80 registers,
-// no spill; 2.79 against 3.47 ms at the 95 it takes unbounded on the
-// H100, PERF.md).
 template <int kVar, int kLc>
-__global__ void __launch_bounds__(kThreads, kLc == kSolidSmallLayers ? 3 : 1)
-product_kernel(FusedArgs a) {
-  static_assert(kVar == kVarLmask, "the layer-masked form");
-  extern __shared__ __align__(16) unsigned char smem[];
-  lmask_block<kLc>(a, smem);
+cudaError_t launch_product_lc(FusedArgs a, const int8_t* l0,
+                              const int8_t* l1, const int8_t* l2,
+                              int frames, int n_strips,
+                              cudaStream_t stream) {
+  const size_t bytes = product_smem_bytes<kVar, kLc>(a.layers);
+  if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  const dim3 grid(a.n_chunks, n_strips, frames);
+  void (*kernel)(FusedArgs, const int8_t*, const int8_t*, const int8_t*) =
+      product_kernel<kVar, kLc>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
+    kernel<<<grid, kThreads, bytes, stream>>>(a, l0, l1, l2);
+  }
+  return cudaGetLastError();
 }
 
-// The k3 and int8 forms (place_mma_device.cuh): one strip a plane, one
-// block per (chunk, strip block, frame).
+// A product form at the layer class of a.layers: one block of two
+// warpgroups per (chunk, strip block, frame), one strip a plane; l0, l1,
+// l2 the int8 form's limbs (null for the bf16 forms).
 template <int kVar>
 cudaError_t launch_product(FusedArgs a, const int8_t* l0, const int8_t* l1,
                            const int8_t* l2, int frames, int n_strips,
                            int* sg_index, cudaStream_t stream) {
   cudaError_t err = supergroup_index(a, frames, sg_index, stream);
   if (err != cudaSuccess) return err;
-  const size_t bytes = product_smem_bytes(a.layers, a.group);
-  if (bytes > kSmemMax) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(product_kernel<kVar>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.n_chunks, n_strips, frames);
-  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    product_kernel<kVar><<<grid, kThreads, bytes, stream>>>(a, l0, l1, l2);
-  }
-  return cudaGetLastError();
-}
-
-// The layer-masked form at the layer class of a.layers: one block of two
-// warpgroups per (chunk, strip block, frame), one strip a plane.
-template <int kLc>
-cudaError_t launch_lmask(FusedArgs a, int frames, int n_strips,
-                         int* sg_index, cudaStream_t stream) {
-  cudaError_t err = supergroup_index(a, frames, sg_index, stream);
-  if (err != cudaSuccess) return err;
-  const size_t bytes = lmask_smem_bytes(a.layers, kLc);
-  err = cudaFuncSetAttribute(product_kernel<kVarLmask, kLc>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.n_chunks, n_strips, frames);
-  if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
-    product_kernel<kVarLmask, kLc><<<grid, kThreads, bytes, stream>>>(a);
-  }
-  return cudaGetLastError();
+  return solid_layer_class(a.layers) == kSolidSmallLayers
+             ? launch_product_lc<kVar, kSolidSmallLayers>(
+                   a, l0, l1, l2, frames, n_strips, stream)
+             : launch_product_lc<kVar, kMaxLayers>(a, l0, l1, l2, frames,
+                                                   n_strips, stream);
 }
 
 // B1's body at one strip a plane over coarse steps, the layer loops of
@@ -503,10 +494,8 @@ int swf_fused_variant(int variant, int kk, int observe, const void* sidx,
                                                     s);
       break;
     default:
-      err = swf::solid_layer_class(layers) == swf::kSolidSmallLayers
-                ? swf::launch_lmask<swf::kSolidSmallLayers>(a, frames, n, idx,
-                                                            s)
-                : swf::launch_lmask<swf::kMaxLayers>(a, frames, n, idx, s);
+      err = swf::launch_product<swf::kVarLmask>(a, nullptr, nullptr, nullptr,
+                                                frames, n, idx, s);
       break;
   }
   return static_cast<int>(err);

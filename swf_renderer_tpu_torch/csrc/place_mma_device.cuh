@@ -8,9 +8,9 @@
 //   kVarK3Concat  the same kernel with k3=True: one accumulator fed hi,
 //                 mid and lo along K;
 //   kVarLmask     tools/exp_lmask.py:36 `_lmask_kernel` (pallas_call
-//                 :117): one accumulator per layer, kept in registers over
-//                 the whole walk, every layer taking every slot of a group
-//                 with the values of the other layers masked to zero;
+//                 :117): one accumulator per layer, kept over the whole
+//                 walk, every layer taking every slot of a group with the
+//                 values of the other layers masked to zero;
 //   kVarInt8      tools/exp_int8.py:53 `_kernel` (pallas_call :146):
 //                 values quantized to q = round(v * 2^20) on the host and
 //                 split in three s8 limbs; three s8 products combined as
@@ -22,29 +22,65 @@
 // matrix Step[k, c] = [cm_k <= c], so one product both places a block's
 // deltas and prefix-sums them within their 128-column chunk.
 //
-// Design on Hopper of the k3 and int8 forms (product_block).  B1's grid,
-// walk and carry stay (flatblock_device.cuh fused_block): one CUDA block
-// of 256 threads per (128-column chunk, strip block, frame) walks the
-// groups of its supergroup, and the deltas of earlier chunks of a row go
-// into the row's carry (32.32 fixed point in 64-bit shared atomics; for
-// int8 the exact integer sum of q).  Only the in-chunk placement changes:
-//   1. Gather.  Per group, each thread takes up to four slots (256 apart);
-//      a warp's 32 slots lie in one placement block, and a warp ballot
-//      compacts the slots whose row falls in this chunk, in slot order,
-//      into the block's region of a shared list (key = cm | row << 8, and
-//      the parts: hi | mid << 16 and lo as bf16 bits, or the three limbs).
-//      Two list buffers alternate, so a group costs two barriers.
-//   2. Product.  Warp w owns columns 16w .. 16w + 15 of the chunk and
-//      computes D (16 columns x 8 rows) = Step (16 x K) . P (K x 8), with
-//      Step[m][k] = [cm_k <= m] and P[k][n] = part_k when row_k == n, else
-//      0, built in registers from the list (no ldmatrix): mma.sync
-//      m16n8k16 bf16 -> f32, or m16n8k32 s8 -> s32.  N = 8 is one strip.
-//      D is the chunk's winding already prefixed, so the one-thread-a-row
-//      prefix of B1 and its shared float atomics are gone; each warp adds
-//      D into its own tile of the layer's shared plane with plain stores.
-//   3. Resolve as B1: winding = plane + carry, the fill rule, the
-//      suffix-product composite, quantize and pack.
-// The layer-masked form runs on warpgroup products (lmask_block, below).
+// Design on Hopper: one body for the four forms (product_block).  B1's
+// grid and carry stay: one CUDA block of two warpgroups per (128-column
+// chunk, strip block, frame) walks the groups of its supergroup, and the
+// deltas of earlier chunks of a row go into the row's carry (32.32 fixed
+// point as two 32-bit atomics, carry_add; for int8 the exact integer sum
+// of q, one 32-bit atomic).  The layer folds into the N dimension of one
+// product:
+//   D (128 columns x 8 kLc) = Step (128 x K) . P (K x 8 kLc),
+//   Step[m][k] = [cm_k <= m],  P[k][8 layer_k + row_k] = part_k, else 0:
+// the zeros of P are the layer-masked reference's masking, and for the
+// k3 and int8 tools (one layer a placement block) the per-layer sums of
+// their `acc_ref[layer]`.  Per group of the supergroup:
+//   1. Gather.  Each thread issues the loads of its slots (256 apart, up
+//      to four) before it uses any; earlier chunks' deltas go into the
+//      row's carry, and the slots of this chunk, whatever their block or
+//      layer, form one K run in slot order: a warp ballot a round, the
+//      counts of every (round, warp) in shared memory, one barrier, then
+//      each thread's place from a warp scan of the counts.  The k3 and
+//      int8 forms place only the flags' used blocks, as their references;
+//      the layer-masked form places every slot, as its own.
+//   2. Batches of at most kProductCap entries.  The part tiles of a batch
+//      are the B operand of a wgmma in shared memory without swizzle:
+//      bf16 MN-major (product_desc: the leading byte offset is the
+//      k-block stride, the stride byte offset the n-block stride), s8
+//      K-major, as 8-bit wgmma takes B (no transpose flag for 8-bit
+//      types; int8_desc: leading byte offset the 16-k block stride,
+//      stride byte offset the n-block stride).  A batch's tiles are zeroed
+//      one batch ahead (three buffers, so the zeroing needs no barrier of
+//      its own) and each entry writes only its parts (bf16 halves or limb
+//      bytes); the zeros are the other layers' columns and the padding
+//      rows.  fence.proxy.async and a barrier; then each warpgroup (64
+//      columns) builds Step in registers from the entries' columns (a warp's
+//      fragment is the mma.sync A layout: bf16 ones, or s8 ones), issues
+//      wgmma m64nNk16 bf16 -> f32 or m64nNk32 s8 -> s32 over the tiles,
+//      commits and waits until one group is left in flight, so the next
+//      group's gather overlaps the product.  Each warpgroup's wait
+//      precedes the next barrier, so a buffer is written again only once
+//      both products that read it are done.
+//   3. Resolve from registers.  A thread's accumulators hold every layer
+//      of its four pixels (columns gid and gid + 8 of its warp's 16, rows
+//      2 tig and 2 tig + 1): winding = D + the row's carry, then B1's fill
+//      rule and suffix-product composite at the layer class kLc
+//      (solid_pixel), quantize and pack; the words leave as 32-byte row
+//      segments.
+// The accumulators: the layer-masked and concat forms sum hi, mid and lo
+// along K into one f32 accumulator (on this card the concat form is the
+// layer-masked form's product over the flags' used blocks, so the k3
+// forms converge on it); the three form keeps one a part and combines
+// them as (hi + mid) + lo at the resolve, where its reference combines
+// each block's (a change of summation order only); int8 keeps one s32
+// accumulator a limb (no s8 Step holds x256, so the limbs cannot share
+// one along K) and combines m0 + (m1 << 8) + (m2 << 16) in wrapping
+// uint32_t.  A limb's sum is at most 128 times a column's entries, far
+// from 2^31.  Three accumulators of N = 8 kLc are 192 registers a thread
+// at 16 layers, so there those two forms walk the groups twice, eight
+// layers a pass (N = 64, 96 registers), each pass writing its windings
+// to shared memory for the resolve.  Columns of P past the frame's
+// layers stay zero: they reach only accumulator columns that the resolve
+// never reads.
 // One strip a plane (spp 1) only, as the reference tools; group <= 8.
 //
 // Bound on this card: bytes, as B1 (the packed words, written once, and
@@ -58,12 +94,14 @@
 // tensor core sums a tile's products in its own order and precision).
 //
 // Without __CUDA_ARCH__ and without __CUDACC__ (the g++ emulation of the
-// tests) the mma and wgmma operations, the ballot and popc call functions
-// that the emulation defines before it includes this header.
+// tests) the wgmma operations call functions that the emulation defines
+// before it includes this header.
 
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flatblock_device.cuh"
 
@@ -78,447 +116,96 @@ constexpr int kMaxProductGroup = 8;              // four slots a thread
 constexpr int kProductRounds = kMaxProductGroup * kBlk / kThreads;
 constexpr float kInvQ = 1.0f / 1048576.0f;       // 2^-20 (exp_int8 S = 20)
 
-// Shared memory of a product block: B1's solid carve-up at one strip a
-// plane, then two list buffers (key, parts a, parts b of group * 128
-// slots), two count tables (4 warps a placement block) and two tables of
-// the placement blocks' layers.
-__host__ __device__ inline size_t product_list_bytes(int group) {
-  return static_cast<size_t>(3) * group * kBlk * 4;
-}
-__host__ __device__ inline size_t product_smem_bytes(int layers, int group) {
-  return smem_bytes(layers, kStripH, false) + 2 * product_list_bytes(group)
-         + align16(static_cast<size_t>(2) * group * 5 * 4);
-}
+constexpr int kProductCap = 64;                  // K entries a batch
+constexpr int kProductLoads = kProductRounds;    // slots' loads in flight
+constexpr int kProductCounts = kProductRounds * (kThreads / 32);
+// Tile buffers: a batch's tiles are zeroed one batch ahead of their
+// writes, so the zeroing needs no barrier of its own.
+constexpr int kProductBufs = 3;
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-#elif !defined(__CUDACC__)
-  emu_mma_m16n8k16_bf16(d, a, b);
-#endif
-}
-
-__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a,
-                                             const uint32_t* b) {
-#if defined(__CUDA_ARCH__)
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-#elif !defined(__CUDACC__)
-  emu_mma_m16n8k32_s8(d, a, b);
-#endif
-}
-
-// One placement block's product for one warp's 16 columns, bf16 forms:
-// the n entries of key / pab / pc; D accumulates the hi / mid / lo parts
-// (into d[0], d[1], d[2] when kThree, all into d[0] otherwise).
-template <bool kThree>
-__device__ __forceinline__ void product_bf16(
-    const uint32_t* key, const uint32_t* pab, const uint32_t* pc, int n,
-    int m0, int gid, int tig, float (*d)[4]) {
-  const int m1 = m0 + 8;
-  for (int t0 = 0; t0 < n; t0 += 16) {
-    uint32_t cm[4], row[4], ph[4], pm[4], pl[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = t0 + tig * 2 + (j & 1) + (j >> 1) * 8;
-      if (e < n) {
-        const uint32_t k = key[e];
-        cm[j] = k & 0xffu;
-        row[j] = k >> 8;
-        ph[j] = pab[e] & 0xffffu;
-        pm[j] = pab[e] >> 16;
-        pl[j] = pc[e];
-      } else {
-        cm[j] = 0xffu;   // above every column: Step 0
-        row[j] = 0xffu;
-        ph[j] = pm[j] = pl[j] = 0u;
-      }
-    }
-    auto step = [&](int j, int m) -> uint32_t {
-      return cm[j] <= static_cast<uint32_t>(m) ? 0x3f80u : 0u;   // bf16 1
-    };
-    const uint32_t a[4] = {step(0, m0) | step(1, m0) << 16,
-                           step(0, m1) | step(1, m1) << 16,
-                           step(2, m0) | step(3, m0) << 16,
-                           step(2, m1) | step(3, m1) << 16};
-    auto sel = [&](int j, const uint32_t* p) -> uint32_t {
-      return row[j] == static_cast<uint32_t>(gid) ? p[j] : 0u;
-    };
-    const uint32_t bh[2] = {sel(0, ph) | sel(1, ph) << 16,
-                            sel(2, ph) | sel(3, ph) << 16};
-    const uint32_t bm[2] = {sel(0, pm) | sel(1, pm) << 16,
-                            sel(2, pm) | sel(3, pm) << 16};
-    const uint32_t bl[2] = {sel(0, pl) | sel(1, pl) << 16,
-                            sel(2, pl) | sel(3, pl) << 16};
-    mma_bf16_16816(d[0], a, bh);
-    mma_bf16_16816(d[kThree ? 1 : 0], a, bm);
-    mma_bf16_16816(d[kThree ? 2 : 0], a, bl);
-  }
-}
-
-// The int8 form's product for one warp's 16 columns: three s8 products
-// (limbs 0, 1, 2 into d[0], d[1], d[2]) over n list entries.
-__device__ __forceinline__ void product_s8(const uint32_t* key,
-                                           const uint32_t* limbs, int n,
-                                           int m0, int gid, int tig,
-                                           int (*d)[4]) {
-  const int m1 = m0 + 8;
-  for (int t0 = 0; t0 < n; t0 += 32) {
-    uint32_t cm[8], row[8], lb[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = t0 + tig * 4 + (j & 3) + (j >> 2) * 16;
-      if (e < n) {
-        const uint32_t k = key[e];
-        cm[j] = k & 0xffu;
-        row[j] = k >> 8;
-        lb[j] = limbs[e];
-      } else {
-        cm[j] = 0xffu;
-        row[j] = 0xffu;
-        lb[j] = 0u;
-      }
-    }
-    uint32_t a[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int hi = j >> 2;   // k + 16: registers 2 and 3
-      a[2 * hi] |= (cm[j] <= static_cast<uint32_t>(m0) ? 1u : 0u)
-                   << (8 * (j & 3));
-      a[2 * hi + 1] |= (cm[j] <= static_cast<uint32_t>(m1) ? 1u : 0u)
-                       << (8 * (j & 3));
-    }
-#pragma unroll
-    for (int limb = 0; limb < 3; ++limb) {
-      uint32_t b[2] = {0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t v = row[j] == static_cast<uint32_t>(gid)
-                               ? (lb[j] >> (8 * limb)) & 0xffu : 0u;
-        b[j >> 2] |= v << (8 * (j & 3));
-      }
-      mma_s8_16832(d[limb], a, b);
-    }
-  }
-}
-
-// One block: chunk x strip block x frame, the k3 and int8 forms.
-template <int kVar>
-__device__ void product_block(const FusedArgs& a, const int8_t* l0,
-                              const int8_t* l1, const int8_t* l2,
-                              unsigned char* smem) {
+// A form of the product body at layer class kLc (4 up to four layers,
+// else 16): its parts and accumulators, the layers a pass (kLp, N = 8
+// kLp), its tile buffers and the wgmma depth of a step (kStepK).
+template <int kVar, int kLc>
+struct ProductForm {
   static_assert(kVar == kVarK3Three || kVar == kVarK3Concat ||
-                    kVar == kVarInt8,
-                "a k3 or int8 form");
-  constexpr bool kInt8 = kVar == kVarInt8;
-  constexpr int kRows = kStripH;   // one strip a plane
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int chunk = blockIdx.x;
-  const int s = blockIdx.y;
-  const int f = blockIdx.z;
-  const int L = a.layers;
-  const int nc8 = a.n_chunks * kStripH;
-  const int gb = a.group * kBlk;
-
-  const SolidSmem sm = solid_smem(smem, L, kRows);
-  float* plane = sm.plane;
-  int* plane_i = reinterpret_cast<int*>(plane);   // the int8 form's
-  long long* carry = sm.carry;
-  const float* col_s = sm.col_s;
-  const int* rule_s = sm.rule_s;
-  uint32_t* lists = reinterpret_cast<uint32_t*>(smem + sm.end);
-  int* counts = reinterpret_cast<int*>(                // [2][group][4]
-      smem + sm.end + 2 * product_list_bytes(a.group));
-  int* lay_tab = counts + 2 * a.group * 4;             // [2][group]
-  solid_setup(a, sm, L, kRows, f);
-  __syncthreads();
-
-  const int m0 = warp * 16 + gid;   // the warp's column of D rows gid
-
-  const int sg = f * a.ns1 + s;
-  const int g0 = a.sg_first[sg];
-  const int g1 = a.sg_last[sg];
-  int buf = 0;
-  for (int g = g0; g0 >= 0 && g <= g1; ++g, buf ^= 1) {
-    const int nblk = static_cast<int>(static_cast<unsigned>(a.flags[g]) >> 2);
-    uint32_t* key = lists + static_cast<size_t>(buf) * 3 * gb;
-    uint32_t* pab = key + gb;
-    uint32_t* pc = pab + gb;
-    int* cnt = counts + buf * a.group * 4;
-    int* lay_g = lay_tab + buf * a.group;
-    if (tid < a.group) {
-      lay_g[tid] = a.lays[static_cast<long long>(tid) * a.ng + g];
-    }
-
-    // 1. Gather: this chunk's slots into the list, earlier chunks' into
-    //    the carry; the placement blocks' layers into lay_g.
-    uint32_t hkey[kProductRounds], hab[kProductRounds], hc[kProductRounds];
-    int hpos[kProductRounds];
-    bool hin[kProductRounds];
-#pragma unroll
-    for (int r = 0; r < kProductRounds; ++r) {
-      const int slot = r * kThreads + tid;
-      const int b = slot / kBlk;   // warp-uniform
-      bool in = false;
-      if (b < a.group && (nblk == 0 || b < nblk)) {
-        const long long idx = static_cast<long long>(g) * gb + slot;
-        float v = 0.0f;
-        int q = 0;
-        uint32_t limbs = 0u;
-        if constexpr (kInt8) {
-          const int x0 = l0[idx], x1 = l1[idx], x2 = l2[idx];
-          q = x0 + 256 * x1 + 65536 * x2;
-          limbs = (static_cast<uint32_t>(x0) & 0xffu) |
-                  (static_cast<uint32_t>(x1) & 0xffu) << 8 |
-                  (static_cast<uint32_t>(x2) & 0xffu) << 16;
-        } else {
-          v = a.uval[idx];
-        }
-        if (kInt8 ? q != 0 : v != 0.0f) {
-          const int rc = static_cast<int>(a.urc[idx]);
-          const int sp = rc / nc8;
-          const int local = rc - sp * nc8;
-          const int ch = local >> 3;
-          const int layer = a.lays[static_cast<long long>(b) * a.ng + g];
-          if (sp == 0 && ch <= chunk && layer >= 0 && layer < L) {
-            if (ch == chunk) {
-              in = true;
-              hkey[r] = static_cast<uint32_t>(a.ucm[idx]) |
-                        static_cast<uint32_t>(local & 7) << 8;
-              if constexpr (kInt8) {
-                hab[r] = limbs;
-                hc[r] = 0u;
-              } else {
-                const float hi = bf16_rn(v);
-                const float mid = bf16_rn(v - hi);
-                const float lo = bf16_rn(v - hi - mid);
-                hab[r] = __float_as_uint(hi) >> 16 |
-                         (__float_as_uint(mid) & 0xffff0000u);
-                hc[r] = __float_as_uint(lo) >> 16;
-              }
-            } else {
-              const long long add = kInt8 ? static_cast<long long>(q)
-                                          : to_fixed(v);
-              atomicAdd(reinterpret_cast<unsigned long long*>(
-                            &carry[layer * kRows + (local & 7)]),
-                        static_cast<unsigned long long>(add));
-            }
-          }
-        }
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, in);
-      if (lane == 0 && b < a.group) cnt[b * 4 + (warp & 3)] = __popc(m);
-      hpos[r] = __popc(m & ((1u << lane) - 1u));
-      hin[r] = in;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kProductRounds; ++r) {
-      if (hin[r]) {
-        const int b = (r * kThreads + tid) / kBlk;
-        int e = b * kBlk + hpos[r];
-        for (int q = 0; q < (warp & 3); ++q) e += cnt[b * 4 + q];
-        key[e] = hkey[r];
-        pab[e] = hab[r];
-        pc[e] = hc[r];
-      }
-    }
-    __syncthreads();
-
-    // 2. Product: warp w's 16 columns of every placement block.
-    for (int b = 0; b < a.group; ++b) {
-      const int n = cnt[b * 4] + cnt[b * 4 + 1] + cnt[b * 4 + 2] +
-                    cnt[b * 4 + 3];
-      if (n == 0) continue;   // block-uniform
-      const int layer = lay_g[b];
-      const int r0 = (layer * kRows + tig * 2) * kRowStride;
-      const int cols[4] = {m0, m0 + kRowStride, m0 + 8,
-                           m0 + 8 + kRowStride};
-      if constexpr (kInt8) {
-        int d[3][4] = {};
-        product_s8(key + b * kBlk, pab + b * kBlk, n, m0, gid, tig, d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t sum = static_cast<uint32_t>(d[0][i]) +
-                               (static_cast<uint32_t>(d[1][i]) << 8) +
-                               (static_cast<uint32_t>(d[2][i]) << 16);
-          plane_i[r0 + cols[i]] = static_cast<int>(
-              static_cast<uint32_t>(plane_i[r0 + cols[i]]) + sum);
-        }
-      } else {
-        float d[3][4] = {};
-        product_bf16<kVar == kVarK3Three>(key + b * kBlk, pab + b * kBlk,
-                                          pc + b * kBlk, n, m0, gid, tig,
-                                          d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float delta = kVar == kVarK3Three
-                                  ? (d[0][i] + d[1][i]) + d[2][i]
-                                  : d[0][i];
-          plane[r0 + cols[i]] = plane[r0 + cols[i]] + delta;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Each row's carry, converted once into the free list buffer: to f32
-  // (B1's prefix pass does the same), or for int8 to the int32 of the
-  // TPU's accumulator (exact while |winding| < 2048).
-  float* carry_f = reinterpret_cast<float*>(lists);
-  int* carry_i = reinterpret_cast<int*>(lists);
-  for (int r = tid; r < L * kRows; r += nthr) {
-    if constexpr (kInt8) {
-      carry_i[r] = static_cast<int>(carry[r]);
-    } else {
-      carry_f[r] = from_fixed(carry[r]);
-    }
-  }
-  __syncthreads();
-
-  // 3. Resolve: winding = plane + carry, fill rule, composite, pack.  The
-  //    loop is B1's, written out here: moved into a shared helper it
-  //    changed nvcc's code for both kernels (int8 62 -> 97 registers and
-  //    4.8 -> 7.3 ms, B1 47 -> 32 registers; H100, chip_smoke.py phases 1
-  //    and 12), where the shared carve-up and set-up leave it unchanged.
-  const int stride = a.n_chunks * kLane;
-  for (int p = tid; p < kRows * kLane; p += nthr) {
-    const int row = p / kLane;
-    const int c = p % kLane;
-    float cas[kMaxLayers];
-#pragma unroll
-    for (int l = 0; l < kMaxLayers; ++l) {
-      if (l < L) {
-        const int r = l * kRows + row;
-        float w;
-        if constexpr (kInt8) {
-          w = static_cast<float>(static_cast<int>(
-                  static_cast<uint32_t>(plane_i[r * kRowStride + c]) +
-                  static_cast<uint32_t>(carry_i[r]))) * kInvQ;
-        } else {
-          w = plane[r * kRowStride + c] + carry_f[r];
-        }
-        cas[l] = col_s[4 * l + 3] * fill_cov(w, rule_s[l]);
-      }
-    }
-    const uint32_t packed = composite_pack(
-        L, cas, [&](int l, int ch) { return col_s[4 * l + ch]; });
-    a.out[((static_cast<long long>(f) * a.ns1 + s) * kStripH + row) * stride
-          + chunk * kLane + c] = static_cast<int>(packed);
-  }
-}
-
-// --- The layer-masked form (kVarLmask): warpgroup products -------------
-//
-// Design on Hopper.  The TPU kernel keeps an accumulator a layer over the
-// walk and multiplies every slot into each, the other layers' values
-// masked to zero.  Its first port ran that as one mma.sync product a
-// layer, placement block and warp, all but one of each slot's products
-// multiplying zeros, behind two barriers and a generic resolve a group:
-// 9.05-9.13 ms on the headline against B1's 1.63-1.70 in the same call
-// (H100, PERF.md).  Here the layer folds into the N dimension of one
-// product:
-//   D (128 columns x 8 kLc) = Step (128 x K) . P (K x 8 kLc),
-//   Step[m][k] = [cm_k <= m],  P[k][8 layer_k + row_k] = part_k, else 0:
-// the zeros of P are the reference's masking, so it is the same product.
-// Per group of the supergroup:
-//   1. Gather.  Each thread issues the loads of its slots (256 apart, up
-//      to four) before it uses any; earlier chunks' deltas go into the
-//      row's 32.32 carry as two 32-bit atomics (carry_add), and the slots
-//      of this chunk, whatever their block or layer, form one K run in
-//      slot order: a warp ballot a round, the counts of every (round,
-//      warp) in shared memory, one barrier.
-//   2. Batches of at most kLmaskCap entries.  The threads holding them
-//      write their rows of the three part tiles (hi, mid and lo bf16,
-//      along K into one accumulator) in the core-matrix layout of a wgmma
-//      B operand (MN-major, no swizzle: lmask_desc) and their columns;
-//      fence.proxy.async and a barrier; then each warpgroup (64 columns)
-//      builds Step in registers from the columns (a warp's fragment is the
-//      mma.sync A layout), issues wgmma m64nNk16 (N = 8 kLc) over the
-//      tiles, commits and waits until one group is left in flight, so the
-//      next group's gather overlaps the product.  Two tile buffers
-//      alternate; each warpgroup's wait precedes the gather's barrier, so
-//      a buffer is written again only once both products that read it
-//      are done.
-//   3. Resolve from registers.  A thread's accumulator holds every layer
-//      of its four pixels (columns gid and gid + 8 of its warp's 16, rows
-//      2 tig and 2 tig + 1): winding = D + the row's carry, then B1's fill
-//      rule and suffix-product composite at the layer class kLc
-//      (solid_pixel), quantize and pack; the words leave as 32-byte row
-//      segments.  No shared plane, no row prefix, no float atomics.
-// Columns of P past the frame's layers are left unwritten: they reach
-// only accumulator columns that the resolve never reads.
-
-constexpr int kLmaskCap = 64;                 // K entries a batch
-constexpr int kLmaskSteps = kLmaskCap / 16;   // wgmma k16 steps a batch
-constexpr int kLmaskLoads = kProductRounds;   // slots' loads in flight
-
-// One part tile: kLmaskCap x 8 kLc bf16 in 8 x 8 core matrices of 128 B
-// (a core matrix: 8 k rows of 8 n, 16 B a row), the n blocks of a k block
-// 128 B apart (the descriptor's stride byte offset), k blocks 128 kLc B
-// apart (its leading byte offset).
-__host__ __device__ constexpr int lmask_tile_bytes(int kLc) {
-  return kLmaskCap * 16 * kLc;
-}
-
-// Shared memory of the layer-masked form: two buffers of three part
-// tiles, two buffers of the entries' columns, two of the (round, warp)
-// counts, then the rows' carries, the frame's colours and the rules.
-constexpr int kLmaskCounts = kProductRounds * (kThreads / 32);
-__host__ __device__ inline size_t lmask_smem_bytes(int layers, int kLc) {
-  return static_cast<size_t>(6) * lmask_tile_bytes(kLc) + 2 * kLmaskCap +
-         2 * kLmaskCounts * 4 +
-         align16(static_cast<size_t>(layers) * kStripH * 8) +
-         align16(static_cast<size_t>(layers) * 4 * 4) +
-         align16(static_cast<size_t>(layers) * 4);
-}
-
-struct LmaskSmem {
-  unsigned char* tiles;   // [2][3] part tiles
-  unsigned char* cols;    // [2][kLmaskCap] column of each entry
-  int* counts;            // [2][kProductRounds][8 warps] in-chunk slots
-  long long* carry;       // [L][8] 32.32 carries
-  float* col_s;           // [L][4] straight colours
-  int* rule_s;            // [L] fill rules
+                    kVar == kVarLmask || kVar == kVarInt8,
+                "a product form");
+  static constexpr bool kInt8 = kVar == kVarInt8;
+  static constexpr int kAccs =
+      kVar == kVarK3Three || kVar == kVarInt8 ? 3 : 1;
+  static constexpr bool kUsed = kVar != kVarLmask;   // the flags' blocks
+  static constexpr int kLp = kAccs == 3 && kLc > 8 ? 8 : kLc;
+  static constexpr int kPasses = kLc / kLp;
+  static constexpr int kN = 8 * kLp;
+  static constexpr int kStepK = kInt8 ? 32 : 16;
+  static constexpr int kSteps = kProductCap / kStepK;
+  // One part tile: kProductCap x kN bf16 (16 B a core-matrix row of 8 n)
+  // or s8 (16 B a row of 16 k).
+  static constexpr int kTileBytes = kProductCap * kN * (kInt8 ? 1 : 2);
+  static_assert(kProductCounts == 32, "a warp scans the counts");
+  // Blocks an SM the register bound asks for (flatblock.cu): three at
+  // four layers with one accumulator, two with three.
+  static constexpr int kMinBlocks =
+      kLc != kSolidSmallLayers ? 1 : kAccs == 1 ? 3 : 2;
+  using Acc = std::conditional_t<kInt8, int, float>;
 };
 
-template <int kLc>
-__device__ __forceinline__ LmaskSmem lmask_smem(unsigned char* smem, int L) {
-  LmaskSmem m;
-  size_t off = static_cast<size_t>(6) * lmask_tile_bytes(kLc);
+// Shared memory of a product block: kProductBufs buffers of three part
+// tiles, kProductBufs of the entries' columns, two of the (round, warp)
+// counts, then the rows' carries, the frame's colours and the rules;
+// with two passes, the windings of every layer.
+template <int kVar, int kLc>
+__host__ __device__ inline size_t product_smem_bytes(int layers) {
+  using P = ProductForm<kVar, kLc>;
+  return static_cast<size_t>(kProductBufs) * 3 * P::kTileBytes +
+         kProductBufs * kProductCap + 2 * kProductCounts * 4 +
+         align16(static_cast<size_t>(layers) * kStripH * 8) +
+         align16(static_cast<size_t>(layers) * 4 * 4) +
+         align16(static_cast<size_t>(layers) * 4) +
+         (P::kPasses > 1
+              ? static_cast<size_t>(layers) * kStripH * kLane * 4
+              : 0);
+}
+
+struct ProductSmem {
+  unsigned char* tiles;   // [kProductBufs][3] part tiles
+  unsigned char* cols;    // [kProductBufs][kProductCap] column of each entry
+  int* counts;            // [2][kProductRounds][8 warps] in-chunk slots
+  long long* carry;       // [L][8] 32.32 carries (int8: int sums of q)
+  float* col_s;           // [L][4] straight colours
+  int* rule_s;            // [L] fill rules
+  float* wsave;           // [L][8][128] windings (two passes)
+};
+
+template <int kVar, int kLc>
+__device__ __forceinline__ ProductSmem product_smem(unsigned char* smem,
+                                                   int L) {
+  using P = ProductForm<kVar, kLc>;
+  ProductSmem m;
+  size_t off = static_cast<size_t>(kProductBufs) * 3 * P::kTileBytes;
   m.tiles = smem;
   m.cols = smem + off;
-  off += 2 * kLmaskCap;
+  off += kProductBufs * kProductCap;
   m.counts = reinterpret_cast<int*>(smem + off);
-  off += 2 * kLmaskCounts * 4;
+  off += 2 * kProductCounts * 4;
   m.carry = reinterpret_cast<long long*>(smem + off);
   off += align16(static_cast<size_t>(L) * kStripH * 8);
   m.col_s = reinterpret_cast<float*>(smem + off);
   off += align16(static_cast<size_t>(L) * 4 * 4);
   m.rule_s = reinterpret_cast<int*>(smem + off);
+  off += align16(static_cast<size_t>(L) * 4);
+  m.wsave = reinterpret_cast<float*>(smem + off);
   return m;
 }
 
-// Zeroes the carries and loads frame f's colours and the rules; the
-// caller's barrier follows.
-__device__ __forceinline__ void lmask_setup(const FusedArgs& a,
-                                            const LmaskSmem& m, int L,
-                                            int f) {
+// Zeroes the carries and the first tile buffer and loads frame f's
+// colours and the rules; the caller's barrier follows.
+template <int kVar, int kLc>
+__device__ __forceinline__ void product_setup(const FusedArgs& a,
+                                              const ProductSmem& m, int L,
+                                              int f) {
+  using P = ProductForm<kVar, kLc>;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   for (int i = tid; i < L * kStripH; i += nthr) m.carry[i] = 0;
@@ -526,13 +213,17 @@ __device__ __forceinline__ void lmask_setup(const FusedArgs& a,
     m.col_s[i] = a.colors[static_cast<long long>(f) * L * 4 + i];
   }
   for (int i = tid; i < L; i += nthr) m.rule_s[i] = a.rules[i];
+  for (int i = tid; i < 3 * P::kTileBytes / 16; i += nthr) {
+    reinterpret_cast<uint4*>(m.tiles)[i] = make_uint4(0, 0, 0, 0);
+  }
 }
 
-// The matrix descriptor of a part tile's k16 step at `tile` (16-B
-// aligned): its shared-memory address, the leading (k blocks) and stride
-// (n blocks) byte offsets, no swizzle.
-template <int kLc>
-__device__ __forceinline__ uint64_t lmask_desc(const unsigned char* tile) {
+// The matrix descriptor of a part tile's step at `tile` (16-B aligned):
+// its shared-memory address, the leading and stride byte offsets, no
+// swizzle.
+__device__ __forceinline__ uint64_t smem_desc(const unsigned char* tile,
+                                              unsigned lead,
+                                              unsigned stride) {
 #if defined(__CUDA_ARCH__)
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(tile));
 #elif !defined(__CUDACC__)
@@ -541,8 +232,37 @@ __device__ __forceinline__ uint64_t lmask_desc(const unsigned char* tile) {
   const unsigned addr = 0u;
 #endif
   return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) |
-         static_cast<uint64_t>((128u * kLc) >> 4) << 16 |
-         static_cast<uint64_t>(128u >> 4) << 32;
+         static_cast<uint64_t>(lead >> 4) << 16 |
+         static_cast<uint64_t>(stride >> 4) << 32;
+}
+
+// bf16 tiles, MN-major: 8 x 8 core matrices of 128 B (8 k rows of 8 n,
+// 16 B a row), the n blocks of a k block 128 B apart (the stride byte
+// offset), k blocks 128 kLp B apart (the leading byte offset).
+template <int kLp>
+__device__ __forceinline__ uint64_t product_desc(const unsigned char* tile) {
+  return smem_desc(tile, 128u * kLp, 128u);
+}
+
+// s8 tiles, K-major: a k32 step is kLp n blocks 256 B apart (the stride
+// byte offset) of two 8 x 16 B core matrices (8 n rows of 16 k), the
+// second 16 k 128 B on (the leading byte offset).
+__device__ __forceinline__ uint64_t int8_desc(const unsigned char* tile) {
+  return smem_desc(tile, 128u, 256u);
+}
+
+// Byte of entry k for tile column n in a bf16 tile of kLp n blocks.
+template <int kLp>
+__device__ __forceinline__ int bf16_tile_off(int k, int n) {
+  return (k >> 3) * (128 * kLp) + (n >> 3) * 128 + (k & 7) * 16 +
+         (n & 7) * 2;
+}
+
+// Byte of entry k for tile column n in an s8 tile of kN columns.
+template <int kN>
+__device__ __forceinline__ int int8_tile_off(int k, int n) {
+  return (k >> 5) * (32 * kN) + (n >> 3) * 256 + ((k >> 4) & 1) * 128 +
+         (n & 7) * 16 + (k & 15);
 }
 
 // wgmma.fence, commit_group and wait_group: warpgroup-wide, every thread
@@ -581,12 +301,20 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[kN]) {
 #endif
 }
 
+template <int kN>
+__device__ __forceinline__ void wgmma_fence_operand(int (&d)[kN]) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+#endif
+}
+
 // D (64 x kN, f32, this thread's kN / 2 of it in d) += A (64 x 16 bf16,
 // this thread's fragment in a) . B (16 x kN bf16 at desc, MN-major).
 template <int kN>
 __device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a,
                                            uint64_t desc) {
-  static_assert(kN == 32 || kN == 128, "N = 8 kLc");
+  static_assert(kN == 32 || kN == 64 || kN == 128, "N = 8 layers");
 #if defined(__CUDA_ARCH__)
   if constexpr (kN == 32) {
     asm volatile(
@@ -599,6 +327,22 @@ __device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a,
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else if constexpr (kN == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   } else {
     asm volatile(
@@ -631,41 +375,63 @@ __device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a,
 #endif
 }
 
-// Row k of the three part tiles of a batch for an entry of plane row
-// `row` (layer row >> 3, strip row row & 7) with bf16 parts hi, mid, lo:
-// kLc n blocks of 16 B a tile, zero but for the entry's layer.  Blocks of
-// layers >= L are not written.
-template <int kLc>
-__device__ __forceinline__ void lmask_tile_row(unsigned char* tiles, int k,
-                                               int row, uint32_t hi,
-                                               uint32_t mid, uint32_t lo,
-                                               int L) {
-  const int layer = row >> 3;
-  const int word = (row & 7) >> 1;
-  const int shift = 16 * (row & 1);
-  const uint32_t parts[3] = {hi, mid, lo};
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    unsigned char* at = tiles + q * lmask_tile_bytes(kLc) +
-                        (k >> 3) * (128 * kLc) + (k & 7) * 16;
-    const uint32_t v = parts[q] << shift;
-#pragma unroll
-    for (int j = 0; j < kLc; ++j) {
-      if (j < L) {
-        const bool mine = j == layer;
-        *reinterpret_cast<uint4*>(at + 128 * j) =
-            make_uint4(mine && word == 0 ? v : 0u, mine && word == 1 ? v : 0u,
-                       mine && word == 2 ? v : 0u, mine && word == 3 ? v : 0u);
-      }
-    }
+// D (64 x kN, s32, wrapping) += A (64 x 32 s8, this thread's fragment in
+// a) . B (32 x kN s8 at desc, K-major: 8-bit types take no transpose).
+template <int kN>
+__device__ __forceinline__ void wgmma_s8(int* d, const uint32_t* a,
+                                         uint64_t desc) {
+  static_assert(kN == 32 || kN == 64, "N = 8 layers");
+#if defined(__CUDA_ARCH__)
+  if constexpr (kN == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
+#elif !defined(__CUDACC__)
+  emu_wgmma_s8(d, kN, a, desc);
+#endif
+}
+
+// s8 ones of Step for the four columns of the byte lanes of cw (bytes of
+// entries' columns) at or left of pixel column m.
+__device__ __forceinline__ uint32_t step_s8(uint32_t cw, uint32_t m) {
+  uint32_t r = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    r |= ((cw >> (8 * j)) & 0xffu) <= m ? 1u << (8 * j) : 0u;
+  }
+  return r;
 }
 
 // The packed words of this thread's four pixels into the frame: pixel i
 // at row 2 tig + (i & 1), column 16 warp + gid + 8 (i >> 1) of the chunk.
-__device__ __forceinline__ void lmask_store_words(const FusedArgs& a,
-                                                  const uint32_t* words,
-                                                  int chunk, int s, int f) {
+__device__ __forceinline__ void product_store_words(const FusedArgs& a,
+                                                    const uint32_t* words,
+                                                    int chunk, int s, int f) {
   const int lane = threadIdx.x & 31;
   const int stride = a.n_chunks * kLane;
   int* out = a.out +
@@ -678,11 +444,39 @@ __device__ __forceinline__ void lmask_store_words(const FusedArgs& a,
   }
 }
 
+// Winding of accumulator element j plus the row's carry cy: the one f32
+// accumulator, (hi + mid) + lo of three, or int8's limbs combined in
+// wrapping uint32_t with the integer carry, times 2^-20.
+template <int kVar, int kLc, class Acc, class Carry>
+__device__ __forceinline__ float product_winding(
+    const Acc (&acc)[ProductForm<kVar, kLc>::kAccs]
+                    [ProductForm<kVar, kLc>::kN / 2],
+    int j, Carry cy) {
+  using P = ProductForm<kVar, kLc>;
+  if constexpr (P::kInt8) {
+    return static_cast<float>(static_cast<int>(
+               static_cast<uint32_t>(acc[0][j]) +
+               (static_cast<uint32_t>(acc[1][j]) << 8) +
+               (static_cast<uint32_t>(acc[2][j]) << 16) +
+               static_cast<uint32_t>(cy))) * kInvQ;
+  } else if constexpr (P::kAccs == 3) {
+    return (acc[0][j] + acc[1][j]) + acc[2][j] + cy;
+  } else {
+    return acc[0][j] + cy;
+  }
+}
+
 // One block: chunk x strip block x frame, two warpgroups; kLc the layer
-// class (4 up to four layers, else 16): N = 8 kLc.
-template <int kLc>
-__device__ void lmask_block(const FusedArgs& a, unsigned char* smem) {
-  constexpr int kN = 8 * kLc;
+// class (4 up to four layers, else 16).  l0, l1, l2: int8's limbs (null
+// for the bf16 forms, which read a.uval).
+template <int kVar, int kLc>
+__device__ void product_block(const FusedArgs& a, const int8_t* l0,
+                              const int8_t* l1, const int8_t* l2,
+                              unsigned char* smem) {
+  using P = ProductForm<kVar, kLc>;
+  using Acc = typename P::Acc;
+  using Carry = Acc;   // f32 of the 32.32 carry, or int8's int sum of q
+  constexpr int kN = P::kN;
   constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -694,177 +488,303 @@ __device__ void lmask_block(const FusedArgs& a, unsigned char* smem) {
   const int L = a.layers;
   const int nc8 = a.n_chunks * kStripH;
   const int gb = a.group * kBlk;
-  const LmaskSmem ls = lmask_smem<kLc>(smem, L);
-  lmask_setup(a, ls, L, f);
+  const ProductSmem ps = product_smem<kVar, kLc>(smem, L);
+  int* carry_i = reinterpret_cast<int*>(ps.carry);   // int8's
+  product_setup<kVar, kLc>(a, ps, L, f);
   __syncthreads();
 
-  float acc[kN / 2];   // D of this thread's 4 pixels, kLc layers
-#pragma unroll
-  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.0f;
   const uint32_t m0 = warp * 16 + (lane >> 2);   // the thread's D rows
   const uint32_t m1 = m0 + 8;                    // (columns of the chunk)
   const int sg = f * a.ns1 + s;
   const int g0 = a.sg_first[sg];
   const int g1 = a.sg_last[sg];
+  uint32_t words[4];
   int buf = 0;   // the tile buffer of the next batch
-  for (int g = g0; g0 >= 0 && g <= g1; ++g) {
-    // A group's counts are read after its barrier, the next group's
-    // written before the next: two buffers.
-    int* counts = ls.counts + (g & 1) * kLmaskCounts;
-    // 1. Gather: every slot's loads first, then this chunk's slots into
-    //    the K run (positions from the (round, warp) counts), earlier
-    //    chunks' into the carry.  A held entry: its column | plane row <<
-    //    8, its hi | mid << 16 and lo parts (bf16 bits), its place.
-    uint32_t hkey[kProductRounds], hab[kProductRounds], hc[kProductRounds];
-    int hpos[kProductRounds];
 #pragma unroll
-    for (int r0 = 0; r0 < kProductRounds; r0 += kLmaskLoads) {
-      float vs[kLmaskLoads], rcs[kLmaskLoads], cms[kLmaskLoads];
-      int lys[kLmaskLoads];
+  for (int pass = 0; pass < P::kPasses; ++pass) {
+    // This pass's layers: lp0 .. lp0 + kLp - 1.
+    const int lp0 = pass * P::kLp;
+    if (pass > 0) {
+      if (lp0 >= L) break;
+      __syncthreads();   // every warp has read the last group's counts
+    }
+    Acc acc[P::kAccs][kN / 2];   // D of this thread's 4 pixels, kLp layers
 #pragma unroll
-      for (int u = 0; u < kLmaskLoads; ++u) {
-        const int slot = (r0 + u) * kThreads + tid;
-        vs[u] = 0.0f;
-        if (slot < gb) {
-          const long long idx = static_cast<long long>(g) * gb + slot;
-          vs[u] = a.uval[idx];
-          rcs[u] = a.urc[idx];
-          cms[u] = a.ucm[idx];
-          lys[u] = a.lays[static_cast<long long>(slot / kBlk) * a.ng + g];
+    for (int q = 0; q < P::kAccs; ++q) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[q][i] = 0;
+    }
+    for (int g = g0; g0 >= 0 && g <= g1; ++g) {
+      // A group's counts are read after its barrier, the next group's
+      // written before the next: two buffers.
+      int* counts = ps.counts + (g & 1) * kProductCounts;
+      int lim = gb;   // slots placed: the flags' used blocks, or all
+      if constexpr (P::kUsed) {
+        const int nblk =
+            static_cast<int>(static_cast<unsigned>(a.flags[g]) >> 2);
+        if (nblk != 0 && nblk < a.group) lim = nblk * kBlk;
+      }
+      // 1. Gather: every slot's loads first, then this chunk's slots into
+      //    the K run (positions from the (round, warp) counts), earlier
+      //    chunks' into the carry.  A held entry: its column | tile column
+      //    << 8, its hi | mid << 16 and lo parts (bf16 bits) or its three
+      //    limbs, its place.
+      uint32_t hkey[kProductRounds], hab[kProductRounds], hc[kProductRounds];
+      int hpos[kProductRounds];
+#pragma unroll
+      for (int r0 = 0; r0 < kProductRounds; r0 += kProductLoads) {
+        float vs[kProductLoads], rcs[kProductLoads], cms[kProductLoads];
+        int lys[kProductLoads], x0[kProductLoads], x1[kProductLoads],
+            x2[kProductLoads];
+#pragma unroll
+        for (int u = 0; u < kProductLoads; ++u) {
+          const int slot = (r0 + u) * kThreads + tid;
+          vs[u] = 0.0f;
+          x0[u] = x1[u] = x2[u] = 0;
+          if (slot < lim) {
+            const long long idx = static_cast<long long>(g) * gb + slot;
+            if constexpr (P::kInt8) {
+              x0[u] = l0[idx];
+              x1[u] = l1[idx];
+              x2[u] = l2[idx];
+            } else {
+              vs[u] = a.uval[idx];
+            }
+            rcs[u] = a.urc[idx];
+            cms[u] = a.ucm[idx];
+            lys[u] = a.lays[static_cast<long long>(slot / kBlk) * a.ng + g];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kProductLoads; ++u) {
+          const int r = r0 + u;
+          bool in = false;
+          const int q = x0[u] + 256 * x1[u] + 65536 * x2[u];
+          if (P::kInt8 ? q != 0 : vs[u] != 0.0f) {
+            const int rc = static_cast<int>(rcs[u]);
+            const int sp = rc / nc8;
+            const int local = rc - sp * nc8;
+            const int ch = local >> 3;
+            const int layer = lys[u];
+            if (sp == 0 && ch <= chunk && layer >= 0 && layer < L &&
+                (P::kPasses == 1 ||
+                 (layer >= lp0 && layer < lp0 + P::kLp))) {
+              const int row = layer * kStripH + (local & 7);
+              if (ch == chunk) {
+                in = true;
+                hkey[r] = static_cast<uint32_t>(cms[u]) |
+                          static_cast<uint32_t>(row - kStripH * lp0) << 8;
+                if constexpr (P::kInt8) {
+                  hab[r] = (static_cast<uint32_t>(x0[u]) & 0xffu) |
+                           (static_cast<uint32_t>(x1[u]) & 0xffu) << 8 |
+                           (static_cast<uint32_t>(x2[u]) & 0xffu) << 16;
+                } else {
+                  const float v = vs[u];
+                  const float hi = bf16_rn(v);
+                  const float mid = bf16_rn(v - hi);
+                  const float lo = bf16_rn(v - hi - mid);
+                  hab[r] = __float_as_uint(hi) >> 16 |
+                           (__float_as_uint(mid) & 0xffff0000u);
+                  hc[r] = __float_as_uint(lo) >> 16;
+                }
+              } else if constexpr (P::kInt8) {
+                atomicAdd(&carry_i[row], q);
+              } else {
+                carry_add(&ps.carry[row], vs[u]);
+              }
+            }
+          }
+          const unsigned m = __ballot_sync(0xffffffffu, in);
+          if (lane == 0) counts[r * kWarps + warp] = __popc(m);
+          hpos[r] = in ? __popc(m & ((1u << lane) - 1u)) : -1;
         }
       }
+      __syncthreads();
+      // Lane i holds count i of the 32 (round, warp) counts: an inclusive
+      // scan, then each round's offset from its lane.
+      const int c = counts[lane];
+      int incl = c;
 #pragma unroll
-      for (int u = 0; u < kLmaskLoads; ++u) {
-        const int r = r0 + u;
-        bool in = false;
-        if (vs[u] != 0.0f) {
-          const int rc = static_cast<int>(rcs[u]);
-          const int sp = rc / nc8;
-          const int local = rc - sp * nc8;
-          const int ch = local >> 3;
-          const int layer = lys[u];
-          if (sp == 0 && ch <= chunk && layer >= 0 && layer < L) {
-            const int row = layer * kStripH + (local & 7);
-            if (ch == chunk) {
-              in = true;
-              const float v = vs[u];
-              const float hi = bf16_rn(v);
-              const float mid = bf16_rn(v - hi);
-              const float lo = bf16_rn(v - hi - mid);
-              hkey[r] = static_cast<uint32_t>(cms[u]) |
-                        static_cast<uint32_t>(row) << 8;
-              hab[r] = __float_as_uint(hi) >> 16 |
-                       (__float_as_uint(mid) & 0xffff0000u);
-              hc[r] = __float_as_uint(lo) >> 16;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += up;
+      }
+      const int total = __shfl_sync(0xffffffffu, incl, 31);
+      const int excl = incl - c;
+#pragma unroll
+      for (int r = 0; r < kProductRounds; ++r) {
+        const int off = __shfl_sync(0xffffffffu, excl, r * kWarps + warp);
+        if (hpos[r] >= 0) hpos[r] += off;
+      }
+
+      // 2. The batches of the K run (block-uniform).
+      for (int b0 = 0; b0 < total; b0 += kProductCap) {
+        if (b0 > 0) __syncthreads();   // the buffer's products are done
+        const int nb = total - b0 < kProductCap ? total - b0 : kProductCap;
+        const int kpad = (nb + P::kStepK - 1) & ~(P::kStepK - 1);
+        unsigned char* tiles = ps.tiles + buf * 3 * P::kTileBytes;
+        unsigned char* cols = ps.cols + buf * kProductCap;
+#pragma unroll
+        for (int r = 0; r < kProductRounds; ++r) {
+          const int k = hpos[r] - b0;
+          if (hpos[r] >= 0 && k >= 0 && k < nb) {
+            cols[k] = static_cast<unsigned char>(hkey[r] & 0xffu);
+            const int n = static_cast<int>(hkey[r] >> 8);
+            if constexpr (P::kInt8) {
+              const int off = int8_tile_off<kN>(k, n);
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                tiles[q * P::kTileBytes + off] =
+                    static_cast<unsigned char>(hab[r] >> (8 * q));
+              }
             } else {
-              carry_add(&ls.carry[row], vs[u]);
+              const int off = bf16_tile_off<P::kLp>(k, n);
+              const uint32_t parts[3] = {hab[r], hab[r] >> 16, hc[r]};
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                *reinterpret_cast<uint16_t*>(tiles + q * P::kTileBytes +
+                                             off) =
+                    static_cast<uint16_t>(parts[q]);
+              }
             }
           }
         }
-        const unsigned m = __ballot_sync(0xffffffffu, in);
-        if (lane == 0) counts[r * kWarps + warp] = __popc(m);
-        hpos[r] = in ? __popc(m & ((1u << lane) - 1u)) : -1;
+        // The next buffer, whose products two batches back are done.
+        const int next = buf + 1 == kProductBufs ? 0 : buf + 1;
+        uint4* zero =
+            reinterpret_cast<uint4*>(ps.tiles + next * 3 * P::kTileBytes);
+        for (int i = tid; i < 3 * P::kTileBytes / 16; i += kThreads) {
+          zero[i] = make_uint4(0, 0, 0, 0);
+        }
+        for (int k = nb + tid; k < kpad; k += kThreads) cols[k] = 0xffu;
+        fence_proxy_async();
+        __syncthreads();
+        // Issue: Step in registers (one where the entry's column is at or
+        // left of the pixel's), then the three parts' products.
+        const int steps = kpad / P::kStepK;
+        uint32_t af[P::kSteps][4];
+#pragma unroll
+        for (int t = 0; t < P::kSteps; ++t) {
+          if (t < steps) {
+            if constexpr (P::kInt8) {
+              const unsigned char* c = cols + 32 * t + 4 * tig;
+              const uint32_t w0 = *reinterpret_cast<const uint32_t*>(c);
+              const uint32_t w1 = *reinterpret_cast<const uint32_t*>(c + 16);
+              af[t][0] = step_s8(w0, m0);
+              af[t][1] = step_s8(w0, m1);
+              af[t][2] = step_s8(w1, m0);
+              af[t][3] = step_s8(w1, m1);
+            } else {
+              const unsigned char* c = cols + 16 * t + 2 * tig;
+              const uint32_t c0 = c[0], c1 = c[1], c2 = c[8], c3 = c[9];
+              auto one = [](uint32_t cm, uint32_t m) -> uint32_t {
+                return cm <= m ? 0x3f80u : 0u;   // bf16 1
+              };
+              af[t][0] = one(c0, m0) | one(c1, m0) << 16;
+              af[t][1] = one(c0, m1) | one(c1, m1) << 16;
+              af[t][2] = one(c2, m0) | one(c3, m0) << 16;
+              af[t][3] = one(c2, m1) | one(c3, m1) << 16;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < P::kAccs; ++q) wgmma_fence_operand(acc[q]);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < P::kSteps; ++t) {
+          if (t < steps) {
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              if constexpr (P::kInt8) {
+                wgmma_s8<kN>(acc[q], af[t],
+                             int8_desc(tiles + q * P::kTileBytes +
+                                       t * 32 * kN));
+              } else {
+                wgmma_bf16<kN>(acc[P::kAccs == 1 ? 0 : q], af[t],
+                               product_desc<P::kLp>(
+                                   tiles + q * P::kTileBytes +
+                                   t * 2 * (128 * P::kLp)));
+              }
+            }
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+#pragma unroll
+        for (int q = 0; q < P::kAccs; ++q) wgmma_fence_operand(acc[q]);
+        buf = next;
       }
     }
-    __syncthreads();
-    int total = 0;
+    wgmma_wait<0>();
 #pragma unroll
-    for (int r = 0; r < kProductRounds; ++r) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        if (w == warp && hpos[r] >= 0) hpos[r] += total;
-        total += counts[r * kWarps + w];
-      }
-    }
+    for (int q = 0; q < P::kAccs; ++q) wgmma_fence_operand(acc[q]);
 
-    // 2. The batches of the K run (block-uniform).
-    for (int b0 = 0; b0 < total; b0 += kLmaskCap) {
-      if (b0 > 0) __syncthreads();   // the buffer's products are done
-      const int nb = total - b0 < kLmaskCap ? total - b0 : kLmaskCap;
-      const int kpad = (nb + 15) & ~15;
-      unsigned char* tiles = ls.tiles + buf * 3 * lmask_tile_bytes(kLc);
-      unsigned char* cols = ls.cols + buf * kLmaskCap;
+    // 3. Resolve: winding = D + the row's carry (B1's from_fixed, or
+    //    int8's integer sum), B1's composite at kLc; pixel i is column m0
+    //    + 8 (i >> 1), row 2 tig + (i & 1): its layer l in element 4 l +
+    //    i.  With two passes each pass's windings go to shared memory
+    //    (each thread reads back only its own) and the resolve follows
+    //    the last.
+    auto carries = [&](int r, Carry* cy) {
 #pragma unroll
-      for (int r = 0; r < kProductRounds; ++r) {
-        const int k = hpos[r] - b0;
-        if (hpos[r] >= 0 && k >= 0 && k < nb) {
-          cols[k] = static_cast<unsigned char>(hkey[r] & 0xffu);
-          lmask_tile_row<kLc>(tiles, k, static_cast<int>(hkey[r] >> 8),
-                              hab[r] & 0xffffu, hab[r] >> 16, hc[r], L);
+      for (int l = 0; l < P::kLp; ++l) {
+        const int row = (lp0 + l) * kStripH + 2 * tig + r;
+        if constexpr (P::kInt8) {
+          cy[l] = lp0 + l < L ? carry_i[row] : 0;
+        } else {
+          cy[l] = lp0 + l < L ? from_fixed(ps.carry[row]) : 0.0f;
         }
       }
-      // Rows nb .. kpad - 1: zero parts, a column above every pixel.
-      for (int i = tid; i < (kpad - nb) * 3 * L; i += kThreads) {
-        const int k = nb + i / (3 * L);
-        const int q = i / L % 3;
-        *reinterpret_cast<uint4*>(tiles + q * lmask_tile_bytes(kLc) +
-                                  (k >> 3) * (128 * kLc) + (k & 7) * 16 +
-                                  128 * (i % L)) = make_uint4(0, 0, 0, 0);
-      }
-      for (int k = nb + tid; k < kpad; k += kThreads) cols[k] = 0xffu;
-      fence_proxy_async();
-      __syncthreads();
-      // Issue: Step in registers (bf16 1 where the entry's column is at
-      // or left of the pixel's), then the three parts' products.
-      const int steps = kpad / 16;
-      uint32_t af[kLmaskSteps][4];
+    };
+    if constexpr (P::kPasses == 1) {
+      const SolidColours<kLc> colour(ps.col_s, ps.rule_s, L);
 #pragma unroll
-      for (int t = 0; t < kLmaskSteps; ++t) {
-        if (t < steps) {
-          const unsigned char* c = cols + 16 * t + 2 * tig;
-          const uint32_t c0 = c[0], c1 = c[1], c2 = c[8], c3 = c[9];
-          auto one = [](uint32_t cm, uint32_t m) -> uint32_t {
-            return cm <= m ? 0x3f80u : 0u;   // bf16 1
-          };
-          af[t][0] = one(c0, m0) | one(c1, m0) << 16;
-          af[t][1] = one(c0, m1) | one(c1, m1) << 16;
-          af[t][2] = one(c2, m0) | one(c3, m0) << 16;
-          af[t][3] = one(c2, m1) | one(c3, m1) << 16;
+      for (int r = 0; r < 2; ++r) {
+        Carry cy[kLc];
+        carries(r, cy);
+#pragma unroll
+        for (int i = r; i < 4; i += 2) {
+          float w[kLc];
+#pragma unroll
+          for (int l = 0; l < kLc; ++l) {
+            w[l] = product_winding<kVar, kLc>(acc, 4 * l + i, cy[l]);
+          }
+          words[i] = solid_pixel<kLc>(w, 1, colour, colour.eo, L);
         }
       }
-      wgmma_fence_operand(acc);
-      wgmma_fence();
+    } else {
 #pragma unroll
-      for (int t = 0; t < kLmaskSteps; ++t) {
-        if (t < steps) {
+      for (int r = 0; r < 2; ++r) {
+        Carry cy[P::kLp];
+        carries(r, cy);
 #pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            wgmma_bf16<kN>(acc, af[t],
-                           lmask_desc<kLc>(tiles + q * lmask_tile_bytes(kLc) +
-                                           t * 2 * (128 * kLc)));
+        for (int i = r; i < 4; i += 2) {
+          const int px = (2 * tig + r) * kLane + m0 + 8 * (i >> 1);
+#pragma unroll
+          for (int l = 0; l < P::kLp; ++l) {
+            if (lp0 + l < L) {
+              ps.wsave[(lp0 + l) * kStripH * kLane + px] =
+                  product_winding<kVar, kLc>(acc, 4 * l + i, cy[l]);
+            }
           }
         }
       }
-      wgmma_commit();
-      wgmma_wait<1>();
-      wgmma_fence_operand(acc);
-      buf ^= 1;
     }
   }
-  wgmma_wait<0>();
-  wgmma_fence_operand(acc);
-
-  // 3. Resolve: winding = D + the row's carry (B1's from_fixed), B1's
-  //    composite at kLc; pixel i is column m0 + 8 (i >> 1), row 2 tig +
-  //    (i & 1): its layer l in acc[4 l + i].
-  const SolidColours<kLc> colour(ls.col_s, ls.rule_s, L);
-  uint32_t words[4];
+  if constexpr (P::kPasses > 1) {
+    const SolidColours<kLc> colour(ps.col_s, ps.rule_s, L);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float cy[kLc];
-#pragma unroll
-    for (int l = 0; l < kLc; ++l) {
-      cy[l] = l < L ? from_fixed(ls.carry[l * kStripH + 2 * tig + r]) : 0.0f;
-    }
-#pragma unroll
-    for (int i = r; i < 4; i += 2) {
+    for (int i = 0; i < 4; ++i) {
+      const int px = (2 * tig + (i & 1)) * kLane + m0 + 8 * (i >> 1);
       float w[kLc];
 #pragma unroll
-      for (int l = 0; l < kLc; ++l) w[l] = acc[4 * l + i] + cy[l];
+      for (int l = 0; l < kLc; ++l) {
+        w[l] = l < L ? ps.wsave[l * kStripH * kLane + px] : 0.0f;
+      }
       words[i] = solid_pixel<kLc>(w, 1, colour, colour.eo, L);
     }
   }
-  lmask_store_words(a, words, chunk, s, f);
+  product_store_words(a, words, chunk, s, f);
 }
 
 }  // namespace swf

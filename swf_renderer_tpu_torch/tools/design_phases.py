@@ -1,34 +1,37 @@
-"""Where the design tools' time goes: the layer-masked product (19b) and
-the coarse steps (19d), timed beside B1 and the other product forms.
+"""Where the design tools' time goes: the product forms (19b, 19f, 19g:
+one warpgroup body) and the coarse steps (19d), timed beside B1.
 
     python3 -m swf_renderer_tpu_torch.tools.design_phases [--csrc DIR]
-        [--parent DIR] [--build NAME=DIR] [--rounds N]
+        [--parent DIR] [--build NAME=DIR] [--variants [NAME,...]]
+        [--rounds N]
 
 Needs one NVIDIA card and ``nvcc``.  Builds ``flatblock.cu`` from
 ``DIR`` (default: this package's ``csrc``) as it is and a copy with
-``clock64()`` stamps around the stages of the layer-masked product
-(``place_mma_device.cuh``: set-up, gather, product — in the warpgroup
-form the parts' tile written and the products issued and waited for —,
-resolve) and of the coarse steps (``coarse_device.cuh``: set-up with the
+``clock64()`` stamps around the stages of the product body
+(``place_mma_device.cuh``: set-up, gather, tile rows, products issued
+and waited for, resolve; the stamps of a parent's earlier forms are
+kept) and of the coarse steps (``coarse_device.cuh``: set-up with the
 ring wait, placement, prefix, resolve, the copies' issue, the drain),
-thread 0's cycles summed over blocks into a device array.  On the
-headline scene at one strip a plane (60 frames x 4 layers x 1088x1920,
-``build_scene_edges`` seed 7, group 6: ``exp_split.pack``) it prints
-the ms of every build (in the order parent, change, the rest, then
-back, ``--rounds`` times) of B1 (``render_fused_blocksn``), exp_lmask's
-``render_lmask``, exp_dma's ``run_variant`` at coarse 1, 2 and 4,
-exp_k3's ``run_variant`` (three, concat) and exp_int8's ``run_int8``;
-each output against B1's words (equal for the coarse steps, levels and
-share of differing bytes for the products); the stamped stages' cycles
-and shares; ptxas registers / stack / spills and a SASS census of the
-product, coarse and B1 kernels (HMMA, HGMMA, IMMA, UBLKCP, CAS, local
-loads and stores, block barriers), and which kernels' SASS is
-identical to the parent's (without ``--parent``, to this build's).
-``--parent`` builds another checkout's ``csrc`` beside, ``--build
-NAME=DIR`` any other ``csrc`` directory, ``--variants`` the design
-elements of ``VARIANTS`` (edits of the committed form; all, or the
-named ones).  One JSON object of the builds, one of the times, one of
-the stages, then the card's name and power limit.
+thread 0's cycles summed over blocks into a device array, read after
+one call of each form alone.  On the headline scene at one strip a plane
+(60 frames x 4 layers x 1088x1920, ``build_scene_edges`` seed 7, group
+6: ``exp_split.pack``) it prints the ms of every build (in the order
+parent, change, the rest, then back, ``--rounds`` times) of B1
+(``render_fused_blocksn``), exp_lmask's ``render_lmask``, exp_dma's
+``run_variant`` at coarse 1, 2 and 4, exp_k3's ``run_variant`` (three,
+concat) and exp_int8's ``run_int8``; each output against B1's words
+(equal for the coarse steps, levels and share of differing bytes for
+the products); the stamped stages' cycles and shares of the four
+product forms and the coarse steps; ptxas registers / stack / spills and
+a SASS census of the product, coarse and B1 kernels (HMMA, HGMMA, IMMA,
+IGMMA, UBLKCP, CAS, local loads and stores, block barriers), and which
+kernels' SASS is identical to the parent's (without ``--parent``, to
+this build's).  ``--parent`` builds another checkout's ``csrc`` beside,
+``--build NAME=DIR`` any other ``csrc`` directory, ``--variants`` the
+design elements of ``VARIANTS`` (edits of the committed form; all, or
+the named ones; names hold no commas).  One JSON object of the builds,
+one of the times, one of the stages, then the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from .coverage_phases import ptxas_of, sass_census, variant_sources
 from .timing import card_line, time_ms
 
 COARSES = (1, 2, 4)
-# Stamp slots: the layer-masked product 0-7, the coarse steps 8-15.
+PRODUCTS = ("lmask", "k3_three", "k3_concat", "int8")   # one stamped body
+# Stamp slots: the product forms 0-7, the coarse steps 8-15.
 LMASK_STAGES = ("setup", "gather", "product", "issue_wait", "resolve")
 LMASK_COUNTS = {"groups": 5, "batches": 6, "blocks": 7}
 COARSE_STAGES = ("setup", "place", "prefix", "resolve", "ring", "drain")
@@ -129,6 +133,38 @@ LMASK_FORMS = {
          "  // 3. Resolve: winding = D"),
         ("  lmask_store_words(a, words, chunk, s, f);\n}\n",
          "  lmask_store_words(a, words, chunk, s, f);\n"
+         "  swf_stamp(4, clock64() - c_);\n  swf_stamp(7, 1);\n}\n"),
+    ],
+    "one warpgroup body for every form": [
+        ("  product_setup<kVar, kLc>(a, ps, L, f);\n  __syncthreads();\n",
+         "  const long long s0_ = clock64();\n"
+         "  product_setup<kVar, kLc>(a, ps, L, f);\n  __syncthreads();\n"
+         "  long long c_ = clock64();\n  swf_stamp(0, c_ - s0_);\n"),
+        ("    const int lp0 = pass * P::kLp;\n",
+         "    {\n      const long long n_ = clock64();\n"
+         "      if (pass > 0) swf_stamp(4, n_ - c_);\n      c_ = n_;\n    }\n"
+         "    const int lp0 = pass * P::kLp;\n"),
+        ("      // 1. Gather: every slot's loads first",
+         "      swf_stamp(5, 1);\n"
+         "      // 1. Gather: every slot's loads first"),
+        ("      // 2. The batches of the K run",
+         "      {\n        const long long n_ = clock64();\n"
+         "        swf_stamp(1, n_ - c_);\n        c_ = n_;\n      }\n"
+         "      // 2. The batches of the K run"),
+        ("        // Issue: ",
+         "        {\n          const long long n_ = clock64();\n"
+         "          swf_stamp(2, n_ - c_);\n          c_ = n_;\n"
+         "          swf_stamp(6, 1);\n        }\n        // Issue: "),
+        ("        wgmma_wait<1>();\n",
+         "        wgmma_wait<1>();\n        {\n"
+         "          const long long n_ = clock64();\n"
+         "          swf_stamp(3, n_ - c_);\n          c_ = n_;\n        }\n"),
+        ("    // 3. Resolve: winding = D",
+         "    {\n      const long long n_ = clock64();\n"
+         "      swf_stamp(3, n_ - c_);\n      c_ = n_;\n    }\n"
+         "    // 3. Resolve: winding = D"),
+        ("  product_store_words(a, words, chunk, s, f);\n}\n",
+         "  product_store_words(a, words, chunk, s, f);\n"
          "  swf_stamp(4, clock64() - c_);\n  swf_stamp(7, 1);\n}\n"),
     ],
 }
@@ -231,8 +267,8 @@ _B1_COLOURS = (
     "    const SolidColours<kLc> colour(col_s, rule_s, L);\n"
     "    const unsigned eo = colour.eo;\n")
 _COARSE_BOUND = "__global__ void __launch_bounds__(kThreads)\ncoarse_kernel("
-_LMASK_BOUND = ("__global__ void __launch_bounds__(kThreads, kLc == "
-                "kSolidSmallLayers ? 3 : 1)\nproduct_kernel(FusedArgs a) {")
+_PRODUCT_BOUND = ("      kLc != kSolidSmallLayers ? 1 : kAccs == 1 ? 3 : "
+                  "2;\n")
 _RING_WAIT = "    if (tid == 0 && n >= kNBuf) bulk_wait_read_ring();\n"
 _SG_LOOP = "  for (int g0 = g_lo; g0 < g_hi; ++g0) {\n"
 _RESOLVE_LOOP = "    for (int p = tid; p < kRingWords; p += nthr) {\n"
@@ -336,44 +372,40 @@ VARIANTS = {
          "      bulk_commit();\n    }\n"),
         ("coarse_device.cuh", "  if (tid == 0) bulk_wait_all();\n",
          "  if (tid < kStripH) bulk_wait_all();\n")],
-    "lmask: the held entry's lo part packed into its key": [
+    "products: two slots' loads in flight": [
         ("place_mma_device.cuh",
-         "    //    8, its hi | mid << 16 and lo parts (bf16 bits), its "
-         "place.\n"
-         "    uint32_t hkey[kProductRounds], hab[kProductRounds], "
-         "hc[kProductRounds];\n",
-         "    uint32_t hkey[kProductRounds], hab[kProductRounds];\n"),
+         "constexpr int kProductLoads = kProductRounds;",
+         "constexpr int kProductLoads = 2;")],
+    "products: no register bound at four layers": [
+        ("place_mma_device.cuh", _PRODUCT_BOUND,
+         _PRODUCT_BOUND.replace("? 1 : kAccs == 1 ? 3 : 2", "? 1 : 1"))],
+    "products: three blocks an SM for three accumulators": [
+        ("place_mma_device.cuh", _PRODUCT_BOUND,
+         _PRODUCT_BOUND.replace("kAccs == 1 ? 3 : 2", "3"))],
+    # Cuts that locate the time (not designs: the words are wrong).
+    "products cut: no carry": [
         ("place_mma_device.cuh",
-         "                        static_cast<uint32_t>(row) << 8;\n",
-         "                        static_cast<uint32_t>(row) << 8 |\n"
-         "                        (__float_as_uint(lo) & 0xffff0000u);\n"),
+         "                carry_add(&ps.carry[row], vs[u]);\n", ""),
         ("place_mma_device.cuh",
-         "              hc[r] = __float_as_uint(lo) >> 16;\n"
-         "            } else {\n              carry_add(",
-         "            } else {\n              carry_add("),
+         "                atomicAdd(&carry_i[row], q);\n", "")],
+    "products cut: no composite": [
         ("place_mma_device.cuh",
-         "static_cast<int>(hkey[r] >> 8),\n"
-         "                              hab[r] & 0xffffu, hab[r] >> 16, "
-         "hc[r], L);\n",
-         "static_cast<int>(hkey[r] >> 8 & 0xffu),\n"
-         "                              hab[r] & 0xffffu, hab[r] >> 16, "
-         "hkey[r] >> 16, L);\n")],
-    "lmask: two slots' loads in flight": [
+         "          }\n          words[i] = solid_pixel<kLc>(w, 1, colour, "
+         "colour.eo, L);\n",
+         "          }\n          words[i] = __float_as_uint(w[0] + w[kLc - "
+         "1]);\n")],
+    "products: four layers a pass at 16 layers": [
         ("place_mma_device.cuh",
-         "constexpr int kLmaskLoads = kProductRounds;",
-         "constexpr int kLmaskLoads = 2;")],
-    "lmask: two slots' loads in flight and 4 blocks an SM": [
+         "  static constexpr int kLp = kAccs == 3 && kLc > 8 ? 8 : kLc;",
+         "  static constexpr int kLp = kAccs == 3 && kLc > 8 ? 4 : kLc;")],
+    "products: the pass loop kept rolled": [
         ("place_mma_device.cuh",
-         "constexpr int kLmaskLoads = kProductRounds;",
-         "constexpr int kLmaskLoads = 2;"),
-        ("flatblock.cu", _LMASK_BOUND, _LMASK_BOUND.replace(
-            "? 3 : 1", "? 4 : 1"))],
-    "lmask: no register bound (two blocks an SM at four layers)": [
-        ("flatblock.cu", _LMASK_BOUND, _LMASK_BOUND.replace(
-            "(kThreads, kLc == kSolidSmallLayers ? 3 : 1)", "(kThreads)"))],
-    "lmask: 4 blocks an SM at four layers by a register bound": [
-        ("flatblock.cu", _LMASK_BOUND, _LMASK_BOUND.replace(
-            "? 3 : 1", "? 4 : 1"))],
+         "#pragma unroll\n  for (int pass = 0; pass < P::kPasses; ++pass) {",
+         "#pragma unroll 1\n"
+         "  for (int pass = 0; pass < P::kPasses; ++pass) {")],
+    "products: four blocks an SM for one accumulator": [
+        ("place_mma_device.cuh", _PRODUCT_BOUND,
+         _PRODUCT_BOUND.replace("kAccs == 1 ? 3 : 2", "kAccs == 1 ? 4 : 2"))],
 }
 
 
@@ -406,7 +438,7 @@ def stamped_sources(d: pathlib.Path):
 
 
 def census(lib: pathlib.Path):
-    """{kernel: sass_census + HMMA / HGMMA / IMMA / UBLKCP / BAR.SYNC
+    """{kernel: sass_census + HMMA / HGMMA / IMMA / IGMMA / UBLKCP / BAR.SYNC
     counts} of the product, coarse and B1 (kVarFull) kernels."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -422,8 +454,12 @@ def census(lib: pathlib.Path):
                     else len(text)]
         v = sass_census(body)
         v["loops"] = v["loops"][:4]
-        for key, pattern in (("hmma", r"\bHMMA\."), ("hgmma", r"\bHGMMA\."),
-                             ("imma", r"\bIMMA\."), ("ublkcp", r"\bUBLKCP\b"),
+        # (a GMMA into RZ is the null one ptxas adds at a commit)
+        for key, pattern in (("hmma", r"\bHMMA\."),
+                             ("hgmma", r"\bHGMMA\.\S+\s+(?!RZ\b)"),
+                             ("imma", r"\bIMMA\."),
+                             ("igmma", r"\bIGMMA\.\S+\s+(?!RZ\b)"),
+                             ("ublkcp", r"\bUBLKCP\b"),
                              ("bar_sync", r"\bBAR\.SYNC")):
             v[key] = len(re.findall(pattern, body))
         out[name] = v
@@ -615,7 +651,7 @@ def main() -> None:
         cuda_lib._libs["swfkernels"] = stamps
         buf = (ctypes.c_ulonglong * 16)()
         stages = {}
-        for key in ("lmask",) + tuple(f"coarse{c}" for c in COARSES):
+        for key in PRODUCTS + tuple(f"coarse{c}" for c in COARSES):
             calls[key]()   # warm
             torch.cuda.synchronize()
             if stamps.swf_ds_stamps(buf, 1) != 0:
@@ -624,7 +660,7 @@ def main() -> None:
             torch.cuda.synchronize()
             if stamps.swf_ds_stamps(buf, 0) != 0:
                 raise SystemExit("stamp read failed")
-            if key == "lmask":
+            if key in PRODUCTS:
                 names, counts, base = LMASK_STAGES, LMASK_COUNTS, 0
             else:
                 names, counts, base = COARSE_STAGES, COARSE_COUNTS, 8
@@ -633,7 +669,7 @@ def main() -> None:
                    "share": {s: buf[base + i] / max(total, 1)
                              for i, s in enumerate(names)}}
             row.update({k: buf[i] for k, i in counts.items()})
-            unit = "groups" if key == "lmask" else "supergroups"
+            unit = "groups" if key in PRODUCTS else "supergroups"
             row[f"cycles_a_{unit[:-1]}"] = total / max(row[unit], 1)
             stages[key] = row
         print(json.dumps({"stages": stages}), flush=True)

@@ -163,13 +163,17 @@ def run_int8(sidx, flags, lays, urc, ucm, l0, l1, l2, colors, frames: int,
     NS is left unwritten on the card).
 
     Kernel: replaces ``_kernel`` (tools/exp_int8.py:53, pallas_call
-    :146).  B1's grid, walk and carry (an exact integer sum of q), the
-    in-chunk placement as three ``mma.sync`` m16n8k32 s8 products a
-    placement block against the step matrix (csrc/place_mma_device.cuh,
-    ``kVarInt8``).  Bound: bytes (B1's, with 3 B of limbs a slot in place
-    of a 4 B value).  Inputs as ``render_fused_blocksn``'s at one strip
-    a plane, with the limbs (NG, 1, group*128) int8 of ``limbs_of`` in
-    place of uval."""
+    :146).  B1's grid and carry (an exact integer sum of q); the
+    layer-masked form's body (csrc/place_mma_device.cuh ``product_block``
+    at ``kVarInt8``): a group's in-chunk slots form one K run, the layers
+    fold into N, and each warpgroup's ``wgmma`` m64nNk32 s8 -> s32
+    products take the step matrix from registers and each limb's K-major
+    tile from shared memory into one accumulator a limb, combined as m0 +
+    (m1 << 8) + (m2 << 16) in wrapping uint32 at the resolve (two passes
+    of eight layers at 16).  Bound: bytes (B1's, with 3 B of limbs a slot
+    in place of a 4 B value).  Inputs as ``render_fused_blocksn``'s at one
+    strip a plane, with the limbs (NG, 1, group*128) int8 of ``limbs_of``
+    in place of uval."""
     dev = _check_int8(sidx, flags, lays, urc, ucm, l0, l1, l2, colors,
                       frames, layers, n_chunks, group)
     if dev.type == "cpu":

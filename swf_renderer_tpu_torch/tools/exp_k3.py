@@ -61,10 +61,16 @@ def run_variant(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
     the sentinel strip block NS is left unwritten on the card).
 
     Kernel: replaces ``_kernel`` (tools/exp_k3.py:53, pallas_call :122),
-    k3 False and True.  B1's grid, walk and 32.32 carry; the chunk's
-    slots gathered per group, then ``mma.sync`` m16n8k16 bf16 -> f32
-    products (hi, mid, lo) a placement block; no shared float atomics and
-    no row prefix (csrc/place_mma_device.cuh).  Bound: B1's bytes.  On
+    k3 False and True.  B1's grid and 32.32 carry; the layer-masked
+    form's body (csrc/place_mma_device.cuh ``product_block``): a group's
+    in-chunk slots form one K run, the layers fold into N, and each
+    warpgroup's ``wgmma`` m64nNk16 bf16 -> f32 products (hi, mid, lo)
+    take the step matrix from registers and the parts' tiles from shared
+    memory: concat into one accumulator along K (so on this card it is
+    the layer-masked form's product), three into one accumulator a part,
+    combined (hi + mid) + lo at the resolve (two passes of eight layers
+    at 16).  No shared float atomics, no row prefix.  Bound: B1's
+    bytes.  On
     the card it agrees with ``fusedn_plain`` within B1's envelope (the
     tensor core sums a tile in its own order).  Inputs as
     ``render_fused_blocksn``'s at one strip a plane."""

@@ -68,7 +68,7 @@ def render_lmask(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
     products (N = 8 x the layer class, hi / mid / lo along K) take the
     step matrix from registers and the parts' tile from shared memory
     into one accumulator kept in registers over the walk, and the
-    resolve reads it there (csrc/place_mma_device.cuh ``lmask_block``).
+    resolve reads it there (csrc/place_mma_device.cuh ``product_block``).
     Bound: B1's bytes.  On the card it agrees with ``lmask_plain``
     within B1's envelope.  Inputs as ``render_fused_blocksn``'s at one
     strip a plane."""

@@ -15,10 +15,11 @@ atomics, ``cp.async`` as a plain copy, mbarriers and ``cp.async.bulk``
 global-to-shared copies for the pipelined plane resolve (a copy lands at
 once and completes its bytes on its barrier, a wait yields the fiber
 until the phase completed), so its ring logic runs unchanged; the warp
-ballot, both ``mma.sync`` shapes and the ``wgmma`` m64nNk16 bf16 form
-(A from registers, B through its matrix descriptor, each group deferred
-to the wait that retires it) for ``csrc/place_mma_device.cuh``, whose
-tests are in ``test_torch_kernel_emulated_products.py``), and
+ballot and the ``wgmma`` forms m64nNk16 bf16 (B MN-major) and m64nNk32
+s8 (B K-major, s32 accumulation) with A from registers and B through its
+matrix descriptor, each group deferred to the wait that retires it, for
+``csrc/place_mma_device.cuh``, whose tests are in
+``test_torch_kernel_emulated_products.py``), and
 the emulated blocks run at small sizes.  This checks the kernel's
 indexing, strip slicing and arithmetic without a card; the card itself
 runs ``chip_smoke.py``.  Tolerance: byte-equal — the plain versions
@@ -236,7 +237,8 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 Dim3 gridDim;
 // Warp collectives: each warp has a barrier, an exchange slot a lane and
-// (run_block) kWarpWords exchange words a lane for the ballot and mma.
+// (run_block) kWarpWords exchange words a lane for the ballot, the
+// wgmma fragments and the 64-bit shuffles.
 constexpr int kWarpWords = 8;
 struct Warp { EmuBarrier* bar; float* slots; unsigned* words; };
 Warp this_warp;
@@ -252,136 +254,84 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
-// mma.sync fragment layouts of the PTX ISA, (lane, element i) -> (row,
-// col) of the tile; groupID = lane >> 2, threadID_in_group = lane & 3.
+// Fragment layouts of the PTX ISA, (lane, element i) -> (row, col) of a
+// warp's tile: a wgmma A operand from registers is the mma.sync A layout
+// of each warp's 16 rows, its D the mma.sync C/D layout of each 8
+// columns; groupID = lane >> 2, threadID_in_group = lane & 3.
 inline void frag_a_bf16(int lane, int i, int& r, int& c) {   // 16 x 16
   r = (lane >> 2) + ((i & 2) ? 8 : 0);
   c = (lane & 3) * 2 + (i & 1) + (i >= 4 ? 8 : 0);
-}
-inline void frag_b_bf16(int lane, int i, int& r, int& c) {   // 16 x 8
-  r = (lane & 3) * 2 + (i & 1) + (i >= 2 ? 8 : 0);
-  c = lane >> 2;
 }
 inline void frag_a_s8(int lane, int i, int& r, int& c) {     // 16 x 32
   r = (lane >> 2) + ((i & 4) ? 8 : 0);
   c = (lane & 3) * 4 + (i & 3) + (i >= 8 ? 16 : 0);
 }
-inline void frag_b_s8(int lane, int i, int& r, int& c) {     // 32 x 8
-  r = (lane & 3) * 4 + (i & 3) + (i >= 4 ? 16 : 0);
-  c = lane >> 2;
-}
 inline void frag_c(int lane, int i, int& r, int& c) {        // 16 x 8
   r = (lane >> 2) + (i >= 2 ? 8 : 0);
   c = (lane & 3) * 2 + (i & 1);
 }
-// Every lane posts its A (4 registers) and B (2) fragments; each then
-// reads the whole tiles back and computes its 4 elements of D.
-inline void post_fragments(const uint32_t* a, const uint32_t* b) {
-  unsigned* w = this_warp.words + (threadIdx.x & 31) * kWarpWords;
-  for (int i = 0; i < 4; ++i) w[i] = a[i];
-  for (int i = 0; i < 2; ++i) w[4 + i] = b[i];
-  __syncwarp();
-}
-// m16n8k16 bf16 x bf16 + f32: an ideal tensor core, the products and
-// their sum with C exact, rounded once to f32 (the card's own sum order
-// and precision differ: the bf16 forms are held to an envelope).
-inline void emu_mma_m16n8k16_bf16(float* d, const uint32_t* a,
-                                  const uint32_t* b) {
-  post_fragments(a, b);
-  float A[16][16], B[16][8];
-  for (int l = 0; l < 32; ++l) {
-    const unsigned* w = this_warp.words + l * kWarpWords;
-    int r, c;
-    for (int i = 0; i < 8; ++i) {
-      frag_a_bf16(l, i, r, c);
-      A[r][c] = __uint_as_float(((w[i / 2] >> (16 * (i & 1))) & 0xffffu)
-                                << 16);
-    }
-    for (int i = 0; i < 4; ++i) {
-      frag_b_bf16(l, i, r, c);
-      B[r][c] = __uint_as_float(((w[4 + i / 2] >> (16 * (i & 1)))
-                                 & 0xffffu) << 16);
-    }
-  }
-  __syncwarp();
-  for (int i = 0; i < 4; ++i) {
-    int r, c;
-    frag_c(threadIdx.x & 31, i, r, c);
-    double sum = d[i];
-    for (int k = 0; k < 16; ++k) sum += static_cast<double>(A[r][k]) * B[k][c];
-    d[i] = static_cast<float>(sum);
-  }
-}
-// m16n8k32 s8 x s8 + s32, wrapping.
-inline void emu_mma_m16n8k32_s8(int* d, const uint32_t* a,
-                                const uint32_t* b) {
-  post_fragments(a, b);
-  int A[16][32], B[32][8];
-  for (int l = 0; l < 32; ++l) {
-    const unsigned* w = this_warp.words + l * kWarpWords;
-    int r, c;
-    for (int i = 0; i < 16; ++i) {
-      frag_a_s8(l, i, r, c);
-      A[r][c] = static_cast<int8_t>((w[i / 4] >> (8 * (i & 3))) & 0xffu);
-    }
-    for (int i = 0; i < 8; ++i) {
-      frag_b_s8(l, i, r, c);
-      B[r][c] = static_cast<int8_t>((w[4 + i / 4] >> (8 * (i & 3))) & 0xffu);
-    }
-  }
-  __syncwarp();
-  for (int i = 0; i < 4; ++i) {
-    int r, c;
-    frag_c(threadIdx.x & 31, i, r, c);
-    unsigned sum = static_cast<unsigned>(d[i]);
-    for (int k = 0; k < 32; ++k) sum += static_cast<unsigned>(A[r][k] * B[k][c]);
-    d[i] = static_cast<int>(sum);
-  }
-}
-// wgmma m64nNk16 bf16 -> f32, A from registers, B from shared memory by
-// its matrix descriptor (MN-major, no swizzle: element (k, n) at the
-// address + (k / 8) * leading + (n / 8) * stride + (k % 8) * 16 + (n % 8)
-// * 2 bytes), an ideal tensor core as the mma.sync shapes above.  A warp
-// of the warpgroup computes its 16 rows of D from its own A rows, so each
-// lane posts its fragment to its warp and keeps its rows gid and gid + 8.
-// The products are deferred: each thread keeps its committed groups and
-// performs the oldest, reading B from shared memory then, only when a
-// wait leaves fewer in flight.  So a kernel that writes a B tile before
-// the products reading it have been waited for shows in the words.
-// Descriptors carry offsets from emu_smem_base, the emulated block's
-// shared memory.
+// wgmma m64nNk16 bf16 -> f32 and m64nNk32 s8 -> s32, A from registers, B
+// from shared memory by its matrix descriptor, no swizzle: bf16 MN-major
+// (element (k, n) at the address + (k / 8) * leading + (n / 8) * stride
+// + (k % 8) * 16 + (n % 8) * 2 bytes), s8 K-major (8-bit types take no
+// transpose: element (k, n) at the address + (k / 16) * leading + (n / 8)
+// * stride + (n % 8) * 16 + k % 16).  An ideal tensor core: the bf16
+// products and their sum with C exact, rounded once to f32 (the card's
+// own sum order and precision differ: the bf16 forms are held to an
+// envelope); the s8 products summed exactly and added to C wrapping in
+// 32 bits.  A warp of the warpgroup computes its 16 rows of D from its
+// own A rows, so each lane posts its fragment to its warp and keeps its
+// rows gid and gid + 8.  The products are deferred: each thread keeps
+// its committed groups and performs the oldest, reading B from shared
+// memory then, only when a wait leaves fewer in flight.  So a kernel that
+// writes a B tile before the products reading it have been waited for
+// shows in the words.  Descriptors carry offsets from emu_smem_base, the
+// emulated block's shared memory.
 unsigned char* emu_smem_base = nullptr;
 inline unsigned emu_smem_offset(const void* p) {
   return static_cast<unsigned>(static_cast<const unsigned char*>(p) -
                                emu_smem_base);
 }
-struct EmuWgmma { float* d; int n; uint64_t desc; float a[2][16]; };
+struct EmuWgmma { void* d; int n; bool s8; uint64_t desc; float a[2][32]; };
 struct EmuWgmmaState {
   std::vector<EmuWgmma> open;
   std::vector<std::vector<EmuWgmma>> groups;
 };
 EmuWgmmaState emu_wgmma_state[1024];   // by threadIdx.x
 inline void emu_fence_proxy_async() {}
-inline void emu_wgmma_bf16(float* d, int n, const uint32_t* a,
-                           uint64_t desc) {
+inline void emu_wgmma_issue(void* d, int n, bool s8, const uint32_t* a,
+                            uint64_t desc) {
   const int lane = threadIdx.x & 31;
   unsigned* w = this_warp.words + lane * kWarpWords;
   for (int i = 0; i < 4; ++i) w[i] = a[i];
   __syncwarp();
-  EmuWgmma op{d, n, desc, {}};
+  EmuWgmma op{d, n, s8, desc, {}};
   for (int l = 0; l < 32; ++l) {
     const unsigned* lw = this_warp.words + l * kWarpWords;
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < (s8 ? 16 : 8); ++i) {
       int r, c;
-      frag_a_bf16(l, i, r, c);
+      if (s8) {
+        frag_a_s8(l, i, r, c);
+      } else {
+        frag_a_bf16(l, i, r, c);
+      }
       if (r % 8 != lane >> 2) continue;
-      op.a[r / 8][c] = __uint_as_float(((lw[i / 2] >> (16 * (i & 1)))
-                                        & 0xffffu) << 16);
+      op.a[r / 8][c] = s8 ? static_cast<float>(static_cast<int8_t>(
+                                (lw[i / 4] >> (8 * (i & 3))) & 0xffu))
+                          : __uint_as_float(((lw[i / 2] >> (16 * (i & 1)))
+                                             & 0xffffu) << 16);
     }
   }
   __syncwarp();
   if ((desc >> 49) != 0) std::abort();   // base offset, swizzle: none used
   emu_wgmma_state[threadIdx.x].open.push_back(op);
+}
+inline void emu_wgmma_bf16(float* d, int n, const uint32_t* a,
+                           uint64_t desc) {
+  emu_wgmma_issue(d, n, false, a, desc);
+}
+inline void emu_wgmma_s8(int* d, int n, const uint32_t* a, uint64_t desc) {
+  emu_wgmma_issue(d, n, true, a, desc);
 }
 inline void emu_wgmma_commit() {
   EmuWgmmaState& s = emu_wgmma_state[threadIdx.x];
@@ -401,7 +351,21 @@ inline void emu_wgmma_wait(int n) {
           int r, c;
           frag_c(lane, i, r, c);
           const int col = 8 * j + c;
-          double sum = op.d[4 * j + i];
+          if (op.s8) {
+            long long sum = 0;
+            for (int k = 0; k < 32; ++k) {
+              const int8_t v = static_cast<int8_t>(
+                  b[(k / 16) * lead + (col / 8) * stride + (col % 8) * 16 +
+                    k % 16]);
+              sum += static_cast<long long>(op.a[r / 8][k]) * v;
+            }
+            int* d = static_cast<int*>(op.d) + 4 * j + i;
+            *d = static_cast<int>(static_cast<uint32_t>(*d) +
+                                  static_cast<uint32_t>(sum));
+            continue;
+          }
+          float* d = static_cast<float*>(op.d) + 4 * j + i;
+          double sum = *d;
           for (int k = 0; k < 16; ++k) {
             uint16_t bits;
             std::memcpy(&bits, b + (k / 8) * lead + (col / 8) * stride +
@@ -409,7 +373,7 @@ inline void emu_wgmma_wait(int n) {
             sum += static_cast<double>(op.a[r / 8][k]) *
                    __uint_as_float(static_cast<unsigned>(bits) << 16);
           }
-          op.d[4 * j + i] = static_cast<float>(sum);
+          *d = static_cast<float>(sum);
         }
       }
     }
@@ -455,6 +419,13 @@ inline long long __shfl_sync(unsigned, long long v, int src) {
 inline long long __shfl_up_sync(unsigned, long long v, int d) {
   const int lane = threadIdx.x & 31;
   return warp_read64(v, lane >= d ? lane - d : lane);
+}
+inline int __shfl_sync(unsigned, int v, int src) {
+  return static_cast<int>(warp_read64(v, src));
+}
+inline int __shfl_up_sync(unsigned, int v, int d) {
+  const int lane = threadIdx.x & 31;
+  return static_cast<int>(warp_read64(v, lane >= d ? lane - d : lane));
 }
 struct longlong2 { long long x, y; };
 // mbarriers and cp.async.bulk global -> shared (the pipelined plane
@@ -525,9 +496,7 @@ extern "C" int emulate_fragment_cover() {
     for (int x : seen) bad += x != 1;
   };
   cover(16, 16, 8, frag_a_bf16);
-  cover(16, 8, 4, frag_b_bf16);
   cover(16, 32, 16, frag_a_s8);
-  cover(32, 8, 8, frag_b_s8);
   cover(16, 8, 4, frag_c);
   return bad;
 }
@@ -1022,7 +991,8 @@ extern "C" int emulate_variant(int variant, int kk, int observe,
   return 0;
 }
 
-// The product forms (swf_fused_variant 7-9, swf_fused_int8), spp 1.
+// The product forms (swf_fused_variant 7-9, swf_fused_int8), spp 1,
+// through their one body (product_block) at the layer class.
 extern "C" int emulate_product(int variant, const int* sidx, const int* flags,
                                const int* lays, const float* urc,
                                const float* ucm, const float* uval,
@@ -1048,12 +1018,39 @@ extern "C" int emulate_product(int variant, const int* sidx, const int* flags,
   }
   a.sg_first = first.data();
   a.sg_last = last.data();
-  // The layer-masked form at its layer class; 16-B aligned, as the
-  // card's dynamic shared memory.
+  // Each form at its layer class, as launch_product chooses; 16-B
+  // aligned, as the card's dynamic shared memory.
   const int lc = swf::solid_layer_class(layers);
-  const size_t bytes = variant == swf::kVarLmask
-                           ? swf::lmask_smem_bytes(layers, lc)
-                           : swf::product_smem_bytes(layers, group);
+  const bool small = lc == swf::kSolidSmallLayers;
+  size_t bytes = 0;
+  void (*body)(const swf::FusedArgs&, const int8_t*, const int8_t*,
+               const int8_t*, unsigned char*) = nullptr;
+  switch (variant) {
+    case swf::kVarK3Three:
+      bytes = small ? swf::product_smem_bytes<swf::kVarK3Three, 4>(layers)
+                    : swf::product_smem_bytes<swf::kVarK3Three, 16>(layers);
+      body = small ? swf::product_block<swf::kVarK3Three, 4>
+                   : swf::product_block<swf::kVarK3Three, 16>;
+      break;
+    case swf::kVarK3Concat:
+      bytes = small ? swf::product_smem_bytes<swf::kVarK3Concat, 4>(layers)
+                    : swf::product_smem_bytes<swf::kVarK3Concat, 16>(layers);
+      body = small ? swf::product_block<swf::kVarK3Concat, 4>
+                   : swf::product_block<swf::kVarK3Concat, 16>;
+      break;
+    case swf::kVarLmask:
+      bytes = small ? swf::product_smem_bytes<swf::kVarLmask, 4>(layers)
+                    : swf::product_smem_bytes<swf::kVarLmask, 16>(layers);
+      body = small ? swf::product_block<swf::kVarLmask, 4>
+                   : swf::product_block<swf::kVarLmask, 16>;
+      break;
+    default:
+      bytes = small ? swf::product_smem_bytes<swf::kVarInt8, 4>(layers)
+                    : swf::product_smem_bytes<swf::kVarInt8, 16>(layers);
+      body = small ? swf::product_block<swf::kVarInt8, 4>
+                   : swf::product_block<swf::kVarInt8, 16>;
+      break;
+  }
   std::vector<float4> mem((bytes + 15) / 16);
   auto* smem = reinterpret_cast<unsigned char*>(mem.data());
   emu_smem_base = smem;
@@ -1061,26 +1058,8 @@ extern "C" int emulate_product(int variant, const int* sidx, const int* flags,
     for (int y = 0; y < ns1 - 1; ++y)
       for (int x = 0; x < n_chunks; ++x) {
         std::memset(smem, 0xab, mem.size() * 16);  // stale contents
-        run_block(swf::kThreads, x, y, z, [&] {
-          switch (variant) {
-            case swf::kVarK3Three:
-              swf::product_block<swf::kVarK3Three>(a, l0, l1, l2, smem);
-              break;
-            case swf::kVarK3Concat:
-              swf::product_block<swf::kVarK3Concat>(a, l0, l1, l2, smem);
-              break;
-            case swf::kVarLmask:
-              if (lc == swf::kSolidSmallLayers) {
-                swf::lmask_block<swf::kSolidSmallLayers>(a, smem);
-              } else {
-                swf::lmask_block<swf::kMaxLayers>(a, smem);
-              }
-              break;
-            default:
-              swf::product_block<swf::kVarInt8>(a, l0, l1, l2, smem);
-              break;
-          }
-        });
+        run_block(swf::kThreads, x, y, z,
+                  [&] { body(a, l0, l1, l2, smem); });
         if (emu_wgmma_pending() != 0) return -2;   // products not waited for
       }
   return 0;

@@ -1,14 +1,14 @@
 """The product forms' device code (``csrc/place_mma_device.cuh``: the
-placement of the reference's tools/exp_k3.py and exp_int8.py as
-``mma.sync`` tiles, exp_lmask.py as warpgroup ``wgmma`` products with
-the layers in N) and exp_dmamerge's merged read at any rule and spp, run
-on the CPU under the g++ emulation of
-``tests/test_torch_kernel_emulated.py`` (whose emulator carries the two
-``mma.sync`` shapes, m16n8k16 bf16 and m16n8k32 s8, and ``wgmma``
-m64nNk16 bf16 with A from registers and B through its matrix descriptor,
-after the PTX ISA's fragment layouts, an ideal tensor core that sums a
-tile exactly and rounds once, each ``wgmma`` group performed only at the
-wait that retires it, and the warp ballot), against the plain versions.
+placement of the reference's tools/exp_k3.py, exp_lmask.py and
+exp_int8.py as one body of warpgroup ``wgmma`` products with the layers
+in N) and exp_dmamerge's merged read at any rule and spp, run on the CPU
+under the g++ emulation of ``tests/test_torch_kernel_emulated.py``
+(whose emulator carries ``wgmma`` m64nNk16 bf16 with B MN-major and
+m64nNk32 s8 with B K-major and s32 accumulation, A from registers after
+the PTX ISA's fragment layouts and B through its matrix descriptor, an
+ideal tensor core that sums a tile exactly (bf16: rounded once), each
+``wgmma`` group performed only at the wait that retires it, and the warp
+ballot), against the plain versions.
 
 A file of its own so that the test runner's workers take it apart from
 the other emulated kernels.  Tolerance: int8 and the merged read
@@ -16,6 +16,8 @@ byte-equal (exact integer sums; the merged read is B1's arithmetic); the
 bf16 forms within B1's envelope (the card's tensor core sums a tile in
 its own order and precision).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -43,8 +45,11 @@ def emulator(tmp_path_factory):
 # -- the product forms (csrc/place_mma_device.cuh): exp_k3, exp_lmask,
 #    exp_int8; exp_dmamerge's merged read at any rule and spp ---------------
 
-# (height, width, layers): 2 frames, one strip a plane, group 6.
-PRODUCT_SCENES = [(24, 200, 3), (40, 300, 1), (16, 1100, 16)]
+# (height, width, layers): 2 frames, one strip a plane, group 6; layer
+# classes 4 (1, 3, 4 layers) and 16 (7: the second pass of the three-
+# accumulator forms left out; 11: a short second pass; 16: two full).
+PRODUCT_SCENES = [(24, 200, 3), (40, 300, 1), (16, 1100, 16), (32, 260, 4),
+                  (24, 300, 7), (24, 200, 11)]
 PRODUCT_FORMS = ["k3_three", "k3_concat", "lmask", "int8"]
 INT8_VARIANT = 10   # csrc/place_mma_device.cuh kVarInt8 (swf_fused_int8)
 
@@ -65,22 +70,22 @@ def _b1_envelope(got, want, straight=5):
 
 
 def test_emulated_fragment_layouts_cover_their_tiles(emulator):
-    """The emulation's PTX fragment layouts (A and B of m16n8k16 bf16 and
-    m16n8k32 s8, C/D of both) give every element of each tile to exactly
-    one (lane, element)."""
+    """The emulation's PTX fragment layouts that the warpgroup products
+    use (a warp's A of the bf16 and s8 forms, its D) give every element
+    of each tile to exactly one (lane, element)."""
     assert emulator.emulate_fragment_cover() == 0
 
 
 @pytest.mark.parametrize("form", PRODUCT_FORMS)
 @pytest.mark.parametrize("scene", PRODUCT_SCENES)
 def test_emulated_product_forms_equal_plain_versions(emulator, scene, form):
-    """The product forms' device code (warp-ballot gather, mma.sync tiles
-    built in registers or, for lmask, wgmma over shared-memory part tiles
-    with the layers in N, the emulation's ideal tensor core) against the
-    plain versions: int8 byte-equal to ``int8_plain`` (exact integer
-    sums), the bf16 forms within B1's envelope of ``fusedn_plain`` (k3)
-    and ``lmask_plain``; out pre-filled with -7, so every visited word
-    must be written."""
+    """The product forms' one body (warp-ballot gather, wgmma over
+    shared-memory part tiles with the layers in N, two passes of eight
+    layers for the three-accumulator forms at 16, the emulation's ideal
+    tensor core) against the plain versions: int8 byte-equal to
+    ``int8_plain`` (exact integer sums), the bf16 forms within B1's
+    envelope of ``fusedn_plain`` (k3) and ``lmask_plain``; out pre-filled
+    with -7, so every visited word must be written."""
     from swf_renderer_tpu_torch.tools import exp_int8, exp_lmask
 
     height, width, layers = scene
@@ -149,11 +154,12 @@ def test_emulated_merged_at_any_rule_and_spp(emulator, height, width, layers,
 LMASK_MUTANTS = {
     # Two groups of products left in flight: a tile buffer is written
     # again while the products that read it may still run.
-    "wait_one_more": ("      wgmma_wait<1>();\n", "      wgmma_wait<2>();\n"),
+    "wait_one_more": ("        wgmma_wait<1>();\n",
+                      "        wgmma_wait<2>();\n"),
     # A group's later batch written without the barrier that follows
     # both warpgroups' waits.
     "batch_barrier_dropped": (
-        "      if (b0 > 0) __syncthreads();   // the buffer's products are "
+        "        if (b0 > 0) __syncthreads();   // the buffer's products are "
         "done\n", ""),
 }
 
@@ -178,3 +184,80 @@ def test_emulated_lmask_mutants_are_caught(tmp_path, mutant):
     with pytest.raises(AssertionError):
         test_emulated_product_forms_equal_plain_versions(
             emu, PRODUCT_SCENES[0], "lmask")
+
+
+# Mutants of the k3 and int8 forms: (flag, anchor, replacement, form),
+# each behind swf_mutant in one scratch build.
+FORM_MUTANTS = {
+    # int8's second limb combined without its shift.
+    "int8_limb_shift_dropped": (
+        31, "               (static_cast<uint32_t>(acc[1][j]) << 8) +\n",
+        "               (static_cast<uint32_t>(acc[1][j]) <<\n"
+        "                (swf_mutant == 31 ? 0 : 8)) +\n", "int8"),
+    # The s8 tiles written MN-major (16-byte rows of 16 n for one k),
+    # read by the K-major descriptor.
+    "int8_tile_mn_major": (
+        32, "  return (k >> 5) * (32 * kN) + (n >> 3) * 256 + ((k >> 4) & 1) "
+        "* 128 +\n",
+        "  if (swf_mutant == 32) {\n"
+        "    return (k >> 5) * (32 * kN) + (n >> 4) * 512 + ((k >> 3) & 3) "
+        "* 128 +\n           (k & 7) * 16 + (n & 15);\n  }\n"
+        "  return (k >> 5) * (32 * kN) + (n >> 3) * 256 + ((k >> 4) & 1) "
+        "* 128 +\n", "int8"),
+    # The three limbs' products summed into one accumulator.
+    "int8_one_accumulator": (
+        33, "                wgmma_s8<kN>(acc[q], af[t],\n",
+        "                wgmma_s8<kN>(acc[swf_mutant == 33 ? 0 : q], af[t],\n",
+        "int8"),
+    # k3 three's mid accumulator left out of the winding.
+    "k3_three_mid_dropped": (
+        34, "    return (acc[0][j] + acc[1][j]) + acc[2][j] + cy;\n",
+        "    return (acc[0][j] + (swf_mutant == 34 ? 0.0f : acc[1][j])) +\n"
+        "           acc[2][j] + cy;\n", "k3_three"),
+}
+
+
+@pytest.fixture(scope="module")
+def form_mutant_emulator(tmp_path_factory):
+    """The emulator over a copy of csrc holding every FORM_MUTANTS edit
+    behind swf_mutant (0: the committed body)."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available")
+    d = tmp_path_factory.mktemp("cuda_emu_form_mutants")
+    csrc = d / "csrc"
+    shutil.copytree(cuda_lib.CSRC_DIR, csrc)
+    header = csrc / "place_mma_device.cuh"
+    text = header.read_text()
+    for name, (_, before, after, _) in FORM_MUTANTS.items():
+        assert text.count(before) == 1, name
+        text = text.replace(before, after)
+    header.write_text(text.replace("#pragma once\n",
+                                   "#pragma once\nextern int swf_mutant;\n",
+                                   1))
+    emu = _build_emulator(d, csrc, """
+int swf_mutant = 0;
+extern "C" void set_mutant(int m) { swf_mutant = m; }
+""")
+    emu.set_mutant.restype = None
+    emu.set_mutant.argtypes = [ctypes.c_int]
+    return emu
+
+
+@pytest.mark.parametrize("mutant", sorted(FORM_MUTANTS))
+def test_emulated_form_mutants_are_caught(form_mutant_emulator, mutant):
+    """Each mutant of the k3 or int8 form fails that form's check on the
+    first scene (int8 no longer byte-equal, k3 three outside the
+    envelope), which the unmutated build of the same copy passes."""
+    flag, _, _, form = FORM_MUTANTS[mutant]
+    form_mutant_emulator.set_mutant(0)
+    test_emulated_product_forms_equal_plain_versions(
+        form_mutant_emulator, PRODUCT_SCENES[0], form)
+    form_mutant_emulator.set_mutant(flag)
+    try:
+        with pytest.raises(AssertionError):
+            test_emulated_product_forms_equal_plain_versions(
+                form_mutant_emulator, PRODUCT_SCENES[0], form)
+    finally:
+        form_mutant_emulator.set_mutant(0)
