@@ -210,7 +210,28 @@ Phases, each of which exits non-zero on failure before the last line:
              CUDA events, upload, download); then ``python3 -m
              swf_renderer_tpu_torch`` in a subprocess: ``--frames DIR
              --stats`` on movie_anim1080 and ``-o`` on movie_still1080,
-             the PNGs read back equal to the in-process frames.
+             the PNGs read back equal to the in-process frames;
+15. service_mesh — ``RendererService`` at 1920x1080 on the card, over a
+             styled 4-layer scene built in code (anim_movie's shapes by
+             asset id): ``render_refs`` (one B2 launch), ``animate_refs``
+             and ``render_batch`` of 60 moving-matrix frames (one B3
+             launch each), each byte-equal to the same call on a
+             ``TorchRenderer`` and each launch to its plain version, walls
+             split into host, upload, kernel and download; then
+             ``parallel.mesh`` on a NCCL group of one rank (a FileStore in a
+             temporary directory; one card shows no collective across
+             GPUs, which the CPU tests hold over gloo ranks):
+             ``render_fused_dp`` on the headline (one B13 launch),
+             ``render_styled_dp`` (one B2 launch) and the three
+             tile-sharded sweeps (one B3, B6 or B7 launch each), all
+             byte-equal to the single-device calls over the whole output;
+             then B3 (solid and styled), B6 and B7 on anim1080,
+             anim1080_gradient, morph_affine1080 and morph1080 split into
+             2 and 4 column shards at their origins, each shard equal word
+             for word to its plain version and to those columns of the
+             whole frame, timed beside the whole frame's launch.  With
+             ``--parent`` every sweep kernel but the column sweeps (which
+             read the origin) must keep the parent's SASS.
 
 With ``--parent DIR`` (a checkout of the parent commit) phase 1 also
 builds DIR's kernels and compares every kernel's SASS with theirs, and
@@ -231,8 +252,9 @@ change / parent (``report.json`` ``ab`` and ``ab_sass``).
 The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
 block, the deep and masked and the tilings paths, before each probe,
-product form, windowed scene and coarse step, and before each movie entry
-point call, and read right after.  The
+product form, windowed scene and coarse step, before each movie entry
+point call and before each service and mesh call, and read right
+after.  The
 script prints one JSON line describing each kernel (time, bound, plain
 version's time, library yardstick's time where one call computes the
 same function), then the card's name and power limit as nvidia-smi
@@ -5229,15 +5251,14 @@ def _recorded_equal_plain(torch, what, rec):
         a, k = _styled_plain_args(args, kwargs)
         want = fused_styled_plain(*a, **k)
         if out.shape != want.shape or not torch.equal(out, want):
-            fail(f"movies: {what}: the styled kernel's words differ from "
+            fail(f"{what}: the styled kernel's words differ from "
                  "fused_styled_plain")
         n += out.numel()
     for args, _kwargs, out in list(rec.tex):
         img, invs, height, width, sub, repeating, smoothed, canvas = args
         want = texfield_plain(img, invs, height, width, sub, repeating,
                               smoothed, "canvas" if canvas else "flash")
-        worst = max(worst, _check_fields(torch, f"movies: {what}", out,
-                                         want))
+        worst = max(worst, _check_fields(torch, what, out, want))
         n += out.numel()
     return worst, n
 
@@ -5298,8 +5319,8 @@ def _styled_launches(rec):
     return out
 
 
-def _log_split(what, split, card):
-    log(f"movies: {what}: wall {split['wall_ms']:.1f} ms = host (parse, "
+def _log_split(what, split, card, phase="movies"):
+    log(f"{phase}: {what}: wall {split['wall_ms']:.1f} ms = host (parse, "
         f"plan, lowering) {split['host_ms']:.1f} + upload "
         f"{split['upload_ms']:.2f} ({split['upload_bytes']} B) + kernel "
         f"{split['kernel_ms']:.3f} + download {split['download_ms']:.1f} + "
@@ -5449,13 +5470,14 @@ def movies_still(torch, np, report, route, card):
             fail(f"movies: movie_still1080 launched {got}: B2 and B8 "
                  "expected")
         last = _styled_launches(rec)
-        tex_err, n = _recorded_equal_plain(torch, "movie_still1080", rec)
+        tex_err, n = _recorded_equal_plain(torch, "movies: movie_still1080",
+                                            rec)
         rec.clear()
         renderer = TorchRenderer(width, height, device=DEVICE)
         for b in bitmaps:
             renderer.add_bitmap(b)
         hand = renderer.render(stage)
-        _recorded_equal_plain(torch, "movie_still1080 (hand)", rec)
+        _recorded_equal_plain(torch, "movies: movie_still1080 (hand)", rec)
     finally:
         rec.restore()
     if renderer.last_stats.path != "flatblock":
@@ -5562,6 +5584,441 @@ def phase_movies(torch, np, report):
     return launches, tex_err
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the service and the mesh
+# ---------------------------------------------------------------------------
+
+SERVICE_SIZE = (1920, 1080)   # width, height: the movies' frame
+SERVICE_FRAMES = 60
+SERVICE_LAYERS = (0, 1, 2, 6)   # anim_movie's shapes: 3 solids, a gradient
+SHARD_SPLITS = (2, 4)           # column shards of the sweeps' frames
+
+
+def _counted(torch, wrappers, fn, *args, **kwargs):
+    """One entry-point call, the wrappers' counts set to 0 just before and
+    read just after -> (result, wall ms, {key: launches})."""
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, {k: w.launches for k, w in wrappers.items()}
+
+
+def service_run(torch, np, report, card):
+    """``RendererService`` on the card over a 4-layer styled scene built
+    in code (anim_movie's shapes, three solids and a linear gradient, by
+    asset id, on the service's transparent background): ``render_refs``
+    (B2), ``animate_refs`` and ``render_batch`` of 60 moving-matrix frames
+    (one B3 launch each), each byte-equal to the same call on a
+    ``TorchRenderer`` and each recorded launch to its plain version; walls
+    split by replaying the launches -> launches."""
+    import swf_renderer_tpu_torch as swf
+    from swf_renderer_tpu_torch.models import ast, display
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.flatblock import (
+        render_fused_blocksn, render_fused_styled,
+    )
+    from swf_renderer_tpu_torch.ops.texfield import bitmap_field_planes
+    from swf_renderer_tpu_torch.runtime.service import StoredShapeRef
+    from swf_renderer_tpu_torch.utils import movie_scenes
+
+    width, height = SERVICE_SIZE
+    _, movie_stages = movie_scenes.anim_movie(
+        movie_scenes.port_mods(), width, height, frames=SERVICE_FRAMES)
+    bg = ast.StraightSRgba8(0, 0, 0, 0)   # the service's default
+    rows = [[st.children[i] for i in SERVICE_LAYERS] for st in movie_stages]
+    stages = [display.Stage(
+        width=width, height=height, background_color=bg,
+        children=tuple(display.ShapeInstance(definition=c.definition,
+                                             matrix=c.matrix) for c in row))
+        for row in rows]
+    svc = swf.RendererService()
+    ids = [svc.assets.register_shape(c.definition) for c in rows[0]]
+    refs = [[StoredShapeRef(sid, matrix=c.matrix) for sid, c in zip(ids, row)]
+            for row in rows]
+    handle = svc.create_renderer(width, height)
+    direct = swf.TorchRenderer(width, height)
+    wrappers = {"styled": render_fused_styled, "solid": render_fused_blocksn,
+                "affine": sweep.render_affine_sweep,
+                "texfield": bitmap_field_planes}
+    launches = dict.fromkeys(wrappers, 0)
+    runs = {}   # name -> (wall ms, launches, replayable launches, frames)
+
+    rec = _Recorder()
+    try:
+        frame, wall, got = _counted(torch, wrappers, svc.render_refs,
+                                    handle, refs[0])
+        if got != {"styled": 1, "solid": 0, "affine": 0, "texfield": 0}:
+            fail(f"service: render_refs launched {got}: one B2 expected")
+        runs["render_refs"] = (wall, got, _styled_launches(rec), frame)
+        words = {"render_refs": _recorded_equal_plain(
+            torch, "service: render_refs", rec)[1]}
+        rec.clear()
+        want = direct.render(stages[0])
+    finally:
+        rec.restore()
+    if not np.array_equal(frame, want):
+        fail("service: render_refs differs from TorchRenderer.render")
+
+    calls, restore = _record_sweeps(sweep)
+    try:
+        for name, fn, arg in (("animate_refs", svc.animate_refs, refs),
+                              ("render_batch", svc.render_batch, stages)):
+            frames, wall, got = _counted(torch, wrappers, fn, handle, arg)
+            path = svc._get(handle).last_stats.path
+            if got != {"styled": 0, "solid": 0, "affine": 1, "texfield": 0} \
+                    or path != "transform-sweep":
+                fail(f"service: {name} launched {got} on {path!r}: one B3 "
+                     "launch on the transform sweep expected")
+            runs[name] = (wall, got, _sweep_launches(sweep, calls), frames)
+            words[name] = _route_equals_plain(torch, sweep,
+                                              f"service {name}", calls)
+            want = direct.render_batch(stages)
+            calls.clear()
+            if frames.shape != (SERVICE_FRAMES, height, width, 4) or \
+                    not np.array_equal(frames, want):
+                fail(f"service: {name} differs from "
+                     "TorchRenderer.render_batch")
+    finally:
+        restore()
+    for name, (wall, got, replay, frames) in runs.items():
+        for k, n in got.items():
+            launches[k] += n
+        split = _replay_split(torch, np, wall, replay, frames, bg)
+        n = frames.shape[0] if frames.ndim == 4 else 1
+        _log_split(f"{name} ({n} x {height}x{width}, 4 layers; "
+                   f"{words[name]} words equal their plain version)", split,
+                   card, phase="service")
+        report[f"service_{name}"] = dict(split, launches=got)
+    log(f"service: launches {launches}; render_refs, animate_refs and "
+        "render_batch byte-equal to TorchRenderer's")
+    return launches
+
+
+def mesh_world_one(torch, np, report, card):
+    """``parallel.mesh`` on a NCCL group of one rank (a FileStore in a
+    temporary directory): ``render_fused_dp`` on the headline (B13),
+    ``render_styled_dp`` on the headline's geometry under gradient paints
+    (B2), and the three tile-sharded sweeps on the full-width sweep scenes
+    (B3, B6, B7 at origin 0), each byte-equal to the single-device call
+    -> launches of B13, B2, B3, B6 and B7."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from swf_renderer_tpu_torch.native.bindings import (
+        pack_blocks_native, pack_grouped_native,
+    )
+    from swf_renderer_tpu_torch.ops import flatblock as fb
+    from swf_renderer_tpu_torch.ops import style as style_ops
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.ops.morph import render_morph_sweep
+    from swf_renderer_tpu_torch.ops.pipeline import (
+        kernel_paints_for, lower_update_lists,
+    )
+    from swf_renderer_tpu_torch.parallel import mesh as pm
+    from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+
+    frames, layers, height, width = HEADLINE
+    if "headline_scene" not in _HELD:
+        _HELD["headline_scene"] = build_scene_edges(frames, layers, height,
+                                                    width, seed=7)
+    tables, colors = _HELD["headline_scene"]
+    updates = lower_update_lists(tables, height, width)
+    launches = {}
+    log("mesh: one card: a NCCL group of one rank, so no collective "
+        "crosses GPUs here; the collectives (the winding carry over tp, "
+        "the gathers, the tile origins) are held on the CPU over gloo "
+        "ranks (tests/test_torch_parallel.py)")
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = pm.make_mesh()
+            wrappers = {"fused1": fb.render_fused_blocks}
+            out, wall, got = _counted(torch, wrappers, pm.render_fused_dp,
+                                      mesh, updates, colors, height, width)
+            launches.update(got)
+            _, nc, ns = fb.plane_geometry(height, width)
+            blocks = fb.sort_blocks_fused(
+                *pack_blocks_native(updates, height, width,
+                                    block_pad_multiple=128)[:5],
+                layers, ns, block_pad_multiple=128)
+            want = fb.render_fused_blocks(*blocks, colors, frames, layers, ns,
+                                          nc, device=DEVICE)
+            if got["fused1"] != 1 or not torch.equal(
+                    out, want[:, :ns].reshape(out.shape)):
+                fail(f"mesh: render_fused_dp (launches {got}) differs from "
+                     "render_fused_blocks")
+            log(f"mesh: render_fused_dp on the headline ({frames} x "
+                f"{layers} x {height}x{width}): {wall:.1f} ms, one B13 "
+                "launch, byte-equal to render_fused_blocks")
+            report["mesh_fused_dp"] = {"wall_ms": wall, "launches": got}
+
+            paints = [style_ops.solid_paint(tuple(c)) for c in colors[0]]
+            paints[1] = style_ops.Paint(
+                kind=style_ops.PAINT_LINEAR,
+                inv_matrix=(2.0 * 16384.0 / width, 0.0, 0.0,
+                            2.0 * 16384.0 / width, -16384.0, -8000.0),
+                stop_ratios=np.array([0.0, 1.0], np.float32),
+                stop_colors=np.array([[1, 0, 0, 1], [0, 0, 1, 1]],
+                                     np.float32))
+            spp = fb.strips_per_plane(nc, ns)
+            packed = pack_grouped_native(updates, height, width, group=6,
+                                         spp=spp)
+            kpaints, fields, _ = kernel_paints_for(paints, height, width,
+                                                   spp=spp, device=DEVICE)
+            ns_p, nc_p = packed[6], packed[7]
+            wrappers = {"styled": fb.render_fused_styled}
+            out, wall, got = _counted(
+                torch, wrappers, pm.render_styled_dp, mesh,
+                *(x[None] for x in packed[:6]), colors[None], fields, frames,
+                layers, ns_p, nc_p, kpaints, group=6, spp=spp)
+            launches.update(got)
+            ints = [torch.as_tensor(x, dtype=torch.int32, device=DEVICE)
+                    for x in packed[:3]]
+            want = fb.render_fused_styled(
+                *ints, *(_up(torch, np, x) for x in packed[3:6]),
+                _up(torch, np, colors), fields, frames, layers, ns_p, nc_p,
+                kpaints, group=6, spp=spp)
+            if got["styled"] != 1 or out.shape != want.shape or \
+                    not torch.equal(out, want):
+                fail(f"mesh: render_styled_dp (launches {got}) differs from "
+                     "render_fused_styled")
+            log(f"mesh: render_styled_dp on the headline's geometry (a "
+                f"gradient layer, {len(fields)} field planes): {wall:.1f} "
+                "ms, one B2 launch, byte-equal to render_fused_styled")
+            report["mesh_styled_dp"] = {"wall_ms": wall, "launches": got}
+
+            for key, (tile_fn, single, args) in _tile_calls(
+                    torch, np, sweep, render_morph_sweep, pm).items():
+                wrappers = {key: {
+                    "affine": sweep.render_affine_sweep,
+                    "morph_affine": sweep.render_morph_affine_sweep,
+                    "morph": render_morph_sweep}[key]}
+                out, _, got = _counted(torch, wrappers, tile_fn, mesh, *args)
+                launches.update(got)
+                if got[key] != 1 or not torch.equal(out, single()):
+                    fail(f"mesh: the tile-sharded {key} sweep (launches "
+                         f"{got}) differs from the unsharded sweep")
+                log(f"mesh: the tile-sharded {key} sweep at world 1: one "
+                    "launch, byte-equal to the unsharded sweep")
+        finally:
+            dist.destroy_process_group()
+    log(f"mesh: launches {launches} [{card}]")
+    return launches
+
+
+def _tile_calls(torch, np, sweep, render_morph_sweep, pm):
+    """The three tile-sharded sweeps' (mesh function, single-device call,
+    its arguments after the mesh) on the full-width scenes of phase 5."""
+    from swf_renderer_tpu_torch.ops.morph import morph_pieces
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene
+
+    height, width = SWEEP_SIZE
+    tables, colors, mats = anim_scene(height, width, SWEEP_FRAMES)
+    parts = sweep.affine_pieces(tables, colors, mats)
+    d = [_up(torch, np, x) for x in (mats,) + tuple(parts)]
+    pairs = morph_pairs(np)
+    m16 = mats[:MORPH_RATIOS]
+    ratios = np.linspace(0.0, 1.0, MORPH_RATIOS, dtype=np.float32)
+    mparts = sweep.morph_affine_pieces(pairs, m16)
+    dm = [_up(torch, np, x) for x in (m16, ratios) + tuple(mparts)]
+    rparts = morph_pieces(pairs)
+    dr = [_up(torch, np, x) for x in (ratios,) + tuple(rparts)]
+    return {
+        "affine": (pm.render_affine_sweep_tile_sharded,
+                   lambda: sweep.render_affine_sweep(*d, height, width),
+                   (mats, parts, height, width)),
+        "morph_affine": (pm.render_morph_affine_sweep_tile_sharded,
+                         lambda: sweep.render_morph_affine_sweep(
+                             *dm, height, width),
+                         (m16, ratios, mparts, height, width)),
+        "morph": (pm.render_morph_sweep_tile_sharded,
+                  lambda: render_morph_sweep(*dr, height, width),
+                  (ratios, rparts, height, width)),
+    }
+
+
+def _origin_scenes(torch, np, sweep):
+    """The full-width sweep scenes of phase 5 for the column shards ->
+    {name: (key, run(width, x_shift, fields_slice), plain(width, x_shift,
+    fields_slice), counts_args(width, x_shift))}: run launches the
+    wrapper (x_shift None: a whole frame)."""
+    from swf_renderer_tpu_torch.ops import style as style_ops
+    from swf_renderer_tpu_torch.ops.morph import (
+        morph_pieces, render_morph_sweep,
+    )
+    from swf_renderer_tpu_torch.utils.scenes import anim_scene
+
+    height, width = SWEEP_SIZE
+    tables, colors, mats = anim_scene(height, width, SWEEP_FRAMES)
+    layers = len(tables)
+    rules = (0,) * layers
+    tab, colarr = sweep.affine_pieces(tables, colors, mats)
+    counts = sweep.layer_piece_counts(tab)
+    d_mats, d_tab, d_col = (_up(torch, np, x) for x in (mats, tab, colarr))
+    paints = [style_ops.solid_paint(tuple(c)) for c in colors]
+    paints[1] = style_ops.Paint(
+        kind=style_ops.PAINT_LINEAR,
+        inv_matrix=(2.0 * 16384.0 / width, 0.0, 0.0, 2.0 * 16384.0 / width,
+                    -16384.0, -16384.0 * height / width),
+        stop_ratios=np.array([0.0, 0.5, 1.0], np.float32),
+        stop_colors=np.array([[1, 0.2, 0, 1], [0, 1, 0.5, 0.8],
+                              [0.2, 0, 1, 1]], np.float32))
+    kpaints, grad_mats = sweep.sweep_paints(paints, mats)
+    d_gm = _up(torch, np, grad_mats)
+    pairs = morph_pairs(np)
+    m16 = mats[:MORPH_RATIOS]
+    ratios = np.linspace(0.0, 1.0, MORPH_RATIOS, dtype=np.float32)
+    tab_s, tab_e, cs, ce = sweep.morph_affine_pieces(pairs, m16)
+    mcounts = tuple(min(max(a, b), tab_s.shape[-1]) for a, b in zip(
+        sweep.layer_piece_counts(tab_s), sweep.layer_piece_counts(tab_e)))
+    dm = [_up(torch, np, x) for x in (m16, ratios, tab_s, tab_e, cs, ce)]
+    rs, re_, rcs, rce = morph_pieces(pairs)
+    dr = [_up(torch, np, x) for x in (ratios, rs, re_, rcs, rce)]
+    full = (rs.shape[-1],) * layers
+
+    def mats_at(m, x0):
+        """Matrices moved left by x0: the shard's columns from 0 (its work
+        counts)."""
+        if not x0:
+            return m
+        m = m.clone()
+        m[..., 4] -= float(x0)
+        return m
+
+    def tab_at(t, x0):
+        if not x0:
+            return t
+        t = t.clone()
+        t[:, 0::2] -= float(x0)
+        return t
+
+    return {
+        "anim1080": ("affine",
+                     lambda w, x0: sweep.render_affine_sweep(
+                         d_mats, d_tab, d_col, height, w,
+                         layer_counts=counts, x_shift=x0),
+                     lambda w, x0: sweep.sweep_plain(
+                         d_mats, d_tab, None, None, d_col, None, height, w,
+                         rules, counts, x_shift=x0),
+                     lambda w, x0: (mats_at(d_mats, x0 or 0), d_tab, None,
+                                    None, counts, height, w, rules, None,
+                                    None, (d_col,))),
+        "anim1080_gradient": (
+            "affine",
+            lambda w, x0: sweep.render_affine_sweep(
+                d_mats, d_tab, d_col, height, w, layer_counts=counts,
+                paints=kpaints, grad_mats=d_gm, x_shift=x0),
+            lambda w, x0: sweep.sweep_plain(
+                d_mats, d_tab, None, None, d_col, None, height, w, rules,
+                counts, paints=kpaints, grad_mats=d_gm, x_shift=x0),
+            lambda w, x0: (mats_at(d_mats, x0 or 0), d_tab, None, None,
+                           counts, height, w, rules, kpaints, None,
+                           (d_col, d_gm))),
+        "morph_affine1080": (
+            "morph_affine",
+            lambda w, x0: sweep.render_morph_affine_sweep(
+                *dm, height, w, layer_counts=mcounts, x_shift=x0),
+            lambda w, x0: sweep.sweep_plain(
+                dm[0], dm[2], dm[3], dm[1], dm[4], dm[5], height, w, rules,
+                mcounts, x_shift=x0),
+            lambda w, x0: (mats_at(dm[0], x0 or 0), dm[2], dm[3], dm[1],
+                           mcounts, height, w, rules, None, None,
+                           (dm[4], dm[5]))),
+        "morph1080": (
+            "morph",
+            lambda w, x0: render_morph_sweep(*dr, height, w, x_shift=x0),
+            lambda w, x0: sweep.sweep_plain(
+                None, dr[1], dr[2], dr[0], dr[3], dr[4], height, w, rules,
+                full, x_shift=x0),
+            lambda w, x0: (None, tab_at(dr[1], x0 or 0),
+                           tab_at(dr[2], x0 or 0), dr[0], full, height, w,
+                           rules, None, None, (dr[3], dr[4]))),
+    }
+
+
+def origin_shards(torch, np, report):
+    """B3 (solid and styled), B6 and B7 on the full-width sweep scenes
+    split into 2 and 4 column shards, each at its origin: each shard's
+    launch equal word for word to its plain version with the origin and to
+    those columns of the whole frame's launch, timed beside that launch in
+    the same call (report.json ``origin_*``)."""
+    from swf_renderer_tpu_torch.ops import transform as sweep
+
+    height, width = SWEEP_SIZE
+    for name, (_key, run, plain, counts_of) in _origin_scenes(
+            torch, np, sweep).items():
+        full_ms = time_ms(torch, lambda: run(width, None), reps=5)
+        frames = run(width, None)
+        for n in SHARD_SPLITS:
+            ws = width // n
+            ms = plain_ms = 0.0
+            nbytes = ops = 0
+            shard_ms = []
+            for k in range(n):
+                x0 = k * ws
+                got = run(ws, x0)
+                t = time_ms(torch, lambda x0=x0: run(ws, x0), reps=5)
+                held = {}
+
+                def plain_once(x0=x0):
+                    held["want"] = plain(ws, x0)
+
+                plain_ms += time_ms(torch, plain_once, reps=1, warmup=0)
+                _check(torch, f"{name} origin {x0} of {n} shards vs plain",
+                       got, held.pop("want"), exact=True)
+                if not torch.equal(got, frames[..., x0:x0 + ws]):
+                    fail(f"origin: {name} shard {k} of {n} differs from the "
+                         "whole frame's columns")
+                b, o = sweep_work_counts(torch, *counts_of(ws, x0))
+                nbytes += b
+                ops += o
+                shard_ms.append(t)
+                ms += t
+            bound_ms, bound_by = bound(nbytes, ops)
+            log(f"origin: {name}: {n} shards of {ws} columns "
+                f"{' + '.join(f'{t:.3f}' for t in shard_ms)} = {ms:.3f} ms "
+                f"beside the whole frame's {full_ms:.3f} ms; plain "
+                f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+                "every shard equal to its plain version and to the "
+                "whole frame's columns")
+            report[f"origin_{name}_{n}"] = {
+                "shard_ms": shard_ms, "ms": ms, "whole_ms": full_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+
+
+def phase_service_mesh(torch, np, report):
+    """Phase 15 -> launches of B2, B3, B6, B7 and B13 on the service and
+    mesh routes.  With --parent, every kernel of the sweep library but
+    the column sweeps (which now read the shard origin; phase 5 times
+    them against the parent's) keeps the parent's SASS."""
+    card = card_line()
+    service = service_run(torch, np, report, card)
+    mesh = mesh_world_one(torch, np, report, card)
+    origin_shards(torch, np, report)
+    if "parent_libs" in _HELD:
+        sweep_ab = report["ab_sass"]["swfsweep"]
+        moved = [k for k in sweep_ab["differ"]
+                 if not k.startswith("_ZN3swf17sweep_tile_kernel")]
+        if moved or sweep_ab["only_change"] or sweep_ab["only_parent"]:
+            fail(f"origin: sweep kernels besides the column sweeps moved: "
+                 f"{sweep_ab}")
+        log(f"origin: the sweep library's {sweep_ab['identical']} other "
+            "kernels keep the parent's SASS; the column sweeps' "
+            f"{len(sweep_ab['differ'])} differ (they read the origin)")
+    return {"styled": service["styled"] + mesh["styled"],
+            "affine": service["affine"] + mesh["affine"],
+            "morph_affine": mesh["morph_affine"], "morph": mesh["morph"],
+            "fused1": mesh["fused1"]}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5606,6 +6063,8 @@ def main() -> None:
         kernels[key]["launches"] += n
     kernels["texfield"]["max_abs_err"] = max(
         kernels["texfield"]["max_abs_err"], tex_err)
+    for key, n in phase_service_mesh(torch, np, report).items():
+        kernels[key]["launches"] += n
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"
     sweep_cu = "swf_renderer_tpu_torch/csrc/sweep.cu"

@@ -93,6 +93,18 @@ cudaError_t zero_premul_padding(const FusedArgs& a, int frames,
       strip_bytes * a.ns1, 0, strip_bytes, frames, stream);
 }
 
+// Zero the packed-word output's sentinel strip block NS, which no block
+// of the kernels writes, as the plain versions do (so no caller reads
+// stale words there).
+cudaError_t zero_sentinel_words(const FusedArgs& a, int frames,
+                                cudaStream_t stream) {
+  const size_t strip_bytes = sizeof(int) * static_cast<size_t>(a.spp) *
+                             kStripH * a.n_chunks * kLane;
+  return cudaMemset2DAsync(
+      reinterpret_cast<char*>(a.out) + (a.ns1 - 1) * strip_bytes,
+      strip_bytes * a.ns1, 0, strip_bytes, frames, stream);
+}
+
 // Fill sg_index (2 * frames * ns1 ints) with the supergroup index of the
 // packer's flags and point a.sg_first / a.sg_last at it.
 cudaError_t supergroup_index(FusedArgs& a, int frames, int* sg_index,
@@ -290,8 +302,8 @@ extern "C" {
 // layers [mask_from:] a clip group's mask when mask_from >= 0; bit1
 // (with bit0) premultiplied planes out.  sg_index: scratch of 2 * frames
 // * ns1 ints.  out: (F, ns1, spp*8, n_chunks*128) int32 holding packed
-// u32 RGBA, rows of the sentinel strip block (index ns1 - 1) left
-// unwritten; or, mode bit1, (F, ns1, 4, plane_rows, 128) f32, zero in
+// u32 RGBA, the sentinel strip block (index ns1 - 1) zeroed; or, mode
+// bit1, (F, ns1, 4, plane_rows, 128) f32, zero in
 // the padding rows and the sentinel strip block.
 int swf_fused_flatblock(int styled, int mode, const void* sidx,
                         const void* flags, const void* lays, const void* urc,
@@ -351,6 +363,10 @@ int swf_fused_flatblock(int styled, int mode, const void* sidx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* idx = static_cast<int*>(sg_index);
   cudaError_t err;
+  if (!premul) {
+    err = swf::zero_sentinel_words(a, frames, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (!styled) {
     err = swf::launch<false>(a, frames, ns1 - 1, idx, s);
   } else if (!chain) {

@@ -1,7 +1,8 @@
 // Animation sweep kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (ops/transform.py, ops/morph.py): the column
-// tiling (swf_sweep: B3 affine, B6 morph + affine, B7 morph ratio, all
-// tile_sweep_block), the row-band tiling (swf_sweep_rows, B4,
+// tiling (swf_sweep_shift: B3 affine, B6 morph + affine, B7 morph ratio,
+// all tile_sweep_block, at a tile shard's origin), the row-band tiling
+// (swf_sweep_rows, B4,
 // tile_sweep_block) and the compacted tiling (swf_sweep_compact, B5,
 // bin_sweep_block).
 // The device logic and its design notes live in sweep_device.cuh.
@@ -165,21 +166,26 @@ inline bool sweep_shape_ok(int layers, int frames, int height, int width) {
 
 extern "C" {
 
-// mode 0: affine sweep (styled when pint is not null); mode 1: morph +
-// affine sweep; mode 2: morph ratio sweep (no matrices).  Tables are
-// (L, 4, EP) f32; bounds is scratch of F * L * ceil(EP / 16) * 2 floats;
-// out is (F, H, W) int32 holding packed u32 RGBA.
-int swf_sweep(int mode, const void* mats, const void* tab_s,
-              const void* tab_e, const void* ratios, const void* colors,
-              const void* colors_e, const void* counts, const void* rules,
-              const void* pint, const void* pflt, const void* grad_mats,
-              const void* stop_colors, const void* fields, void* bounds,
-              void* out,
-              int frames, int layers, int ep, int height, int width,
-              int mats_per_layer, int colors_per_frame, int n_stop_slots,
-              void* stream) {
+// The column sweeps.  mode 0: affine sweep (styled when pint is not
+// null); mode 1: morph + affine sweep; mode 2: morph ratio sweep (no
+// matrices).  Tables are (L, 4, EP) f32; bounds is scratch of F * L *
+// ceil(EP / 16) * 2 floats; out is (F, H, W) int32 holding packed u32
+// RGBA.  Frame column c is column c + x_shift of the global pixel grid (0
+// for a whole frame, a tile shard's first column of a wider one;
+// |x_shift| and x_shift + width below 2^24).
+int swf_sweep_shift(int mode, const void* mats, const void* tab_s,
+                    const void* tab_e, const void* ratios,
+                    const void* colors, const void* colors_e,
+                    const void* counts, const void* rules, const void* pint,
+                    const void* pflt, const void* grad_mats,
+                    const void* stop_colors, const void* fields,
+                    void* bounds, void* out, int frames, int layers, int ep,
+                    int height, int width, int mats_per_layer,
+                    int colors_per_frame, int n_stop_slots, int x_shift,
+                    void* stream) {
   if (mode < 0 || mode > 2 || ep < 1 ||
-      !swf::sweep_shape_ok(layers, frames, height, width)) {
+      !swf::sweep_shape_ok(layers, frames, height, width) ||
+      x_shift <= -(1 << 24) || x_shift >= (1 << 24) - width) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swf::SweepArgs a = swf::sweep_args(
@@ -194,6 +200,7 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
   a.bounds = static_cast<float*>(bounds);
   a.ep = ep;
   a.mats_per_layer = mats_per_layer;
+  a.x_shift = x_shift;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mode == 0) {
@@ -206,6 +213,25 @@ int swf_sweep(int mode, const void* mats, const void* tab_s,
     err = swf::launch_tiles_lc<true, false, false, swf::kLane>(a, s);
   }
   return static_cast<int>(err);
+}
+
+// swf_sweep_shift of a whole frame (x_shift 0), under the signature of
+// the builds before the origin, so that their libraries and this one
+// bind alike (chip_smoke.py --parent times both).
+int swf_sweep(int mode, const void* mats, const void* tab_s,
+              const void* tab_e, const void* ratios, const void* colors,
+              const void* colors_e, const void* counts, const void* rules,
+              const void* pint, const void* pflt, const void* grad_mats,
+              const void* stop_colors, const void* fields, void* bounds,
+              void* out,
+              int frames, int layers, int ep, int height, int width,
+              int mats_per_layer, int colors_per_frame, int n_stop_slots,
+              void* stream) {
+  return swf_sweep_shift(mode, mats, tab_s, tab_e, ratios, colors, colors_e,
+                         counts, rules, pint, pflt, grad_mats, stop_colors,
+                         fields, bounds, out, frames, layers, ep, height,
+                         width, mats_per_layer, colors_per_frame,
+                         n_stop_slots, 0, stream);
 }
 
 // The row-band sweep (B4) over swf_sweep's arguments; mode 0: affine

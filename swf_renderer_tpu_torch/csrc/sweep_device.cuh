@@ -120,6 +120,8 @@ struct SweepArgs {
   const long long* prefix;   // (F, L, NB, H) 32.32 dy of left pieces
   int cap;                   // gathered slots per (frame, bin, layer)
   int n_bins, bin_w, bins_per_block;
+  int x_shift;               // the column sweeps: the frame's first column
+                             // on the global pixel grid (a tile shard's)
 };
 
 struct SweepShared {
@@ -552,19 +554,20 @@ __device__ __forceinline__ void tile_store(const SweepArgs& a, long long px0,
 // pass): the styled one (kPaint: gradient and field paints) and the
 // solid one above 4 layers.  The plane slots of the row hold the
 // windings as floats (the first word of each long long), then the
-// weights; pixel k is column c0 + cl + k of row y.  A pixel whose
+// weights; pixel k is column c0 + cl + k of row y, paints read at
+// column x0 + c0 + cl + k of the global grid.  A pixel whose
 // windings are all 0 is transparent black whatever its (finite) paints:
 // its word is 0 without the composite.
 template <bool kPaint>
 __device__ __forceinline__ void tile_layered(const SweepArgs& a,
                                              const SweepShared& s, int r,
-                                             int y, long long pix, int cl,
-                                             int tile_w, int stride,
+                                             int y, long long pix, int x0,
+                                             int cl, int tile_w, int stride,
                                              uint32_t* words) {
   const int L = a.layers;
   const int R = a.rows;
   const float py = static_cast<float>(y) + 0.5f;
-  const float px = static_cast<float>(pix % a.width) + 0.5f;
+  const float px = static_cast<float>(pix % a.width + x0) + 0.5f;
   const long long plane_px =
       static_cast<long long>(a.frames) * a.height * a.width;
   auto slots = [&](int l) {
@@ -669,11 +672,13 @@ __device__ __forceinline__ void tile_layered(const SweepArgs& a,
 // columns of each 128-column segment.  kLc: the solid composite's layer
 // class (windings in registers and tile_composite when kLc <= 4, else
 // tile_layered).  Leaves each row's carry at its winding in the tile's
-// last column.  kBin: B5's tiles, whose first column is any.
+// last column.  kBin: B5's tiles, whose first column is any.  x0: the
+// global column of frame column 0, where the paints are read (the column
+// sweeps' a.x_shift; 0 in B4 and B5).
 template <bool kStyled, int kLc, int kTileW, bool kBin = false>
 __device__ void tile_resolve(const SweepArgs& a, const SweepShared& s,
                              int f, int r0, int tile_h, int c0, int tile_w,
-                             unsigned eo, const float4* creg) {
+                             unsigned eo, const float4* creg, int x0 = 0) {
   constexpr bool kInReg = !kStyled && kLc <= 4;
   const int lane = threadIdx.x & 31;
   const int L = a.layers;
@@ -746,7 +751,8 @@ __device__ void tile_resolve(const SweepArgs& a, const SweepShared& s,
         }
       } else {
         for (int l = 0; l < L; ++l) scan(l);
-        tile_layered<kStyled>(a, s, r, y, pix, cl, tile_w, kTileW, words);
+        tile_layered<kStyled>(a, s, r, y, pix, x0, cl, tile_w, kTileW,
+                              words);
       }
       if (cl < tile_w) tile_store<kBin>(a, pix, cl, tile_w, words);
     }
@@ -862,9 +868,20 @@ __device__ __forceinline__ void tile_zero_words(const SweepArgs& a, int f,
 // (kTileW = kRowChunk: the band's chunks left to right, each row's
 // winding at a chunk's last column carried into the next), rows
 // blockIdx.y * a.rows ... of frame blockIdx.z.
+//
+// The column sweeps' origin, a.x_shift (0 for a whole frame; a tile
+// shard of a wider frame, ops/transform.py x_shift): frame column c is
+// column c + x_shift of the global pixel grid.  The walk places the
+// device-space pieces on the global columns and the gradients read them
+// there; only the words land at local columns.  Every pixel's winding is
+// the same sum of 32.32 integers as at that global column of the full
+// frame (the zero shortcuts are exact), so a shard's words equal those
+// columns of the unshifted frame whatever the shard's tiles.  The row
+// bounds of the pre-pass do not depend on columns.  B4 takes no origin.
 template <bool kMorph, bool kAffine, bool kStyled, int kLc, int kTileW>
 __device__ void tile_sweep_block(const SweepArgs& a, unsigned char* smem) {
   constexpr bool kBand = kTileW != kLane;
+  const int x0 = kBand ? 0 : a.x_shift;
   const int tid = threadIdx.x;
   const int L = a.layers;
   const int R = a.rows;
@@ -909,6 +926,8 @@ __device__ void tile_sweep_block(const SweepArgs& a, unsigned char* smem) {
   for (int c0 = c_first; c0 < c_end; c0 += kTileW) {
     const int c1 = min(c0 + kTileW, a.width);
     const bool carry = kBand && c0 > 0;
+    const int g0 = c0 + x0;   // the walk's columns, on the global grid
+    const int g1 = c1 + x0;
     if (c0 > c_first) {
       __syncthreads();   // the previous chunk's resolve has read the planes
       if (tid == 0) *s.touched = 0;
@@ -919,12 +938,12 @@ __device__ void tile_sweep_block(const SweepArgs& a, unsigned char* smem) {
     }
     if (listed) {
       tile_place<kMorph, kAffine>(a, s, n_listed, t, omt, kTileW, r0, r1,
-                                  c0, c1, carry);
+                                  g0, g1, carry);
     } else {
       for (int base = 0; base < n_pairs; base += kSweepMaxHits) {
         const int n_hits = tile_hits(s, bounds, base, n_pairs, r0f, r1f);
         tile_place<kMorph, kAffine>(a, s, n_hits, t, omt, kTileW, r0, r1,
-                                    c0, c1, carry);
+                                    g0, g1, carry);
         __syncthreads();   // the next round rewrites the list
       }
     }
@@ -940,7 +959,7 @@ __device__ void tile_sweep_block(const SweepArgs& a, unsigned char* smem) {
       continue;
     }
     tile_resolve<kStyled, kLc, kTileW>(a, s, f, r0, tile_h, c0, c1 - c0,
-                                       eo, creg);
+                                       eo, creg, x0);
   }
 }
 

@@ -5,12 +5,21 @@ returns ``(forward, example_args)``, where ``forward`` renders a batch
 of multi-layer frames through placement and resolve
 (``ops.flatblock.render_flat_blocks``: one ``place_blocks`` and one
 ``resolve_planes_u32`` launch on the card) into packed RGBA words, and
-``example_args`` are its inputs on the device.  The reference's
-multi-device dry run (``dryrun_multichip``) needs a process group and
-belongs to the multi-device slice (ROADMAP.md A9).
+``example_args`` are its inputs on the device.
+
+``dryrun_multichip(n_devices)`` is the counterpart of the reference's
+multi-device dry run: it starts ``n_devices`` ranks (one a GPU over NCCL;
+with ``device="cpu"`` gloo processes), joined over a ``FileStore`` in a
+temporary directory, and runs one fully sharded step of each of
+``parallel.mesh``'s ``render_batch_dp_tp``, ``render_scanline_dp_tp`` and
+``render_fused_dp`` on them, checking shapes and that something was
+drawn.
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -82,3 +91,74 @@ def entry(device=None):
     args = tuple(torch.from_numpy(x).to(dev)
                  for x in (sidx, keep, urc, ucm, uval, colors))
     return forward, args
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """One fully sharded render step of each mesh route on ``n_devices``
+    ranks: GPUs over NCCL (raises when the machine has fewer), or gloo
+    processes on the CPU with ``device="cpu"``.  Raises if a rank
+    fails."""
+    import torch.multiprocessing as mp
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n_devices:
+        raise ValueError(f"requested {n_devices} GPUs but the machine has "
+                         f"{torch.cuda.device_count()}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_dryrun_rank, nprocs=n_devices, join=True,
+                 args=(n_devices, os.path.join(d, "store"), dev.type))
+
+
+def _dryrun_rank(rank: int, n_devices: int, store: str, device_type: str):
+    import torch.distributed as dist
+
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        store=dist.FileStore(store, n_devices), rank=rank,
+        world_size=n_devices)
+    try:
+        _dryrun_steps(n_devices, device_type)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_steps(n_devices: int, device_type: str) -> None:
+    """The reference's dry run (``__graft_entry__.dryrun_multichip``): the
+    dp x tp solid batch, the scanline pipeline dp x tp with its winding
+    carry, and the one-block fused kernel dp-sharded over frames."""
+    from .parallel.mesh import (
+        make_mesh, partition_cells_by_column, render_batch_dp_tp,
+        render_fused_dp, render_scanline_dp_tp,
+    )
+
+    tp = 2 if n_devices % 2 == 0 else 1
+    mesh = make_mesh(n_devices=n_devices, tp=tp, device=device_type)
+    dp = mesh.shape["dp"]
+    height, width = 32, 128 * tp
+    b = dp * 2  # two frames per dp shard
+    edges_t, colors = _example_batch(b=b, p=2, e=128, h=height, w=width)
+    out = render_batch_dp_tp(mesh, edges_t, colors, height, width)
+    assert out.shape == (b, height, width, 4), out.shape
+    assert out.sum() > 0
+
+    cell_lists = [[edges_to_cells(edges_t[i, j].T, height, width)
+                   for j in range(edges_t.shape[1])] for i in range(b)]
+    sr, sc, sd = partition_cells_by_column(cell_lists, width, tp=tp)
+    out2 = render_scanline_dp_tp(mesh, sr, sc, sd, colors, height, width)
+    assert out2.shape == (b, height, width, 4), out2.shape
+    assert out2.sum() > 0
+
+    update_lists = [
+        [_coalesce_updates(edges_t[i, j].T, height, width)
+         for j in range(edges_t.shape[1])]
+        for i in range(b)
+    ]
+    out3 = render_fused_dp(mesh, update_lists, colors, height, width)
+    assert tuple(out3.shape[:2]) == (b, 32), tuple(out3.shape)
+    assert bool((out3 != 0).any())

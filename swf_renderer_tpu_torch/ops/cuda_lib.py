@@ -153,6 +153,8 @@ def bind(name: str, lib):
     elif name == "swfsweep":
         lib.swf_sweep.restype = i
         lib.swf_sweep.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
+        lib.swf_sweep_shift.restype = i
+        lib.swf_sweep_shift.argtypes = [i] + [p] * 15 + [i] * 9 + [p]
         lib.swf_sweep_rows.restype = i
         lib.swf_sweep_rows.argtypes = [i] + [p] * 15 + [i] * 8 + [p]
         lib.swf_sweep_compact.restype = i
@@ -190,13 +192,20 @@ def bind(name: str, lib):
 def build_other(csrc_dir, build_dir):
     """Compile every library from another checkout's ``csrc_dir`` into
     ``build_dir`` (one ``nvcc`` per source, all started together, this
-    module's flags) and return ({name: bound CDLL}, the compilers'
+    module's flags) and return ({name: CDLL bound by that checkout's own
+    ``bind``, so each build takes its own entry points}, the compilers'
     output); raises on a failed build.  The A/B timings of
     ``chip_smoke.py --parent`` load the parent commit's kernels this
     way."""
+    import importlib.util
+
     build_dir = pathlib.Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     outputs = {name: build_dir / f"lib{name}.so" for name in LIBRARIES}
     log = _nvcc_all(csrc_dir, outputs)
-    return ({name: bind(name, ctypes.CDLL(str(path)))
+    own = pathlib.Path(csrc_dir).parent / "ops" / "cuda_lib.py"
+    spec = importlib.util.spec_from_file_location("_other_cuda_lib", own)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    return ({name: other.bind(name, ctypes.CDLL(str(path)))
              for name, path in outputs.items()}, log)

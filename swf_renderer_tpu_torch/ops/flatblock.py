@@ -405,9 +405,9 @@ def fused_plain(sidx, flags, lays, urc, ucm, uval, colors, frames: int,
                 fields=(), chain: bool = False, bg=None, emit: str = "u32",
                 mask_from=None):
     """Plain PyTorch version of both fused kernels -> (F, NS+1, spp*8,
-    n_chunks*128) int32 packed RGBA (the sentinel strip block NS holds
-    the padding groups' garbage; callers slice [:, :NS]).  ``paints``
-    None is the solid kernel; otherwise one KernelPaint per layer.
+    n_chunks*128) int32 packed RGBA (the sentinel strip block NS, where
+    the padding groups land, is zeros; callers slice [:, :NS]).
+    ``paints`` None is the solid kernel; otherwise one KernelPaint per layer.
 
     ``chain``: the sequential over chain in place of the suffix form,
     seeded from ``bg`` (F, NS+1, 4, plane_rows, 128) premultiplied planes
@@ -634,10 +634,11 @@ def render_fused_styled(sidx, flags, lays, urc, ucm, uval, colors, fields,
                         chain: bool = False, bg=None, emit: str = "u32",
                         mask_from=None):
     """Styled fused render -> (F, NS+1, spp*8, stride) int32 packed RGBA,
-    or with ``emit="premul"`` (F, NS+1, 4, plane_rows, 128) f32
-    premultiplied planes in the kernel's plane-row order, zero in the
-    padding rows and the sentinel strip block NS (counterpart of the TPU
-    ``render_fused_styled``).
+    zero in the sentinel strip block NS (the launcher clears it, as the
+    plain version writes it), or with ``emit="premul"`` (F, NS+1, 4,
+    plane_rows, 128) f32 premultiplied planes in the kernel's plane-row
+    order, zero in the padding rows and the sentinel strip block NS
+    (counterpart of the TPU ``render_fused_styled``).
 
     Kernel: replaces ``_fused_styled_kernel`` (swf_renderer_tpu/ops/
     flatblock.py:1083) with ``styled_flatblock_kernel`` (csrc/

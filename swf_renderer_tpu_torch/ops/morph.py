@@ -24,7 +24,7 @@ from ..utils.device import resolve_device
 from .coverage import FILL_RULE_NONZERO, layer_rules, normalize_fill_rule
 from .flatblock import frames_u32_to_u8
 from .transform import (
-    _check_sweep, _pad_tables, _refuse_x_shift, _run, _split_uniform,
+    _check_sweep, _pad_tables, _run, _shift_origin, _split_uniform,
 )
 
 
@@ -72,8 +72,9 @@ def render_morph_sweep(ratios, tab_s, tab_e, colors_s, colors_e,
     ``ratios``: (R,) f32 in [0, 1]; ``tab_s`` / ``tab_e``: (L, 4, 1, EP)
     f32 (morph_pieces); ``colors_s`` / ``colors_e``: (L, 4) f32.  Tensors
     run where they lie; host arrays (morph_pieces' output as it is) go to
-    ``device`` — the card unless the caller passes ``"cpu"``."""
-    _refuse_x_shift(x_shift)
+    ``device`` — the card unless the caller passes ``"cpu"``.
+    ``x_shift``: the tile-shard origin (ops/transform.py)."""
+    x_shift = _shift_origin(x_shift)
     arrays = (ratios, tab_s, tab_e, colors_s, colors_e)
     if device is not None or not all(torch.is_tensor(x) for x in arrays):
         dev = resolve_device(device)
@@ -93,7 +94,8 @@ def render_morph_sweep(ratios, tab_s, tab_e, colors_s, colors_e,
     }, frames, layers, ep)
     return _run(render_morph_sweep, dev, None, tab_s, tab_e, ratios,
                 colors_s, colors_e, height, width,
-                layer_rules(fill_rule, layers), (ep,) * layers)
+                layer_rules(fill_rule, layers), (ep,) * layers,
+                x_shift=x_shift)
 
 
 render_morph_sweep.launches = 0

@@ -35,6 +35,13 @@ the same 32.32 fixed-point ramps):
   those wholly left of it, and the kernel walks only those
   (``compact_launches``; plain version ``sweep_compact_plain``).
 
+``x_shift=`` (the column tiling only, as in the reference) renders the
+columns of a tile shard: frame column c is column c + x_shift of the
+global pixel grid, where the pieces and gradient matrices stay.  The
+column kernel takes it as its origin (0 for a whole frame) and gives a
+shard the words of those columns of the unsharded frame, at any origin
+and shard width (``parallel/mesh.py``'s tile-sharded sweeps).
+
 Not taken over from the reference: its other tiling knobs (``e_chunk``,
 ``prefix_cheap``, ``prefilter``, ``chunk_list``, ``skip_empty``,
 ``x_split``) and the sublane copies of the piece tables (``subxy``) are
@@ -608,6 +615,30 @@ def _frame_paint_rows(pflt_t, paints, grad_mats, stop_colors, f: int):
     return rows
 
 
+def _shift_origin(x_shift):
+    """The tile-shard origin ``x_shift`` (None, a number, or a one-element
+    array or tensor) -> None or a whole column as an int: the port places
+    shards on whole columns, where the grid's f32 sums are exact."""
+    if x_shift is None:
+        return None
+    v = (x_shift.reshape(-1) if torch.is_tensor(x_shift)
+         else np.asarray(x_shift, np.float64).reshape(-1))
+    if v.shape[0] != 1:
+        raise ValueError(f"x_shift: one origin, got {v.shape[0]} values")
+    v = float(v[0])
+    if not v.is_integer() or abs(v) >= 2 ** 24:
+        raise ValueError(f"x_shift={v}: the origin is a whole column "
+                         "below 2^24")
+    return int(v)
+
+
+def _grid(width: int, x_shift, device):
+    """(1, width) f32 pixel columns on the global grid: column c is
+    c + x_shift (an exact f32 add of whole numbers)."""
+    px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
+    return px if not x_shift else px + float(x_shift)
+
+
 def _winding_fixed(x0, y0, x1, y1, height: int, px):
     """Device-space pieces (n,) x4 -> (H, W') int64 32.32 winding of one
     layer at the columns ``px`` (1, W').
@@ -643,16 +674,16 @@ def _from_fixed(acc):
 
 def _frame_resolver(colors, colors_e, ratios, height: int, width: int,
                     paints=None, grad_mats=None, stop_colors=None,
-                    fields=None):
+                    fields=None, x_shift=None):
     """-> resolve(f, covs): frame f's per-layer coverages -> (H, W) int32
-    packed RGBA through the paints and the shared composite tail."""
+    packed RGBA through the paints and the shared composite tail
+    (gradients read the global grid, fields the frame's columns)."""
     dev = colors.device
     morph = colors_e is not None
     if paints is not None:
         pint, pflt = paint_tables(tuple(paints))
         pflt_t = torch.as_tensor(pflt, device=dev)
-        pxc = torch.arange(width, dtype=torch.float32,
-                           device=dev)[None, :] + 0.5
+        pxc = _grid(width, x_shift, dev) + 0.5
         pyc = torch.arange(height, dtype=torch.float32,
                            device=dev)[:, None] + 0.5
 
@@ -686,19 +717,21 @@ def _frame_resolver(colors, colors_e, ratios, height: int, width: int,
 
 def sweep_plain(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
                 width: int, rules, counts, paints=None, grad_mats=None,
-                stop_colors=None, fields=None):
+                stop_colors=None, fields=None, x_shift=None):
     """Plain PyTorch version of the sweep kernels, every tiling -> (F, H,
     W) int32 packed RGBA.  ``mats`` None is the morph ratio sweep (no
     affine); ``tab_e`` / ``ratios`` / ``colors_e`` None is the affine
     sweep (no lerp).  ``rules`` and ``counts`` are per-layer tuples;
-    ``paints`` None means every layer is a solid colour."""
+    ``paints`` None means every layer is a solid colour; ``x_shift`` (an
+    int) the global column of frame column 0."""
     dev = tab_s.device
     layers = tab_s.shape[0]
     frames = (mats if mats is not None else ratios).shape[0]
     morph = tab_e is not None
-    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    px = _grid(width, x_shift, dev)
     resolve = _frame_resolver(colors, colors_e, ratios, height, width,
-                              paints, grad_mats, stop_colors, fields)
+                              paints, grad_mats, stop_colors, fields,
+                              x_shift)
     out = torch.empty((frames, height, width), dtype=torch.int32, device=dev)
     for f in range(frames):
         if morph:
@@ -773,11 +806,11 @@ def _ptr(t):
 
 def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
                   width: int, rules, counts, paints=None, grad_mats=None,
-                  stop_colors=None, fields=None, rows=False):
+                  stop_colors=None, fields=None, rows=False, x_shift=None):
     """Launch ``swf_sweep`` (csrc/sweep.cu; with ``rows`` the row-band
-    ``swf_sweep_rows``) on the tensors' card; same arguments and result as
-    ``sweep_plain``.  Raises if the library does not build or the launch
-    is refused."""
+    ``swf_sweep_rows``, with ``x_shift`` ``swf_sweep_shift``) on the
+    tensors' card; same arguments and result as ``sweep_plain``.  Raises
+    if the library does not build or the launch is refused."""
     from . import cuda_lib
 
     given = [t for t in (mats, tab_s, tab_e, ratios, colors, colors_e,
@@ -804,7 +837,12 @@ def _launch_sweep(mats, tab_s, tab_e, ratios, colors, colors_e, height: int,
             int(colors.ndim == 3),
             0 if stop_colors is None else stop_colors.shape[2])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = (lib.swf_sweep_rows if rows else lib.swf_sweep)(*args, stream)
+    if rows:
+        err = lib.swf_sweep_rows(*args, stream)
+    elif x_shift:
+        err = lib.swf_sweep_shift(*args, x_shift, stream)
+    else:   # swf_sweep_shift at 0, under the entry older builds share
+        err = lib.swf_sweep(*args, stream)
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     return out
@@ -875,13 +913,6 @@ def _layer_counts(layer_counts, layers: int, ep: int):
     return tuple(min(int(c), ep) for c in layer_counts)
 
 
-def _refuse_x_shift(x_shift):
-    if x_shift is not None:
-        raise NotImplementedError(
-            "x_shift= is the tile-shard origin of the multi-device "
-            "renderer: ROADMAP.md A9 (multi-device)")
-
-
 def _check_wchunk(wchunk):
     if wchunk not in ROW_CHUNKS:
         raise ValueError(f"wchunk={wchunk}: the row-band sweep takes column "
@@ -893,14 +924,15 @@ def _count(counter, attr: str):
 
 
 def _run(launch_counter, dev, *args, attr="launches", rows=False,
-         **kwargs):
-    """The column (or, with ``rows``, row-band) sweep: the plain version
-    for CPU tensors, else the kernel, counted on ``launch_counter.attr``."""
+         x_shift=None, **kwargs):
+    """The column (or, with ``rows``, row-band) sweep, at the column
+    origin ``x_shift``: the plain version for CPU tensors, else the
+    kernel, counted on ``launch_counter.attr``."""
     if dev.type == "cpu":
-        return sweep_plain(*args, **kwargs)
+        return sweep_plain(*args, x_shift=x_shift, **kwargs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = _launch_sweep(*args, rows=rows, **kwargs)
+    out = _launch_sweep(*args, rows=rows, x_shift=x_shift, **kwargs)
     _count(launch_counter, attr)
     return out
 
@@ -974,8 +1006,13 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
     ratios stay static.  ``fields`` (NF, F, H, W, 4) carries baked
     straight-RGBA planes for ``KernelPaint.field(slot)`` layers
     (bake_sweep_fields); the row-band tiling takes none, as the
-    reference's."""
-    _refuse_x_shift(x_shift)
+    reference's.  ``x_shift``: the tile-shard origin (the module
+    docstring), column tiling only; ``fields`` are then the shard's
+    columns."""
+    x_shift = _shift_origin(x_shift)
+    if x_shift is not None and (compact_counts is not None or row_grid):
+        raise ValueError(
+            "x_shift needs the column-grid non-compact sweep kernel")
     if matrices.ndim not in (2, 3):
         raise ValueError("matrices must be (F, 6) or (F, L, 6)")
     frames = matrices.shape[0]
@@ -1056,7 +1093,8 @@ def render_affine_sweep(matrices, tab, colors, height: int, width: int,
                     colors, None, height, width, rules, counts,
                     attr="row_launches", rows=True, **paint_kwargs)
     return _run(render_affine_sweep, dev, matrices, tab, None, None, colors,
-                None, height, width, rules, counts, **paint_kwargs)
+                None, height, width, rules, counts, x_shift=x_shift,
+                **paint_kwargs)
 
 
 render_affine_sweep.launches = 0
@@ -1085,8 +1123,11 @@ def render_morph_affine_sweep(matrices, ratios, tab_s, tab_e, colors_s,
 
     ``matrices``: (F, 6) or (F, L, 6); ``ratios``: (F,) f32 in [0, 1];
     ``tab_s`` / ``tab_e``: (L, 4, 1, EP) start / end pieces
-    (morph_affine_pieces); ``colors_s`` / ``colors_e``: (L, 4)."""
-    _refuse_x_shift(x_shift)
+    (morph_affine_pieces); ``colors_s`` / ``colors_e``: (L, 4);
+    ``x_shift``: the tile-shard origin, column tiling only."""
+    x_shift = _shift_origin(x_shift)
+    if x_shift is not None and row_grid:
+        raise ValueError("x_shift needs the column-grid sweep kernel")
     if matrices.ndim not in (2, 3):
         raise ValueError("matrices must be (F, 6) or (F, L, 6)")
     frames = matrices.shape[0]
@@ -1107,7 +1148,7 @@ def render_morph_affine_sweep(matrices, ratios, tab_s, tab_e, colors_s,
                 layer_rules(fill_rule, layers),
                 _layer_counts(layer_counts, layers, ep),
                 attr="row_launches" if row_grid else "launches",
-                rows=bool(row_grid))
+                rows=bool(row_grid), x_shift=x_shift)
 
 
 render_morph_affine_sweep.launches = 0

@@ -1,20 +1,29 @@
-"""Compiled-scene caches: packed kernel blocks by geometry hash, and
-compiled draw lists per shape instance.
+"""Compiled-scene caches: packed kernel blocks by geometry hash, compiled
+draw lists per shape instance, and draw lists saved to disk.
 
 The reference caches decoded shapes per definition in in-memory WeakMaps
 (reference canvas-renderer.ts:51-58, 96-112) and retains GPU meshes keyed by
 character id (rs/src/headless_renderer.rs:30); these are the analogs one
-and two levels lower.
+and two levels lower.  ``save_draws`` / ``load_draws`` keep a lowered draw
+list (edge tables + paints) in an ``.npz`` of the reference's format
+(``_FORMAT_VERSION``), so a file written by either package loads in the
+other.
 """
 
 from __future__ import annotations
 
 import collections
 import hashlib
+import json
 import pathlib
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
+
+from ..ops import style as style_ops
+from .scene import Draw
+
+_FORMAT_VERSION = 1
 
 
 class PackedSceneCache:
@@ -197,3 +206,71 @@ class DrawListCache:
         self._mem.move_to_end(key)
         while len(self._mem) > self.capacity:
             self._mem.popitem(last=False)
+
+
+def save_draws(path, draws: List[Draw]) -> None:
+    """Serialize a compiled draw list to ``path`` (.npz)."""
+    meta = []
+    arrays = {}
+    for i, d in enumerate(draws):
+        arrays[f"edges_{i}"] = d.edges
+        paint = d.paint
+        entry = {
+            "fill_rule": d.fill_rule,
+            "kind": paint.kind,
+            "color": list(paint.color),
+            "inv_matrix": list(paint.inv_matrix),
+            "focal_point": paint.focal_point,
+            "spread": paint.spread,
+            "repeating": paint.repeating,
+            "smoothed": paint.smoothed,
+            "supersample": paint.supersample,
+            "edge_mode": paint.edge_mode,
+        }
+        if paint.stop_ratios is not None:
+            arrays[f"stop_ratios_{i}"] = np.asarray(paint.stop_ratios)
+            arrays[f"stop_colors_{i}"] = np.asarray(paint.stop_colors)
+            entry["has_stops"] = True
+        if paint.image is not None:
+            arrays[f"image_{i}"] = np.asarray(paint.image)
+            entry["has_image"] = True
+        meta.append(entry)
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps({"version": _FORMAT_VERSION, "draws": meta}).encode(),
+        dtype=np.uint8,
+    )
+    np.savez_compressed(path, **arrays)
+
+
+def load_draws(path) -> List[Draw]:
+    """Load a draw list saved by :func:`save_draws`."""
+    with np.load(path) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        if meta.get("version") != _FORMAT_VERSION:
+            raise ValueError(
+                f"unsupported cache version: {meta.get('version')}")
+        draws: List[Draw] = []
+        for i, entry in enumerate(meta["draws"]):
+            stops = entry.get("has_stops")
+            paint = style_ops.Paint(
+                kind=entry["kind"],
+                color=tuple(entry["color"]),
+                inv_matrix=tuple(entry["inv_matrix"]),
+                stop_ratios=data[f"stop_ratios_{i}"] if stops else None,
+                stop_colors=data[f"stop_colors_{i}"] if stops else None,
+                focal_point=entry["focal_point"],
+                spread=entry["spread"],
+                image=data[f"image_{i}"] if entry.get("has_image") else None,
+                repeating=entry["repeating"],
+                smoothed=entry["smoothed"],
+                supersample=entry["supersample"],
+                edge_mode=entry.get("edge_mode", "flash"),
+            )
+            draws.append(
+                Draw(
+                    edges=data[f"edges_{i}"],
+                    paint=paint,
+                    fill_rule=entry["fill_rule"],
+                )
+            )
+        return draws

@@ -1202,3 +1202,22 @@ def render_shape_animation(tag: ast.DefineShape, matrices, width: int,
         grad_mats=None if grad_mats is None else _upload(grad_mats, device),
         fields=fields)
     return morph_frames_to_u8(out, height, width)
+
+
+def render_shape_tag_to_png(ast_path: str, out_path: str,
+                            device=None) -> np.ndarray:
+    """ast.json of a DefineShape (or a DefineMorphShape, at ratio 0) ->
+    its frame, written to ``out_path`` as a PNG; returns the (H, W, 4)
+    uint8 frame.  Renders on the card unless ``device="cpu"``."""
+    from ..models.ast_io import load_tag
+    from ..utils.png import write_png
+
+    tag = load_tag(ast_path)
+    if isinstance(tag, ast.DefineShape):
+        frame = render_shape(tag, device=device)
+    elif isinstance(tag, ast.DefineMorphShape):
+        frame = render_morph_shape(tag, 0.0, device=device)
+    else:
+        raise ValueError(f"cannot render tag: {tag!r}")
+    write_png(out_path, frame)
+    return frame

@@ -229,7 +229,13 @@ FORMS["warp scan, register composite"] = [
      "  }\n}\n"),
 ]
 # In the redesigned form "prefix" is the zero test of the windings and
-# "resolve" the warp scan with the resolve.
+# "resolve" the warp scan with the resolve.  Since the column sweeps took
+# the shard origin, the walk reads the global columns g0, g1 and the
+# resolve the origin x0: the same stamps on that text.
+FORMS["warp scan, register composite, at the origin"] = [
+    tuple(t.replace("c0, c1, carry);", "g0, g1, carry);")
+           .replace("eo, creg);", "eo, creg, x0);") for t in edit)
+    for edit in FORMS["warp scan, register composite"]]
 
 # The first design's compacted body (a parent checkout's, before B5 moved
 # onto the tiled body): its bins' set-up (zeroing and prefix seeds)

@@ -82,6 +82,17 @@ def test_scan_covers_the_movie_front_end_and_the_cli():
         assert f"swf_renderer_tpu_torch.{name}" in mods, name
 
 
+def test_scan_covers_the_service_and_the_mesh():
+    """The service, the mesh, the host utilities and the rank program of
+    the multi-device tests are among the sources scanned."""
+    mods = set(_port_modules())
+    for name in ("runtime.service", "parallel", "parallel.mesh",
+                 "utils.jsjson", "utils.imagediff", "entry"):
+        assert f"swf_renderer_tpu_torch.{name}" in mods, name
+    ranks = (REPO / "tests" / "torch_parallel_ranks.py").read_text()
+    assert not _FORBIDDEN.search(ranks) and not _DYNAMIC.search(ranks)
+
+
 def test_entry_points_without_device_or_card_raise(monkeypatch):
     from swf_renderer_tpu_torch.models import display
     from swf_renderer_tpu_torch.ops import style as style_ops

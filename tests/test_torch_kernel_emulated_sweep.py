@@ -23,6 +23,10 @@ another).  Five mutants of the new body must each fail on the case
 named for it, and one case each holds B3, B6 and B7 against the JAX
 package's kernels in Pallas interpret mode.  Column blocks that walk
 several column tiles in turn (large grids) are forced on six cases.
+The column sweeps at a tile shard's origin (``a.x_shift``, the
+wrappers' ``x_shift``) run B3 styled, B6 and B7 on a shard at an origin
+on no 128-column tile: equal to ``sweep_plain`` with the origin and to
+those columns of the unshifted frame.
 
 Tolerance: byte-equal to ``sweep_plain`` (``torch.equal``: it performs
 the kernels' arithmetic, the same 32.32 integers summed, and g++
@@ -33,6 +37,7 @@ contracts no FMA); against the JAX kernels the envelope of
 import concurrent.futures
 import ctypes
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -89,6 +94,33 @@ MUTANTS = {
         "                         : omt * x0 + t * te[p];\n",
         "b6_3_layers_evenodd"),
 }
+# The column sweeps at an origin: emulate_sweep's arguments and x_shift
+# (the emulator's run_tiles_lc over the column tiling).
+SHIFT_EXTRA = """
+extern "C" int emulate_sweep_shift(
+    int mode, const float* mats, const float* tab_s, const float* tab_e,
+    const float* ratios, const float* colors, const float* colors_e,
+    const int* counts, const int* rules, const int* pint, const float* pflt,
+    const float* grad_mats, const float* stop_colors, const float* fields,
+    float* bounds, int* out, int frames, int layers, int ep, int height,
+    int width, int mats_per_layer, int colors_per_frame, int n_stop_slots,
+    int x_shift) {
+  swf::SweepArgs a{};
+  a.mats = mats; a.tab_s = tab_s; a.tab_e = tab_e; a.ratios = ratios;
+  a.colors = colors; a.colors_e = colors_e; a.counts = counts;
+  a.rules = rules; a.pint = pint; a.pflt = pflt; a.grad_mats = grad_mats;
+  a.stop_colors = stop_colors; a.fields = fields; a.out = out;
+  a.bounds = bounds;
+  a.frames = frames; a.layers = layers; a.ep = ep; a.height = height;
+  a.width = width; a.mats_per_layer = mats_per_layer;
+  a.colors_per_frame = colors_per_frame; a.n_stop_slots = n_stop_slots;
+  a.x_shift = x_shift;
+  if (mode == 0 && pint) return run_tiles_lc<false, true, true, swf::kLane>(a);
+  if (mode == 0) return run_tiles_lc<false, true, false, swf::kLane>(a);
+  if (mode == 1) return run_tiles_lc<true, true, false, swf::kLane>(a);
+  return run_tiles_lc<true, false, false, swf::kLane>(a);
+}
+"""
 # The sums' first term follows the loop, not the layer, in the mutant.
 _FIRST = ("      if (l == 0) {\n        alpha_out[k] = wgt;\n",
           "      if ((swf_mutant == 3 ? i_ : l) == 0) {\n"
@@ -115,7 +147,8 @@ def emulators(tmp_path_factory):
     header.write_text(text.replace(
         "#pragma once\n", "#pragma once\nextern int swf_mutant;\n", 1))
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        base = pool.submit(_build_emulator, d_base, cuda_lib.CSRC_DIR)
+        base = pool.submit(_build_emulator, d_base, cuda_lib.CSRC_DIR,
+                           SHIFT_EXTRA)
         mut = pool.submit(_build_emulator, d_mut, csrc, """
 int swf_mutant = 0;
 extern "C" void set_mutant(int m) { swf_mutant = m; }
@@ -123,6 +156,9 @@ extern "C" void set_mutant(int m) { swf_mutant = m; }
         base, mut = base.result(), mut.result()
     mut.set_mutant.restype = None
     mut.set_mutant.argtypes = [ctypes.c_int]
+    base.emulate_sweep_shift.restype = ctypes.c_int
+    base.emulate_sweep_shift.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
     return base, mut
 
 
@@ -466,3 +502,28 @@ def test_redesigned_morph_sweeps_match_jax_kernels(emulators, form):
         t(cs), t(ce), height, width, rules, counts)
     assert_close(jmorph.morph_frames_to_u8(want, height, width),
                  tmorph.morph_frames_to_u8(got, height, width), 0)
+
+
+@pytest.mark.parametrize("name", ["b3_4_layers_styled",
+                                  "b6_3_layers_evenodd",
+                                  "b7_morph_edge_pieces_nonzero"])
+def test_origin_forms_equal_plain_version(emulators, name):
+    """The column sweeps on the shard of columns [45, width - 30) (its
+    origin on no tile): byte-equal to sweep_plain with the origin, and to
+    those columns of the unshifted frame (field planes read at the
+    shard's columns)."""
+    args, kw, _ = case(name)
+    width = args[7]
+    x0, ws = 45, width - 75
+    full = sweep.sweep_plain(*args, **kw)
+    shard_args = args[:7] + (ws,) + args[8:]
+    if kw.get("fields") is not None:
+        kw = dict(kw, fields=kw["fields"][..., x0:x0 + ws, :].contiguous())
+    want = sweep.sweep_plain(*shard_args, **kw, x_shift=x0)
+    assert torch.equal(want, full[..., x0:x0 + ws])
+    emu = emulators[0]
+    shifted = types.SimpleNamespace(
+        emulate_sweep=lambda *a: emu.emulate_sweep_shift(*a, x0))
+    got, _ = _run_sweep(shifted, *shard_args, **kw)
+    assert torch.equal(got, want)
+    assert float((want != 0).float().mean()) > 0.01

@@ -467,19 +467,31 @@ def _tiny():
 
 @pytest.mark.parametrize("kwargs,item", [({"x_shift": 3.0}, "A9")])
 def test_reference_tilings_raise_naming_their_item(kwargs, item):
-    """The multi-device renderer's tile-shard origin is not ported yet.
-    (``row_grid=True`` and ``compact_counts=`` run: see
-    tests/test_torch_sweep_tilings.py.)"""
+    """The multi-device renderer's tile-shard origin (ROADMAP.md A9) is
+    ported: each column sweep renders columns 3.. of the global grid,
+    equal to those columns of the unshifted frame; the other tilings
+    refuse it, as the reference's do.  (``row_grid=True`` and
+    ``compact_counts=`` run: see tests/test_torch_sweep_tilings.py.)"""
     mats, tab, colors = _tiny()
-    with pytest.raises(NotImplementedError, match=item):
-        tsweep.render_affine_sweep(mats, tab, colors, 20, 20, **kwargs)
     ratios = t([0.0, 1.0])
-    with pytest.raises(NotImplementedError, match=item):
+    calls = (
+        lambda w, **kw: tsweep.render_affine_sweep(mats, tab, colors, 20, w,
+                                                   **kw),
+        lambda w, **kw: tsweep.render_morph_affine_sweep(
+            mats, ratios, tab, tab, colors, colors, 20, w, **kw),
+        lambda w, **kw: tmorph.render_morph_sweep(ratios, tab, tab, colors,
+                                                  colors, 20, w, **kw))
+    for call in calls:
+        full = call(20)
+        assert (full != 0).any()
+        assert torch.equal(call(17, **kwargs), full[..., 3:]), item
+    with pytest.raises(ValueError, match="column-grid"):
+        tsweep.render_affine_sweep(mats, tab, colors, 20, 17, row_grid=True,
+                                   **kwargs)
+    with pytest.raises(ValueError, match="column-grid"):
         tsweep.render_morph_affine_sweep(mats, ratios, tab, tab, colors,
-                                         colors, 20, 20, **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
-        tmorph.render_morph_sweep(t([0.0, 1.0]), tab, tab, colors,
-                                  colors, 20, 20, **kwargs)
+                                         colors, 20, 17, row_grid=True,
+                                         **kwargs)
 
 
 def test_sweep_wrappers_validate_their_inputs():

@@ -286,7 +286,7 @@ def test_tilings_raise_the_reference_errors():
                                    compact_counts=(256,), wblock=512)
     with pytest.raises(ValueError, match="compacted sweep"):
         tsweep.render_affine_sweep(mats, tab, colors, 20, 20, wblock=64)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="column-grid non-compact"):
         tsweep.render_affine_sweep(mats, tab, colors, 20, 20,
                                    compact_counts=(256,), x_shift=3.0)
 
