@@ -231,7 +231,26 @@ Phases, each of which exits non-zero on failure before the last line:
              for word to its plain version and to those columns of the
              whole frame, timed beside the whole frame's launch.  With
              ``--parent`` every sweep kernel but the column sweeps (which
-             read the origin) must keep the parent's SASS.
+             read the origin) must keep the parent's SASS;
+16. sound — movie_sound1080 (``utils/movie_scenes.py`` ``sound_movie``:
+             the morph movie's timeline, 60 frames at 24 fps, 1920x1080,
+             with an MP3 SoundStreamHead / SoundStreamBlock stream, MPEG-1
+             Layer III 44.1 kHz joint stereo, and an ADPCM and an MP3
+             DefineSound + StartSound, one with in / out points and
+             loops) through ``python -m swf_renderer_tpu_torch movie.swf
+             --wav out.wav --frames DIR`` in a subprocess (``CLI_PROBE``:
+             the kernel wrappers' counts set to 0 before the CLI runs and
+             written out when it ends): one B6 launch, every PNG equal to
+             an in-process ``render_movie_timeline`` (its launch equal to
+             ``sweep_plain`` word for word), out.wav equal to an
+             in-process ``wav_bytes(mix_movie_audio(...))``; soundtrack10s
+             (the same movie at 240 frames, a 10 s track) through
+             ``--wav`` alone: no launch, no PNG, the WAV equal; the MP3
+             decode, mix, WAV write and CLI walls printed; then B9, B10
+             and B11 held against the reference's f64 oracle
+             ``coverage_numpy`` (64x64 to 256x256, up to 512 edges, both
+             rules, max abs 1e-4) and direct1080's first two planes
+             through B9 against it (printed, not gated).
 
 With ``--parent DIR`` (a checkout of the parent commit) phase 1 also
 builds DIR's kernels and compares every kernel's SASS with theirs, and
@@ -253,8 +272,9 @@ The launch counters of the kernel wrappers are set to 0 right before the
 headline, the renderer, the sweep, the bitmap, the layered, the flat
 block, the deep and masked and the tilings paths, before each probe,
 product form, windowed scene and coarse step, before each movie entry
-point call and before each service and mesh call, and read right
-after.  The
+point call, before each service and mesh call and, in the CLI's own
+process, before the sound movie's CLI render, and read right after.
+The
 script prints one JSON line describing each kernel (time, bound, plain
 version's time, library yardstick's time where one call computes the
 same function), then the card's name and power limit as nvidia-smi
@@ -6019,6 +6039,223 @@ def phase_service_mesh(torch, np, report):
             "fused1": mesh["fused1"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sound movie through the CLI, and the coverage oracle
+# ---------------------------------------------------------------------------
+
+SOUND_SIZE = (1920, 1080)   # width, height: the movies' frame
+SOUND_FRAMES = 60           # movie_sound1080: 2.5 s at 24 fps
+SOUND_LONG_FRAMES = 240     # soundtrack10s: a 10 s track, mixed, no render
+ORACLE_TOL = 1e-4           # coverage kernel vs coverage_numpy, max abs
+ORACLE_CASES = ((64, 64, 64), (128, 192, 256), (256, 256, 512))  # H, W, E
+ORACLE_DIRECT_PLANES = 2    # direct1080's planes held (printed, not gated)
+# ``python -m swf_renderer_tpu_torch ARGS`` with the launch counts of the
+# kernel wrappers set to 0 before the CLI runs and written to the file
+# named first when it ends (the counts live in the CLI's own process).
+CLI_PROBE = r"""
+import json, runpy, sys
+from swf_renderer_tpu_torch.ops import flatblock, morph, texfield, transform
+counters = {"styled": flatblock.render_fused_styled,
+            "affine": transform.render_affine_sweep,
+            "morph_affine": transform.render_morph_affine_sweep,
+            "morph": morph.render_morph_sweep,
+            "texfield": texfield.bitmap_field_planes}
+for c in counters.values():
+    c.launches = 0
+out = sys.argv[1]
+sys.argv = ["swf_renderer_tpu_torch"] + sys.argv[2:]
+try:
+    runpy.run_module("swf_renderer_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+finally:
+    with open(out, "w") as f:
+        json.dump({k: c.launches for k, c in counters.items()}, f)
+"""
+
+
+def _sound_cli(out, args):
+    """``python -m swf_renderer_tpu_torch ARGS`` in ``out`` through
+    CLI_PROBE -> (wall ms, the CLI's launches by kernel)."""
+    counts = out / "launches.json"
+    counts.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_PROBE, str(counts)] + args, cwd=out,
+        capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        fail(f"sound: the CLI ({' '.join(args)}) exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return wall, json.loads(counts.read_text())
+
+
+def sound_run(torch, np, report, card):
+    """movie_sound1080 (``sound_movie``: the morph movie's timeline at 24
+    fps with an MP3 stream, an ADPCM and an MP3 event sound) through
+    ``python -m swf_renderer_tpu_torch movie.swf --wav out.wav --frames
+    DIR``: one B6 launch in the CLI's process, every PNG equal to an
+    in-process ``render_movie_timeline`` (its launch equal to
+    ``sweep_plain`` word for word), out.wav equal to an in-process
+    ``wav_bytes(mix_movie_audio(...))``; then soundtrack10s (240 frames)
+    through ``--wav`` alone: no launch, no PNG, the WAV equal.  MP3
+    decode, mix, WAV write and CLI walls timed -> B6's launches in the
+    CLI."""
+    from swf_renderer_tpu_torch.models.mp3 import decode_mp3
+    from swf_renderer_tpu_torch.models.swf_binary import parse_movie
+    from swf_renderer_tpu_torch.ops import transform as sweep
+    from swf_renderer_tpu_torch.runtime import movie
+    from swf_renderer_tpu_torch.runtime.audio import mix_movie_audio
+    from swf_renderer_tpu_torch.utils import movie_scenes
+    from swf_renderer_tpu_torch.utils.png import read_png
+    from swf_renderer_tpu_torch.utils.wav import wav_bytes, write_wav
+
+    width, height = SOUND_SIZE
+    out = OUT_DIR / "sound"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    b6 = 0
+    for what, frames in (("movie_sound1080", SOUND_FRAMES),
+                         ("soundtrack10s", SOUND_LONG_FRAMES)):
+        render = what == "movie_sound1080"
+        t0 = time.perf_counter()
+        data, _stages = movie_scenes.sound_movie(
+            movie_scenes.port_mods(), width, height, frames=frames)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        (out / f"{what}.swf").write_bytes(data)
+        t0 = time.perf_counter()
+        parsed = parse_movie(data)
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        mpeg = b"".join(blk[4:] for _f, blk in
+                        sorted(parsed.sound_stream.blocks.items()))
+        t0 = time.perf_counter()
+        pcm, rate = decode_mp3(mpeg)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        seconds = pcm.shape[0] / rate
+        t0 = time.perf_counter()
+        track = mix_movie_audio(parsed)
+        mix_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_wav(out / f"{what}.in_process.wav", track)
+        wav_ms = (time.perf_counter() - t0) * 1e3
+        want_wav = wav_bytes(track)
+        if not (np.isfinite(track).all() and track.ndim == 2
+                and track.shape[1] == 2 and np.abs(track).max() > 0.05
+                and track.shape[0] >= int(frames * 44100
+                                          / movie_scenes.SOUND_FPS)):
+            fail(f"sound: {what}'s track {track.shape} is not a stereo "
+                 "soundtrack of the timeline's length")
+        args = [f"{what}.swf", "--wav", f"{what}.wav"]
+        if render:
+            args += ["--frames", "frames"]
+        cli_ms, got = _sound_cli(out, args)
+        if (out / f"{what}.wav").read_bytes() != want_wav:
+            fail(f"sound: the CLI's {what}.wav differs from wav_bytes("
+                 "mix_movie_audio(...)) in process")
+        rec = {"build_ms": build_ms, "parse_ms": parse_ms,
+               "mp3_decode_ms": decode_ms, "mp3_seconds": seconds,
+               "mp3_ms_per_s": decode_ms / seconds, "mix_ms": mix_ms,
+               "wav_write_ms": wav_ms, "wav_bytes": len(want_wav),
+               "cli_ms": cli_ms, "cli_launches": got}
+        if render:
+            if got["morph_affine"] < 1 or sum(got.values()) != got[
+                    "morph_affine"]:
+                fail(f"sound: the CLI's render launched {got}: B6 only "
+                     "expected")
+            b6 += got["morph_affine"]
+            calls, restore = _record_sweeps(sweep)
+            try:
+                t0 = time.perf_counter()
+                want = movie.render_movie_timeline(data, device=DEVICE)
+                rec["in_process_render_ms"] = (time.perf_counter() - t0) * 1e3
+                rec["words_checked"] = _route_equals_plain(
+                    torch, sweep, f"sound: {what} (in process)", calls)
+            finally:
+                restore()
+            pngs = sorted((out / "frames").glob("*.png"))
+            if len(pngs) != frames or want.shape != (frames, height, width,
+                                                     4):
+                fail(f"sound: {len(pngs)} PNGs, frames {want.shape}")
+            for p, f in zip(pngs, want):
+                if not np.array_equal(read_png(p), f):
+                    fail(f"sound: the CLI's {p.name} differs from the "
+                         "in-process frame")
+            shutil.rmtree(out / "frames")
+        elif sum(got.values()) or (out / "frames").exists():
+            fail(f"sound: the audio-only CLI rendered: {got}")
+        log(f"sound: {what} ({frames} frames, {seconds:.2f} s of MPEG-1 "
+            f"Layer III stream at {rate} Hz): MP3 decode {decode_ms:.1f} ms "
+            f"({decode_ms / seconds:.1f} ms a second of audio), mix "
+            f"{mix_ms:.1f} ms, WAV write {wav_ms:.2f} ms ({len(want_wav)} B), "
+            f"parse {parse_ms:.1f} ms; CLI {' '.join(args)}: wall "
+            f"{cli_ms:.0f} ms, launches {got}; the WAV equals the "
+            f"in-process one" + ("; every PNG equals the in-process frame"
+                                 if render else "; nothing rendered")
+            + f" [{card}]")
+        report[what] = rec
+    return b6
+
+
+def oracle_check(torch, np, report, card):
+    """B9, B10 and B11 on the card against ``coverage_numpy`` (the
+    reference's f64 oracle, one edge at a time) on closed random paths
+    (64x64 to 256x256, up to 512 edges, both rules): max abs within
+    ORACLE_TOL; then direct1080's first ORACLE_DIRECT_PLANES planes
+    through B9 against the oracle, printed only."""
+    import concurrent.futures
+
+    from swf_renderer_tpu_torch.ops import coverage as cov
+    from swf_renderer_tpu_torch.utils.scenes import (
+        build_scene_edges, closed_edge_planes,
+    )
+
+    kernels = {"banded": cov.coverage_banded, "tiled": cov.coverage_tiled,
+               "grouped": cov.coverage_grouped}
+    worst = dict.fromkeys(kernels, 0.0)
+    rng = np.random.default_rng(61)
+    for height, width, n in ORACLE_CASES:
+        e_pad = -(-n // 128) * 128
+        t = closed_edge_planes(rng, 2, n, e_pad, height, width)
+        d = _up(torch, np, t)
+        for rule in (0, 1):
+            want = np.stack([cov.coverage_numpy(p.T[(p != 0).any(0)],
+                                                height, width, rule)
+                             for p in t])
+            for name, fn in kernels.items():
+                got = fn(d, height, width, rule).cpu().numpy()
+                err = float(np.abs(got - want).max())
+                if not err <= ORACLE_TOL:
+                    fail(f"oracle: {name} {height}x{width} E={n} rule="
+                         f"{rule}: max abs {err} against coverage_numpy")
+                worst[name] = max(worst[name], err)
+    tables, _colors = build_scene_edges(1, 4, *DIRECT[2:], seed=7)
+    planes = tables[0][:ORACLE_DIRECT_PLANES]
+    got = cov.coverage_banded(_up(torch, np, cov.split_pad_tables(planes)),
+                              *DIRECT[2:], 0).cpu().numpy()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(planes)) as pool:
+        want = list(pool.map(lambda e: cov.coverage_numpy(e, *DIRECT[2:]),
+                             planes))
+    oracle_s = time.perf_counter() - t0
+    direct = float(max(np.abs(g - w).max() for g, w in zip(got, want)))
+    log(f"oracle: against coverage_numpy, max abs banded (B9) "
+        f"{worst['banded']:.3g}, tiled (B10) {worst['tiled']:.3g}, grouped "
+        f"(B11) {worst['grouped']:.3g} (limit {ORACLE_TOL:g}; "
+        f"{len(ORACLE_CASES)} sizes x 2 planes x 2 rules); direct1080's "
+        f"{len(planes)} planes through B9: max abs {direct:.3g} (not gated; "
+        f"the oracle took {oracle_s:.1f} s on the host) [{card}]")
+    report["oracle"] = dict(worst, tol=ORACLE_TOL, direct1080=direct,
+                            direct1080_planes=len(planes))
+
+
+def phase_sound(torch, np, report):
+    """Phase 16 -> B6's launches by the sound movie's CLI render."""
+    card = card_line()
+    b6 = sound_run(torch, np, report, card)
+    oracle_check(torch, np, report, card)
+    return {"morph_affine": b6}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -6064,6 +6301,8 @@ def main() -> None:
     kernels["texfield"]["max_abs_err"] = max(
         kernels["texfield"]["max_abs_err"], tex_err)
     for key, n in phase_service_mesh(torch, np, report).items():
+        kernels[key]["launches"] += n
+    for key, n in phase_sound(torch, np, report).items():
         kernels[key]["launches"] += n
 
     flatblock_cu = "swf_renderer_tpu_torch/csrc/flatblock.cu"

@@ -13,11 +13,13 @@ reference) to an NVIDIA Hopper card.  Same layout, same public contracts
   plain PyTorch versions beside them), paints and the batch pipelines;
 * **runtime/** — ``TorchRenderer.render(stage)`` / ``render_batch``;
   ``movie.render_movie`` / ``render_movie_timeline`` for ``.swf`` files;
+  ``audio.mix_movie_audio``, a movie's sound track (host code, with the
+  MP3 decoder ``models.mp3`` and ``utils.wav``);
   ``service.RendererService``, the handle and asset-id front end;
 * **parallel/** — frames, tile columns and passes sharded over ranks of a
   ``torch.distributed`` group (NCCL on the card, gloo on the CPU);
 * **__main__** — ``python -m swf_renderer_tpu_torch <ast.json|movie.swf>``
-  writes PNG / PAM frames;
+  writes PNG / PAM frames and, with ``--wav``, a movie's mixed audio;
 * **convert.py** — carries paints, draws and packed scenes across, and
   ``to_plain`` turns either package's parsed trees into one comparable
   form.
@@ -50,6 +52,7 @@ _EXPORTS = {
     "render_movie": "runtime.movie",
     "render_movie_timeline": "runtime.movie",
     "load_movie_stage": "runtime.movie",
+    "mix_movie_audio": "runtime.audio",
 }
 
 __all__ = list(_EXPORTS)

@@ -7,7 +7,8 @@ whole .swf movie (FWS, CWS or ZWS), rasterizes on the card and writes
 PNG and/or PAM (``--frames DIR`` plays a movie timeline to numbered
 PNGs, one batch).  ``main(argv, device="cpu")`` runs the kernels' plain
 versions on the CPU instead; with no device and no card it raises.
-``--wav`` raises: the audio mixer is not ported yet (ROADMAP A8).
+``--wav PATH`` mixes a movie's audio on the host and writes it as a
+16-bit WAV; alone it renders nothing.
 """
 
 from __future__ import annotations
@@ -42,8 +43,7 @@ def main(argv=None, device=None) -> int:
                              "to numbered PNGs in DIR (one device batch)")
     parser.add_argument("--wav", default=None, metavar="PATH",
                         help="for .swf inputs: mix the movie's audio "
-                             "track to a 16-bit WAV (not ported yet: "
-                             "raises, ROADMAP A8)")
+                             "track (events + stream) to a 16-bit WAV")
     args = parser.parse_args(argv)
 
     from .models import ast as ast_model
@@ -85,9 +85,18 @@ def main(argv=None, device=None) -> int:
         from .runtime.movie import render_movie, render_movie_timeline
 
         if args.wav is not None:
-            raise NotImplementedError(
-                "--wav: the audio mixer and WAV writer are not ported yet "
-                "(ROADMAP A8: runtime/audio.py, utils/wav.py)")
+            from .models.swf_binary import parse_movie
+            from .runtime.audio import mix_movie_audio
+            from .runtime.movie import _movie_bytes
+            from .utils.wav import write_wav
+
+            movie = parse_movie(_movie_bytes(args.ast))
+            write_wav(args.wav, mix_movie_audio(movie))
+            print(args.wav)
+            if args.output is None and args.frames is None:
+                # Audio-only invocation: render nothing that was not
+                # asked for.
+                return 0
 
         t0 = time.perf_counter()
         if args.frames is not None:

@@ -11,15 +11,13 @@ v19 'Sounds'):
   the streaming track, one block per timeline frame.
 - Codecs: format 0/3 (uncompressed, 16-bit LE or 8-bit unsigned) are
   decoded exactly; format 1 (SWF ADPCM, 2..5-bit codes) has a full
-  decoder and a 4-bit encoder twin; MP3/Nellymoser bytes are carried
-  (parse/emit round-trip) but not decoded — ``decode_sound`` raises
-  the same NotImplemented error shape the bitmap service uses for
-  foreign media types.
+  decoder and a 4-bit encoder twin; format 2 (MP3) decodes through
+  ``models.mp3``; Nellymoser bytes are carried (parse/emit round-trip)
+  but not decoded — ``decode_sound`` raises the same NotImplemented
+  error shape the bitmap service uses for foreign media types.
 
 PCM is float32 in [-1, 1], shaped (samples, channels).
-``runtime.audio`` and ``utils.wav`` (the mixer and the WAV writer) and
-the MP3 decoder are not ported yet (ROADMAP A8): MP3 payloads parse and
-emit, and ``decode_sound`` raises for them.
+``runtime.audio`` mixes the timeline; ``utils.wav`` writes the result.
 """
 
 from __future__ import annotations
@@ -251,6 +249,17 @@ def encode_adpcm(pcm: np.ndarray) -> bytes:
     return w.bytes()
 
 
+def _linear_resample(pcm: np.ndarray, src: int, dst: int) -> np.ndarray:
+    if src == dst or pcm.shape[0] == 0:
+        return pcm
+    n_out = int(round(pcm.shape[0] * dst / src))
+    t_out = np.arange(n_out) * (src / dst)
+    t_in = np.arange(pcm.shape[0])
+    return np.stack([np.interp(t_out, t_in, pcm[:, c])
+                     for c in range(pcm.shape[1])], axis=1).astype(
+        np.float32)
+
+
 def decode_sound(format: int, data: bytes, bits: int, channels: int,
                  sample_count: Optional[int] = None,
                  declared_rate: Optional[int] = None) -> np.ndarray:
@@ -260,19 +269,27 @@ def decode_sound(format: int, data: bytes, bits: int, channels: int,
     byte-alignment padding otherwise decodes as spurious trailing
     samples — one per block tail, enough to drift a stream mix).
 
-    ``declared_rate``: the SWF tag's rate enum value, which only MP3
-    payloads read (resampling to it comes with the MP3 decoder,
-    ROADMAP A8)."""
+    ``declared_rate``: the SWF tag's rate enum value.  MP3 frames carry
+    their OWN sample rate (the MPEG enum covers rates the SWF field
+    cannot express — 8/12/16/24/32/48 kHz; the player derives timing
+    from the frames), so when the true rate differs the PCM is
+    resampled to the declared rate, keeping downstream scheduling —
+    which uses the tag's rate — pitch-correct."""
     if format in (FORMAT_UNCOMPRESSED, FORMAT_UNCOMPRESSED_LE):
         pcm = decode_uncompressed(data, bits, channels)
     elif format == FORMAT_ADPCM:
         pcm = decode_adpcm(data, channels)
     elif format == FORMAT_MP3:
         # MP3SOUNDDATA (SWF spec): s16 LE SeekSamples, then MPEG frames.
-        # The port has no MP3 decoder yet (ROADMAP A8: models/mp3.py).
-        raise NotImplementedError(
-            "MP3 sound decoding is not ported yet (ROADMAP A8: "
-            "models/mp3.py)")
+        # SeekSamples skips encoder-delay samples from the decode head.
+        from .mp3 import decode_mp3
+
+        seek = int.from_bytes(data[:2], "little", signed=True)
+        pcm, mp3_rate = decode_mp3(data[2:])
+        if seek > 0:
+            pcm = pcm[seek:]
+        if declared_rate and mp3_rate != declared_rate:
+            pcm = _linear_resample(pcm, mp3_rate, declared_rate)
     else:
         raise NotImplementedError(
             f"NotImplemented: Support for sound format {format}")

@@ -1,23 +1,32 @@
 """ctypes bindings of the native geometry library: the cell splitter and
-the flat-block packers that feed the fused kernels.
+the flat-block packers that feed the fused kernels, and the C++ shape
+decoder with its record-stream encoding.
 
-The library also holds the C++ shape decoder (src/shape_decoder.cc, the
-reference Rust decoder's counterpart); its Python surface (record
-encoding, rs-log goldens) belongs to the decoder-golden slice and is not
-bound here yet.
+The decoder (src/shape_decoder.cc) is the counterpart of the reference
+Rust decoder (rs/src/decoder/shape_decoder.rs): :func:`decode_shape_native`
+returns stitched flattened paths, and :func:`format_rs_log` reproduces
+the Rust decoder's ``format!("{:#?}")`` golden output (shape.rs.log).
+The functions are ports of ``swf_renderer_tpu/native/bindings.py``'s,
+on this package's ``models.ast``.
 
 The port REQUIRES the library: it is built from ``src/`` with ``g++`` at
 first use into the package's ``_build/`` directory, and a failed build
 raises (there is no numpy splitter or Python packer fallback).
+:func:`native_available` says whether it loads; no route branches on it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import pathlib
+import struct
 import subprocess
 import threading
+from typing import List, Optional, Sequence
+
+from ..models import ast
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parent
 _SOURCES = tuple(_NATIVE_DIR / "src" / name for name in (
@@ -71,6 +80,13 @@ def load_library():
 def _load_locked():
     global _lib
     lib = ctypes.CDLL(str(build_library()))
+    lib.swf_decode_shape.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.swf_decode_shape.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_size_t),
+    ]
+    lib.swf_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     lib.swf_cells_split.restype = ctypes.c_int64
     lib.swf_cells_split.argtypes = [
         ctypes.POINTER(ctypes.c_float),
@@ -424,3 +440,225 @@ def cells_split_native(edges, height: int, width: int):
     if count < 0:
         raise RuntimeError("cell capacity estimate too small")
     return rows[:count], cols[:count], area[:count], cover[:count]
+
+
+def native_available() -> bool:
+    try:
+        load_library()
+        return True
+    except Exception:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Record-stream encoding
+# ---------------------------------------------------------------------------
+
+
+def encode_records(tag: ast.DefineShape) -> bytes:
+    """Serialize a DefineShape's geometry into the native binary protocol."""
+    shape = tag.shape
+    out = bytearray()
+    out += struct.pack("<IIII", 0x53574644,
+                       len(shape.initial_styles.fill),
+                       len(shape.initial_styles.line),
+                       len(shape.records))
+    for record in shape.records:
+        if isinstance(record, ast.EdgeRecord):
+            if record.control_delta is None:
+                out += struct.pack("<Bii", 0, record.delta.x, record.delta.y)
+            else:
+                out += struct.pack(
+                    "<Biiii", 1,
+                    record.control_delta.x, record.control_delta.y,
+                    record.delta.x, record.delta.y,
+                )
+        elif isinstance(record, ast.StyleChangeRecord):
+            flags = 0
+            payload = b""
+            if record.left_fill is not None:
+                flags |= 1
+                payload += struct.pack("<I", record.left_fill)
+            if record.right_fill is not None:
+                flags |= 2
+                payload += struct.pack("<I", record.right_fill)
+            if record.line_style is not None:
+                flags |= 4
+                payload += struct.pack("<I", record.line_style)
+            if record.move_to is not None:
+                flags |= 8
+                payload += struct.pack("<ii", record.move_to.x, record.move_to.y)
+            if record.new_styles is not None:
+                flags |= 16
+                payload += struct.pack(
+                    "<II", len(record.new_styles.fill), len(record.new_styles.line)
+                )
+            out += struct.pack("<BB", 2, flags) + payload
+        else:
+            raise ValueError(f"unknown record {record!r}")
+    return bytes(out)
+
+
+@dataclasses.dataclass
+class NativePath:
+    style_kind: int  # 0 fill, 1 line
+    layer_index: int
+    style_index: int
+    verbs: List[int]  # 0 MoveTo, 1 LineTo
+    points: List[tuple]  # (x, y) floats
+
+
+def decode_shape_native(tag: ast.DefineShape) -> List[NativePath]:
+    lib = load_library()
+    buf = encode_records(tag)
+    cbuf = (ctypes.c_uint8 * len(buf)).from_buffer_copy(buf)
+    out_len = ctypes.c_size_t(0)
+    ptr = lib.swf_decode_shape(cbuf, len(buf), ctypes.byref(out_len))
+    if not ptr:
+        raise ValueError("native decoder rejected the record stream")
+    try:
+        raw = ctypes.string_at(ptr, out_len.value)
+    finally:
+        lib.swf_free(ptr)
+
+    (n_paths,) = struct.unpack_from("<I", raw, 0)
+    off = 4
+    headers = []
+    for _ in range(n_paths):
+        headers.append(struct.unpack_from("<IIII", raw, off))
+        off += 16
+    paths: List[NativePath] = []
+    for kind, layer, style, n_verbs in headers:
+        verbs = list(raw[off : off + n_verbs])
+        off += (n_verbs + 3) // 4 * 4
+        pts = struct.unpack_from(f"<{n_verbs * 2}f", raw, off)
+        off += n_verbs * 8
+        points = [(pts[2 * i], pts[2 * i + 1]) for i in range(n_verbs)]
+        paths.append(NativePath(kind, layer, style, verbs, points))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Rust-golden log formatting (lyon / swf-tree Debug format)
+# ---------------------------------------------------------------------------
+
+_VERB_NAMES = {0: "MoveTo", 1: "LineTo"}
+_CAP_NAMES = {"round": "Round", "none": "None", "square": "Square"}
+_JOIN_NAMES = {"round": "Round", "bevel": "Bevel", "miter": "Miter"}
+
+
+def _f32_debug(v: float) -> str:
+    """Rust f32 Debug: shortest repr with a mandatory decimal point."""
+    s = repr(float(v))
+    if "." not in s and "e" not in s and "inf" not in s and "nan" not in s:
+        s += ".0"
+    return s
+
+
+def _color_lines(color: ast.StraightSRgba8, pad: str) -> List[str]:
+    return [
+        f"{pad}StraightSRgba8 {{",
+        f"{pad}    r: {color.r},",
+        f"{pad}    g: {color.g},",
+        f"{pad}    b: {color.b},",
+        f"{pad}    a: {color.a},",
+        f"{pad}}},",
+    ]
+
+
+def _fill_style_lines(style: ast.FillStyle, pad: str) -> List[str]:
+    if isinstance(style, ast.SolidFill):
+        lines = [f"{pad}Solid(", f"{pad}    Solid {{"]
+        color = _color_lines(style.color, pad + "        ")
+        color[0] = f"{pad}        color: StraightSRgba8 {{"
+        lines += color
+        lines += [f"{pad}    }},", f"{pad}),"]
+        return lines
+    raise NotImplementedError(f"rs-log formatting for {style!r}")
+
+
+def _layer_styles(tag: ast.DefineShape, layer_index: int):
+    """Style list for a layer: 0 = initial styles, n>0 = the n-th
+    ``new_styles`` record in stream order."""
+    if layer_index == 0:
+        return tag.shape.initial_styles
+    seen = 0
+    for record in tag.shape.records:
+        if (isinstance(record, ast.StyleChangeRecord)
+                and record.new_styles is not None):
+            seen += 1
+            if seen == layer_index:
+                return record.new_styles
+    raise IndexError(f"layer {layer_index} not found")
+
+
+def format_rs_log(tag: ast.DefineShape,
+                  paths: Optional[Sequence[NativePath]] = None) -> str:
+    """Reproduce the reference Rust decoder's ``{:#?}`` output."""
+    if paths is None:
+        paths = decode_shape_native(tag)
+    lines: List[str] = ["Shape {", "    paths: ["]
+    for path in paths:
+        lines.append("        StyledPath {")
+        lines.append("            path: Path {")
+        lines.append("                points: [")
+        for x, y in path.points:
+            lines.append(
+                f"                    ({_f32_debug(x)},{_f32_debug(y)}),"
+            )
+        lines.append("                ],")
+        lines.append("                verbs: [")
+        for verb in path.verbs:
+            lines.append(f"                    {_VERB_NAMES[verb]},")
+        lines.append("                ],")
+        lines.append("            },")
+
+        styles = _layer_styles(tag, path.layer_index)
+        if path.style_kind == 0:
+            fill = styles.fill[path.style_index]
+            lines.append("            fill: Some(")
+            fl = _fill_style_lines(fill, "                ")
+            lines += fl
+            lines.append("            ),")
+            lines.append("            line: None,")
+        else:
+            line_style = styles.line[path.style_index]
+            lines.append("            fill: None,")
+            lines.append("            line: Some(")
+            lines.append("                LineStyle {")
+            lines.append(f"                    width: {line_style.width},")
+            lines.append(
+                f"                    start_cap: "
+                f"{_CAP_NAMES[line_style.start_cap]},"
+            )
+            lines.append(
+                f"                    end_cap: {_CAP_NAMES[line_style.end_cap]},"
+            )
+            join_name = _JOIN_NAMES[line_style.join.get("type", "round")]
+            lines.append(f"                    join: {join_name},")
+            lines.append(
+                f"                    no_h_scale: "
+                f"{'true' if line_style.no_h_scale else 'false'},"
+            )
+            lines.append(
+                f"                    no_v_scale: "
+                f"{'true' if line_style.no_v_scale else 'false'},"
+            )
+            lines.append(
+                f"                    no_close: "
+                f"{'true' if line_style.no_close else 'false'},"
+            )
+            lines.append(
+                f"                    pixel_hinting: "
+                f"{'true' if line_style.pixel_hinting else 'false'},"
+            )
+            fl = _fill_style_lines(line_style.fill, "                    ")
+            fl[0] = "                    fill: Solid("
+            lines += fl[:-1]
+            lines.append("                    ),")
+            lines.append("                },")
+            lines.append("            ),")
+        lines.append("        },")
+    lines.append("    ],")
+    lines.append("}")
+    return "\n".join(lines)

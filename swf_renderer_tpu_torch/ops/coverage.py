@@ -29,7 +29,9 @@ renderer, as in the reference (which calls it only from a benchmark
 tool): the tiled kernel's 128-edge blocks, walked by 8-row strips in
 8-edge groups with reciprocals in place of the divisions.
 ``coverage_plain`` is the reference's XLA formulation (one scan over the
-edges in table order).
+edges in table order).  ``coverage_numpy`` is the reference's f64 numpy
+oracle, one edge at a time: a yardstick for tests and the chip check,
+on no render route.
 """
 
 from __future__ import annotations
@@ -598,3 +600,45 @@ def coverage(edges_t, height: int, width: int,
     if edges_t.shape[-1] <= SMEM_EDGE_CAP:
         return coverage_banded(edges_t, height, width, fill_rule, device)
     return coverage_tiled(edges_t, height, width, fill_rule, device)
+
+
+# ---------------------------------------------------------------------------
+# NumPy oracle (tests and the chip check only)
+# ---------------------------------------------------------------------------
+
+
+def coverage_numpy(edges: np.ndarray, height: int, width: int,
+                   fill_rule: int = FILL_RULE_NONZERO) -> np.ndarray:
+    """Direct NumPy port of the math, one edge at a time, in f64.
+    (E, 4) -> (H, W)."""
+    py = np.arange(height, dtype=np.float64)[:, None]
+    px = np.arange(width, dtype=np.float64)[None, :]
+    acc = np.zeros((height, width), dtype=np.float64)
+
+    def h01(x):
+        return np.where(x <= 0.0, 0.0, np.where(x >= 1.0, x - 0.5, 0.5 * x * x))
+
+    for x0, y0, x1, y1 in np.asarray(edges, dtype=np.float64):
+        sy0, sy1 = y0 - py, y1 - py
+        cy0, cy1 = np.clip(sy0, 0, 1), np.clip(sy1, 0, 1)
+        dy = cy1 - cy0
+        dyd = sy1 - sy0
+        safe = np.where(np.abs(dyd) < 1e-9, 1.0, dyd)
+        t0, t1 = (cy0 - sy0) / safe, (cy1 - sy0) / safe
+        sx0 = x0 - px
+        xa = sx0 + t0 * (x1 - x0)
+        xb = sx0 + t1 * (x1 - x0)
+        xmn, xmx = np.minimum(xa, xb), np.maximum(xa, xb)
+        span = xmx - xmn
+        safe_span = np.where(span < 1e-9, 1.0, span)
+        mean = np.where(
+            span < 1e-9,
+            np.clip(0.5 * (xmn + xmx), 0, 1),
+            (h01(xmx) - h01(xmn)) / safe_span,
+        )
+        acc += dy * (1.0 - mean)
+
+    if fill_rule == FILL_RULE_NONZERO:
+        return np.minimum(np.abs(acc), 1.0)
+    m = np.mod(acc, 2.0)
+    return 1.0 - np.abs(m - 1.0)

@@ -18,7 +18,9 @@ The reference computes the device half with XLA scatters and ``cumsum``
 accumulate through ``index_put_(accumulate=True)``: on the CPU it adds
 the updates in their order; on CUDA it sorts them (stably) and adds each
 target's updates in that same order, so two calls give the same bytes,
-unlike ``index_add_``'s float atomics.
+unlike ``index_add_``'s float atomics.  ``coverage_scanline_numpy`` and
+``coverage_flash4x4_numpy`` are the reference's f64 numpy oracles of
+both pipelines (tests and the chip check; no render route).
 """
 
 from __future__ import annotations
@@ -152,6 +154,37 @@ def edges_to_point_cells(edges: np.ndarray, height: int, width: int,
     return (np.asarray(out_r, dtype=np.int32),
             np.asarray(out_c, dtype=np.int32),
             np.asarray(out_d, dtype=np.float64))
+
+
+def coverage_scanline_numpy(edges, height, width,
+                            fill_rule=FILL_RULE_NONZERO) -> np.ndarray:
+    """NumPy reference of the scanline pipeline, in f64 (oracle)."""
+    rows, cols, area, cover = edges_to_cells(edges, height, width)
+    area_plane = np.zeros((height, width))
+    cover_plane = np.zeros((height, width + 1))
+    np.add.at(area_plane, (rows, cols), area)
+    np.add.at(cover_plane, (rows, cols + 1), cover)
+    acc = area_plane + np.cumsum(cover_plane, axis=1)[:, :width]
+    if fill_rule == FILL_RULE_NONZERO:
+        return np.minimum(np.abs(acc), 1.0)
+    m = np.mod(acc, 2.0)
+    return 1.0 - np.abs(m - 1.0)
+
+
+def coverage_flash4x4_numpy(edges, height, width,
+                            fill_rule=FILL_RULE_NONZERO,
+                            ss: int = 4) -> np.ndarray:
+    """NumPy reference of the point-sampled (Flash quality-high)
+    coverage, in f64 (oracle)."""
+    rows, cols, delta = edges_to_point_cells(edges, height, width, ss)
+    plane = np.zeros((height * ss, width * ss + 1))
+    np.add.at(plane, (rows, cols), delta)
+    winding = np.cumsum(plane, axis=1)[:, : width * ss]
+    if fill_rule == FILL_RULE_NONZERO:
+        inside = (np.abs(winding) >= 0.5).astype(np.float64)
+    else:
+        inside = (np.mod(np.abs(np.round(winding)), 2) == 1).astype(np.float64)
+    return inside.reshape(height, ss, width, ss).mean(axis=(1, 3))
 
 
 def pack_cells(cell_lists, pad_multiple: int = 512, sort: bool = True):

@@ -19,6 +19,15 @@ whole pixels, so a timeline stays eligible for the sweep routes.
   bitmap fill under a rotated matrix, a DefineSprite of two shapes under
   a colour transform, a sprite with DefineScalingGrid under a
   non-uniform scale, and a DefineFont2 + DefineText line of glyphs.
+- ``sound_movie``: ``morph_movie``'s timeline at 24 fps with a
+  soundtrack: an MP3 SoundStreamHead / SoundStreamBlock stream (MPEG-1
+  Layer III, 44.1 kHz, joint stereo, one block a frame), an ADPCM and an
+  MP3 DefineSound at 22.05 kHz (the MP3 one's frames at 24 kHz), their
+  StartSounds (one with in / out points and loops, one stop).
+
+``mp3_frames`` / ``mp3_stream`` make the MP3 bytes: valid Layer III
+frame headers, side information drawn field by field, and seeded main
+data (no recorded audio; the decoder reads whatever the bits say).
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ def port_mods():
     return types.SimpleNamespace(
         ast=mod("models.ast"), fixed=mod("utils.fixed").Sfixed16P16,
         sb=mod("models.swf_binary"), display=mod("models.display"),
-        bmp=mod("runtime.bitmap_service"))
+        bmp=mod("runtime.bitmap_service"), sound=mod("models.sound"))
 
 
 def _matrix(m, sx=1.0, sy=1.0, r0=0.0, r1=0.0, tx=0, ty=0):
@@ -184,9 +193,10 @@ def _morph_outline(m, n, r0, r1):
     return tuple(recs)
 
 
-def morph_movie(m, width, height, frames=16, seed=12):
-    """(movie bytes, the ``frames`` stages it loads to)."""
-    a, sb, P = m.ast, m.sb, m.sb.Placement
+def _morph_timeline(m, width, height, frames, seed):
+    """-> (the morph tag, the per-frame ops, the stages, the background,
+    the frame RECT) of ``morph_movie``."""
+    a, P = m.ast, m.sb.Placement
     rng = np.random.default_rng(seed)
     tw, th = width * 20, height * 20
     r0, r1 = int(min(tw, th) * 0.22), int(min(tw, th) * 0.3)
@@ -222,9 +232,158 @@ def morph_movie(m, width, height, frames=16, seed=12):
             m.display.MorphShapeInstance(definition=tag, ratio=ratio(f),
                                          matrix=mat(i, f))
             for i in range(3)]))
-    movie = sb.emit_movie_timeline(
+    return tag, ops, stages, background, a.Rect(0, tw, 0, th)
+
+
+def morph_movie(m, width, height, frames=16, seed=12):
+    """(movie bytes, the ``frames`` stages it loads to)."""
+    tag, ops, stages, background, rect = _morph_timeline(m, width, height,
+                                                         frames, seed)
+    movie = m.sb.emit_movie_timeline(
         ops, morphs=[tag], background=background, frame_rate=30.0,
-        morph2=True, stage_rect=a.Rect(0, tw, 0, th))
+        morph2=True, stage_rect=rect)
+    return movie, stages
+
+
+# The Huffman tables a Layer III encoder may select (4 and 14 are unused).
+_MP3_TABLES = tuple(t for t in range(32) if t not in (4, 14))
+
+
+def _side_info(rng, lsf, nch, main_data_begin, part2_3):
+    """One frame's side information, every field drawn from ``rng`` but
+    ``main_data_begin`` and the granules' ``part2_3`` bit lengths."""
+    fields = [(main_data_begin, 8 if lsf else 9)]
+    fields.append((0, (1 if nch == 1 else 2) if lsf else
+                   (5 if nch == 1 else 3)))
+    if not lsf:
+        fields += [(int(rng.integers(0, 2)), 1) for _ in range(4 * nch)]
+    for length in part2_3:
+        fields += [(length, 12), (int(rng.integers(0, 289)), 9),
+                   (int(rng.integers(100, 161)), 8),
+                   (int(rng.integers(0, 512 if lsf else 16)),
+                    9 if lsf else 4)]
+        if rng.random() < 0.3:            # window switching
+            block_type = int(rng.integers(1, 4))
+            fields += [(1, 1), (block_type, 2),
+                       (int(block_type == 2 and rng.random() < 0.3), 1)]
+            fields += [(int(rng.choice(_MP3_TABLES)), 5) for _ in range(2)]
+            fields += [(int(rng.integers(0, 8)), 3) for _ in range(3)]
+        else:
+            fields += [(0, 1)]
+            fields += [(int(rng.choice(_MP3_TABLES)), 5) for _ in range(3)]
+            fields += [(int(rng.integers(0, 16)), 4),
+                       (int(rng.integers(0, 8)), 3)]
+        fields += [(int(rng.integers(0, 2)), 1)
+                   for _ in range(2 if lsf else 3)]
+    acc, nbits = 0, 0
+    for value, width in fields:
+        acc = (acc << width) | value
+        nbits += width
+    return acc.to_bytes(nbits // 8, "big")
+
+
+def mp3_frames(n, version=3, mode=1, crc=False, bitrate_index=9,
+               rate_index=0, seed=0):
+    """``n`` MPEG Layer III frames of one stream, as a list of bytes:
+    ``version`` 3 / 2 / 0 (MPEG-1 / 2 / 2.5), ``mode`` 0 stereo, 1 joint
+    (each frame's mode extension drawn), 2 dual, 3 mono; ``crc`` adds the
+    16-bit check word (drawn, as the decoder reads none).  Each frame's
+    main data are seeded bytes; ``main_data_begin`` reaches back into the
+    previous frames' main data (the bit reservoir) from the second frame
+    on, and the granules' bit budgets split what it can reach."""
+    from ..models import mp3
+
+    rng = np.random.default_rng(seed)
+    lsf = version != 3
+    nch = 1 if mode == 3 else 2
+    ngran = 1 if lsf else 2
+    side_len = (9 if nch == 1 else 17) if lsf else (17 if nch == 1 else 32)
+    kbps = (mp3.BITRATES_V2 if lsf else mp3.BITRATES_V1)[bitrate_index]
+    rate = mp3._SR_BASE[version][rate_index]
+    out, prev_main = [], 0
+    for _ in range(n):
+        padding = int(rng.integers(0, 2))
+        frame_bytes = (72 if lsf else 144) * kbps * 1000 // rate + padding
+        header = bytes((0xFF, 0xE0 | version << 3 | 1 << 1 | int(not crc),
+                        bitrate_index << 4 | rate_index << 2 | padding << 1,
+                        mode << 6 | int(rng.integers(0, 4)) << 4 | 0x4))
+        main = frame_bytes - 4 - 2 * crc - side_len
+        begin = int(rng.integers(0, min(prev_main, 255 if lsf else 511)
+                                 + 1))
+        budget = (begin + main) * 8
+        cuts = np.sort(rng.integers(0, budget + 1, ngran * nch))
+        part2_3 = [min(int(b - a), 4095)
+                   for a, b in zip(np.concatenate([[0], cuts[:-1]]), cuts)]
+        frame = (header + (rng.bytes(2) if crc else b"")
+                 + _side_info(rng, lsf, nch, begin, part2_3)
+                 + rng.bytes(main))
+        assert len(frame) == frame_bytes
+        out.append(frame)
+        prev_main = main
+    return out
+
+
+def mp3_stream(n, id3=False, seed=0, **kw):
+    """``mp3_frames`` joined, after a 10-byte ID3v2 header and its
+    seeded body when ``id3``."""
+    frames = b"".join(mp3_frames(n, seed=seed, **kw))
+    if not id3:
+        return frames
+    size = 37 + seed % 64
+    head = b"ID3\x03\x00\x00" + bytes(
+        (size >> 21 & 0x7F, size >> 14 & 0x7F, size >> 7 & 0x7F,
+         size & 0x7F))
+    return head + np.random.default_rng(seed).bytes(size) + frames
+
+
+SOUND_FPS = 24.0
+
+
+def sound_movie(m, width, height, frames=60, seed=14):
+    """(movie bytes, the ``frames`` stages it loads to): ``morph_movie``'s
+    timeline at ``SOUND_FPS`` with a soundtrack (the module docstring).
+    The stream's blocks hold the MPEG frames that cover their timeline
+    frame (1837.5 samples a frame at 44.1 kHz, 1152 an MPEG frame); the
+    first block skips 576 samples (SeekSamples)."""
+    snd, sb = m.sound, m.sb
+    rng = np.random.default_rng(seed)
+    tag, ops, stages, background, rect = _morph_timeline(
+        m, width, height, frames, seed)
+    spf = 44100 / SOUND_FPS
+    ends = [int(math.ceil((f + 1) * spf / 1152)) for f in range(frames)]
+    mpeg = mp3_frames(ends[-1], version=3, mode=1, seed=seed + 1)
+    stream = snd.SoundStream(format=snd.FORMAT_MP3, rate=44100, bits=16,
+                             channels=2, samples_per_frame=int(round(spf)))
+    start = 0
+    for f, end in enumerate(ends):
+        stream.blocks[f] = ((end - start) * 1152).to_bytes(2, "little") \
+            + (576 if f == 0 else 0).to_bytes(2, "little", signed=True) \
+            + b"".join(mpeg[start:end])
+        start = end
+    t = np.arange(8820) / 22050.0
+    tone = (0.4 * np.sin(2 * np.pi * 330.0 * t)
+            + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+    adpcm = snd.Sound(id=30, format=snd.FORMAT_ADPCM, rate=22050, bits=16,
+                      channels=1, sample_count=tone.shape[0],
+                      data=snd.encode_adpcm(tone))
+    # 24 MPEG-2 frames at 24 kHz (576 samples each), declared 22.05 kHz:
+    # decode_sound resamples them to 22.05 kHz, the mixer to 44.1 kHz.
+    mp3 = snd.Sound(id=31, format=snd.FORMAT_MP3, rate=22050, bits=16,
+                    channels=1, sample_count=12000,
+                    data=(100).to_bytes(2, "little", signed=True)
+                    + mp3_stream(24, version=2, mode=3, rate_index=1,
+                                 bitrate_index=8, seed=seed + 2))
+    info = snd.SoundInfo
+    at = (0, max(1, frames // 6), max(2, frames // 3),
+          max(3, 2 * frames // 3))
+    events = {at[0]: [(30, info())],
+              at[1]: [(31, info())],
+              at[2]: [(30, info(in_point=500, out_point=4000, loops=3))],
+              at[3]: [(31, info(stop=True))]}
+    movie = sb.emit_movie_timeline(
+        ops, morphs=[tag], background=background, frame_rate=SOUND_FPS,
+        morph2=True, stage_rect=rect, sounds=(adpcm, mp3),
+        sound_events=events, sound_stream=stream)
     return movie, stages
 
 

@@ -1,8 +1,9 @@
 """The port's command-line renderer (``python -m swf_renderer_tpu_torch``)
 on the CPU: ``main(argv, device="cpu")`` writes what the port renders in
-process, keeps the JAX CLI's options and argument errors, and refuses
-``--wav`` naming ROADMAP A8; run as a module it imports no JAX and, with
-no card, raises instead of falling back to the CPU."""
+process, keeps the JAX CLI's options and argument errors, and writes
+``--wav`` tracks byte-equal to the JAX CLI's (``tests/test_torch_audio.py``
+holds the sound movie); run as a module it imports no JAX and, with no
+card, raises instead of falling back to the CPU."""
 
 import json
 import pathlib
@@ -153,12 +154,19 @@ def test_cli_argument_errors_are_the_jax_clis(movies, tmp_path, capsys):
         assert got == _error_line(jcli.main, argv, capsys), argv
 
 
-def test_cli_wav_names_the_audio_item(movies, tmp_path):
+def test_cli_wav_names_the_audio_item(movies, tmp_path, capsys):
+    """``--wav`` on a movie without sounds: both CLIs write the same
+    silent track (one frame's samples at 30 fps), print its path and
+    render nothing."""
     anim, _still = movies
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli.main([str(anim), "--wav", str(tmp_path / "a.wav")],
-                 device="cpu")
-    assert not (tmp_path / "a.wav").exists()
+    a, b = tmp_path / "a.wav", tmp_path / "b.wav"
+    assert cli.main([str(anim), "--wav", str(a)], device="cpu") == 0
+    assert capsys.readouterr().out.strip() == str(a)
+    assert jcli.main([str(anim), "--wav", str(b)]) == 0
+    assert capsys.readouterr().out.strip() == str(b)
+    assert a.read_bytes() == b.read_bytes()
+    assert len(a.read_bytes()) == 44 + 4 * 5880   # 4 frames, 44.1 kHz
+    assert not pathlib.Path(str(anim) + ".png").exists()
 
 
 def _run_module(args, cwd):

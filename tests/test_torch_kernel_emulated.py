@@ -20,7 +20,9 @@ s8 (B K-major, s32 accumulation) with A from registers and B through its
 matrix descriptor, each group deferred to the wait that retires it, for
 ``csrc/place_mma_device.cuh``, whose tests are in
 ``test_torch_kernel_emulated_products.py``), and
-the emulated blocks run at small sizes.  This checks the kernel's
+the emulated blocks run at small sizes (a launch aborts if it leaves
+the calling thread's MXCSR control bits or x87 control word other than
+it found them: the fibers switch both).  This checks the kernel's
 indexing, strip slicing and arithmetic without a card; the card itself
 runs ``chip_smoke.py``.  Tolerance: byte-equal — the plain versions
 perform the kernel's arithmetic (left-to-right prefix, fixed-point
@@ -184,6 +186,20 @@ void run(int n, void (*fn)(void*), void* obj, Enter enter) {
       std::fprintf(stderr, "emulated block deadlocked at a barrier\n");
       std::abort();
     }
+  }
+  // The calling thread leaves with the rounding, flush and mask bits of
+  // MXCSR and the x87 control word it came with (the sticky exception
+  // flags aside): a fiber's environment never leaks out of a launch.
+  unsigned mxcsr_out = 0;
+  unsigned short fcw_out = 0;
+  asm volatile("stmxcsr %0" : "=m"(mxcsr_out));
+  asm volatile("fnstcw %0" : "=m"(fcw_out));
+  if (((mxcsr_out ^ mxcsr) & ~0x3Fu) != 0 || fcw_out != fcw) {
+    std::fprintf(stderr, "emulated launch changed the calling thread's "
+                 "MXCSR %#x -> %#x or x87 control word %#x -> %#x\n",
+                 mxcsr, mxcsr_out, static_cast<unsigned>(fcw),
+                 static_cast<unsigned>(fcw_out));
+    std::abort();
   }
 }
 }  // namespace emu

@@ -15,9 +15,17 @@ field's contraction order).  ``render_solid_batch`` composites in XLA
 on the reference's side (``c * cov + dst * (1 - a * cov)`` contracted
 into FMAs): one pixel of alpha 10 moves 26 straight levels under nonzero
 (share 2.1e-5), pinned.
+
+Every case starts in the process's default floating-point environment
+(``tests/torch_fpenv.py``: MXCSR 0x1F80 and x87 control word 0x037F on
+the calling thread), and a frame comparison that fails reports both
+packages' frame hashes, that environment, torch's intra-op threads and
+the test files that ran before it in this worker (ROADMAP.md queue C
+item 1: the direct-focal case failed once, cause not found).
 """
 
 import dataclasses
+import hashlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +39,7 @@ from swf_renderer_tpu_torch.ops import coverage as tcov
 from swf_renderer_tpu_torch.ops import pipeline as tpl
 from swf_renderer_tpu_torch.runtime.renderer import TorchRenderer
 from swf_renderer_tpu_torch.utils.scenes import build_scene_edges
+from tests import torch_fpenv
 from tests.test_torch_renderer import (
     JAX, PORT, H, W, _bitmap_tag, _linear, _scene, _solid, _stage,
     assert_close, levels,
@@ -49,9 +58,42 @@ SCENES = ["solid-background", "linear", "focal", "bitmap", "mixed-rules",
 STRAIGHT_ENVELOPE = {"focal": 3, "bitmap": 2}
 
 
+@pytest.fixture(autouse=True)
+def default_fp_env():
+    """Each case starts with the default rounding, flush and mask bits."""
+    err = torch_fpenv.default_env_error()
+    assert err is None, err
+
+
+def _earlier_files(request):
+    """The test files whose cases set up in this worker before this one
+    (pytest's skipping plugin stamps each item it sets up)."""
+    from _pytest.skipping import xfailed_key
+
+    files = []
+    for item in request.session.items:
+        if item is request.node:
+            break
+        name = item.nodeid.split("::")[0]
+        if xfailed_key in item.stash and name not in files:
+            files.append(name)
+    return files
+
+
+def fault_report(request, want, got):
+    """What the next failure of a frame comparison should tell."""
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    return (f"JAX frame sha256 {digest(want)}, port frame sha256 "
+            f"{digest(got)}; {torch_fpenv.describe()}; torch intra-op "
+            f"threads {torch.get_num_threads()}; earlier test files in "
+            f"this worker: {_earlier_files(request)}")
+
+
 @pytest.mark.parametrize("name", SCENES)
 @pytest.mark.parametrize("route", list(BACKENDS))
-def test_layered_render_matches_tpu_renderer(route, name):
+def test_layered_render_matches_tpu_renderer(route, name, request):
     jstage, kw = _scene(JAX, name)
     tstage, _ = _scene(PORT, name)
     jr = TpuRenderer(W, H, **BACKENDS[route], **kw)
@@ -63,7 +105,29 @@ def test_layered_render_matches_tpu_renderer(route, name):
     got = tr.render(tstage)
     assert jr.last_stats.path == tr.last_stats.path == PATHS[route]
     assert got[..., 3].max() > 0
-    assert_close(want, got, STRAIGHT_ENVELOPE.get(name, 0))
+    try:
+        assert_close(want, got, STRAIGHT_ENVELOPE.get(name, 0))
+    except AssertionError as exc:
+        raise AssertionError(
+            f"{exc}; {fault_report(request, want, got)}") from None
+
+
+def test_fp_env_guard_sees_a_changed_rounding_mode(request):
+    """The entry check and the fault report read the calling thread's
+    MXCSR: round-toward-zero is named, and restored after."""
+    if not torch_fpenv.available():
+        pytest.skip("MXCSR unreadable: not x86-64 or no g++")
+    saved = torch_fpenv.mxcsr()
+    try:
+        torch_fpenv.set_mxcsr(torch_fpenv.DEFAULT_MXCSR | 0x6000)
+        err = torch_fpenv.default_env_error()
+        report = fault_report(request, np.zeros(2, np.uint8),
+                              np.ones(2, np.uint8))
+    finally:
+        torch_fpenv.set_mxcsr(saved)
+    assert err is not None and "MXCSR 0x7f" in err
+    assert "MXCSR 0x7f" in report and "torch intra-op threads" in report
+    assert torch_fpenv.default_env_error() is None
 
 
 @pytest.mark.parametrize("route", list(BACKENDS))

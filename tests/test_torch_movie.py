@@ -14,7 +14,7 @@ holds:
   scene builders' movies load to exactly their hand-built stages;
 - the loaders refuse the same inputs with the same exception types and
   messages;
-- the codecs give equal arrays and bytes; MP3 raises naming ROADMAP A8;
+- the codecs give equal arrays and bytes (MP3 through the decoder);
 - ``render_movie`` / ``render_movie_timeline(device="cpu")`` against the
   JAX package's (Pallas in interpret mode): the same
   ``last_stats.path``, premultiplied bytes within 1 level, straight
@@ -365,11 +365,14 @@ def test_sound_codecs_agree():
 
 
 def test_sound_refusals():
-    from swf_renderer_tpu_torch.models import sound
-
-    with pytest.raises(NotImplementedError, match="A8"):
-        sound.decode_sound(sound.FORMAT_MP3, b"\x00\x00\xff\xfb", 16, 1,
-                           declared_rate=22050)
+    """MP3 decodes as the reference's (SeekSamples, the resample to the
+    declared rate); Nellymoser refuses as the reference does."""
+    payload = (64).to_bytes(2, "little") + movie_scenes.mp3_stream(
+        6, version=2, mode=1, rate_index=1, seed=1)
+    pj, pt = both(lambda k, rng: k.sound.decode_sound(
+        k.sound.FORMAT_MP3, payload, 16, 2, declared_rate=22050))
+    assert pt.dtype == pj.dtype and pt.shape == pj.shape
+    assert np.array_equal(pt, pj)
     rj, rt = both(lambda k, rng: [
         _grab(lambda: k.sound.decode_sound(k.sound.FORMAT_NELLYMOSER,
                                            b"\x00", 16, 1))])

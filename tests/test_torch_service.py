@@ -34,9 +34,10 @@ from tests.test_torch_renderer import (
     JAX, PORT, H, W, _linear, _matrix, _morph, _solid, assert_close,
 )
 
-# The reference's exports the port does not have yet, each with its queue
-# item (ROADMAP.md), and the one the port names differently.
-MISSING = {"mix_movie_audio": "A8"}
+# The reference's exports the port does not have (none: the audio mixer
+# is ported), each with its queue item (ROADMAP.md), and the one the
+# port names differently.
+MISSING = {}
 RENAMED = {"TpuRenderer": "TorchRenderer"}
 
 
