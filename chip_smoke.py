@@ -144,8 +144,12 @@ Phases, each of which exits non-zero on failure before the last line:
              none0, full); exp_bw's passthroughs (both layouts) and
              read+sum on (60, 4, 137, 128, 128) f32 planes and exp_scatter
              D's step probe on 16384 and 131072 tiles, each equal to its
-             plain version and timed beside its plain version and its
-             one-call library yardstick (``torch.add``, ``torch.sum``);
+             plain version (also as bare launches into one buffer) and
+             timed beside its plain version and its one-call library
+             yardstick (``torch.add``, ``torch.sum``), per call and as
+             runs of back-to-back calls, the kernel also as bare
+             launches (the wrapper's enqueue apart); with --parent each
+             of the five rows A/B against the parent's libswfprobes;
 12. products — placement as a matrix product on the tensor cores (the
              reference's tools/exp_int8.py, exp_k3.py three / concat and
              exp_lmask.py) and the merged read of exp_dmamerge.py at any
@@ -321,7 +325,9 @@ def log(msg: str) -> None:
 sys.path.insert(0, str(ROOT))
 try:
     from swf_renderer_tpu_torch.tools.exp_split import byte_diff
-    from swf_renderer_tpu_torch.tools.timing import card_line, time_ms
+    from swf_renderer_tpu_torch.tools.timing import (
+        card_line, time_ms, time_run_ms,
+    )
 except ImportError as exc:
     fail(f"the port's package is not beside this script: {exc}")
 
@@ -404,7 +410,8 @@ def phase_build():
 # ratio) and row-band (B4, sweep_rows_kernel<kMorph, kAffine, kStyled,
 # kLc>) instantiations at anim1080, morph_affine1080 and morph1080, the
 # compacted bins (B5, sweep_bin_kernel<kStyled, kLc>) at anim1080 and the
-# pipelined plane resolve (B16) (the solid sweeps and B16 in NO_STACK).
+# pipelined plane resolve (B16) (the solid sweeps and B16 in NO_STACK),
+# and the two streaming probes of csrc/probes.cu (in NO_STACK).
 PTXAS_WATCH = {
     "B1 fused_block<solid>": "solid_flatblock_kernelILi0ELi4E",
     "B1 at 16 layers": "solid_flatblock_kernelILi0ELi16E",
@@ -439,6 +446,8 @@ PTXAS_WATCH = {
     "B5 solid": "sweep_bin_kernelILb0ELi4E",
     "B5 styled": "sweep_bin_kernelILb1ELi16E",
     "B16 pipelined resolve": "resolve_dma_kernel",
+    "probe passthrough": "passthrough_kernel",
+    "probe read+sum": "read_sum_kernel",
 }
 NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B5 solid",
             "B6 morph + affine", "B7 morph", "B13 one-block",
@@ -447,15 +456,18 @@ NO_STACK = ("B3 solid", "B4 solid", "B4 morph", "B5 solid",
             "product k3_concat at 16 layers", "product lmask",
             "product lmask at 16 layers", "product int8",
             "product int8 at 16 layers", "coarse", "coarse at 16 layers",
-            "coarse 1", "coarse 1 at 16 layers")
+            "coarse 1", "coarse 1 at 16 layers", "probe passthrough",
+            "probe read+sum")
 
 
-def ab_times(torch, name, fn, lib="swfkernels"):
+def ab_times(torch, name, fn, lib="swfkernels", run=None):
     """With --parent: ``fn`` timed (CUDA events, median of 5) with the
     parent's build of ``lib`` swapped in and with this one's, in the
-    order parent, change, change, parent; kept for report.json["ab"] and
-    returned.  None without --parent.  The wrappers count these launches
-    too, so callers time after reading their launch counters."""
+    order parent, change, change, parent; with ``run``, each turn also
+    times ``run`` calls back to back (``time_run_ms``: ms a call); kept
+    for report.json["ab"] and returned.  None without --parent.  The
+    wrappers count these launches too, so callers time after reading
+    their launch counters."""
     from swf_renderer_tpu_torch.ops import cuda_lib
 
     parent = _HELD.get("parent_libs")
@@ -463,20 +475,31 @@ def ab_times(torch, name, fn, lib="swfkernels"):
         return None
     mine = cuda_lib.load(lib)
     times = {"parent_ms": [], "change_ms": []}
+    if run:
+        times.update(parent_run_ms=[], change_run_ms=[])
     try:
-        for key, which in (("parent_ms", parent[lib]), ("change_ms", mine),
-                           ("change_ms", mine), ("parent_ms", parent[lib])):
+        for key, which in (("parent", parent[lib]), ("change", mine),
+                           ("change", mine), ("parent", parent[lib])):
             cuda_lib._libs[lib] = which
-            times[key].append(time_ms(torch, fn, reps=5))
+            times[f"{key}_ms"].append(time_ms(torch, fn, reps=5))
+            if run:
+                times[f"{key}_run_ms"].append(time_run_ms(torch, fn, run)[0])
     finally:
         cuda_lib._libs[lib] = mine
     p, c = (statistics.mean(times[k]) for k in ("parent_ms", "change_ms"))
     times["change_vs_parent"] = c / p - 1.0
+    runs = ""
+    if run:
+        pr, cr = (statistics.mean(times[f"{k}_run_ms"])
+                  for k in ("parent", "change"))
+        times["change_vs_parent_run"] = cr / pr - 1.0
+        runs = (f"; {run} back to back: parent {pr:.4f} / change {cr:.4f} "
+                f"ms a call ({100 * (cr / pr - 1):+.1f}%)")
     _HELD.setdefault("ab", {})[name] = times
     log(f"A/B: {name}: parent {times['parent_ms'][0]:.4f} / change "
         f"{times['change_ms'][0]:.4f} / {times['change_ms'][1]:.4f} / "
         f"parent {times['parent_ms'][1]:.4f} ms ({100 * (c / p - 1):+.1f}% "
-        f"of the means)")
+        f"of the means){runs}")
     return times
 
 
@@ -4457,21 +4480,44 @@ def probes_bandwidth(torch, np, report, launches):
     """exp_bw at (60, 4, 137, 128, 128) and exp_scatter D at 16384 and
     131072 steps: each kernel driven once through its wrapper (counter
     set to 0 before, read after), held equal to its plain version, timed
-    beside it and beside its one-call library yardstick."""
+    beside it and beside its one-call library yardstick: each a median of
+    single calls (``ms``, ``library_ms``) and a run of back-to-back calls
+    (``b2b_ms``, ``library_b2b_ms``; ``enqueue_ms`` and
+    ``library_enqueue_ms`` the host time a call), the kernel also as a
+    run of bare launches into one buffer (``launch_b2b_ms``: no wrapper,
+    no allocation), which separates the wrapper's enqueue from the
+    kernel; with --parent an A/B of the wrapper against the parent's
+    libswfprobes, both ways."""
     from swf_renderer_tpu_torch.tools import exp_bw, exp_scatter
 
     x, x_t = exp_bw.planes(DEVICE, shape=BW_SHAPE)
+    buf = torch.empty_like(x)
+    n_f, n_s, n_l, r, c = x_t.shape
+    sums = torch.empty((n_f, n_s, r, c), device=DEVICE)
+
+    def bare(fn, src, out, geo, *strides):
+        return lambda: exp_bw.launch_probe(fn, src, out, geo, *strides)
+
     probes = {
         "bw_lns": (exp_bw.passthrough, lambda: exp_bw.passthrough(x, "lns"),
                    lambda: exp_bw.passthrough_plain(x),
-                   lambda: torch.add(x, 1.0), 2 * x.numel() * 4),
+                   lambda: torch.add(x, 1.0),
+                   bare("swf_passthrough", x, buf,
+                        exp_bw.geometry(tuple(x.shape), "lns")),
+                   2 * x.numel() * 4),
         "bw_nsl": (exp_bw.passthrough,
                    lambda: exp_bw.passthrough(x_t, "nsl"),
                    lambda: exp_bw.passthrough_plain(x_t),
-                   lambda: torch.add(x_t, 1.0), 2 * x.numel() * 4),
+                   lambda: torch.add(x_t, 1.0),
+                   bare("swf_passthrough", x_t, buf,
+                        exp_bw.geometry(tuple(x_t.shape), "nsl")),
+                   2 * x.numel() * 4),
         "bw_read_sum": (exp_bw.read_sum, lambda: exp_bw.read_sum(x_t),
                         lambda: exp_bw.read_sum_plain(x_t),
                         lambda: torch.sum(x_t, dim=2),
+                        bare("swf_read_sum", x_t, sums,
+                             exp_bw.geometry(tuple(x_t.shape), "nsl"),
+                             n_s * r * c, r * c),
                         x.numel() * 4 * (1 + 1 / x.shape[1]))}
     steps = {}
     for n in exp_scatter.STEPS:
@@ -4482,9 +4528,12 @@ def probes_bandwidth(torch, np, report, launches):
             exp_scatter.step_probe,
             lambda s=steps[n]: exp_scatter.step_probe(s),
             lambda s=steps[n]: s + 1.0, lambda s=steps[n]: torch.add(s, 1.0),
+            bare("swf_passthrough", steps[n], buf,
+                 exp_bw.geometry((1, n, 1, 8, 128), "nsl")),
             2 * steps[n].numel() * 4)
     out = {}
-    for name, (fn, kernel, plain, library, nbytes) in probes.items():
+    peak = PEAK_BYTES_PER_S / 1e9
+    for name, (fn, kernel, plain, library, launch, nbytes) in probes.items():
         fn.launches = 0
         torch.cuda.synchronize()
         got = kernel()
@@ -4495,20 +4544,51 @@ def probes_bandwidth(torch, np, report, launches):
         want = plain()
         if got.shape != want.shape or not torch.equal(got, want):
             fail(f"probes: {name} differs from its plain version")
-        del got, want
+        launch()
+        torch.cuda.synchronize()
+        dest = sums if fn is exp_bw.read_sum else \
+            buf.view(-1)[:want.numel()].view(want.shape)
+        if not torch.equal(dest, want):
+            fail(f"probes: {name}'s bare launch differs from its plain "
+                 "version")
+        del dest, got, want
         ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch, plain)
         library_ms = time_ms(torch, library)
+        run = max(20, min(1000, int(20 / ms)))
+        b2b_ms, enqueue_ms = time_run_ms(torch, kernel, run)
+        launch_b2b_ms, _ = time_run_ms(torch, launch, run)
+        library_b2b_ms, library_enqueue_ms = time_run_ms(torch, library,
+                                                         run)
         bound_ms, bound_by = bound(nbytes, 0)
+        ab = ab_times(torch, f"probe {name}", kernel, lib="swfprobes",
+                      run=run)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "max_abs_err": 0.0, "gb_s": nbytes / ms / 1e6}
-        log(f"probes: {name}: {ms:.3f} ms = {nbytes / ms / 1e6:.0f} GB/s "
-            f"({nbytes / ms / 1e6 / (PEAK_BYTES_PER_S / 1e9):.1%} of "
+                     "max_abs_err": 0.0, "gb_s": nbytes / ms / 1e6,
+                     "run": run, "b2b_ms": b2b_ms, "enqueue_ms": enqueue_ms,
+                     "launch_b2b_ms": launch_b2b_ms,
+                     "library_b2b_ms": library_b2b_ms,
+                     "library_enqueue_ms": library_enqueue_ms,
+                     "b2b_share_of_peak": nbytes / b2b_ms / 1e6 / peak,
+                     "parent_ms": None if ab is None else
+                     statistics.mean(ab["parent_ms"]),
+                     "change_ms": None if ab is None else
+                     statistics.mean(ab["change_ms"])}
+        log(f"probes: {name}: {ms:.4f} ms = {nbytes / ms / 1e6:.0f} GB/s "
+            f"({nbytes / ms / 1e6 / peak:.1%} of "
             f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {nbytes / 1e9:.3f} GB), "
-            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms, launches {launches[name]}")
-    del x, x_t, steps, probes
+            f"plain {plain_ms:.3f} ms, library {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms, launches {launches[name]}; {run} back to "
+            f"back: wrapper {b2b_ms:.4f} ms a call "
+            f"({nbytes / b2b_ms / 1e6 / peak:.1%}; enqueue "
+            f"{enqueue_ms:.4f} ms), bare launches {launch_b2b_ms:.4f} "
+            f"({nbytes / launch_b2b_ms / 1e6 / peak:.1%}), library "
+            f"{library_b2b_ms:.4f} "
+            f"({nbytes / library_b2b_ms / 1e6 / peak:.1%}; enqueue "
+            f"{library_enqueue_ms:.4f} ms)")
+        log("probes: " + json.dumps({"row": name, **out[name]}))
+    del x, x_t, buf, sums, steps, probes
     torch.cuda.empty_cache()
     report["probes_bandwidth"] = out
     return out
@@ -4541,6 +4621,12 @@ PROBE_META = {
     "bw_read_sum": ("exp_bw_read_sum", "tools/exp_bw.py:84"),
     "step": ("exp_scatter_step", "tools/exp_scatter.py:121"),
 }
+
+
+# Phase 11's streaming rows add these to their entries of the kernels
+# line: the back-to-back runs and, with --parent, the A/B means.
+PROBE_RUN_KEYS = ("b2b_ms", "launch_b2b_ms", "enqueue_ms", "library_b2b_ms",
+                  "library_enqueue_ms", "parent_ms", "change_ms")
 
 
 def probe_meta(key):
@@ -6346,7 +6432,8 @@ def main() -> None:
              replaces=meta[key][1], launches=k["launches"],
              max_abs_err=k["max_abs_err"], ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-             bound_by=k["bound_by"], library_ms=k.get("library_ms"))
+             bound_by=k["bound_by"], library_ms=k.get("library_ms"),
+             **{x: k[x] for x in PROBE_RUN_KEYS if x in k})
         for key, k in kernels.items()]}
     card = card_line()
     if "ab" in _HELD:

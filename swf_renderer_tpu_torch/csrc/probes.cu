@@ -1,5 +1,5 @@
 // Streaming probes for Hopper (sm_90a), with a plain C interface loaded
-// through ctypes (tools/exp_bw.py, tools/exp_scatter.py): the strided
+// through ctypes (tools/exp_bw.py, tools/exp_scatter.py): the
 // passthrough (x + 1) and the read+sum over L.  The device logic and its
 // design notes live in probes_device.cuh.
 //
@@ -18,48 +18,51 @@ namespace swf {
 
 __global__ void __launch_bounds__(kProbeThreads)
 passthrough_kernel(ProbeArgs a) {
-  passthrough_block(a);
+  passthrough_span(a);
 }
 
 __global__ void __launch_bounds__(kProbeThreads)
 read_sum_kernel(ProbeArgs a) {
-  read_sum_block(a);
+  read_sum_span(a);
 }
 
-// Grid x = the n_s blocks of a row (up to 2^31 - 1), y = the n_f rows
-// (up to 65535); strides and the tile in floats, multiples of 4 (16-byte
-// vectors on 16-byte aligned pointers).
+// Strides and the tile in floats, multiples of 4 (16-byte vectors on
+// 16-byte aligned pointers).
 bool valid(const void* x, const void* out, int n_f, int n_s, int n_l,
            int tile, long long sf, long long ss, long long sl) {
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<size_t>(p) & 15) == 0;
   };
-  return n_f >= 1 && n_f <= 65535 && n_s >= 1 && n_l >= 1 && tile >= 4 &&
-         tile % 4 == 0 && sf % 4 == 0 && ss % 4 == 0 && sl % 4 == 0 &&
-         aligned(x) && aligned(out);
+  return n_f >= 1 && n_s >= 1 && n_l >= 1 && tile >= 4 && tile % 4 == 0 &&
+         sf % 4 == 0 && ss % 4 == 0 && sl % 4 == 0 && aligned(x) &&
+         aligned(out);
+}
+
+// A block a task; the grid-stride walk covers what a grid of 2^31 - 1
+// blocks does not.
+int grid_for(long long tasks) {
+  constexpr long long kMaxGrid = 0x7fffffffLL;
+  return static_cast<int>(tasks < kMaxGrid ? tasks : kMaxGrid);
 }
 
 }  // namespace swf
 
 extern "C" {
 
-// out (x's layout) = x + 1: block (s, f) over x[f*sf + s*ss + l*sl + i],
-// l < n_l, i < tile.
+// out (x's layout) = x + 1, x the n_f x n_s blocks of n_l tiles of `tile`
+// floats at x[f*sf + s*ss + l*sl + i]; those tiles must cover the
+// contiguous span of x exactly once (any order), which is streamed.
 int swf_passthrough(const void* x, void* out, int n_f, int n_s, int n_l,
                     int tile, long long sf, long long ss, long long sl,
                     void* stream) {
-  if (!swf::valid(x, out, n_f, n_s, n_l, tile, sf, ss, sl)) {
+  swf::ProbeArgs a;
+  if (!swf::valid(x, out, n_f, n_s, n_l, tile, sf, ss, sl) ||
+      !swf::passthrough_args(a, static_cast<const float*>(x),
+                             static_cast<float*>(out), n_f, n_s, n_l, tile,
+                             sf, ss, sl)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  swf::ProbeArgs a = {};
-  a.x = static_cast<const float*>(x);
-  a.out = static_cast<float*>(out);
-  a.n_l = n_l;
-  a.tile = tile;
-  a.sf = sf;
-  a.ss = ss;
-  a.sl = sl;
-  swf::passthrough_kernel<<<dim3(n_s, n_f), swf::kProbeThreads, 0,
+  swf::passthrough_kernel<<<swf::grid_for(a.tasks), swf::kProbeThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -69,21 +72,15 @@ int swf_passthrough(const void* x, void* out, int n_f, int n_s, int n_l,
 int swf_read_sum(const void* x, void* out, int n_f, int n_s, int n_l,
                  int tile, long long sf, long long ss, long long sl,
                  long long of, long long os, void* stream) {
+  swf::ProbeArgs a;
   if (!swf::valid(x, out, n_f, n_s, n_l, tile, sf, ss, sl) || of % 4 != 0 ||
-      os % 4 != 0) {
+      os % 4 != 0 ||
+      !swf::read_sum_args(a, static_cast<const float*>(x),
+                          static_cast<float*>(out), n_f, n_s, n_l, tile, sf,
+                          ss, sl, of, os)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  swf::ProbeArgs a = {};
-  a.x = static_cast<const float*>(x);
-  a.out = static_cast<float*>(out);
-  a.n_l = n_l;
-  a.tile = tile;
-  a.sf = sf;
-  a.ss = ss;
-  a.sl = sl;
-  a.of = of;
-  a.os = os;
-  swf::read_sum_kernel<<<dim3(n_s, n_f), swf::kProbeThreads, 0,
+  swf::read_sum_kernel<<<swf::grid_for(a.tasks), swf::kProbeThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,9 +28,11 @@ LAYOUTS = ("lns", "nsl")
 
 
 def geometry(shape, layout: str):
-    """(n_f, n_s, n_l, tile, sf, ss, sl) of the probe kernels' grid over a
-    contiguous (F, A, B, R, C) array: one block per (f, s), L tiles of R*C
-    floats; "lns" reads (F, L, NS, R, C), "nsl" (F, NS, L, R, C)."""
+    """(n_f, n_s, n_l, tile, sf, ss, sl) of the reference's grid over a
+    contiguous (F, A, B, R, C) array, as the probe kernels take it: a
+    block per (f, s) of L tiles of R*C floats; "lns" reads (F, L, NS, R,
+    C), "nsl" (F, NS, L, R, C).  Either covers the array's span exactly
+    once, which the passthrough streams."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
     n_f, a, b, r, c = shape
@@ -70,12 +72,14 @@ def passthrough_plain(x):
 
 def passthrough(x, layout: str):
     """x + 1 over a 5-D (F, L, NS, R, C) ("lns") or (F, NS, L, R, C)
-    ("nsl") float32 array, one CUDA block per (f, s) block of L tiles.
+    ("nsl") float32 array.
 
     Kernel: replaces ``passthrough.<locals>.kernel`` (tools/exp_bw.py:63).
-    16-byte loads and stores, neighbouring threads on neighbouring
-    addresses (csrc/probes_device.cuh).  Bound: bytes (x read once, the
-    result written once).  On the CPU ``passthrough_plain`` runs."""
+    The layout's (f, s) blocks cover the array once, so the kernel streams
+    it as one span of 16-byte vectors, a block of 1024 threads a chunk of
+    1024 (csrc/probes_device.cuh).
+    Bound: bytes (x read once, the result written once).  On the CPU
+    ``passthrough_plain`` runs."""
     _check(x, 5)
     geo = geometry(tuple(x.shape), layout)
     if x.device.type == "cpu":
@@ -100,10 +104,11 @@ def read_sum(x):
     """The sum over L of each (f, s) block of a (F, NS, L, R, C) float32
     array -> (F, NS, R, C), added left to right.
 
-    Kernel: replaces ``kernel4`` (tools/exp_bw.py:84).  One CUDA block per
-    (f, s) reads its L tiles once (csrc/probes_device.cuh).  Bound: bytes
-    (x read once, the sums written once).  On the CPU ``read_sum_plain``
-    runs."""
+    Kernel: replaces ``kernel4`` (tools/exp_bw.py:84).  A block a (tile,
+    chunk) task; a thread loads the L inputs of each of its two output
+    vectors up front, then adds them left to right
+    (csrc/probes_device.cuh).  Bound: bytes (x read once, the sums written
+    once).  On the CPU ``read_sum_plain`` runs."""
     _check(x, 5)
     n_f, n_s, n_l, r, c = x.shape
     geo = geometry(tuple(x.shape), "nsl")

@@ -17,8 +17,9 @@ host-timed calls of a chained jitted loop).
      defined, as in the reference);
   C  ``ops.resolve.resolve_frames`` (B12) alone on seeded planes, 15
      calls of 4 frames;
-  D  the cost of one grid step: ``step_probe`` (x + 1, one CUDA block an
-     (8, 128) tile, the probes library) on 16384 and 131072 tiles;
+  D  the cost of one grid step: ``step_probe`` (x + 1 on (8, 128) tiles,
+     the probes library's streaming passthrough) on 16384 and 131072
+     tiles;
   E  the one-hot placement product (8, 32) @ (128, 32)^T over 8192 bins:
      an f32 ``bmm`` (TF32 off) against three bf16 products of the
      value's hi / mid / lo split with f32 accumulation (``dot_3``).
@@ -81,12 +82,13 @@ def dot_3(a, p):
 
 
 def step_probe(x):
-    """x + 1 on (steps, 8, 128) float32, one CUDA block per (8, 128)
-    tile: the cost of one step of the grid.
+    """x + 1 on (steps, 8, 128) float32: the reference's cost of one step
+    of the grid, one (8, 128) tile a step.
 
     Kernel: replaces ``exp_D.<locals>.kernel`` (tools/exp_scatter.py:121);
-    the passthrough of csrc/probes.cu with one tile a block.  Bound:
-    bytes.  On the CPU ``x + 1.0`` runs."""
+    the passthrough of csrc/probes.cu, which streams the tiles as one span
+    (a block a 16 KB chunk, not a block a tile).  Bound: bytes.  On the
+    CPU ``x + 1.0`` runs."""
     if x.dim() != 3 or tuple(x.shape[1:]) != (STRIP_H, LANE) or \
             x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"expected contiguous float32 (steps, 8, 128), got "

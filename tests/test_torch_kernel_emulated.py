@@ -1091,20 +1091,33 @@ extern "C" long long emulate_smem_max() {
   return static_cast<long long>(swf::kSmemMax);
 }
 
-// The probes: read_sum 0 the passthrough, 1 the read+sum.
-extern "C" void emulate_probe(int read_sum, const float* x, float* out,
-                              int n_f, int n_s, int n_l, int tile,
-                              long long sf, long long ss, long long sl,
-                              long long of, long long os) {
-  swf::ProbeArgs a{};
-  a.x = x; a.out = out; a.n_l = n_l; a.tile = tile; a.sf = sf; a.ss = ss;
-  a.sl = sl; a.of = of; a.os = os;
-  for (int y = 0; y < n_f; ++y)
-    for (int x = 0; x < n_s; ++x)
-      run_block(swf::kProbeThreads, x, y, 0, [&] {
-        if (read_sum) swf::read_sum_block(a);
-        else swf::passthrough_block(a);
-      });
+// The probes: read_sum 0 the passthrough, 1 the read+sum, on a grid of
+// `grid` blocks (at most one a task), each walking its chunks as on the
+// card.  -1 where the launcher refuses the geometry, else 0.
+extern "C" int emulate_probe(int read_sum, const float* x, float* out,
+                             int n_f, int n_s, int n_l, int tile,
+                             long long sf, long long ss, long long sl,
+                             long long of, long long os, int grid) {
+  swf::ProbeArgs a;
+  const bool ok = read_sum
+      ? swf::read_sum_args(a, x, out, n_f, n_s, n_l, tile, sf, ss, sl, of,
+                           os)
+      : swf::passthrough_args(a, x, out, n_f, n_s, n_l, tile, sf, ss, sl);
+  if (!ok) return -1;
+  gridDim = Dim3{};
+  gridDim.x = static_cast<unsigned>(std::min<long long>(grid, a.tasks));
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    run_block(swf::kProbeThreads, b, 0, 0, [&] {
+      if (read_sum) swf::read_sum_span(a);
+      else swf::passthrough_span(a);
+    });
+  return 0;
+}
+
+// The probes' chunks in vectors: the passthrough's, the read+sum's.
+extern "C" long long emulate_probe_chunk(int read_sum) {
+  return read_sum ? swf::kProbeThreads * swf::kSumVectors
+                  : swf::kProbeThreads * swf::kPassUnroll;
 }
 
 extern "C" void emulate_resolve(const float* delta, const float* colors,
@@ -1184,9 +1197,11 @@ def _build_emulator(d, csrc, extra=""):
     emu.emulate_batched_smem.argtypes = [ctypes.c_int] * 3
     emu.emulate_smem_max.restype = ctypes.c_longlong
     emu.emulate_smem_max.argtypes = []
-    emu.emulate_probe.restype = None
+    emu.emulate_probe_chunk.restype = ctypes.c_longlong
+    emu.emulate_probe_chunk.argtypes = [ctypes.c_int]
+    emu.emulate_probe.restype = ctypes.c_int
     emu.emulate_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 4 + [ctypes.c_longlong] * 5
+        ctypes.c_int] * 4 + [ctypes.c_longlong] * 5 + [ctypes.c_int]
     return emu
 
 
@@ -2265,13 +2280,15 @@ def test_batched_smem_bytes_is_the_launchers_count(emulator, layers):
                 emulator.emulate_batched_smem(layers, group, kk)
 
 
-@pytest.mark.parametrize("kind,shape", [
-    ("lns", (2, 4, 3, 128, 128)), ("nsl", (2, 3, 4, 128, 128)),
-    ("read_sum", (2, 3, 4, 128, 128)), ("step", (1, 64, 1, 8, 128))])
-def test_emulated_probes_equal_plain_versions(emulator, kind, shape):
-    """csrc/probes_device.cuh: the passthrough in both layouts and as the
-    one-tile-a-block step probe, and the read+sum, equal to their plain
-    versions."""
+# A grid larger than any task count here: a block a task, as the card
+# launches it.
+CARD_GRID = 1 << 20
+
+
+def _emulate_probe(emu, kind, shape, grid=CARD_GRID):
+    """The probe ``kind`` (lns, nsl, step: the passthrough; read_sum) on a
+    seeded (F, A, B, R, C) array through the emulated launch on ``grid``
+    blocks, and its plain version, the output pre-filled with NaN."""
     x = _c(np.random.default_rng(sum(shape)).standard_normal(shape)
            .astype(np.float32))
     layout = "lns" if kind == "lns" else "nsl"
@@ -2283,7 +2300,67 @@ def test_emulated_probes_equal_plain_versions(emulator, kind, shape):
         want = exp_bw.passthrough_plain(torch.from_numpy(x))
         out_strides = (0, 0)
     out = np.full(tuple(want.shape), np.nan, np.float32)
-    emulator.emulate_probe(int(kind == "read_sum"), x.ctypes.data,
-                           out.ctypes.data, *geo, *out_strides)
-    assert torch.equal(torch.from_numpy(out), want)
+    assert emu.emulate_probe(int(kind == "read_sum"), x.ctypes.data,
+                             out.ctypes.data, *geo, *out_strides, grid) == 0
+    return torch.from_numpy(out), want
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("lns", (2, 4, 3, 128, 128)), ("nsl", (2, 3, 4, 128, 128)),
+    ("read_sum", (2, 3, 4, 128, 128)), ("step", (1, 64, 1, 8, 128))])
+def test_emulated_probes_equal_plain_versions(emulator, kind, shape):
+    """csrc/probes_device.cuh: the passthrough in both layouts and as the
+    step probe, and the read+sum, equal to their plain versions on the
+    card's grid."""
+    got, want = _emulate_probe(emulator, kind, shape)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,shape,grid", [
+    # spans that are no multiple of a chunk: less than one, and seven
+    # whole chunks and a part
+    ("lns", (1, 3, 5, 4, 12), CARD_GRID),
+    ("nsl", (2, 3, 5, 24, 40), CARD_GRID),
+    # one or two blocks walking every chunk (the last one ragged)
+    ("lns", (2, 3, 5, 24, 40), 1), ("nsl", (2, 3, 5, 24, 40), 2),
+    ("step", (1, 37, 1, 8, 128), 2), ("read_sum", (3, 5, 4, 24, 40), 2),
+    # read+sum: L other than 4 (one partial batch, two batches), tiles no
+    # multiple of a chunk, one block
+    ("read_sum", (2, 3, 1, 8, 20), CARD_GRID),
+    ("read_sum", (2, 3, 3, 24, 40), CARD_GRID),
+    ("read_sum", (2, 3, 6, 24, 40), 1),
+    ("read_sum", (1, 2, 9, 32, 36), 1)])
+def test_emulated_probes_ragged_and_small_grids(emulator, kind, shape, grid):
+    """The kernels' grid-stride walk: spans and tiles that are no multiple
+    of a chunk (the last chunk masked), grids far smaller than the work
+    (a block walking many chunks), read+sums over L of 1, 3, 6 and 9
+    (batches of loads, added left to right): byte-equal to the plain
+    versions."""
+    n = shape[3] * shape[4] // 4 if kind == "read_sum" else \
+        int(np.prod(shape)) // 4
+    chunk = emulator.emulate_probe_chunk(int(kind == "read_sum"))
+    tasks = -(-n // chunk) * (shape[0] * shape[1] if kind == "read_sum"
+                              else 1)
+    assert kind == "step" or n % chunk != 0
+    assert grid == CARD_GRID or grid < tasks
+    got, want = _emulate_probe(emulator, kind, shape, grid)
+    assert torch.equal(got, want)
+
+
+def test_emulated_probe_refuses_a_geometry_off_the_span(emulator):
+    """The passthrough streams the span its tiles cover: a grid whose
+    tiles leave gaps or overlap is refused (-1), one that covers the span
+    in any order is taken."""
+    x = np.zeros(4 * 2 * 3 * 16, np.float32)
+    out = np.zeros_like(x)
+    ptr = (x.ctypes.data, out.ctypes.data)
+    # (n_f, n_s, n_l, tile, sf, ss, sl) over 24 tiles of 16 floats
+    assert emulator.emulate_probe(0, *ptr, 4, 2, 3, 16, 96, 48, 16, 0, 0,
+                                  4) == 0
+    assert emulator.emulate_probe(0, *ptr, 4, 2, 3, 16, 16, 64, 128, 0, 0,
+                                  4) == 0
+    for bad in ((4, 2, 3, 16, 96, 48, 32),     # overlapping tiles
+                (4, 2, 3, 16, 128, 48, 16),    # a gap after each f
+                (4, 2, 3, 16, 96, 16, 16)):    # s and l on the same tiles
+        assert emulator.emulate_probe(0, *ptr, *bad, 0, 0, 4) == -1
 
