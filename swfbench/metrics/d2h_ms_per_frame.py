@@ -1,0 +1,8 @@
+"""Device time of the device-to-host copies inside the calls, from the
+profiler's device timeline, ms per frame returned."""
+
+
+def read(traced):
+    if traced.frames == 0 or not traced.timeline.device:
+        return None
+    return traced.timeline.device_seconds("d2h") * 1e3 / traced.frames
